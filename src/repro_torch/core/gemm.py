@@ -1,0 +1,289 @@
+"""Public GEMM dispatch API (counterpart of ``repro.core.gemm``).
+
+Every projection of the port's models routes through :func:`gemm`, which
+
+  1. builds a :class:`~repro_torch.core.op.GemmOp` fingerprint (global and
+     per-shard dims, dtypes, the fused epilogue),
+  2. asks the context's :class:`~repro_torch.core.selector.KernelSelector`
+     for a (policy, tile config, grid size) — tuned DB, then cross-arch
+     seeds, then the Bloom sieve, then the cost model,
+  3. runs the backend registered under the context's backend name.
+
+Built-in backends:
+
+  * ``torch`` — eager ``torch.matmul`` plus ``Epilogue.apply`` on the f32
+    accumulator: the CPU oracle, counterpart of the JAX package's ``xla``;
+  * ``cuda``  — the Stream-K++ composition of the hand-written Hopper
+    kernels (``kernels/streamk/ops.py``), counterpart of ``pallas``. On CPU
+    tensors its wrappers run their kernels' plain versions, the counterpart
+    of ``pallas_interpret``.
+
+When no backend is named, a dispatch on a CUDA tensor runs ``cuda`` and one
+on a CPU tensor runs ``torch``: on the card the hand-written kernels are the
+default, never a library matmul. The selector, when none is installed, is
+:func:`~repro_torch.core.selector.default_selector` for the operands'
+device (nominal H100 and the Hopper tiles on a CUDA device).
+"""
+
+from __future__ import annotations
+
+import threading
+from contextlib import contextmanager
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Tuple, Union
+
+import torch
+
+from repro_torch.core.op import Epilogue, GemmOp, as_epilogue
+from repro_torch.core.policies import Policy, TileConfig
+from repro_torch.core.selector import KernelSelector, Selection, default_selector
+from repro_torch.core.tuner import LEGACY_GRID
+
+_state = threading.local()
+
+#: BackendFn(x, w, *, op, policy, cfg, g, bias, operand) -> out
+#:   x: (G, M, K), w: (G, K, N), bias: (G, N) | None, operand: (G, M, N) | None;
+#:   returns (G, M, N) in op.out_dtype. G == 1 for plain 2-D dispatches.
+BackendFn = Callable[..., torch.Tensor]
+
+_BACKENDS: Dict[str, BackendFn] = {}
+
+
+def register_backend(name: str, fn: BackendFn, *, overwrite: bool = False) -> None:
+    """Register an execution backend under ``name`` (see BackendFn)."""
+    if name in _BACKENDS and not overwrite:
+        raise ValueError(f"backend {name!r} already registered")
+    _BACKENDS[name] = fn
+
+
+def list_backends() -> Tuple[str, ...]:
+    """Registered backend names, sorted."""
+    return tuple(sorted(_BACKENDS))
+
+
+def get_backend(name: str) -> BackendFn:
+    """Resolve a backend by name; raises with the valid names on a miss."""
+    try:
+        return _BACKENDS[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown gemm backend {name!r}; registered backends: {list(list_backends())}"
+        ) from None
+
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """JAX-style dtype fingerprint (``torch.bfloat16`` -> ``"bfloat16"``), so
+    op keys are byte-identical to the JAX package's."""
+    return str(dtype).removeprefix("torch.")
+
+
+def as_dtype(dtype) -> torch.dtype:
+    """torch dtype from a torch dtype or a fingerprint name."""
+    return dtype if isinstance(dtype, torch.dtype) else _DTYPES[str(dtype)]
+
+
+def _torch_backend(x, w, *, op: GemmOp, policy, cfg, g, bias, operand):
+    acc = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+    acc = op.epilogue.apply(
+        acc, bias=None if bias is None else bias[:, None, :], operand=operand
+    )
+    return acc.to(as_dtype(op.out_dtype))
+
+
+def _cuda_backend(x, w, *, op: GemmOp, policy, cfg, g, bias, operand):
+    from repro_torch.kernels.streamk import ops as sk_ops
+
+    outs = [
+        sk_ops.gemm(
+            x[i],
+            w[i],
+            policy=policy,
+            cfg=cfg,
+            g=g,
+            out_dtype=as_dtype(op.out_dtype),
+            epilogue=op.epilogue,
+            bias=None if bias is None else bias[i],
+            operand=None if operand is None else operand[i],
+        )
+        for i in range(x.shape[0])
+    ]
+    return outs[0][None] if len(outs) == 1 else torch.stack(outs)
+
+
+register_backend("torch", _torch_backend)
+register_backend("cuda", _cuda_backend)
+
+
+@dataclass
+class SelectionLogEntry:
+    """One dispatch decision: the op fingerprint, what was selected, and the
+    caller's tag (e.g. ``"mlp.in"``)."""
+
+    op: GemmOp
+    selection: Selection
+    tag: str = ""
+
+    @property
+    def global_mnk(self) -> Tuple[int, int, int]:
+        """Unsharded problem dims of the logged op."""
+        return self.op.global_mnk
+
+    @property
+    def local_mnk(self) -> Tuple[int, int, int]:
+        """Per-shard local dims of the logged op."""
+        return self.op.local
+
+
+@dataclass
+class GemmContext:
+    """Ambient dispatch state: selector (None = the device's default, made
+    at first dispatch), backend name (None = by device), and the log."""
+
+    selector: Optional[KernelSelector] = None
+    backend: Optional[str] = None
+    log: List[SelectionLogEntry] = field(default_factory=list)
+
+
+def _ctx() -> GemmContext:
+    ctx = getattr(_state, "ctx", None)
+    if ctx is None:
+        ctx = _state.ctx = GemmContext()
+    return ctx
+
+
+@contextmanager
+def gemm_context(
+    selector: Optional[KernelSelector] = None,
+    backend: Optional[str] = None,
+    device=None,
+):
+    """Install a dispatch context for the duration of a block.
+
+    ``backend="cuda"`` needs a CUDA device: without one it raises unless the
+    caller passes ``device="cpu"``, which runs the kernels' plain versions
+    on CPU tensors."""
+    if backend is not None:
+        get_backend(backend)  # fail fast on unknown names
+    if backend == "cuda" and device is None and not torch.cuda.is_available():
+        raise RuntimeError(
+            "the cuda backend needs a CUDA device; pass device='cpu' to run "
+            "its kernels' plain versions on CPU tensors"
+        )
+    old = getattr(_state, "ctx", None)
+    base = old or _ctx()
+    _state.ctx = GemmContext(
+        selector=selector if selector is not None else base.selector,
+        backend=backend if backend is not None else base.backend,
+    )
+    try:
+        yield _state.ctx
+    finally:
+        _state.ctx = old
+
+
+def current_selector(device=None) -> KernelSelector:
+    """The active context's selector, made for ``device`` on first use."""
+    ctx = _ctx()
+    if ctx.selector is None:
+        ctx.selector = default_selector(device)
+    return ctx.selector
+
+
+def _dispatch(x, w, op: GemmOp, *, tag, policy, cfg, g, bias, operand):
+    ctx = _ctx()
+    selector = current_selector(x.device)
+    if policy is None and cfg is None and g is None:
+        sel = selector.select_op(op)
+    elif policy is not None and cfg is not None:
+        sel = selector.record_forced(op, policy, cfg, g=g if g is not None else LEGACY_GRID)
+    else:
+        sel = selector.select_partial(op, policy, cfg, g=g)
+    ctx.log.append(SelectionLogEntry(op, sel, tag))
+    name = ctx.backend or ("cuda" if x.is_cuda else "torch")
+    return get_backend(name)(
+        x, w, op=op, policy=sel.policy, cfg=sel.cfg, g=sel.g, bias=bias, operand=operand
+    )
+
+
+def _infer_epilogue(epilogue, bias, operand) -> Epilogue:
+    """Normalise the epilogue argument and cross-check it against the
+    supplied operands."""
+    if epilogue is None and (bias is not None or operand is not None):
+        raise ValueError(
+            "bias/operand supplied without an epilogue spec; pass "
+            "epilogue=Epilogue(bias=..., binary=...)"
+        )
+    spec = as_epilogue(epilogue)
+    if spec.bias != (bias is not None):
+        raise ValueError(
+            f"epilogue {spec.name!r} expects bias={spec.bias} but bias operand is "
+            f"{'missing' if bias is None else 'present'}"
+        )
+    if (spec.binary != "none") != (operand is not None):
+        raise ValueError(
+            f"epilogue {spec.name!r} expects "
+            f"{'an' if spec.binary != 'none' else 'no'} binary operand"
+        )
+    return spec
+
+
+def _in_dtype_fingerprint(x: torch.Tensor, w: torch.Tensor) -> str:
+    """Input-dtype component of the op key: one name when activations and
+    weights agree, the mixed ``"a*w"`` form otherwise (as the JAX package)."""
+    xd, wd = dtype_name(x.dtype), dtype_name(w.dtype)
+    return xd if xd == wd else f"{xd}*{wd}"
+
+
+def gemm(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    divisors: Tuple[int, int, int] = (1, 1, 1),
+    out_dtype=None,
+    tag: str = "",
+    policy: Optional[Policy] = None,
+    cfg: Optional[TileConfig] = None,
+    g: Optional[int] = None,
+    epilogue: Union[None, str, Epilogue] = None,
+    bias: Optional[torch.Tensor] = None,
+    operand: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``x @ w`` with Stream-K++ kernel selection.
+
+    x: (..., K); w: (K, N) -> (..., N). ``divisors`` are the sharding
+    factors (dm, dn, dk) so selection keys on the per-shard local shape.
+    ``epilogue`` fuses bias/activation/binary post-ops (``bias``: (N,),
+    ``operand``: (..., N)). ``policy``/``cfg``/``g`` override selection."""
+    if x.shape[-1] != w.shape[0] or w.dim() != 2:
+        raise ValueError(f"gemm contraction mismatch: {tuple(x.shape)} @ {tuple(w.shape)}")
+    epilogue = _infer_epilogue(epilogue, bias, operand)
+    lead = x.shape[:-1]
+    m = 1
+    for d in lead:
+        m *= int(d)
+    k, n = int(w.shape[0]), int(w.shape[1])
+    out_dtype = as_dtype(out_dtype) if out_dtype is not None else x.dtype
+    op = GemmOp(
+        m,
+        n,
+        k,
+        in_dtype=_in_dtype_fingerprint(x, w),
+        out_dtype=dtype_name(out_dtype),
+        divisors=tuple(divisors),
+        epilogue=epilogue,
+    )
+    out = _dispatch(
+        x.reshape(1, m, k).contiguous(),
+        w[None],
+        op,
+        tag=tag,
+        policy=policy,
+        cfg=cfg,
+        g=g,
+        bias=None if bias is None else bias.reshape(1, n),
+        operand=None if operand is None else operand.reshape(1, m, n).contiguous(),
+    )
+    return out.reshape(*lead, n)

@@ -1,0 +1,201 @@
+"""Kernels B2 and B3: the Stream-K sweep and its deterministic fix-up,
+hand-written for Hopper.
+
+**B2 :func:`streamk_phase1`** replaces
+``src/repro/kernels/streamk/streamk_gemm.py:_streamk_kernel``. The CUDA
+kernel (``streamk_kernel`` in ``csrc/stream_k.cu``) launches ``g`` blocks;
+block ``x`` walks its contiguous range of flattened MAC iterations
+``[x * ipw, min((x + 1) * ipw, total))`` with the integer math of the TPU
+version's ``_range_math``/``_sk_block_indices`` and writes each tile
+segment's f32 partial into slot ``clip(x - first_wg(tile), 0, mc - 1)`` of
+the ``(sk_tiles, mc + 1, bm, bn)`` workspace. The TPU grid ran in order and
+kept one accumulator across steps; Hopper blocks run in parallel and in no
+order, so a loop inside the block takes the place of the sequential grid
+dimension, and the disjoint slots take the place of GPU atomics. Slot
+``mc`` (the TPU's trash slot for clamped grid steps) is never written here.
+
+**B3 :func:`streamk_fixup`** replaces ``_fixup_kernel`` of the same file.
+One block per Stream-K tile sums slots ``0..n_contrib-1`` in ascending
+order — so the result is deterministic, bit-identical run to run — applies
+the epilogue, and writes the tile straight into C at ``part.tile_mn(t)``
+(the TPU version wrote an ``(sk_tiles, bm, bn)`` array that ``ops`` then
+scattered into C with reshapes).
+
+What bounds them on the H100: at the serving shapes B2 reads the weight
+slice of the Stream-K region once and is bound by those bytes, like B1 (see
+``kernels/dp/dp_gemm.py``); B3 is bound by reading the partial slots and
+writing C. The workspace adds ``extra_contributors * bm * bn * 4`` bytes of
+round trip, which the cost model charges to split tiles; keeping the sweep
+and the fix-up two launches keeps the sum order fixed without flags or
+atomics. Both use SIMT FMA on f32 accumulators (no TF32).
+
+On CPU tensors the wrappers run the plain PyTorch versions beside them; on
+CUDA tensors they launch the kernels or raise.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.workpart import Partition, cdiv
+from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.common import (
+    DTYPE_CODES,
+    apply_epilogue,
+    check_cuda_operands,
+    epilogue_args,
+    mixed_dot,
+    record_launch,
+    refuse_quantized,
+    stream_ptr,
+    sub_block_rows,
+    rows_aligned,
+)
+from repro_torch.kernels.dp.dp_gemm import tile_index
+
+
+def range_math(part: Partition):
+    """(iters_per_tile, total SK iterations, iterations per workgroup,
+    max contributors) — the static integers both kernels share."""
+    ipt = part.iters_per_tile
+    total = part.sk_total_iters
+    ipw = cdiv(total, part.g) if total else 1
+    return ipt, total, ipw, part.max_contributors
+
+
+def n_contributors(part: Partition, device=None) -> torch.Tensor:
+    """(sk_tiles,) number of workgroups that wrote a partial for each tile."""
+    ipt, _, ipw, _ = range_math(part)
+    t = torch.arange(part.sk_tiles, device=device)
+    return ((t + 1) * ipt - 1) // ipw - (t * ipt) // ipw + 1
+
+
+# --------------------------------------------------------------------------
+# B2: the Stream-K sweep
+# --------------------------------------------------------------------------
+
+
+def streamk_phase1_plain(a, b, part: Partition) -> torch.Tensor:
+    """Plain PyTorch version of B2: each workgroup's tile segments as one
+    f32 product each, written to their slots; unwritten slots are 0."""
+    cfg = part.cfg
+    ipt, _, ipw, mc = range_math(part)
+    m, k = a.shape
+    n = b.shape[1]
+    partials = torch.zeros(
+        (part.sk_tiles, mc + 1, cfg.bm, cfg.bn), dtype=torch.float32, device=a.device
+    )
+    for r in part.sk_ranges:
+        it = r.start
+        while it < r.end:
+            tile = it // ipt
+            seg_end = min(r.end, (tile + 1) * ipt)
+            k0 = (it - tile * ipt) * cfg.bk
+            k1 = min((seg_end - tile * ipt) * cfg.bk, k)
+            slot = min(max(r.wg - (tile * ipt) // ipw, 0), mc - 1)
+            tm, tn = part.tile_mn(tile)
+            rows = slice(tm * cfg.bm, min((tm + 1) * cfg.bm, m))
+            cols = slice(tn * cfg.bn, min((tn + 1) * cfg.bn, n))
+            blk = mixed_dot(a[rows, k0:k1], b[k0:k1, cols])
+            partials[tile, slot, : blk.shape[0], : blk.shape[1]] = blk
+            it = seg_end
+    return partials
+
+
+def streamk_phase1(a, b, part: Partition, *, b_bits: int = 8) -> torch.Tensor:
+    """Run the Stream-K sweep over ``a`` (M, K) @ ``b`` (K, N), unpadded;
+    returns ``partials[sk_tiles, mc + 1, bm, bn]`` f32. On the card, slots
+    at or past a tile's contributor count hold whatever the allocator left
+    there: only :func:`streamk_fixup`'s ``n_contrib`` slots are defined."""
+    refuse_quantized(None, None, b_bits)
+    if part.sk_tiles <= 0:
+        raise ValueError("partition has no Stream-K region")
+    if a.device.type == "cpu":
+        return streamk_phase1_plain(a, b, part)
+
+    check_cuda_operands(a, b, torch.float32, None, None)
+    cfg = part.cfg
+    ipt, total, ipw, mc = range_math(part)
+    m, k = a.shape
+    n = b.shape[1]
+    partials = torch.empty(
+        (part.sk_tiles, mc + 1, cfg.bm, cfg.bn), dtype=torch.float32, device=a.device
+    )
+    lib = cuda_lib.library()
+    status = lib.sk_streamk_phase1(
+        DTYPE_CODES[a.dtype], sub_block_rows(cfg.bm, m),
+        a.data_ptr(), b.data_ptr(), partials.data_ptr(),
+        m, n, k, cfg.bm, cfg.bn, cfg.bk, part.n_tiles, ipt, ipw, total, mc,
+        part.g, rows_aligned(a, b), stream_ptr(a.device),
+    )
+    cuda_lib.check(status, f"streamk_phase1 {cfg.name} g={part.g}")
+    record_launch("streamk_phase1")
+    return partials
+
+
+# --------------------------------------------------------------------------
+# B3: deterministic fix-up
+# --------------------------------------------------------------------------
+
+
+def streamk_fixup_plain(partials, part: Partition, c, *, epilogue="none", bias=None,
+                        operand=None):
+    """Plain PyTorch version of B3: per SK tile, the sum of its contributor
+    slots, then the epilogue, written into C's Stream-K tiles."""
+    cfg = part.cfg
+    m, n = c.shape
+    mc1 = partials.shape[1]
+    n_contrib = n_contributors(part, partials.device)
+    used = torch.arange(mc1, device=partials.device)[None, :] < n_contrib[:, None]
+    acc = torch.where(used[:, :, None, None], partials, 0.0).sum(dim=1)
+    n_all = part.m_tiles * part.n_tiles
+    grid = torch.zeros((n_all, cfg.bm, cfg.bn), dtype=torch.float32, device=c.device)
+    grid[: part.sk_tiles] = acc
+    full = grid.reshape(part.m_tiles, part.n_tiles, cfg.bm, cfg.bn).permute(0, 2, 1, 3)
+    full = full.reshape(part.m_tiles * cfg.bm, part.n_tiles * cfg.bn)[:m, :n]
+    out = apply_epilogue(full, epilogue, bias=bias, operand=operand).to(c.dtype)
+    sk = tile_index(m, n, cfg, c.device) < part.sk_tiles
+    c.copy_(torch.where(sk, out, c))
+    return c
+
+
+def streamk_fixup(
+    partials, part: Partition, c, *, epilogue="none", bias=None, operand=None,
+    scale=None, scale_a=None,
+):
+    """Reduce each Stream-K tile's contributor slots, apply the epilogue
+    (``bias`` (N,), ``operand`` (M, N)), and write the tile into ``c``
+    (M, N) in place; the data-parallel tiles of ``c`` are left alone."""
+    refuse_quantized(scale, scale_a, 8)
+    if c.device.type == "cpu":
+        return streamk_fixup_plain(
+            partials, part, c, epilogue=epilogue, bias=bias, operand=operand
+        )
+
+    cfg = part.cfg
+    ipt, _, ipw, mc = range_math(part)
+    m, n = c.shape
+    expect = (part.sk_tiles, mc + 1, cfg.bm, cfg.bn)
+    if tuple(partials.shape) != expect or partials.dtype != torch.float32:
+        raise ValueError(f"partials must be {expect} float32, got {tuple(partials.shape)}")
+    if not (partials.is_contiguous() and c.is_contiguous()):
+        raise ValueError("partials and c must be contiguous")
+    if partials.device != c.device or c.dtype not in DTYPE_CODES:
+        raise ValueError("partials and c must share a CUDA device; c f32 or bf16")
+    for name, t, shape in (("bias", bias, (n,)), ("operand", operand, (m, n))):
+        if t is not None and (
+            tuple(t.shape) != shape or t.dtype != c.dtype or t.device != c.device
+            or not t.is_contiguous()
+        ):
+            raise ValueError(f"{name} must be a contiguous {shape} {c.dtype} tensor")
+    lib = cuda_lib.library()
+    bias_p, operand_p, act, binary = epilogue_args(epilogue, bias, operand)
+    status = lib.sk_streamk_fixup(
+        DTYPE_CODES[c.dtype], partials.data_ptr(), c.data_ptr(),
+        m, n, cfg.bm, cfg.bn, part.n_tiles, ipt, ipw, mc, part.sk_tiles,
+        bias_p, operand_p, act, binary, stream_ptr(c.device),
+    )
+    cuda_lib.check(status, f"streamk_fixup {cfg.name}")
+    record_launch("streamk_fixup")
+    return c
+

@@ -1,0 +1,236 @@
+"""Dense model building blocks (counterpart of the dense parts of
+``repro.models.layers``).
+
+Every projection routes through :func:`repro_torch.core.gemm.gemm`, so the
+Stream-K++ selection layer sees every matmul and, on the card, every one runs
+on the hand-written kernels. Attention stays plain torch einsum math in f32,
+as in the JAX package: a chunked online softmax for prefill and a direct
+softmax over the KV cache for decode. Layouts are the JAX package's: weights
+``(K, N)`` for ``x @ w``, activations ``(B, S, H, dh)``, caches
+``(B, S, KV, dh)``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core.gemm import gemm
+from repro_torch.core.op import Epilogue
+from repro_torch.dist.sharding import ArraySpec
+from repro_torch.models.config import ModelConfig
+
+Params = Dict[str, torch.Tensor]
+
+_NEG = -1e30
+
+
+def norm_spec(cfg: ModelConfig, d: Optional[int] = None) -> Dict[str, ArraySpec]:
+    """Specs of one norm (scale, and bias for layernorm), f32."""
+    d = d or cfg.d_model
+    spec = {"scale": ArraySpec((d,), "float32", (None,), init="ones")}
+    if cfg.norm == "layernorm":
+        spec["bias"] = ArraySpec((d,), "float32", (None,), init="zeros")
+    return spec
+
+
+def norm_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """RMSNorm (or LayerNorm) in f32, cast back to the input dtype."""
+    xf = x.to(torch.float32)
+    if cfg.norm == "layernorm":
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, unbiased=False)
+        out = (xf - mu) * torch.rsqrt(var + 1e-6) * p["scale"] + p["bias"]
+    else:
+        ms = torch.square(xf).mean(dim=-1, keepdim=True)
+        out = xf * torch.rsqrt(ms + 1e-6) * p["scale"]
+    return out.to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, S, H, dh); positions: (B, S) or (S,)."""
+    half = x.shape[-1] // 2
+    idx = torch.arange(half, dtype=torch.float32, device=x.device)
+    freqs = torch.exp(-math.log(theta) * idx / half)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].to(torch.float32) * freqs  # (B, S, half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    xf1 = x[..., :half].to(torch.float32)
+    xf2 = x[..., half:].to(torch.float32)
+    return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1).to(x.dtype)
+
+
+def attn_specs(cfg: ModelConfig) -> Dict[str, ArraySpec]:
+    """Specs of the q/k/v/o projections, ``(K, N)`` each."""
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    dt = cfg.dtype
+    return {
+        "wq": ArraySpec((d, h * dh), dt, ("embed", "heads")),
+        "wk": ArraySpec((d, kv * dh), dt, ("embed", "kv_heads")),
+        "wv": ArraySpec((d, kv * dh), dt, ("embed", "kv_heads")),
+        "wo": ArraySpec((h * dh, d), dt, ("heads", "embed")),
+    }
+
+
+def _mask(kind: str, qpos, kpos, window: int):
+    """(Sq, Sk) validity mask from position vectors."""
+    if kind == "bidir":
+        return torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool, device=qpos.device)
+    m = qpos[:, None] >= kpos[None, :]
+    if kind == "window" and window:
+        m = m & (qpos[:, None] - kpos[None, :] < window)
+    return m
+
+
+def chunked_attention(
+    q: torch.Tensor,  # (B, Sq, H, dh)
+    k: torch.Tensor,  # (B, Sk, KV, dh)
+    v: torch.Tensor,  # (B, Sk, KV, dh)
+    *,
+    mask_kind: str,
+    window: int = 0,
+    q_positions: torch.Tensor,  # (Sq,)
+    k_positions: torch.Tensor,  # (Sk,)
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """Online-softmax attention over KV chunks (a Python loop in place of
+    ``lax.scan``): score memory is O(B*H*Sq*chunk). The last chunk is simply
+    shorter — eager torch needs no padding to a static shape."""
+    b, sq, h, dh = q.shape
+    kvh = k.shape[2]
+    groups = h // kvh
+    scale = 1.0 / math.sqrt(dh)
+    qg = q.reshape(b, sq, kvh, groups, dh).to(torch.float32)
+    m_i = torch.full((b, sq, kvh, groups), -math.inf, device=q.device)
+    l_i = torch.zeros((b, sq, kvh, groups), device=q.device)
+    acc = torch.zeros((b, sq, kvh, groups, dh), device=q.device)
+    for c0 in range(0, k.shape[1], chunk):
+        kb = k[:, c0 : c0 + chunk].to(torch.float32)
+        vb = v[:, c0 : c0 + chunk].to(torch.float32)
+        s = torch.einsum("bqkgd,bckd->bqkgc", qg, kb) * scale
+        valid = _mask(mask_kind, q_positions, k_positions[c0 : c0 + chunk], window)
+        s = torch.where(valid[None, :, None, None, :], s, _NEG)
+        m_cur = torch.maximum(m_i, s.amax(dim=-1))
+        p = torch.exp(s - m_cur[..., None])
+        corr = torch.exp(m_i - m_cur)
+        l_i = l_i * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bqkgc,bckd->bqkgd", p, vb)
+        m_i = m_cur
+    out = acc / torch.clamp_min(l_i, 1e-30)[..., None]
+    return out.reshape(b, sq, h, dh).to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, Sq, H, dh)
+    k_cache: torch.Tensor,  # (B, S, KV, dh)
+    v_cache: torch.Tensor,
+    cur_pos: torch.Tensor,  # (B,) position of the new token, or (B, Sq)
+    *,
+    window: int = 0,
+) -> torch.Tensor:
+    """Attention of Sq query tokens against the whole cache; cache rows past
+    each query's position are masked."""
+    b, sq, h, dh = q.shape
+    s, kvh = k_cache.shape[1], k_cache.shape[2]
+    groups = h // kvh
+    scale = 1.0 / math.sqrt(dh)
+    qpos = cur_pos if cur_pos.dim() == 2 else cur_pos[:, None]  # (B, Sq)
+    kpos = torch.arange(s, device=q.device)
+    qg = q.reshape(b, sq, kvh, groups, dh).to(torch.float32)
+    scores = torch.einsum("bqkgd,bskd->bqkgs", qg, k_cache.to(torch.float32)) * scale
+    valid = kpos[None, None, :] <= qpos[:, :, None]  # (B, Sq, S)
+    if window:
+        valid = valid & (qpos[:, :, None] - kpos[None, None, :] < window)
+    scores = torch.where(valid[:, :, None, None, :], scores, _NEG)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bqkgs,bskd->bqkgd", p, v_cache.to(torch.float32))
+    return out.reshape(b, sq, h, dh).to(q.dtype)
+
+
+def attn_apply(
+    p: Params,
+    x: torch.Tensor,  # (B, S, D)
+    cfg: ModelConfig,
+    *,
+    div: Dict[str, int],
+    mask_kind: str = "causal",
+    window: int = 0,
+    positions: Optional[torch.Tensor] = None,  # (S,) or (B, S)
+    cache: Optional[Dict[str, torch.Tensor]] = None,  # k/v (B, S_max, KV, dh)
+    cur_pos: Optional[torch.Tensor] = None,  # (B,) decode position
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """GQA attention.
+
+    * prefill (``cache is None``): chunked attention over ``x`` itself;
+      returns the fresh ``{"k", "v"}`` of the prompt for the caller's cache.
+    * decode (``cache`` + ``cur_pos``, one token): the new K/V row is
+      written into ``cache`` IN PLACE at ``cur_pos`` — the JAX package
+      returns an updated copy; writing in place keeps one cache on the card
+      instead of two — and the token attends over the whole cache.
+    """
+    b, s, _ = x.shape
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    db, dtp = div.get("batch", 1), div.get("model", 1)
+
+    q = gemm(x, p["wq"], divisors=(db, dtp, 1), tag="attn.q").reshape(b, s, h, dh)
+    knew = gemm(x, p["wk"], divisors=(db, dtp, 1), tag="attn.k").reshape(b, s, kv, dh)
+    vnew = gemm(x, p["wv"], divisors=(db, dtp, 1), tag="attn.v").reshape(b, s, kv, dh)
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    q = rope(q, positions, cfg.rope_theta)
+    knew = rope(knew, positions, cfg.rope_theta)
+
+    if cache is not None:
+        if cur_pos is None or s != 1:
+            raise NotImplementedError("decode takes one token per slot at cur_pos")
+        bidx = torch.arange(b, device=x.device)
+        cache["k"][bidx, cur_pos] = knew[:, 0]
+        cache["v"][bidx, cur_pos] = vnew[:, 0]
+        out = decode_attention(q, cache["k"], cache["v"], cur_pos, window=window)
+        new_cache = cache
+    else:
+        qpos = positions if positions.dim() == 1 else positions[0]
+        out = chunked_attention(
+            q, knew, vnew, mask_kind=mask_kind, window=window,
+            q_positions=qpos, k_positions=qpos, chunk=cfg.attn_chunk,
+        )
+        new_cache = {"k": knew, "v": vnew}
+    y = gemm(out.reshape(b, s, h * dh), p["wo"], divisors=(db, 1, dtp), tag="attn.o")
+    return y, new_cache
+
+
+def mlp_specs(cfg: ModelConfig) -> Dict[str, ArraySpec]:
+    """Specs of the MLP projections (plus the gate for swiglu)."""
+    d, f, dt = cfg.d_model, cfg.d_ff, cfg.dtype
+    spec = {
+        "w_in": ArraySpec((d, f), dt, ("embed", "ffn")),
+        "w_out": ArraySpec((f, d), dt, ("ffn", "embed")),
+    }
+    if cfg.mlp_act == "swiglu":
+        spec["w_gate"] = ArraySpec((d, f), dt, ("embed", "ffn"))
+    return spec
+
+
+def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, div: Dict[str, int]):
+    """Activations ride the GEMM epilogue; swiglu fuses the gate multiply
+    into the up-projection's epilogue (``mul_silu`` on the gate operand)."""
+    db, dtp = div.get("batch", 1), div.get("model", 1)
+    if cfg.mlp_act == "swiglu":
+        gate = gemm(x, p["w_gate"], divisors=(db, dtp, 1), tag="mlp.gate")
+        h = gemm(
+            x,
+            p["w_in"],
+            divisors=(db, dtp, 1),
+            tag="mlp.in",
+            epilogue=Epilogue(binary="mul_silu"),
+            operand=gate,
+        )
+    elif cfg.mlp_act == "squared_relu":
+        h = gemm(x, p["w_in"], divisors=(db, dtp, 1), tag="mlp.in", epilogue="square")
+    else:
+        h = gemm(x, p["w_in"], divisors=(db, dtp, 1), tag="mlp.in", epilogue="gelu")
+    return gemm(h, p["w_out"], divisors=(db, 1, dtp), tag="mlp.out")
