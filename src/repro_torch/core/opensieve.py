@@ -147,10 +147,7 @@ class OpenSieve:
         lands in, so the union is bit-identical to the full rebuild).
 
         The result's ``generation`` defaults to ``max(ours, theirs) + 1`` —
-        a merge is a new build version, so every
-        :meth:`~repro.core.selector.KernelSelector.hot_swap` consumer
-        re-resolves against the union rather than trusting picks memoised
-        under either input. Mismatched policy registries or filter
+        a merge is a new build version. Mismatched policy registries or filter
         parameters raise descriptively (see :meth:`BloomFilter.merge`)."""
         mine = {p.name for p in self.policies}
         theirs = {p.name for p in other.policies}

@@ -1,7 +1,8 @@
 """Runtime kernel selection: Open-sieve query -> candidate policies -> pick
-(the port's copy of ``repro.core.selector``; artifacts install only through
-one :class:`SelectorState`, and :func:`default_selector` scores under the
-nominal H100 and the Hopper tile set on a CUDA device).
+(the port's copy of ``repro.core.selector``, without calibration and online
+adaptation; artifacts install only through one :class:`SelectorState`, and
+:func:`default_selector` scores under the nominal H100 and the Hopper tile
+set on a CUDA device).
 
 Dispatch path for a :class:`repro.core.op.GemmOp` (selection keys on the op
 fingerprint — per-shard local shape, group count, dtypes, epilogue):
@@ -9,22 +10,16 @@ fingerprint — per-shard local shape, group count, dtypes, epilogue):
      Only records of the selector's OWN arch class qualify: a record tuned
      on a different machine class (:mod:`repro_torch.core.arch`) instead supplies
      its winner/runner-up policies as a *warm seed*, re-ranked by the cost
-     model under the local (calibrated) machine — the ``"xarch"`` source,
-     which still counts as a miss for online adaptation so local
-     measurements eventually supersede the import.
+     model under the local machine — the ``"xarch"`` source.
   2. Otherwise query the Bloom filters. Policies answering "definitely
      absent" are pruned (the paper's headline: up to ~95.8% of evaluations
      skipped, 100% true-negative rate). Surviving candidates are scored with
      the fast analytical model — at the op's *actual* operand byte-widths,
      jointly over the swept grid sizes — and the best wins.
   3. If every filter says absent (a size the tuner never saw and no filter
-     aliases): with a :class:`~repro.core.calibrate.CalibratedMachine`
-     installed, dispatch from the calibrated model's argmin over ALL
-     policies (the ``"model"`` analytical-first warm start — still reported
-     to the miss hook, so online adaptation measures hot shapes and
-     promotes them to real database records); otherwise fall back to the
-     naive single-policy default the original Stream-K paper proposes —
-     data-parallel — scored against ALL_SK for safety.
+     aliases): fall back to the naive single-policy default the original
+     Stream-K paper proposes — data-parallel — scored against ALL_SK for
+     safety.
 
 Plain 2-D ops key as the legacy ``(M, N, K)`` tuple, so tuning databases and
 sieves built from bare problem sizes keep working; grouped / epilogue-fused
@@ -49,7 +44,7 @@ untouched.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core import costmodel
 from repro_torch.core.arch import DEFAULT_ARCH
@@ -78,7 +73,7 @@ class Selection:
 
     policy: Policy
     cfg: TileConfig
-    source: str  # "tuned" | "xarch" | "sieve" | "model" | "fallback" | "forced"
+    source: str  # "tuned" | "xarch" | "sieve" | "fallback" | "forced"
     evals: int  # how many (policy) evaluations the scorer performed
     pruned: int  # how many the Bloom filters eliminated
     #: grid size the kernel launches with (tuned winner's g, or the scored
@@ -94,12 +89,9 @@ class SelectorStats:
     tuned_hits: int = 0
     #: dispatches seeded by a foreign arch class's record — its winner /
     #: runner-up policies re-ranked under the LOCAL machine (never applied
-    #: verbatim); still a miss for online adaptation
+    #: verbatim)
     xarch_seeds: int = 0
     sieve_hits: int = 0
-    #: unseen fingerprints dispatched from the calibrated model's argmin —
-    #: the analytical-first warm start (still misses for online adaptation)
-    model_warm: int = 0
     fallbacks: int = 0
     cache_hits: int = 0  # memoised repeats of an already-selected op
     forced: int = 0  # caller-supplied (policy, cfg) overrides
@@ -125,27 +117,16 @@ def _cfg_from_name(name: str) -> TileConfig:
     return TileConfig(bm, bn, bk)
 
 
-#: Miss-hook signature: called once per dispatch whose (memoised) selection
-#: did NOT come from the tuning database — the signal online adaptation
-#: feeds on. Must be cheap; it runs on every dispatch.
-MissHook = Callable[[GemmOp, Selection], None]
-
-
 @dataclass(frozen=True)
 class SelectorState:
     """One atomic snapshot of a selector's installed tuning artifacts.
 
-    The database, sieve, calibration, and arch class travel as a single
-    frozen value: ``KernelSelector(state=...)`` and ``hot_swap(state=...)``
-    install all four in one reference assignment, so a database from one
+    The database, sieve and arch class travel as a single frozen value
+    that ``KernelSelector(state=...)`` installs, so a database from one
     generation is never paired with a sieve from another."""
 
     db: Optional[TuningDatabase] = None
     sieve: Optional[OpenSieve] = None
-    #: installed CalibratedMachine (or None): when set, all cost-model
-    #: scoring runs under the fitted per-dtype-profile machine, and unseen
-    #: fingerprints dispatch via the "model" source instead of the fallback
-    calibration: object = None
     #: the selector's own arch class (:mod:`repro_torch.core.arch`) — the class
     #: whose records qualify as direct database hits; every other class is
     #: an ``"xarch"`` warm seed
@@ -158,16 +139,14 @@ class KernelSelector:
     candidate pruning + cost-model scoring -> unsieved cost-model fallback.
 
     Tuning artifacts live in one frozen :class:`SelectorState`
-    (``self.state``); the ``db``/``sieve``/``calibration``/``arch``
-    properties read through to it. Install new artifacts atomically with
-    :meth:`hot_swap`."""
+    (``self.state``); the ``db``/``sieve``/``arch`` properties read through
+    to it."""
 
     def __init__(
         self,
         mach: costmodel.Machine = costmodel.V5E,
         policies: Sequence[Policy] = ALL_POLICIES,
         tile_configs: Sequence[TileConfig] = DEFAULT_TILE_CONFIGS,
-        on_miss: Optional[MissHook] = None,
         grid_sizes: Optional[Sequence[int]] = None,
         state: Optional[SelectorState] = None,
     ):
@@ -175,7 +154,6 @@ class KernelSelector:
         self.mach = mach
         self.policies = tuple(policies)
         self.tile_configs = tuple(tile_configs)
-        self.on_miss = on_miss
         self.grid_sizes = (
             tuple(grid_sizes)
             if grid_sizes is not None
@@ -187,7 +165,7 @@ class KernelSelector:
     # -- state ---------------------------------------------------------------
     @property
     def state(self) -> SelectorState:
-        """The installed artifact snapshot (frozen; swap via hot_swap)."""
+        """The installed artifact snapshot (frozen)."""
         return self._state
 
     @property
@@ -201,56 +179,17 @@ class KernelSelector:
         return self._state.sieve
 
     @property
-    def calibration(self):
-        """Installed CalibratedMachine or None (view into ``state``)."""
-        return self._state.calibration
-
-    @property
     def arch(self) -> str:
         """This selector's arch class (view into ``state``)."""
         return self._state.arch
 
-    def _notify_miss(self, op: GemmOp, sel: Selection) -> None:
-        if self.on_miss is not None and sel.source != "tuned":
-            self.on_miss(op, sel)
-
-    # -- online adaptation --------------------------------------------------
-    def hot_swap(
-        self,
-        state: SelectorState,
-        keys: Optional[Iterable[OpKey]] = None,
-    ) -> int:
-        """Install updated tuning artifacts mid-stream in one reference
-        assignment. Memoised selections for ``keys`` (all keys when
-        ``None``) are dropped so the next dispatch re-resolves against the
-        new artifacts; a different calibration drops the memo wholesale,
-        since new constants re-score every non-tuned pick. Returns the
-        number of cache entries invalidated."""
-        if state.calibration is not self._state.calibration:
-            keys = None
-        self._state = state
-        if keys is None:
-            n = len(self._cache)
-            self._cache.clear()
-            return n
-        return sum(1 for k in keys if self._cache.pop(k, None) is not None)
-
     # -- scoring -----------------------------------------------------------
-    def scoring_machine(self, dt: DtypeBytes) -> costmodel.Machine:
-        """Machine the cost model scores under for a byte-width profile:
-        the installed calibration's per-profile fit, else the nominal
-        machine. Frozen/hashable either way — it participates in every
-        scoring-cache key."""
-        if self.calibration is not None:
-            return self.calibration.machine_for(dt)
-        return self.mach
-
     def _score(
         self, size: MNK, pols: Sequence[Policy], dt: DtypeBytes
     ) -> Tuple[Policy, TileConfig, int, int]:
         """Best (policy, cfg, g) over the candidate policies — the argmin of
         :func:`costmodel.rank_candidates` at the op's real byte-widths,
-        under the (possibly calibrated) scoring machine. ``evals`` counts
+        under the selector's machine. ``evals`` counts
         *policies* scored (the unit Bloom pruning removes), whatever the
         width of the inner cfg x g sweep. ``size`` is a bare local (M, N, K)
         or an already-built shape (e.g. the GroupedGemmShape of a fused
@@ -258,7 +197,7 @@ class KernelSelector:
         shape = size if isinstance(size, GemmShape) else GemmShape(*size)
         pol, cfg, g, _ = costmodel.rank_candidates(
             shape,
-            self.scoring_machine(dt),
+            self.mach,
             tuple(pols),
             self.tile_configs,
             self.grid_sizes,
@@ -282,7 +221,7 @@ class KernelSelector:
         """Warm-seed candidates from foreign-class records of this
         fingerprint: the winner (and distinct runner-up) policies every
         other arch class measured for the key. Never dispatched verbatim —
-        the caller re-ranks them under the LOCAL (calibrated) machine, so a
+        the caller re-ranks them under the LOCAL machine, so a
         sibling generation's pick is advice, not an answer. Classes iterate
         in sorted order, keeping the seed set deterministic across fleets."""
         if self.db is None:
@@ -334,9 +273,7 @@ class KernelSelector:
         elif xpols:
             # A different arch class tuned this fingerprint: its winner /
             # runner-up policies seed the candidate set, re-ranked under the
-            # local machine (no filter consulted — zero pruned). Still a
-            # miss for adaptation: the seed serves until a local round
-            # measures the shape and supersedes it with a real record.
+            # local machine (no filter consulted — zero pruned).
             pol, cfg, g, evals = self._score(size, xpols, dt)
             sel = Selection(pol, cfg, "xarch", evals, 0, g=g)
         elif self.sieve is not None:
@@ -345,19 +282,9 @@ class KernelSelector:
             if cands:
                 pol, cfg, g, evals = self._score(size, cands, dt)
                 sel = Selection(pol, cfg, "sieve", evals, pruned, g=g)
-            elif self.calibration is not None:
-                # every filter said "definitely absent" — with a calibrated
-                # model installed, the unseen fingerprint dispatches from
-                # the model's argmin over ALL policies (analytical-first
-                # warm start) instead of the naive DP-vs-SK fallback
-                pol, cfg, g, evals = self._score(size, self.policies, dt)
-                sel = Selection(pol, cfg, "model", evals, pruned, g=g)
             else:
                 pol, cfg, g, evals = self._score(size, (DP, ALL_SK), dt)
                 sel = Selection(pol, cfg, "fallback", evals, pruned, g=g)
-        elif self.calibration is not None:
-            pol, cfg, g, evals = self._score(size, self.policies, dt)
-            sel = Selection(pol, cfg, "model", evals, 0, g=g)
         else:
             pol, cfg, g, evals = self._score(size, self.policies, dt)
             sel = Selection(pol, cfg, "fallback", evals, 0, g=g)
@@ -383,13 +310,10 @@ class KernelSelector:
             self.stats.xarch_seeds += 1
         elif sel.source == "sieve":
             self.stats.sieve_hits += 1
-        elif sel.source == "model":
-            self.stats.model_warm += 1
         else:
             self.stats.fallbacks += 1
         self.stats.evals += sel.evals
         self.stats.pruned += sel.pruned
-        self._notify_miss(op, sel)
         return sel
 
     def select(self, m: int, n: int, k: int) -> Selection:
@@ -420,7 +344,6 @@ class KernelSelector:
         )
         self.stats.evals += sel.evals
         self.stats.pruned += sel.pruned
-        self._notify_miss(op, base)
         return sel
 
     def record_forced(
@@ -433,15 +356,10 @@ class KernelSelector:
         """Account a fully caller-forced (policy, cfg, g) dispatch (tuner
         sweeps, tests). It performs no evaluations and prunes nothing, so it
         leaves ``elimination_rate`` untouched — but it is a real dispatch,
-        visible as one ``forced`` lookup. Forced dispatches of *untuned*
-        fingerprints still feed the miss hook: the caller knowing a config
-        is exactly the traffic online adaptation wants to learn from."""
+        visible as one ``forced`` lookup."""
         self.stats.lookups += 1
         self.stats.forced += 1
-        sel = Selection(policy, cfg, "forced", 0, 0, g=g)
-        if self._db_record(op) is None:
-            self._notify_miss(op, sel)
-        return sel
+        return Selection(policy, cfg, "forced", 0, 0, g=g)
 
 
 def default_selector(device=None) -> KernelSelector:

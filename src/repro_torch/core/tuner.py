@@ -85,11 +85,6 @@ class TuningDatabase:
     #: journal replay, so callers (the adaptive tuner, sieve rebuilds) can
     #: cheaply detect "the database grew since I last looked".
     version: int = 0
-    #: installed :class:`~repro.core.calibrate.CalibratedMachine` (or None):
-    #: the fitted cost-model constants this database's producer learned from
-    #: its journal. Persists through snapshot/journal like records and
-    #: federates under the same hybrid (wall, version) LWW stamp.
-    calibration: Optional[object] = None
     #: architecture class this database's OWN records were measured on;
     #: anything stamped with a different class routes to ``xarch``.
     arch: str = DEFAULT_ARCH

@@ -37,6 +37,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -347,13 +349,24 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Opt a kernel into the dynamic shared memory its ring needs (above 48 KB
-// only after cudaFuncSetAttribute), then launch it.
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int smem, int grid, cudaStream_t stream, Args... args) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// only after cudaFuncSetAttribute), then launch it. The attribute stays set
+// on the function, so each instantiation sets it once per device and later
+// launches skip that call.
+constexpr int kMaxDevices = 64;
+
+template <auto Kernel, typename... Args>
+int launch(int smem, int grid, cudaStream_t stream, Args... args) {
+  static std::atomic<bool> opted_in[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!opted_in[dev].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    opted_in[dev].store(true, std::memory_order_release);
+  }
+  Kernel<<<grid, kThreads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -365,8 +378,8 @@ int launch_dp(int sm, const void* a, const void* b, void* c, int m, int n, int k
   const TIn* bp = static_cast<const TIn*>(b);
   TOut* cp = static_cast<TOut*>(c);
 #define SK_DP(S)                                                                             \
-  return launch(dp_kernel<TIn, TOut, S>, smem_bytes<TIn, S>(), grid, stream, ap, bp, cp, m, n, \
-                k, bm, bn, n_tiles_n, tile_offset, n_total, aligned, epi)
+  return launch<dp_kernel<TIn, TOut, S>>(smem_bytes<TIn, S>(), grid, stream, ap, bp, cp, m, n, \
+                                        k, bm, bn, n_tiles_n, tile_offset, n_total, aligned, epi)
   switch (sm) {
     case 8: SK_DP(8);
     case 16: SK_DP(16);
@@ -384,8 +397,9 @@ int launch_streamk(int sm, const void* a, const void* b, float* partials, int m,
   const TIn* ap = static_cast<const TIn*>(a);
   const TIn* bp = static_cast<const TIn*>(b);
 #define SK_P1(S)                                                                           \
-  return launch(streamk_kernel<TIn, S>, smem_bytes<TIn, S>(), grid, stream, ap, bp, partials, \
-                m, n, k, bm, bn, bk, n_tiles_n, ipt, ipw, total, mc, aligned)
+  return launch<streamk_kernel<TIn, S>>(smem_bytes<TIn, S>(), grid, stream, ap, bp, partials, \
+                                       m, n, k, bm, bn, bk, n_tiles_n, ipt, ipw, total, mc,     \
+                                       aligned)
   switch (sm) {
     case 8: SK_P1(8);
     case 16: SK_P1(16);

@@ -154,7 +154,11 @@ def test_selections_match(artifacts):
             jo = jop.GemmOp.plain(m, n, k, in_dtype=dtype)
             to = top.GemmOp.plain(m, n, k, in_dtype=dtype)
             assert _sel_tuple(ts.select_op(to)) == _sel_tuple(js.select_op(jo))
-    assert vars(ts.stats) == vars(js.stats)
+    jstats = dict(vars(js.stats))
+    # without a calibration the JAX selector never dispatches from "model";
+    # the port has no calibration and no such counter
+    assert jstats.pop("model_warm") == 0
+    assert vars(ts.stats) == jstats
 
 
 SLICE_NK = [(4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336), (49152, 4096)]
