@@ -1,6 +1,6 @@
 """Architecture registry of the port: ``--arch <id>`` resolution to the full
-config and its reduced smoke-test variant. The port serves the dense family;
-granite-8b is its first architecture."""
+config and its reduced smoke-test variant. The port serves the dense family
+(granite-8b) and the MoE family (olmoe-1b-7b)."""
 
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ from repro_torch.models.config import ModelConfig
 
 _MODULES: Dict[str, str] = {
     "granite-8b": "repro_torch.configs.granite_8b",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
 }
 
 

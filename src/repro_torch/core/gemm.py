@@ -14,9 +14,15 @@ Built-in backends:
   * ``torch`` — eager ``torch.matmul`` plus ``Epilogue.apply`` on the f32
     accumulator: the CPU oracle, counterpart of the JAX package's ``xla``;
   * ``cuda``  — the Stream-K++ composition of the hand-written Hopper
-    kernels (``kernels/streamk/ops.py``), counterpart of ``pallas``. On CPU
-    tensors its wrappers run their kernels' plain versions, the counterpart
-    of ``pallas_interpret``.
+    kernels (``kernels/streamk/ops.py``), counterpart of ``pallas``; a fused
+    grouped op runs as ONE launch of the grouped kernel
+    (``kernels/streamk/grouped.py``). On CPU tensors its wrappers run their
+    kernels' plain versions, the counterpart of ``pallas_interpret``.
+
+Entry points: :func:`gemm` (2-D weight) and :func:`gemm_grouped` (stacked
+``(G, K, N)`` expert weights, fused into one kernel by default and keyed by
+the 8-part ``grouped_fused`` op key; ``fused=False`` keeps one dispatch per
+group as the differential oracle).
 
 When no backend is named, a dispatch on a CUDA tensor runs ``cuda`` and one
 on a CPU tensor runs ``torch``: on the card the hand-written kernels are the
@@ -95,7 +101,16 @@ def _torch_backend(x, w, *, op: GemmOp, policy, cfg, g, bias, operand):
 
 def _cuda_backend(x, w, *, op: GemmOp, policy, cfg, g, bias, operand):
     from repro_torch.kernels.streamk import ops as sk_ops
+    from repro_torch.kernels.streamk.grouped import gemm_grouped_streamk
 
+    if op.fused:
+        # one launch spans the concatenated tile space of all G groups
+        return gemm_grouped_streamk(
+            x, w, policy=policy, cfg=cfg, g=g, out_dtype=as_dtype(op.out_dtype),
+            epilogue=op.epilogue, bias=bias, operand=operand,
+        )
+    # loop form: the policy composition once per group (the fused form's
+    # differential oracle, and every plain 2-D dispatch)
     outs = [
         sk_ops.gemm(
             x[i],
@@ -287,3 +302,91 @@ def gemm(
         operand=None if operand is None else operand.reshape(1, m, n).contiguous(),
     )
     return out.reshape(*lead, n)
+
+
+def gemm_grouped(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    divisors: Tuple[int, int, int] = (1, 1, 1),
+    g_divisor: int = 1,
+    out_dtype=None,
+    tag: str = "",
+    policy: Optional[Policy] = None,
+    cfg: Optional[TileConfig] = None,
+    grid: Optional[int] = None,
+    epilogue: Union[None, str, Epilogue] = None,
+    bias: Optional[torch.Tensor] = None,
+    operand: Optional[torch.Tensor] = None,
+    fused: bool = True,
+) -> torch.Tensor:
+    """Grouped GEMM over stacked weights: x (G, M, K) @ w (G, K, N) ->
+    (G, M, N), the MoE expert shape (G experts, M = expert capacity).
+
+    One selection covers all groups; the op fingerprint records ``G`` and
+    ``g_divisor`` (the expert-parallel factor). ``bias``: (G, N) or (N,);
+    ``operand``: (G, M, N). ``grid`` overrides the selected grid size.
+    ``fused`` (default True) runs the G groups as ONE kernel and keys the op
+    with the 8-part ``grouped_fused`` key; ``fused=False`` runs them one by
+    one (the differential oracle)."""
+    return _gemm_stacked(
+        "grouped", x, w, divisors=divisors, g_divisor=g_divisor, out_dtype=out_dtype, tag=tag,
+        policy=policy, cfg=cfg, grid=grid, epilogue=epilogue, bias=bias, operand=operand,
+        fused=fused,
+    )
+
+
+def _gemm_stacked(
+    kind: str,
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    divisors: Tuple[int, int, int],
+    g_divisor: int,
+    out_dtype,
+    tag: str,
+    policy: Optional[Policy],
+    cfg: Optional[TileConfig],
+    grid: Optional[int],
+    epilogue: Union[None, str, Epilogue],
+    bias: Optional[torch.Tensor],
+    operand: Optional[torch.Tensor],
+    fused: bool = False,
+) -> torch.Tensor:
+    if x.dim() != 3 or w.dim() != 3:
+        raise ValueError(
+            f"gemm_{kind} expects x (G, M, K) and w (G, K, N); got "
+            f"{tuple(x.shape)} @ {tuple(w.shape)}"
+        )
+    if x.shape[0] != w.shape[0] or x.shape[2] != w.shape[1]:
+        raise ValueError(f"gemm_{kind} mismatch: {tuple(x.shape)} @ {tuple(w.shape)}")
+    epilogue = _infer_epilogue(epilogue, bias, operand)
+    g, m, k = (int(d) for d in x.shape)
+    n = int(w.shape[2])
+    out_dtype = as_dtype(out_dtype) if out_dtype is not None else x.dtype
+    op = GemmOp(
+        m,
+        n,
+        k,
+        g=g,
+        kind=kind,
+        in_dtype=_in_dtype_fingerprint(x, w),
+        out_dtype=dtype_name(out_dtype),
+        divisors=tuple(divisors),
+        g_divisor=g_divisor,
+        epilogue=epilogue,
+        fused=fused,
+    )
+    if bias is not None and bias.dim() == 1:
+        bias = bias[None].expand(g, n)
+    return _dispatch(
+        x.contiguous(),
+        w.contiguous(),
+        op,
+        tag=tag,
+        policy=policy,
+        cfg=cfg,
+        g=grid,
+        bias=None if bias is None else bias.contiguous(),
+        operand=None if operand is None else operand.contiguous(),
+    )

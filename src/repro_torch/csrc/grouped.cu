@@ -1,0 +1,80 @@
+// B5: the one-launch ragged grouped (MoE) GEMM for NVIDIA Hopper (sm_90a).
+//
+// c[i] = epilogue(a[i] @ b[i]) for every group i of a (G, M, K) @ (G, K, N)
+// product, where only the first sizes[i] rows of group i take part and the
+// rest of C is left alone (the wrapper zeroes it when a group is short).
+// Like the TPU version, ONE launch covers every group: the groups' row-blocks
+// (ceil(sizes[i] / bm) each, so ragged groups never share a tile) are
+// concatenated into R row-blocks, and the T = R * nt output tiles form one
+// tile space. Two kernels, one per launch form:
+//
+//   grouped_sk_kernel <- src/repro/kernels/streamk/grouped.py:_sk_kernel
+//       Stream-K form (ALL_SK, and every HYBRID, which runs as ALL_SK):
+//       block x walks the flattened MAC iterations
+//       [x * ipw, min((x + 1) * ipw, total)) of the T * ipt in the space.
+//   grouped_dp_kernel <- src/repro/kernels/streamk/grouped.py:_dp_kernel
+//       DP form: g persistent blocks stride over the T tiles.
+//
+// The TPU runs the Stream-K grid strictly in order and carries a split
+// tile's sum in one VMEM accumulator from one workgroup to the next. CUDA
+// blocks run concurrently, in no order and not all resident at once (264
+// blocks need not fit), so the carry becomes a hand-off without any
+// spin-wait: a segment that covers its whole tile is flushed straight into
+// C; a segment of a split tile stores its f32 partial in its own workspace
+// slot, fences, and bumps the tile's arrival counter. The block that arrives
+// last sums the tile's slots in ascending workgroup order, applies the
+// epilogue, writes C and resets the counter for the next launch. The sum
+// order is fixed, so the result is bit-identical run to run.
+//
+// Workspace: a split tile has contributors first_wg..last_wg; contributor x
+// keeps its segment in slot 2x (when its range starts inside the tile) or
+// 2x + 1 (when the tile is the last of a range that began earlier), so the
+// workspace is (g, 2, bm, bn) f32 whatever T is. A split tile contains the
+// boundary (first_wg + 1) * ipw, which no other tile contains, so first_wg
+// indexes its counter: g int32 counters.
+//
+// No copies: group i's operands are reached through its base pointers
+// (a + i*M*K, b + i*K*N, c + i*M*N; bias (G, N) and operand (G, M, N) the
+// same way), and rows at or past sizes[i] are masked by the loads. The host
+// builds the row-block table (group, first row, end row) once per
+// (sizes, bm) and keeps its device copy.
+//
+// What bounds it on the H100: at the MoE decode shapes (64 experts x 4 rows
+// against 2048 x 1024 weights) it reads every expert's weights once, 268 MB
+// per call, and does 2 operations per weight byte: bound by bytes, far
+// below the card's 295 operations per byte. The MAC is the SIMT FMA of
+// sk_common.cuh (no TF32); wgmma and TMA come later.
+//
+// The kernels are in grouped.cuh; this file instantiates them for f32
+// inputs and grouped_bf16.cu for bf16 inputs. The extern "C" entry launches
+// on the caller's stream and returns cudaGetLastError(), which the Python
+// wrapper checks.
+
+#include "grouped.cuh"
+
+// Dtype codes: 0 = float32, 1 = bfloat16.
+extern "C" {
+
+int sk_grouped_gemm_bf16(int out_dt, int sm, int sk_form, const void* a, const void* b, void* c,
+                         const void* tab, void* ws, void* counters, int m, int n, int k, int bm,
+                         int bn, int bk, int nt, int n_tiles, int ipt, int ipw, int grid,
+                         int aligned, const void* bias, const void* operand, int act,
+                         int binary, void* stream);  // grouped_bf16.cu
+
+int sk_grouped_gemm(int in_dt, int out_dt, int sm, int sk_form, const void* a, const void* b,
+                    void* c, const void* tab, void* ws, void* counters, int m, int n, int k,
+                    int bm, int bn, int bk, int nt, int n_tiles, int ipt, int ipw, int grid,
+                    int aligned, const void* bias, const void* operand, int act, int binary,
+                    void* stream) {
+  if (in_dt == 0)
+    return grouped_entry<float>(out_dt, sm, sk_form, a, b, c, tab, ws, counters, m, n, k, bm, bn,
+                                bk, nt, n_tiles, ipt, ipw, grid, aligned, bias, operand, act,
+                                binary, stream);
+  if (in_dt == 1)
+    return sk_grouped_gemm_bf16(out_dt, sm, sk_form, a, b, c, tab, ws, counters, m, n, k, bm, bn,
+                                bk, nt, n_tiles, ipt, ipw, grid, aligned, bias, operand, act,
+                                binary, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

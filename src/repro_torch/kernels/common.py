@@ -23,6 +23,8 @@ LAUNCHES: Dict[str, int] = {
     "dp_gemm_region": 0,
     "streamk_phase1": 0,
     "streamk_fixup": 0,
+    "grouped_streamk_sk": 0,
+    "grouped_streamk_dp": 0,
 }
 
 #: active launch log (None when no count_launches scope is open)
@@ -116,9 +118,15 @@ def refuse_quantized(scale, scale_a, b_bits: int) -> None:
 
 def check_cuda_operands(a, b, out_dtype, bias, operand) -> None:
     """Validate what the CUDA kernels take: CUDA tensors on one device,
-    contiguous row-major (M, K) @ (K, N), f32 or bf16 inputs of one dtype, an
-    f32 or bf16 output, and epilogue operands in the output dtype."""
-    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+    contiguous row-major (M, K) @ (K, N) — or (G, M, K) @ (G, K, N) for the
+    grouped kernel, with bias (G, N) and operand (G, M, N) — f32 or bf16
+    inputs of one dtype, an f32 or bf16 output, and epilogue operands in the
+    output dtype."""
+    lead = tuple(a.shape[:-2])
+    if (
+        a.dim() not in (2, 3) or b.dim() != a.dim() or tuple(b.shape[:-2]) != lead
+        or a.shape[-1] != b.shape[-2]
+    ):
         raise ValueError(f"bad gemm operands {tuple(a.shape)} @ {tuple(b.shape)}")
     if not (a.is_cuda and b.device == a.device):
         raise ValueError("the CUDA kernels need both operands on one CUDA device")
@@ -131,8 +139,8 @@ def check_cuda_operands(a, b, out_dtype, bias, operand) -> None:
         raise NotImplementedError(f"unsupported output dtype {out_dtype}")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("the CUDA kernels need contiguous row-major operands")
-    m, n = a.shape[0], b.shape[1]
-    for name, t, shape in (("bias", bias, (n,)), ("operand", operand, (m, n))):
+    m, n = a.shape[-2], b.shape[-1]
+    for name, t, shape in (("bias", bias, (*lead, n)), ("operand", operand, (*lead, m, n))):
         if t is None:
             continue
         if tuple(t.shape) != shape or t.dtype != out_dtype or t.device != a.device:
@@ -157,14 +165,15 @@ def sub_block_rows(bm: int, m: int) -> int:
 
 def rows_aligned(a: torch.Tensor, b: torch.Tensor) -> int:
     """1 when every row of A and B starts on a 16-byte boundary (base
-    addresses and row pitches), so the kernels may stage them with 16-byte
-    ``cp.async`` copies; 0 sends them down the element-wise path."""
+    addresses and row pitches — for stacked (G, ., .) operands the group
+    pitches follow), so the kernels may stage them with 16-byte ``cp.async``
+    copies; 0 sends them down the element-wise path."""
     e = a.element_size()
     return int(
         a.data_ptr() % 16 == 0
         and b.data_ptr() % 16 == 0
-        and (a.shape[1] * e) % 16 == 0
-        and (b.shape[1] * e) % 16 == 0
+        and (a.shape[-1] * e) % 16 == 0
+        and (b.shape[-1] * e) % 16 == 0
     )
 
 

@@ -1,11 +1,13 @@
 """Build and load the hand-written Hopper kernels (``csrc/*.cu``).
 
-The sources have a plain C interface and are compiled with ``nvcc`` into one
+The sources have a plain C interface. Each ``.cu`` is compiled by its own
+``nvcc`` process, all started together, and the objects are linked into one
 shared library, loaded with :mod:`ctypes`. The build happens at first use,
 in ``src/repro_torch/_build/`` (listed in ``.gitignore``), keyed on the
-content hash of the sources and flags, so a fresh checkout builds them by
-itself and an unchanged tree reuses the library. Nothing here runs at import
-time: the CPU tests import every module and have no ``nvcc``.
+content hash of the sources, the headers they share and the flags, so a
+fresh checkout builds them by itself and an unchanged tree reuses the
+library. Nothing here runs at import time: the CPU tests import every module
+and have no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -30,7 +32,6 @@ NVCC_FLAGS = (
     "arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
-    "-shared",
     "-Xcompiler",
     "-fPIC",
     "-Xptxas=-v",
@@ -48,6 +49,8 @@ _SIGNATURES = {
                           _I, _I, _I, _P],
     "sk_streamk_fixup": [_I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I,
                          _I, _P],
+    "sk_grouped_gemm": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -78,28 +81,52 @@ def _digest(sources) -> str:
     return h.hexdigest()[:16]
 
 
+def _compile(sources, so: Path, log: Path) -> None:
+    """One nvcc per source, all at once, then one link into ``so``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    procs = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for cmd in ([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                    for src, o in zip(sources, objs))
+    ]
+    reports = []
+    failed = None
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        reports.append(err)
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}"
+    tmp = so.with_name(f"{tag}.tmp")
+    try:
+        if failed is not None:
+            raise RuntimeError(failed)
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
+               *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
+                               f"{proc.stderr}")
+        log.write_text("".join(reports))
+        os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if this tree has not built it."""
     global _lib
     if _lib is not None:
         return _lib
     sources = sorted(CSRC.glob("*.cu"))
-    so = BUILD_DIR / f"libstream_k_{_digest(sources)}.so"
+    so = BUILD_DIR / f"libstream_k_{_digest(sources + sorted(CSRC.glob('*.cuh')))}.so"
     log = so.with_suffix(".ptxas.txt")
     t0 = time.perf_counter()
-    built = False
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-            )
-        log.write_text(proc.stderr)
-        os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
-        built = True
+    built = not so.exists()
+    if built:
+        _compile(sources, so, log)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -1,0 +1,190 @@
+"""Kernel B5: the one-launch ragged grouped (MoE) GEMM, hand-written for
+Hopper.
+
+Replaces ``src/repro/kernels/streamk/grouped.py``: ``_sk_kernel`` (the
+Stream-K form, ALL_SK and every HYBRID) and ``_dp_kernel`` (the DP form),
+both built by ``_fused_call`` and wrapped there by ``gemm_grouped_streamk``.
+The CUDA kernels are ``grouped_sk_kernel`` and ``grouped_dp_kernel`` in
+``csrc/grouped.cuh`` (design notes in ``csrc/grouped.cu``). As on the TPU, one launch covers all G groups: each
+group's live rows are cut into ``ceil(sizes[i] / bm)`` row-blocks, and the
+concatenated row-blocks times the N tiles form one tile space of
+``T = R * nt`` tiles, over which the Stream-K form spreads ``T * ipt``
+MAC iterations across ``g`` blocks and the DP form strides ``g`` blocks.
+
+Where the TPU carries a split tile's sum sequentially from one workgroup to
+the next, the card's blocks run concurrently: a split tile's contributors
+park their partials in a ``(g, 2, bm, bn)`` f32 workspace and the last to
+arrive (an atomic counter per split tile) sums them in ascending order,
+applies the epilogue and writes C. So the result is bit-identical run to
+run, and the workspace is sized by ``g``, not by ``T``. The TPU wrapper pads
+and concatenates A and pads B on every call; here the kernel reaches group
+``i`` through its base pointers and masks rows at or past ``sizes[i]``, so
+no expert weight is ever copied. The row-block -> group table is built on
+the host and its device copy cached per ``(sizes, bm)``.
+
+What bounds it on the H100: at the MoE decode shapes it reads every expert
+weight once (268 MB per olmoe-1b-7b projection) for 2 operations per byte,
+so bytes bound it (see ``csrc/grouped.cu``).
+
+On CPU tensors :func:`gemm_grouped_streamk` runs the plain PyTorch version
+:func:`gemm_grouped_streamk_plain`; on CUDA tensors it launches the kernel
+or raises.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.policies import ALL_SK, Policy, PolicyKind, TileConfig
+from repro_torch.core.workpart import cdiv
+from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.common import (
+    DTYPE_CODES,
+    apply_epilogue,
+    check_cuda_operands,
+    epilogue_args,
+    mixed_dot,
+    record_launch,
+    refuse_quantized,
+    rows_aligned,
+    stream_ptr,
+    sub_block_rows,
+)
+
+
+def row_block_table(sizes: Tuple[int, ...], bm: int) -> np.ndarray:
+    """(R, 3) int32: for each row-block of the concatenated space, its group,
+    its first row within the group and the row it ends before. Empty groups
+    own no row-block."""
+    rows = [
+        (i, r0, min(s, r0 + bm))
+        for i, s in enumerate(sizes)
+        for r0 in range(0, s, bm)
+    ]
+    return np.asarray(rows, np.int32).reshape(-1, 3)
+
+
+#: per-device arrival counters of the Stream-K form's split tiles; every
+#: launch leaves them at 0 (the last contributor resets its tile's counter)
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+
+
+@lru_cache(maxsize=256)
+def _table(sizes, bm: int, device) -> torch.Tensor:
+    """The row-block table's device copy, kept per (sizes, bm, device): a
+    decode step dispatches the same few grouped shapes every layer, and a
+    copy per call would be a host-to-device transfer per call."""
+    return torch.from_numpy(row_block_table(sizes, bm)).to(device)
+
+
+def _counters(g: int, device) -> torch.Tensor:
+    cnt = _COUNTERS.get(device)
+    if cnt is None or cnt.numel() < g:
+        cnt = torch.zeros(max(g, 264), dtype=torch.int32, device=device)
+        _COUNTERS[device] = cnt
+    return cnt
+
+
+def _epilogue_operands(i: int, s: int, bias, operand):
+    return (None if bias is None else bias[i],
+            None if operand is None else operand[i, :s])
+
+
+def gemm_grouped_streamk_plain(
+    a, b, *, sizes, out_dtype, epilogue="none", bias=None, operand=None
+) -> torch.Tensor:
+    """Plain PyTorch version of B5: per group, an f32-accumulated
+    ``a[i, :s] @ b[i]`` and the epilogue; rows past a group's size are 0."""
+    g_count, m, _ = a.shape
+    n = b.shape[2]
+    c = torch.zeros((g_count, m, n), dtype=out_dtype, device=a.device)
+    for i, s in enumerate(sizes):
+        if s == 0:
+            continue
+        bias_i, operand_i = _epilogue_operands(i, s, bias, operand)
+        acc = mixed_dot(a[i, :s], b[i])
+        c[i, :s] = apply_epilogue(acc, epilogue, bias=bias_i, operand=operand_i).to(out_dtype)
+    return c
+
+
+def gemm_grouped_streamk(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    policy: Policy = ALL_SK,
+    cfg: TileConfig = TileConfig(128, 128, 128),
+    g: int = 8,
+    out_dtype=None,
+    epilogue="none",
+    bias: Optional[torch.Tensor] = None,
+    operand: Optional[torch.Tensor] = None,
+    scale=None,
+    scale_a=None,
+    group_sizes: Optional[Tuple[int, ...]] = None,
+    b_bits: int = 8,
+) -> torch.Tensor:
+    """Grouped GEMM ``c[i] = a[i] @ b[i]`` in ONE kernel launch.
+
+    a: (G, M, K), b: (G, K, N) -> (G, M, N) in ``out_dtype`` (default
+    ``a.dtype``). ``group_sizes`` (default ``(M,) * G``) gives each group's
+    real row count: only the first ``sizes[i]`` rows take part, the output
+    rows past them are 0, and an empty group contributes no tile. With no
+    row at all nothing launches. ``bias`` (G, N) and ``operand`` (G, M, N)
+    feed the per-group epilogue. Policies other than DP run the Stream-K
+    form. Quantized arguments (``scale``, ``scale_a``, ``b_bits=4``) raise
+    ``NotImplementedError``."""
+    refuse_quantized(scale, scale_a, b_bits)
+    if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0] or a.shape[2] != b.shape[1]:
+        raise ValueError(f"bad grouped operands {tuple(a.shape)} @ {tuple(b.shape)}")
+    g_count, m, k = a.shape
+    n = b.shape[2]
+    out_dtype = out_dtype or a.dtype
+    sizes = tuple(int(s) for s in group_sizes) if group_sizes is not None else (m,) * g_count
+    if len(sizes) != g_count or any(s < 0 or s > m for s in sizes):
+        raise ValueError(f"bad group_sizes {sizes} for M={m}, G={g_count}")
+    r_total = sum(cdiv(s, cfg.bm) for s in sizes)
+    if r_total == 0:
+        return torch.zeros((g_count, m, n), dtype=out_dtype, device=a.device)
+    if a.device.type == "cpu":
+        return gemm_grouped_streamk_plain(
+            a, b, sizes=sizes, out_dtype=out_dtype, epilogue=epilogue, bias=bias,
+            operand=operand,
+        )
+
+    check_cuda_operands(a, b, out_dtype, bias, operand)
+    nt = cdiv(n, cfg.bn)
+    ipt = cdiv(k, cfg.bk)
+    n_tiles = r_total * nt
+    sk_form = policy.kind != PolicyKind.DP
+    # a short group leaves rows the kernel never writes: they must read 0
+    ragged = any(s < m for s in sizes)
+    c = (torch.zeros if ragged else torch.empty)((g_count, m, n), dtype=out_dtype,
+                                                 device=a.device)
+    ws = counters = None
+    if sk_form:
+        ipw = cdiv(n_tiles * ipt, g)
+        grid = g
+        if ipw % ipt:  # some workgroup boundary falls inside a tile
+            ws = torch.empty((g, 2, cfg.bm, cfg.bn), dtype=torch.float32, device=a.device)
+            counters = _counters(g, a.device)
+    else:
+        ipw = ipt
+        grid = min(g, n_tiles)
+    lib = cuda_lib.library()
+    bias_p, operand_p, act, binary = epilogue_args(epilogue, bias, operand)
+    status = lib.sk_grouped_gemm(
+        DTYPE_CODES[a.dtype], DTYPE_CODES[out_dtype], sub_block_rows(cfg.bm, m), int(sk_form),
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), _table(sizes, cfg.bm, a.device).data_ptr(),
+        None if ws is None else ws.data_ptr(),
+        None if counters is None else counters.data_ptr(),
+        m, n, k, cfg.bm, cfg.bn, cfg.bk, nt, n_tiles, ipt, ipw, grid, rows_aligned(a, b),
+        bias_p, operand_p, act, binary, stream_ptr(a.device),
+    )
+    name = "grouped_streamk_sk" if sk_form else "grouped_streamk_dp"
+    cuda_lib.check(status, f"{name} {cfg.name} g={g}")
+    record_launch(name)
+    return c

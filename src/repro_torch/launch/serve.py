@@ -1,4 +1,4 @@
-"""Serve a dense LM through the port: ``python -m repro_torch.launch.serve``.
+"""Serve an LM through the port: ``python -m repro_torch.launch.serve``.
 
 Builds the model with random weights from a seeded ``torch.Generator``,
 submits ``--requests`` seeded prompts to a :class:`ServeEngine`, drains it,
@@ -11,6 +11,7 @@ Example::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \\
         --preset full --requests 4 --slots 4 --max-seq 256 --max-new-tokens 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b --preset full
 """
 
 from __future__ import annotations
@@ -80,10 +81,11 @@ def main(argv=None) -> int:
              st.lookups, st.cache_hits, st.fallbacks, engine.backend)
     seen = {}
     for e in engine.selection_log:
-        seen.setdefault((e.tag, e.local_mnk), e.selection)
-    for (tag, mnk), sel in sorted(seen.items()):
-        log.info("  %-9s M,N,K=%s -> %s/%s g=%d (%s)",
-                 tag, mnk, sel.policy.name, sel.cfg.name, sel.g, sel.source)
+        seen.setdefault((e.tag, e.op.g_local, e.local_mnk), e.selection)
+    for (tag, groups, mnk), sel in sorted(seen.items()):
+        log.info("  %-10s %sM,N,K=%s -> %s/%s g=%d (%s)", tag,
+                 f"G={groups} " if groups > 1 else "", mnk, sel.policy.name, sel.cfg.name,
+                 sel.g, sel.source)
     return 0 if len(done) == args.requests else 1
 
 

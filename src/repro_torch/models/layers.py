@@ -1,9 +1,10 @@
-"""Dense model building blocks (counterpart of the dense parts of
+"""Model building blocks (counterpart of the dense and global-MoE parts of
 ``repro.models.layers``).
 
-Every projection routes through :func:`repro_torch.core.gemm.gemm`, so the
-Stream-K++ selection layer sees every matmul and, on the card, every one runs
-on the hand-written kernels. Attention stays plain torch einsum math in f32,
+Every projection routes through :func:`repro_torch.core.gemm.gemm` (the MoE
+expert projections through :func:`~repro_torch.core.gemm.gemm_grouped`), so
+the Stream-K++ selection layer sees every matmul and, on the card, every one
+runs on the hand-written kernels. Attention stays plain torch einsum math in f32,
 as in the JAX package: a chunked online softmax for prefill and a direct
 softmax over the KV cache for decode. Layouts are the JAX package's: weights
 ``(K, N)`` for ``x @ w``, activations ``(B, S, H, dh)``, caches
@@ -16,8 +17,9 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.core.gemm import gemm
+from repro_torch.core.gemm import gemm, gemm_grouped
 from repro_torch.core.op import Epilogue
 from repro_torch.dist.sharding import ArraySpec
 from repro_torch.models.config import ModelConfig
@@ -234,3 +236,89 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, div: Dict[str, in
     else:
         h = gemm(x, p["w_in"], divisors=(db, dtp, 1), tag="mlp.in", epilogue="gelu")
     return gemm(h, p["w_out"], divisors=(db, 1, dtp), tag="mlp.out")
+
+
+def moe_specs(cfg: ModelConfig) -> Dict[str, ArraySpec]:
+    """Specs of the f32 router ``(D, E)`` and the stacked expert projections
+    ``(E, K, N)`` (plus the gate for swiglu)."""
+    d, f, e, dt = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.dtype
+    spec = {
+        "router": ArraySpec((d, e), "float32", ("embed", None)),
+        "w_in": ArraySpec((e, d, f), dt, ("experts", "embed", None)),
+        "w_out": ArraySpec((e, f, d), dt, ("experts", None, "embed")),
+    }
+    if cfg.mlp_act == "swiglu":
+        spec["w_gate"] = ArraySpec((e, d, f), dt, ("experts", "embed", None))
+    return spec
+
+
+def moe_apply(
+    p: Params, x: torch.Tensor, cfg: ModelConfig, *, div: Dict[str, int]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity-based top-k MoE over the global token space (the JAX
+    package's ``moe_impl="global"``). Returns (output, aux load-balance loss).
+
+    Routing is deterministic and needs no sort: assignments are taken
+    rank-major (every token's first choice before any second choice), a
+    cumulative sum gives each assignment its position in its expert, and
+    positions past the capacity land in a trash column. Every expert then
+    runs at ``cap`` rows, empty or not, through three grouped GEMMs (one
+    selection and, on the card, one kernel launch each)."""
+    if cfg.moe_impl != "global":
+        raise NotImplementedError(
+            f"moe_impl={cfg.moe_impl!r} needs a device mesh or sharding hints; the port "
+            "runs the global capacity dispatch only"
+        )
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    t = b * s
+    xf = x.reshape(t, d)
+
+    logits = gemm(
+        xf.to(torch.float32), p["router"], divisors=(div.get("batch", 1), 1, 1),
+        tag="moe.router",
+    )
+    probs = torch.softmax(logits, dim=-1)  # (T, E)
+    gates, idx = torch.topk(probs, k, dim=-1)  # (T, k)
+    gates = gates / gates.sum(dim=-1, keepdim=True)
+
+    # capacity per expert; the min(t, 16) floor keeps tiny-T dispatch
+    # (single-token decode) drop-free
+    cap = max(int(cfg.capacity_factor * t * k / e), min(t, 16), 1)
+    e_flat = idx.T.reshape(t * k)  # (k*T,) rank-major
+    tok = torch.arange(t, device=x.device).repeat(k)
+    gate_flat = gates.T.reshape(t * k)
+    onehot = F.one_hot(e_flat, e)  # (kT, E)
+    pos = (torch.cumsum(onehot, dim=0) * onehot - 1).amax(dim=-1)  # position in expert
+    keep = pos < cap
+    slot = pos.clamp_max(cap)  # cap = trash column
+
+    # dispatch: (E, cap + 1, D); the trash column absorbs dropped tokens
+    buf = torch.zeros((e, cap + 1, d), dtype=x.dtype, device=x.device)
+    buf[e_flat, slot] = xf[tok]
+    expert_in = buf[:, :cap]
+
+    dg = div.get("model", 1)
+    if cfg.mlp_act == "swiglu":
+        gate = gemm_grouped(expert_in, p["w_gate"], g_divisor=dg, tag="moe.gate")
+        h = gemm_grouped(
+            expert_in,
+            p["w_in"],
+            g_divisor=dg,
+            tag="moe.in",
+            epilogue=Epilogue(binary="mul_silu"),
+            operand=gate,
+        )
+    else:
+        h = gemm_grouped(expert_in, p["w_in"], g_divisor=dg, tag="moe.in", epilogue="gelu")
+    out_e = gemm_grouped(h, p["w_out"], g_divisor=dg, tag="moe.out")  # (E, cap, D)
+
+    # combine: gather back per assignment, weight by the gate, sum the ranks
+    gathered = out_e[e_flat, torch.clamp_max(slot, cap - 1)]  # (kT, D)
+    w = (gate_flat * keep).to(torch.float32)
+    combined = (gathered.to(torch.float32) * w[:, None]).reshape(k, t, d).sum(dim=0)
+
+    # load-balance aux loss (Switch): E * sum_e f_e * p_e
+    frac = onehot.reshape(k, t, e).sum(dim=0).to(torch.float32).mean(dim=0)
+    aux = cfg.router_aux_coef * e * torch.sum(frac * probs.mean(dim=0))
+    return combined.reshape(b, s, d).to(x.dtype), aux

@@ -1,4 +1,4 @@
-"""Dense decoder-only LM (counterpart of the dense family of
+"""Decoder-only LM (counterpart of the dense and MoE families of
 ``repro.models.lm``).
 
 Parameters keep the JAX package's tree and layout — ``layers`` leaves are
@@ -66,12 +66,14 @@ def params_from_jax(tree, device=None) -> Params:
 
 
 class LM:
-    """The dense LM: embed -> L x (norm, GQA attention, norm, MLP) -> norm ->
+    """The LM: embed -> L x (norm, GQA attention, norm, MLP or MoE) -> norm ->
     lm_head, every projection through the Stream-K++ dispatch."""
 
     def __init__(self, cfg: ModelConfig):
-        if cfg.family != "dense":
-            raise NotImplementedError(f"the port serves the dense family, not {cfg.family!r}")
+        if cfg.family not in ("dense", "moe"):
+            raise NotImplementedError(
+                f"the port serves the dense and moe families, not {cfg.family!r}"
+            )
         if cfg.window or cfg.tie_embeddings:
             raise NotImplementedError("sliding windows and tied embeddings are not ported yet")
         self.cfg = cfg
@@ -85,8 +87,11 @@ class LM:
             "norm1": L.norm_spec(cfg),
             "attn": L.attn_specs(cfg),
             "norm2": L.norm_spec(cfg),
-            "mlp": L.mlp_specs(cfg),
         }
+        if cfg.family == "moe":
+            layer["moe"] = L.moe_specs(cfg)
+        else:
+            layer["mlp"] = L.mlp_specs(cfg)
         return {
             "embed": ArraySpec((v, d), cfg.dtype, ("vocab", "embed")),
             "layers": _stack_specs(layer, cfg.n_layers),
@@ -124,6 +129,9 @@ class LM:
         )
         x = x + attn_out
         h = L.norm_apply(p["norm2"], x, cfg)
+        if cfg.family == "moe":
+            out, _aux = L.moe_apply(p["moe"], h, cfg, div=div)  # serving drops the aux loss
+            return x + out, kv
         return x + L.mlp_apply(p["mlp"], h, cfg, div=div), kv
 
     # -- serving -----------------------------------------------------------------

@@ -1,5 +1,6 @@
 """Batched serving engine with slot-based continuous batching (counterpart of
-the dense engine of ``repro.serve.engine``).
+the slot engine of ``repro.serve.engine``), for the dense and MoE LMs alike:
+the model carries the difference.
 
 ``n_slots`` sequences share one stacked KV cache. New requests are admitted
 into free slots between decode steps, so the decode GEMMs stay at a steady
@@ -144,8 +145,8 @@ class EngineCore:
 
 
 class ServeEngine(EngineCore):
-    """Dense slot engine: ``n_slots`` sequences share one stacked KV cache
-    out to ``max_seq``."""
+    """Slot engine: ``n_slots`` sequences share one stacked KV cache out to
+    ``max_seq``."""
 
     def __init__(
         self,

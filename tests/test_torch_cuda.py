@@ -18,13 +18,14 @@ import pytest
 import torch
 
 from repro_torch.configs import get_reduced
-from repro_torch.core.gemm import gemm
+from repro_torch.core.gemm import gemm, gemm_grouped
 from repro_torch.core.op import Epilogue
-from repro_torch.core.policies import ALL_POLICIES, ALL_SK, HYBRIDS, TileConfig
+from repro_torch.core.policies import ALL_POLICIES, ALL_SK, DP, HYBRIDS, TileConfig
 from repro_torch.core.workpart import GemmShape, partition
 from repro_torch.kernels import common
 from repro_torch.kernels.dp.dp_gemm import dp_gemm_region
 from repro_torch.kernels.streamk import ops
+from repro_torch.kernels.streamk.grouped import gemm_grouped_streamk, gemm_grouped_streamk_plain
 from repro_torch.kernels.streamk.streamk_gemm import streamk_fixup, streamk_phase1
 from repro_torch.models.lm import LM
 from repro_torch.serve.engine import ServeConfig, ServeEngine
@@ -94,7 +95,8 @@ def test_cuda_launch_counters_count_each_kernel(cuda_device):
     with common.count_launches() as log:
         ops.gemm(a, b, policy=HYBRIDS[0], cfg=cfg, g=4)
     assert log == ["streamk_phase1", "streamk_fixup", "dp_gemm_region"]
-    assert common.LAUNCHES == {"dp_gemm_region": 1, "streamk_phase1": 1, "streamk_fixup": 1}
+    assert common.LAUNCHES == dict(dict.fromkeys(common.LAUNCHES, 0), dp_gemm_region=1,
+                                   streamk_phase1=1, streamk_fixup=1)
     common.reset_launch_counts()
 
 
@@ -136,4 +138,93 @@ def test_cuda_served_tokens_match_torch_backend(cuda_device):
         for p in prompts:
             engine.submit(p, max_new_tokens=6)
         tokens[backend] = {r.uid: r.out_tokens for r in engine.run()}
+    assert tokens["cuda"] == tokens["torch"] and len(tokens["cuda"]) == 2
+
+
+# ---------------------------------------------------------------------------
+# B5: the grouped kernel
+# ---------------------------------------------------------------------------
+
+
+def _grouped_inputs(g, m, n, k, dtype, seed):
+    r = np.random.default_rng(seed)
+    a = r.normal(size=(g, m, k)).astype(np.float32)
+    b = (r.normal(size=(g, k, n)) / np.sqrt(k)).astype(np.float32)
+    bias = r.normal(size=(g, n)).astype(np.float32)
+    operand = r.normal(size=(g, m, n)).astype(np.float32)
+    return [torch.from_numpy(x).to(dtype) for x in (a, b, bias, operand)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("pol_idx", range(len(ALL_POLICIES)), ids=[p.name for p in ALL_POLICIES])
+def test_cuda_grouped_matches_plain_version(cuda_device, pol_idx, dtype):
+    """Both forms, ragged sizes with an empty group, rows that are and are
+    not 16-byte aligned, every epilogue stage, g from 6 to 264."""
+    for (g_count, m, n, k), sizes in (((5, 20, 302, 200), (17, 0, 20, 3, 9)),
+                                      ((4, 16, 384, 512), (16, 16, 16, 16))):
+        ta, tb, tbias, top_ = _grouped_inputs(g_count, m, n, k, dtype, seed=8)
+        for cfg in (TileConfig(8, 128, 128), TileConfig(16, 256, 128)):
+            for g in (6, 132, 264):
+                for epi, kw in ((Epilogue(activation="gelu", bias=True), dict(bias=tbias)),
+                                (Epilogue(binary="mul_silu"), dict(operand=top_))):
+                    want = gemm_grouped_streamk_plain(ta, tb, sizes=sizes, out_dtype=dtype,
+                                                      epilogue=epi, **kw)
+                    got = gemm_grouped_streamk(
+                        ta.to(cuda_device), tb.to(cuda_device), policy=ALL_POLICIES[pol_idx],
+                        cfg=cfg, g=g, out_dtype=dtype, epilogue=epi, group_sizes=sizes,
+                        **{key: v.to(cuda_device) for key, v in kw.items()})
+                    _close(got, want, TOL[dtype])
+                    for i, s_ in enumerate(sizes):
+                        assert not got[i, s_:].any()
+
+
+def test_cuda_grouped_streamk_is_bitwise_deterministic(cuda_device):
+    """The olmoe prefill shape under ALL_SK splits tiles between blocks; the
+    last contributor sums the slots in a fixed order: two runs, same bits."""
+    a, b, _, _ = (t.to(cuda_device) for t in _grouped_inputs(64, 16, 1024, 2048,
+                                                               torch.bfloat16, seed=9))
+    cfg = TileConfig(16, 128, 128)
+    ipt, total = 2048 // 128, 64 * 8 * (2048 // 128)
+    assert (-(-total // 132)) % ipt  # a workgroup boundary falls inside a tile
+    outs = [gemm_grouped_streamk(a, b, policy=ALL_SK, cfg=cfg, g=132) for _ in range(2)]
+    assert torch.equal(outs[0], outs[1])
+    _close(outs[0], gemm_grouped_streamk_plain(a, b, sizes=(16,) * 64, out_dtype=a.dtype),
+           TOL[torch.bfloat16])
+
+
+def test_cuda_fused_grouped_dispatch_launches_once(cuda_device):
+    """One fused grouped dispatch is one launch of B5; the loop form is one
+    DP launch per group. With no live row nothing launches."""
+    x, w, _, _ = (t.to(cuda_device) for t in _grouped_inputs(6, 8, 256, 128, torch.float32,
+                                                               seed=10))
+    kw = dict(policy=DP, cfg=TileConfig(8, 128, 128), grid=4)
+    with common.count_launches() as fused:
+        got = gemm_grouped(x, w, **kw)
+    with common.count_launches() as loop:
+        want = gemm_grouped(x, w, fused=False, **kw)
+    assert fused == ["grouped_streamk_dp"]
+    assert loop == ["dp_gemm_region"] * 6
+    _close(got, want, TOL[torch.float32])
+    with common.count_launches() as none:
+        out = gemm_grouped_streamk(x, w, cfg=TileConfig(8, 128, 128), group_sizes=(0,) * 6)
+    assert none == [] and not out.any()
+
+
+def test_cuda_moe_served_tokens_match_torch_backend(cuda_device):
+    """Reduced olmoe-1b-7b in f32 on the card: the engine on the kernels and
+    the engine on library matmuls emit the same greedy tokens."""
+    cfg = dataclasses.replace(get_reduced("olmoe-1b-7b"), dtype="float32")
+    model = LM(cfg)
+    params = model.init_params(cuda_device, torch.Generator(device=cuda_device).manual_seed(0))
+    prompts = [np.array(p, np.int32) for p in ([5, 17, 3, 99, 42, 7], [200, 1, 64])]
+    tokens = {}
+    for backend in ("cuda", "torch"):
+        engine = ServeEngine(model, params, ServeConfig(n_slots=2, max_seq=32, eos=-1),
+                             backend=backend, device=cuda_device)
+        for p in prompts:
+            engine.submit(p, max_new_tokens=6)
+        with common.count_launches() as log:
+            tokens[backend] = {r.uid: r.out_tokens for r in engine.run()}
+        if backend == "cuda":
+            assert {"grouped_streamk_sk", "grouped_streamk_dp"} & set(log)
     assert tokens["cuda"] == tokens["torch"] and len(tokens["cuda"]) == 2

@@ -31,7 +31,7 @@ def test_port_import_leaves_jax_out():
     """A subprocess, because this test process already imported jax."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     code = ("import repro_torch, repro_torch.launch.serve, repro_torch.kernels.streamk.ops, "
-            "sys; assert 'jax' not in sys.modules, 'jax imported'; "
+            "repro_torch.kernels.streamk.grouped, sys; assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]")
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
                          timeout=120)
