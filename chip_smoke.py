@@ -33,23 +33,40 @@ Phases (any failure raises and the script exits non-zero):
      library call computing the same function (``torch.matmul`` for B1, and
      for B2/B3 the whole GEMM they compose; ``torch.bmm`` for B5) and its
      bound (bytes over 3.35 TB/s or operations over 989 TFLOP/s, whichever
-     is larger).
+     is larger);
+   * the quantization ladder (int8 and packed int4 weights with their
+     per-output-channel scales; int8 activations with per-row scales and an
+     int32 MAC): B1-B3 through ``ops.gemm`` and phase by phase, and both B5
+     forms, on each of the five operand pairs (f32 or bf16 x int8, int8 x
+     int8, f32 or bf16 x int4), every policy x g in {66, 132, 264} x the
+     epilogues, at the sweep shapes plus an odd K and at the grouped shapes
+     (ragged sizes, odd K), against the plain versions and
+     dequantize-then-matmul; the Stream-K forms bitwise deterministic; then
+     each served rung's kernels timed at the decode (M = 4) and prompt
+     (M = 57) shapes, beside the plain version, the bound at the int8/int4
+     widths of B, and a yardstick (``torch._int_mm`` for int8 x int8, its M
+     padded to a size it takes; else ``torch.matmul``/``torch.bmm`` on the
+     dequantized bf16 weight, a dense yardstick).
 3. Serve, through ``ServeEngine`` on the ``cuda`` backend, 4 slots, max_seq
    256, 4 seeded requests of 16-64 tokens, 8 new tokens each, with seeded
    random weights: granite-8b at full width (36 layers, d_model 4096, bf16,
    ~16.5 GB), then, its weights freed, olmoe-1b-7b at full width (16 layers,
-   d_model 2048, 64 experts top-8, bf16, ~13.8 GB). For each, the launch
-   counters are zeroed just before the run and read just after; every
-   kernel the selections call for must have launched, and each fused
-   grouped dispatch must be exactly one B5 launch (48 per olmoe decode
-   step). The first request's prefill logits are held against the ``torch``
-   backend on the same weights (for olmoe the routing choices the two
-   backends made differently are counted), and so are the logits of a
-   planted fault, which must fail that limit: granite's DP GEMMs, or
-   olmoe's grouped GEMMs, with their last K chunk dropped. A warm decode
-   step is then broken down (wall time, host enqueue time, device busy time
-   from ``torch.profiler``) under the ``cuda`` backend and, as the
-   yardstick, the ``torch`` backend.
+   d_model 2048, 64 experts top-8, bf16, ~13.8 GB); each dense, then on each
+   rung (``int8``, ``int8-dynamic``, ``int4``), quantized from the same bf16
+   weights, each quantized tree freed before the next. For each run, the
+   launch counters are zeroed just before it and read just after; every
+   kernel (and rung) the selections call for must have launched, every
+   quantized projection must have run on its rung, and each fused grouped
+   dispatch must be exactly one B5 launch (48 per olmoe decode step). The
+   first request's prefill logits are held against the ``torch`` backend on
+   the same weights (for olmoe the routing choices the two backends made
+   differently are counted), and so are the logits of a planted fault,
+   which must read at least 3 times that limit: granite's DP GEMMs, or
+   olmoe's grouped GEMMs, with their last K chunk dropped. A quantized
+   run's logits are also compared with the dense run's (quantization error,
+   reported, not limited). A warm decode step is then broken down (wall
+   time, host enqueue time, device busy time from ``torch.profiler``) under
+   the ``cuda`` backend and, as the yardstick, the ``torch`` backend.
 
 Tolerances: a kernel output ``x`` agrees with its reference ``r`` when
 ``max|x - r| <= tol * max(1, max|r|)``: 1e-4 for f32 inputs (f32 sums in
@@ -59,11 +76,15 @@ layers of bf16 activations rounded at different points of two summation
 orders (a sound run reads about 1.7e-2 on the seeded weights), and 5e-2 for
 olmoe-1b-7b, whose sound run reads 2.3e-2: there the same roundings also
 flip near-tied top-8 routing choices (the run counts them), and its planted
-fault reads 0.18, 3.7 times the limit.
+fault reads 0.18, 3.7 times the limit. The quantized kernels keep 1e-4 for
+f32 activations (the int8 -> f32 widening is exact and the int8 x int8
+k-steps are exact int32 sums) and 2e-2 for bf16 ones; the quantized runs'
+logits limits are ``QUANT_LOGITS_TOL``, and every planted fault must read at
+least 3 times its limit.
 
-The line before the last is the ``kernels`` JSON; the last line is
-``{"ok": true, "device": {...}}``. Details go to
-``chiprun_out/chip_smoke.json``.
+The line before the last is the ``kernels`` JSON: every kernel, and one entry
+per (kernel, rung) that a served path ran; the last line is ``{"ok": true,
+"device": {...}}``. Details go to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -103,15 +124,40 @@ REPLACES = {
     "grouped_streamk_sk": "src/repro/kernels/streamk/grouped.py:93",
     "grouped_streamk_dp": "src/repro/kernels/streamk/grouped.py:156",
 }
-SOURCE = "src/repro_torch/csrc/stream_k.cu"
-GROUPED_SOURCE = "src/repro_torch/csrc/grouped.cuh"  # instantiated by grouped.cu, grouped_bf16.cu
+SOURCE = "src/repro_torch/csrc/stream_k.cuh"  # instantiated by stream_k.cu and quant_*.cu
+GROUPED_SOURCE = "src/repro_torch/csrc/grouped.cuh"  # by grouped.cu, grouped_bf16.cu, quant_*.cu
 SOURCES = dict.fromkeys(("dp_gemm_region", "streamk_phase1", "streamk_fixup"), SOURCE)
 SOURCES.update(dict.fromkeys(("grouped_streamk_sk", "grouped_streamk_dp"), GROUPED_SOURCE))
+PEAK_INT8 = 1979e12  # OP/s, H100 SXM dense int8 tensor-core peak (data sheet)
+#: the quantization ladder as served (bf16 activations): rung -> (bits, act_bits, the source
+#: that instantiates its B1, B2 and B5)
+RUNGS = {"int8": (8, None, "src/repro_torch/csrc/quant_bf16_i8.cu"),
+         "int8-dynamic": (8, 8, "src/repro_torch/csrc/quant_i8_i8.cu"),
+         "int4": (4, None, "src/repro_torch/csrc/quant_bf16_i4.cu")}
+#: the quantized sweep's operand pairs: (name, activation dtype, weight bits, int8
+#: activations, tolerance); f32 activations keep 1e-4 (the int8 -> f32 widening is exact and
+#: the int8 x int8 k-steps are exact int32 sums), bf16 ones 2e-2
+QUANT_PAIRS = (("f32*int8", "float32", 8, False, 1e-4), ("bf16*int8", "bfloat16", 8, False, 2e-2),
+               ("int8*int8", "float32", 8, True, 1e-4), ("f32*int4", "float32", 4, False, 1e-4),
+               ("bf16*int4", "bfloat16", 4, False, 2e-2))
 #: served prefill logits vs the torch backend, x max|logit|, per model: a
 #: sound granite-8b run reads 1.7e-2 and its planted fault 0.39; a sound
 #: olmoe-1b-7b run reads 2.3e-2 (bf16 roundings that differ flip about a
 #: fifth of its near-tied top-8 choices) and its planted fault 0.18
 LOGITS_TOL = {"granite-8b": 3e-2, "olmoe-1b-7b": 5e-2}
+#: the limits of the quantized runs, against the torch backend on the same quantized weights,
+#: from their sound readings on the H100 (x max|logit|): granite-8b reads 1.96e-2 (int8), 0
+#: (int8-dynamic: the per-row int8 requantization of every activation absorbs the two
+#: backends' roundings, so the logits come out bit-identical) and 1.90e-2 (int4), so it keeps
+#: its dense 3e-2; olmoe-1b-7b reads 4.46e-2, 0 and 8.17e-2, its routing flips compounding on
+#: the coarser weights, so 7e-2, 5e-2 (its dense limit) and 1.2e-1. The planted fault of a
+#: quantized run, every DP and grouped GEMM on the rung dropping its last K chunk, must read
+#: at least 3 times the limit.
+QUANT_LOGITS_TOL = {
+    ("granite-8b", "int8"): 3e-2, ("granite-8b", "int8-dynamic"): 3e-2,
+    ("granite-8b", "int4"): 3e-2, ("olmoe-1b-7b", "int8"): 7e-2,
+    ("olmoe-1b-7b", "int8-dynamic"): 5e-2, ("olmoe-1b-7b", "int4"): 1.2e-1,
+}
 N_SLOTS, MAX_SEQ = 4, 256
 
 
@@ -366,8 +412,9 @@ def _rotating(b, min_bytes=200 * 2**20):
     return [b.clone() for _ in range(copies)]
 
 
-def _sk_region_bytes_ops(part, m, n, k, in_bytes):
-    """What the SK region's real data (rows < M, columns < N) needs:
+def _sk_region_bytes_ops(part, m, n, k, a_bytes, b_bytes):
+    """What the SK region's real data (rows < M, columns < N) needs, for A
+    and B elements of ``a_bytes`` and ``b_bytes`` (0.5 for packed int4):
     (B2 bytes, B2 operations, partial bytes, C elements, B3 additions).
     B2 reads each A row and B column of the region once, writes each
     contributor's partial of each real element once and does 2 operations
@@ -386,7 +433,7 @@ def _sk_region_bytes_ops(part, m, n, k, in_bytes):
         adds += (c.num_contributors - 1) * r * q
     a_rows = sum(max(0, min(m, (t + 1) * cfg.bm) - t * cfg.bm) for t in rows)
     b_cols = sum(max(0, min(n, (t + 1) * cfg.bn) - t * cfg.bn) for t in cols)
-    read = (a_rows + b_cols) * k * in_bytes
+    read = (a_rows * a_bytes + b_cols * b_bytes) * k
     return read + slot_bytes, 2 * elems * k, slot_bytes, elems, adds
 
 
@@ -453,7 +500,7 @@ def time_kernels(gen):
     # one call: the plain sweep issues hundreds of small launches per call
     plain2, plain_ev2 = time_ms(lambda: streamk_phase1_plain(a, bs[next(it) % len(bs)], part),
                                 iters=1)
-    nbytes, ops, slot_bytes, elems, adds = _sk_region_bytes_ops(part, m, n, k, 2)
+    nbytes, ops, slot_bytes, elems, adds = _sk_region_bytes_ops(part, m, n, k, 2, 2)
     bnd2, by2 = bound_ms(nbytes, ops)
     # no single library call computes B2's partials or B3's reduction: their
     # yardstick is torch.matmul of the whole GEMM they compose, beside the
@@ -709,35 +756,440 @@ def grouped_entry(rows, name):
 
 
 # ---------------------------------------------------------------------------
+# Phase 2c: the quantization ladder, B1-B3 and B5 on int8 and int4 weights
+# ---------------------------------------------------------------------------
+
+
+def _quant_operands(m, n, k, pair, gen, lead=()):
+    """One operand pair of the ladder on the card: (a, b values, quantized
+    kwargs, a_ref, w_ref, out dtype, tol). The weight is quantized per
+    output channel (``quantize_weight``); int8 activations per row with
+    their scales. ``a_ref @ w_ref`` is the dequantize-then-matmul reference
+    in f32."""
+    import torch
+
+    from repro_torch.core.quant import quantize_activations, quantize_weight
+
+    _, act, bits, act_q, tol = pair
+    a = torch.randn(*lead, m, k, generator=gen, device="cuda").to(getattr(torch, act))
+    q = quantize_weight(torch.randn(*lead, k, n, generator=gen, device="cuda") / math.sqrt(k),
+                        bits=bits)
+    kw = dict(scale=q.scales, b_bits=bits)
+    a_ref = a.float()
+    if act_q:
+        a, kw["scale_a"] = quantize_activations(a)
+        a_ref = a.float() * kw["scale_a"][..., None]
+    return a, q.values, kw, a_ref, q.dequantize(), getattr(torch, act), tol
+
+
+#: the quantized sweep's shapes: the dense sweep's, and one with an odd K (int4's zero pad
+#: nibble) whose rows are not 16-byte aligned
+QUANT_SWEEP_SHAPES = SWEEP_SHAPES + ((13, 400, 331),)
+
+
+def quant_sweep(gen):
+    """B1-B3 on every pair of the ladder: all policies x g in {66, 132, 264} x
+    epilogues {none, mul_silu, bias+gelu} at each quantized sweep shape,
+    through ``ops.gemm`` against dequantize-then-matmul, and at g 66 and 132
+    phase by phase against the plain versions (B2's partials, B3's and B1's
+    C). The Stream-K composition is bitwise deterministic on every pair."""
+    import torch
+
+    from repro_torch.core.gemm import dtype_name
+    from repro_torch.core.op import Epilogue, GemmOp
+    from repro_torch.core.policies import ALL_POLICIES, ALL_SK
+    from repro_torch.core.selector import default_selector
+    from repro_torch.core.workpart import GemmShape, partition
+    from repro_torch.kernels.dp.dp_gemm import dp_gemm_region, dp_gemm_region_plain
+    from repro_torch.kernels.streamk import ops
+    from repro_torch.kernels.streamk.streamk_gemm import (
+        streamk_fixup, streamk_fixup_plain, streamk_phase1, streamk_phase1_plain,
+    )
+
+    errs = {}
+    sel = default_selector("cuda")
+    cases = bitwise = 0
+    for (m, n, k), pair in ((shape, pair) for shape in QUANT_SWEEP_SHAPES for pair in QUANT_PAIRS):
+        a, b, qkw, a_ref, w_ref, out, tol = _quant_operands(m, n, k, pair, gen)
+        bits = qkw["b_bits"]
+        scales = {key: v for key, v in qkw.items() if key != "b_bits"}
+        in_dtype = f"{dtype_name(a.dtype)}*int{bits}"
+        cfg = sel.select_op(GemmOp.plain(m, n, k, in_dtype=in_dtype,
+                                         out_dtype=dtype_name(out))).cfg
+        ref_acc = a_ref @ w_ref
+        bias = torch.randn(n, generator=gen, device="cuda").to(out)
+        operand = torch.randn(m, n, generator=gen, device="cuda").to(out)
+        for epi_name, epi, kw in (
+            ("none", Epilogue(), {}),
+            ("mul_silu", Epilogue(binary="mul_silu"), {"operand": operand}),
+            ("bias+gelu", Epilogue(activation="gelu", bias=True), {"bias": bias}),
+        ):
+            want = epi.apply(ref_acc, **kw).to(out)
+            for pol in ALL_POLICIES:
+                for g in (66, 132, 264):
+                    what = f"{m}x{n}x{k} {pair[0]} {pol.name} g={g} {cfg.name} {epi_name}"
+                    part = partition(GemmShape(m, n, k), cfg, g, pol)
+                    c = ops.gemm(a, b, policy=pol, cfg=cfg, g=g, out_dtype=out, epilogue=epi,
+                                 **qkw, **kw)
+                    key = f"gemm {pair[0]}"
+                    errs[key] = max(errs.get(key, 0.0), close(c, want, tol, what))
+                    cases += 1
+                    if g == 264:  # the composition only: the phases are held at 66 and 132
+                        continue
+                    c_k = torch.zeros(m, n, dtype=out, device="cuda")
+                    c_p = torch.zeros(m, n, dtype=out, device="cuda")
+                    if part.sk_tiles:
+                        p_k = streamk_phase1(a, b, part, b_bits=bits)
+                        p_p = streamk_phase1_plain(a, b, part, b_bits=bits)
+                        used = _used_slots(p_k, part)
+                        key = f"streamk_phase1 {pair[0]}"
+                        errs[key] = max(errs.get(key, 0.0), close(
+                            torch.where(used, p_k, 0.0), torch.where(used, p_p, 0.0), tol,
+                            what + " B2"))
+                        streamk_fixup(p_k, part, c_k, epilogue=epi, **scales, **kw)
+                        streamk_fixup_plain(p_k, part, c_p, epilogue=epi, **scales, **kw)
+                        key = f"streamk_fixup {pair[0]}"
+                        errs[key] = max(errs.get(key, 0.0), close(c_k, c_p, tol, what + " B3"))
+                    if part.dp_tiles:
+                        dp_gemm_region(a, b, cfg, c=c_k, tile_offset=part.sk_tiles, g=g,
+                                       epilogue=epi, **qkw, **kw)
+                        dp_gemm_region_plain(a, b, cfg, c_p, tile_offset=part.sk_tiles,
+                                             epilogue=epi, **qkw, **kw)
+                        key = f"dp_gemm_region {pair[0]}"
+                        errs[key] = max(errs.get(key, 0.0), close(c_k, c_p, tol, what + " B1"))
+        runs = [ops.gemm(a, b, policy=ALL_SK, cfg=cfg, g=132, out_dtype=out, **qkw)
+                for _ in range(2)]
+        if not torch.equal(runs[0], runs[1]):
+            raise AssertionError(f"{m}x{n}x{k} {pair[0]}: B2+B3 not bitwise deterministic")
+        bitwise += 1
+    torch.cuda.synchronize()
+    return errs, cases, bitwise
+
+
+#: the quantized grouped sweep's shapes: olmoe-1b-7b's expert shapes, the small unaligned
+#: one, and the same with an odd K
+QUANT_GROUPED_SHAPES = GROUPED_SHAPES + (GROUPED_RAGGED, GROUPED_RAGGED[:3] + (201,))
+
+
+def quant_sweep_grouped(gen):
+    """B5 on every pair of the ladder: every policy x g in {66, 132, 264} x
+    epilogues {none, gelu, bias, mul_silu} x group sizes {full, ragged with
+    empty groups}, against the plain version and the per-group
+    dequantize-then-matmul reference; rows past a group's size stay 0; the
+    Stream-K form with split tiles is bitwise deterministic."""
+    import torch
+
+    from repro_torch.core.op import Epilogue
+    from repro_torch.core.policies import ALL_POLICIES, ALL_SK
+    from repro_torch.kernels.streamk.grouped import (
+        gemm_grouped_streamk, gemm_grouped_streamk_plain,
+    )
+
+    errs = {}
+    cases = bitwise = 0
+    rng = np.random.default_rng(2)
+    for (gc, m, n, k), pair in ((shape, pair) for shape in QUANT_GROUPED_SHAPES
+                                for pair in QUANT_PAIRS):
+        a, b, qkw, a_ref, w_ref, out, tol = _quant_operands(m, n, k, pair, gen, lead=(gc,))
+        cfg = grouped_pick(gc, m, n, k, out).cfg
+        bias = torch.randn(gc, n, generator=gen, device="cuda").to(out)
+        operand = torch.randn(gc, m, n, generator=gen, device="cuda").to(out)
+        ragged = (0, m) + tuple(int(s) for s in rng.integers(0, m + 1, size=gc - 2))
+        for sizes in ((m,) * gc, ragged):
+            dead = (torch.arange(m, device="cuda")[None, :]
+                    >= torch.tensor(sizes, device="cuda")[:, None])[:, :, None]
+            for epi, kw in ((Epilogue(), {}), (Epilogue(activation="gelu"), {}),
+                            (Epilogue(bias=True), {"bias": bias}),
+                            (Epilogue(binary="mul_silu"), {"operand": operand})):
+                what = f"B5 {gc}x{m}x{n}x{k} {pair[0]} {cfg.name} {epi.name} sizes={sizes}"
+                want = gemm_grouped_streamk_plain(a, b, sizes=sizes, out_dtype=out,
+                                                  epilogue=epi, bk=cfg.bk, **qkw, **kw)
+                ref = torch.zeros_like(want)
+                for i, s in enumerate(sizes):
+                    if s:
+                        ref[i, :s] = epi.apply(
+                            a_ref[i, :s] @ w_ref[i],
+                            bias=None if "bias" not in kw else bias[i],
+                            operand=None if "operand" not in kw else operand[i, :s],
+                        ).to(out)
+                close(want, ref, tol, what + " plain vs dequantize-then-matmul")
+                for pol in ALL_POLICIES:
+                    for g in (66, 132, 264):
+                        got = gemm_grouped_streamk(a, b, policy=pol, cfg=cfg, g=g, out_dtype=out,
+                                                   epilogue=epi, group_sizes=sizes, **qkw, **kw)
+                        key = f"{_grouped_kernel_name(pol)} {pair[0]}"
+                        label = f"{what} {pol.name} g={g}"
+                        errs[key] = max(errs.get(key, 0.0), close(got, want, tol, label),
+                                        close(got, ref, tol, label + " vs dequantize"))
+                        if torch.where(dead, got, 0).abs().max().item() != 0:
+                            raise AssertionError(f"{label}: rows past a group's size are not 0")
+                        cases += 1
+            for g in (66, 132, 264):
+                if _splits_tiles(sizes, n, k, cfg, g):
+                    c1, c2 = (gemm_grouped_streamk(a, b, policy=ALL_SK, cfg=cfg, g=g,
+                                                   out_dtype=out, group_sizes=sizes, **qkw)
+                              for _ in range(2))
+                    if not torch.equal(c1, c2):
+                        raise AssertionError(f"B5 {gc}x{m}x{n}x{k} {pair[0]} g={g}: the "
+                                             "Stream-K form is not bitwise deterministic")
+                    bitwise += 1
+    torch.cuda.synchronize()
+    if not bitwise:
+        raise AssertionError("no quantized B5 case split a tile: the hand-off went untested")
+    return errs, cases, bitwise
+
+
+def _int_mm_yardstick(a, b):
+    """``torch._int_mm`` for an int8 x int8 product, where its shape rules
+    allow: (call, label). It takes more than 16 rows, so a decode M is
+    padded to the smallest size it accepts; None when none does."""
+    import torch
+
+    m, k = a.shape
+    tried = []
+    for mp in sorted({max(m, 17), 24, 32, 64}):
+        if mp < m:
+            continue
+        a_p = torch.zeros(mp, k, dtype=torch.int8, device=a.device)
+        a_p[:m] = a
+        for b_lay, lay in ((b, "row-major B"), (b.t().contiguous().t(), "column-major B")):
+            try:
+                torch._int_mm(a_p, b_lay)
+            except RuntimeError as e:
+                tried.append(f"M={mp} {lay}: {str(e).splitlines()[0][:120]}")
+                continue
+            pad = f", M padded {m} -> {mp}" if mp != m else ""
+            return (lambda a_p=a_p, b_lay=b_lay: torch._int_mm(a_p, b_lay),
+                    f"torch._int_mm ({lay}{pad})")
+    log(f"  torch._int_mm refused every shape tried: {tried}")
+    return None, None
+
+
+def _quant_bound(m, n, k, gc, a_bytes, b_bytes, act_q, peak):
+    """(bound ms, by) of one quantized GEMM (gc groups): each input read
+    once (A, B at its width, the f32 scales), C written once in bf16."""
+    nbytes = gc * (m * k * a_bytes + k * n * b_bytes + n * 4 + (m * 4 if act_q else 0)
+                   + m * n * 2)
+    return bound_ms(nbytes, 2 * gc * m * n * k, peak)
+
+
+def time_quant(gen):
+    """Each rung's kernels at the decode (M = 4) and prompt (M = 57) shapes
+    of the served runs: B1 at mlp.gate (N 14336, K 4096), B2 and B3 at
+    mlp.out (N 4096, K 14336) and B5 at olmoe-1b-7b's expert shapes; device
+    and event ms beside the plain version, the bound (the int8 and int4
+    widths of B) and a library yardstick: ``torch._int_mm`` for int8 x int8
+    B1-B3, else ``torch.matmul``/``torch.bmm`` on the dequantized bf16
+    weight, a dense yardstick that reads 2 bytes per weight."""
+    import torch
+
+    from repro_torch.core.gemm import dtype_name
+    from repro_torch.core.op import GemmOp
+    from repro_torch.core.policies import ALL_SK, DP, PolicyKind
+    from repro_torch.core.quant import quantize_activations, quantize_weight
+    from repro_torch.core.selector import default_selector
+    from repro_torch.core.workpart import GemmShape, partition
+    from repro_torch.kernels.dp.dp_gemm import dp_gemm_region, dp_gemm_region_plain
+    from repro_torch.kernels.streamk import ops as sk_ops
+    from repro_torch.kernels.streamk.grouped import (
+        gemm_grouped_streamk, gemm_grouped_streamk_plain,
+    )
+    from repro_torch.kernels.streamk.streamk_gemm import (
+        streamk_fixup, streamk_fixup_plain, streamk_phase1, streamk_phase1_plain,
+    )
+
+    sel = default_selector("cuda")
+    rows = []
+    it = iter(range(10**9))
+    for rung, (bits, act_bits, _) in RUNGS.items():
+        act_q = act_bits == 8
+        a_bytes, b_bytes = (1 if act_q else 2), (0.5 if bits == 4 else 1)
+        peak = PEAK_INT8 if act_q else PEAK_BF16
+        in_dtype = f"{'int8' if act_q else 'bfloat16'}*int{bits}"
+
+        def operands(m, n, k, lead=()):
+            a = torch.randn(*lead, m, k, generator=gen, device="cuda").to(torch.bfloat16)
+            q = quantize_weight(torch.randn(*lead, k, n, generator=gen, device="cuda")
+                                / math.sqrt(k), bits=bits)
+            kw = dict(scale=q.scales, b_bits=bits)
+            a_dense = a
+            if act_q:
+                a, kw["scale_a"] = quantize_activations(a)
+            return a, a_dense, q, kw
+
+        def timed(name, shape, policy, cfg, g, kernel, plain, err, bnd, by, lib, lib_label,
+                  plain_iters=3):
+            ms, ev = time_ms(kernel)
+            plain_ms, plain_ev = time_ms(plain, iters=plain_iters)
+            lib_ms, lib_ev = time_ms(lib) if lib is not None else (None, None)
+            rows.append(dict(kernel=name, rung=rung, shape=list(shape), policy=policy,
+                             tile=cfg.name, g=g, max_abs_err=err, ms=ms, event_ms=ev,
+                             plain_ms=plain_ms, plain_event_ms=plain_ev, bound_ms=bnd,
+                             bound_by=by, library_ms=lib_ms, library_event_ms=lib_ev,
+                             library_of=lib_label))
+            log(f"  {name}[{rung}] {'x'.join(map(str, shape))} {policy}/{cfg.name} g={g}: "
+                f"device {ms:.4f} ms, events {ev:.4f} ms; plain {plain_ms:.4f} ms; "
+                f"{lib_label} {lib_ms if lib_ms is None else round(lib_ms, 5)} ms; "
+                f"bound {bnd:.5f} ms by {by}")
+
+        for m in (4, 57):
+            # B1 at mlp.gate ------------------------------------------------------
+            n, k = 14336, 4096
+            a, a_dense, q, kw = operands(m, n, k)
+            s = sel.select_op(GemmOp.plain(m, n, k, in_dtype=in_dtype, out_dtype="bfloat16"))
+            pol = "dp" if s.policy.kind == PolicyKind.DP else f"dp (pick {s.policy.name})"
+            c = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
+            c_p = torch.empty_like(c)
+            err = close(dp_gemm_region(a, q.values, s.cfg, c=c, g=s.g, **kw),
+                        dp_gemm_region_plain(a, q.values, s.cfg, c_p, **kw), 2e-2,
+                        f"B1[{rung}] timing")
+            vs = _rotating(q.values)
+            w_bf16 = q.dequantize(torch.bfloat16)
+            if act_q:
+                lib, label = _int_mm_yardstick(a, q.values)
+            else:
+                ws = _rotating(w_bf16)
+                lib, label = (lambda: torch.matmul(a_dense, ws[next(it) % len(ws)]),
+                              "torch.matmul on the dequantized bf16 weight (dense yardstick)")
+            bnd, by = _quant_bound(m, n, k, 1, a_bytes, b_bytes, act_q, peak)
+            timed("dp_gemm_region", (m, n, k), pol, s.cfg, s.g,
+                  lambda: dp_gemm_region(a, vs[next(it) % len(vs)], s.cfg, c=c, g=s.g, **kw),
+                  lambda: dp_gemm_region_plain(a, vs[next(it) % len(vs)], s.cfg, c_p, **kw),
+                  err, bnd, by, lib, label)
+
+            # B2 and B3 at mlp.out ------------------------------------------------
+            n, k = 4096, 14336
+            a, a_dense, q, kw = operands(m, n, k)
+            scales = {key: v for key, v in kw.items() if key != "b_bits"}
+            s = sel.select_op(GemmOp.plain(m, n, k, in_dtype=in_dtype, out_dtype="bfloat16"))
+            policy = s.policy if s.policy.is_streamk else ALL_SK
+            part = partition(GemmShape(m, n, k), s.cfg, s.g, policy)
+            if not part.sk_tiles:
+                part, policy = partition(GemmShape(m, n, k), s.cfg, s.g, ALL_SK), ALL_SK
+            pol = policy.name if policy == s.policy else f"{policy.name} (pick {s.policy.name})"
+            p_k = streamk_phase1(a, q.values, part, b_bits=bits)
+            used = _used_slots(p_k, part)
+            err2 = close(torch.where(used, p_k, 0.0), torch.where(
+                used, streamk_phase1_plain(a, q.values, part, b_bits=bits), 0.0), 2e-2,
+                f"B2[{rung}] timing")
+            vs = _rotating(q.values)
+            if act_q:
+                lib, label = _int_mm_yardstick(a, q.values)
+                label = label and f"{label} of the whole GEMM (B2 + B3 compose it)"
+            else:
+                ws = _rotating(q.dequantize(torch.bfloat16))
+                lib, label = (lambda: torch.matmul(a_dense, ws[next(it) % len(ws)]),
+                              "torch.matmul on the dequantized bf16 weight, the whole GEMM "
+                              "(dense yardstick)")
+            nbytes, ops, slot_bytes, elems, adds = _sk_region_bytes_ops(part, m, n, k, a_bytes,
+                                                                        b_bytes)
+            bnd, by = bound_ms(nbytes, ops, peak)
+            timed("streamk_phase1", (m, n, k), pol, s.cfg, s.g,
+                  lambda: streamk_phase1(a, vs[next(it) % len(vs)], part, b_bits=bits),
+                  lambda: streamk_phase1_plain(a, vs[next(it) % len(vs)], part, b_bits=bits),
+                  err2, bnd, by, lib, label, plain_iters=1)
+            rows[-1]["composed_ms"] = time_ms(lambda: sk_ops.gemm(
+                a, vs[next(it) % len(vs)], policy=policy, cfg=s.cfg, g=s.g,
+                out_dtype=torch.bfloat16, **kw))[0]
+            c = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
+            c_p = torch.empty_like(c)
+            err3 = close(streamk_fixup(p_k, part, c, rung=rung, **scales),
+                         streamk_fixup_plain(p_k, part, c_p, **scales), 2e-2,
+                         f"B3[{rung}] timing")
+            bnd3, by3 = bound_ms(slot_bytes + elems * 2 + n * 4 + (m * 4 if act_q else 0),
+                                 adds + elems * (2 if act_q else 1), PEAK_F32)
+            timed("streamk_fixup", (m, n, k), pol, s.cfg, s.g,
+                  lambda: streamk_fixup(p_k, part, c, rung=rung, **scales),
+                  lambda: streamk_fixup_plain(p_k, part, c_p, **scales),
+                  err3, bnd3, by3, lib, label)
+
+        # B5 at olmoe-1b-7b's expert shapes, both forms -----------------------------
+        for gc, m, n, k in GROUPED_SHAPES:
+            a, a_dense, q, kw = operands(m, n, k, lead=(gc,))
+            s = default_selector("cuda").select_op(GemmOp(
+                m, n, k, g=gc, kind="grouped", in_dtype=in_dtype, out_dtype="bfloat16",
+                fused=True))
+            want = gemm_grouped_streamk_plain(a, q.values, sizes=(m,) * gc,
+                                              out_dtype=torch.bfloat16, bk=s.cfg.bk, **kw)
+            w_bf16 = q.dequantize(torch.bfloat16)
+            bnd, by = _quant_bound(m, n, k, gc, a_bytes, b_bytes, act_q, peak)
+            for form in (s.policy, ALL_SK if s.policy.kind == PolicyKind.DP else DP):
+                err = close(gemm_grouped_streamk(a, q.values, policy=form, cfg=s.cfg, g=s.g,
+                                                 out_dtype=torch.bfloat16, **kw), want, 2e-2,
+                            f"B5[{rung}] timing {gc}x{m}x{n}x{k} {form.name}")
+                pol = form.name if form == s.policy else f"{form.name} (pick {s.policy.name})"
+                timed(_grouped_kernel_name(form), (gc, m, n, k), pol, s.cfg, s.g,
+                      lambda form=form: gemm_grouped_streamk(
+                          a, q.values, policy=form, cfg=s.cfg, g=s.g, out_dtype=torch.bfloat16,
+                          **kw),
+                      lambda: gemm_grouped_streamk_plain(a, q.values, sizes=(m,) * gc,
+                                                         out_dtype=torch.bfloat16, bk=s.cfg.bk,
+                                                         **kw),
+                      err, bnd, by, lambda: torch.bmm(a_dense, w_bf16),
+                      "torch.bmm on the dequantized bf16 weights (dense yardstick)",
+                      plain_iters=1)
+            del w_bf16
+    return rows
+
+
+def quant_entry(rows, name, rung):
+    """The timing of ``name`` on ``rung`` for the kernels line: at the
+    decode shape where the selector picks it (M = 4, or B5's first expert
+    shape), else the first shape where it ran."""
+    mine = [r for r in rows if r["kernel"] == name and r["rung"] == rung]
+    picked = [r for r in mine if "pick" not in r["policy"]]
+    return dict((picked or mine)[0])
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: serve granite-8b, then olmoe-1b-7b
 # ---------------------------------------------------------------------------
 
 
+#: the rung of a served op, by its input-dtype fingerprint (None: dense)
+RUNG_OF = {"bfloat16*int8": "int8", "int8*int8": "int8-dynamic", "bfloat16*int4": "int4"}
+
+
 def _kernels_of(entry):
+    """The launch counters one logged selection calls for."""
     from repro_torch.core.workpart import GemmShape, partition
+    from repro_torch.kernels.common import launch_name
 
     sel = entry.selection
+    rung = RUNG_OF.get(entry.op.in_dtype)
     if entry.op.fused:
-        return {_grouped_kernel_name(sel.policy)}
+        return {launch_name(_grouped_kernel_name(sel.policy), rung)}
     part = partition(GemmShape(*entry.local_mnk), sel.cfg, sel.g, sel.policy)
     names = set()
     if part.sk_tiles:
-        names |= {"streamk_phase1", "streamk_fixup"}
+        names |= {launch_name("streamk_phase1", rung), launch_name("streamk_fixup", rung)}
     if part.dp_tiles:
-        names.add("dp_gemm_region")
+        names.add(launch_name("dp_gemm_region", rung))
     return names
 
 
-def phase_serve(arch):
-    """Serve ``arch`` at full width on the ``cuda`` backend and check it
-    (see the module docstring)."""
+def _gemm_weight_bytes(params):
+    """Bytes of every GEMM weight: the stacked projections, routers and
+    experts (the norms are (L, D)) and lm_head; a quantized one counts its
+    values and scales."""
+    from repro_torch.core.quant import is_quantized
+
+    def nbytes(t):
+        return t.nbytes if is_quantized(t) else t.numel() * t.element_size()
+
+    return sum(nbytes(t) for t in _leaves(params["layers"]) if t.dim() >= 3) + nbytes(
+        params["lm_head"])
+
+
+def phase_serve(arch, failures):
+    """Serve ``arch`` at full width on the ``cuda`` backend: dense bf16, then
+    on each rung of the quantization ladder, quantized from the same bf16
+    weights (each quantized tree freed before the next). Returns the runs'
+    records by rung ("dense" first); see the module docstring."""
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.core.gemm import gemm_context
-    from repro_torch.kernels.common import LAUNCHES, count_launches, reset_launch_counts
     from repro_torch.models.lm import LM
-    from repro_torch.serve.engine import ServeConfig, ServeEngine
 
     cfg = get_config(arch)
     model = LM(cfg)
@@ -745,14 +1197,43 @@ def phase_serve(arch):
     params = model.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    # every GEMM weight: stacked 2-D projections, routers and experts (the
-    # norms are (L, D)), and lm_head
-    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params["layers"])
-                       if t.dim() >= 3) + params["lm_head"].numel() * 2
     log(f"{arch} FULL: {n_params / 1e9:.3f} B parameters "
         f"({torch.cuda.memory_allocated() / 1e9:.2f} GB on the card) in "
         f"{time.perf_counter() - t0:.1f}s")
+    runs = {"dense": serve_run(arch, model, params, None, failures)}
+    dense_logits = runs["dense"].pop("logits")
+    for rung, (bits, act_bits, _) in RUNGS.items():
+        t0 = time.perf_counter()
+        qparams, n_quant, n_skipped = model.quantize_weights(params, bits=bits,
+                                                             act_bits=act_bits)
+        torch.cuda.synchronize()
+        quant_s = time.perf_counter() - t0
+        log(f"{arch} {rung}: quantized {n_quant} weight leaves ({n_skipped} skipped) in "
+            f"{quant_s:.1f}s; {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+        runs[rung] = serve_run(arch, model, qparams, rung, failures, dense_logits=dense_logits)
+        runs[rung].update(quantize_s=quant_s, quantized_leaves=n_quant)
+        runs[rung].pop("logits")
+        del qparams
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs
 
+
+def serve_run(arch, model, params, rung, failures, dense_logits=None):
+    """One served run of ``model`` on ``params`` (dense when ``rung`` is
+    None) with its checks: launch counts, logits against the ``torch``
+    backend (a dense run raises past its limit; a quantized run's breach is
+    appended to ``failures``, so every rung reports before the script
+    fails), a planted fault, timings and the decode breakdown."""
+    import torch
+
+    from repro_torch.core.gemm import gemm_context
+    from repro_torch.kernels.common import LAUNCHES, count_launches, reset_launch_counts
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    cfg = model.cfg
+    label = arch if rung is None else f"{arch} [{rung}]"
+    weight_bytes = _gemm_weight_bytes(params)
     n_slots, max_seq = N_SLOTS, MAX_SEQ
     engine = ServeEngine(model, params, ServeConfig(n_slots=n_slots, max_seq=max_seq, eos=-1),
                          backend="cuda")
@@ -763,28 +1244,33 @@ def phase_serve(arch):
     reset_launch_counts()
     done = engine.run()
     torch.cuda.synchronize()
-    launches = dict(LAUNCHES)
+    launches = {name: n for name, n in LAUNCHES.items() if n}
 
     if len(done) != 4 or engine.exhausted:
-        raise AssertionError(f"{arch}: served {len(done)}/4 requests")
+        raise AssertionError(f"{label}: served {len(done)}/4 requests")
     for r in done:
         if len(r.out_tokens) != 8 or not all(0 <= t < cfg.vocab_size for t in r.out_tokens):
-            raise AssertionError(f"{arch} request {r.uid}: bad tokens {r.out_tokens}")
+            raise AssertionError(f"{label} request {r.uid}: bad tokens {r.out_tokens}")
     needed = set()
     for e in engine.selection_log:
         needed |= _kernels_of(e)
-    log(f"launches in the {arch} serve run: {launches}; the selections call for "
-        f"{sorted(needed)}")
+    fingerprints = sorted({e.op.in_dtype for e in engine.selection_log})
+    log(f"launches in the {label} serve run: {launches}; the selections call for "
+        f"{sorted(needed)}; fingerprints {fingerprints}")
     if sum(launches.values()) <= 0:
-        raise AssertionError(f"the {arch} serve run launched no kernel")
+        raise AssertionError(f"the {label} serve run launched no kernel")
     for name in needed:
-        if launches[name] <= 0:
-            raise AssertionError(f"{arch}: {name} was selected but never launched")
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"{label}: {name} was selected but never launched")
+    if rung is not None:
+        unquantized = {e.tag for e in engine.selection_log
+                       if RUNG_OF.get(e.op.in_dtype) != rung and e.tag != "moe.router"}
+        if unquantized:
+            raise AssertionError(f"{label}: {sorted(unquantized)} did not run on the rung")
     grouped = sum(1 for e in engine.selection_log if e.op.fused)
-    b5 = launches["grouped_streamk_sk"] + launches["grouped_streamk_dp"]
+    b5 = sum(n for name, n in launches.items() if name.startswith("grouped_streamk"))
     if b5 != grouped:
-        raise AssertionError(f"{arch}: {b5} B5 launches for {grouped} grouped dispatches")
-
+        raise AssertionError(f"{label}: {b5} B5 launches for {grouped} grouped dispatches")
     # launches of one prefill and one decode step (outside the counted run)
     with count_launches() as pre:
         engine.prefill_logits(prompts[0])
@@ -795,7 +1281,7 @@ def phase_serve(arch):
         model.decode_step(params, scratch_cache, toks, cur)
     b5_per_step = sum(1 for n in dec if n.startswith("grouped_streamk"))
     if cfg.family == "moe" and b5_per_step != 3 * cfg.n_layers:
-        raise AssertionError(f"{arch}: {b5_per_step} B5 launches in a decode step, expected "
+        raise AssertionError(f"{label}: {b5_per_step} B5 launches in a decode step, expected "
                              f"{3 * cfg.n_layers}")
 
     # a warm decode step, broken down; the same step with the torch backend
@@ -809,7 +1295,7 @@ def phase_serve(arch):
             breakdown[backend] = decode_breakdown(step)
     del scratch_cache
     for backend, bd in breakdown.items():
-        log(f"warm decode step, {backend} backend: {bd['step_ms']:.2f} ms wall, "
+        log(f"{label} warm decode step, {backend} backend: {bd['step_ms']:.2f} ms wall, "
             f"{bd['enqueue_ms']:.2f} ms host enqueue, device busy {bd['device_busy_ms']} ms "
             f"(GEMM kernels {bd['gemm_kernels_ms']} ms), idle share {bd['idle_share']}")
         for name, ms in bd["top_kernels"]:
@@ -818,27 +1304,37 @@ def phase_serve(arch):
 
     # the first request's prefill logits against the torch backend; for a
     # MoE model, count the routing choices the two backends made differently
-    tol = LOGITS_TOL[arch]
+    tol = LOGITS_TOL[arch] if rung is None else QUANT_LOGITS_TOL[arch, rung]
     with routing_log() as routes_cuda:
         got = engine.prefill_logits(prompts[0])
     with routing_log() as routes_torch, gemm_context(backend="torch"):
         want, _ = model.prefill(params, torch.as_tensor(prompts[0], device="cuda")[None])
     flips = routing_flips(routes_cuda, routes_torch)
     if got.shape != (1, 1, cfg.vocab_size) or not torch.isfinite(got).all():
-        raise AssertionError(f"{arch}: bad prefill logits {tuple(got.shape)}")
+        raise AssertionError(f"{label}: bad prefill logits {tuple(got.shape)}")
     diff = (got.float() - want.float()).abs().max().item()
     scale = want.float().abs().max().item()
-    if diff > tol * scale:
-        raise AssertionError(f"{arch} prefill logits: max|diff| {diff:.4f} > {tol} * {scale:.4f} "
-                             f"(routing flips: {flips})")
     same_top = int(got.float().argmax()) == int(want.float().argmax())
     # the same check must catch a kernel that skips a K chunk: B1 under the
-    # DP policy for the dense model, B5 for the MoE model
+    # DP policy for the dense model, B5 for the MoE model; on a rung, every
+    # DP and grouped GEMM of the rung
     fault = planted_fault_diff(model, params, engine.selector, prompts[0], want,
-                               grouped=cfg.family == "moe")
-    if fault <= tol * scale:
-        raise AssertionError(f"{arch}: the logits check missed a planted fault: max|diff| "
-                             f"{fault:.4f} <= {tol} * {scale:.4f}")
+                               grouped=cfg.family == "moe", rung=rung)
+    breaches = []
+    if diff > tol * scale:
+        breaches.append(f"{label} prefill logits: max|diff| {diff:.4f} > {tol} * {scale:.4f} "
+                        f"(routing flips: {flips})")
+    if fault < 3 * tol * scale:
+        breaches.append(f"{label}: a planted fault must read at least 3x the limit: max|diff| "
+                        f"{fault:.4f} < 3 * {tol} * {scale:.4f}")
+    if breaches and rung is None:
+        raise AssertionError("; ".join(breaches))
+    failures.extend(breaches)
+    # quantization error, reported and not limited: the rung's logits
+    # against the dense bf16 run's on the same prompt
+    vs_dense = None
+    if dense_logits is not None:
+        vs_dense = (got.float() - dense_logits.float()).abs().max().item()
 
     tm = engine.timing
     step_ms = tm["decode_s"] / max(tm["decode_steps"], 1) * 1e3
@@ -848,9 +1344,12 @@ def phase_serve(arch):
     for e in engine.selection_log:
         s = e.selection
         g_part = f"G={e.op.g} " if e.op.kind == "grouped" else ""
-        picks.setdefault(f"{e.tag} {g_part}{e.local_mnk}", f"{s.policy.name}/{s.cfg.name}/g{s.g}")
+        picks.setdefault(f"{e.tag} {g_part}{e.local_mnk} {e.op.in_dtype}",
+                         f"{s.policy.name}/{s.cfg.name}/g{s.g}")
     serve = dict(
-        arch=arch, requests=len(done), prompt_lens=[len(p) for p in prompts],
+        arch=arch, rung=rung, fingerprints=fingerprints, logits=got,
+        logits_vs_dense_max_abs_diff=vs_dense, breaches=breaches,
+        requests=len(done), prompt_lens=[len(p) for p in prompts],
         prefill_tokens=tm["prefill_tokens"], prefill_s=tm["prefill_s"],
         prefill_tok_s=tm["prefill_tokens"] / tm["prefill_s"],
         decode_tokens=tm["decode_tokens"], decode_steps=tm["decode_steps"],
@@ -864,14 +1363,14 @@ def phase_serve(arch):
         selector=dict(lookups=st.lookups, cache_hits=st.cache_hits, fallbacks=st.fallbacks),
         picks=picks, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
     )
-    log(f"{arch} served 4/4: prefill {serve['prefill_tok_s']:.1f} tok/s, decode "
+    log(f"{label} served 4/4: prefill {serve['prefill_tok_s']:.1f} tok/s, decode "
         f"{serve['decode_tok_s']:.1f} tok/s, decode step {step_ms:.2f} ms "
         f"(weight-read floor {floor_ms:.2f} ms)")
     log(f"launches per prefill ({len(prompts[0])} tokens): {serve['launches_per_prefill']}; "
         f"per decode step: {serve['launches_per_decode_step']}")
-    log(f"prefill logits vs torch backend: max|diff| {diff:.4f} (max|logit| {scale:.4f}, "
-        f"limit {tol * scale:.4f}), same argmax: {same_top}; planted fault {fault:.4f}; "
-        f"routing flips {flips}")
+    log(f"{label} prefill logits vs torch backend: max|diff| {diff:.4f} (max|logit| "
+        f"{scale:.4f}, limit {tol * scale:.4f}), same argmax: {same_top}; planted fault "
+        f"{fault:.4f}; routing flips {flips}; vs the dense bf16 run: {vs_dense}")
     log(f"selector: {st.lookups} lookups, {st.cache_hits} cache hits, {st.fallbacks} cold picks")
     for key, val in sorted(picks.items()):
         log(f"  {key} -> {val}")
@@ -919,11 +1418,13 @@ def routing_flips(routes_a, routes_b):
                 first=where[:8])
 
 
-def planted_fault_diff(model, params, selector, prompt, want, *, grouped):
+def planted_fault_diff(model, params, selector, prompt, want, *, grouped, rung=None):
     """max|logit diff| against ``want`` of a prefill whose GEMMs of one kind
     drop their last K chunk (``cfg.bk`` of K): the DP-policy GEMMs (the
     reading a B1 that skips one chunk of its K loop would give), or, with
-    ``grouped``, every fused grouped GEMM (a B5 that does the same)."""
+    ``grouped``, every fused grouped GEMM (a B5 that does the same); on a
+    quantized ``rung``, every DP-policy and grouped GEMM of the rung. A
+    non-finite prefill reads as infinitely far."""
     import torch
 
     from repro_torch.core.gemm import gemm_context, get_backend, register_backend
@@ -932,15 +1433,21 @@ def planted_fault_diff(model, params, selector, prompt, want, *, grouped):
     cuda = get_backend("cuda")
 
     def drop_last_k_chunk(x, w, *, op, policy, cfg, **kw):
-        hit = op.fused if grouped else policy == DP
+        if rung is not None:
+            hit = RUNG_OF.get(op.in_dtype) == rung and (op.fused or policy == DP)
+        else:
+            hit = op.fused if grouped else policy == DP
         if hit and x.shape[-1] > cfg.bk:
-            kk = x.shape[-1] - cfg.bk
-            x, w = x[..., :kk].contiguous(), w[:, :kk].contiguous()
+            kk = x.shape[-1] - cfg.bk  # a multiple of bk: even, so packed int4 rows are kk / 2
+            kw_rows = kk // 2 if kw.get("b_bits") == 4 else kk
+            x, w = x[..., :kk].contiguous(), w[:, :kw_rows].contiguous()
         return cuda(x, w, op=op, policy=policy, cfg=cfg, **kw)
 
     register_backend("cuda_planted_fault", drop_last_k_chunk, overwrite=True)
     with gemm_context(selector=selector, backend="cuda_planted_fault"):
         bad, _ = model.prefill(params, torch.as_tensor(prompt, device="cuda")[None])
+    if not torch.isfinite(bad).all():
+        return math.inf
     return (bad.float() - want.float()).abs().max().item()
 
 
@@ -1021,6 +1528,16 @@ def main() -> int:
     log(f"B5 sweep {GROUPED_SHAPES + (GROUPED_RAGGED,)}: {b5_cases} cases agree with the plain "
         f"version and gemm_ref; max errors {b5_errs}; {b5_bitwise} split-tile cases bitwise "
         f"deterministic; all-empty launches nothing ({time.perf_counter() - t0:.1f}s)")
+    t0 = time.perf_counter()
+    q_errs, q_cases, q_bitwise = quant_sweep(gen)
+    log(f"quantized sweep {QUANT_SWEEP_SHAPES} x {[p[0] for p in QUANT_PAIRS]}: {q_cases} cases "
+        f"agree with the plain versions and dequantize-then-matmul; max errors {q_errs}; "
+        f"{q_bitwise} B2+B3 bitwise repeats ({time.perf_counter() - t0:.1f}s)")
+    t0 = time.perf_counter()
+    qg_errs, qg_cases, qg_bitwise = quant_sweep_grouped(gen)
+    log(f"quantized B5 sweep {QUANT_GROUPED_SHAPES}: {qg_cases} cases agree with the plain "
+        f"version and dequantize-then-matmul; max errors {qg_errs}; {qg_bitwise} split-tile "
+        f"cases bitwise deterministic ({time.perf_counter() - t0:.1f}s)")
     timed = time_kernels(gen)
     log("main-path GEMMs, decode (M=4) and prompt (M=64):")
     gemms = time_main_path_gemms(gen, 4) + time_main_path_gemms(gen, 64)
@@ -1028,38 +1545,87 @@ def main() -> int:
     grouped_rows = time_grouped(gen)
     for name in ("grouped_streamk_sk", "grouped_streamk_dp"):
         timed[name] = grouped_entry(grouped_rows, name)
+    log("the quantized kernels at the decode and prompt shapes of each rung:")
+    t0 = time.perf_counter()
+    quant_rows = time_quant(gen)
+    log(f"quantized timings ({time.perf_counter() - t0:.1f}s)")
 
-    serve = {"granite-8b": phase_serve("granite-8b")}
+    failures = []
+    t0 = time.perf_counter()
+    serve = {"granite-8b": phase_serve("granite-8b", failures)}
+    log(f"granite-8b served dense and on {list(RUNGS)} ({time.perf_counter() - t0:.1f}s)")
     gc.collect()  # granite's weights go before olmoe's arrive
     torch.cuda.empty_cache()
-    serve["olmoe-1b-7b"] = phase_serve("olmoe-1b-7b")
+    t0 = time.perf_counter()
+    serve["olmoe-1b-7b"] = phase_serve("olmoe-1b-7b", failures)
+    log(f"olmoe-1b-7b served dense and on {list(RUNGS)} ({time.perf_counter() - t0:.1f}s)")
 
     kernels = []
     for name in REPLACES:
         t = timed[name]
         # launches: each kernel's count from the main path that serves it
         arch = "olmoe-1b-7b" if name.startswith("grouped") else "granite-8b"
+        other = "granite-8b" if arch != "granite-8b" else "olmoe-1b-7b"
         extra = {key: t[key] for key in ("sweep_shape", "sweep_ms", "sweep_plain_ms",
                                          "library_of", "composed_ms") if key in t}
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            launches=serve[arch]["launches"][name], max_abs_err=t["max_abs_err"], ms=t["ms"],
+            launches=serve[arch]["dense"]["launches"].get(name, 0),
+            max_abs_err=t["max_abs_err"], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], shape=t["shape"], policy=t["policy"], tile=t["tile"],
             g=t["g"], sweep_max_err=errs[name], event_ms=t["event_ms"],
             plain_event_ms=t["plain_event_ms"], library_event_ms=t.get("library_event_ms"),
-            launches_in=arch, launches_other_model=serve[
-                "granite-8b" if arch != "granite-8b" else "olmoe-1b-7b"]["launches"][name],
+            launches_in=arch, launches_other_model=serve[other]["dense"]["launches"].get(name, 0),
             **extra,
         ))
-    record = dict(card=smi, build_s=build_s, kernels=kernels, picks=picks, gemms=gemms,
-                  grouped=grouped_rows, serve=serve, sweep_cases=cases, b5_cases=b5_cases,
-                  b5_bitwise=b5_bitwise, slice_max_err=slice_err,
+    not_served = []
+    for rung, (_, _, pair_source) in RUNGS.items():
+        for name in REPLACES:
+            key = f"{name}[{rung}]"
+            # each (kernel, rung) that a served path ran: its count from the model that
+            # serves it (granite-8b for B1-B3, olmoe-1b-7b for B5), else from the other
+            arch = "olmoe-1b-7b" if name.startswith("grouped") else "granite-8b"
+            other = "granite-8b" if arch != "granite-8b" else "olmoe-1b-7b"
+            counts = {a: serve[a][rung]["launches"].get(key, 0) for a in (arch, other)}
+            if not counts[arch]:
+                arch, other = other, arch
+            if not counts[arch]:
+                not_served.append(key)
+                continue
+            t = quant_entry(quant_rows, name, rung)
+            kernels.append(dict(
+                name=key, route="cuda", source=SOURCES[name],
+                instantiated_in=SOURCE.replace(".cuh", ".cu") if name == "streamk_fixup"
+                else pair_source,
+                replaces=REPLACES[name], launches=counts[arch],
+                max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
+                bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"],
+                library_of=t["library_of"], shape=t["shape"], policy=t["policy"],
+                tile=t["tile"], g=t["g"], event_ms=t["event_ms"],
+                plain_event_ms=t["plain_event_ms"], library_event_ms=t["library_event_ms"],
+                launches_in=f"{arch} {rung}", launches_other_model=counts[other],
+            ))
+    log(f"(kernel, rung) pairs no served path ran (timed and swept, not in the kernels line): "
+        f"{not_served}")
+    from repro_torch.kernels import cuda_lib
+
+    record = dict(card=smi, build_s=build_s,
+                  build_source_s=cuda_lib.build_info.get("source_seconds"), kernels=kernels,
+                  picks=picks, gemms=gemms, grouped=grouped_rows, quant=quant_rows, serve=serve,
+                  sweep_cases=cases, b5_cases=b5_cases, b5_bitwise=b5_bitwise,
+                  quant_cases=q_cases, quant_errs=q_errs, quant_bitwise=q_bitwise,
+                  quant_b5_cases=qg_cases, quant_b5_errs=qg_errs, quant_b5_bitwise=qg_bitwise,
+                  slice_max_err=slice_err, not_served=not_served, failures=failures,
                   seconds=time.perf_counter() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     log(f"total {record['seconds']:.1f}s")
+    if failures:
+        for f in failures:
+            log("FAILED:", f)
+        return 1
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

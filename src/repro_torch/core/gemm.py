@@ -22,7 +22,11 @@ Built-in backends:
 Entry points: :func:`gemm` (2-D weight) and :func:`gemm_grouped` (stacked
 ``(G, K, N)`` expert weights, fused into one kernel by default and keyed by
 the 8-part ``grouped_fused`` op key; ``fused=False`` keeps one dispatch per
-group as the differential oracle).
+group as the differential oracle). Either takes a
+:class:`~repro_torch.core.quant.QuantizedTensor` weight: the op then keys on
+the mixed ``"<act>*int8"``/``"<act>*int4"`` fingerprint, or ``"int8*int8"``
+when the weight asks for int8 activations, which are quantized per row
+here at dispatch; the dequant scales ride into the backend.
 
 When no backend is named, a dispatch on a CUDA tensor runs ``cuda`` and one
 on a CPU tensor runs ``torch``: on the card the hand-written kernels are the
@@ -42,14 +46,22 @@ import torch
 
 from repro_torch.core.op import Epilogue, GemmOp, as_epilogue
 from repro_torch.core.policies import Policy, TileConfig
+from repro_torch.core.quant import QuantizedTensor, is_quantized, quantize_activations, unpack_int4
 from repro_torch.core.selector import KernelSelector, Selection, default_selector
 from repro_torch.core.tuner import LEGACY_GRID
 
 _state = threading.local()
 
-#: BackendFn(x, w, *, op, policy, cfg, g, bias, operand) -> out
+#: BackendFn(x, w, *, op, policy, cfg, g, bias, operand[, scale, scale_a,
+#:           b_bits]) -> out
 #:   x: (G, M, K), w: (G, K, N), bias: (G, N) | None, operand: (G, M, N) | None;
 #:   returns (G, M, N) in op.out_dtype. G == 1 for plain 2-D dispatches.
+#:   Quantized ops also pass ``scale`` (G, N) f32, the per-output-channel
+#:   dequant of the int8 ``w``; ``scale_a`` (G, M) f32, the per-row dequant
+#:   of int8 ``x``; and ``b_bits=4`` when ``w`` is packed int4
+#:   (G, ceil(K/2), N). Both apply to the f32 accumulator before the
+#:   epilogue. Dense ops pass none of them, so a backend that predates them
+#:   fails loudly on a quantized op instead of dropping a dequant stage.
 BackendFn = Callable[..., torch.Tensor]
 
 _BACKENDS: Dict[str, BackendFn] = {}
@@ -91,15 +103,32 @@ def as_dtype(dtype) -> torch.dtype:
     return dtype if isinstance(dtype, torch.dtype) else _DTYPES[str(dtype)]
 
 
-def _torch_backend(x, w, *, op: GemmOp, policy, cfg, g, bias, operand):
-    acc = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+def _torch_backend(x, w, *, op: GemmOp, policy, cfg, g, bias, operand, scale=None,
+                   scale_a=None, b_bits=8):
+    if b_bits == 4:
+        # packed int4 weights: unpack to int8 and drop the odd-K pad row
+        w = unpack_int4(w)[:, : x.shape[2], :]
+    if not (x.is_floating_point() or w.is_floating_point()):
+        # int8 x int8: an exact integer contraction, converted to f32, as
+        # repro's xla backend does in int32. CUDA has no integer matmul, so
+        # there it multiplies in float64, exact for any sum below 2**53.
+        wide = torch.float64 if x.is_cuda else torch.int32
+        acc = torch.matmul(x.to(wide), w.to(wide)).to(torch.float32)
+    else:
+        # float (or float x int8: int8 -> f32 is exact) in f32
+        acc = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+    if scale_a is not None:
+        acc = acc * scale_a[:, :, None].to(torch.float32)
+    if scale is not None:
+        acc = acc * scale[:, None, :].to(torch.float32)
     acc = op.epilogue.apply(
         acc, bias=None if bias is None else bias[:, None, :], operand=operand
     )
     return acc.to(as_dtype(op.out_dtype))
 
 
-def _cuda_backend(x, w, *, op: GemmOp, policy, cfg, g, bias, operand):
+def _cuda_backend(x, w, *, op: GemmOp, policy, cfg, g, bias, operand, scale=None,
+                  scale_a=None, b_bits=8):
     from repro_torch.kernels.streamk import ops as sk_ops
     from repro_torch.kernels.streamk.grouped import gemm_grouped_streamk
 
@@ -107,7 +136,8 @@ def _cuda_backend(x, w, *, op: GemmOp, policy, cfg, g, bias, operand):
         # one launch spans the concatenated tile space of all G groups
         return gemm_grouped_streamk(
             x, w, policy=policy, cfg=cfg, g=g, out_dtype=as_dtype(op.out_dtype),
-            epilogue=op.epilogue, bias=bias, operand=operand,
+            epilogue=op.epilogue, bias=bias, operand=operand, scale=scale, scale_a=scale_a,
+            b_bits=b_bits,
         )
     # loop form: the policy composition once per group (the fused form's
     # differential oracle, and every plain 2-D dispatch)
@@ -122,6 +152,9 @@ def _cuda_backend(x, w, *, op: GemmOp, policy, cfg, g, bias, operand):
             epilogue=op.epilogue,
             bias=None if bias is None else bias[i],
             operand=None if operand is None else operand[i],
+            scale=None if scale is None else scale[i],
+            scale_a=None if scale_a is None else scale_a[i],
+            b_bits=b_bits,
         )
         for i in range(x.shape[0])
     ]
@@ -207,7 +240,8 @@ def current_selector(device=None) -> KernelSelector:
     return ctx.selector
 
 
-def _dispatch(x, w, op: GemmOp, *, tag, policy, cfg, g, bias, operand):
+def _dispatch(x, w, op: GemmOp, *, tag, policy, cfg, g, bias, operand, scale=None,
+              scale_a=None, b_bits=8):
     ctx = _ctx()
     selector = current_selector(x.device)
     if policy is None and cfg is None and g is None:
@@ -218,9 +252,15 @@ def _dispatch(x, w, op: GemmOp, *, tag, policy, cfg, g, bias, operand):
         sel = selector.select_partial(op, policy, cfg, g=g)
     ctx.log.append(SelectionLogEntry(op, sel, tag))
     name = ctx.backend or ("cuda" if x.is_cuda else "torch")
-    return get_backend(name)(
-        x, w, op=op, policy=sel.policy, cfg=sel.cfg, g=sel.g, bias=bias, operand=operand
-    )
+    kwargs = dict(op=op, policy=sel.policy, cfg=sel.cfg, g=sel.g, bias=bias, operand=operand)
+    # only quantized ops pass the dequant operands (see BackendFn)
+    if scale is not None:
+        kwargs["scale"] = scale
+    if scale_a is not None:
+        kwargs["scale_a"] = scale_a
+    if b_bits != 8:
+        kwargs["b_bits"] = b_bits
+    return get_backend(name)(x, w, **kwargs)
 
 
 def _infer_epilogue(epilogue, bias, operand) -> Epilogue:
@@ -245,16 +285,30 @@ def _infer_epilogue(epilogue, bias, operand) -> Epilogue:
     return spec
 
 
-def _in_dtype_fingerprint(x: torch.Tensor, w: torch.Tensor) -> str:
+def _in_dtype_fingerprint(x: torch.Tensor, w: torch.Tensor, w_name: Optional[str] = None) -> str:
     """Input-dtype component of the op key: one name when activations and
-    weights agree, the mixed ``"a*w"`` form otherwise (as the JAX package)."""
-    xd, wd = dtype_name(x.dtype), dtype_name(w.dtype)
+    weights agree, the mixed ``"a*w"`` form otherwise. Quantized weights
+    pass their logical ``w_name`` (``"int8"``/``"int4"``) and always key in
+    the mixed form, so ``"int8*int8"`` never collides with a plain int8 op
+    (as the JAX package)."""
+    xd = dtype_name(x.dtype)
+    if w_name is not None:
+        return f"{xd}*{w_name}"
+    wd = dtype_name(w.dtype)
     return xd if xd == wd else f"{xd}*{wd}"
+
+
+def _unquantize(w):
+    """(stored weight, logical shape, scale, b_bits, w_name, act_quant) of a
+    weight that may be a QuantizedTensor."""
+    if is_quantized(w):
+        return w.values, w.shape, w.scales, w.bits, w.dtype_name, w.act_bits == 8
+    return w, tuple(w.shape), None, 8, None, False
 
 
 def gemm(
     x: torch.Tensor,
-    w: torch.Tensor,
+    w: Union[torch.Tensor, QuantizedTensor],
     *,
     divisors: Tuple[int, int, int] = (1, 1, 1),
     out_dtype=None,
@@ -271,21 +325,30 @@ def gemm(
     x: (..., K); w: (K, N) -> (..., N). ``divisors`` are the sharding
     factors (dm, dn, dk) so selection keys on the per-shard local shape.
     ``epilogue`` fuses bias/activation/binary post-ops (``bias``: (N,),
-    ``operand``: (..., N)). ``policy``/``cfg``/``g`` override selection."""
-    if x.shape[-1] != w.shape[0] or w.dim() != 2:
-        raise ValueError(f"gemm contraction mismatch: {tuple(x.shape)} @ {tuple(w.shape)}")
+    ``operand``: (..., N)). ``policy``/``cfg``/``g`` override selection.
+    ``w`` may be a :class:`~repro_torch.core.quant.QuantizedTensor` (see the
+    module docstring); the output dtype defaults to ``x``'s own, also when
+    the activations are quantized to int8 here."""
+    w, w_shape, scale, bits, w_name, act_quant = _unquantize(w)
+    if len(w_shape) != 2 or x.shape[-1] != w_shape[0]:
+        raise ValueError(f"gemm contraction mismatch: {tuple(x.shape)} @ {w_shape}")
     epilogue = _infer_epilogue(epilogue, bias, operand)
     lead = x.shape[:-1]
     m = 1
     for d in lead:
         m *= int(d)
-    k, n = int(w.shape[0]), int(w.shape[1])
+    k, n = int(w_shape[0]), int(w_shape[1])
+    # the output dtype comes from the ORIGINAL activations
     out_dtype = as_dtype(out_dtype) if out_dtype is not None else x.dtype
+    scale_a = None
+    if act_quant and x.is_floating_point():
+        x, scale_a = quantize_activations(x)
+        scale_a = scale_a.reshape(1, m)
     op = GemmOp(
         m,
         n,
         k,
-        in_dtype=_in_dtype_fingerprint(x, w),
+        in_dtype=_in_dtype_fingerprint(x, w, w_name=w_name),
         out_dtype=dtype_name(out_dtype),
         divisors=tuple(divisors),
         epilogue=epilogue,
@@ -300,13 +363,16 @@ def gemm(
         g=g,
         bias=None if bias is None else bias.reshape(1, n),
         operand=None if operand is None else operand.reshape(1, m, n).contiguous(),
+        scale=None if scale is None else scale.reshape(1, n),
+        scale_a=scale_a,
+        b_bits=bits,
     )
     return out.reshape(*lead, n)
 
 
 def gemm_grouped(
     x: torch.Tensor,
-    w: torch.Tensor,
+    w: Union[torch.Tensor, QuantizedTensor],
     *,
     divisors: Tuple[int, int, int] = (1, 1, 1),
     g_divisor: int = 1,
@@ -328,7 +394,10 @@ def gemm_grouped(
     ``operand``: (G, M, N). ``grid`` overrides the selected grid size.
     ``fused`` (default True) runs the G groups as ONE kernel and keys the op
     with the 8-part ``grouped_fused`` key; ``fused=False`` runs them one by
-    one (the differential oracle)."""
+    one (the differential oracle). ``w`` may be a stacked
+    :class:`~repro_torch.core.quant.QuantizedTensor` (values (G, K, N) or
+    packed (G, ceil(K/2), N), scales (G, N)): the MoE expert weights of the
+    quantized serving path."""
     return _gemm_stacked(
         "grouped", x, w, divisors=divisors, g_divisor=g_divisor, out_dtype=out_dtype, tag=tag,
         policy=policy, cfg=cfg, grid=grid, epilogue=epilogue, bias=bias, operand=operand,
@@ -339,7 +408,7 @@ def gemm_grouped(
 def _gemm_stacked(
     kind: str,
     x: torch.Tensor,
-    w: torch.Tensor,
+    w: Union[torch.Tensor, QuantizedTensor],
     *,
     divisors: Tuple[int, int, int],
     g_divisor: int,
@@ -353,24 +422,29 @@ def _gemm_stacked(
     operand: Optional[torch.Tensor],
     fused: bool = False,
 ) -> torch.Tensor:
-    if x.dim() != 3 or w.dim() != 3:
+    w, w_shape, scale, bits, w_name, act_quant = _unquantize(w)
+    if x.dim() != 3 or len(w_shape) != 3:
         raise ValueError(
             f"gemm_{kind} expects x (G, M, K) and w (G, K, N); got "
-            f"{tuple(x.shape)} @ {tuple(w.shape)}"
+            f"{tuple(x.shape)} @ {w_shape}"
         )
-    if x.shape[0] != w.shape[0] or x.shape[2] != w.shape[1]:
-        raise ValueError(f"gemm_{kind} mismatch: {tuple(x.shape)} @ {tuple(w.shape)}")
+    if x.shape[0] != w_shape[0] or x.shape[2] != w_shape[1]:
+        raise ValueError(f"gemm_{kind} mismatch: {tuple(x.shape)} @ {w_shape}")
     epilogue = _infer_epilogue(epilogue, bias, operand)
     g, m, k = (int(d) for d in x.shape)
-    n = int(w.shape[2])
+    n = int(w_shape[2])
+    # the output dtype comes from the ORIGINAL activations
     out_dtype = as_dtype(out_dtype) if out_dtype is not None else x.dtype
+    scale_a = None
+    if act_quant and x.is_floating_point():
+        x, scale_a = quantize_activations(x)  # scales (G, M)
     op = GemmOp(
         m,
         n,
         k,
         g=g,
         kind=kind,
-        in_dtype=_in_dtype_fingerprint(x, w),
+        in_dtype=_in_dtype_fingerprint(x, w, w_name=w_name),
         out_dtype=dtype_name(out_dtype),
         divisors=tuple(divisors),
         g_divisor=g_divisor,
@@ -389,4 +463,7 @@ def _gemm_stacked(
         g=grid,
         bias=None if bias is None else bias.contiguous(),
         operand=None if operand is None else operand.contiguous(),
+        scale=scale,
+        scale_a=scale_a,
+        b_bits=bits,
     )

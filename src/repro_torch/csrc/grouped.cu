@@ -46,35 +46,44 @@
 // sk_common.cuh (no TF32); wgmma and TMA come later.
 //
 // The kernels are in grouped.cuh; this file instantiates them for f32
-// inputs and grouped_bf16.cu for bf16 inputs. The extern "C" entry launches
-// on the caller's stream and returns cudaGetLastError(), which the Python
-// wrapper checks.
+// inputs, grouped_bf16.cu for bf16 inputs and quant_*.cu for the pairs of
+// the quantization ladder (see quant.cuh): there the expert weights are
+// int8 (G, K, N) or packed int4 (G, ceil(K/2), N), the per-expert dequant
+// scales (G, N) and, with int8 activations, the per-row scales (G, M) are
+// picked by each row-block's group, as blk_group does on the TPU, and
+// applied in the epilogue. The extern "C" entry launches on the caller's
+// stream and returns cudaGetLastError(), which the Python wrapper checks.
 
-#include "grouped.cuh"
+#include "quant.cuh"
 
-// Dtype codes: 0 = float32, 1 = bfloat16.
+SK_QUANT_DECLARE(f32_i8)
+SK_QUANT_DECLARE(bf16_i8)
+SK_QUANT_DECLARE(i8_i8)
+SK_QUANT_DECLARE(f32_i4)
+SK_QUANT_DECLARE(bf16_i4)
+
+// Dtype codes: 0 = float32, 1 = bfloat16, 2 = int8, 3 = packed int4 (B only).
 extern "C" {
 
-int sk_grouped_gemm_bf16(int out_dt, int sm, int sk_form, const void* a, const void* b, void* c,
-                         const void* tab, void* ws, void* counters, int m, int n, int k, int bm,
-                         int bn, int bk, int nt, int n_tiles, int ipt, int ipw, int grid,
-                         int aligned, const void* bias, const void* operand, int act,
-                         int binary, void* stream);  // grouped_bf16.cu
+int sk_grouped_gemm_bf16(SK_QUANT_GROUPED_PARAMS);  // grouped_bf16.cu
 
-int sk_grouped_gemm(int in_dt, int out_dt, int sm, int sk_form, const void* a, const void* b,
-                    void* c, const void* tab, void* ws, void* counters, int m, int n, int k,
-                    int bm, int bn, int bk, int nt, int n_tiles, int ipt, int ipw, int grid,
-                    int aligned, const void* bias, const void* operand, int act, int binary,
-                    void* stream) {
-  if (in_dt == 0)
-    return grouped_entry<float>(out_dt, sm, sk_form, a, b, c, tab, ws, counters, m, n, k, bm, bn,
-                                bk, nt, n_tiles, ipt, ipw, grid, aligned, bias, operand, act,
-                                binary, stream);
-  if (in_dt == 1)
-    return sk_grouped_gemm_bf16(out_dt, sm, sk_form, a, b, c, tab, ws, counters, m, n, k, bm, bn,
-                                bk, nt, n_tiles, ipt, ipw, grid, aligned, bias, operand, act,
-                                binary, stream);
+int sk_grouped_gemm(int a_dt, int b_dt, int out_dt, int sm, int sk_form, const void* a,
+                    const void* b, void* c, const void* tab, void* ws, void* counters, int m,
+                    int n, int k, int bm, int bn, int bk, int nt, int n_tiles, int ipt, int ipw,
+                    int grid, int aligned, const void* bias, const void* operand,
+                    const void* scale, const void* scale_a, int act, int binary, void* stream) {
+#define SK_GROUPED_ARGS                                                                        \
+  out_dt, sm, sk_form, a, b, c, tab, ws, counters, m, n, k, bm, bn, bk, nt, n_tiles, ipt, ipw, \
+      grid, aligned, bias, operand, scale, scale_a, act, binary, stream
+  if (a_dt == 0 && b_dt == 0) return grouped_entry<float, float, false>(SK_GROUPED_ARGS);
+  if (a_dt == 1 && b_dt == 1) return sk_grouped_gemm_bf16(SK_GROUPED_ARGS);
+  if (a_dt == 0 && b_dt == 2) return sk_grouped_gemm_f32_i8(SK_GROUPED_ARGS);
+  if (a_dt == 1 && b_dt == 2) return sk_grouped_gemm_bf16_i8(SK_GROUPED_ARGS);
+  if (a_dt == 2 && b_dt == 2) return sk_grouped_gemm_i8_i8(SK_GROUPED_ARGS);
+  if (a_dt == 0 && b_dt == 3) return sk_grouped_gemm_f32_i4(SK_GROUPED_ARGS);
+  if (a_dt == 1 && b_dt == 3) return sk_grouped_gemm_bf16_i4(SK_GROUPED_ARGS);
   return (int)cudaErrorInvalidValue;
+#undef SK_GROUPED_ARGS
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 // B5's kernels, the grouped (MoE) GEMM: see grouped.cu for the design.
-// grouped.cu instantiates them for f32 inputs and grouped_bf16.cu for bf16
-// inputs, so the two halves compile in parallel.
+// grouped.cu instantiates them for f32 inputs, grouped_bf16.cu for bf16
+// inputs and each quant_*.cu for one pair of the quantization ladder, so
+// the sources compile in parallel.
 
 #pragma once
 
@@ -18,29 +19,35 @@ __device__ __forceinline__ RowBlock row_block(const int* __restrict__ tab, int r
   return RowBlock{tab[3 * r], tab[3 * r + 1], tab[3 * r + 2]};
 }
 
-// Group i's operands, reached through its base pointers.
-template <typename TIn, typename TOut>
+// Group i's operands, reached through its base pointers. B's rows per group
+// are K, or ceil(K / 2) packed int4 rows; the dequant scales are per group:
+// scale (G, N) and scale_a (G, M).
+template <typename TA, typename TB, typename TOut>
 struct Group {
-  const TIn* a;
-  const TIn* b;
+  const TA* a;
+  const TB* b;
   TOut* c;
   Epilogue epi;
 };
 
-template <typename TIn, typename TOut>
-__device__ __forceinline__ Group<TIn, TOut> group_of(const TIn* a, const TIn* b, TOut* c,
-                                                     const Epilogue& epi, int i, int m, int n,
-                                                     int k) {
-  Group<TIn, TOut> g{a + (int64_t)i * m * k, b + (int64_t)i * k * n, c + (int64_t)i * m * n, epi};
+template <bool P4, typename TA, typename TB, typename TOut>
+__device__ __forceinline__ Group<TA, TB, TOut> group_of(const TA* a, const TB* b, TOut* c,
+                                                        const Epilogue& epi, int i, int m, int n,
+                                                        int k) {
+  const int64_t b_rows = P4 ? (k + 1) / 2 : k;
+  Group<TA, TB, TOut> g{a + (int64_t)i * m * k, b + (int64_t)i * b_rows * n,
+                        c + (int64_t)i * m * n, epi};
   if (epi.bias != nullptr) g.epi.bias = static_cast<const TOut*>(epi.bias) + (int64_t)i * n;
   if (epi.operand != nullptr)
     g.epi.operand = static_cast<const TOut*>(epi.operand) + (int64_t)i * m * n;
+  if (epi.scale != nullptr) g.epi.scale = epi.scale + (int64_t)i * n;
+  if (epi.scale_a != nullptr) g.epi.scale_a = epi.scale_a + (int64_t)i * m;
   return g;
 }
 
 // Flush one multiplied sub-block through the epilogue into C.
-template <typename TOut, int SM, typename TIn>
-__device__ __forceinline__ void store_subblock(const Group<TIn, TOut>& g,
+template <typename TOut, int SM, typename TA, typename TB>
+__device__ __forceinline__ void store_subblock(const Group<TA, TB, TOut>& g,
                                                const float (&acc)[SM / 8][4], int row_end,
                                                int row0, int col0, int n) {
   constexpr int TM = SM / 8;
@@ -63,14 +70,14 @@ __device__ __forceinline__ void store_subblock(const Group<TIn, TOut>& g,
 // Stream-K form
 // ---------------------------------------------------------------------------
 
-template <typename TIn, typename TOut, int SM>
+template <typename TA, typename TB, bool P4, typename TOut, int SM>
 __global__ void __launch_bounds__(kThreads)
-    grouped_sk_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b, TOut* __restrict__ c,
+    grouped_sk_kernel(const TA* __restrict__ a, const TB* __restrict__ b, TOut* __restrict__ c,
                       const int* __restrict__ tab, float* __restrict__ ws,
                       int* __restrict__ counters, int m, int n, int k, int bm, int bn, int bk,
                       int nt, int ipt, int ipw, int total, bool aligned, Epilogue epi) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  TIn* smem = reinterpret_cast<TIn*>(smem_raw);
+  TA* smem = reinterpret_cast<TA*>(smem_raw);
   __shared__ int last_arrival;
   constexpr int TM = SM / 8;
   const int tn = threadIdx.x & 31;
@@ -87,7 +94,7 @@ __global__ void __launch_bounds__(kThreads)
     const int seg_end = min(end, (t + 1) * ipt);
     const RowBlock rb = row_block(tab, t / nt);
     const int tile_n = t % nt;
-    const Group<TIn, TOut> g = group_of(a, b, c, epi, rb.group, m, n, k);
+    const Group<TA, TB, TOut> g = group_of<P4>(a, b, c, epi, rb.group, m, n, k);
     const int first_wg = (int)((int64_t)t * ipt / ipw);
     const int last_wg = (int)(((int64_t)(t + 1) * ipt - 1) / ipw);
     const bool whole = first_wg == last_wg;  // this block owns the whole tile
@@ -102,8 +109,8 @@ __global__ void __launch_bounds__(kThreads)
       for (int sn0 = 0; sn0 < bn; sn0 += kSN) {
         const int col0 = tile_n * bn + sn0;
         if (col0 >= n) break;
-        mac_subblock<TIn, SM>(g.a, g.b, rb.row_end, n, k, row0, col0, kbeg, kend, aligned, acc,
-                              smem);
+        mac_subblock<TA, TB, P4, SM>(g.a, g.b, rb.row_end, n, k, row0, col0, kbeg, kend, bk,
+                                     aligned, acc, smem);
         if (whole) {
           store_subblock<TOut, SM>(g, acc, rb.row_end, row0, col0, n);
         } else {
@@ -155,46 +162,48 @@ __global__ void __launch_bounds__(kThreads)
 // DP form
 // ---------------------------------------------------------------------------
 
-template <typename TIn, typename TOut, int SM>
+template <typename TA, typename TB, bool P4, typename TOut, int SM>
 __global__ void __launch_bounds__(kThreads)
-    grouped_dp_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b, TOut* __restrict__ c,
-                      const int* __restrict__ tab, int m, int n, int k, int bm, int bn, int nt,
-                      int n_tiles, bool aligned, Epilogue epi) {
+    grouped_dp_kernel(const TA* __restrict__ a, const TB* __restrict__ b, TOut* __restrict__ c,
+                      const int* __restrict__ tab, int m, int n, int k, int bm, int bn, int bk,
+                      int nt, int n_tiles, bool aligned, Epilogue epi) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  TIn* smem = reinterpret_cast<TIn*>(smem_raw);
+  TA* smem = reinterpret_cast<TA*>(smem_raw);
   float acc[SM / 8][4];
   for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     const RowBlock rb = row_block(tab, t / nt);
-    const Group<TIn, TOut> g = group_of(a, b, c, epi, rb.group, m, n, k);
+    const Group<TA, TB, TOut> g = group_of<P4>(a, b, c, epi, rb.group, m, n, k);
     for (int sm0 = 0; sm0 < bm; sm0 += SM) {
       const int row0 = rb.row0 + sm0;
       if (row0 >= rb.row_end) break;
       for (int sn0 = 0; sn0 < bn; sn0 += kSN) {
         const int col0 = (t % nt) * bn + sn0;
         if (col0 >= n) break;
-        mac_subblock<TIn, SM>(g.a, g.b, rb.row_end, n, k, row0, col0, 0, k, aligned, acc, smem);
+        mac_subblock<TA, TB, P4, SM>(g.a, g.b, rb.row_end, n, k, row0, col0, 0, k, bk, aligned,
+                                     acc, smem);
         store_subblock<TOut, SM>(g, acc, rb.row_end, row0, col0, n);
       }
     }
   }
 }
 
-template <typename TIn, typename TOut>
+template <typename TA, typename TB, bool P4, typename TOut>
 int launch_grouped(int sm, bool sk_form, const void* a, const void* b, void* c, const int* tab,
                    float* ws, int* counters, int m, int n, int k, int bm, int bn, int bk, int nt,
                    int n_tiles, int ipt, int ipw, int grid, bool aligned, Epilogue epi,
                    cudaStream_t stream) {
-  const TIn* ap = static_cast<const TIn*>(a);
-  const TIn* bp = static_cast<const TIn*>(b);
+  const TA* ap = static_cast<const TA*>(a);
+  const TB* bp = static_cast<const TB*>(b);
   TOut* cp = static_cast<TOut*>(c);
   const int total = n_tiles * ipt;
-#define SK_GROUPED(S)                                                                          \
-  if (sk_form)                                                                                 \
-    return launch<grouped_sk_kernel<TIn, TOut, S>>(smem_bytes<TIn, S>(), grid, stream, ap, bp,  \
-                                                   cp, tab, ws, counters, m, n, k, bm, bn, bk,  \
-                                                   nt, ipt, ipw, total, aligned, epi);          \
-  return launch<grouped_dp_kernel<TIn, TOut, S>>(smem_bytes<TIn, S>(), grid, stream, ap, bp, cp, \
-                                                 tab, m, n, k, bm, bn, nt, n_tiles, aligned, epi)
+#define SK_GROUPED(S)                                                                         \
+  if (sk_form)                                                                                \
+    return launch<grouped_sk_kernel<TA, TB, P4, TOut, S>>(                                    \
+        smem_bytes<TA, TB, P4, S>(), grid, stream, ap, bp, cp, tab, ws, counters, m, n, k, bm, \
+        bn, bk, nt, ipt, ipw, total, aligned, epi);                                           \
+  return launch<grouped_dp_kernel<TA, TB, P4, TOut, S>>(smem_bytes<TA, TB, P4, S>(), grid,    \
+                                                        stream, ap, bp, cp, tab, m, n, k, bm, \
+                                                        bn, bk, nt, n_tiles, aligned, epi)
   switch (sm) {
     case 8: SK_GROUPED(8);
     case 16: SK_GROUPED(16);
@@ -205,25 +214,28 @@ int launch_grouped(int sm, bool sk_form, const void* a, const void* b, void* c, 
 #undef SK_GROUPED
 }
 
-// The launch of one grouped GEMM whose inputs are TIn, for either output
+// The launch of one grouped GEMM of one operand pair, for either output
 // type (0 = float32, 1 = bfloat16).
-template <typename TIn>
+template <typename TA, typename TB, bool P4>
 int grouped_entry(int out_dt, int sm, int sk_form, const void* a, const void* b, void* c,
                   const void* tab, void* ws, void* counters, int m, int n, int k, int bm, int bn,
                   int bk, int nt, int n_tiles, int ipt, int ipw, int grid, int aligned,
-                  const void* bias, const void* operand, int act, int binary, void* stream) {
-  const Epilogue epi{bias, operand, act, binary};
+                  const void* bias, const void* operand, const void* scale, const void* scale_a,
+                  int act, int binary, void* stream) {
+  const Epilogue epi{bias, operand, static_cast<const float*>(scale),
+                     static_cast<const float*>(scale_a), act, binary};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* t = static_cast<const int*>(tab);
   float* w = static_cast<float*>(ws);
   int* cnt = static_cast<int*>(counters);
   if (out_dt == 0)
-    return launch_grouped<TIn, float>(sm, sk_form != 0, a, b, c, t, w, cnt, m, n, k, bm, bn, bk,
-                                      nt, n_tiles, ipt, ipw, grid, aligned != 0, epi, s);
+    return launch_grouped<TA, TB, P4, float>(sm, sk_form != 0, a, b, c, t, w, cnt, m, n, k, bm,
+                                             bn, bk, nt, n_tiles, ipt, ipw, grid, aligned != 0,
+                                             epi, s);
   if (out_dt == 1)
-    return launch_grouped<TIn, __nv_bfloat16>(sm, sk_form != 0, a, b, c, t, w, cnt, m, n, k, bm,
-                                              bn, bk, nt, n_tiles, ipt, ipw, grid, aligned != 0,
-                                              epi, s);
+    return launch_grouped<TA, TB, P4, __nv_bfloat16>(sm, sk_form != 0, a, b, c, t, w, cnt, m, n,
+                                                     k, bm, bn, bk, nt, n_tiles, ipt, ipw, grid,
+                                                     aligned != 0, epi, s);
   return (int)cudaErrorInvalidValue;
 }
 

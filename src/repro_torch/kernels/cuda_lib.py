@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Optional
@@ -43,18 +44,15 @@ _I = ctypes.c_int
 #: C signatures of the entry points (every pointer and the stream are
 #: c_void_p so ctypes never truncates them to 32 bits).
 _SIGNATURES = {
-    "sk_dp_gemm": [_I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                   _P, _P, _I, _I, _P],
-    "sk_streamk_phase1": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _I, _P],
-    "sk_streamk_fixup": [_I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I,
-                         _I, _P],
-    "sk_grouped_gemm": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P],
+    "sk_dp_gemm": [_I, _I, _I, _I, _P, _P, _P, *[_I] * 11, _P, _P, _P, _P, _I, _I, _P],
+    "sk_streamk_phase1": [_I, _I, _I, _P, _P, _P, *[_I] * 13, _P],
+    "sk_streamk_fixup": [_I, _P, _P, *[_I] * 9, _P, _P, _P, _P, _I, _I, _P],
+    "sk_grouped_gemm": [*[_I] * 5, *[_P] * 6, *[_I] * 12, _P, _P, _P, _P, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
-#: what the last build or load did: library path, seconds, the ptxas report
+#: what the last build or load did: library path, seconds (and each
+#: source's nvcc seconds when it built), the ptxas report
 build_info: Dict[str, object] = {}
 
 
@@ -81,23 +79,34 @@ def _digest(sources) -> str:
     return h.hexdigest()[:16]
 
 
-def _compile(sources, so: Path, log: Path) -> None:
-    """One nvcc per source, all at once, then one link into ``so``."""
+def _compile(sources, so: Path, log: Path) -> Dict[str, float]:
+    """One nvcc per source, all at once, then one link into ``so``. Returns
+    each source's compile seconds."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{so.stem}.{os.getpid()}"
     objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
-    procs = [
-        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-        for cmd in ([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
-                    for src, o in zip(sources, objs))
+    done: Dict[int, tuple] = {}
+
+    def run(i, cmd):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        done[i] = (cmd, proc, time.perf_counter() - t0)
+
+    threads = [
+        threading.Thread(target=run, args=(i, [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(src)]))
+        for i, (src, o) in enumerate(zip(sources, objs))
     ]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     reports = []
     failed = None
-    for cmd, proc in procs:
-        _, err = proc.communicate()
-        reports.append(err)
+    for i in range(len(sources)):
+        cmd, proc, _ = done[i]
+        reports.append(proc.stderr)
         if proc.returncode != 0 and failed is None:
-            failed = f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}"
+            failed = f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
     tmp = so.with_name(f"{tag}.tmp")
     try:
         if failed is not None:
@@ -113,6 +122,7 @@ def _compile(sources, so: Path, log: Path) -> None:
     finally:
         for o in objs:
             o.unlink(missing_ok=True)
+    return {src.name: done[i][2] for i, src in enumerate(sources)}
 
 
 def library() -> ctypes.CDLL:
@@ -125,8 +135,7 @@ def library() -> ctypes.CDLL:
     log = so.with_suffix(".ptxas.txt")
     t0 = time.perf_counter()
     built = not so.exists()
-    if built:
-        _compile(sources, so, log)
+    source_seconds = _compile(sources, so, log) if built else {}
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -136,6 +145,7 @@ def library() -> ctypes.CDLL:
         path=str(so),
         built=built,
         seconds=time.perf_counter() - t0,
+        source_seconds=source_seconds,
         ptxas=log.read_text() if log.exists() else "",
     )
     _lib = lib

@@ -10,6 +10,12 @@ the cast. On the TPU the surplus programs of a wave-padded grid clamp onto
 the last tile; here a block whose stride runs past the last tile simply
 stops, which writes the same C.
 
+The quantized rungs run through the same kernel, instantiated per operand
+pair (``csrc/quant_*.cu``): float activations against int8 or packed int4
+weights, and int8 x int8 with an int32 MAC. The dequant ``scale`` (per
+column) and ``scale_a`` (per row) apply once, at the flush, ahead of the
+other epilogue stages, as on the TPU (``dp_gemm.py:79-88``).
+
 What bounds it on the H100: at the serving shapes (M = slot count, or a
 prompt of a few dozen tokens, against 4096..49152-wide weights) the work is
 far below the card's 295 operations per byte, so it is bound by reading B
@@ -17,7 +23,8 @@ from device memory. The design reads each weight element once per sub-block
 row group, never pads or copies a weight (the kernel masks ragged M, N and K
 edges itself), and picks the sub-block height from M so a decode GEMM does
 not compute padded rows. It uses SIMT FMA, not the tensor cores: for these
-byte-bound shapes that costs little, and it keeps f32 products exact. A
+byte-bound shapes that costs little, and it keeps f32 products exact. The
+int8 and int4 weights halve and quarter the bytes of B against bf16. A
 later PR can stage B with TMA and multiply with ``wgmma``.
 
 On a CPU tensor :func:`dp_gemm_region` runs the plain PyTorch version
@@ -37,14 +44,20 @@ from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.common import (
     DTYPE_CODES,
     apply_epilogue,
+    b_code,
     check_cuda_operands,
     epilogue_args,
-    mixed_dot,
+    f32_vector,
+    kstep_dot,
+    prep_scale,
+    prep_scale_a,
     record_launch,
-    refuse_quantized,
+    refuse_int8_int4,
+    rows_aligned,
+    rung_of,
     stream_ptr,
     sub_block_rows,
-    rows_aligned,
+    unpack_b,
 )
 
 
@@ -57,11 +70,18 @@ def tile_index(m: int, n: int, cfg: TileConfig, device) -> torch.Tensor:
 
 
 def dp_gemm_region_plain(
-    a, b, cfg: TileConfig, c, *, tile_offset=0, epilogue="none", bias=None, operand=None
+    a, b, cfg: TileConfig, c, *, tile_offset=0, epilogue="none", bias=None, operand=None,
+    scale=None, scale_a=None, b_bits: int = 8,
 ):
     """Plain PyTorch version of B1: C tiles ``>= tile_offset`` become
-    epilogue(A @ B) with f32 accumulation; the other tiles keep C's values."""
-    out = apply_epilogue(mixed_dot(a, b), epilogue, bias=bias, operand=operand)
+    epilogue(A @ B) with f32 accumulation (int8 x int8 summed per ``bk``
+    step, as the kernel does) and the dequant stages first; the other tiles
+    keep C's values."""
+    m, k = a.shape
+    n = b.shape[1]
+    acc = kstep_dot(a, unpack_b(b, b_bits, k), cfg.bk)
+    out = apply_epilogue(acc, epilogue, bias=bias, operand=operand,
+                         scale=prep_scale(scale, n, 1), scale_a=prep_scale_a(scale_a, m, 1))
     out = out.to(c.dtype)
     if tile_offset == 0:
         c.copy_(out)
@@ -89,13 +109,15 @@ def dp_gemm_region(
 ) -> torch.Tensor:
     """Tiled GEMM over output tiles ``[tile_offset, m_tiles * n_tiles)``.
 
-    ``a`` (M, K) and ``b`` (K, N) are NOT padded. ``c`` (M, N) is written in
-    place for the region's tiles (allocated when None — then ``tile_offset``
-    must be 0); tiles below ``tile_offset`` keep what the Stream-K fix-up
-    wrote there. ``bias`` (N,) and ``operand`` (M, N) feed the epilogue.
-    ``g`` > 0 is the number of persistent blocks (the selected grid size);
-    0 launches one block per tile. Quantized arguments raise."""
-    refuse_quantized(scale, scale_a, b_bits)
+    ``a`` (M, K) and ``b`` (K, N) are NOT padded; with ``b_bits=4`` ``b`` is
+    packed int4, ``(ceil(K/2), N)``. ``c`` (M, N) is written in place for
+    the region's tiles (allocated when None — then ``tile_offset`` must be
+    0); tiles below ``tile_offset`` keep what the Stream-K fix-up wrote
+    there. ``bias`` (N,) and ``operand`` (M, N) feed the epilogue, after
+    the dequant ``scale_a`` (M,) and ``scale`` (N,). ``g`` > 0 is the number
+    of persistent blocks (the selected grid size); 0 launches one block per
+    tile. int8 activations against int4 weights raise."""
+    refuse_int8_int4(a, b_bits)
     m, k = a.shape
     n = b.shape[1]
     out_dtype = out_dtype or (a.dtype if c is None else c.dtype)
@@ -114,19 +136,23 @@ def dp_gemm_region(
     if a.device.type == "cpu":
         return dp_gemm_region_plain(
             a, b, cfg, c, tile_offset=tile_offset, epilogue=epilogue,
-            bias=bias, operand=operand,
+            bias=bias, operand=operand, scale=scale, scale_a=scale_a, b_bits=b_bits,
         )
 
-    check_cuda_operands(a, b, out_dtype, bias, operand)
+    scale, scale_a = f32_vector(scale, (n,)), f32_vector(scale_a, (m,))
+    check_cuda_operands(a, b, out_dtype, bias, operand, b_bits=b_bits, scale=scale,
+                        scale_a=scale_a)
     lib = cuda_lib.library()
-    bias_p, operand_p, act, binary = epilogue_args(epilogue, bias, operand)
+    bias_p, operand_p, scale_p, scale_a_p, act, binary = epilogue_args(
+        epilogue, bias, operand, scale, scale_a)
     grid = min(g, n_region) if g > 0 else n_region
     status = lib.sk_dp_gemm(
-        DTYPE_CODES[a.dtype], DTYPE_CODES[out_dtype], sub_block_rows(cfg.bm, m),
-        a.data_ptr(), b.data_ptr(), c.data_ptr(),
-        m, n, k, cfg.bm, cfg.bn, n_tiles_n, tile_offset, n_total, grid, rows_aligned(a, b),
-        bias_p, operand_p, act, binary, stream_ptr(a.device),
+        DTYPE_CODES[a.dtype], b_code(b, b_bits), DTYPE_CODES[out_dtype],
+        sub_block_rows(cfg.bm, m), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+        m, n, k, cfg.bm, cfg.bn, cfg.bk, n_tiles_n, tile_offset, n_total, grid,
+        rows_aligned(a, b), bias_p, operand_p, scale_p, scale_a_p, act, binary,
+        stream_ptr(a.device),
     )
     cuda_lib.check(status, f"dp_gemm_region {cfg.name}")
-    record_launch("dp_gemm_region")
+    record_launch("dp_gemm_region", rung_of(a.dtype, b.dtype, b_bits))
     return c

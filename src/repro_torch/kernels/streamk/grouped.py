@@ -26,6 +26,14 @@ What bounds it on the H100: at the MoE decode shapes it reads every expert
 weight once (268 MB per olmoe-1b-7b projection) for 2 operations per byte,
 so bytes bound it (see ``csrc/grouped.cu``).
 
+The quantized rungs run through the same kernels, instantiated per operand
+pair (``csrc/quant_*.cu``): the stacked expert weights are int8 ``(G, K, N)``
+or packed int4 ``(G, ceil(K/2), N)`` with per-expert scales ``(G, N)``, and
+with int8 activations the per-row scales are ``(G, M)``. Each row-block's
+group picks its expert's scale row, as ``blk_group`` does on the TPU
+(``repro/kernels/streamk/grouped.py:93-195``); the scales apply in the
+epilogue of each tile.
+
 On CPU tensors :func:`gemm_grouped_streamk` runs the plain PyTorch version
 :func:`gemm_grouped_streamk_plain`; on CUDA tensors it launches the kernel
 or raises.
@@ -45,14 +53,18 @@ from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.common import (
     DTYPE_CODES,
     apply_epilogue,
+    b_code,
     check_cuda_operands,
     epilogue_args,
-    mixed_dot,
+    f32_vector,
+    kstep_dot,
     record_launch,
-    refuse_quantized,
+    refuse_int8_int4,
     rows_aligned,
+    rung_of,
     stream_ptr,
     sub_block_rows,
+    unpack_b,
 )
 
 
@@ -89,25 +101,28 @@ def _counters(g: int, device) -> torch.Tensor:
     return cnt
 
 
-def _epilogue_operands(i: int, s: int, bias, operand):
-    return (None if bias is None else bias[i],
-            None if operand is None else operand[i, :s])
-
-
 def gemm_grouped_streamk_plain(
-    a, b, *, sizes, out_dtype, epilogue="none", bias=None, operand=None
+    a, b, *, sizes, out_dtype, epilogue="none", bias=None, operand=None, scale=None,
+    scale_a=None, b_bits: int = 8, bk: int = 128,
 ) -> torch.Tensor:
     """Plain PyTorch version of B5: per group, an f32-accumulated
-    ``a[i, :s] @ b[i]`` and the epilogue; rows past a group's size are 0."""
-    g_count, m, _ = a.shape
+    ``a[i, :s] @ b[i]`` (int8 x int8 summed per ``bk`` step, as the kernel
+    does) and the epilogue, dequant stages first; rows past a group's size
+    are 0."""
+    g_count, m, k = a.shape
     n = b.shape[2]
     c = torch.zeros((g_count, m, n), dtype=out_dtype, device=a.device)
     for i, s in enumerate(sizes):
         if s == 0:
             continue
-        bias_i, operand_i = _epilogue_operands(i, s, bias, operand)
-        acc = mixed_dot(a[i, :s], b[i])
-        c[i, :s] = apply_epilogue(acc, epilogue, bias=bias_i, operand=operand_i).to(out_dtype)
+        acc = kstep_dot(a[i, :s], unpack_b(b[i], b_bits, k), bk)
+        c[i, :s] = apply_epilogue(
+            acc, epilogue,
+            bias=None if bias is None else bias[i],
+            operand=None if operand is None else operand[i, :s],
+            scale=None if scale is None else scale[i].reshape(1, n),
+            scale_a=None if scale_a is None else scale_a[i, :s].reshape(s, 1),
+        ).to(out_dtype)
     return c
 
 
@@ -134,12 +149,16 @@ def gemm_grouped_streamk(
     real row count: only the first ``sizes[i]`` rows take part, the output
     rows past them are 0, and an empty group contributes no tile. With no
     row at all nothing launches. ``bias`` (G, N) and ``operand`` (G, M, N)
-    feed the per-group epilogue. Policies other than DP run the Stream-K
-    form. Quantized arguments (``scale``, ``scale_a``, ``b_bits=4``) raise
-    ``NotImplementedError``."""
-    refuse_quantized(scale, scale_a, b_bits)
-    if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0] or a.shape[2] != b.shape[1]:
-        raise ValueError(f"bad grouped operands {tuple(a.shape)} @ {tuple(b.shape)}")
+    feed the per-group epilogue, after the quantized rungs' dequant stages:
+    ``b`` int8 (or, with ``b_bits=4``, packed int4 ``(G, ceil(K/2), N)``)
+    with per-expert ``scale`` (G, N), and for int8 activations per-row
+    ``scale_a`` (G, M). Policies other than DP run the Stream-K form. int8
+    activations against int4 weights raise ``NotImplementedError``."""
+    k_rows = (a.shape[-1] + 1) // 2 if b_bits == 4 else a.shape[-1]
+    if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0] or b.shape[1] != k_rows:
+        raise ValueError(f"bad grouped operands {tuple(a.shape)} @ {tuple(b.shape)} "
+                         f"(b_bits={b_bits})")
+    refuse_int8_int4(a, b_bits)
     g_count, m, k = a.shape
     n = b.shape[2]
     out_dtype = out_dtype or a.dtype
@@ -152,10 +171,13 @@ def gemm_grouped_streamk(
     if a.device.type == "cpu":
         return gemm_grouped_streamk_plain(
             a, b, sizes=sizes, out_dtype=out_dtype, epilogue=epilogue, bias=bias,
-            operand=operand,
+            operand=operand, scale=scale, scale_a=scale_a, b_bits=b_bits, bk=cfg.bk,
         )
 
-    check_cuda_operands(a, b, out_dtype, bias, operand)
+    scale = f32_vector(scale, (g_count, n))
+    scale_a = f32_vector(scale_a, (g_count, m))
+    check_cuda_operands(a, b, out_dtype, bias, operand, b_bits=b_bits, scale=scale,
+                        scale_a=scale_a)
     nt = cdiv(n, cfg.bn)
     ipt = cdiv(k, cfg.bk)
     n_tiles = r_total * nt
@@ -175,16 +197,18 @@ def gemm_grouped_streamk(
         ipw = ipt
         grid = min(g, n_tiles)
     lib = cuda_lib.library()
-    bias_p, operand_p, act, binary = epilogue_args(epilogue, bias, operand)
+    bias_p, operand_p, scale_p, scale_a_p, act, binary = epilogue_args(
+        epilogue, bias, operand, scale, scale_a)
     status = lib.sk_grouped_gemm(
-        DTYPE_CODES[a.dtype], DTYPE_CODES[out_dtype], sub_block_rows(cfg.bm, m), int(sk_form),
+        DTYPE_CODES[a.dtype], b_code(b, b_bits), DTYPE_CODES[out_dtype],
+        sub_block_rows(cfg.bm, m), int(sk_form),
         a.data_ptr(), b.data_ptr(), c.data_ptr(), _table(sizes, cfg.bm, a.device).data_ptr(),
         None if ws is None else ws.data_ptr(),
         None if counters is None else counters.data_ptr(),
         m, n, k, cfg.bm, cfg.bn, cfg.bk, nt, n_tiles, ipt, ipw, grid, rows_aligned(a, b),
-        bias_p, operand_p, act, binary, stream_ptr(a.device),
+        bias_p, operand_p, scale_p, scale_a_p, act, binary, stream_ptr(a.device),
     )
     name = "grouped_streamk_sk" if sk_form else "grouped_streamk_dp"
     cuda_lib.check(status, f"{name} {cfg.name} g={g}")
-    record_launch(name)
+    record_launch(name, rung_of(a.dtype, b.dtype, b_bits))
     return c

@@ -13,6 +13,10 @@ A partition whose Stream-K region is empty (DP itself, or a HYBRID whose
 remainder wave is empty at this ``g``) runs the DP region alone; ALL_SK has
 no phase 3. Nothing is padded: C is allocated once at (M, N) and every
 kernel masks the ragged edges itself, so a weight is never copied.
+
+Quantized weights (int8, or int4 packed two nibbles per byte along K) go
+through the same three phases; their dequant scales apply in the fix-up and
+the DP flush, never to B2's partials.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import torch
 
 from repro_torch.core.policies import DP, Policy, TileConfig
 from repro_torch.core.workpart import GemmShape, partition
-from repro_torch.kernels.common import refuse_quantized
+from repro_torch.kernels.common import refuse_int8_int4, rung_of
 from repro_torch.kernels.dp.dp_gemm import dp_gemm_region
 from repro_torch.kernels.streamk.streamk_gemm import streamk_fixup, streamk_phase1
 
@@ -54,12 +58,17 @@ def gemm(
 
     a: (M, K), b: (K, N) -> (M, N) in ``out_dtype`` (default ``a.dtype``);
     ``bias`` (N,) and ``operand`` (M, N) feed the epilogue's bias-add and
-    binary stages. CPU tensors run the kernels' plain versions, CUDA
-    tensors the Hopper kernels. Quantized arguments (``scale``, ``scale_a``,
-    ``b_bits=4``) raise ``NotImplementedError``."""
-    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
-        raise ValueError(f"bad gemm operands {tuple(a.shape)} @ {tuple(b.shape)}")
-    refuse_quantized(scale, scale_a, b_bits)  # before phase 1 launches anything
+    binary stages. The quantized rungs pass ``b`` int8 — or, with
+    ``b_bits=4``, packed int4 ``(ceil(K/2), N)`` — with its per-column
+    dequant ``scale`` (N,), and for int8 activations ``a`` int8 with its
+    per-row ``scale_a`` (M,). CPU tensors run the kernels' plain versions,
+    CUDA tensors the Hopper kernels. int8 activations against int4 weights
+    raise ``NotImplementedError`` before anything launches."""
+    k_rows = (a.shape[-1] + 1) // 2 if b_bits == 4 else a.shape[-1]
+    if a.dim() != 2 or b.dim() != 2 or b.shape[0] != k_rows:
+        raise ValueError(f"bad gemm operands {tuple(a.shape)} @ {tuple(b.shape)} "
+                         f"(b_bits={b_bits})")
+    refuse_int8_int4(a, b_bits)  # before phase 1 launches anything
     m, k = a.shape
     n = b.shape[1]
     out_dtype = out_dtype or a.dtype
@@ -71,7 +80,7 @@ def gemm(
         return dp_gemm_region(a, b, cfg, c=c, g=g, b_bits=b_bits, **epi)
 
     partials = streamk_phase1(a, b, part, b_bits=b_bits)
-    streamk_fixup(partials, part, c, **epi)
+    streamk_fixup(partials, part, c, rung=rung_of(a.dtype, b.dtype, b_bits), **epi)
     if part.dp_tiles:
         dp_gemm_region(
             a, b, cfg, c=c, tile_offset=part.sk_tiles, g=g, b_bits=b_bits, **epi

@@ -21,6 +21,13 @@ the epilogue, and writes the tile straight into C at ``part.tile_mn(t)``
 (the TPU version wrote an ``(sk_tiles, bm, bn)`` array that ``ops`` then
 scattered into C with reshapes).
 
+The quantized rungs run through the same kernels, instantiated per operand
+pair (``csrc/quant_*.cu``). B2's partials stay f32 and unscaled whatever
+the inputs (an int8 x int8 segment adds its int32 sums into them at every
+``bk`` step, as the DP path does); the dequant ``scale`` and ``scale_a``
+apply once, in B3, ahead of the other epilogue stages, as on the TPU
+(``streamk_gemm.py:209-216``).
+
 What bounds them on the H100: at the serving shapes B2 reads the weight
 slice of the Stream-K region once and is bound by those bytes, like B1 (see
 ``kernels/dp/dp_gemm.py``); B3 is bound by reading the partial slots and
@@ -42,14 +49,20 @@ from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.common import (
     DTYPE_CODES,
     apply_epilogue,
+    b_code,
     check_cuda_operands,
     epilogue_args,
-    mixed_dot,
+    f32_vector,
+    kstep_dot,
+    prep_scale,
+    prep_scale_a,
     record_launch,
-    refuse_quantized,
+    refuse_int8_int4,
+    rows_aligned,
+    rung_of,
     stream_ptr,
     sub_block_rows,
-    rows_aligned,
+    unpack_b,
 )
 from repro_torch.kernels.dp.dp_gemm import tile_index
 
@@ -75,12 +88,14 @@ def n_contributors(part: Partition, device=None) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
-def streamk_phase1_plain(a, b, part: Partition) -> torch.Tensor:
+def streamk_phase1_plain(a, b, part: Partition, *, b_bits: int = 8) -> torch.Tensor:
     """Plain PyTorch version of B2: each workgroup's tile segments as one
-    f32 product each, written to their slots; unwritten slots are 0."""
+    f32 product each (int8 x int8: summed per ``bk`` step, as the kernel
+    does), written to their slots; unwritten slots are 0."""
     cfg = part.cfg
     ipt, _, ipw, mc = range_math(part)
     m, k = a.shape
+    b = unpack_b(b, b_bits, k)
     n = b.shape[1]
     partials = torch.zeros(
         (part.sk_tiles, mc + 1, cfg.bm, cfg.bn), dtype=torch.float32, device=a.device
@@ -96,24 +111,25 @@ def streamk_phase1_plain(a, b, part: Partition) -> torch.Tensor:
             tm, tn = part.tile_mn(tile)
             rows = slice(tm * cfg.bm, min((tm + 1) * cfg.bm, m))
             cols = slice(tn * cfg.bn, min((tn + 1) * cfg.bn, n))
-            blk = mixed_dot(a[rows, k0:k1], b[k0:k1, cols])
+            blk = kstep_dot(a[rows, k0:k1], b[k0:k1, cols], cfg.bk)
             partials[tile, slot, : blk.shape[0], : blk.shape[1]] = blk
             it = seg_end
     return partials
 
 
 def streamk_phase1(a, b, part: Partition, *, b_bits: int = 8) -> torch.Tensor:
-    """Run the Stream-K sweep over ``a`` (M, K) @ ``b`` (K, N), unpadded;
-    returns ``partials[sk_tiles, mc + 1, bm, bn]`` f32. On the card, slots
+    """Run the Stream-K sweep over ``a`` (M, K) @ ``b`` (K, N), unpadded
+    (``b_bits=4``: ``b`` packed int4, ``(ceil(K/2), N)``); returns
+    ``partials[sk_tiles, mc + 1, bm, bn]`` f32, unscaled. On the card, slots
     at or past a tile's contributor count hold whatever the allocator left
     there: only :func:`streamk_fixup`'s ``n_contrib`` slots are defined."""
-    refuse_quantized(None, None, b_bits)
+    refuse_int8_int4(a, b_bits)
     if part.sk_tiles <= 0:
         raise ValueError("partition has no Stream-K region")
     if a.device.type == "cpu":
-        return streamk_phase1_plain(a, b, part)
+        return streamk_phase1_plain(a, b, part, b_bits=b_bits)
 
-    check_cuda_operands(a, b, torch.float32, None, None)
+    check_cuda_operands(a, b, torch.float32, None, None, b_bits=b_bits)
     cfg = part.cfg
     ipt, total, ipw, mc = range_math(part)
     m, k = a.shape
@@ -123,13 +139,13 @@ def streamk_phase1(a, b, part: Partition, *, b_bits: int = 8) -> torch.Tensor:
     )
     lib = cuda_lib.library()
     status = lib.sk_streamk_phase1(
-        DTYPE_CODES[a.dtype], sub_block_rows(cfg.bm, m),
+        DTYPE_CODES[a.dtype], b_code(b, b_bits), sub_block_rows(cfg.bm, m),
         a.data_ptr(), b.data_ptr(), partials.data_ptr(),
         m, n, k, cfg.bm, cfg.bn, cfg.bk, part.n_tiles, ipt, ipw, total, mc,
         part.g, rows_aligned(a, b), stream_ptr(a.device),
     )
     cuda_lib.check(status, f"streamk_phase1 {cfg.name} g={part.g}")
-    record_launch("streamk_phase1")
+    record_launch("streamk_phase1", rung_of(a.dtype, b.dtype, b_bits))
     return partials
 
 
@@ -139,9 +155,10 @@ def streamk_phase1(a, b, part: Partition, *, b_bits: int = 8) -> torch.Tensor:
 
 
 def streamk_fixup_plain(partials, part: Partition, c, *, epilogue="none", bias=None,
-                        operand=None):
+                        operand=None, scale=None, scale_a=None):
     """Plain PyTorch version of B3: per SK tile, the sum of its contributor
-    slots, then the epilogue, written into C's Stream-K tiles."""
+    slots, then the epilogue (dequant stages first), written into C's
+    Stream-K tiles."""
     cfg = part.cfg
     m, n = c.shape
     mc1 = partials.shape[1]
@@ -153,7 +170,9 @@ def streamk_fixup_plain(partials, part: Partition, c, *, epilogue="none", bias=N
     grid[: part.sk_tiles] = acc
     full = grid.reshape(part.m_tiles, part.n_tiles, cfg.bm, cfg.bn).permute(0, 2, 1, 3)
     full = full.reshape(part.m_tiles * cfg.bm, part.n_tiles * cfg.bn)[:m, :n]
-    out = apply_epilogue(full, epilogue, bias=bias, operand=operand).to(c.dtype)
+    out = apply_epilogue(full, epilogue, bias=bias, operand=operand,
+                         scale=prep_scale(scale, n, 1),
+                         scale_a=prep_scale_a(scale_a, m, 1)).to(c.dtype)
     sk = tile_index(m, n, cfg, c.device) < part.sk_tiles
     c.copy_(torch.where(sk, out, c))
     return c
@@ -161,15 +180,17 @@ def streamk_fixup_plain(partials, part: Partition, c, *, epilogue="none", bias=N
 
 def streamk_fixup(
     partials, part: Partition, c, *, epilogue="none", bias=None, operand=None,
-    scale=None, scale_a=None,
+    scale=None, scale_a=None, rung=None,
 ):
     """Reduce each Stream-K tile's contributor slots, apply the epilogue
-    (``bias`` (N,), ``operand`` (M, N)), and write the tile into ``c``
-    (M, N) in place; the data-parallel tiles of ``c`` are left alone."""
-    refuse_quantized(scale, scale_a, 8)
+    (``scale_a`` (M,) and ``scale`` (N,) dequant first, then ``bias`` (N,)
+    and ``operand`` (M, N)), and write the tile into ``c`` (M, N) in place;
+    the data-parallel tiles of ``c`` are left alone. ``rung`` names the
+    quantization rung whose partials these are, for the launch count."""
     if c.device.type == "cpu":
         return streamk_fixup_plain(
-            partials, part, c, epilogue=epilogue, bias=bias, operand=operand
+            partials, part, c, epilogue=epilogue, bias=bias, operand=operand,
+            scale=scale, scale_a=scale_a,
         )
 
     cfg = part.cfg
@@ -180,22 +201,27 @@ def streamk_fixup(
         raise ValueError(f"partials must be {expect} float32, got {tuple(partials.shape)}")
     if not (partials.is_contiguous() and c.is_contiguous()):
         raise ValueError("partials and c must be contiguous")
-    if partials.device != c.device or c.dtype not in DTYPE_CODES:
+    if partials.device != c.device or c.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("partials and c must share a CUDA device; c f32 or bf16")
-    for name, t, shape in (("bias", bias, (n,)), ("operand", operand, (m, n))):
+    scale, scale_a = f32_vector(scale, (n,)), f32_vector(scale_a, (m,))
+    for name, t, shape, dtype in (("bias", bias, (n,), c.dtype),
+                                  ("operand", operand, (m, n), c.dtype),
+                                  ("scale", scale, (n,), torch.float32),
+                                  ("scale_a", scale_a, (m,), torch.float32)):
         if t is not None and (
-            tuple(t.shape) != shape or t.dtype != c.dtype or t.device != c.device
+            tuple(t.shape) != shape or t.dtype != dtype or t.device != c.device
             or not t.is_contiguous()
         ):
-            raise ValueError(f"{name} must be a contiguous {shape} {c.dtype} tensor")
+            raise ValueError(f"{name} must be a contiguous {shape} {dtype} tensor")
     lib = cuda_lib.library()
-    bias_p, operand_p, act, binary = epilogue_args(epilogue, bias, operand)
+    bias_p, operand_p, scale_p, scale_a_p, act, binary = epilogue_args(
+        epilogue, bias, operand, scale, scale_a)
     status = lib.sk_streamk_fixup(
         DTYPE_CODES[c.dtype], partials.data_ptr(), c.data_ptr(),
         m, n, cfg.bm, cfg.bn, part.n_tiles, ipt, ipw, mc, part.sk_tiles,
-        bias_p, operand_p, act, binary, stream_ptr(c.device),
+        bias_p, operand_p, scale_p, scale_a_p, act, binary, stream_ptr(c.device),
     )
     cuda_lib.check(status, f"streamk_fixup {cfg.name}")
-    record_launch("streamk_fixup")
+    record_launch("streamk_fixup", rung)
     return c
 

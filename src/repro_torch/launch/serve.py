@@ -5,13 +5,20 @@ submits ``--requests`` seeded prompts to a :class:`ServeEngine`, drains it,
 and logs throughput plus the Stream-K++ dispatch decisions the traffic made.
 It runs on the CUDA device through the hand-written kernels unless
 ``--device cpu`` is given (then the ``torch`` backend serves, unless
-``--backend cuda`` asks for the kernels' plain versions).
+``--backend cuda`` asks for the kernels' plain versions). ``--quantize``
+serves on a rung of the quantization ladder: the projection weights are
+quantized on the serving device, one leaf (and one layer of a stacked leaf)
+at a time.
 
 Example::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \\
         --preset full --requests 4 --slots 4 --max-seq 256 --max-new-tokens 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b --preset full
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b --preset full \\
+        --quantize int4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b --device cpu \\
+        --quantize int8-dynamic
 """
 
 from __future__ import annotations
@@ -43,6 +50,15 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None, help="default: the CUDA device")
     ap.add_argument("--backend", default=None, choices=list_backends(),
                     help="default: cuda on a CUDA device, torch on the CPU")
+    ap.add_argument(
+        "--quantize", default="none", choices=["none", "int8", "int8-dynamic", "int4"],
+        help="weight quantization at load: the projection weights become "
+        "QuantizedTensors (per-output-channel symmetric scales, dequant fused into "
+        "the GEMM kernels). 'int8' keeps float activations ('<act>*int8' "
+        "fingerprints); 'int8-dynamic' also quantizes activations per row at "
+        "dispatch ('int8*int8', int32 MAC); 'int4' packs weights two nibbles per "
+        "byte along K ('<act>*int4')",
+    )
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
 
@@ -53,6 +69,16 @@ def main(argv=None) -> int:
     params = model.init_params(device, torch.Generator(device=device).manual_seed(0))
     log.info("built %s (%s) on %s in %.1fs", cfg.name, args.preset, device,
              time.perf_counter() - t0)
+    if args.quantize != "none":
+        bits = 4 if args.quantize == "int4" else 8
+        act_bits = 8 if args.quantize == "int8-dynamic" else None
+        t0 = time.perf_counter()
+        params, n_quant, n_skipped = model.quantize_weights(params, bits=bits,
+                                                            act_bits=act_bits)
+        log.info("quantized %d weight leaves to int%d (per-output-channel scales%s) in "
+                 "%.1fs; %d float leaves skipped", n_quant, bits,
+                 ", dynamic int8 activations" if act_bits else "",
+                 time.perf_counter() - t0, n_skipped)
 
     engine = ServeEngine(
         model,
@@ -81,11 +107,11 @@ def main(argv=None) -> int:
              st.lookups, st.cache_hits, st.fallbacks, engine.backend)
     seen = {}
     for e in engine.selection_log:
-        seen.setdefault((e.tag, e.op.g_local, e.local_mnk), e.selection)
-    for (tag, groups, mnk), sel in sorted(seen.items()):
-        log.info("  %-10s %sM,N,K=%s -> %s/%s g=%d (%s)", tag,
-                 f"G={groups} " if groups > 1 else "", mnk, sel.policy.name, sel.cfg.name,
-                 sel.g, sel.source)
+        seen.setdefault((e.tag, e.op.g_local, e.local_mnk, e.op.in_dtype), e.selection)
+    for (tag, groups, mnk, dtypes), sel in sorted(seen.items()):
+        log.info("  %-10s %sM,N,K=%s %s -> %s/%s g=%d (%s)", tag,
+                 f"G={groups} " if groups > 1 else "", mnk, dtypes, sel.policy.name,
+                 sel.cfg.name, sel.g, sel.source)
     return 0 if len(done) == args.requests else 1
 
 

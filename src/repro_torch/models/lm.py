@@ -3,19 +3,22 @@
 
 Parameters keep the JAX package's tree and layout — ``layers`` leaves are
 stacked ``(L, ...)`` — so :func:`params_from_jax` carries ``repro``'s
-parameters across leaf by leaf. The layer stack is a Python loop over views
-``leaf[i]`` in place of ``lax.scan``; the decode cache is one stacked
-``(L, B, S_max, KV, dh)`` pair written in place.
+parameters across leaf by leaf, quantized leaves included. The layer stack
+is a Python loop over views ``leaf[i]`` in place of ``lax.scan`` (a
+:class:`~repro_torch.core.quant.QuantizedTensor` leaf slices its values and
+scales together); the decode cache is one stacked ``(L, B, S_max, KV, dh)``
+pair written in place.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.gemm import as_dtype, gemm
+from repro_torch.core.quant import QuantizedTensor, quantize_lm_params
 from repro_torch.dist.sharding import ArraySpec, init_leaf
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -52,15 +55,24 @@ def params_from_jax(tree, device=None) -> Params:
     parameter tree with numpy leaves (the stacked ``(L, ...)`` layout), and
     the result is the same tree of torch tensors on ``device`` (the card
     unless ``device='cpu'``). Needs no jax: convert with ``np.asarray``
-    before calling. bfloat16 leaves arrive as ml_dtypes arrays and are
-    carried through their bit pattern."""
+    before calling (``jax.tree.map`` does, and keeps ``repro``'s
+    ``QuantizedTensor`` leaves, whose numpy values and scales, ``bits``,
+    ``act_bits`` and ``k`` become a port :class:`QuantizedTensor`).
+    bfloat16 leaves arrive as ml_dtypes arrays and are carried through
+    their bit pattern."""
     dev = resolve_device(device)
 
-    def leaf(a):
+    def array(a):
         a = np.array(a)  # a writable, contiguous copy torch may own
         if a.dtype.name == "bfloat16":
             return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(dev)
         return torch.from_numpy(a).to(dev)
+
+    def leaf(a):
+        if all(hasattr(a, f) for f in ("values", "scales", "bits", "act_bits", "k")):
+            return QuantizedTensor(array(a.values), array(a.scales), bits=a.bits,
+                                   act_bits=a.act_bits, k=a.k if a.bits == 4 else None)
+        return array(a)
 
     return _map(leaf, tree)
 
@@ -79,6 +91,20 @@ class LM:
         self.cfg = cfg
 
     # -- parameters ---------------------------------------------------------
+    def quantize_weights(
+        self, params: Params, *, bits: int = 8, act_bits: Optional[int] = None
+    ) -> Tuple[Params, int, int]:
+        """Weight quantization for serving, as ``repro``'s
+        ``LM.quantize_weights``: every projection leaf (attention, MLP and
+        expert weights, lm_head) becomes a
+        :class:`~repro_torch.core.quant.QuantizedTensor` on its own device;
+        the embedding, routers and norms stay full precision. ``bits`` picks
+        the rung (8, or 4 packed two nibbles per byte along K); ``act_bits=8``
+        also quantizes the activations per row at dispatch. Stacked leaves
+        are quantized one layer at a time. Returns (quantized tree, leaves
+        converted, float leaves skipped under quantizable keys)."""
+        return quantize_lm_params(params, bits=bits, act_bits=act_bits)
+
     def param_specs(self) -> Params:
         """The ArraySpec tree of the parameters (``repro``'s tree and layout)."""
         cfg = self.cfg

@@ -8,7 +8,10 @@ a GPU machine that has only PyTorch:
 
 Each kernel is held against its plain PyTorch version (the one its wrapper
 runs on CPU tensors) on the same inputs. Tolerances: 1e-4 for f32 (f32 sums
-in another order), 2e-2 for bf16 (one bf16 rounding of the output).
+in another order), 2e-2 for bf16 (one bf16 rounding of the output). The
+quantized variants (float x int8, int8 x int8, float x packed int4) keep
+those tolerances by activation dtype: the int8 -> f32 widening is exact, and
+the int8 x int8 MAC sums exact int32 k-steps.
 """
 
 import dataclasses
@@ -18,9 +21,10 @@ import pytest
 import torch
 
 from repro_torch.configs import get_reduced
-from repro_torch.core.gemm import gemm, gemm_grouped
+from repro_torch.core.gemm import gemm, gemm_context, gemm_grouped
 from repro_torch.core.op import Epilogue
 from repro_torch.core.policies import ALL_POLICIES, ALL_SK, DP, HYBRIDS, TileConfig
+from repro_torch.core.quant import quantize_activations, quantize_weight
 from repro_torch.core.workpart import GemmShape, partition
 from repro_torch.kernels import common
 from repro_torch.kernels.dp.dp_gemm import dp_gemm_region
@@ -111,16 +115,20 @@ def test_cuda_dispatch_runs_the_kernels_by_default(cuda_device):
 
 
 @pytest.mark.parametrize("kw", [dict(scale=torch.ones(300)), dict(scale_a=torch.ones(20)),
-                                dict(b_bits=4)], ids=["scale", "scale_a", "int4"])
+                                dict()], ids=["scale", "scale_a", "int4"])
 def test_cuda_wrappers_raise_on_quantized_arguments(cuda_device, kw):
-    a = torch.ones(20, 520, device=cuda_device)
-    b = torch.ones(520, 300, device=cuda_device)
+    """int8 activations x packed int4 weights, the one quantized pair the
+    kernels are not built for, raise before anything launches."""
+    a = torch.ones(20, 520, dtype=torch.int8, device=cuda_device)
+    b = torch.ones(260, 300, dtype=torch.int8, device=cuda_device)
     kw = {k: v.to(cuda_device) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
     with common.count_launches() as log:
         with pytest.raises(NotImplementedError):
-            ops.gemm(a, b, policy=ALL_SK, cfg=TileConfig(8, 128, 128), g=4, **kw)
+            ops.gemm(a, b, policy=ALL_SK, cfg=TileConfig(8, 128, 128), g=4, b_bits=4, **kw)
         with pytest.raises(NotImplementedError):
-            dp_gemm_region(a, b, TileConfig(8, 128, 128), **kw)
+            dp_gemm_region(a, b, TileConfig(8, 128, 128), b_bits=4, **kw)
+        with pytest.raises(NotImplementedError):
+            gemm_grouped_streamk(a[None], b[None], cfg=TileConfig(8, 128, 128), b_bits=4)
     assert log == []
 
 
@@ -227,4 +235,152 @@ def test_cuda_moe_served_tokens_match_torch_backend(cuda_device):
             tokens[backend] = {r.uid: r.out_tokens for r in engine.run()}
         if backend == "cuda":
             assert {"grouped_streamk_sk", "grouped_streamk_dp"} & set(log)
+    assert tokens["cuda"] == tokens["torch"] and len(tokens["cuda"]) == 2
+
+
+# ---------------------------------------------------------------------------
+# the quantization ladder: B1-B3 and B5 on int8 and packed int4 weights
+# ---------------------------------------------------------------------------
+
+#: rung -> (activation dtype, weight bits, int8 activations)
+RUNGS = {"f32*int8": (torch.float32, 8, False), "bf16*int8": (torch.bfloat16, 8, False),
+         "int8*int8": (torch.float32, 8, True), "f32*int4": (torch.float32, 4, False),
+         "bf16*int4": (torch.bfloat16, 4, False)}
+
+
+def _ladder(m, n, k, rung, seed, lead=()):
+    """(a, b, kwargs, tol) of one rung: the weight quantized per output
+    channel; int8 activations quantized per row with their scales."""
+    act, bits, act_q = RUNGS[rung]
+    r = np.random.default_rng(seed)
+    a = torch.from_numpy(r.normal(size=(*lead, m, k)).astype(np.float32)).to(act)
+    w = quantize_weight(torch.from_numpy(r.normal(size=(*lead, k, n)).astype(np.float32)),
+                        bits=bits)
+    kw = dict(scale=w.scales, b_bits=bits)
+    if act_q:
+        a, kw["scale_a"] = quantize_activations(a)
+    return a, w.values, kw, TOL[act]
+
+
+def _to(kw, device):
+    return {k: v.to(device) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+
+
+@pytest.mark.parametrize("rung", list(RUNGS))
+@pytest.mark.parametrize("pol_idx", range(len(ALL_POLICIES)), ids=[p.name for p in ALL_POLICIES])
+def test_cuda_quantized_kernels_match_plain_versions(cuda_device, pol_idx, rung):
+    """B1-B3 on every rung: aligned rows (cp.async) and unaligned ones
+    (element-wise staging; for int8 B, N not a multiple of 16), odd K and
+    K ragged against bk,
+    g from 6 to 132, the dequant stages ahead of bias+gelu+residual."""
+    for (m, n, k), cfg in (((64, 1024, 704), TileConfig(8, 128, 128)),
+                           ((20, 302, 331), TileConfig(16, 256, 128)),
+                           ((33, 384, 520), TileConfig(16, 128, 256))):
+        a, b, qkw, tol = _ladder(m, n, k, rung, seed=12)
+        r = np.random.default_rng(13)
+        bias = torch.from_numpy(r.normal(size=(n,)).astype(np.float32))
+        operand = torch.from_numpy(r.normal(size=(m, n)).astype(np.float32))
+        out = torch.bfloat16 if a.dtype == torch.bfloat16 else torch.float32
+        bias, operand = bias.to(out), operand.to(out)
+        for g in (6, 132):
+            kw = dict(policy=ALL_POLICIES[pol_idx], cfg=cfg, g=g, out_dtype=out,
+                      epilogue=Epilogue(activation="gelu", bias=True, binary="add"), **qkw)
+            want = ops.gemm(a, b, bias=bias, operand=operand, **kw)
+            got = ops.gemm(a.to(cuda_device), b.to(cuda_device), bias=bias.to(cuda_device),
+                           operand=operand.to(cuda_device), **_to(kw, cuda_device))
+            _close(got, want, tol)
+
+
+@pytest.mark.parametrize("rung", list(RUNGS))
+def test_cuda_quantized_streamk_is_bitwise_deterministic(cuda_device, rung):
+    """B2 then B3 on each rung, and B5's Stream-K form with split tiles:
+    two runs give the same bits, and they match the plain versions."""
+    a, b, kw, tol = (_ladder(4, 4096, 4096, rung, seed=14))
+    a, b, kw = a.to(cuda_device), b.to(cuda_device), _to(kw, cuda_device)
+    part = partition(GemmShape(4, 4096, 4096), TileConfig(8, 256, 128), 132, ALL_SK)
+    assert part.max_contributors > 1
+    out = torch.float32
+    runs = [ops.gemm(a, b, policy=ALL_SK, cfg=TileConfig(8, 256, 128), g=132, out_dtype=out,
+                     **kw) for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    _close(runs[0], ops.gemm(a.cpu(), b.cpu(), policy=ALL_SK, cfg=TileConfig(8, 256, 128),
+                             g=132, out_dtype=out, **_to(kw, "cpu")), tol)
+    ga, gb, gkw, _ = _ladder(16, 1024, 2048, rung, seed=15, lead=(64,))
+    ga, gb, gkw = ga.to(cuda_device), gb.to(cuda_device), _to(gkw, cuda_device)
+    cfg = TileConfig(16, 128, 128)
+    assert (-(-(64 * 8 * 16) // 132)) % 16  # a workgroup boundary falls inside a tile
+    outs = [gemm_grouped_streamk(ga, gb, policy=ALL_SK, cfg=cfg, g=132, out_dtype=out, **gkw)
+            for _ in range(2)]
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("rung", list(RUNGS))
+@pytest.mark.parametrize("pol_idx", [0, 1, 2], ids=["dp", "all_sk", "sk1dp"])
+def test_cuda_quantized_grouped_matches_plain_version(cuda_device, pol_idx, rung):
+    """Both B5 forms on every rung: ragged sizes with an empty group, rows
+    that are and are not 16-byte aligned, odd K, the per-expert scales and
+    per-row activation scales, g from 6 to 264."""
+    for (g_count, m, n, k), sizes in (((5, 20, 302, 201), (17, 0, 20, 3, 9)),
+                                      ((4, 16, 384, 512), (16, 16, 16, 16))):
+        a, b, qkw, tol = _ladder(m, n, k, rung, seed=16, lead=(g_count,))
+        out = torch.bfloat16 if a.dtype == torch.bfloat16 else torch.float32
+        operand = torch.from_numpy(
+            np.random.default_rng(17).normal(size=(g_count, m, n)).astype(np.float32)).to(out)
+        for cfg in (TileConfig(8, 128, 128), TileConfig(16, 256, 128)):
+            for g in (6, 132, 264):
+                kw = dict(out_dtype=out, epilogue=Epilogue(binary="mul_silu"), **qkw)
+                want = gemm_grouped_streamk_plain(a, b, sizes=sizes, operand=operand,
+                                                  bk=cfg.bk, **kw)
+                got = gemm_grouped_streamk(a.to(cuda_device), b.to(cuda_device),
+                                           policy=ALL_POLICIES[pol_idx], cfg=cfg, g=g,
+                                           group_sizes=sizes, operand=operand.to(cuda_device),
+                                           **_to(kw, cuda_device))
+                _close(got, want, tol)
+                for i, s_ in enumerate(sizes):
+                    assert not got[i, s_:].any()
+
+
+@pytest.mark.parametrize("bits,act_bits", [(8, None), (8, 8), (4, None)],
+                         ids=["int8", "int8-dynamic", "int4"])
+def test_cuda_quantized_grouped_dispatch_launches_once(cuda_device, bits, act_bits):
+    """One fused grouped dispatch of a quantized expert weight is one B5
+    launch, counted under its rung; its result matches the torch backend's
+    dequantize-free reference."""
+    r = np.random.default_rng(18)
+    x = torch.from_numpy(r.normal(size=(6, 8, 256)).astype(np.float32)).to(cuda_device)
+    w = quantize_weight(torch.from_numpy(r.normal(size=(6, 256, 384)).astype(np.float32))
+                        .to(cuda_device), bits=bits, act_bits=act_bits)
+    rung = {(8, None): "int8", (8, 8): "int8-dynamic", (4, None): "int4"}[bits, act_bits]
+    for pol, name in ((DP, "grouped_streamk_dp"), (ALL_SK, "grouped_streamk_sk")):
+        with common.count_launches() as log:
+            got = gemm_grouped(x, w, policy=pol, cfg=TileConfig(8, 128, 128), grid=4)
+        assert log == [f"{name}[{rung}]"]
+        with gemm_context(backend="torch"):
+            want = gemm_grouped(x, w, policy=pol, cfg=TileConfig(8, 128, 128), grid=4)
+        _close(got, want, TOL[torch.float32])
+
+
+@pytest.mark.parametrize("quantize", ["int8", "int8-dynamic", "int4"])
+@pytest.mark.parametrize("arch", ["granite-8b", "olmoe-1b-7b"])
+def test_cuda_quantized_served_tokens_match_torch_backend(cuda_device, arch, quantize):
+    """Reduced models in f32 on the card, quantized: the engine on the
+    kernels and the engine on the torch backend emit the same greedy tokens,
+    and the kernels ran on the rung."""
+    cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+    model = LM(cfg)
+    params = model.init_params(cuda_device, torch.Generator(device=cuda_device).manual_seed(0))
+    params, n, _ = model.quantize_weights(params, bits=4 if quantize == "int4" else 8,
+                                          act_bits=8 if quantize == "int8-dynamic" else None)
+    assert n > 0
+    prompts = [np.array(p, np.int32) for p in ([5, 17, 3, 99, 42, 7], [200, 1, 64])]
+    tokens = {}
+    for backend in ("cuda", "torch"):
+        engine = ServeEngine(model, params, ServeConfig(n_slots=2, max_seq=32, eos=-1),
+                             backend=backend, device=cuda_device)
+        for p in prompts:
+            engine.submit(p, max_new_tokens=6)
+        with common.count_launches() as log:
+            tokens[backend] = {r.uid: r.out_tokens for r in engine.run()}
+        if backend == "cuda":
+            assert any(name.endswith(f"[{quantize}]") for name in log)
     assert tokens["cuda"] == tokens["torch"] and len(tokens["cuda"]) == 2

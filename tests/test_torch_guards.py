@@ -20,10 +20,10 @@ from repro_torch.models.lm import LM, resolve_device
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 
 ROOT = Path(__file__).resolve().parent.parent
-#: the port, the chip smoke run, and the card-only tests (they run where jax
-#: is not installed)
+#: the port, the chip smoke run, the kernel A/B timer and the card-only tests
+#: (they run where jax is not installed)
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
+    ROOT / "chip_smoke.py", ROOT / "kernel_ab.py", ROOT / "tests" / "test_torch_cuda.py"]
 FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_torch)|from\s+(jax|repro)(\.|\s)(?!_torch))")
 
 
@@ -31,7 +31,8 @@ def test_port_import_leaves_jax_out():
     """A subprocess, because this test process already imported jax."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     code = ("import repro_torch, repro_torch.launch.serve, repro_torch.kernels.streamk.ops, "
-            "repro_torch.kernels.streamk.grouped, sys; assert 'jax' not in sys.modules, 'jax imported'; "
+            "repro_torch.kernels.streamk.grouped, repro_torch.core.quant, sys; "
+            "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]")
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
                          timeout=120)
@@ -91,8 +92,9 @@ def test_cuda_wrappers_refuse_cpu_tensors_they_cannot_take():
     a, b = torch.ones(4, 8), torch.ones(8, 16)
     with pytest.raises(ValueError, match="CUDA device"):
         check_cuda_operands(a, b, torch.float32, None, None)
-    with pytest.raises(NotImplementedError):
-        ops.gemm(a, b, policy=ALL_SK, cfg=TileConfig(8, 128, 128), g=4, b_bits=4)
+    with pytest.raises(NotImplementedError):  # int8 x int4 is not ported on any device
+        ops.gemm(a.to(torch.int8), b[:4].to(torch.int8), policy=ALL_SK,
+                 cfg=TileConfig(8, 128, 128), g=4, b_bits=4)
 
 
 def test_full_granite_config_is_the_published_width():

@@ -145,18 +145,20 @@ def test_fixup_writes_only_sk_tiles(g):
 
 
 @pytest.mark.parametrize("kw", [dict(scale=torch.ones(300)), dict(scale_a=torch.ones(20)),
-                                dict(b_bits=4)], ids=["scale", "scale_a", "int4"])
+                                dict()], ids=["scale", "scale_a", "int4"])
 def test_quantized_arguments_raise(kw, monkeypatch):
-    """Refused before any phase runs: on the card, phase 1 would otherwise
-    launch before the fix-up refuses the dequant scales."""
-    a, b = torch.ones(20, 520), torch.ones(520, 300)
+    """int8 activations against packed int4 weights (the one quantized pair
+    no rung of the serve CLI reaches) are refused before any phase runs: on
+    the card, phase 1 would otherwise launch before the refusal."""
+    a = torch.ones(20, 520, dtype=torch.int8)
+    b = torch.ones(260, 300, dtype=torch.int8)  # ceil(520 / 2) packed rows
     calls = []
     monkeypatch.setattr(ops, "streamk_phase1", lambda *a_, **k_: calls.append(1))
     with pytest.raises(NotImplementedError):
-        ops.gemm(a, b, policy=ALL_SK, cfg=TileConfig(*CFG), g=4, **kw)
+        ops.gemm(a, b, policy=ALL_SK, cfg=TileConfig(*CFG), g=4, b_bits=4, **kw)
     assert calls == []
     with pytest.raises(NotImplementedError):
-        dp_gemm_region(a, b, TileConfig(*CFG), **kw)
+        dp_gemm_region(a, b, TileConfig(*CFG), b_bits=4, **kw)
 
 
 def test_launch_counters_count_only_kernel_launches():
