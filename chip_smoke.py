@@ -37,8 +37,8 @@ Phases (any failure raises and the script exits non-zero):
    * the quantization ladder (int8 and packed int4 weights with their
      per-output-channel scales; int8 activations with per-row scales and an
      int32 MAC): B1-B3 through ``ops.gemm`` and phase by phase, and both B5
-     forms, on each of the five operand pairs (f32 or bf16 x int8, int8 x
-     int8, f32 or bf16 x int4), every policy x g in {66, 132, 264} x the
+     forms, on each of the six operand pairs (f32 or bf16 x int8, int8 x
+     int8, f32 or bf16 or int8 x int4), every policy x g in {66, 132, 264} x the
      epilogues, at the sweep shapes plus an odd K and at the grouped shapes
      (ragged sizes, odd K), against the plain versions and
      dequantize-then-matmul; the Stream-K forms bitwise deterministic; then
@@ -46,7 +46,25 @@ Phases (any failure raises and the script exits non-zero):
      (M = 57) shapes, beside the plain version, the bound at the int8/int4
      widths of B, and a yardstick (``torch._int_mm`` for int8 x int8, its M
      padded to a size it takes; else ``torch.matmul``/``torch.bmm`` on the
-     dequantized bf16 weight, a dense yardstick).
+     dequantized bf16 weight, a dense yardstick); int8 x int4 is timed the
+     same way (rung ``int4-dynamic``, which no serve rung reaches);
+   * B6, the split-K baseline, on every operand pair (f32, bf16 and the six
+     quantized ones) x s in {1, 2, 4, 8} x g in {0, 66, 132, 264} at the
+     sweep shape, a ragged unaligned one, an odd K and K < bk * s: its
+     partials against ``splitk_partials_plain`` (empty splits read 0),
+     ``splitk.ops.gemm`` against ``gemm_ref`` or dequantize-then-matmul, two
+     runs bitwise identical, and a planted fault (the reduction drops the
+     last split) that must read at least 3 times its limit;
+   * the slice's main path, the baseline comparison: at granite-8b's five
+     projection shapes, M = 4 and 57, bf16, the H100 pick (the whole
+     composition), ``dp.ops.gemm`` and ``splitk.ops.gemm`` at s in
+     {2, 4, 8} with the pick's tile, each once against ``gemm_ref`` with the
+     launch counters zeroed just before and read just after (every B6 call
+     must have launched), then each timed beside ``torch.matmul``; B6 timed
+     alone at 4x14336x4096, s = 4, for the ``kernels`` line;
+   * ``gemm_batched`` through the ``cuda`` backend at B = 4, granite-8b's
+     4096 -> 14336 at M = 4, f32, against ``torch.bmm``: B times the pick's
+     launches.
 3. Serve, through ``ServeEngine`` on the ``cuda`` backend, 4 slots, max_seq
    256, 4 seeded requests of 16-64 tokens, 8 new tokens each, with seeded
    random weights: granite-8b at full width (36 layers, d_model 4096, bf16,
@@ -82,7 +100,8 @@ k-steps are exact int32 sums) and 2e-2 for bf16 ones; the quantized runs'
 logits limits are ``QUANT_LOGITS_TOL``, and every planted fault must read at
 least 3 times its limit.
 
-The line before the last is the ``kernels`` JSON: every kernel, and one entry
+The line before the last is the ``kernels`` JSON: every kernel (B6's launches
+from the baseline comparison, the others' from the served runs), and one entry
 per (kernel, rung) that a served path ran; the last line is ``{"ok": true,
 "device": {...}}``. Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -123,11 +142,15 @@ REPLACES = {
     "streamk_fixup": "src/repro/kernels/streamk/streamk_gemm.py:179",
     "grouped_streamk_sk": "src/repro/kernels/streamk/grouped.py:93",
     "grouped_streamk_dp": "src/repro/kernels/streamk/grouped.py:156",
+    "splitk_partials": "src/repro/kernels/splitk/splitk_gemm.py:28",
 }
 SOURCE = "src/repro_torch/csrc/stream_k.cuh"  # instantiated by stream_k.cu and quant_*.cu
 GROUPED_SOURCE = "src/repro_torch/csrc/grouped.cuh"  # by grouped.cu, grouped_bf16.cu, quant_*.cu
 SOURCES = dict.fromkeys(("dp_gemm_region", "streamk_phase1", "streamk_fixup"), SOURCE)
 SOURCES.update(dict.fromkeys(("grouped_streamk_sk", "grouped_streamk_dp"), GROUPED_SOURCE))
+SOURCES["splitk_partials"] = "src/repro_torch/csrc/splitk.cuh"  # by stream_k.cu and quant_*.cu
+#: the kernels a served path runs (B6 has no served caller)
+SERVED_KERNELS = [name for name in REPLACES if name != "splitk_partials"]
 PEAK_INT8 = 1979e12  # OP/s, H100 SXM dense int8 tensor-core peak (data sheet)
 #: the quantization ladder as served (bf16 activations): rung -> (bits, act_bits, the source
 #: that instantiates its B1, B2 and B5)
@@ -139,7 +162,10 @@ RUNGS = {"int8": (8, None, "src/repro_torch/csrc/quant_bf16_i8.cu"),
 #: the int8 x int8 k-steps are exact int32 sums), bf16 ones 2e-2
 QUANT_PAIRS = (("f32*int8", "float32", 8, False, 1e-4), ("bf16*int8", "bfloat16", 8, False, 2e-2),
                ("int8*int8", "float32", 8, True, 1e-4), ("f32*int4", "float32", 4, False, 1e-4),
-               ("bf16*int4", "bfloat16", 4, False, 2e-2))
+               ("bf16*int4", "bfloat16", 4, False, 2e-2), ("int8*int4", "float32", 4, True, 1e-4))
+#: the rungs timed in phase 2: the served ones, and int4 weights against int8 activations
+#: (``quantize_weight(bits=4, act_bits=8)``), which no serve rung reaches
+TIMED_RUNGS = dict(RUNGS, **{"int4-dynamic": (4, 8, "src/repro_torch/csrc/quant_i8_i4.cu")})
 #: served prefill logits vs the torch backend, x max|logit|, per model: a
 #: sound granite-8b run reads 1.7e-2 and its planted fault 0.39; a sound
 #: olmoe-1b-7b run reads 2.3e-2 (bf16 roundings that differ flip about a
@@ -974,13 +1000,14 @@ def _quant_bound(m, n, k, gc, a_bytes, b_bytes, act_q, peak):
 
 
 def time_quant(gen):
-    """Each rung's kernels at the decode (M = 4) and prompt (M = 57) shapes
-    of the served runs: B1 at mlp.gate (N 14336, K 4096), B2 and B3 at
-    mlp.out (N 4096, K 14336) and B5 at olmoe-1b-7b's expert shapes; device
-    and event ms beside the plain version, the bound (the int8 and int4
-    widths of B) and a library yardstick: ``torch._int_mm`` for int8 x int8
-    B1-B3, else ``torch.matmul``/``torch.bmm`` on the dequantized bf16
-    weight, a dense yardstick that reads 2 bytes per weight."""
+    """Each rung's kernels (the served rungs and int4-dynamic, int8 x int4)
+    at the decode (M = 4) and prompt (M = 57) shapes of the served runs: B1
+    at mlp.gate (N 14336, K 4096), B2 and B3 at mlp.out (N 4096, K 14336)
+    and B5 at olmoe-1b-7b's expert shapes; device and event ms beside the
+    plain version, the bound (the int8 and int4 widths of B) and a library
+    yardstick: ``torch._int_mm`` for int8 x int8 B1-B3, else
+    ``torch.matmul``/``torch.bmm`` on the dequantized bf16 weight, a dense
+    yardstick that reads 2 bytes per weight."""
     import torch
 
     from repro_torch.core.gemm import dtype_name
@@ -1001,7 +1028,7 @@ def time_quant(gen):
     sel = default_selector("cuda")
     rows = []
     it = iter(range(10**9))
-    for rung, (bits, act_bits, _) in RUNGS.items():
+    for rung, (bits, act_bits, _) in TIMED_RUNGS.items():
         act_q = act_bits == 8
         a_bytes, b_bytes = (1 if act_q else 2), (0.5 if bits == 4 else 1)
         peak = PEAK_INT8 if act_q else PEAK_BF16
@@ -1045,7 +1072,7 @@ def time_quant(gen):
                         f"B1[{rung}] timing")
             vs = _rotating(q.values)
             w_bf16 = q.dequantize(torch.bfloat16)
-            if act_q:
+            if act_q and bits == 8:
                 lib, label = _int_mm_yardstick(a, q.values)
             else:
                 ws = _rotating(w_bf16)
@@ -1073,7 +1100,7 @@ def time_quant(gen):
                 used, streamk_phase1_plain(a, q.values, part, b_bits=bits), 0.0), 2e-2,
                 f"B2[{rung}] timing")
             vs = _rotating(q.values)
-            if act_q:
+            if act_q and bits == 8:
                 lib, label = _int_mm_yardstick(a, q.values)
                 label = label and f"{label} of the whole GEMM (B2 + B3 compose it)"
             else:
@@ -1139,6 +1166,238 @@ def quant_entry(rows, name, rung):
     mine = [r for r in rows if r["kernel"] == name and r["rung"] == rung]
     picked = [r for r in mine if "pick" not in r["policy"]]
     return dict((picked or mine)[0])
+
+
+# ---------------------------------------------------------------------------
+# Phase 2d: B6, the split-K baseline; the baseline comparison; gemm_batched
+# ---------------------------------------------------------------------------
+
+
+#: B6's operand pairs: the dense ones, then the quantized sweep's (name, activation dtype,
+#: weight bits or None, int8 activations, tolerance)
+SPLITK_PAIRS = (("f32", "float32", None, False, 1e-4), ("bf16", "bfloat16", None, False, 2e-2),
+                *QUANT_PAIRS)
+#: B6's sweep shapes: the sweep shape, a ragged one whose rows are not 16-byte aligned, an odd
+#: K (int4's zero pad nibble), and K = 200 below bk * s for s >= 2 (empty splits)
+SPLITK_SHAPES = ((64, 4096, 4096), (17, 302, 520), (13, 400, 331), (9, 384, 200))
+SPLITK_S = (1, 2, 4, 8)
+SPLITK_G = (0, 66, 132, 264)
+
+
+def _splitk_operands(m, n, k, pair, gen):
+    """(a, b, quantized kwargs, a_ref @ w_ref in f32, out dtype, tol) of one B6 pair."""
+    if pair[2] is None:
+        import torch
+
+        a, b, _, _ = _operands(m, n, k, getattr(torch, pair[1]), gen)
+        return a, b, {}, a.float() @ b.float(), a.dtype, pair[4]
+    a, b, qkw, a_ref, w_ref, out, tol = _quant_operands(m, n, k, pair, gen)
+    return a, b, qkw, a_ref @ w_ref, out, tol
+
+
+def splitk_sweep(gen):
+    """B6 on every operand pair (dense f32 and bf16, the ladder's six) x s in
+    {1, 2, 4, 8} x g in {0, 66, 132, 264} at each split-K shape: the
+    partials against the plain version (empty splits must read 0), ``ops.gemm``
+    (the sum over the splits, then the scales) against ``gemm_ref`` or
+    dequantize-then-matmul; two runs bitwise identical per (shape, pair, s).
+    A planted fault, a reduction that drops the last split, must read at
+    least 3 times its limit."""
+    import torch
+
+    from repro_torch.core.gemm import dtype_name
+    from repro_torch.core.op import GemmOp
+    from repro_torch.core.selector import default_selector
+    from repro_torch.kernels.splitk import ops as splitk_ops
+    from repro_torch.kernels.splitk.splitk_gemm import (
+        k_per_split, splitk_partials, splitk_partials_plain,
+    )
+
+    sel = default_selector("cuda")
+    errs = {}
+    cases = bitwise = empty = 0
+    fault = None
+    for (m, n, k), pair in ((shape, pair) for shape in SPLITK_SHAPES for pair in SPLITK_PAIRS):
+        a, b, qkw, ref_acc, out, tol = _splitk_operands(m, n, k, pair, gen)
+        bits = qkw.get("b_bits", 8)
+        in_dtype = f"{dtype_name(a.dtype)}*int{bits}" if qkw else dtype_name(a.dtype)
+        cfg = sel.select_op(GemmOp.plain(m, n, k, in_dtype=in_dtype,
+                                         out_dtype=dtype_name(out))).cfg
+        want = ref_acc.to(out)
+        for sp in SPLITK_S:
+            plain = splitk_partials_plain(a, b, cfg, sp, b_bits=bits)
+            first_empty = -(-k // (k_per_split(k, cfg.bk, sp) * cfg.bk))
+            for g in SPLITK_G:
+                what = f"B6 {m}x{n}x{k} {pair[0]} {cfg.name} s={sp} g={g}"
+                parts = splitk_partials(a, b, cfg, sp, g=g, b_bits=bits)
+                key = f"splitk_partials {pair[0]}"
+                errs[key] = max(errs.get(key, 0.0), close(parts, plain, tol, what))
+                if first_empty < sp:
+                    if parts[first_empty:].any():
+                        raise AssertionError(f"{what}: an empty split is not 0")
+                    empty += 1
+                c = splitk_ops.gemm(a, b, cfg=cfg, s=sp, g=g, out_dtype=out, **qkw)
+                key = f"gemm {pair[0]}"
+                errs[key] = max(errs.get(key, 0.0), close(c, want, tol, what + " ops.gemm"))
+                cases += 1
+            runs = [splitk_ops.gemm(a, b, cfg=cfg, s=sp, g=132, out_dtype=out, **qkw)
+                    for _ in range(2)]
+            if not torch.equal(runs[0], runs[1]):
+                raise AssertionError(f"B6 {m}x{n}x{k} {pair[0]} s={sp}: not bitwise deterministic")
+            bitwise += 1
+        if fault is None and (m, n, k) == SPLITK_SHAPES[0] and pair[0] == "f32":
+            # the planted fault: the reduction drops the last of 4 splits
+            bad = splitk_partials(a, b, cfg, 4)[:-1].sum(dim=0)
+            limit = tol * max(1.0, want.abs().max().item())
+            fault = dict(max_abs_diff=(bad - want).abs().max().item(), limit=limit)
+            if fault["max_abs_diff"] < 3 * limit:
+                raise AssertionError(f"B6 planted fault reads {fault['max_abs_diff']:.4e}, under "
+                                     f"3 x its limit {limit:.4e}")
+    torch.cuda.synchronize()
+    if not empty:
+        raise AssertionError("no B6 case had an empty split")
+    return errs, cases, bitwise, empty, fault
+
+
+#: split factors of the baseline comparison, and its prompt M: the first served prompt's
+#: length, the prompt shape the quantized timings use too
+COMPARE_S = (2, 4, 8)
+PROMPT_M = 57
+
+
+def baseline_comparison(gen):
+    """The slice's main path: at granite-8b's five projection shapes, M = 4
+    (decode) and 57 (the first served prompt), bf16, one GEMM each through
+    the H100 selector's pick (the whole composition), ``dp.ops.gemm`` and
+    ``splitk.ops.gemm`` at s in {2, 4, 8}, both with the pick's tile and one
+    block per tile, checked against ``gemm_ref``. The launch counters are
+    zeroed just before and read just after. Then each is timed (device ms,
+    weights past L2) beside ``torch.matmul``. Returns (rows, launches)."""
+    import torch
+
+    from repro_torch.core.gemm import dtype_name
+    from repro_torch.core.op import GemmOp
+    from repro_torch.core.selector import default_selector
+    from repro_torch.core.workpart import GemmShape, partition
+    from repro_torch.kernels.common import LAUNCHES, reset_launch_counts
+    from repro_torch.kernels.dp import ops as dp_ops
+    from repro_torch.kernels.splitk import ops as splitk_ops
+    from repro_torch.kernels.streamk import ops as sk_ops
+    from repro_torch.kernels.streamk.ref import gemm_ref
+
+    sel = default_selector("cuda")
+    shapes = [(m, n, k) for m in (N_SLOTS, PROMPT_M) for n, k in SLICE_NK]
+    cases = []
+    for m, n, k in shapes:
+        a, b, _, _ = _operands(m, n, k, torch.bfloat16, gen)
+        s = sel.select_op(GemmOp.plain(m, n, k, in_dtype=dtype_name(a.dtype)))
+        fns = {"pick": lambda a, b, s=s: sk_ops.gemm(a, b, policy=s.policy, cfg=s.cfg, g=s.g),
+               "dp": lambda a, b, s=s: dp_ops.gemm(a, b, cfg=s.cfg)}
+        for sp in COMPARE_S:
+            fns[f"splitk_s{sp}"] = lambda a, b, s=s, sp=sp: splitk_ops.gemm(a, b, cfg=s.cfg, s=sp)
+        cases.append((m, n, k, a, b, s, fns))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    worst = 0.0
+    for m, n, k, a, b, s, fns in cases:
+        want = gemm_ref(a, b, torch.float32)
+        for name, fn in fns.items():
+            worst = max(worst, close(fn(a, b), want, 2e-2, f"compare {m}x{n}x{k} {name}"))
+    torch.cuda.synchronize()
+    launches = {name: n for name, n in LAUNCHES.items() if n}
+    log(f"baseline comparison ({len(cases)} shapes): launches {launches}; max err {worst:.3e}")
+    if launches.get("splitk_partials", 0) != len(cases) * len(COMPARE_S):
+        raise AssertionError(f"expected {len(cases) * len(COMPARE_S)} B6 launches, got "
+                             f"{launches.get('splitk_partials', 0)}")
+    needed = {"dp_gemm_region"}  # the DP baseline
+    for m, n, k, a, b, s, fns in cases:
+        part = partition(GemmShape(m, n, k), s.cfg, s.g, s.policy)
+        needed |= {"streamk_phase1", "streamk_fixup"} if part.sk_tiles else set()
+        needed |= {"dp_gemm_region"} if part.dp_tiles else set()
+    missing = sorted(name for name in needed if not launches.get(name))
+    if missing:
+        raise AssertionError(f"the baseline comparison never launched {missing}")
+    rows = []
+    for m, n, k, a, b, s, fns in cases:
+        bs = _rotating(b)
+        it = iter(range(10**9))
+        row = dict(shape=[m, n, k], policy=s.policy.name, tile=s.cfg.name, g=s.g)
+        for name, fn in fns.items():
+            row[f"{name}_ms"], row[f"{name}_event_ms"] = time_ms(
+                lambda fn=fn: fn(a, bs[next(it) % len(bs)]))
+        row["matmul_ms"], row["matmul_event_ms"] = time_ms(
+            lambda: torch.matmul(a, bs[next(it) % len(bs)]))
+        row["bound_ms"], row["bound_by"] = bound_ms((m * k + k * n + m * n) * 2, 2 * m * n * k)
+        rows.append(row)
+        log(f"  {m}x{n}x{k} pick {s.policy.name}/{s.cfg.name} g={s.g} {row['pick_ms']:.4f}, dp "
+            f"{row['dp_ms']:.4f}, " + ", ".join(f"s={sp} {row[f'splitk_s{sp}_ms']:.4f}"
+                                                for sp in COMPARE_S)
+            + f", torch.matmul {row['matmul_ms']:.4f}, bound {row['bound_ms']:.4f} ms")
+    return rows, launches, worst
+
+
+def time_splitk(gen):
+    """B6 for the kernels line: at the decode shape 4x14336x4096 (mlp.gate),
+    s = 4, bf16, the pick's tile, one block per tile; its partials against
+    the plain version; device ms beside the plain version and torch.matmul
+    of the whole GEMM; the bound reads A and B once and writes the s * M * N
+    f32 partials."""
+    import torch
+
+    from repro_torch.core.gemm import dtype_name
+    from repro_torch.core.op import GemmOp
+    from repro_torch.core.selector import default_selector
+    from repro_torch.kernels.splitk.splitk_gemm import splitk_partials, splitk_partials_plain
+
+    m, n, k, sp = 4, 14336, 4096, 4
+    a, b, _, _ = _operands(m, n, k, torch.bfloat16, gen)
+    s = default_selector("cuda").select_op(GemmOp.plain(m, n, k, in_dtype=dtype_name(a.dtype)))
+    err = close(splitk_partials(a, b, s.cfg, sp), splitk_partials_plain(a, b, s.cfg, sp), 2e-2,
+                "B6 timing shape")
+    bs = _rotating(b)
+    it = iter(range(10**9))
+    ms, ev = time_ms(lambda: splitk_partials(a, bs[next(it) % len(bs)], s.cfg, sp))
+    plain, plain_ev = time_ms(lambda: splitk_partials_plain(a, bs[next(it) % len(bs)], s.cfg, sp))
+    lib, lib_ev = time_ms(lambda: torch.matmul(a, bs[next(it) % len(bs)]))
+    bnd, by = bound_ms((m * k + k * n) * 2 + sp * m * n * 4, 2 * m * n * k)
+    log(f"  B6 {m}x{n}x{k} s={sp} {s.cfg.name}: device {ms:.4f} ms, events {ev:.4f} ms; plain "
+        f"{plain:.4f} ms; torch.matmul {lib:.4f} ms; bound {bnd:.5f} ms by {by}")
+    return dict(shape=[m, n, k], policy=f"split-K s={sp}", tile=s.cfg.name, g=0, s=sp,
+                max_abs_err=err, ms=ms, event_ms=ev, plain_ms=plain, plain_event_ms=plain_ev,
+                library_ms=lib, library_event_ms=lib_ev,
+                library_of="torch.matmul of the whole GEMM (B6 and its reduction compose it)",
+                bound_ms=bnd, bound_by=by)
+
+
+def batched_check(gen):
+    """``gemm_batched`` through the ``cuda`` backend at B = 4, granite-8b's
+    4096 -> 14336 at M = 4, f32, against ``torch.bmm``; the launches must be
+    B times the pick's kernels (the loop form)."""
+    import torch
+
+    from repro_torch.core.gemm import gemm_batched, gemm_context
+    from repro_torch.core.workpart import GemmShape, partition
+    from repro_torch.kernels.common import count_launches
+
+    nb, m, k, n = 4, N_SLOTS, 4096, 14336
+    x = torch.randn(nb, m, k, generator=gen, device="cuda")
+    w = torch.randn(nb, k, n, generator=gen, device="cuda") / math.sqrt(k)
+    with count_launches() as launched, gemm_context(backend="cuda") as ctx:
+        got = gemm_batched(x, w, tag="batched")
+    torch.cuda.synchronize()
+    [e] = ctx.log
+    sel = e.selection
+    part = partition(GemmShape(m, n, k), sel.cfg, sel.g, sel.policy)
+    per = (["streamk_phase1", "streamk_fixup"] if part.sk_tiles else []) + (
+        ["dp_gemm_region"] if part.dp_tiles else [])
+    if e.op.fused or e.op.kind != "batched" or len(e.op.key) != 7 or launched != per * nb:
+        raise AssertionError(f"gemm_batched: key {e.op.key}, launches {launched}, expected "
+                             f"{per} x {nb}")
+    err = close(got, torch.bmm(x, w), 1e-4, "gemm_batched vs torch.bmm")
+    log(f"gemm_batched {nb}x{m}x{n}x{k} f32: {sel.policy.name}/{sel.cfg.name} g={sel.g}, "
+        f"launches {launched}, max err {err:.3e} against torch.bmm")
+    return dict(shape=[nb, m, n, k], policy=sel.policy.name, tile=sel.cfg.name, g=sel.g,
+                launches=launched, max_abs_err=err)
 
 
 # ---------------------------------------------------------------------------
@@ -1549,6 +1808,20 @@ def main() -> int:
     t0 = time.perf_counter()
     quant_rows = time_quant(gen)
     log(f"quantized timings ({time.perf_counter() - t0:.1f}s)")
+    t0 = time.perf_counter()
+    sk_errs, sk_cases, sk_bitwise, sk_empty, sk_fault = splitk_sweep(gen)
+    log(f"B6 sweep {SPLITK_SHAPES} x {[p[0] for p in SPLITK_PAIRS]} x s {SPLITK_S} x g "
+        f"{SPLITK_G}: {sk_cases} cases agree with the plain version and the reference; max "
+        f"errors {sk_errs}; {sk_bitwise} bitwise repeats; {sk_empty} cases with empty splits "
+        f"read 0; planted fault {sk_fault} ({time.perf_counter() - t0:.1f}s)")
+    t0 = time.perf_counter()
+    log("the baseline comparison at granite-8b's projections (device ms):")
+    compare_rows, compare_launches, compare_err = baseline_comparison(gen)
+    timed["splitk_partials"] = time_splitk(gen)
+    batched = batched_check(gen)
+    log(f"baseline comparison, B6 timing and gemm_batched ({time.perf_counter() - t0:.1f}s)")
+    gc.collect()
+    torch.cuda.empty_cache()
 
     failures = []
     t0 = time.perf_counter()
@@ -1561,7 +1834,7 @@ def main() -> int:
     log(f"olmoe-1b-7b served dense and on {list(RUNGS)} ({time.perf_counter() - t0:.1f}s)")
 
     kernels = []
-    for name in REPLACES:
+    for name in SERVED_KERNELS:
         t = timed[name]
         # launches: each kernel's count from the main path that serves it
         arch = "olmoe-1b-7b" if name.startswith("grouped") else "granite-8b"
@@ -1579,9 +1852,22 @@ def main() -> int:
             launches_in=arch, launches_other_model=serve[other]["dense"]["launches"].get(name, 0),
             **extra,
         ))
+    # B6 has no served caller: its launches are those of the baseline comparison, the
+    # slice's main path
+    t = timed["splitk_partials"]
+    kernels.append(dict(
+        name="splitk_partials", route="cuda", source=SOURCES["splitk_partials"],
+        replaces=REPLACES["splitk_partials"], launches=compare_launches["splitk_partials"],
+        max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        bound_by=t["bound_by"], library_ms=t["library_ms"], library_of=t["library_of"],
+        shape=t["shape"], policy=t["policy"], tile=t["tile"], g=t["g"],
+        sweep_max_err=max(v for key, v in sk_errs.items() if key.startswith("splitk_partials")),
+        event_ms=t["event_ms"], plain_event_ms=t["plain_event_ms"],
+        library_event_ms=t["library_event_ms"], launches_in="the baseline comparison",
+    ))
     not_served = []
     for rung, (_, _, pair_source) in RUNGS.items():
-        for name in REPLACES:
+        for name in SERVED_KERNELS:
             key = f"{name}[{rung}]"
             # each (kernel, rung) that a served path ran: its count from the model that
             # serves it (granite-8b for B1-B3, olmoe-1b-7b for B5), else from the other
@@ -1613,6 +1899,10 @@ def main() -> int:
     record = dict(card=smi, build_s=build_s,
                   build_source_s=cuda_lib.build_info.get("source_seconds"), kernels=kernels,
                   picks=picks, gemms=gemms, grouped=grouped_rows, quant=quant_rows, serve=serve,
+                  splitk_cases=sk_cases, splitk_errs=sk_errs, splitk_bitwise=sk_bitwise,
+                  splitk_empty=sk_empty, splitk_fault=sk_fault, compare=compare_rows,
+                  compare_launches=compare_launches, compare_max_err=compare_err,
+                  batched=batched,
                   sweep_cases=cases, b5_cases=b5_cases, b5_bitwise=b5_bitwise,
                   quant_cases=q_cases, quant_errs=q_errs, quant_bitwise=q_bitwise,
                   quant_b5_cases=qg_cases, quant_b5_errs=qg_errs, quant_b5_bitwise=qg_bitwise,

@@ -19,10 +19,12 @@ Built-in backends:
     (``kernels/streamk/grouped.py``). On CPU tensors its wrappers run their
     kernels' plain versions, the counterpart of ``pallas_interpret``.
 
-Entry points: :func:`gemm` (2-D weight) and :func:`gemm_grouped` (stacked
+Entry points: :func:`gemm` (2-D weight), :func:`gemm_grouped` (stacked
 ``(G, K, N)`` expert weights, fused into one kernel by default and keyed by
 the 8-part ``grouped_fused`` op key; ``fused=False`` keeps one dispatch per
-group as the differential oracle). Either takes a
+group as the differential oracle) and :func:`gemm_batched` (independent
+per-batch operands of equal shape, always the loop form and the 7-part
+key). Each takes a
 :class:`~repro_torch.core.quant.QuantizedTensor` weight: the op then keys on
 the mixed ``"<act>*int8"``/``"<act>*int4"`` fingerprint, or ``"int8*int8"``
 when the weight asks for int8 activations, which are quantized per row
@@ -402,6 +404,31 @@ def gemm_grouped(
         "grouped", x, w, divisors=divisors, g_divisor=g_divisor, out_dtype=out_dtype, tag=tag,
         policy=policy, cfg=cfg, grid=grid, epilogue=epilogue, bias=bias, operand=operand,
         fused=fused,
+    )
+
+
+def gemm_batched(
+    x: torch.Tensor,
+    w: Union[torch.Tensor, QuantizedTensor],
+    *,
+    divisors: Tuple[int, int, int] = (1, 1, 1),
+    g_divisor: int = 1,
+    out_dtype=None,
+    tag: str = "",
+    policy: Optional[Policy] = None,
+    cfg: Optional[TileConfig] = None,
+    grid: Optional[int] = None,
+    epilogue: Union[None, str, Epilogue] = None,
+    bias: Optional[torch.Tensor] = None,
+    operand: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Batched GEMM: x (B, M, K) @ w (B, K, N) -> (B, M, N), independent
+    per-batch operands of equal shape (one selection covers the batch). It
+    always runs the loop form: the policy composition once per batch entry,
+    keyed by the 7-part op key (``repro.core.gemm.gemm_batched``)."""
+    return _gemm_stacked(
+        "batched", x, w, divisors=divisors, g_divisor=g_divisor, out_dtype=out_dtype, tag=tag,
+        policy=policy, cfg=cfg, grid=grid, epilogue=epilogue, bias=bias, operand=operand,
     )
 
 

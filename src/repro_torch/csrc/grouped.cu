@@ -61,6 +61,7 @@ SK_QUANT_DECLARE(bf16_i8)
 SK_QUANT_DECLARE(i8_i8)
 SK_QUANT_DECLARE(f32_i4)
 SK_QUANT_DECLARE(bf16_i4)
+SK_QUANT_DECLARE(i8_i4)
 
 // Dtype codes: 0 = float32, 1 = bfloat16, 2 = int8, 3 = packed int4 (B only).
 extern "C" {
@@ -82,6 +83,7 @@ int sk_grouped_gemm(int a_dt, int b_dt, int out_dt, int sm, int sk_form, const v
   if (a_dt == 2 && b_dt == 2) return sk_grouped_gemm_i8_i8(SK_GROUPED_ARGS);
   if (a_dt == 0 && b_dt == 3) return sk_grouped_gemm_f32_i4(SK_GROUPED_ARGS);
   if (a_dt == 1 && b_dt == 3) return sk_grouped_gemm_bf16_i4(SK_GROUPED_ARGS);
+  if (a_dt == 2 && b_dt == 3) return sk_grouped_gemm_i8_i4(SK_GROUPED_ARGS);
   return (int)cudaErrorInvalidValue;
 #undef SK_GROUPED_ARGS
 }

@@ -1,4 +1,4 @@
-// The quantization ladder's bf16 x int8 pair (int8 rung): B1, B2 and both B5 forms.
+// The quantization ladder's bf16 x int8 pair (int8 rung): B1, B2, both B5 forms and B6.
 // See quant.cuh.
 
 #include "quant.cuh"

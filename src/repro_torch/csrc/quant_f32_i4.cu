@@ -1,4 +1,4 @@
-// The quantization ladder's f32 x packed int4 pair (int4 rung): B1, B2 and both B5 forms.
+// The quantization ladder's f32 x packed int4 pair (int4 rung): B1, B2, both B5 forms and B6.
 // See quant.cuh.
 
 #include "quant.cuh"

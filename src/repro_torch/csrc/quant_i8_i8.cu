@@ -1,5 +1,5 @@
-// The quantization ladder's int8 x int8 pair (int8-dynamic rung, int32 MAC): B1, B2
-// and both B5 forms.
+// The quantization ladder's int8 x int8 pair (int8-dynamic rung, int32 MAC): B1, B2,
+// both B5 forms and B6.
 // See quant.cuh.
 
 #include "quant.cuh"

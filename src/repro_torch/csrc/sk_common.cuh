@@ -1,5 +1,5 @@
 // Device code shared by the Stream-K++ kernels for NVIDIA Hopper (sm_90a):
-// stream_k.cuh (B1-B3) and grouped.cuh (B5) include it.
+// stream_k.cuh (B1-B3), grouped.cuh (B5) and splitk.cuh (B6) include it.
 //
 // A logical bm x bn tile (any TileConfig: bm a multiple of 8, bn of 128) is
 // walked in SM x 128 sub-blocks (SM in {8, 16, 32, 64} divides bm, chosen by
@@ -19,15 +19,18 @@
 //     f32 inputs keep full f32 products;
 //   * float activations x int8 or packed int4 weights: both widened to f32
 //     (exact), FMA into f32;
-//   * int8 x int8: int32 multiply-add, added into the f32 accumulator at each
-//     of the tile's bk boundaries, as the TPU converts each k-step's int32
-//     partial (each is at most bk * 127^2 < 2^24, so the conversion is exact
-//     and a Stream-K segment, which starts on a bk boundary, carries the same
+//   * int8 activations x int8 or packed int4 weights: int32 multiply-add,
+//     added into the f32 accumulator at each of the tile's bk boundaries, as
+//     the TPU converts each k-step's int32 partial (each is at most
+//     bk * 127^2 < 2^24, so the conversion is exact, and a Stream-K segment
+//     or a split-K split, which starts on a bk boundary, carries the same
 //     arithmetic as the DP path).
 // Packed int4 B (two nibbles per byte along K, even k in the low nibble,
 // src/repro/core/quant.py:83-110) is staged packed, half a byte per weight,
-// and each nibble is sign-extended as it is multiplied; a chunk starts on an
-// even k, and packed rows are masked against ceil(kend / 2).
+// and each nibble is sign-extended, into the MAC's type (f32, or int for
+// int8 activations, never widened to f32 there), as it is multiplied; a
+// chunk starts on an even k, and packed rows are masked against
+// ceil(kend / 2).
 //
 // Epilogue order (src/repro/kernels/common.py:81-104): scale_a (per row) ->
 // scale (per column) -> bias -> activation -> binary, on the f32
@@ -341,13 +344,14 @@ __device__ __forceinline__ void mac_subblock(const TA* __restrict__ a, const TB*
 }
 
 // Opt a kernel into the dynamic shared memory its ring needs (above 48 KB
-// only after cudaFuncSetAttribute), then launch it. The attribute stays set
+// only after cudaFuncSetAttribute), then launch it on a 1-D grid (an int)
+// or a 2-D one (B6's tiles x splits). The attribute stays set
 // on the function, so each instantiation sets it once per device and later
 // launches skip that call.
 constexpr int kMaxDevices = 64;
 
 template <auto Kernel, typename... Args>
-int launch(int smem, int grid, cudaStream_t stream, Args... args) {
+int launch(int smem, dim3 grid, cudaStream_t stream, Args... args) {
   static std::atomic<bool> opted_in[kMaxDevices];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);

@@ -26,10 +26,21 @@
 // the dequant scales apply once, in B3's fix-up and in B1's flush, as on
 // the TPU.
 //
+// B6, the fixed-factor split-K baseline (splitk.cuh), sits beside them:
+//
+//   B6  splitk_kernel   <- src/repro/kernels/splitk/splitk_gemm.py:_splitk_kernel
+//       block (x, sp) strides over the output tiles x, x + grid, ... and
+//       writes split sp's f32 partial of each into partials[sp] (s, M, N);
+//       the caller sums over s and applies the dequant scales.
+//
+// This file instantiates B6 for the dense inputs too; the pairs' B6 comes
+// with their B1 and B2 from quant_*.cu.
+//
 // Each extern "C" entry launches on the caller's stream and returns
 // cudaGetLastError(), which the Python wrapper checks.
 
 #include "quant.cuh"
+#include "splitk.cuh"
 #include "stream_k.cuh"
 
 SK_QUANT_DECLARE(f32_i8)
@@ -37,6 +48,7 @@ SK_QUANT_DECLARE(bf16_i8)
 SK_QUANT_DECLARE(i8_i8)
 SK_QUANT_DECLARE(f32_i4)
 SK_QUANT_DECLARE(bf16_i4)
+SK_QUANT_DECLARE(i8_i4)
 
 // Dtype codes: 0 = float32, 1 = bfloat16, 2 = int8, 3 = packed int4 (B only).
 extern "C" {
@@ -55,6 +67,7 @@ int sk_dp_gemm(int a_dt, int b_dt, int out_dt, int sm, const void* a, const void
   if (a_dt == 2 && b_dt == 2) return sk_dp_gemm_i8_i8(SK_DP_ARGS);
   if (a_dt == 0 && b_dt == 3) return sk_dp_gemm_f32_i4(SK_DP_ARGS);
   if (a_dt == 1 && b_dt == 3) return sk_dp_gemm_bf16_i4(SK_DP_ARGS);
+  if (a_dt == 2 && b_dt == 3) return sk_dp_gemm_i8_i4(SK_DP_ARGS);
   return (int)cudaErrorInvalidValue;
 #undef SK_DP_ARGS
 }
@@ -72,6 +85,7 @@ int sk_streamk_phase1(int a_dt, int b_dt, int sm, const void* a, const void* b, 
   if (a_dt == 2 && b_dt == 2) return sk_streamk_phase1_i8_i8(SK_P1_ARGS);
   if (a_dt == 0 && b_dt == 3) return sk_streamk_phase1_f32_i4(SK_P1_ARGS);
   if (a_dt == 1 && b_dt == 3) return sk_streamk_phase1_bf16_i4(SK_P1_ARGS);
+  if (a_dt == 2 && b_dt == 3) return sk_streamk_phase1_i8_i4(SK_P1_ARGS);
   return (int)cudaErrorInvalidValue;
 #undef SK_P1_ARGS
 }
@@ -93,6 +107,25 @@ int sk_streamk_fixup(int out_dt, const void* partials, void* c, int m, int n, in
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+int sk_splitk_partials(int a_dt, int b_dt, int sm, const void* a, const void* b,
+                       void* partials, int m, int n, int k, int bm, int bn, int bk,
+                       int n_tiles_n, int n_total, int kps, int s, int grid, int aligned,
+                       void* stream) {
+#define SK_SPLITK_ARGS \
+  sm, a, b, partials, m, n, k, bm, bn, bk, n_tiles_n, n_total, kps, s, grid, aligned, stream
+  if (a_dt == 0 && b_dt == 0) return splitk_entry<float, float, false>(SK_SPLITK_ARGS);
+  if (a_dt == 1 && b_dt == 1)
+    return splitk_entry<__nv_bfloat16, __nv_bfloat16, false>(SK_SPLITK_ARGS);
+  if (a_dt == 0 && b_dt == 2) return sk_splitk_partials_f32_i8(SK_SPLITK_ARGS);
+  if (a_dt == 1 && b_dt == 2) return sk_splitk_partials_bf16_i8(SK_SPLITK_ARGS);
+  if (a_dt == 2 && b_dt == 2) return sk_splitk_partials_i8_i8(SK_SPLITK_ARGS);
+  if (a_dt == 0 && b_dt == 3) return sk_splitk_partials_f32_i4(SK_SPLITK_ARGS);
+  if (a_dt == 1 && b_dt == 3) return sk_splitk_partials_bf16_i4(SK_SPLITK_ARGS);
+  if (a_dt == 2 && b_dt == 3) return sk_splitk_partials_i8_i4(SK_SPLITK_ARGS);
+  return (int)cudaErrorInvalidValue;
+#undef SK_SPLITK_ARGS
 }
 
 }  // extern "C"

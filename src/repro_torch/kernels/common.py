@@ -28,10 +28,14 @@ KERNELS = (
     "streamk_fixup",
     "grouped_streamk_sk",
     "grouped_streamk_dp",
+    "splitk_partials",
 )
 
-#: the quantization ladder's rungs (``serve --quantize``)
-RUNGS = ("int8", "int8-dynamic", "int4")
+#: the quantization ladder's rungs: the three of ``serve --quantize``, and
+#: ``int4-dynamic``, int4 weights against int8 activations quantized per row
+#: at dispatch (``quantize_weight(bits=4, act_bits=8)``), which no serve rung
+#: reaches but the kernels take
+RUNGS = ("int8", "int8-dynamic", "int4", "int4-dynamic")
 
 
 def launch_name(kernel: str, rung: Optional[str] = None) -> str:
@@ -43,7 +47,7 @@ def rung_of(a_dtype: torch.dtype, b_dtype: torch.dtype, b_bits: int = 8) -> Opti
     """The rung an (activation, weight) operand pair belongs to, None for
     the dense pairs."""
     if b_bits == 4:
-        return "int4"
+        return "int4" if a_dtype.is_floating_point else "int4-dynamic"
     if b_dtype == torch.int8:
         return "int8" if a_dtype.is_floating_point else "int8-dynamic"
     return None
@@ -170,8 +174,8 @@ ACT_CODES = {"none": 0, "relu": 1, "gelu": 2, "silu": 3, "square": 4}
 BINARY_CODES = {"none": 0, "mul_silu": 1, "add": 2}
 
 #: the (A, B) operand pairs the kernels are instantiated for: the dense
-#: pairs and the quantization ladder's (int8-weight, int8 x int8 and int4
-#: rungs), as (A dtype, B dtype, b_bits)
+#: pairs and the quantization ladder's (float x int8, int8 x int8, float x
+#: int4 and int8 x int4), as (A dtype, B dtype, b_bits)
 CUDA_PAIRS = frozenset({
     (torch.float32, torch.float32, 8),
     (torch.bfloat16, torch.bfloat16, 8),
@@ -180,19 +184,15 @@ CUDA_PAIRS = frozenset({
     (torch.int8, torch.int8, 8),
     (torch.float32, torch.int8, 4),
     (torch.bfloat16, torch.int8, 4),
+    (torch.int8, torch.int8, 4),
 })
 
 
-def refuse_int8_int4(a: torch.Tensor, b_bits: int) -> None:
-    """int8 activations x packed int4 weights are not ported (no rung of the
-    serve CLI reaches them): raise before anything runs, on every device."""
+def check_b_bits(b_bits: int) -> None:
+    """B is int8 (or a float type) at 8 bits, or packed int4 at 4: raise on
+    anything else, before anything runs, on every device."""
     if b_bits not in (8, 4):
         raise ValueError(f"b_bits must be 8 or 4, got {b_bits}")
-    if b_bits == 4 and not a.is_floating_point():
-        raise NotImplementedError(
-            "int8 activations x int4 weights are not ported: the quantization "
-            "ladder's rungs are float x int8, int8 x int8 and float x int4"
-        )
 
 
 def b_code(b: torch.Tensor, b_bits: int) -> int:
@@ -222,7 +222,7 @@ def check_cuda_operands(a, b, out_dtype, bias, operand, *, b_bits: int = 8, scal
     if (a.dtype, b.dtype, b_bits) not in CUDA_PAIRS:
         raise NotImplementedError(
             f"the CUDA kernels take f32 or bf16 operands of one dtype, or a pair of the "
-            f"quantization ladder (float x int8, int8 x int8, float x int4); got "
+            f"quantization ladder (float or int8 x int8 or packed int4); got "
             f"{a.dtype} @ {b.dtype} (b_bits={b_bits})"
         )
     if out_dtype not in (torch.float32, torch.bfloat16):

@@ -48,6 +48,7 @@ _SIGNATURES = {
     "sk_streamk_phase1": [_I, _I, _I, _P, _P, _P, *[_I] * 13, _P],
     "sk_streamk_fixup": [_I, _P, _P, *[_I] * 9, _P, _P, _P, _P, _I, _I, _P],
     "sk_grouped_gemm": [*[_I] * 5, *[_P] * 6, *[_I] * 12, _P, _P, _P, _P, _I, _I, _P],
+    "sk_splitk_partials": [_I, _I, _I, _P, _P, _P, *[_I] * 12, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

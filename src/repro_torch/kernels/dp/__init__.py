@@ -1,1 +1,1 @@
-"""Kernel B1: the data-parallel GEMM region."""
+"""Kernel B1: the data-parallel GEMM region, and the DP baseline family."""

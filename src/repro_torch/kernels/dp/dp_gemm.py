@@ -12,9 +12,10 @@ stops, which writes the same C.
 
 The quantized rungs run through the same kernel, instantiated per operand
 pair (``csrc/quant_*.cu``): float activations against int8 or packed int4
-weights, and int8 x int8 with an int32 MAC. The dequant ``scale`` (per
-column) and ``scale_a`` (per row) apply once, at the flush, ahead of the
-other epilogue stages, as on the TPU (``dp_gemm.py:79-88``).
+weights, and int8 activations against either with an int32 MAC. The
+dequant ``scale`` (per column) and ``scale_a`` (per row) apply once, at the
+flush, ahead of the other epilogue stages, as on the TPU
+(``dp_gemm.py:79-88``).
 
 What bounds it on the H100: at the serving shapes (M = slot count, or a
 prompt of a few dozen tokens, against 4096..49152-wide weights) the work is
@@ -45,6 +46,7 @@ from repro_torch.kernels.common import (
     DTYPE_CODES,
     apply_epilogue,
     b_code,
+    check_b_bits,
     check_cuda_operands,
     epilogue_args,
     f32_vector,
@@ -52,7 +54,6 @@ from repro_torch.kernels.common import (
     prep_scale,
     prep_scale_a,
     record_launch,
-    refuse_int8_int4,
     rows_aligned,
     rung_of,
     stream_ptr,
@@ -116,8 +117,8 @@ def dp_gemm_region(
     there. ``bias`` (N,) and ``operand`` (M, N) feed the epilogue, after
     the dequant ``scale_a`` (M,) and ``scale`` (N,). ``g`` > 0 is the number
     of persistent blocks (the selected grid size); 0 launches one block per
-    tile. int8 activations against int4 weights raise."""
-    refuse_int8_int4(a, b_bits)
+    tile."""
+    check_b_bits(b_bits)
     m, k = a.shape
     n = b.shape[1]
     out_dtype = out_dtype or (a.dtype if c is None else c.dtype)

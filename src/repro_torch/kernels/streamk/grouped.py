@@ -54,12 +54,12 @@ from repro_torch.kernels.common import (
     DTYPE_CODES,
     apply_epilogue,
     b_code,
+    check_b_bits,
     check_cuda_operands,
     epilogue_args,
     f32_vector,
     kstep_dot,
     record_launch,
-    refuse_int8_int4,
     rows_aligned,
     rung_of,
     stream_ptr,
@@ -152,13 +152,12 @@ def gemm_grouped_streamk(
     feed the per-group epilogue, after the quantized rungs' dequant stages:
     ``b`` int8 (or, with ``b_bits=4``, packed int4 ``(G, ceil(K/2), N)``)
     with per-expert ``scale`` (G, N), and for int8 activations per-row
-    ``scale_a`` (G, M). Policies other than DP run the Stream-K form. int8
-    activations against int4 weights raise ``NotImplementedError``."""
+    ``scale_a`` (G, M). Policies other than DP run the Stream-K form."""
     k_rows = (a.shape[-1] + 1) // 2 if b_bits == 4 else a.shape[-1]
     if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0] or b.shape[1] != k_rows:
         raise ValueError(f"bad grouped operands {tuple(a.shape)} @ {tuple(b.shape)} "
                          f"(b_bits={b_bits})")
-    refuse_int8_int4(a, b_bits)
+    check_b_bits(b_bits)
     g_count, m, k = a.shape
     n = b.shape[2]
     out_dtype = out_dtype or a.dtype

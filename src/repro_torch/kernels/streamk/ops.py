@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.core.policies import DP, Policy, TileConfig
 from repro_torch.core.workpart import GemmShape, partition
-from repro_torch.kernels.common import refuse_int8_int4, rung_of
+from repro_torch.kernels.common import rung_of
 from repro_torch.kernels.dp.dp_gemm import dp_gemm_region
 from repro_torch.kernels.streamk.streamk_gemm import streamk_fixup, streamk_phase1
 
@@ -62,13 +62,11 @@ def gemm(
     ``b_bits=4``, packed int4 ``(ceil(K/2), N)`` — with its per-column
     dequant ``scale`` (N,), and for int8 activations ``a`` int8 with its
     per-row ``scale_a`` (M,). CPU tensors run the kernels' plain versions,
-    CUDA tensors the Hopper kernels. int8 activations against int4 weights
-    raise ``NotImplementedError`` before anything launches."""
+    CUDA tensors the Hopper kernels."""
     k_rows = (a.shape[-1] + 1) // 2 if b_bits == 4 else a.shape[-1]
     if a.dim() != 2 or b.dim() != 2 or b.shape[0] != k_rows:
         raise ValueError(f"bad gemm operands {tuple(a.shape)} @ {tuple(b.shape)} "
                          f"(b_bits={b_bits})")
-    refuse_int8_int4(a, b_bits)  # before phase 1 launches anything
     m, k = a.shape
     n = b.shape[1]
     out_dtype = out_dtype or a.dtype

@@ -50,6 +50,7 @@ from repro_torch.kernels.common import (
     DTYPE_CODES,
     apply_epilogue,
     b_code,
+    check_b_bits,
     check_cuda_operands,
     epilogue_args,
     f32_vector,
@@ -57,7 +58,6 @@ from repro_torch.kernels.common import (
     prep_scale,
     prep_scale_a,
     record_launch,
-    refuse_int8_int4,
     rows_aligned,
     rung_of,
     stream_ptr,
@@ -123,7 +123,7 @@ def streamk_phase1(a, b, part: Partition, *, b_bits: int = 8) -> torch.Tensor:
     ``partials[sk_tiles, mc + 1, bm, bn]`` f32, unscaled. On the card, slots
     at or past a tile's contributor count hold whatever the allocator left
     there: only :func:`streamk_fixup`'s ``n_contrib`` slots are defined."""
-    refuse_int8_int4(a, b_bits)
+    check_b_bits(b_bits)
     if part.sk_tiles <= 0:
         raise ValueError("partition has no Stream-K region")
     if a.device.type == "cpu":

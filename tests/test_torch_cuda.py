@@ -11,7 +11,9 @@ runs on CPU tensors) on the same inputs. Tolerances: 1e-4 for f32 (f32 sums
 in another order), 2e-2 for bf16 (one bf16 rounding of the output). The
 quantized variants (float x int8, int8 x int8, float x packed int4) keep
 those tolerances by activation dtype: the int8 -> f32 widening is exact, and
-the int8 x int8 MAC sums exact int32 k-steps.
+the int8 x int8 and int8 x int4 MACs sum exact int32 k-steps. B6, the
+split-K baseline, is held against its plain version on every operand pair,
+split factor and grid size, with bitwise determinism and zeroed empty splits.
 """
 
 import dataclasses
@@ -21,13 +23,16 @@ import pytest
 import torch
 
 from repro_torch.configs import get_reduced
-from repro_torch.core.gemm import gemm, gemm_context, gemm_grouped
+from repro_torch.core.gemm import gemm, gemm_batched, gemm_context, gemm_grouped
 from repro_torch.core.op import Epilogue
 from repro_torch.core.policies import ALL_POLICIES, ALL_SK, DP, HYBRIDS, TileConfig
 from repro_torch.core.quant import quantize_activations, quantize_weight
 from repro_torch.core.workpart import GemmShape, partition
 from repro_torch.kernels import common
+from repro_torch.kernels.dp import ops as dp_ops
 from repro_torch.kernels.dp.dp_gemm import dp_gemm_region
+from repro_torch.kernels.splitk import ops as splitk_ops
+from repro_torch.kernels.splitk.splitk_gemm import splitk_partials, splitk_partials_plain
 from repro_torch.kernels.streamk import ops
 from repro_torch.kernels.streamk.grouped import gemm_grouped_streamk, gemm_grouped_streamk_plain
 from repro_torch.kernels.streamk.streamk_gemm import streamk_fixup, streamk_phase1
@@ -117,19 +122,30 @@ def test_cuda_dispatch_runs_the_kernels_by_default(cuda_device):
 @pytest.mark.parametrize("kw", [dict(scale=torch.ones(300)), dict(scale_a=torch.ones(20)),
                                 dict()], ids=["scale", "scale_a", "int4"])
 def test_cuda_wrappers_raise_on_quantized_arguments(cuda_device, kw):
-    """int8 activations x packed int4 weights, the one quantized pair the
-    kernels are not built for, raise before anything launches."""
+    """int8 activations x packed int4 weights, once refused, launch their
+    own instantiations now (counted under int4-dynamic) and give the plain
+    versions' result: every packed byte 1 holds k even at 1 and k odd at 0,
+    so each output is 260 times the scales."""
     a = torch.ones(20, 520, dtype=torch.int8, device=cuda_device)
     b = torch.ones(260, 300, dtype=torch.int8, device=cuda_device)
     kw = {k: v.to(cuda_device) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+    want = torch.full((20, 300), 260.0, device=cuda_device)
+    for name, v in kw.items():
+        want = want * (v[:, None] if name == "scale_a" else v[None, :])
+    f32 = dict(out_dtype=torch.float32)
     with common.count_launches() as log:
-        with pytest.raises(NotImplementedError):
-            ops.gemm(a, b, policy=ALL_SK, cfg=TileConfig(8, 128, 128), g=4, b_bits=4, **kw)
-        with pytest.raises(NotImplementedError):
-            dp_gemm_region(a, b, TileConfig(8, 128, 128), b_bits=4, **kw)
-        with pytest.raises(NotImplementedError):
-            gemm_grouped_streamk(a[None], b[None], cfg=TileConfig(8, 128, 128), b_bits=4)
-    assert log == []
+        got = [ops.gemm(a, b, policy=ALL_SK, cfg=TileConfig(8, 128, 128), g=4, b_bits=4,
+                        **f32, **kw),
+               dp_gemm_region(a, b, TileConfig(8, 128, 128), b_bits=4, **f32, **kw),
+               splitk_ops.gemm(a, b, cfg=TileConfig(8, 128, 128), s=4, b_bits=4, **f32, **kw)]
+        grouped = gemm_grouped_streamk(a[None], b[None], cfg=TileConfig(8, 128, 128), b_bits=4,
+                                       **f32)
+    for c in got:
+        assert torch.equal(c, want)
+    assert torch.equal(grouped[0], torch.full((20, 300), 260.0, device=cuda_device))
+    assert log == ["streamk_phase1[int4-dynamic]", "streamk_fixup[int4-dynamic]",
+                   "dp_gemm_region[int4-dynamic]", "splitk_partials[int4-dynamic]",
+                   "grouped_streamk_sk[int4-dynamic]"]
 
 
 def test_cuda_served_tokens_match_torch_backend(cuda_device):
@@ -245,7 +261,7 @@ def test_cuda_moe_served_tokens_match_torch_backend(cuda_device):
 #: rung -> (activation dtype, weight bits, int8 activations)
 RUNGS = {"f32*int8": (torch.float32, 8, False), "bf16*int8": (torch.bfloat16, 8, False),
          "int8*int8": (torch.float32, 8, True), "f32*int4": (torch.float32, 4, False),
-         "bf16*int4": (torch.bfloat16, 4, False)}
+         "bf16*int4": (torch.bfloat16, 4, False), "int8*int4": (torch.float32, 4, True)}
 
 
 def _ladder(m, n, k, rung, seed, lead=()):
@@ -340,8 +356,8 @@ def test_cuda_quantized_grouped_matches_plain_version(cuda_device, pol_idx, rung
                     assert not got[i, s_:].any()
 
 
-@pytest.mark.parametrize("bits,act_bits", [(8, None), (8, 8), (4, None)],
-                         ids=["int8", "int8-dynamic", "int4"])
+@pytest.mark.parametrize("bits,act_bits", [(8, None), (8, 8), (4, None), (4, 8)],
+                         ids=["int8", "int8-dynamic", "int4", "int4-dynamic"])
 def test_cuda_quantized_grouped_dispatch_launches_once(cuda_device, bits, act_bits):
     """One fused grouped dispatch of a quantized expert weight is one B5
     launch, counted under its rung; its result matches the torch backend's
@@ -350,7 +366,8 @@ def test_cuda_quantized_grouped_dispatch_launches_once(cuda_device, bits, act_bi
     x = torch.from_numpy(r.normal(size=(6, 8, 256)).astype(np.float32)).to(cuda_device)
     w = quantize_weight(torch.from_numpy(r.normal(size=(6, 256, 384)).astype(np.float32))
                         .to(cuda_device), bits=bits, act_bits=act_bits)
-    rung = {(8, None): "int8", (8, 8): "int8-dynamic", (4, None): "int4"}[bits, act_bits]
+    rung = {(8, None): "int8", (8, 8): "int8-dynamic", (4, None): "int4",
+            (4, 8): "int4-dynamic"}[bits, act_bits]
     for pol, name in ((DP, "grouped_streamk_dp"), (ALL_SK, "grouped_streamk_sk")):
         with common.count_launches() as log:
             got = gemm_grouped(x, w, policy=pol, cfg=TileConfig(8, 128, 128), grid=4)
@@ -384,3 +401,86 @@ def test_cuda_quantized_served_tokens_match_torch_backend(cuda_device, arch, qua
         if backend == "cuda":
             assert any(name.endswith(f"[{quantize}]") for name in log)
     assert tokens["cuda"] == tokens["torch"] and len(tokens["cuda"]) == 2
+
+
+# ---------------------------------------------------------------------------
+# B6: the split-K baseline, and the DP baseline and gemm_batched on the card
+# ---------------------------------------------------------------------------
+
+#: every operand pair B6 is built for: the dense ones and the ladder's
+SPLITK_PAIRS = ["f32", "bf16", *RUNGS]
+
+
+def _pair(m, n, k, pair, seed):
+    if pair in ("f32", "bf16"):
+        dtype = torch.float32 if pair == "f32" else torch.bfloat16
+        ta, tb, _, _ = _inputs(m, n, k, dtype, seed)
+        return ta, tb, {}, TOL[dtype]
+    return _ladder(m, n, k, pair, seed)
+
+
+@pytest.mark.parametrize("pair", SPLITK_PAIRS)
+def test_cuda_splitk_matches_plain_version(cuda_device, pair):
+    """B6's partials against the plain version on every pair, s in
+    {1, 2, 4, 8}, g in {0, 3, 132}: aligned rows (cp.async) and unaligned
+    ones with an odd K, and K < bk * s (empty splits, which must read 0
+    though the partials come from torch.empty). ops.gemm against the plain
+    path on the CPU; two runs bitwise identical. A quantized pair's
+    partials are unscaled sums of int8 or int4 codes (hundreds to
+    thousands): they are compared dequantized, times the scales that
+    ops.gemm applies after the reduction, as the other quantized tests
+    compare the kernels' dequantized output."""
+    for (m, n, k), cfg in (((64, 1024, 704), TileConfig(8, 128, 128)),
+                           ((20, 302, 331), TileConfig(16, 256, 128)),
+                           ((9, 384, 200), TileConfig(8, 128, 128))):
+        a, b, qkw, tol = _pair(m, n, k, pair, seed=31)
+        bits = qkw.get("b_bits", 8)
+        da, db, dkw = a.to(cuda_device), b.to(cuda_device), _to(qkw, cuda_device)
+        dequant = torch.ones(m, n)
+        if "scale" in qkw:
+            dequant = dequant * qkw["scale"][None, :]
+        if "scale_a" in qkw:
+            dequant = dequant * qkw["scale_a"][:, None]
+        for s in (1, 2, 4, 8):
+            want = splitk_partials_plain(a, b, cfg, s, b_bits=bits)
+            for g in (0, 3, 132):
+                got = splitk_partials(da, db, cfg, s, g=g, b_bits=bits)
+                assert tuple(got.shape) == (s, m, n)
+                _close(got.cpu() * dequant, want * dequant, tol)
+                empty = -(-k // cfg.bk)
+                if empty < s:
+                    assert not got[empty:].any()
+            runs = [splitk_ops.gemm(da, db, cfg=cfg, s=s, g=3, out_dtype=torch.float32, **dkw)
+                    for _ in range(2)]
+            assert torch.equal(runs[0], runs[1])
+            _close(runs[0], splitk_ops.gemm(a, b, cfg=cfg, s=s, out_dtype=torch.float32, **qkw),
+                   tol)
+
+
+def test_cuda_splitk_and_dp_baselines_launch_their_kernels(cuda_device):
+    """splitk.ops.gemm is one B6 launch, dp.ops.gemm one B1 launch, each
+    counted under its rung; both agree with the f32 reference."""
+    a, b, _, _ = (t.to(cuda_device) for t in _inputs(4, 1024, 4096, torch.float32, seed=32))
+    want = a @ b
+    with common.count_launches() as log:
+        got_s = splitk_ops.gemm(a, b, s=4)
+        got_d = dp_ops.gemm(a, b)
+    assert log == ["splitk_partials", "dp_gemm_region"]
+    _close(got_s, want, TOL[torch.float32])
+    _close(got_d, want, TOL[torch.float32])
+
+
+def test_cuda_gemm_batched_runs_the_pick_per_batch_entry(cuda_device):
+    """gemm_batched on the cuda backend: the pick's kernels once per batch
+    entry (the loop form), the product of torch.bmm."""
+    r = np.random.default_rng(33)
+    x = torch.from_numpy(r.normal(size=(3, 4, 512)).astype(np.float32)).to(cuda_device)
+    w = torch.from_numpy((r.normal(size=(3, 512, 768)) / 20).astype(np.float32)).to(cuda_device)
+    with common.count_launches() as log, gemm_context(backend="cuda") as ctx:
+        got = gemm_batched(x, w)
+    [e] = ctx.log
+    assert e.op.kind == "batched" and not e.op.fused
+    part = partition(GemmShape(4, 768, 512), e.selection.cfg, e.selection.g, e.selection.policy)
+    per_entry = 2 * bool(part.sk_tiles) + bool(part.dp_tiles)
+    assert len(log) == 3 * per_entry
+    _close(got, torch.bmm(x, w), TOL[torch.float32])

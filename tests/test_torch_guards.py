@@ -31,7 +31,8 @@ def test_port_import_leaves_jax_out():
     """A subprocess, because this test process already imported jax."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     code = ("import repro_torch, repro_torch.launch.serve, repro_torch.kernels.streamk.ops, "
-            "repro_torch.kernels.streamk.grouped, repro_torch.core.quant, sys; "
+            "repro_torch.kernels.streamk.grouped, repro_torch.core.quant, "
+            "repro_torch.kernels.splitk.ops, repro_torch.kernels.dp.ops, sys; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]")
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
@@ -92,9 +93,30 @@ def test_cuda_wrappers_refuse_cpu_tensors_they_cannot_take():
     a, b = torch.ones(4, 8), torch.ones(8, 16)
     with pytest.raises(ValueError, match="CUDA device"):
         check_cuda_operands(a, b, torch.float32, None, None)
-    with pytest.raises(NotImplementedError):  # int8 x int4 is not ported on any device
-        ops.gemm(a.to(torch.int8), b[:4].to(torch.int8), policy=ALL_SK,
-                 cfg=TileConfig(8, 128, 128), g=4, b_bits=4)
+    # int8 x int4 is taken now: on CPU tensors it runs the plain versions
+    got = ops.gemm(a.to(torch.int8), b[:4].to(torch.int8), policy=ALL_SK,
+                   cfg=TileConfig(8, 128, 128), g=4, b_bits=4, out_dtype=torch.float32)
+    assert torch.equal(got, torch.full((4, 16), 4.0))  # byte 1: k even 1, k odd 0
+
+
+@pytest.mark.parametrize("wrapper", ["splitk.ops.gemm", "splitk_partials", "dp.ops.gemm",
+                                     "streamk.ops.gemm"])
+def test_wrappers_never_fall_back_to_the_plain_version_off_the_cpu(wrapper):
+    """Only a CPU tensor takes the plain version: any other tensor goes to
+    the kernel path, which raises where it cannot launch (here: a tensor on
+    the meta device, which is not a CUDA device, and no build)."""
+    from repro_torch.kernels.dp import ops as dp_ops
+    from repro_torch.kernels.splitk import ops as splitk_ops
+    from repro_torch.kernels.splitk import splitk_partials
+
+    a, b = torch.ones(4, 256, device="meta"), torch.ones(256, 128, device="meta")
+    cfg = TileConfig(8, 128, 128)
+    call = {"splitk.ops.gemm": lambda: splitk_ops.gemm(a, b, cfg=cfg, s=2),
+            "splitk_partials": lambda: splitk_partials(a, b, cfg, 2),
+            "dp.ops.gemm": lambda: dp_ops.gemm(a, b, cfg=cfg),
+            "streamk.ops.gemm": lambda: ops.gemm(a, b, policy=ALL_SK, cfg=cfg, g=4)}[wrapper]
+    with pytest.raises(ValueError, match="CUDA device"):
+        call()
 
 
 def test_full_granite_config_is_the_published_width():

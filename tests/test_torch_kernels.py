@@ -147,18 +147,25 @@ def test_fixup_writes_only_sk_tiles(g):
 @pytest.mark.parametrize("kw", [dict(scale=torch.ones(300)), dict(scale_a=torch.ones(20)),
                                 dict()], ids=["scale", "scale_a", "int4"])
 def test_quantized_arguments_raise(kw, monkeypatch):
-    """int8 activations against packed int4 weights (the one quantized pair
-    no rung of the serve CLI reaches) are refused before any phase runs: on
-    the card, phase 1 would otherwise launch before the refusal."""
+    """int8 activations against packed int4 weights, with or without their
+    scales, once refused, now run through every phase: ALL_SK's sweep and
+    fix-up and B1 give the integer product, scaled. Each packed byte 1
+    holds k = 2j at 1 and k = 2j + 1 at 0, so every output is 260 times
+    the scales."""
     a = torch.ones(20, 520, dtype=torch.int8)
     b = torch.ones(260, 300, dtype=torch.int8)  # ceil(520 / 2) packed rows
     calls = []
-    monkeypatch.setattr(ops, "streamk_phase1", lambda *a_, **k_: calls.append(1))
-    with pytest.raises(NotImplementedError):
-        ops.gemm(a, b, policy=ALL_SK, cfg=TileConfig(*CFG), g=4, b_bits=4, **kw)
-    assert calls == []
-    with pytest.raises(NotImplementedError):
-        dp_gemm_region(a, b, TileConfig(*CFG), b_bits=4, **kw)
+    phase1 = ops.streamk_phase1
+    monkeypatch.setattr(ops, "streamk_phase1",
+                        lambda *a_, **k_: calls.append(1) or phase1(*a_, **k_))
+    want = torch.full((20, 300), 260.0)
+    for name, v in kw.items():
+        want = want * (v[:, None] if name == "scale_a" else v[None, :])
+    got = ops.gemm(a, b, policy=ALL_SK, cfg=TileConfig(*CFG), g=4, b_bits=4,
+                   out_dtype=torch.float32, **kw)
+    assert calls == [1] and torch.equal(got, want)
+    got = dp_gemm_region(a, b, TileConfig(*CFG), b_bits=4, out_dtype=torch.float32, **kw)
+    assert torch.equal(got, want)
 
 
 def test_launch_counters_count_only_kernel_launches():

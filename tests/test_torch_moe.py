@@ -141,11 +141,24 @@ def test_row_block_table_concatenates_live_row_blocks():
 @pytest.mark.parametrize("kw", [dict(scale=torch.ones(3, 200)), dict(scale_a=torch.ones(3, 20)),
                                 dict()], ids=["scale", "scale_a", "int4"])
 def test_grouped_quantized_arguments_raise(kw):
-    """int8 activations against packed int4 expert weights are not ported."""
+    """int8 activations against packed int4 expert weights, once refused,
+    now run: B5's wrapper (both forms, ragged sizes) against repro's
+    grouped kernel in Pallas interpret mode, with or without the scales."""
     _, (ta, tb, _, _) = _grouped_inputs(3, 20, 200, 160, "f32")
-    with pytest.raises(NotImplementedError):
-        gemm_grouped_streamk(ta.to(torch.int8), tb[:, :80].to(torch.int8),
-                             cfg=TileConfig(*CFG), b_bits=4, **kw)
+    a = (ta.numpy() * 4).astype(np.int8)
+    b = (tb.numpy() * 40).astype(np.int8)[:, :80]  # 80 packed rows = K 160
+    ja, jb, ta, tb = jnp.asarray(a), jnp.asarray(b), torch.from_numpy(a), torch.from_numpy(b)
+    kw = {name: v * torch.linspace(0.5, 1.5, v.shape[-1]) for name, v in kw.items()}
+    jkw = {name: jnp.asarray(v.numpy()) for name, v in kw.items()}
+    for pol in ("dp", "all_sk"):
+        want = j_grouped(ja, jb, policy=J_POLICIES[POL[pol]], cfg=JTile(*CFG), g=4,
+                         interpret=True, out_dtype=jnp.float32, group_sizes=(17, 0, 20),
+                         b_bits=4, **jkw)
+        got = gemm_grouped_streamk(ta, tb, policy=ALL_POLICIES[POL[pol]], cfg=TileConfig(*CFG),
+                                   g=4, out_dtype=torch.float32, group_sizes=(17, 0, 20),
+                                   b_bits=4, **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+        assert got.abs().max() > 0 and not got[1].any()
 
 
 #: (M, N, K, G, dtype, epilogue) of the grouped dispatches below: 64

@@ -48,6 +48,8 @@ from repro_torch.core.gemm import gemm, gemm_context, gemm_grouped
 from repro_torch.core.op import Epilogue
 from repro_torch.core.policies import ALL_POLICIES, DP, TileConfig
 from repro_torch.core.selector import KernelSelector
+from repro_torch.kernels.dp import ops as dp_ops
+from repro_torch.kernels.splitk import ops as splitk_ops
 from repro_torch.kernels.streamk import ops
 from repro_torch.kernels.streamk.grouped import gemm_grouped_streamk, gemm_grouped_streamk_plain
 from repro_torch.models.lm import LM, params_from_jax
@@ -63,6 +65,7 @@ RUNGS = {
     "bfloat16*int8": ("bfloat16", 8, False, 2e-2),
     "int8*int8": ("float32", 8, True, 1e-4),
     "float32*int4": ("float32", 4, False, 1e-4),
+    "int8*int4": ("float32", 4, True, 1e-4),
 }
 
 
@@ -280,13 +283,27 @@ def test_rows_aligned_reads_each_operand_in_its_own_element_size():
 
 
 def test_int8_activations_x_int4_weights_raise_on_the_cpu_too():
-    (_, _, _), (ta, tb, tkw) = _ladder_operands(*ODD, "float32*int4", seed=11)
-    qa, sa = tq.quantize_activations(ta)
-    with pytest.raises(NotImplementedError, match="int4"):
-        ops.gemm(qa, tb, cfg=TileConfig(*CFG), scale_a=sa, out_dtype=torch.float32, **tkw)
-    with pytest.raises(NotImplementedError, match="int4"):
-        gemm_grouped_streamk(qa[None], tb[None], cfg=TileConfig(*CFG), b_bits=4,
-                             out_dtype=torch.float32)
+    """int8 activations x packed int4 weights, once refused, now run on the
+    CPU as on the card: the Stream-K++ composition (B1-B3), the DP and
+    split-K baselines (B1, B6) and B5's wrapper agree with repro's Pallas
+    interpret run at 1e-4."""
+    (ja, jb, jkw), (ta, tb, tkw) = _ladder_operands(*ODD, "int8*int4", seed=11)
+    assert ta.dtype == torch.int8 and tkw["b_bits"] == 4
+    want = j_ops.gemm(ja, jb, policy=J_POLICIES[2], cfg=JTile(*CFG), g=4, interpret=True,
+                      out_dtype=jnp.float32, **jkw)
+    for got in (ops.gemm(ta, tb, policy=ALL_POLICIES[2], cfg=TileConfig(*CFG), g=4,
+                         out_dtype=torch.float32, **tkw),
+                dp_ops.gemm(ta, tb, cfg=TileConfig(*CFG), g=3, out_dtype=torch.float32, **tkw),
+                splitk_ops.gemm(ta, tb, cfg=TileConfig(*CFG), s=2, out_dtype=torch.float32,
+                                **tkw)):
+        _close(got, want, 1e-4)
+    gkw = dict(scale=tkw["scale"][None], scale_a=tkw["scale_a"][None], b_bits=4)
+    want = j_grouped(ja[None], jb[None], cfg=JTile(*CFG), g=4, interpret=True,
+                     out_dtype=jnp.float32, scale=jkw["scale"][None],
+                     scale_a=jkw["scale_a"][None], b_bits=4)
+    got = gemm_grouped_streamk(ta[None], tb[None], cfg=TileConfig(*CFG), g=4,
+                               out_dtype=torch.float32, **gkw)
+    _close(got, want, 1e-4)
 
 
 # ---------------------------------------------------------------------------
