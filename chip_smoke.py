@@ -26,7 +26,8 @@ Phases (any failure raises and the script exits non-zero):
      gelu, bias, mul_silu} x group sizes {full, ragged with empty groups}
      against its plain version and per-group ``gemm_ref``; all-empty sizes
      launch nothing; the Stream-K form with split tiles is bitwise
-     deterministic;
+     deterministic (bf16 activations run the tensor-core mainloop of
+     ``csrc/mma_bf16.cuh``, f32 and int8 ones the SIMT loop);
    * each kernel timed with CUDA events at a decode shape it serves (device
      time of calls queued to run back to back, and the time of calls as the
      host issues them; see ``time_ms``), beside its plain version, one
@@ -47,7 +48,10 @@ Phases (any failure raises and the script exits non-zero):
      widths of B, and a yardstick (``torch._int_mm`` for int8 x int8, its M
      padded to a size it takes; else ``torch.matmul``/``torch.bmm`` on the
      dequantized bf16 weight, a dense yardstick); int8 x int4 is timed the
-     same way (rung ``int4-dynamic``, which no serve rung reaches);
+     same way (rung ``int4-dynamic``, which no serve rung reaches); B5's
+     bf16-activation rungs (bf16, bf16 x int8, bf16 x int4) in both forms are
+     then printed as one table beside the times of the SIMT mainloop they
+     replaced (``B5_SIMT_MS``), the bound and ``torch.bmm``;
    * B6, the split-K baseline, on every operand pair (f32, bf16 and the six
      quantized ones) x s in {1, 2, 4, 8} x g in {0, 66, 132, 264} at the
      sweep shape, a ragged unaligned one, an odd K and K < bk * s: its
@@ -85,6 +89,12 @@ Phases (any failure raises and the script exits non-zero):
    reported, not limited). A warm decode step is then broken down (wall
    time, host enqueue time, device busy time from ``torch.profiler``) under
    the ``cuda`` backend and, as the yardstick, the ``torch`` backend.
+   Between the two models, granite-8b at full width and 2 layers with the
+   int8 KV cache (``kv_cache_dtype="int8"``): served on the ``cuda`` backend
+   with its launch counts read as above, then the decode logits of the
+   first prompt (prefill and two decode steps) held against the ``torch``
+   backend under granite's ``LOGITS_TOL`` and compared with the
+   model-dtype cache (reported).
 
 Tolerances: a kernel output ``x`` agrees with its reference ``r`` when
 ``max|x - r| <= tol * max(1, max|r|)``: 1e-4 for f32 inputs (f32 sums in
@@ -102,7 +112,8 @@ least 3 times its limit.
 
 The line before the last is the ``kernels`` JSON: every kernel (B6's launches
 from the baseline comparison, the others' from the served runs), and one entry
-per (kernel, rung) that a served path ran; the last line is ``{"ok": true,
+per (kernel, rung) that a served path ran; B5's entries name the mainloop
+they ran (``mainloop``: ``mma`` or ``simt``); the last line is ``{"ok": true,
 "device": {...}}``. Details go to ``chiprun_out/chip_smoke.json``.
 """
 
@@ -764,6 +775,49 @@ def time_grouped(gen):
         log(f"  B5 {gc}x{m}x{n}x{k} {s.policy.name}/{s.cfg.name} g={s.g}: device {ms:.4f} ms, "
             f"events {ev:.4f} ms; {other.name} {other_ms:.4f} ms; plain {plain_ms:.4f} ms; "
             f"torch.bmm {lib:.4f} ms; bound {bnd:.4f} ms by {by}")
+    return rows
+
+
+#: B5's device ms on the SIMT mainloop, before the bf16-activation rungs moved to
+#: csrc/mma_bf16.cuh, as this script timed them on an NVIDIA H100 80GB HBM3 at 700 W, by
+#: (kernel, pair): B5a at 64x16x1024x2048 (ALL_SK 16x128x128, g 132), B5b at
+#: 64x4x1024x2048 (DP 8x256x128, g 132)
+B5_SIMT_MS = {
+    ("grouped_streamk_sk", "bf16"): 0.3070, ("grouped_streamk_sk", "int8"): 0.3687,
+    ("grouped_streamk_sk", "int4"): 0.3436, ("grouped_streamk_dp", "bf16"): 0.2304,
+    ("grouped_streamk_dp", "int8"): 0.3551, ("grouped_streamk_dp", "int4"): 0.2700,
+}
+B5_TABLE_SHAPES = {"grouped_streamk_sk": [64, 16, 1024, 2048],
+                   "grouped_streamk_dp": [64, 4, 1024, 2048]}
+
+
+def b5_table(grouped_rows, quant_rows):
+    """Log B5's bf16-activation rungs in both forms at the kernel table's
+    shapes: this run's device ms beside the SIMT mainloop's (``B5_SIMT_MS``),
+    the bound and ``torch.bmm``; returns the rows."""
+    import torch
+
+    from repro_torch.kernels.streamk.grouped import mainloop
+
+    rows = []
+    log("B5, bf16 activations (device ms; the SIMT mainloop's in brackets), bound, torch.bmm:")
+    log("| kernel | shape | bf16 | bf16 x int8 | bf16 x int4 | bound (bf16 / int8 / int4) | "
+        "torch.bmm | mainloop |")
+    for name, shape in B5_TABLE_SHAPES.items():
+        dense = next(r for r in grouped_rows if r["shape"] == shape)
+        ms = {"bf16": dense["ms"] if dense["kernel"] == name else dense["other_ms"]}
+        bound = {"bf16": dense["bound_ms"]}
+        for rung in ("int8", "int4"):
+            row = next(r for r in quant_rows if r["kernel"] == name and r["rung"] == rung
+                       and r["shape"] == shape)
+            ms[rung], bound[rung] = row["ms"], row["bound_ms"]
+        cells = " | ".join(f"{ms[p]:.4f} ({B5_SIMT_MS[name, p]:.4f})" for p in ms)
+        log(f"| {'B5a' if name.endswith('sk') else 'B5b'} {name} | {'x'.join(map(str, shape))} "
+            f"| {cells} | {' / '.join(f'{bound[p]:.4f}' for p in bound)} | "
+            f"{dense['library_ms']:.4f} | {mainloop(torch.bfloat16)} |")
+        rows.append(dict(kernel=name, shape=shape, ms=ms, simt_ms={
+            p: B5_SIMT_MS[name, p] for p in ms}, bound_ms=bound,
+            library_ms=dense["library_ms"], mainloop=mainloop(torch.bfloat16)))
     return rows
 
 
@@ -1636,6 +1690,92 @@ def serve_run(arch, model, params, rung, failures, dense_logits=None):
     return serve
 
 
+#: layers of the int8-KV-cache phase: granite-8b at full width, its depth cut to 2
+KV_INT8_LAYERS = 2
+
+
+def phase_kv_int8():
+    """granite-8b at full width and ``KV_INT8_LAYERS`` layers with
+    ``kv_cache_dtype="int8"``, bf16, seeded weights: the engine serves the
+    four prompts on the ``cuda`` backend (launch counters zeroed just
+    before, read just after; every kernel the selections call for must have
+    launched), the cache must be int8 with f32 scales, and the first
+    prompt's prefill and two decode steps (fed the tokens the engine chose)
+    must give logits within granite's ``LOGITS_TOL`` of the ``torch``
+    backend. The same steps with the model-dtype cache are reported, not
+    limited: that difference is the cache's quantization error."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.gemm import gemm_context
+    from repro_torch.kernels.common import LAUNCHES, reset_launch_counts
+    from repro_torch.models.lm import LM
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    cfg = dataclasses.replace(get_config("granite-8b"), n_layers=KV_INT8_LAYERS,
+                              kv_cache_dtype="int8")
+    model = LM(cfg)
+    params = model.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
+    engine = ServeEngine(model, params, ServeConfig(n_slots=N_SLOTS, max_seq=MAX_SEQ, eos=-1),
+                         backend="cuda")
+    prompts = serve_prompts(cfg.vocab_size)
+    for p in prompts:
+        engine.submit(p, max_new_tokens=8)
+    reset_launch_counts()
+    done = sorted(engine.run(), key=lambda r: r.uid)
+    torch.cuda.synchronize()
+    launches = {name: n for name, n in LAUNCHES.items() if n}
+    needed = set()
+    for e in engine.selection_log:
+        needed |= _kernels_of(e)
+    log(f"int8 KV cache, granite-8b x {KV_INT8_LAYERS} layers: launches {launches}; the "
+        f"selections call for {sorted(needed)}")
+    if len(done) != 4 or any(len(r.out_tokens) != 8 for r in done):
+        raise AssertionError(f"int8 KV cache: served {len(done)}/4 requests")
+    missing = [name for name in needed if launches.get(name, 0) <= 0]
+    if missing or not needed:
+        raise AssertionError(f"int8 KV cache: {missing} selected but never launched")
+    dtypes = {key: str(v.dtype) for key, v in engine.cache["attn"].items()}
+    if dtypes != {"k": "torch.int8", "v": "torch.int8", "k_scale": "torch.float32",
+                  "v_scale": "torch.float32"}:
+        raise AssertionError(f"int8 KV cache: the cache is {dtypes}")
+
+    prompt = torch.as_tensor(prompts[0], device="cuda")[None]
+    feed = done[0].out_tokens[:2]
+
+    def decode_logits(lm, backend):
+        with gemm_context(selector=engine.selector, backend=backend):
+            out, cache = lm.prefill(params, prompt, max_seq=MAX_SEQ)
+            steps = []
+            for i, tok in enumerate(feed):
+                pos = torch.tensor([prompt.shape[1] + i], device="cuda")
+                out, cache = lm.decode_step(params, cache, torch.tensor([[tok]], device="cuda"),
+                                            pos)
+                steps.append(out.float())
+        return torch.stack(steps)
+
+    got = decode_logits(model, "cuda")
+    want = decode_logits(model, "torch")
+    model_cache = decode_logits(LM(dataclasses.replace(cfg, kv_cache_dtype="model")), "cuda")
+    if got.shape != (2, 1, 1, cfg.vocab_size) or not torch.isfinite(got).all():
+        raise AssertionError(f"int8 KV cache: bad decode logits {tuple(got.shape)}")
+    tol = LOGITS_TOL["granite-8b"]
+    diff = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    vs_model = (got - model_cache).abs().max().item()
+    log(f"int8 KV cache decode logits (2 steps) vs torch backend: max|diff| {diff:.4f} "
+        f"(max|logit| {scale:.4f}, limit {tol * scale:.4f}); vs the model-dtype cache "
+        f"{vs_model:.4f} ({vs_model / scale:.2e} x max|logit|, reported)")
+    if diff > tol * scale:
+        raise AssertionError(f"int8 KV cache: decode logits max|diff| {diff:.4f} > {tol} * "
+                             f"{scale:.4f}")
+    return dict(layers=KV_INT8_LAYERS, launches=launches, needed=sorted(needed),
+                cache_dtypes=dtypes, logits_max_abs_diff=diff, logits_max_abs=scale,
+                logits_tol=tol, vs_model_dtype_cache_max_abs_diff=vs_model)
+
+
 @contextmanager
 def routing_log():
     """Record each MoE layer's top-k expert choice ((T, k) indices) while the
@@ -1808,6 +1948,7 @@ def main() -> int:
     t0 = time.perf_counter()
     quant_rows = time_quant(gen)
     log(f"quantized timings ({time.perf_counter() - t0:.1f}s)")
+    b5_rows = b5_table(grouped_rows, quant_rows)
     t0 = time.perf_counter()
     sk_errs, sk_cases, sk_bitwise, sk_empty, sk_fault = splitk_sweep(gen)
     log(f"B6 sweep {SPLITK_SHAPES} x {[p[0] for p in SPLITK_PAIRS]} x s {SPLITK_S} x g "
@@ -1827,11 +1968,19 @@ def main() -> int:
     t0 = time.perf_counter()
     serve = {"granite-8b": phase_serve("granite-8b", failures)}
     log(f"granite-8b served dense and on {list(RUNGS)} ({time.perf_counter() - t0:.1f}s)")
-    gc.collect()  # granite's weights go before olmoe's arrive
+    gc.collect()  # granite's weights go before the next model's arrive
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kv_int8 = phase_kv_int8()
+    log(f"int8 KV cache phase ({time.perf_counter() - t0:.1f}s)")
+    gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     serve["olmoe-1b-7b"] = phase_serve("olmoe-1b-7b", failures)
     log(f"olmoe-1b-7b served dense and on {list(RUNGS)} ({time.perf_counter() - t0:.1f}s)")
+
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.streamk.grouped import mainloop
 
     kernels = []
     for name in SERVED_KERNELS:
@@ -1841,6 +1990,8 @@ def main() -> int:
         other = "granite-8b" if arch != "granite-8b" else "olmoe-1b-7b"
         extra = {key: t[key] for key in ("sweep_shape", "sweep_ms", "sweep_plain_ms",
                                          "library_of", "composed_ms") if key in t}
+        if name.startswith("grouped"):  # B5 is timed on bf16 activations
+            extra["mainloop"] = mainloop(torch.bfloat16)
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
             launches=serve[arch]["dense"]["launches"].get(name, 0),
@@ -1880,6 +2031,8 @@ def main() -> int:
                 not_served.append(key)
                 continue
             t = quant_entry(quant_rows, name, rung)
+            if name.startswith("grouped"):
+                t["mainloop"] = mainloop(torch.int8 if RUNGS[rung][1] == 8 else torch.bfloat16)
             kernels.append(dict(
                 name=key, route="cuda", source=SOURCES[name],
                 instantiated_in=SOURCE.replace(".cuh", ".cu") if name == "streamk_fixup"
@@ -1891,11 +2044,10 @@ def main() -> int:
                 tile=t["tile"], g=t["g"], event_ms=t["event_ms"],
                 plain_event_ms=t["plain_event_ms"], library_event_ms=t["library_event_ms"],
                 launches_in=f"{arch} {rung}", launches_other_model=counts[other],
+                **{key: t[key] for key in ("mainloop",) if key in t},
             ))
     log(f"(kernel, rung) pairs no served path ran (timed and swept, not in the kernels line): "
         f"{not_served}")
-    from repro_torch.kernels import cuda_lib
-
     record = dict(card=smi, build_s=build_s,
                   build_source_s=cuda_lib.build_info.get("source_seconds"), kernels=kernels,
                   picks=picks, gemms=gemms, grouped=grouped_rows, quant=quant_rows, serve=serve,
@@ -1907,6 +2059,7 @@ def main() -> int:
                   quant_cases=q_cases, quant_errs=q_errs, quant_bitwise=q_bitwise,
                   quant_b5_cases=qg_cases, quant_b5_errs=qg_errs, quant_b5_bitwise=qg_bitwise,
                   slice_max_err=slice_err, not_served=not_served, failures=failures,
+                  b5_table=b5_rows, kv_int8=kv_int8,
                   seconds=time.perf_counter() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

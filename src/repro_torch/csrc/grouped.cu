@@ -41,9 +41,20 @@
 //
 // What bounds it on the H100: at the MoE decode shapes (64 experts x 4 rows
 // against 2048 x 1024 weights) it reads every expert's weights once, 268 MB
-// per call, and does 2 operations per weight byte: bound by bytes, far
-// below the card's 295 operations per byte. The MAC is the SIMT FMA of
-// sk_common.cuh (no TF32); wgmma and TMA come later.
+// per call in bf16 (134 MB int8, 67 MB packed int4), for 8 operations per
+// weight (4 rows): bound by bytes, far below the card's 295 operations per byte
+// (0.0806 / 0.0406 / 0.0206 ms at 3.35 TB/s). The SIMT loop of sk_common.cuh
+// had all 8 row groups of a block read and widen every weight, so it ran at
+// 1.2 TB/s in bf16 (0.230 ms) and the int8 -> f32 conversions made int8
+// slower still (0.355 ms). With bf16 activations (the dense, int8 and int4
+// rungs) each sub-block now runs the tensor-core mainloop of mma_bf16.cuh:
+// mma.sync fed by ldmatrix, each weight read from shared memory and widened
+// once per block, 16 KB chunks with 64 KB of B in flight. bf16 then streams
+// at 2.7 TB/s (0.098 ms, 82 % of the bound); int8 and int4 take 0.084 and
+// 0.066 ms, bound no longer by bytes but by the passes of the loop (a
+// barrier, the widening and the MMAs per 16 KB chunk). f32 and int8
+// activations keep the SIMT FMA loop (no TF32): 0.31 and 0.27 ms. (Device
+// times on an H100 80GB HBM3 at 700 W, kernel_ab.py, DP form, g = 132.)
 //
 // The kernels are in grouped.cuh; this file instantiates them for f32
 // inputs, grouped_bf16.cu for bf16 inputs and quant_*.cu for the pairs of

@@ -23,8 +23,19 @@ no expert weight is ever copied. The row-block -> group table is built on
 the host and its device copy cached per ``(sizes, bm)``.
 
 What bounds it on the H100: at the MoE decode shapes it reads every expert
-weight once (268 MB per olmoe-1b-7b projection) for 2 operations per byte,
-so bytes bound it (see ``csrc/grouped.cu``).
+weight once (268 MB per olmoe-1b-7b projection in bf16, 134 MB in int8, 67
+MB in packed int4), so bytes bound it: 0.081, 0.041 and 0.021 ms at 3.35
+TB/s. With bf16 activations (the dense, ``int8`` and ``int4`` rungs) the
+kernels run the tensor-core mainloop of ``csrc/mma_bf16.cuh``:
+``mma.sync`` fed by ``ldmatrix`` reads each weight from shared memory once
+per block (the SIMT loop read and widened it 8 times), int8 and int4
+weights are widened to bf16 once per block by a byte-permute trick (no
+I2F), and 16 KB chunks keep 64 KB of weights in flight. On an H100 80GB
+HBM3 at 700 W (``kernel_ab.py``, DP form at 64x4x1024x2048) that takes bf16
+from 0.230 to 0.098 ms, int8 from 0.355 to 0.084 ms and int4 from 0.268 to
+0.066 ms; int8 and int4 are then bound by the passes of the loop, not by
+bytes. f32 and int8 activations keep the SIMT loop (see ``csrc/grouped.cu``);
+:func:`mainloop` names the one a call runs.
 
 The quantized rungs run through the same kernels, instantiated per operand
 pair (``csrc/quant_*.cu``): the stacked expert weights are int8 ``(G, K, N)``
@@ -99,6 +110,14 @@ def _counters(g: int, device) -> torch.Tensor:
         cnt = torch.zeros(max(g, 264), dtype=torch.int32, device=device)
         _COUNTERS[device] = cnt
     return cnt
+
+
+def mainloop(a_dtype: torch.dtype) -> str:
+    """The MAC B5's kernels run for activations of ``a_dtype`` (``uses_mma``
+    in ``csrc/grouped.cuh``): ``"mma"``, the tensor-core mainloop of
+    ``csrc/mma_bf16.cuh``, for bf16 whatever the weights; ``"simt"``,
+    ``mac_subblock`` of ``csrc/sk_common.cuh``, for f32 and int8."""
+    return "mma" if a_dtype == torch.bfloat16 else "simt"
 
 
 def gemm_grouped_streamk_plain(

@@ -8,7 +8,8 @@ runs on the hand-written kernels. Attention stays plain torch einsum math in f32
 as in the JAX package: a chunked online softmax for prefill and a direct
 softmax over the KV cache for decode. Layouts are the JAX package's: weights
 ``(K, N)`` for ``x @ w``, activations ``(B, S, H, dh)``, caches
-``(B, S, KV, dh)``.
+``(B, S, KV, dh)`` (with ``kv_cache_dtype="int8"``: int8 values and f32
+per-(token, head) scales ``(B, S, KV)``).
 """
 
 from __future__ import annotations
@@ -19,8 +20,9 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.gemm import gemm, gemm_grouped
+from repro_torch.core.gemm import as_dtype, gemm, gemm_grouped
 from repro_torch.core.op import Epilogue
+from repro_torch.core.quant import quantize_activations
 from repro_torch.dist.sharding import ArraySpec
 from repro_torch.models.config import ModelConfig
 
@@ -86,6 +88,19 @@ def _mask(kind: str, qpos, kpos, window: int):
     if kind == "window" and window:
         m = m & (qpos[:, None] - kpos[None, :] < window)
     return m
+
+
+def kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(..., head) symmetric int8 quantization over the head_dim axis,
+    as ``repro``'s ``kv_quantize``: x (..., KV, dh) -> (int8 values, f32
+    scales (..., KV)), scale ``max(amax, 1e-8) / 127``, rounded half to even.
+    That is the per-row activation quantization over the last axis."""
+    return quantize_activations(x)
+
+
+def kv_dequantize(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """int8 cache values and their f32 scales (..., KV) back to ``dtype``."""
+    return (q.to(torch.float32) * scale[..., None]).to(dtype)
 
 
 def chunked_attention(
@@ -162,7 +177,7 @@ def attn_apply(
     mask_kind: str = "causal",
     window: int = 0,
     positions: Optional[torch.Tensor] = None,  # (S,) or (B, S)
-    cache: Optional[Dict[str, torch.Tensor]] = None,  # k/v (B, S_max, KV, dh)
+    cache: Optional[Dict[str, torch.Tensor]] = None,  # k/v (B, S_max, KV, dh) [+ scales]
     cur_pos: Optional[torch.Tensor] = None,  # (B,) decode position
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """GQA attention.
@@ -172,7 +187,10 @@ def attn_apply(
     * decode (``cache`` + ``cur_pos``, one token): the new K/V row is
       written into ``cache`` IN PLACE at ``cur_pos`` — the JAX package
       returns an updated copy; writing in place keeps one cache on the card
-      instead of two — and the token attends over the whole cache.
+      instead of two — and the token attends over the whole cache. With
+      ``cfg.kv_cache_dtype == "int8"`` the row is quantized into the int8
+      ``k``/``v`` and the f32 ``k_scale``/``v_scale``, and the whole cache is
+      dequantized to the model dtype for the attention, as ``repro`` does.
     """
     b, s, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -190,9 +208,18 @@ def attn_apply(
         if cur_pos is None or s != 1:
             raise NotImplementedError("decode takes one token per slot at cur_pos")
         bidx = torch.arange(b, device=x.device)
-        cache["k"][bidx, cur_pos] = knew[:, 0]
-        cache["v"][bidx, cur_pos] = vnew[:, 0]
-        out = decode_attention(q, cache["k"], cache["v"], cur_pos, window=window)
+        if cfg.kv_cache_dtype == "int8":
+            for key, new in (("k", knew), ("v", vnew)):
+                cache[key][bidx, cur_pos], cache[f"{key}_scale"][bidx, cur_pos] = kv_quantize(
+                    new[:, 0])
+            dt = as_dtype(cfg.dtype)
+            k_full = kv_dequantize(cache["k"], cache["k_scale"], dt)
+            v_full = kv_dequantize(cache["v"], cache["v_scale"], dt)
+        else:
+            cache["k"][bidx, cur_pos] = knew[:, 0]
+            cache["v"][bidx, cur_pos] = vnew[:, 0]
+            k_full, v_full = cache["k"], cache["v"]
+        out = decode_attention(q, k_full, v_full, cur_pos, window=window)
         new_cache = cache
     else:
         qpos = positions if positions.dim() == 1 else positions[0]

@@ -7,7 +7,8 @@ parameters across leaf by leaf, quantized leaves included. The layer stack
 is a Python loop over views ``leaf[i]`` in place of ``lax.scan`` (a
 :class:`~repro_torch.core.quant.QuantizedTensor` leaf slices its values and
 scales together); the decode cache is one stacked ``(L, B, S_max, KV, dh)``
-pair written in place.
+pair written in place (int8, with f32 ``(L, B, S_max, KV)`` scales, under
+``kv_cache_dtype="int8"``).
 """
 
 from __future__ import annotations
@@ -88,6 +89,9 @@ class LM:
             )
         if cfg.window or cfg.tie_embeddings:
             raise NotImplementedError("sliding windows and tied embeddings are not ported yet")
+        if cfg.kv_cache_dtype not in ("model", "int8"):
+            raise ValueError(f"kv_cache_dtype must be 'model' or 'int8', not "
+                             f"{cfg.kv_cache_dtype!r}")
         self.cfg = cfg
 
     # -- parameters ---------------------------------------------------------
@@ -163,17 +167,20 @@ class LM:
     # -- serving -----------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int, device=None):
         """Zeroed decode cache ``{"attn": {"k", "v"}}``, each
-        ``(L, batch, max_seq, KV, dh)`` in the model dtype."""
+        ``(L, batch, max_seq, KV, dh)`` in the model dtype; with
+        ``kv_cache_dtype="int8"`` they are int8 and ``k_scale``/``v_scale``
+        ``(L, batch, max_seq, KV)`` f32 join them (``repro``'s
+        ``cache_specs``)."""
         cfg = self.cfg
         dev = resolve_device(device)
         shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.d_head)
-        dt = as_dtype(cfg.dtype)
-        return {
-            "attn": {
-                "k": torch.zeros(shape, dtype=dt, device=dev),
-                "v": torch.zeros(shape, dtype=dt, device=dev),
-            }
-        }
+        if cfg.kv_cache_dtype != "int8":
+            dt = as_dtype(cfg.dtype)
+            return {"attn": {key: torch.zeros(shape, dtype=dt, device=dev) for key in "kv"}}
+        attn = {key: torch.zeros(shape, dtype=torch.int8, device=dev) for key in "kv"}
+        for key in "kv":
+            attn[f"{key}_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=dev)
+        return {"attn": attn}
 
     def prefill(self, params: Params, tokens: torch.Tensor, *, max_seq: Optional[int] = None,
                 div: Optional[Dict[str, int]] = None):
@@ -188,8 +195,12 @@ class LM:
         for i in range(cfg.n_layers):
             p = _map(lambda a: a[i], params["layers"])
             x, kv = self._layer(p, x, div=div, positions=positions)
-            cache["attn"]["k"][i, :, :s] = kv["k"]
-            cache["attn"]["v"][i, :, :s] = kv["v"]
+            for key in "kv":
+                if cfg.kv_cache_dtype == "int8":
+                    cache["attn"][key][i, :, :s], cache["attn"][f"{key}_scale"][i, :, :s] = (
+                        L.kv_quantize(kv[key]))
+                else:
+                    cache["attn"][key][i, :, :s] = kv[key]
         x = L.norm_apply(params["final_norm"], x, cfg)
         return self._head(params, x[:, -1:], div), cache
 
@@ -203,7 +214,7 @@ class LM:
         positions = cur_pos[:, None]
         for i in range(cfg.n_layers):
             p = _map(lambda a: a[i], params["layers"])
-            layer_cache = {"k": cache["attn"]["k"][i], "v": cache["attn"]["v"][i]}
+            layer_cache = {key: leaf[i] for key, leaf in cache["attn"].items()}
             x, _ = self._layer(p, x, div=div, positions=positions, cache=layer_cache,
                                cur_pos=cur_pos)
         x = L.norm_apply(params["final_norm"], x, cfg)

@@ -219,8 +219,8 @@ class ServeEngine(EngineCore):
             logits, cache1 = self.model.prefill(
                 self.params, tokens, max_seq=self.cfg.max_seq, div=self.div
             )
-        for key in ("k", "v"):
-            self.cache["attn"][key][:, slot] = cache1["attn"][key][:, 0]
+        for key, leaf in cache1["attn"].items():  # k/v, and their scales for an int8 cache
+            self.cache["attn"][key][:, slot] = leaf[:, 0]
         self.pos[slot] = len(req.prompt)
         self.slot_req[slot] = req
         tok = self._sample(logits[0, -1].float().cpu().numpy(), req.temperature)

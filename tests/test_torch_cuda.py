@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import get_reduced
+from repro_torch.configs import get_config, get_reduced
 from repro_torch.core.gemm import gemm, gemm_batched, gemm_context, gemm_grouped
 from repro_torch.core.op import Epilogue
 from repro_torch.core.policies import ALL_POLICIES, ALL_SK, DP, HYBRIDS, TileConfig
@@ -252,6 +252,96 @@ def test_cuda_moe_served_tokens_match_torch_backend(cuda_device):
         if backend == "cuda":
             assert {"grouped_streamk_sk", "grouped_streamk_dp"} & set(log)
     assert tokens["cuda"] == tokens["torch"] and len(tokens["cuda"]) == 2
+
+
+# ---------------------------------------------------------------------------
+# B5's tensor-core mainloop (csrc/mma_bf16.cuh): the bf16-activation rungs
+# ---------------------------------------------------------------------------
+
+#: the pairs that run mma_subblock: bf16 activations x bf16, int8 or packed int4 weights
+MMA_BITS = {"bf16": None, "bf16*int8": 8, "bf16*int4": 4}
+#: (G, M, N, K): aligned rows; K odd and N not a multiple of 16, so neither
+#: A's nor B's rows are 16-byte aligned (the element-wise staging path, an odd
+#: K for packed int4); and a K that ends inside a 64-deep chunk
+MMA_SHAPES = ((5, 64, 384, 1024), (5, 64, 302, 203), (4, 64, 256, 331))
+
+
+def _mma_operands(g, m, n, k, bits, seed):
+    r = np.random.default_rng(seed)
+    a = torch.from_numpy(r.normal(size=(g, m, k)).astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy((r.normal(size=(g, k, n)) / np.sqrt(k)).astype(np.float32))
+    bias = torch.from_numpy(r.normal(size=(g, n)).astype(np.float32)).to(torch.bfloat16)
+    operand = torch.from_numpy(r.normal(size=(g, m, n)).astype(np.float32)).to(torch.bfloat16)
+    if bits is None:
+        return a, w.to(torch.bfloat16), {}, bias, operand
+    q = quantize_weight(w, bits=bits)
+    return a, q.values, dict(scale=q.scales, b_bits=bits), bias, operand
+
+
+@pytest.mark.parametrize("pair", list(MMA_BITS))
+@pytest.mark.parametrize("bm", [8, 16, 32, 64], ids=lambda bm: f"sm{bm}")
+def test_cuda_grouped_mma_mainloop_matches_plain_version(cuda_device, bm, pair):
+    """Both B5 forms on the tensor-core mainloop, at sub-block rows SM = bm
+    (M = 64 lets ``sub_block_rows`` take each of 8, 16, 32 and 64), bn 128
+    and 256, full and ragged group sizes with an empty group, the bias and
+    residual epilogue, against the plain version (2e-2, one bf16 rounding of
+    the output). Every call runs twice and the two outputs are bitwise
+    identical; some Stream-K case splits a tile."""
+    assert common.sub_block_rows(bm, 64) == bm
+    split = 0
+    for gm, m, n, k in MMA_SHAPES:
+        a, b, kw, bias, operand = _mma_operands(gm, m, n, k, MMA_BITS[pair], seed=bm + n)
+        dev = {key: v.to(cuda_device) if torch.is_tensor(v) else v for key, v in kw.items()}
+        for bn in (128, 256):
+            cfg = TileConfig(bm, bn, 128)
+            for sizes, epi, ekw in (((m,) * gm, Epilogue(), {}),
+                                    ((0, m, 7, 33, 1)[:gm], Epilogue(bias=True, binary="add"),
+                                     dict(bias=bias, operand=operand))):
+                want = gemm_grouped_streamk_plain(a, b, sizes=sizes, out_dtype=torch.bfloat16,
+                                                  epilogue=epi, **kw, **ekw)
+                dev_e = {key: v.to(cuda_device) for key, v in ekw.items()}
+                for pol, g in ((DP, 132), (ALL_SK, 7), (ALL_SK, 132), (ALL_SK, 264)):
+                    run = [gemm_grouped_streamk(
+                        a.to(cuda_device), b.to(cuda_device), policy=pol, cfg=cfg, g=g,
+                        out_dtype=torch.bfloat16, epilogue=epi, group_sizes=sizes, **dev,
+                        **dev_e) for _ in range(2)]
+                    assert torch.equal(run[0], run[1]), (pair, bm, bn, pol.name, g, sizes)
+                    _close(run[0], want, TOL[torch.bfloat16])
+                    for i, s_ in enumerate(sizes):
+                        assert not run[0][i, s_:].any()
+                    tiles = sum(-(-s_ // bm) for s_ in sizes) * -(-n // bn)
+                    ipt = -(-k // 128)
+                    ipw = -(-tiles * ipt // g)
+                    split += pol is ALL_SK and tiles * ipt > ipw and ipw % ipt != 0
+    assert split, "no Stream-K case split a tile"
+
+
+def test_cuda_int8_kv_cache_decode_logits_match_torch_backend(cuda_device):
+    """granite-8b at full width and 2 layers with the int8 KV cache, bf16:
+    prefill and two decode steps on the kernels stay within LOGITS_TOL
+    (3e-2 x max|logit|, the served limit of granite-8b) of the torch
+    backend, and the cache is int8 with f32 scales."""
+    cfg = dataclasses.replace(get_config("granite-8b"), n_layers=2, kv_cache_dtype="int8")
+    model = LM(cfg)
+    params = model.init_params(cuda_device, torch.Generator(device=cuda_device).manual_seed(0))
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(1, cfg.vocab_size, 40))
+    logits = {}
+    for backend in ("cuda", "torch"):
+        with gemm_context(backend=backend, device=cuda_device):
+            out, cache = model.prefill(params, prompt[None].to(cuda_device), max_seq=64)
+            steps = [out]
+            pos = torch.tensor([len(prompt)], device=cuda_device)
+            for _ in range(2):
+                tok = steps[-1][:, -1].argmax(-1, keepdim=True)
+                out, cache = model.decode_step(params, cache, tok, pos)
+                steps.append(out)
+                pos = pos + 1
+        assert cache["attn"]["k"].dtype == torch.int8
+        assert cache["attn"]["v_scale"].dtype == torch.float32
+        logits[backend] = steps
+    for got, want in zip(logits["cuda"], logits["torch"]):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 3e-2 * want.float().abs().max().item()
 
 
 # ---------------------------------------------------------------------------
