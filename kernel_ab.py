@@ -12,17 +12,23 @@ per source at once: on the 8 cores of an H100 machine one build took 229
 s, two at once 553 and 583 s), and then time them in turns in one call:
 parent, change, change, parent. Each run prints one JSON line of
 device ms per call (calls queued behind a spin kernel, back to back, the
-weights rotated past the 50 MB L2): B1 at 4x14336x4096 (DP 8x128x128), B2
-and B3 at 4x4096x14336 (ALL_SK 8x256x128), all bf16, and B5 at
-64x4x1024x2048 (DP 8x256x128) and 64x16x1024x2048 (ALL_SK 16x128x128) on
-five operand pairs: bf16, bf16 x int8 and bf16 x packed int4 (the rungs
-with bf16 activations), and as controls f32 and int8 x int8 (the
-int8-dynamic rung), all with g = 132. Before it is timed, each B5 call is
-held against ``gemm_grouped_streamk_plain`` (2e-2 x max|ref| for bf16
-activations, 1e-4 for f32 and int8 ones); a disagreement raises.
+weights rotated through copies that together pass 200 MB, four times the
+50 MB L2), and one of the mainloop each kernel runs per operand pair
+(``repro_torch.kernels.common.mainloop``; null for a tree that predates
+it). Timed: B1 at 4x14336x4096 (DP 8x128x128), B2, B3 and their
+composition B2+B3 at 4x4096x14336 (ALL_SK 8x256x128), and B5 at
+64x4x1024x2048 (DP 8x256x128) and 64x16x1024x2048 (ALL_SK 16x128x128),
+all with g = 132, each on five operand pairs: bf16, bf16 x int8 and bf16
+x packed int4 (the rungs with bf16 activations), and as controls f32 and
+int8 x int8 (the int8-dynamic rung). Before it is timed, each call is held
+against its plain version (``dp_gemm_region_plain``, ``streamk_phase1_plain``
+on the contributor slots, ``streamk_fixup_plain``,
+``gemm_grouped_streamk_plain``): 2e-2 x max|ref| for bf16 activations,
+1e-4 for f32 and int8 ones; a disagreement raises.
 """
 
 import json
+import math
 import sys
 import time
 
@@ -35,12 +41,25 @@ from repro_torch.core.policies import ALL_SK, DP, TileConfig  # noqa: E402
 from repro_torch.core.quant import quantize_activations, quantize_weight  # noqa: E402
 from repro_torch.core.workpart import GemmShape, partition  # noqa: E402
 from repro_torch.kernels import cuda_lib  # noqa: E402
-from repro_torch.kernels.dp.dp_gemm import dp_gemm_region  # noqa: E402
+from repro_torch.kernels.dp.dp_gemm import dp_gemm_region, dp_gemm_region_plain  # noqa: E402
+from repro_torch.kernels.streamk import ops as sk_ops  # noqa: E402
 from repro_torch.kernels.streamk.grouped import (  # noqa: E402
     gemm_grouped_streamk,
     gemm_grouped_streamk_plain,
 )
-from repro_torch.kernels.streamk.streamk_gemm import streamk_fixup, streamk_phase1  # noqa: E402
+from repro_torch.kernels.streamk.streamk_gemm import (  # noqa: E402
+    n_contributors,
+    range_math,
+    streamk_fixup,
+    streamk_fixup_plain,
+    streamk_phase1,
+    streamk_phase1_plain,
+)
+
+try:
+    from repro_torch.kernels.common import mainloop  # noqa: E402
+except ImportError:  # a tree from before the mainloop was named per kernel
+    mainloop = None
 
 
 def time_ms(fn, iters=30):
@@ -57,21 +76,30 @@ def time_ms(fn, iters=30):
     return start.elapsed_time(end) / iters
 
 
-def b5_rungs(a, b):
-    """(rung, activations, weight copies, quantized kwargs, tolerance) of
-    B5's operand pairs, from bf16 ``a`` (G, M, K) and ``b`` (G, K, N).
-    Quantized weights come in two copies, so that the timed calls
-    alternate between them and neither stays in the L2."""
-    yield "bf16", a, [b], {}, 2e-2
+def rungs(a, b):
+    """(pair, activations, weight, quantized kwargs, tolerance) of the five
+    operand pairs, from bf16 ``a`` (..., M, K) and ``b`` (..., K, N)."""
+    yield "bf16", a, b, {}, 2e-2
     for bits in (8, 4):
-        qs = [quantize_weight(b, bits=bits) for _ in range(2)]
-        yield f"bf16*int{bits}", a, [q.values for q in qs], dict(
-            scale=qs[0].scales, b_bits=bits), 2e-2
-    yield "f32", a.float(), [b.float()], {}, 1e-4
+        q = quantize_weight(b, bits=bits)
+        yield f"bf16*int{bits}", a, q.values, dict(scale=q.scales, b_bits=bits), 2e-2
+    yield "f32", a.float(), b.float(), {}, 1e-4
     q = quantize_weight(b, bits=8)
     qa, scale_a = quantize_activations(a)
-    yield "int8*int8", qa, [q.values, q.values.clone()], dict(scale=q.scales,
-                                                              scale_a=scale_a), 1e-4
+    yield "int8*int8", qa, q.values, dict(scale=q.scales, scale_a=scale_a), 1e-4
+
+
+def copies(w, min_bytes=200 * 2**20):
+    """``w`` and clones of it, together at least ``min_bytes``: the timed
+    calls turn through them, so none is found in the L2."""
+    n = max(1, math.ceil(min_bytes / (w.numel() * w.element_size())))
+    return [w] + [w.clone() for _ in range(n - 1)]
+
+
+def check(got, want, tol, what):
+    err = (got.float() - want.float()).abs().max().item()
+    if not err <= tol * max(1.0, want.float().abs().max().item()):
+        raise AssertionError(f"{what}: max|err| {err:.3e}")
 
 
 def main() -> int:
@@ -88,34 +116,64 @@ def main() -> int:
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
 
-    out = {}
+    out, loops = {}, {}
     turn = iter(range(10**9))
-    a, bs = randn(4, 4096), [randn(4096, 14336) for _ in range(2)]
-    c = torch.empty(4, 14336, dtype=torch.bfloat16, device="cuda")
-    out["B1 4x14336x4096"] = time_ms(
-        lambda: dp_gemm_region(a, bs[next(turn) % 2], TileConfig(8, 128, 128), c=c, g=132))
-    a, bs = randn(4, 14336), [randn(14336, 4096) for _ in range(2)]
-    part = partition(GemmShape(4, 4096, 14336), TileConfig(8, 256, 128), 132, ALL_SK)
-    out["B2 4x4096x14336"] = time_ms(lambda: streamk_phase1(a, bs[next(turn) % 2], part))
-    partials = streamk_phase1(a, bs[0], part)
-    c = torch.empty(4, 4096, dtype=torch.bfloat16, device="cuda")
-    out["B3 4x4096x14336"] = time_ms(lambda: streamk_fixup(partials, part, c))
+
+    def key(name, shape, pair, a_dtype, kernel=None):
+        """The JSON key of one timing; notes the mainloop ``kernel`` runs."""
+        if kernel is not None and mainloop is not None:
+            loops[f"{name} {pair}"] = mainloop(kernel, a_dtype)
+        return f"{name} {shape}" + ("" if pair == "bf16" else f" {pair}")
+
+    cfg1 = TileConfig(8, 128, 128)
+    for pair, a, b, kw, tol in rungs(randn(4, 4096), randn(4096, 14336)):
+        out_dt = torch.float32 if a.dtype == torch.float32 else torch.bfloat16
+        c = torch.empty(4, 14336, dtype=out_dt, device="cuda")
+        check(dp_gemm_region(a, b, cfg1, c=c, g=132, **kw),
+              dp_gemm_region_plain(a, b, cfg1, torch.empty_like(c), **kw), tol, f"B1 {pair}")
+        bs = copies(b)
+        out[key("B1", "4x14336x4096", pair, a.dtype, "dp_gemm_region")] = time_ms(
+            lambda: dp_gemm_region(a, bs[next(turn) % len(bs)], cfg1, c=c, g=132, **kw))
+        del bs
+    cfg2 = TileConfig(8, 256, 128)
+    part = partition(GemmShape(4, 4096, 14336), cfg2, 132, ALL_SK)
+    used = (torch.arange(range_math(part)[3] + 1, device="cuda")[None, :]
+            < n_contributors(part, "cuda")[:, None])
+    for pair, a, b, kw, tol in rungs(randn(4, 14336), randn(14336, 4096)):
+        out_dt = torch.float32 if a.dtype == torch.float32 else torch.bfloat16
+        bits = kw.get("b_bits", 8)
+        scales = {k_: v for k_, v in kw.items() if k_ != "b_bits"}
+        partials = streamk_phase1(a, b, part, b_bits=bits)
+        want = streamk_phase1_plain(a, b, part, b_bits=bits)
+        check(partials[used], want[used], tol, f"B2 {pair}")
+        c = torch.empty(4, 4096, dtype=out_dt, device="cuda")
+        check(streamk_fixup(partials, part, c, **scales),
+              streamk_fixup_plain(want, part, torch.empty_like(c), **scales), tol, f"B3 {pair}")
+        bs = copies(b)
+        out[key("B2", "4x4096x14336", pair, a.dtype, "streamk_phase1")] = time_ms(
+            lambda: streamk_phase1(a, bs[next(turn) % len(bs)], part, b_bits=bits))
+        out[key("B3", "4x4096x14336", pair, a.dtype)] = time_ms(
+            lambda: streamk_fixup(partials, part, c, **scales))
+        out[key("B2+B3", "4x4096x14336", pair, a.dtype)] = time_ms(lambda: sk_ops.gemm(
+            a, bs[next(turn) % len(bs)], policy=ALL_SK, cfg=cfg2, g=132, out_dtype=out_dt,
+            **kw))
+        del bs, partials, want
     for m, pol, cfg in ((4, DP, TileConfig(8, 256, 128)), (16, ALL_SK, TileConfig(16, 128, 128))):
         ga, gb = randn(64, m, 2048), randn(64, 2048, 1024)  # 268 MB of weights: past the L2
-        for rung, a, bs, kw, tol in b5_rungs(ga, gb):
+        for pair, a, b, kw, tol in rungs(ga, gb):
             out_dt = torch.float32 if a.dtype == torch.float32 else torch.bfloat16
-            want = gemm_grouped_streamk_plain(a, bs[0], sizes=(m,) * 64, out_dtype=out_dt,
+            want = gemm_grouped_streamk_plain(a, b, sizes=(m,) * 64, out_dtype=out_dt,
                                               bk=cfg.bk, **kw)
-            got = gemm_grouped_streamk(a, bs[0], policy=pol, cfg=cfg, g=132, out_dtype=out_dt,
+            got = gemm_grouped_streamk(a, b, policy=pol, cfg=cfg, g=132, out_dtype=out_dt,
                                        **kw)
-            err = (got.float() - want.float()).abs().max().item()
-            if not err <= tol * max(1.0, want.float().abs().max().item()):
-                raise AssertionError(f"B5 {rung} {pol.name} m={m}: max|err| {err:.3e}")
-            key = f"B5 64x{m}x1024x2048 {pol.name}" + ("" if rung == "bf16" else f" {rung}")
-            out[key] = time_ms(lambda: gemm_grouped_streamk(
-                a, bs[next(turn) % len(bs)], policy=pol, cfg=cfg, g=132, out_dtype=out_dt,
-                **kw))
-            del want, got
+            check(got, want, tol, f"B5 {pair} {pol.name} m={m}")
+            bs = copies(b)
+            kernel = "grouped_streamk_dp" if pol is DP else "grouped_streamk_sk"
+            out[key("B5", f"64x{m}x1024x2048 {pol.name}", pair, a.dtype, kernel)] = time_ms(
+                lambda: gemm_grouped_streamk(a, bs[next(turn) % len(bs)], policy=pol, cfg=cfg,
+                                             g=132, out_dtype=out_dt, **kw))
+            del want, got, bs
+    print(tree, "mainloop", json.dumps(loops), flush=True)
     print(tree, json.dumps(out), flush=True)
     return 0
 

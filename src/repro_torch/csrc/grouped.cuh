@@ -69,50 +69,6 @@ __device__ __forceinline__ void store_subblock(const Group<TA, TB, TOut>& g,
   }
 }
 
-// The tensor-core mainloop takes bf16 activations.
-template <typename TA>
-__host__ __device__ constexpr bool uses_mma() {
-  return std::is_same<TA, __nv_bfloat16>::value;
-}
-
-// store_subblock for accumulators in mma_bf16.cuh's C-fragment layout.
-template <typename TOut, int SM, typename TA, typename TB>
-__device__ __forceinline__ void store_subblock_mma(const Group<TA, TB, TOut>& g,
-                                                   const float (&acc)[mma_mt<SM>()][2][4],
-                                                   int row_end, int row0, int col0, int n) {
-#pragma unroll
-  for (int i = 0; i < mma_mt<SM>(); ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = mma_row(i, e);
-        const int64_t row = row0 + r;
-        const int col = col0 + mma_col(j, e);
-        if (r < SM && row < row_end && col < n)
-          g.c[row * n + col] =
-              from_f32<TOut>(apply_epilogue<TOut>(acc[i][j][e], g.epi, row, col, n));
-      }
-}
-
-// Park one sub-block's fragment accumulators in a split tile's workspace
-// slot (`dst` is the sub-block's corner in the row-major bm x bn slot).
-template <int SM>
-__device__ __forceinline__ void park_subblock_mma(const float (&acc)[mma_mt<SM>()][2][4],
-                                                  float* dst, int bn) {
-#pragma unroll
-  for (int i = 0; i < mma_mt<SM>(); ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = mma_row(i, 2 * h);
-        if (r < SM)
-          *reinterpret_cast<float2*>(dst + (int64_t)r * bn + mma_col(j, 0)) =
-              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-      }
-}
-
 // ---------------------------------------------------------------------------
 // Stream-K form
 // ---------------------------------------------------------------------------
@@ -160,7 +116,7 @@ __global__ void __launch_bounds__(kThreads)
           mma_subblock<TB, P4, SM>(g.a, g.b, rb.row_end, n, k, row0, col0, kbeg, kend, aligned,
                                    acc, smem_raw);
           if (whole)
-            store_subblock_mma<TOut, SM>(g, acc, rb.row_end, row0, col0, n);
+            store_subblock_mma<SM>(g.c, g.epi, acc, rb.row_end, row0, col0, n);
           else
             park_subblock_mma<SM>(acc, out + (int64_t)sm0 * bn + sn0, bn);
         } else {
@@ -239,7 +195,7 @@ __global__ void __launch_bounds__(kThreads)
           float acc[mma_mt<SM>()][2][4];
           mma_subblock<TB, P4, SM>(g.a, g.b, rb.row_end, n, k, row0, col0, 0, k, aligned, acc,
                                    smem_raw);
-          store_subblock_mma<TOut, SM>(g, acc, rb.row_end, row0, col0, n);
+          store_subblock_mma<SM>(g.c, g.epi, acc, rb.row_end, row0, col0, n);
         } else {
           float acc[SM / 8][4];
           mac_subblock<TA, TB, P4, SM>(g.a, g.b, rb.row_end, n, k, row0, col0, 0, k, bk, aligned,
@@ -251,16 +207,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Dynamic shared memory of one block: the tensor-core ring for bf16
-// activations, the SIMT ring otherwise.
-template <typename TA, typename TB, bool P4, int SM>
-constexpr int grouped_smem_bytes() {
-  if constexpr (uses_mma<TA>())
-    return mma_smem_bytes<TB, P4, SM>();
-  else
-    return smem_bytes<TA, TB, P4, SM>();
-}
-
 template <typename TA, typename TB, bool P4, typename TOut>
 int launch_grouped(int sm, bool sk_form, const void* a, const void* b, void* c, const int* tab,
                    float* ws, int* counters, int m, int n, int k, int bm, int bn, int bk, int nt,
@@ -270,14 +216,14 @@ int launch_grouped(int sm, bool sk_form, const void* a, const void* b, void* c, 
   const TB* bp = static_cast<const TB*>(b);
   TOut* cp = static_cast<TOut*>(c);
   const int total = n_tiles * ipt;
-#define SK_GROUPED(S)                                                                          \
-  if (sk_form)                                                                                 \
-    return launch<grouped_sk_kernel<TA, TB, P4, TOut, S>>(                                     \
-        grouped_smem_bytes<TA, TB, P4, S>(), grid, stream, ap, bp, cp, tab, ws, counters, m, n, \
-        k, bm, bn, bk, nt, ipt, ipw, total, aligned, epi);                                     \
-  return launch<grouped_dp_kernel<TA, TB, P4, TOut, S>>(                                       \
-      grouped_smem_bytes<TA, TB, P4, S>(), grid, stream, ap, bp, cp, tab, m, n, k, bm, bn, bk, \
-      nt, n_tiles, aligned, epi)
+#define SK_GROUPED(S)                                                                        \
+  if (sk_form)                                                                               \
+    return launch<grouped_sk_kernel<TA, TB, P4, TOut, S>>(                                   \
+        mainloop_smem_bytes<TA, TB, P4, S>(), grid, stream, ap, bp, cp, tab, ws, counters, m, \
+        n, k, bm, bn, bk, nt, ipt, ipw, total, aligned, epi);                                \
+  return launch<grouped_dp_kernel<TA, TB, P4, TOut, S>>(                                     \
+      mainloop_smem_bytes<TA, TB, P4, S>(), grid, stream, ap, bp, cp, tab, m, n, k, bm, bn,  \
+      bk, nt, n_tiles, aligned, epi)
   switch (sm) {
     case 8: SK_GROUPED(8);
     case 16: SK_GROUPED(16);

@@ -1,8 +1,10 @@
-// The tensor-core mainloop of B5 for bf16 activations (NVIDIA Hopper, sm_90a):
-// grouped.cuh takes mma_subblock in place of sk_common.cuh's SIMT
-// mac_subblock when A is bf16, whatever B is: bf16 (the dense rung), int8 or
-// packed int4 (the int8 and int4 rungs). The f32 and int8 activations keep
-// the SIMT loop.
+// The tensor-core mainloop of B1, B2 and B5 for bf16 activations (NVIDIA
+// Hopper, sm_90a): stream_k.cuh and grouped.cuh take mma_subblock in place of
+// sk_common.cuh's SIMT mac_subblock when A is bf16 (uses_mma), whatever B
+// is: bf16 (the dense rung), int8 or packed int4 (the int8 and int4 rungs).
+// The f32 and int8 activations, and B6, keep the SIMT loop. The helpers at
+// the end flush the fragments through the epilogue (B1, B5) or park them
+// in an f32 partial slot (B2, B5's split tiles), and size the launch.
 //
 // Contract (that of mac_subblock): the f32 sums over [kbeg, kend) of one
 // SM x 128 sub-block of A @ B, with ragged M, N and K masked by the loads,
@@ -347,6 +349,62 @@ __device__ __forceinline__ void mma_subblock(const __nv_bfloat16* __restrict__ a
   }
   cp_async_wait<0>();
   __syncthreads();  // the next sub-block refills the ring
+}
+
+// The tensor-core mainloop takes bf16 activations.
+template <typename TA>
+__host__ __device__ constexpr bool uses_mma() {
+  return std::is_same<TA, __nv_bfloat16>::value;
+}
+
+// Dynamic shared memory of one block of B1, B2 or B5: the tensor-core ring
+// for bf16 activations, the SIMT ring otherwise.
+template <typename TA, typename TB, bool P4, int SM>
+constexpr int mainloop_smem_bytes() {
+  if constexpr (uses_mma<TA>())
+    return mma_smem_bytes<TB, P4, SM>();
+  else
+    return smem_bytes<TA, TB, P4, SM>();
+}
+
+// Flush one multiplied sub-block, in the C-fragment layout, through the
+// epilogue into the row-major C (n columns); rows at or past row_end are
+// left alone.
+template <int SM, typename TOut>
+__device__ __forceinline__ void store_subblock_mma(TOut* __restrict__ c, const Epilogue& epi,
+                                                   const float (&acc)[mma_mt<SM>()][2][4],
+                                                   int row_end, int row0, int col0, int n) {
+#pragma unroll
+  for (int i = 0; i < mma_mt<SM>(); ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = mma_row(i, e);
+        const int64_t row = row0 + r;
+        const int col = col0 + mma_col(j, e);
+        if (r < SM && row < row_end && col < n)
+          c[row * n + col] = from_f32<TOut>(apply_epilogue<TOut>(acc[i][j][e], epi, row, col, n));
+      }
+}
+
+// Park one sub-block's fragment accumulators in an f32 partial slot: rows
+// r < SM of the sub-block, all 128 columns (`dst` is the sub-block's corner
+// in the row-major bm x bn slot).
+template <int SM>
+__device__ __forceinline__ void park_subblock_mma(const float (&acc)[mma_mt<SM>()][2][4],
+                                                  float* dst, int bn) {
+#pragma unroll
+  for (int i = 0; i < mma_mt<SM>(); ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = mma_row(i, 2 * h);
+        if (r < SM)
+          *reinterpret_cast<float2*>(dst + (int64_t)r * bn + mma_col(j, 0)) =
+              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
 }
 
 }  // namespace

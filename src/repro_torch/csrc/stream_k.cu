@@ -5,7 +5,8 @@
 //
 //   B1  dp_kernel       <- src/repro/kernels/dp/dp_gemm.py:_dp_kernel
 //       g persistent blocks stride over the output tiles
-//       [tile_offset, m_tiles * n_tiles) and write epilogue(A @ B) into C.
+//       [tile_offset, m_tiles * n_tiles) and write epilogue(A @ B) into C
+//       (dp_mma_kernel for bf16 activations).
 //   B2  streamk_kernel  <- src/repro/kernels/streamk/streamk_gemm.py:_streamk_kernel
 //       block x owns the flattened MAC-iteration range
 //       [x * ipw, min((x + 1) * ipw, total)) and writes each tile segment's
@@ -35,6 +36,24 @@
 //
 // This file instantiates B6 for the dense inputs too; the pairs' B6 comes
 // with their B1 and B2 from quant_*.cu.
+//
+// What bounds B1 and B2 on the H100: at the decode shapes (M = 4 against a
+// 4096 x 14336 weight) they read B once, far below the card's 295
+// operations per byte: bound by bytes (0.035 ms for bf16 at 3.35 TB/s,
+// 0.018 int8, 0.009 int4). The SIMT loop of sk_common.cuh had all 8 row
+// groups of a block read and widen every weight, and its int8 -> f32
+// conversions made int8 slower than bf16. With bf16 activations (the dense,
+// int8 and int4 rungs) each SM x 128 sub-block now runs the tensor-core
+// mainloop of mma_bf16.cuh, as B5 does: mma.sync fed by ldmatrix, each
+// weight read from shared memory and widened once per block, 16 KB chunks
+// with 64 KB in flight. B1 at 4x14336x4096 (DP 8x128x128) then takes
+// 0.044 / 0.038 / 0.034 ms on bf16 / int8 / int4 (SIMT: 0.114 / 0.177 /
+// 0.133), B2 at 4x4096x14336 (ALL_SK 8x256x128) 0.045 / 0.037 / 0.028 ms
+// (SIMT: 0.103 / 0.168 / 0.112); int8 and int4 are then bound by the ring's
+// fill and drain per sub-block, not by bytes. f32 activations keep the SIMT
+// FMA loop (exact f32 products, no TF32) and int8 activations its int32
+// MAC; B3 and B6 are unchanged. (Device times on an H100 80GB HBM3 at 700 W,
+// kernel_ab.py, g = 132.)
 //
 // Each extern "C" entry launches on the caller's stream and returns
 // cudaGetLastError(), which the Python wrapper checks.

@@ -1,10 +1,14 @@
 // B1-B3's kernels, templated on the operand types: see stream_k.cu for the
 // design. stream_k.cu instantiates them for the dense f32 and bf16 inputs,
 // and each quant_*.cu for one pair of the quantization ladder, so the
-// sources compile in parallel.
+// sources compile in parallel. With bf16 activations (the dense bf16, int8
+// and int4 rungs) each sub-block of B1 and B2 runs the tensor-core mainloop
+// of mma_bf16.cuh; f32 and int8 activations run sk_common.cuh's SIMT loop.
+// B3 multiplies nothing: it reads B2's f32 partials whatever the inputs.
 
 #pragma once
 
+#include "mma_bf16.cuh"
 #include "sk_common.cuh"
 
 namespace {
@@ -50,6 +54,35 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// B1 on the tensor-core mainloop, for bf16 activations: dp_kernel's walk
+// over the tiles, each sub-block multiplied by mma_subblock and flushed from
+// its fragments. A kernel of its own and not a compile-time branch inside
+// dp_kernel: such a branch changed the SASS of dp_kernel's SIMT
+// instantiations (int8 x int8 at SM = 8 ran 2.5 % slower on the H100),
+// which keep the code they had.
+template <typename TB, bool P4, typename TOut, int SM>
+__global__ void __launch_bounds__(kThreads)
+    dp_mma_kernel(const __nv_bfloat16* __restrict__ a, const TB* __restrict__ b,
+                  TOut* __restrict__ c, int m, int n, int k, int bm, int bn, int n_tiles_n,
+                  int tile_offset, int n_total, bool aligned, Epilogue epi) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  for (int t = tile_offset + blockIdx.x; t < n_total; t += gridDim.x) {
+    const int tile_m = t / n_tiles_n;
+    const int tile_n = t % n_tiles_n;
+    for (int sm0 = 0; sm0 < bm; sm0 += SM) {
+      const int row0 = tile_m * bm + sm0;
+      if (row0 >= m) break;
+      for (int sn0 = 0; sn0 < bn; sn0 += kSN) {
+        const int col0 = tile_n * bn + sn0;
+        if (col0 >= n) break;
+        float acc[mma_mt<SM>()][2][4];
+        mma_subblock<TB, P4, SM>(a, b, m, n, k, row0, col0, 0, k, aligned, acc, smem_raw);
+        store_subblock_mma<SM>(c, epi, acc, m, row0, col0, n);
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // B2: the Stream-K sweep
 // ---------------------------------------------------------------------------
@@ -68,7 +101,7 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t start = (int64_t)x * ipw;
   if (start >= total) return;
   const int end = (int)min((int64_t)total, start + ipw);
-  float acc[TM][4];
+  float acc[TM][4];  // the SIMT loop's; the mma loop keeps its fragments in frag
   int it = (int)start;
   while (it < end) {
     const int tile = it / ipt;
@@ -82,12 +115,22 @@ __global__ void __launch_bounds__(kThreads)
     const int tile_n = tile % n_tiles_n;
     for (int sm0 = 0; sm0 < bm; sm0 += SM) {
       for (int sn0 = 0; sn0 < bn; sn0 += kSN) {
-        mac_subblock<TA, TB, P4, SM>(a, b, m, n, k, tile_m * bm + sm0, tile_n * bn + sn0, kbeg,
-                                     kend, bk, aligned, acc, smem);
+        const int row0 = tile_m * bm + sm0;
+        const int col0 = tile_n * bn + sn0;
+        if constexpr (uses_mma<TA>()) {
+          float frag[mma_mt<SM>()][2][4];
+          mma_subblock<TB, P4, SM>(a, b, m, n, k, row0, col0, kbeg, kend, aligned, frag,
+                                   smem_raw);
+          park_subblock_mma<SM>(frag, out + (int64_t)sm0 * bn + sn0, bn);
+        } else {
+          mac_subblock<TA, TB, P4, SM>(a, b, m, n, k, row0, col0, kbeg, kend, bk, aligned, acc,
+                                       smem);
 #pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          float* dst = out + (int64_t)(sm0 + tm * TM + i) * bn + sn0 + tn * 4;
-          *reinterpret_cast<float4*>(dst) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+          for (int i = 0; i < TM; ++i) {
+            float* dst = out + (int64_t)(sm0 + tm * TM + i) * bn + sn0 + tn * 4;
+            *reinterpret_cast<float4*>(dst) =
+                make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+          }
         }
       }
     }
@@ -130,10 +173,15 @@ int launch_dp(int sm, const void* a, const void* b, void* c, int m, int n, int k
   const TA* ap = static_cast<const TA*>(a);
   const TB* bp = static_cast<const TB*>(b);
   TOut* cp = static_cast<TOut*>(c);
-#define SK_DP(S)                                                                              \
-  return launch<dp_kernel<TA, TB, P4, TOut, S>>(smem_bytes<TA, TB, P4, S>(), grid, stream, ap, \
-                                                bp, cp, m, n, k, bm, bn, bk, n_tiles_n,        \
-                                                tile_offset, n_total, aligned, epi)
+#define SK_DP(S)                                                                            \
+  if constexpr (uses_mma<TA>())                                                                  \
+    return launch<dp_mma_kernel<TB, P4, TOut, S>>(mainloop_smem_bytes<TA, TB, P4, S>(), grid,    \
+                                                  stream, ap, bp, cp, m, n, k, bm, bn, n_tiles_n, \
+                                                  tile_offset, n_total, aligned, epi);           \
+  else                                                                                           \
+    return launch<dp_kernel<TA, TB, P4, TOut, S>>(mainloop_smem_bytes<TA, TB, P4, S>(), grid,    \
+                                                  stream, ap, bp, cp, m, n, k, bm, bn, bk,       \
+                                                  n_tiles_n, tile_offset, n_total, aligned, epi)
   switch (sm) {
     case 8: SK_DP(8);
     case 16: SK_DP(16);
@@ -173,10 +221,10 @@ int streamk_entry(int sm, const void* a, const void* b, void* partials, int m, i
   float* p = static_cast<float*>(partials);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool al = aligned != 0;
-#define SK_P1(S)                                                                             \
-  return launch<streamk_kernel<TA, TB, P4, S>>(smem_bytes<TA, TB, P4, S>(), grid, s, ap, bp, p, \
-                                               m, n, k, bm, bn, bk, n_tiles_n, ipt, ipw, total, \
-                                               mc, al)
+#define SK_P1(S)                                                                       \
+  return launch<streamk_kernel<TA, TB, P4, S>>(mainloop_smem_bytes<TA, TB, P4, S>(), grid, s, \
+                                               ap, bp, p, m, n, k, bm, bn, bk, n_tiles_n, ipt, \
+                                               ipw, total, mc, al)
   switch (sm) {
     case 8: SK_P1(8);
     case 16: SK_P1(16);

@@ -38,6 +38,25 @@ KERNELS = (
 RUNGS = ("int8", "int8-dynamic", "int4", "int4-dynamic")
 
 
+#: the kernels whose sub-blocks run the tensor-core mainloop of
+#: ``csrc/mma_bf16.cuh`` when the activations are bf16 (``uses_mma``)
+MMA_KERNELS = ("dp_gemm_region", "streamk_phase1", "grouped_streamk_sk", "grouped_streamk_dp")
+
+
+def mainloop(kernel: str, a_dtype: torch.dtype) -> Optional[str]:
+    """The MAC ``kernel`` runs for activations of ``a_dtype``: ``"mma"``,
+    the tensor-core mainloop of ``csrc/mma_bf16.cuh``, for B1, B2 and both
+    B5 forms with bf16 activations, whatever the weights; ``"simt"``,
+    ``mac_subblock`` of ``csrc/sk_common.cuh``, for their f32 and int8
+    activations and for B6 (``splitk_partials``); None for B3
+    (``streamk_fixup``), which sums f32 partials and multiplies nothing."""
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown kernel {kernel!r}; expected one of {KERNELS}")
+    if kernel == "streamk_fixup":
+        return None
+    return "mma" if kernel in MMA_KERNELS and a_dtype == torch.bfloat16 else "simt"
+
+
 def launch_name(kernel: str, rung: Optional[str] = None) -> str:
     """The launch counter of ``kernel`` on ``rung`` (None: the dense one)."""
     return kernel if rung is None else f"{kernel}[{rung}]"

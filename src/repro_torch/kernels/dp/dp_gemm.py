@@ -20,13 +20,18 @@ flush, ahead of the other epilogue stages, as on the TPU
 What bounds it on the H100: at the serving shapes (M = slot count, or a
 prompt of a few dozen tokens, against 4096..49152-wide weights) the work is
 far below the card's 295 operations per byte, so it is bound by reading B
-from device memory. The design reads each weight element once per sub-block
-row group, never pads or copies a weight (the kernel masks ragged M, N and K
-edges itself), and picks the sub-block height from M so a decode GEMM does
-not compute padded rows. It uses SIMT FMA, not the tensor cores: for these
-byte-bound shapes that costs little, and it keeps f32 products exact. The
-int8 and int4 weights halve and quarter the bytes of B against bf16. A
-later PR can stage B with TMA and multiply with ``wgmma``.
+from device memory. The design never pads or copies a weight (the kernel
+masks ragged M, N and K edges itself), and picks the sub-block height from
+M so a decode GEMM does not compute padded rows. With bf16 activations (the
+dense, ``int8`` and ``int4`` rungs) each sub-block runs the tensor-core
+mainloop of ``csrc/mma_bf16.cuh``: ``mma.sync`` fed by ``ldmatrix`` reads
+each weight from shared memory once per block, and int8 and int4 weights
+are widened to bf16 once per block, exactly. On an H100 80GB HBM3 at 700 W
+(``kernel_ab.py``, 4x14336x4096, DP 8x128x128, g 132) that takes bf16 from
+0.114 to 0.044 ms (its bound is 0.035), int8 from 0.177 to 0.038 and int4
+from 0.133 to 0.034 ms. f32 activations keep SIMT FMA (exact f32 products,
+no TF32) and int8 activations the SIMT int32 MAC;
+:func:`repro_torch.kernels.common.mainloop` names the loop a call runs.
 
 On a CPU tensor :func:`dp_gemm_region` runs the plain PyTorch version
 :func:`dp_gemm_region_plain`, which the tests and ``chip_smoke.py`` hold the

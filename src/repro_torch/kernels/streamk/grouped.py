@@ -35,7 +35,7 @@ HBM3 at 700 W (``kernel_ab.py``, DP form at 64x4x1024x2048) that takes bf16
 from 0.230 to 0.098 ms, int8 from 0.355 to 0.084 ms and int4 from 0.268 to
 0.066 ms; int8 and int4 are then bound by the passes of the loop, not by
 bytes. f32 and int8 activations keep the SIMT loop (see ``csrc/grouped.cu``);
-:func:`mainloop` names the one a call runs.
+:func:`repro_torch.kernels.common.mainloop` names the one a call runs.
 
 The quantized rungs run through the same kernels, instantiated per operand
 pair (``csrc/quant_*.cu``): the stacked expert weights are int8 ``(G, K, N)``
@@ -110,14 +110,6 @@ def _counters(g: int, device) -> torch.Tensor:
         cnt = torch.zeros(max(g, 264), dtype=torch.int32, device=device)
         _COUNTERS[device] = cnt
     return cnt
-
-
-def mainloop(a_dtype: torch.dtype) -> str:
-    """The MAC B5's kernels run for activations of ``a_dtype`` (``uses_mma``
-    in ``csrc/grouped.cuh``): ``"mma"``, the tensor-core mainloop of
-    ``csrc/mma_bf16.cuh``, for bf16 whatever the weights; ``"simt"``,
-    ``mac_subblock`` of ``csrc/sk_common.cuh``, for f32 and int8."""
-    return "mma" if a_dtype == torch.bfloat16 else "simt"
 
 
 def gemm_grouped_streamk_plain(

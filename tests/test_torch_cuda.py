@@ -30,12 +30,19 @@ from repro_torch.core.quant import quantize_activations, quantize_weight
 from repro_torch.core.workpart import GemmShape, partition
 from repro_torch.kernels import common
 from repro_torch.kernels.dp import ops as dp_ops
-from repro_torch.kernels.dp.dp_gemm import dp_gemm_region
+from repro_torch.kernels.dp.dp_gemm import dp_gemm_region, dp_gemm_region_plain
 from repro_torch.kernels.splitk import ops as splitk_ops
 from repro_torch.kernels.splitk.splitk_gemm import splitk_partials, splitk_partials_plain
 from repro_torch.kernels.streamk import ops
 from repro_torch.kernels.streamk.grouped import gemm_grouped_streamk, gemm_grouped_streamk_plain
-from repro_torch.kernels.streamk.streamk_gemm import streamk_fixup, streamk_phase1
+from repro_torch.kernels.streamk.streamk_gemm import (
+    n_contributors,
+    range_math,
+    streamk_fixup,
+    streamk_fixup_plain,
+    streamk_phase1,
+    streamk_phase1_plain,
+)
 from repro_torch.models.lm import LM
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 
@@ -81,16 +88,23 @@ def test_cuda_kernels_match_plain_versions(cuda_device, pol_idx, dtype):
             _close(got, want, TOL[dtype])
 
 
-def test_cuda_streamk_is_bitwise_deterministic(cuda_device):
+@pytest.mark.parametrize("pair", ["bf16", "bf16*int8", "bf16*int4"])
+def test_cuda_streamk_is_bitwise_deterministic(cuda_device, pair):
     """B2 then B3 sum the contributor slots in a fixed order: two runs give
-    the same bits."""
-    a, b, _, _ = (t.to(cuda_device) for t in _inputs(4, 4096, 4096, torch.bfloat16, seed=5))
+    the same bits, on each rung whose B2 runs the tensor-core mainloop."""
+    a, b, _, _ = _inputs(4, 4096, 4096, torch.bfloat16, seed=5)
+    kw = {}
+    if pair != "bf16":
+        q = quantize_weight(b.float(), bits=8 if pair == "bf16*int8" else 4)
+        b, kw = q.values, dict(scale=q.scales.to(cuda_device), b_bits=q.bits)
+    a, b = a.to(cuda_device), b.to(cuda_device)
     part = partition(GemmShape(4, 4096, 4096), TileConfig(8, 256, 128), 132, ALL_SK)
     assert part.max_contributors > 1
     outs = []
     for _ in range(2):
         c = torch.empty(4, 4096, dtype=a.dtype, device=cuda_device)
-        outs.append(streamk_fixup(streamk_phase1(a, b, part), part, c))
+        p = streamk_phase1(a, b, part, b_bits=kw.get("b_bits", 8))
+        outs.append(streamk_fixup(p, part, c, scale=kw.get("scale")))
     assert torch.equal(outs[0], outs[1])
 
 
@@ -314,6 +328,101 @@ def test_cuda_grouped_mma_mainloop_matches_plain_version(cuda_device, bm, pair):
                     ipw = -(-tiles * ipt // g)
                     split += pol is ALL_SK and tiles * ipt > ipw and ipw % ipt != 0
     assert split, "no Stream-K case split a tile"
+
+
+# B1 and B2 on the same mainloop: each sub-block of dp_kernel and
+# streamk_kernel runs mma_subblock on the bf16-activation rungs
+
+#: (M, N, K): aligned rows; M ragged, N not a multiple of 16 and K odd, so
+#: neither A's nor B's rows are 16-byte aligned (the element-wise staging
+#: path); and a K that ends inside a chunk. M = 64 and 57 both let
+#: ``sub_block_rows`` take each of 8, 16, 32 and 64.
+MMA_2D_SHAPES = ((64, 384, 1024), (57, 302, 203), (57, 256, 331))
+#: (epilogue, which of bias / operand / scale_a it reads): none; and every
+#: stage, scale_a -> scale -> bias -> activation -> binary, in two variants
+MMA_EPILOGUES = ((Epilogue(), ()),
+                 (Epilogue(activation="gelu", bias=True, binary="add"),
+                  ("bias", "operand", "scale_a")),
+                 (Epilogue(activation="silu", bias=True, binary="mul_silu"),
+                  ("bias", "operand", "scale_a")))
+
+
+def _close_max(got, want, tol, what):
+    """max|got - want| <= tol * max(1, max|want|)."""
+    got, want = got.cpu().float(), want.cpu().float()
+    err = (got - want).abs().max().item()
+    assert err <= tol * max(1.0, want.abs().max().item()), (what, err)
+
+
+def _segment_starts(part):
+    """The k-iteration offset within its tile at which each Stream-K
+    segment starts."""
+    ipt = part.iters_per_tile
+    starts = []
+    for r in part.sk_ranges:
+        it = r.start
+        while it < r.end:
+            tile = it // ipt
+            starts.append(it - tile * ipt)
+            it = min(r.end, (tile + 1) * ipt)
+    return starts
+
+
+@pytest.mark.parametrize("pair", list(MMA_BITS))
+@pytest.mark.parametrize("bm", [8, 16, 32, 64], ids=lambda bm: f"sm{bm}")
+def test_cuda_mma_mainloop_matches_plain_version(cuda_device, bm, pair):
+    """B1, and B2 then B3, on the tensor-core mainloop at sub-block rows
+    SM = bm, bn 128 and 256, against dp_gemm_region_plain and
+    streamk_phase1_plain / streamk_fixup_plain (2e-2 x max|ref|): ragged M,
+    N and K, rows that are not 16-byte aligned, every epilogue stage, and
+    ALL_SK partitions at g 7, 132 and one whose segments start at odd
+    multiples of bk = 128 (inside int4's 256-deep chunk). B2's partials are
+    compared on every contributor slot whole, so a sub-block outside C must
+    read 0."""
+    bits = MMA_BITS[pair]
+    odd_starts = 0
+    for m, n, k in MMA_2D_SHAPES:
+        assert common.sub_block_rows(bm, m) == bm
+        ga, gb, gkw, gbias, gop = _mma_operands(1, m, n, k, bits, seed=bm + n + k)
+        a, b, bias, operand = ga[0], gb[0], gbias[0], gop[0]
+        scale = gkw["scale"][0] if bits else None
+        scale_a = torch.from_numpy(
+            np.random.default_rng(k).uniform(0.5, 1.5, size=m).astype(np.float32))
+        b_bits = bits or 8
+        da, db = a.to(cuda_device), b.to(cuda_device)
+        for bn in (128, 256):
+            cfg = TileConfig(bm, bn, 128)
+            for epi, reads in MMA_EPILOGUES:
+                ekw = {key: v for key, v in (("bias", bias), ("operand", operand),
+                                             ("scale_a", scale_a)) if key in reads}
+                ekw["scale"] = scale
+                dkw = {key: None if v is None else v.to(cuda_device) for key, v in ekw.items()}
+                what = (pair, bm, m, n, k, bn, epi.name)
+                # B1 over every tile
+                want = dp_gemm_region_plain(a, b, cfg, torch.zeros(m, n, dtype=torch.bfloat16),
+                                            epilogue=epi, b_bits=b_bits, **ekw)
+                got = dp_gemm_region(da, db, cfg, g=132, out_dtype=torch.bfloat16,
+                                     epilogue=epi, b_bits=b_bits, **dkw)
+                _close_max(got, want, TOL[torch.bfloat16], ("B1", *what))
+                # B2 then B3 under ALL_SK
+                tiles = -(-m // bm) * -(-n // bn)
+                total = tiles * -(-k // 128)
+                for g in (7, 132, -(-total // 3)):
+                    part = partition(GemmShape(m, n, k), cfg, g, ALL_SK)
+                    odd_starts += sum(s_ % 2 for s_ in _segment_starts(part))
+                    want_p = streamk_phase1_plain(a, b, part, b_bits=b_bits)
+                    got_p = streamk_phase1(da, db, part, b_bits=b_bits)
+                    used = (torch.arange(range_math(part)[3] + 1)[None, :]
+                            < n_contributors(part)[:, None])
+                    _close_max(got_p.cpu()[used], want_p[used], TOL[torch.bfloat16],
+                               ("B2", g, *what))
+                    want_c = streamk_fixup_plain(
+                        want_p, part, torch.zeros(m, n, dtype=torch.bfloat16), epilogue=epi,
+                        **ekw)
+                    got_c = streamk_fixup(got_p, part, torch.zeros(
+                        m, n, dtype=torch.bfloat16, device=cuda_device), epilogue=epi, **dkw)
+                    _close_max(got_c, want_c, TOL[torch.bfloat16], ("B2+B3", g, *what))
+    assert odd_starts, "no Stream-K segment started at an odd multiple of bk"
 
 
 def test_cuda_int8_kv_cache_decode_logits_match_torch_backend(cuda_device):

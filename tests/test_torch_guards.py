@@ -20,10 +20,11 @@ from repro_torch.models.lm import LM, resolve_device
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 
 ROOT = Path(__file__).resolve().parent.parent
-#: the port, the chip smoke run, the kernel A/B timer and the card-only tests
-#: (they run where jax is not installed)
+#: the port, the chip smoke run, the kernel A/B timer, the logits and SASS
+#: probes and the card-only tests (they run where jax is not installed)
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "kernel_ab.py", ROOT / "tests" / "test_torch_cuda.py"]
+    ROOT / "chip_smoke.py", ROOT / "kernel_ab.py", ROOT / "logits_probe.py",
+    ROOT / "sass_ab.py", ROOT / "tests" / "test_torch_cuda.py"]
 FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_torch)|from\s+(jax|repro)(\.|\s)(?!_torch))")
 
 

@@ -180,3 +180,27 @@ def test_launch_counters_count_only_kernel_launches():
     common.reset_launch_counts()
     assert sum(common.LAUNCHES.values()) == 0
 
+
+
+#: the MAC each kernel runs, by activation dtype (f32, bf16, int8): the
+#: tensor-core mainloop ("mma") for B1, B2 and both B5 forms on bf16
+#: activations, the SIMT loop otherwise and for B6; B3 multiplies nothing
+MAINLOOPS = {
+    "dp_gemm_region": ("simt", "mma", "simt"),
+    "streamk_phase1": ("simt", "mma", "simt"),
+    "streamk_fixup": (None, None, None),
+    "grouped_streamk_sk": ("simt", "mma", "simt"),
+    "grouped_streamk_dp": ("simt", "mma", "simt"),
+    "splitk_partials": ("simt", "simt", "simt"),
+}
+
+
+@pytest.mark.parametrize("a_dtype", [torch.float32, torch.bfloat16, torch.int8],
+                         ids=["f32", "bf16", "int8"])
+@pytest.mark.parametrize("kernel", common.KERNELS)
+def test_mainloop_names_each_kernels_mac(kernel, a_dtype):
+    assert set(MAINLOOPS) == set(common.KERNELS)
+    col = [torch.float32, torch.bfloat16, torch.int8].index(a_dtype)
+    assert common.mainloop(kernel, a_dtype) == MAINLOOPS[kernel][col]
+    with pytest.raises(ValueError, match="unknown kernel"):
+        common.mainloop(f"{kernel}[int8]", a_dtype)
