@@ -29,7 +29,8 @@ Phases (any failure raises and the script exits non-zero):
      against its plain version and per-group ``gemm_ref``; all-empty sizes
      launch nothing; the Stream-K form with split tiles is bitwise
      deterministic (bf16 activations run the tensor-core mainloop of
-     ``csrc/mma_bf16.cuh``, f32 and int8 ones the SIMT loop);
+     ``csrc/mma_bf16.cuh``, int8 ones that of ``csrc/mma_s8.cuh``, f32 ones
+     the SIMT loop);
    * each kernel timed with CUDA events at a decode shape it serves (device
      time of calls queued to run back to back, and the time of calls as the
      host issues them; see ``time_ms``), beside its plain version, one
@@ -53,9 +54,11 @@ Phases (any failure raises and the script exits non-zero):
      same way (rung ``int4-dynamic``, which no serve rung reaches); B5's
      bf16-activation rungs (bf16, bf16 x int8, bf16 x int4) in both forms are
      then printed as one table beside the times of the SIMT mainloop they
-     replaced (``B5_SIMT_MS``), the bound and ``torch.bmm``, and so are B1
-     and the B2+B3 composition at their decode shapes (``B12_SIMT_MS``,
-     beside the library call);
+     replaced (``B5_SIMT_MS``), the bound and ``torch.bmm``, and so are its
+     int8-activation rungs (int8-dynamic and int4-dynamic, now on the s8
+     tensor-core mainloop of ``csrc/mma_s8.cuh``, beside ``B5_S8_SIMT_MS``),
+     and B1 and the B2+B3 composition at their decode shapes
+     (``B12_SIMT_MS``, beside the library call);
    * B6, the split-K baseline, on every operand pair (f32, bf16 and the six
      quantized ones) x s in {1, 2, 4, 8} x g in {0, 66, 132, 264} at the
      sweep shape, a ragged unaligned one, an odd K and K < bk * s: its
@@ -841,6 +844,47 @@ def b5_table(grouped_rows, quant_rows):
         rows.append(dict(kernel=name, shape=shape, ms=ms, simt_ms={
             p: B5_SIMT_MS[name, p] for p in ms}, bound_ms=bound,
             library_ms=dense["library_ms"], mainloop=mainloop(name, torch.bfloat16)))
+    return rows
+
+
+#: B5's device ms on its int8-activation rungs on the SIMT mainloop, before they moved to
+#: csrc/mma_s8.cuh, as this script timed them on an NVIDIA H100 80GB HBM3 at 700 W (the kernel
+#: table of PERF.md), by (kernel, rung), at the shapes of B5_TABLE_SHAPES: int8-dynamic is
+#: int8 x int8, int4-dynamic int8 x packed int4
+B5_S8_SIMT_MS = {
+    ("grouped_streamk_sk", "int8-dynamic"): 0.31291,
+    ("grouped_streamk_sk", "int4-dynamic"): 0.32485,
+    ("grouped_streamk_dp", "int8-dynamic"): 0.26808,
+    ("grouped_streamk_dp", "int4-dynamic"): 0.29148,
+}
+
+
+def b5_s8_table(quant_rows):
+    """Log B5's int8-activation rungs (int8-dynamic and int4-dynamic) in
+    both forms at the kernel table's shapes: this run's device ms beside the
+    SIMT mainloop's (``B5_S8_SIMT_MS``), the bound and ``torch.bmm`` on the
+    dequantized bf16 weight; returns the rows."""
+    import torch
+
+    from repro_torch.kernels.common import mainloop
+
+    rows = []
+    log("B5, int8 activations (device ms; the SIMT mainloop's in brackets), bound, torch.bmm:")
+    log("| kernel | shape | int8-dynamic | int4-dynamic | bound (int8-dyn / int4-dyn) | "
+        "torch.bmm (int8-dyn / int4-dyn) | mainloop |")
+    for name, shape in B5_TABLE_SHAPES.items():
+        ms, bound, lib = {}, {}, {}
+        for rung in ("int8-dynamic", "int4-dynamic"):
+            row = next(r for r in quant_rows if r["kernel"] == name and r["rung"] == rung
+                       and r["shape"] == shape)
+            ms[rung], bound[rung], lib[rung] = row["ms"], row["bound_ms"], row["library_ms"]
+        cells = " | ".join(f"{ms[p]:.5f} ({B5_S8_SIMT_MS[name, p]:.5f})" for p in ms)
+        log(f"| {'B5a' if name.endswith('sk') else 'B5b'} {name} | {'x'.join(map(str, shape))} "
+            f"| {cells} | {' / '.join(f'{bound[p]:.5f}' for p in bound)} | "
+            f"{' / '.join(f'{lib[p]:.4f}' for p in lib)} | {mainloop(name, torch.int8)} |")
+        rows.append(dict(kernel=name, shape=shape, ms=ms, simt_ms={
+            p: B5_S8_SIMT_MS[name, p] for p in ms}, bound_ms=bound, library_ms=lib,
+            mainloop=mainloop(name, torch.int8)))
     return rows
 
 
@@ -2115,6 +2159,7 @@ def main() -> int:
     quant_rows = time_quant(gen)
     log(f"quantized timings ({time.perf_counter() - t0:.1f}s)")
     b5_rows = b5_table(grouped_rows, quant_rows)
+    b5_s8_rows = b5_s8_table(quant_rows)
     b12_rows = b12_table(timed, quant_rows)
     t0 = time.perf_counter()
     sk_errs, sk_cases, sk_bitwise, sk_empty, sk_fault = splitk_sweep(gen)
@@ -2225,7 +2270,8 @@ def main() -> int:
                   quant_cases=q_cases, quant_errs=q_errs, quant_bitwise=q_bitwise,
                   quant_b5_cases=qg_cases, quant_b5_errs=qg_errs, quant_b5_bitwise=qg_bitwise,
                   slice_max_err=slice_err, not_served=not_served, failures=failures,
-                  b5_table=b5_rows, b12_table=b12_rows, kv_int8=kv_int8,
+                  b5_table=b5_rows, b5_s8_table=b5_s8_rows, b12_table=b12_rows,
+                  kv_int8=kv_int8,
                   seconds=time.perf_counter() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

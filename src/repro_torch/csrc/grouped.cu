@@ -52,9 +52,16 @@
 // once per block, 16 KB chunks with 64 KB of B in flight. bf16 then streams
 // at 2.7 TB/s (0.098 ms, 82 % of the bound); int8 and int4 take 0.084 and
 // 0.066 ms, bound no longer by bytes but by the passes of the loop (a
-// barrier, the widening and the MMAs per 16 KB chunk). f32 and int8
-// activations keep the SIMT FMA loop (no TF32): 0.31 and 0.27 ms. (Device
-// times on an H100 80GB HBM3 at 700 W, kernel_ab.py, DP form, g = 132.)
+// barrier, the widening and the MMAs per 16 KB chunk). With int8
+// activations (int8 or packed int4 weights) each sub-block runs the s8
+// tensor-core mainloop of mma_s8.cuh: mma.sync.m16n8k32 with exact int32
+// sums per bk step, each weight read from shared memory once per block and
+// transposed (int4: sign-extended) into a column-major strip by byte
+// permutes, so the result is the SIMT loop's bit for bit. int8 x int8 then
+// takes 0.066 ms (SIMT: 0.270) and int8 x int4 0.054 (0.291); the Stream-K
+// form at 64x16x1024x2048 0.084 (0.311) and 0.072 (0.325). f32 activations
+// keep the SIMT FMA loop (no TF32): 0.31 ms. (Device times on an H100 80GB
+// HBM3 at 700 W, kernel_ab.py, DP form at 64x4x1024x2048, g = 132.)
 //
 // The kernels are in grouped.cuh; this file instantiates them for f32
 // inputs, grouped_bf16.cu for bf16 inputs and quant_*.cu for the pairs of

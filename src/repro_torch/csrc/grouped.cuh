@@ -3,11 +3,14 @@
 // inputs and each quant_*.cu for one pair of the quantization ladder, so
 // the sources compile in parallel. With bf16 activations (the dense bf16,
 // int8 and int4 rungs) each sub-block runs the tensor-core mainloop of
-// mma_bf16.cuh; f32 and int8 activations run sk_common.cuh's SIMT loop.
+// mma_bf16.cuh, with int8 activations (int8 or packed int4 weights) the s8
+// tensor-core mainloop of mma_s8.cuh; f32 activations run sk_common.cuh's
+// SIMT loop.
 
 #pragma once
 
 #include "mma_bf16.cuh"
+#include "mma_s8.cuh"
 #include "sk_common.cuh"
 
 namespace {
@@ -119,6 +122,14 @@ __global__ void __launch_bounds__(kThreads)
             store_subblock_mma<SM>(g.c, g.epi, acc, rb.row_end, row0, col0, n);
           else
             park_subblock_mma<SM>(acc, out + (int64_t)sm0 * bn + sn0, bn);
+        } else if constexpr (std::is_same<TA, int8_t>::value) {
+          float acc[mma_mt<SM>()][2][4];
+          mma_s8_subblock<P4, SM>(g.a, g.b, rb.row_end, n, k, row0, col0, kbeg, kend, bk,
+                                  aligned, acc, smem_raw);
+          if (whole)
+            store_subblock_mma<SM>(g.c, g.epi, acc, rb.row_end, row0, col0, n);
+          else
+            park_subblock_mma<SM>(acc, out + (int64_t)sm0 * bn + sn0, bn);
         } else {
           float acc[TM][4];
           mac_subblock<TA, TB, P4, SM>(g.a, g.b, rb.row_end, n, k, row0, col0, kbeg, kend, bk,
@@ -196,6 +207,11 @@ __global__ void __launch_bounds__(kThreads)
           mma_subblock<TB, P4, SM>(g.a, g.b, rb.row_end, n, k, row0, col0, 0, k, aligned, acc,
                                    smem_raw);
           store_subblock_mma<SM>(g.c, g.epi, acc, rb.row_end, row0, col0, n);
+        } else if constexpr (std::is_same<TA, int8_t>::value) {
+          float acc[mma_mt<SM>()][2][4];
+          mma_s8_subblock<P4, SM>(g.a, g.b, rb.row_end, n, k, row0, col0, 0, k, bk, aligned, acc,
+                                  smem_raw);
+          store_subblock_mma<SM>(g.c, g.epi, acc, rb.row_end, row0, col0, n);
         } else {
           float acc[SM / 8][4];
           mac_subblock<TA, TB, P4, SM>(g.a, g.b, rb.row_end, n, k, row0, col0, 0, k, bk, aligned,
@@ -205,6 +221,17 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
+}
+
+// Dynamic shared memory of one block of B5: the s8 tensor-core ring for int8
+// activations; otherwise what B1 and B2 take (the bf16 tensor-core ring for
+// bf16 activations, the SIMT ring for f32).
+template <typename TA, typename TB, bool P4, int SM>
+constexpr int grouped_smem_bytes() {
+  if constexpr (std::is_same<TA, int8_t>::value)
+    return mma_s8_smem_bytes<P4, SM>();
+  else
+    return mainloop_smem_bytes<TA, TB, P4, SM>();
 }
 
 template <typename TA, typename TB, bool P4, typename TOut>
@@ -219,10 +246,10 @@ int launch_grouped(int sm, bool sk_form, const void* a, const void* b, void* c, 
 #define SK_GROUPED(S)                                                                        \
   if (sk_form)                                                                               \
     return launch<grouped_sk_kernel<TA, TB, P4, TOut, S>>(                                   \
-        mainloop_smem_bytes<TA, TB, P4, S>(), grid, stream, ap, bp, cp, tab, ws, counters, m, \
+        grouped_smem_bytes<TA, TB, P4, S>(), grid, stream, ap, bp, cp, tab, ws, counters, m,  \
         n, k, bm, bn, bk, nt, ipt, ipw, total, aligned, epi);                                \
   return launch<grouped_dp_kernel<TA, TB, P4, TOut, S>>(                                     \
-      mainloop_smem_bytes<TA, TB, P4, S>(), grid, stream, ap, bp, cp, tab, m, n, k, bm, bn,  \
+      grouped_smem_bytes<TA, TB, P4, S>(), grid, stream, ap, bp, cp, tab, m, n, k, bm, bn,   \
       bk, nt, n_tiles, aligned, epi)
   switch (sm) {
     case 8: SK_GROUPED(8);

@@ -2,7 +2,9 @@
 // Hopper, sm_90a): stream_k.cuh and grouped.cuh take mma_subblock in place of
 // sk_common.cuh's SIMT mac_subblock when A is bf16 (uses_mma), whatever B
 // is: bf16 (the dense rung), int8 or packed int4 (the int8 and int4 rungs).
-// The f32 and int8 activations, and B6, keep the SIMT loop. The helpers at
+// B5's int8 activations run the s8 loop of mma_s8.cuh, which reuses the
+// helpers here; f32 activations, B1's and B2's int8 ones, and B6 keep the
+// SIMT loop. The helpers at
 // the end flush the fragments through the epilogue (B1, B5) or park them
 // in an f32 partial slot (B2, B5's split tiles), and size the launch.
 //
@@ -357,8 +359,9 @@ __host__ __device__ constexpr bool uses_mma() {
   return std::is_same<TA, __nv_bfloat16>::value;
 }
 
-// Dynamic shared memory of one block of B1, B2 or B5: the tensor-core ring
-// for bf16 activations, the SIMT ring otherwise.
+// Dynamic shared memory of one block of B1, B2 or B6, and of B5 with float
+// activations: the tensor-core ring for bf16 activations, the SIMT ring
+// otherwise.
 template <typename TA, typename TB, bool P4, int SM>
 constexpr int mainloop_smem_bytes() {
   if constexpr (uses_mma<TA>())

@@ -34,8 +34,14 @@ I2F), and 16 KB chunks keep 64 KB of weights in flight. On an H100 80GB
 HBM3 at 700 W (``kernel_ab.py``, DP form at 64x4x1024x2048) that takes bf16
 from 0.230 to 0.098 ms, int8 from 0.355 to 0.084 ms and int4 from 0.268 to
 0.066 ms; int8 and int4 are then bound by the passes of the loop, not by
-bytes. f32 and int8 activations keep the SIMT loop (see ``csrc/grouped.cu``);
-:func:`repro_torch.kernels.common.mainloop` names the one a call runs.
+bytes. With int8 activations (the ``int8-dynamic`` rung, and int8 x int4)
+they run the s8 tensor-core mainloop of ``csrc/mma_s8.cuh``
+(``mma.sync.m16n8k32``, exact int32 sums per ``bk`` step, the weights
+transposed into column-major strips once per block), which gives the SIMT
+loop's bits: 0.270 -> 0.066 ms for int8 x int8 and 0.291 -> 0.054 ms for
+int8 x int4 (same card and script). f32 activations keep the SIMT loop (see
+``csrc/grouped.cu``); :func:`repro_torch.kernels.common.mainloop` names the
+one a call runs.
 
 The quantized rungs run through the same kernels, instantiated per operand
 pair (``csrc/quant_*.cu``): the stacked expert weights are int8 ``(G, K, N)``

@@ -216,18 +216,30 @@ def test_cuda_grouped_matches_plain_version(cuda_device, pol_idx, dtype):
                         assert not got[i, s_:].any()
 
 
-def test_cuda_grouped_streamk_is_bitwise_deterministic(cuda_device):
+@pytest.mark.parametrize("pair", ["bf16", "int8*int8", "int8*int4"])
+def test_cuda_grouped_streamk_is_bitwise_deterministic(cuda_device, pair):
     """The olmoe prefill shape under ALL_SK splits tiles between blocks; the
-    last contributor sums the slots in a fixed order: two runs, same bits."""
-    a, b, _, _ = (t.to(cuda_device) for t in _grouped_inputs(64, 16, 1024, 2048,
-                                                               torch.bfloat16, seed=9))
+    last contributor sums the slots in a fixed order: two runs, same bits.
+    bf16 runs the tensor-core mainloop of mma_bf16.cuh, the int8-activation
+    pairs (int8 or packed int4 weights, per-expert and per-row scales) that
+    of mma_s8.cuh."""
+    a, b, _, _ = _grouped_inputs(64, 16, 1024, 2048, torch.bfloat16, seed=9)
+    kw, out, tol = {}, torch.bfloat16, TOL[torch.bfloat16]
+    if pair != "bf16":
+        bits = 8 if pair == "int8*int8" else 4
+        q = quantize_weight(b.float(), bits=bits)
+        a, scale_a = quantize_activations(a.float())
+        b, kw, out, tol = q.values, dict(scale=q.scales, scale_a=scale_a, b_bits=bits), \
+            torch.float32, TOL[torch.float32]
     cfg = TileConfig(16, 128, 128)
     ipt, total = 2048 // 128, 64 * 8 * (2048 // 128)
     assert (-(-total // 132)) % ipt  # a workgroup boundary falls inside a tile
-    outs = [gemm_grouped_streamk(a, b, policy=ALL_SK, cfg=cfg, g=132) for _ in range(2)]
+    da, db, dkw = a.to(cuda_device), b.to(cuda_device), _to(kw, cuda_device)
+    outs = [gemm_grouped_streamk(da, db, policy=ALL_SK, cfg=cfg, g=132, out_dtype=out, **dkw)
+            for _ in range(2)]
     assert torch.equal(outs[0], outs[1])
-    _close(outs[0], gemm_grouped_streamk_plain(a, b, sizes=(16,) * 64, out_dtype=a.dtype),
-           TOL[torch.bfloat16])
+    _close(outs[0], gemm_grouped_streamk_plain(a, b, sizes=(16,) * 64, out_dtype=out, **kw),
+           tol)
 
 
 def test_cuda_fused_grouped_dispatch_launches_once(cuda_device):
@@ -327,6 +339,101 @@ def test_cuda_grouped_mma_mainloop_matches_plain_version(cuda_device, bm, pair):
                     ipt = -(-k // 128)
                     ipw = -(-tiles * ipt // g)
                     split += pol is ALL_SK and tiles * ipt > ipw and ipw % ipt != 0
+    assert split, "no Stream-K case split a tile"
+
+
+# ---------------------------------------------------------------------------
+# B5's s8 tensor-core mainloop (csrc/mma_s8.cuh): the int8-activation rungs
+# ---------------------------------------------------------------------------
+
+#: the pairs that run mma_s8_subblock: int8 activations x int8 or packed int4 weights
+S8_BITS = {"int8*int8": 8, "int8*int4": 4}
+#: (G, M, N, K): aligned rows and a K that ends inside a 256-deep chunk; K
+#: odd and N not a multiple of 16, so neither A's nor B's rows are 16-byte
+#: aligned (the element-wise staging path, an odd K for packed int4); and a
+#: K ragged against 32, 128 and 256
+S8_SHAPES = ((5, 64, 384, 1152), (5, 64, 302, 203), (4, 64, 256, 331))
+#: (epilogue, output dtype, what it reads besides the two scales): the
+#: scales alone, then every stage, scale_a -> scale -> bias -> activation ->
+#: binary, in two variants
+S8_EPILOGUES = ((Epilogue(), ()),
+                (Epilogue(activation="gelu", bias=True, binary="add"), ("bias", "operand")),
+                (Epilogue(activation="silu", bias=True, binary="mul_silu"), ("bias", "operand")))
+
+
+def _grouped_segment_starts(n_tiles, ipt, g):
+    """The k-iteration offset within its tile at which each segment of the
+    grouped Stream-K form starts (blocks walk ``ceil(T * ipt / g)``
+    iterations each)."""
+    total = n_tiles * ipt
+    ipw = -(-total // g)
+    starts = []
+    for x in range(g):
+        it, end = x * ipw, min(total, (x + 1) * ipw)
+        while it < end:
+            starts.append(it % ipt)
+            it = min(end, (it // ipt + 1) * ipt)
+    return starts
+
+
+@pytest.mark.parametrize("pair", list(S8_BITS))
+@pytest.mark.parametrize("bm", [8, 16, 32, 64], ids=lambda bm: f"sm{bm}")
+def test_cuda_grouped_s8_mainloop_matches_plain_version(cuda_device, bm, pair):
+    """Both B5 forms on the s8 tensor-core mainloop, at sub-block rows
+    SM = bm (M = 64 lets ``sub_block_rows`` take each of 8, 16, 32 and 64),
+    bn 128 and 256, bk 128 and 256, full and ragged group sizes with an empty
+    group, per-expert and per-row scales and every epilogue stage, f32
+    output, against the plain version at 1e-4 x max|ref|; ALL_SK at g 7,
+    132 and one whose segments start at odd multiples of bk = 128 (inside
+    int4's 256-deep chunk). Each bk step's int32 sum enters the f32 sum in
+    order, as ``kstep_dot`` adds them, so with the scales alone the DP form
+    equals the plain version bit for bit; every call runs twice with the
+    same bits."""
+    bits = S8_BITS[pair]
+    assert common.sub_block_rows(bm, 64) == bm
+    odd_starts = split = 0
+    for gm, m, n, k in S8_SHAPES:
+        r = np.random.default_rng(bm + n + k)
+        a, scale_a = quantize_activations(
+            torch.from_numpy(r.normal(size=(gm, m, k)).astype(np.float32)))
+        q = quantize_weight(torch.from_numpy(
+            (r.normal(size=(gm, k, n)) / np.sqrt(k)).astype(np.float32)), bits=bits)
+        bias = torch.from_numpy(r.normal(size=(gm, n)).astype(np.float32))
+        operand = torch.from_numpy(r.normal(size=(gm, m, n)).astype(np.float32))
+        qkw = dict(scale=q.scales, scale_a=scale_a, b_bits=bits)
+        da, db, dq = a.to(cuda_device), q.values.to(cuda_device), _to(qkw, cuda_device)
+        for bn in (128, 256):
+            for bk in (128, 256):
+                cfg = TileConfig(bm, bn, bk)
+                for sizes in ((m,) * gm, (0, m, 7, 33, 1)[:gm]):
+                    for epi, reads in S8_EPILOGUES:
+                        ekw = {key: v for key, v in (("bias", bias), ("operand", operand))
+                               if key in reads}
+                        want = gemm_grouped_streamk_plain(
+                            a, q.values, sizes=sizes, out_dtype=torch.float32, epilogue=epi,
+                            bk=bk, **qkw, **ekw)
+                        dev_e = _to(ekw, cuda_device)
+                        n_tiles = sum(-(-s_ // bm) for s_ in sizes) * -(-n // bn)
+                        ipt = -(-k // bk)
+                        odd_g = -(-n_tiles * ipt // 3)
+                        for pol, g in ((DP, 132), (ALL_SK, 7), (ALL_SK, 132), (ALL_SK, odd_g)):
+                            what = (pair, bm, gm, m, n, k, cfg.name, sizes, epi.name, pol.name, g)
+                            run = [gemm_grouped_streamk(
+                                da, db, policy=pol, cfg=cfg, g=g, out_dtype=torch.float32,
+                                epilogue=epi, group_sizes=sizes, **dq, **dev_e)
+                                for _ in range(2)]
+                            assert torch.equal(run[0], run[1]), what
+                            _close_max(run[0], want, 1e-4, what)
+                            if pol is DP and not reads:
+                                assert torch.equal(run[0].cpu(), want), what
+                            for i, s_ in enumerate(sizes):
+                                assert not run[0][i, s_:].any(), what
+                            if pol is ALL_SK:
+                                starts = _grouped_segment_starts(n_tiles, ipt, g)
+                                odd_starts += bk == 128 and sum(s_ % 2 for s_ in starts)
+                                ipw = -(-n_tiles * ipt // g)
+                                split += n_tiles * ipt > ipw and ipw % ipt != 0
+    assert odd_starts, "no Stream-K segment started at an odd multiple of bk"
     assert split, "no Stream-K case split a tile"
 
 
