@@ -12,7 +12,8 @@ Phases (any failure raises and the script exits non-zero):
 2. Kernels against their plain PyTorch versions, on the card:
    * B1-B3, the full sweep at M=64, N=4096, K=4096 (and two small ragged
      shapes, one per staging path; with bf16 activations B1's and B2's
-     sub-blocks run the tensor-core mainloop of ``csrc/mma_bf16.cuh``): all
+     sub-blocks run the tensor-core mainloop of ``csrc/mma_bf16.cuh``, with
+     int8 ones that of ``csrc/mma_s8.cuh``): all
      8 policies x 2 grid sizes x {bf16 (2e-2), f32 (1e-4)} x epilogues
      {none, mul_silu, bias+gelu}; B2's
      partials against the plain phase 1 (the contributor slots), B3's and
@@ -57,8 +58,11 @@ Phases (any failure raises and the script exits non-zero):
      replaced (``B5_SIMT_MS``), the bound and ``torch.bmm``, and so are its
      int8-activation rungs (int8-dynamic and int4-dynamic, now on the s8
      tensor-core mainloop of ``csrc/mma_s8.cuh``, beside ``B5_S8_SIMT_MS``),
-     and B1 and the B2+B3 composition at their decode shapes
-     (``B12_SIMT_MS``, beside the library call);
+     and B1 and the B2+B3 composition at their decode shapes, on the
+     bf16-activation rungs (``B12_SIMT_MS``) and on the int8-activation ones
+     (now on ``csrc/mma_s8.cuh``, beside ``B12_S8_SIMT_MS``), beside the
+     library call; and B1, B2+B3 and both B5 forms on f32 activations (the
+     SIMT loop) beside ``torch.matmul``/``torch.bmm`` in f32 (``F32_TABLE``);
    * B6, the split-K baseline, on every operand pair (f32, bf16 and the six
      quantized ones) x s in {1, 2, 4, 8} x g in {0, 66, 132, 264} at the
      sweep shape, a ragged unaligned one, an odd K and K < bk * s: its
@@ -943,6 +947,146 @@ def b12_table(timed, quant_rows):
         rows.append(dict(kernel=label, shape=dense["shape"], ms=ms,
                          simt_ms={p: B12_SIMT_MS[name, p] for p in ms}, bound_ms=bound,
                          library_ms=lib, mainloop=mainloop(name, torch.bfloat16)))
+    return rows
+
+
+#: B1's and B2+B3's device ms on their int8-activation rungs on the SIMT mainloop, before they
+#: moved to csrc/mma_s8.cuh, as this script timed them on an NVIDIA H100 80GB HBM3 at 700 W
+#: (the kernel table of PERF.md), by (kernel, rung), at B12_SIMT_MS's shapes: int8-dynamic is
+#: int8 x int8, int4-dynamic int8 x packed int4; for B2+B3 B2's and B3's times added, as
+#: B12_SIMT_MS has them
+B12_S8_SIMT_MS = {
+    ("dp_gemm_region", "int8-dynamic"): 0.11290,
+    ("dp_gemm_region", "int4-dynamic"): 0.14803,
+    ("streamk_phase1", "int8-dynamic"): 0.11550 + 0.00748,
+    ("streamk_phase1", "int4-dynamic"): 0.11401 + 0.00748,
+}
+
+
+def b12_s8_table(quant_rows):
+    """Log B1 and the B2+B3 composition on the int8-activation rungs
+    (int8-dynamic and int4-dynamic) at the decode shapes of the kernel
+    table: this run's device ms beside the SIMT mainloop's
+    (``B12_S8_SIMT_MS``), the bound (B2+B3: B2's and B3's added), the rung's
+    library yardstick (``torch._int_mm`` for int8-dynamic, ``torch.matmul``
+    on the dequantized bf16 weight for int4-dynamic) and ``torch.matmul`` on
+    the dequantized bf16 weight for both (the int8 rung's yardstick, timed
+    at the same shape); returns the rows."""
+    import torch
+
+    from repro_torch.kernels.common import mainloop
+
+    rungs = ("int8-dynamic", "int4-dynamic")
+    rows = []
+    log("B1 and B2+B3, int8 activations at M = 4 (device ms; the SIMT mainloop's in "
+        "brackets), bound, library:")
+    log("| kernel | shape | int8-dynamic | int4-dynamic | bound (int8-dyn / int4-dyn) | "
+        "library (int8-dyn / int4-dyn) | torch.matmul, dequantized | mainloop |")
+
+    def decode_row(name, rung):
+        return next(r for r in quant_rows if r["kernel"] == name and r["rung"] == rung
+                    and r["shape"][0] == N_SLOTS)
+
+    for name in ("dp_gemm_region", "streamk_phase1"):
+        own = {rung: decode_row(name, rung) for rung in rungs}
+        if name == "dp_gemm_region":
+            ms = {r: row["ms"] for r, row in own.items()}
+            bound = {r: row["bound_ms"] for r, row in own.items()}
+            label = "B1 dp_gemm_region"
+        else:
+            ms = {r: row["composed_ms"] for r, row in own.items()}
+            bound = {r: row["bound_ms"] + decode_row("streamk_fixup", r)["bound_ms"]
+                     for r, row in own.items()}
+            label = "B2+B3 streamk_phase1 + streamk_fixup"
+        lib = {r: row["library_ms"] for r, row in own.items()}
+        dense_lib = decode_row(name, "int8")["library_ms"]
+        shape = own[rungs[0]]["shape"]
+        cells = " | ".join(f"{ms[p]:.5f} ({B12_S8_SIMT_MS[name, p]:.5f})" for p in ms)
+        log(f"| {label} | {'x'.join(map(str, shape))} | {cells} | "
+            f"{' / '.join(f'{bound[p]:.5f}' for p in bound)} | "
+            f"{' / '.join(f'{lib[p]:.4f}' for p in lib)} | {dense_lib:.4f} | "
+            f"{mainloop(name, torch.int8)} |")
+        rows.append(dict(kernel=label, shape=shape, ms=ms,
+                         simt_ms={p: B12_S8_SIMT_MS[name, p] for p in ms}, bound_ms=bound,
+                         library_ms=lib, dequantized_matmul_ms=dense_lib,
+                         mainloop=mainloop(name, torch.int8)))
+    return rows
+
+
+#: the f32 table's GEMMs: (label, kernel, shape, policy name, tile) at g = 132, the kernel
+#: table's decode shapes; and olmoe-1b-7b's router (4 x 2048 -> 64), the f32 GEMM that
+#: every olmoe rung serves, under the H100 selector's pick (policy None)
+F32_TABLE = (("B1", "dp_gemm_region", (4, 14336, 4096), "dp", (8, 128, 128)),
+             ("B2+B3", "streamk_phase1", (4, 4096, 14336), "all_sk", (8, 256, 128)),
+             ("B2+B3 router", "streamk_phase1", (4, 64, 2048), None, None),
+             ("B5a", "grouped_streamk_sk", (64, 16, 1024, 2048), "all_sk", (16, 128, 128)),
+             ("B5b", "grouped_streamk_dp", (64, 4, 1024, 2048), "dp", (8, 256, 128)))
+
+
+def f32_table(gen):
+    """B1, the B2+B3 composition and both B5 forms on f32 activations and
+    weights (the SIMT mainloop) at ``F32_TABLE``'s shapes: device ms beside
+    ``torch.matmul`` or ``torch.bmm`` in f32 (TF32 off) and the bound
+    (bytes over 3.35 TB/s or operations over 67 TFLOP/s; B2+B3: B2's and
+    B3's added), each call first held against that library call at the f32
+    tolerance, 1e-4; returns the rows."""
+    import torch
+
+    from repro_torch.core.op import GemmOp
+    from repro_torch.core.policies import ALL_POLICIES, TileConfig
+    from repro_torch.core.selector import default_selector
+    from repro_torch.core.workpart import GemmShape, partition
+    from repro_torch.kernels.common import mainloop
+    from repro_torch.kernels.dp.dp_gemm import dp_gemm_region
+    from repro_torch.kernels.streamk import ops as sk_ops
+    from repro_torch.kernels.streamk.grouped import gemm_grouped_streamk
+
+    policies = {p.name: p for p in ALL_POLICIES}
+    rows = []
+    it = iter(range(10**9))
+    log("B1, B2+B3 and B5, f32 activations (device ms), bound, torch.matmul / torch.bmm in f32:")
+    log("| kernel | shape | policy / tile, g | ms | bound (by) | library | mainloop |")
+    for label, name, shape, pol, tile in F32_TABLE:
+        *lead, m, n, k = shape
+        if pol is None:
+            s = default_selector("cuda").select_op(
+                GemmOp.plain(m, n, k, in_dtype="float32", out_dtype="float32"))
+            policy, cfg, grid = s.policy, s.cfg, s.g
+        else:
+            policy, cfg, grid = policies[pol], TileConfig(*tile), 132
+        a = torch.randn(*lead, m, k, generator=gen, device="cuda")
+        bs = _rotating(torch.randn(*lead, k, n, generator=gen, device="cuda") / math.sqrt(k))
+        groups = lead[0] if lead else 1
+        c = torch.empty(m, n, device="cuda") if name == "dp_gemm_region" else None
+
+        def kernel(b, a=a, c=c, name=name, policy=policy, cfg=cfg, grid=grid):
+            if name == "dp_gemm_region":
+                return dp_gemm_region(a, b, cfg, c=c, g=grid)
+            if name == "streamk_phase1":
+                return sk_ops.gemm(a, b, policy=policy, cfg=cfg, g=grid, out_dtype=torch.float32)
+            return gemm_grouped_streamk(a, b, policy=policy, cfg=cfg, g=grid,
+                                        out_dtype=torch.float32)
+
+        library = torch.bmm if lead else torch.matmul
+        err = close(kernel(bs[0]), library(a, bs[0]), 1e-4, f"{label} f32 table")
+        ms = time_ms(lambda: kernel(bs[next(it) % len(bs)]))[0]
+        lib = time_ms(lambda: library(a, bs[next(it) % len(bs)]))[0]
+        if name == "streamk_phase1":
+            part = partition(GemmShape(m, n, k), cfg, grid, policy)
+            nbytes, ops, slot_bytes, elems, adds = _sk_region_bytes_ops(part, m, n, k, 4, 4)
+            b2, b3 = bound_ms(nbytes, ops, PEAK_F32), bound_ms(slot_bytes + elems * 4, adds,
+                                                             PEAK_F32)
+            bnd, by = b2[0] + b3[0], b2[1]
+        else:
+            bnd, by = bound_ms(groups * (m * k + k * n + m * n) * 4, 2 * groups * m * n * k,
+                               PEAK_F32)
+        log(f"| {label} {name} | {'x'.join(map(str, shape))} | {policy.name} / {cfg.name}, {grid} "
+            f"| {ms:.5f} | {bnd:.5f} ({by}) | {lib:.5f} | {mainloop(name, torch.float32)} |")
+        rows.append(dict(kernel=label, name=name, shape=list(shape), policy=policy.name,
+                         tile=cfg.name, g=grid, max_abs_err=err, ms=ms, bound_ms=bnd, bound_by=by,
+                         library_ms=lib, library_of=library.__name__,
+                         mainloop=mainloop(name, torch.float32)))
+        del bs
     return rows
 
 
@@ -2061,8 +2205,8 @@ def planted_fault_diff(model, params, selector, prompt, want, *, grouped, rung=N
 
 
 #: name fragments of the hand-written kernels in profiler traces
-GEMM_KERNELS = ("dp_kernel", "dp_mma_kernel", "streamk_kernel", "fixup_kernel", "grouped_sk_kernel",
-                "grouped_dp_kernel")
+GEMM_KERNELS = ("dp_kernel", "dp_mma_kernel", "dp_s8_kernel", "streamk_kernel", "fixup_kernel",
+                "grouped_sk_kernel", "grouped_dp_kernel")
 
 
 def decode_breakdown(step, iters=5):
@@ -2161,6 +2305,8 @@ def main() -> int:
     b5_rows = b5_table(grouped_rows, quant_rows)
     b5_s8_rows = b5_s8_table(quant_rows)
     b12_rows = b12_table(timed, quant_rows)
+    b12_s8_rows = b12_s8_table(quant_rows)
+    f32_rows = f32_table(gen)
     t0 = time.perf_counter()
     sk_errs, sk_cases, sk_bitwise, sk_empty, sk_fault = splitk_sweep(gen)
     log(f"B6 sweep {SPLITK_SHAPES} x {[p[0] for p in SPLITK_PAIRS]} x s {SPLITK_S} x g "
@@ -2271,6 +2417,7 @@ def main() -> int:
                   quant_b5_cases=qg_cases, quant_b5_errs=qg_errs, quant_b5_bitwise=qg_bitwise,
                   slice_max_err=slice_err, not_served=not_served, failures=failures,
                   b5_table=b5_rows, b5_s8_table=b5_s8_rows, b12_table=b12_rows,
+                  b12_s8_table=b12_s8_rows, f32_table=f32_rows,
                   kv_int8=kv_int8,
                   seconds=time.perf_counter() - t_start)
     out_dir = ROOT / "chiprun_out"

@@ -223,17 +223,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Dynamic shared memory of one block of B5: the s8 tensor-core ring for int8
-// activations; otherwise what B1 and B2 take (the bf16 tensor-core ring for
-// bf16 activations, the SIMT ring for f32).
-template <typename TA, typename TB, bool P4, int SM>
-constexpr int grouped_smem_bytes() {
-  if constexpr (std::is_same<TA, int8_t>::value)
-    return mma_s8_smem_bytes<P4, SM>();
-  else
-    return mainloop_smem_bytes<TA, TB, P4, SM>();
-}
-
 template <typename TA, typename TB, bool P4, typename TOut>
 int launch_grouped(int sm, bool sk_form, const void* a, const void* b, void* c, const int* tab,
                    float* ws, int* counters, int m, int n, int k, int bm, int bn, int bk, int nt,
@@ -246,10 +235,10 @@ int launch_grouped(int sm, bool sk_form, const void* a, const void* b, void* c, 
 #define SK_GROUPED(S)                                                                        \
   if (sk_form)                                                                               \
     return launch<grouped_sk_kernel<TA, TB, P4, TOut, S>>(                                   \
-        grouped_smem_bytes<TA, TB, P4, S>(), grid, stream, ap, bp, cp, tab, ws, counters, m,  \
-        n, k, bm, bn, bk, nt, ipt, ipw, total, aligned, epi);                                \
+        mainloop_smem_bytes<TA, TB, P4, S>(), grid, stream, ap, bp, cp, tab, ws, counters,   \
+        m, n, k, bm, bn, bk, nt, ipt, ipw, total, aligned, epi);                             \
   return launch<grouped_dp_kernel<TA, TB, P4, TOut, S>>(                                     \
-      grouped_smem_bytes<TA, TB, P4, S>(), grid, stream, ap, bp, cp, tab, m, n, k, bm, bn,   \
+      mainloop_smem_bytes<TA, TB, P4, S>(), grid, stream, ap, bp, cp, tab, m, n, k, bm, bn,  \
       bk, nt, n_tiles, aligned, epi)
   switch (sm) {
     case 8: SK_GROUPED(8);

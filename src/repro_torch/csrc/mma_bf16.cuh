@@ -2,11 +2,11 @@
 // Hopper, sm_90a): stream_k.cuh and grouped.cuh take mma_subblock in place of
 // sk_common.cuh's SIMT mac_subblock when A is bf16 (uses_mma), whatever B
 // is: bf16 (the dense rung), int8 or packed int4 (the int8 and int4 rungs).
-// B5's int8 activations run the s8 loop of mma_s8.cuh, which reuses the
-// helpers here; f32 activations, B1's and B2's int8 ones, and B6 keep the
-// SIMT loop. The helpers at
-// the end flush the fragments through the epilogue (B1, B5) or park them
-// in an f32 partial slot (B2, B5's split tiles), and size the launch.
+// int8 activations run the s8 loop of mma_s8.cuh, which reuses the helpers
+// here; f32 activations and B6 keep the SIMT loop. The helpers at the end
+// flush the fragments through the epilogue (B1, B5) or park them in an f32
+// partial slot (B2, B5's split tiles); mma_s8.cuh sizes the launch of
+// either loop.
 //
 // Contract (that of mac_subblock): the f32 sums over [kbeg, kend) of one
 // SM x 128 sub-block of A @ B, with ragged M, N and K masked by the loads,
@@ -357,17 +357,6 @@ __device__ __forceinline__ void mma_subblock(const __nv_bfloat16* __restrict__ a
 template <typename TA>
 __host__ __device__ constexpr bool uses_mma() {
   return std::is_same<TA, __nv_bfloat16>::value;
-}
-
-// Dynamic shared memory of one block of B1, B2 or B6, and of B5 with float
-// activations: the tensor-core ring for bf16 activations, the SIMT ring
-// otherwise.
-template <typename TA, typename TB, bool P4, int SM>
-constexpr int mainloop_smem_bytes() {
-  if constexpr (uses_mma<TA>())
-    return mma_smem_bytes<TB, P4, SM>();
-  else
-    return smem_bytes<TA, TB, P4, SM>();
 }
 
 // Flush one multiplied sub-block, in the C-fragment layout, through the

@@ -16,12 +16,12 @@
 // What bounds them on the H100 is what bounds the dense kernels (see
 // stream_k.cu and grouped.cu): at the serving shapes, reading B. The pairs
 // read 1 (int8) or 0.5 (int4) bytes per weight in place of bf16's 2, so
-// their byte bounds are a half and a quarter of the dense ones. B5 of the
-// i8_i8 and i8_i4 pairs runs the s8 tensor cores (mma_s8.cuh): at olmoe's
-// decode shape (DP form, 64x4x1024x2048) 0.066 and 0.054 ms against byte
-// bounds of 0.040 and 0.020 ms and the SIMT loop's 0.270 and 0.291 ms; their
-// B1, B2 and B6 stay on the SIMT loop (H100 80GB HBM3 at 700 W,
-// kernel_ab.py).
+// their byte bounds are a half and a quarter of the dense ones. B1, B2 and
+// B5 of the i8_i8 and i8_i4 pairs run the s8 tensor cores (mma_s8.cuh): B5
+// at olmoe's decode shape (DP form, 64x4x1024x2048) 0.066 and 0.054 ms
+// against byte bounds of 0.040 and 0.020 ms and the SIMT loop's 0.270 and
+// 0.291 ms (H100 80GB HBM3 at 700 W, kernel_ab.py); B1's and B2's times are
+// in PERF.md. Their B6 stays on the SIMT loop.
 
 #pragma once
 

@@ -19,7 +19,8 @@
 //     f32 inputs keep full f32 products;
 //   * float activations x int8 or packed int4 weights: both widened to f32
 //     (exact), FMA into f32;
-//   * int8 activations x int8 or packed int4 weights: int32 multiply-add,
+//   * int8 activations x int8 or packed int4 weights (B6; B1, B2 and B5 run
+//     them on mma_s8.cuh, with the same sums): int32 multiply-add,
 //     added into the f32 accumulator at each of the tile's bk boundaries, as
 //     the TPU converts each k-step's int32 partial (each is at most
 //     bk * 127^2 < 2^24, so the conversion is exact, and a Stream-K segment

@@ -6,7 +6,7 @@
 //   B1  dp_kernel       <- src/repro/kernels/dp/dp_gemm.py:_dp_kernel
 //       g persistent blocks stride over the output tiles
 //       [tile_offset, m_tiles * n_tiles) and write epilogue(A @ B) into C
-//       (dp_mma_kernel for bf16 activations).
+//       (dp_mma_kernel for bf16 activations, dp_s8_kernel for int8 ones).
 //   B2  streamk_kernel  <- src/repro/kernels/streamk/streamk_gemm.py:_streamk_kernel
 //       block x owns the flattened MAC-iteration range
 //       [x * ipw, min((x + 1) * ipw, total)) and writes each tile segment's
@@ -50,9 +50,13 @@
 // 0.044 / 0.038 / 0.034 ms on bf16 / int8 / int4 (SIMT: 0.114 / 0.177 /
 // 0.133), B2 at 4x4096x14336 (ALL_SK 8x256x128) 0.045 / 0.037 / 0.028 ms
 // (SIMT: 0.103 / 0.168 / 0.112); int8 and int4 are then bound by the ring's
-// fill and drain per sub-block, not by bytes. f32 activations keep the SIMT
-// FMA loop (exact f32 products, no TF32) and int8 activations its int32
-// MAC; B3 and B6 are unchanged. (Device times on an H100 80GB HBM3 at 700 W,
+// fill and drain per sub-block, not by bytes. With int8 activations (the
+// int8-dynamic rung, and int8 x packed int4) they run the s8 tensor-core
+// mainloop of mma_s8.cuh, as B5 does: mma.sync.m16n8k32 on the int8 codes,
+// each bk step's exact int32 sum entering the f32 sum where the SIMT loop's
+// did, so the outputs keep that loop's bits (PERF.md has the times). f32
+// activations keep the SIMT FMA loop (exact f32 products, no TF32); B3 and
+// B6 are unchanged. (Device times on an H100 80GB HBM3 at 700 W,
 // kernel_ab.py, g = 132.)
 //
 // Each extern "C" entry launches on the caller's stream and returns

@@ -3,12 +3,15 @@
 // and each quant_*.cu for one pair of the quantization ladder, so the
 // sources compile in parallel. With bf16 activations (the dense bf16, int8
 // and int4 rungs) each sub-block of B1 and B2 runs the tensor-core mainloop
-// of mma_bf16.cuh; f32 and int8 activations run sk_common.cuh's SIMT loop.
-// B3 multiplies nothing: it reads B2's f32 partials whatever the inputs.
+// of mma_bf16.cuh, with int8 activations (int8 or packed int4 weights) the
+// s8 tensor-core mainloop of mma_s8.cuh; f32 activations run sk_common.cuh's
+// SIMT loop. B3 multiplies nothing: it reads B2's f32 partials whatever the
+// inputs.
 
 #pragma once
 
 #include "mma_bf16.cuh"
+#include "mma_s8.cuh"
 #include "sk_common.cuh"
 
 namespace {
@@ -83,6 +86,35 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// B1 on the s8 tensor-core mainloop, for int8 activations (int8 or packed
+// int4 weights): dp_mma_kernel's walk, each sub-block multiplied by
+// mma_s8_subblock, which adds each bk step's exact int32 sum into the f32
+// accumulator where dp_kernel's SIMT loop did (so C is that loop's, bit for
+// bit), and flushed from its fragments. A kernel of its own for the reason
+// dp_mma_kernel is one.
+template <bool P4, typename TOut, int SM>
+__global__ void __launch_bounds__(kThreads)
+    dp_s8_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
+                 TOut* __restrict__ c, int m, int n, int k, int bm, int bn, int bk, int n_tiles_n,
+                 int tile_offset, int n_total, bool aligned, Epilogue epi) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  for (int t = tile_offset + blockIdx.x; t < n_total; t += gridDim.x) {
+    const int tile_m = t / n_tiles_n;
+    const int tile_n = t % n_tiles_n;
+    for (int sm0 = 0; sm0 < bm; sm0 += SM) {
+      const int row0 = tile_m * bm + sm0;
+      if (row0 >= m) break;
+      for (int sn0 = 0; sn0 < bn; sn0 += kSN) {
+        const int col0 = tile_n * bn + sn0;
+        if (col0 >= n) break;
+        float acc[mma_mt<SM>()][2][4];
+        mma_s8_subblock<P4, SM>(a, b, m, n, k, row0, col0, 0, k, bk, aligned, acc, smem_raw);
+        store_subblock_mma<SM>(c, epi, acc, m, row0, col0, n);
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // B2: the Stream-K sweep
 // ---------------------------------------------------------------------------
@@ -101,7 +133,7 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t start = (int64_t)x * ipw;
   if (start >= total) return;
   const int end = (int)min((int64_t)total, start + ipw);
-  float acc[TM][4];  // the SIMT loop's; the mma loop keeps its fragments in frag
+  float acc[TM][4];  // the SIMT loop's; the mma loops keep their fragments in frag
   int it = (int)start;
   while (it < end) {
     const int tile = it / ipt;
@@ -121,6 +153,11 @@ __global__ void __launch_bounds__(kThreads)
           float frag[mma_mt<SM>()][2][4];
           mma_subblock<TB, P4, SM>(a, b, m, n, k, row0, col0, kbeg, kend, aligned, frag,
                                    smem_raw);
+          park_subblock_mma<SM>(frag, out + (int64_t)sm0 * bn + sn0, bn);
+        } else if constexpr (std::is_same<TA, int8_t>::value) {
+          float frag[mma_mt<SM>()][2][4];
+          mma_s8_subblock<P4, SM>(a, b, m, n, k, row0, col0, kbeg, kend, bk, aligned, frag,
+                                  smem_raw);
           park_subblock_mma<SM>(frag, out + (int64_t)sm0 * bn + sn0, bn);
         } else {
           mac_subblock<TA, TB, P4, SM>(a, b, m, n, k, row0, col0, kbeg, kend, bk, aligned, acc,
@@ -178,6 +215,10 @@ int launch_dp(int sm, const void* a, const void* b, void* c, int m, int n, int k
     return launch<dp_mma_kernel<TB, P4, TOut, S>>(mainloop_smem_bytes<TA, TB, P4, S>(), grid,    \
                                                   stream, ap, bp, cp, m, n, k, bm, bn, n_tiles_n, \
                                                   tile_offset, n_total, aligned, epi);           \
+  else if constexpr (std::is_same<TA, int8_t>::value)                                            \
+    return launch<dp_s8_kernel<P4, TOut, S>>(mainloop_smem_bytes<TA, TB, P4, S>(), grid, stream, \
+                                             ap, bp, cp, m, n, k, bm, bn, bk, n_tiles_n,         \
+                                             tile_offset, n_total, aligned, epi);                \
   else                                                                                           \
     return launch<dp_kernel<TA, TB, P4, TOut, S>>(mainloop_smem_bytes<TA, TB, P4, S>(), grid,    \
                                                   stream, ap, bp, cp, m, n, k, bm, bn, bk,       \

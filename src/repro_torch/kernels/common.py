@@ -38,30 +38,26 @@ KERNELS = (
 RUNGS = ("int8", "int8-dynamic", "int4", "int4-dynamic")
 
 
-#: the kernels whose sub-blocks run a tensor-core mainloop, by activation
-#: dtype: ``csrc/mma_bf16.cuh`` for bf16 activations (``uses_mma``) and
-#: ``csrc/mma_s8.cuh`` for int8 ones (B5 only: B1 and B2 keep the SIMT loop
-#: there)
-MMA_KERNELS = {
-    torch.bfloat16: ("dp_gemm_region", "streamk_phase1", "grouped_streamk_sk",
-                     "grouped_streamk_dp"),
-    torch.int8: ("grouped_streamk_sk", "grouped_streamk_dp"),
-}
+#: the kernels whose sub-blocks run a tensor-core mainloop on the
+#: activation dtypes of :data:`MMA_ACTIVATIONS`
+MMA_KERNELS = ("dp_gemm_region", "streamk_phase1", "grouped_streamk_sk", "grouped_streamk_dp")
+#: ``csrc/mma_bf16.cuh`` serves bf16 activations (``uses_mma``),
+#: ``csrc/mma_s8.cuh`` int8 ones
+MMA_ACTIVATIONS = (torch.bfloat16, torch.int8)
 
 
 def mainloop(kernel: str, a_dtype: torch.dtype) -> Optional[str]:
     """The MAC ``kernel`` runs for activations of ``a_dtype``: ``"mma"``, a
     tensor-core mainloop, for B1, B2 and both B5 forms with bf16 activations
-    (``csrc/mma_bf16.cuh``) and for both B5 forms with int8 activations
-    (``csrc/mma_s8.cuh``), whatever the weights; ``"simt"``,
-    ``mac_subblock`` of ``csrc/sk_common.cuh``, for f32 activations, for
-    B1's and B2's int8 ones and for B6 (``splitk_partials``); None for B3
+    (``csrc/mma_bf16.cuh``) or int8 ones (``csrc/mma_s8.cuh``), whatever the
+    weights; ``"simt"``, ``mac_subblock`` of ``csrc/sk_common.cuh``, for f32
+    activations and for B6 (``splitk_partials``); None for B3
     (``streamk_fixup``), which sums f32 partials and multiplies nothing."""
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel {kernel!r}; expected one of {KERNELS}")
     if kernel == "streamk_fixup":
         return None
-    return "mma" if kernel in MMA_KERNELS.get(a_dtype, ()) else "simt"
+    return "mma" if kernel in MMA_KERNELS and a_dtype in MMA_ACTIVATIONS else "simt"
 
 
 def launch_name(kernel: str, rung: Optional[str] = None) -> str:

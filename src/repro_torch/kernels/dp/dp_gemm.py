@@ -2,7 +2,8 @@
 
 Replaces ``src/repro/kernels/dp/dp_gemm.py:_dp_kernel`` (launched there by
 ``dp_gemm_region``). The CUDA kernel is ``dp_kernel`` in
-``csrc/stream_k.cu``: ``g`` persistent blocks (one per tile when ``g == 0``)
+``csrc/stream_k.cu`` (``dp_mma_kernel`` for bf16 activations,
+``dp_s8_kernel`` for int8 ones): ``g`` persistent blocks (one per tile when ``g == 0``)
 stride over the output tiles ``[tile_offset, m_tiles * n_tiles)``; each
 logical ``bm x bn`` tile is walked in sub-blocks whose K loop is staged
 through shared memory, and the epilogue runs on the f32 accumulator before
@@ -29,9 +30,13 @@ each weight from shared memory once per block, and int8 and int4 weights
 are widened to bf16 once per block, exactly. On an H100 80GB HBM3 at 700 W
 (``kernel_ab.py``, 4x14336x4096, DP 8x128x128, g 132) that takes bf16 from
 0.114 to 0.044 ms (its bound is 0.035), int8 from 0.177 to 0.038 and int4
-from 0.133 to 0.034 ms. f32 activations keep SIMT FMA (exact f32 products,
-no TF32) and int8 activations the SIMT int32 MAC;
-:func:`repro_torch.kernels.common.mainloop` names the loop a call runs.
+from 0.133 to 0.034 ms. int8 activations (the ``int8-dynamic`` rung, and
+int8 x int4) run the s8 tensor-core mainloop of ``csrc/mma_s8.cuh``
+(``dp_s8_kernel``): ``mma.sync`` on the int8 codes, each ``bk`` step's
+exact int32 sum added into the f32 accumulator in the SIMT loop's order, so
+C keeps that loop's bits. f32 activations keep SIMT FMA (exact f32
+products, no TF32); :func:`repro_torch.kernels.common.mainloop` names the
+loop a call runs.
 
 On a CPU tensor :func:`dp_gemm_region` runs the plain PyTorch version
 :func:`dp_gemm_region_plain`, which the tests and ``chip_smoke.py`` hold the

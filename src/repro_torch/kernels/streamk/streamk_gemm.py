@@ -37,10 +37,13 @@ and the fix-up two launches keeps the sum order fixed without flags or
 atomics. With bf16 activations (the dense, ``int8`` and ``int4`` rungs)
 B2's sub-blocks run the tensor-core mainloop of ``csrc/mma_bf16.cuh`` and
 park their fragments in the same row-major f32 slots, so B3 reads what it
-read before; f32 activations keep SIMT FMA (no TF32) and int8 activations
-the SIMT int32 MAC. On an H100 80GB HBM3 at 700 W (``kernel_ab.py``,
+read before. On an H100 80GB HBM3 at 700 W (``kernel_ab.py``,
 4x4096x14336, ALL_SK 8x256x128, g 132) B2 takes 0.045 / 0.037 / 0.028 ms
-on bf16 / int8 / int4 (SIMT: 0.103 / 0.168 / 0.112) and B3 0.007 ms.
+on bf16 / int8 / int4 (SIMT: 0.103 / 0.168 / 0.112) and B3 0.007 ms. int8
+activations (``int8-dynamic``, and int8 x int4) run the s8 tensor-core
+mainloop of ``csrc/mma_s8.cuh`` over each segment and park into the same
+slots, with the SIMT loop's bits (each ``bk`` step's exact int32 sum added
+in order); f32 activations keep SIMT FMA (no TF32).
 
 On CPU tensors the wrappers run the plain PyTorch versions beside them; on
 CUDA tensors they launch the kernels or raise.

@@ -88,23 +88,29 @@ def test_cuda_kernels_match_plain_versions(cuda_device, pol_idx, dtype):
             _close(got, want, TOL[dtype])
 
 
-@pytest.mark.parametrize("pair", ["bf16", "bf16*int8", "bf16*int4"])
+@pytest.mark.parametrize("pair", ["bf16", "bf16*int8", "bf16*int4", "int8*int8", "int8*int4"])
 def test_cuda_streamk_is_bitwise_deterministic(cuda_device, pair):
     """B2 then B3 sum the contributor slots in a fixed order: two runs give
-    the same bits, on each rung whose B2 runs the tensor-core mainloop."""
+    the same bits, on each rung whose B2 runs a tensor-core mainloop
+    (mma_bf16.cuh for bf16 activations, mma_s8.cuh for int8 ones, with
+    per-row activation scales and an f32 output)."""
     a, b, _, _ = _inputs(4, 4096, 4096, torch.bfloat16, seed=5)
-    kw = {}
+    kw, out = {}, a.dtype
     if pair != "bf16":
-        q = quantize_weight(b.float(), bits=8 if pair == "bf16*int8" else 4)
+        q = quantize_weight(b.float(), bits=4 if pair.endswith("int4") else 8)
         b, kw = q.values, dict(scale=q.scales.to(cuda_device), b_bits=q.bits)
+    if pair.startswith("int8"):
+        a, scale_a = quantize_activations(a.float())
+        kw["scale_a"], out = scale_a.to(cuda_device), torch.float32
     a, b = a.to(cuda_device), b.to(cuda_device)
     part = partition(GemmShape(4, 4096, 4096), TileConfig(8, 256, 128), 132, ALL_SK)
     assert part.max_contributors > 1
     outs = []
     for _ in range(2):
-        c = torch.empty(4, 4096, dtype=a.dtype, device=cuda_device)
+        c = torch.empty(4, 4096, dtype=out, device=cuda_device)
         p = streamk_phase1(a, b, part, b_bits=kw.get("b_bits", 8))
-        outs.append(streamk_fixup(p, part, c, scale=kw.get("scale")))
+        outs.append(streamk_fixup(p, part, c, scale=kw.get("scale"),
+                                  scale_a=kw.get("scale_a")))
     assert torch.equal(outs[0], outs[1])
 
 
@@ -529,6 +535,85 @@ def test_cuda_mma_mainloop_matches_plain_version(cuda_device, bm, pair):
                     got_c = streamk_fixup(got_p, part, torch.zeros(
                         m, n, dtype=torch.bfloat16, device=cuda_device), epilogue=epi, **dkw)
                     _close_max(got_c, want_c, TOL[torch.bfloat16], ("B2+B3", g, *what))
+    assert odd_starts, "no Stream-K segment started at an odd multiple of bk"
+
+
+# B1 and B2 on the s8 mainloop: dp_s8_kernel and streamk_kernel's int8 branch
+# run mma_s8_subblock on the int8-activation rungs
+
+#: (M, N, K): aligned rows and a K that ends inside a 256-deep chunk; M
+#: ragged, N not a multiple of 16 and K odd, so neither A's nor B's rows are
+#: 16-byte aligned (the element-wise staging path, an odd K for packed
+#: int4); and a K ragged against 32, 128 and 256. M = 64 and 57 both let
+#: ``sub_block_rows`` take each of 8, 16, 32 and 64.
+S8_2D_SHAPES = ((64, 384, 1152), (57, 302, 203), (57, 256, 331))
+
+
+@pytest.mark.parametrize("pair", list(S8_BITS))
+@pytest.mark.parametrize("bm", [8, 16, 32, 64], ids=lambda bm: f"sm{bm}")
+def test_cuda_s8_mainloop_matches_plain_version(cuda_device, bm, pair):
+    """B1, and B2 then B3, on the s8 tensor-core mainloop at sub-block rows
+    SM = bm, bn 128 and 256, bk 128 and 256, against dp_gemm_region_plain
+    and streamk_phase1_plain / streamk_fixup_plain: ragged M, N and K, odd K,
+    rows that are not 16-byte aligned, per-row and per-column scales with
+    every epilogue stage, f32 output, and ALL_SK partitions at g 7, 132 and
+    one whose segments start at odd multiples of bk = 128 (inside int4's
+    256-deep chunk). Each bk step's int32 sum enters the f32 sum in order,
+    as ``kstep_dot`` adds them, so B1 with the scales alone and B2's
+    partials (every contributor slot whole, so a sub-block outside C must
+    read 0) equal the plain versions bit for bit; the full epilogue is held
+    at 1e-4 x max|ref|."""
+    bits = S8_BITS[pair]
+    odd_starts = 0
+    for m, n, k in S8_2D_SHAPES:
+        assert common.sub_block_rows(bm, m) == bm
+        r = np.random.default_rng(bm + n + k)
+        a, scale_a = quantize_activations(
+            torch.from_numpy(r.normal(size=(m, k)).astype(np.float32)))
+        q = quantize_weight(torch.from_numpy(
+            (r.normal(size=(k, n)) / np.sqrt(k)).astype(np.float32)), bits=bits)
+        bias = torch.from_numpy(r.normal(size=(n,)).astype(np.float32))
+        operand = torch.from_numpy(r.normal(size=(m, n)).astype(np.float32))
+        scales = dict(scale=q.scales, scale_a=scale_a)
+        da, db = a.to(cuda_device), q.values.to(cuda_device)
+        for bn in (128, 256):
+            for bk in (128, 256):
+                cfg = TileConfig(bm, bn, bk)
+                total = -(-m // bm) * -(-n // bn) * -(-k // bk)
+                parts = []
+                for g in (7, 132, -(-total // 3)):
+                    part = partition(GemmShape(m, n, k), cfg, g, ALL_SK)
+                    starts = _segment_starts(part)
+                    odd_starts += bk == 128 and sum(s_ % 2 for s_ in starts)
+                    # B2's partials: every contributor slot whole, bit for bit
+                    want_p = streamk_phase1_plain(a, q.values, part, b_bits=bits)
+                    got_p = streamk_phase1(da, db, part, b_bits=bits)
+                    used = (torch.arange(range_math(part)[3] + 1)[None, :]
+                            < n_contributors(part)[:, None])
+                    assert torch.equal(got_p.cpu()[used], want_p[used]), (pair, bm, m, n, k,
+                                                                           cfg.name, g)
+                    parts.append((g, part, want_p, got_p))
+                for epi, reads in S8_EPILOGUES:
+                    ekw = dict(scales, **{key: v for key, v in (("bias", bias),
+                                                                ("operand", operand))
+                                          if key in reads})
+                    dkw = _to(ekw, cuda_device)
+                    what = (pair, bm, m, n, k, cfg.name, epi.name)
+                    # B1 over every tile
+                    want = dp_gemm_region_plain(a, q.values, cfg, torch.zeros(m, n),
+                                                epilogue=epi, b_bits=bits, **ekw)
+                    got = dp_gemm_region(da, db, cfg, g=132, out_dtype=torch.float32,
+                                         epilogue=epi, b_bits=bits, **dkw)
+                    _close_max(got, want, 1e-4, ("B1", *what))
+                    if not reads:
+                        assert torch.equal(got.cpu(), want), ("B1", *what)
+                    # B3 over B2's partials
+                    for g, part, want_p, got_p in parts:
+                        want_c = streamk_fixup_plain(want_p, part, torch.zeros(m, n),
+                                                     epilogue=epi, **ekw)
+                        got_c = streamk_fixup(got_p, part, torch.zeros(m, n, device=cuda_device),
+                                              epilogue=epi, **dkw)
+                        _close_max(got_c, want_c, 1e-4, ("B2+B3", g, *what))
     assert odd_starts, "no Stream-K segment started at an odd multiple of bk"
 
 

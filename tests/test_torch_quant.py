@@ -306,6 +306,36 @@ def test_int8_activations_x_int4_weights_raise_on_the_cpu_too():
     _close(got, want, 1e-4)
 
 
+#: the tiles the H100 selector serves B1 and B2 on the int8-activation pairs
+#: (``default_selector("cuda")``: decode DP 8x128x128 and ALL_SK 8x256x128,
+#: prefill 16 or 64 x 128 x 128 and 64x256x128), and bk = 256
+S8_TILES = ((8, 256, 128), (64, 256, 128), (8, 128, 256), (16, 128, 128))
+#: ragged against every tile: M, N, and an odd K (int4's zero pad nibble)
+S8_SHAPE = (20, 300, 701)
+
+
+@pytest.mark.parametrize("tile", S8_TILES, ids=lambda t: "x".join(map(str, t)))
+@pytest.mark.parametrize("rung", ["int8*int8", "int8*int4"])
+def test_int8_activation_plain_versions_match_pallas_interpret_at_served_tiles(rung, tile):
+    """B1's plain version (DP) and B2's and B3's (ALL_SK at g = 4, whose
+    workgroups start segments inside a tile) on the int8-activation pairs,
+    at the tiles the H100 serves them, against repro's kernels under the
+    same policy in Pallas interpret mode, at 1e-4: the card test holds the
+    s8 mainloop against these plain versions at the same tiles."""
+    m, n, k = S8_SHAPE
+    (ja, jb, jkw), (ta, tb, tkw) = _ladder_operands(m, n, k, rung, seed=12)
+    cfg = TileConfig(*tile)
+    ipt = -(-k // cfg.bk)
+    total = -(-m // cfg.bm) * -(-n // cfg.bn) * ipt
+    assert -(-total // 4) % ipt, "no Stream-K segment starts inside a tile"
+    for pol in (0, 1):  # DP, ALL_SK
+        want = j_ops.gemm(ja, jb, policy=J_POLICIES[pol], cfg=JTile(*tile), g=4, interpret=True,
+                          out_dtype=jnp.float32, **jkw)
+        got = ops.gemm(ta, tb, policy=ALL_POLICIES[pol], cfg=cfg, g=4, out_dtype=torch.float32,
+                       **tkw)
+        _close(got, want, 1e-4)
+
+
 # ---------------------------------------------------------------------------
 # dispatch: op keys and selections
 # ---------------------------------------------------------------------------
