@@ -64,19 +64,25 @@ Phases (any failure raises and the script exits non-zero):
      library call; and B1, B2+B3 and both B5 forms on f32 activations (the
      SIMT loop) beside ``torch.matmul``/``torch.bmm`` in f32 (``F32_TABLE``);
    * B6, the split-K baseline, on every operand pair (f32, bf16 and the six
-     quantized ones) x s in {1, 2, 4, 8} x g in {0, 66, 132, 264} at the
-     sweep shape, a ragged unaligned one, an odd K and K < bk * s: its
-     partials against ``splitk_partials_plain`` (empty splits read 0),
+     quantized ones; bf16 activations run ``csrc/mma_bf16.cuh``'s
+     tensor-core mainloop, int8 ones ``csrc/mma_s8.cuh``'s, f32 ones the
+     SIMT loop) x s in {1, 2, 4, 8} x g in {0, 66, 132, 264} at the sweep
+     shape, a ragged unaligned one, an odd K and K < bk * s: its partials
+     against ``splitk_partials_plain`` (empty splits read 0),
      ``splitk.ops.gemm`` against ``gemm_ref`` or dequantize-then-matmul, two
      runs bitwise identical, and a planted fault (the reduction drops the
-     last split) that must read at least 3 times its limit;
+     last split) that must read at least 3 times its limit; each pair's
+     launches counted;
    * the slice's main path, the baseline comparison: at granite-8b's five
      projection shapes, M = 4 and 57, bf16, the H100 pick (the whole
      composition), ``dp.ops.gemm`` and ``splitk.ops.gemm`` at s in
      {2, 4, 8} with the pick's tile, each once against ``gemm_ref`` with the
      launch counters zeroed just before and read just after (every B6 call
      must have launched), then each timed beside ``torch.matmul``; B6 timed
-     alone at 4x14336x4096, s = 4, for the ``kernels`` line;
+     alone at 4x14336x4096, s = 4, on all eight pairs (``time_splitk``:
+     first held against its plain version, int8 activations bitwise),
+     beside the plain version, the library call of the whole GEMM and the
+     bound; its bf16 row goes to the ``kernels`` line;
    * ``gemm_batched`` through the ``cuda`` backend at B = 4, granite-8b's
      4096 -> 14336 at M = 4, f32, against ``torch.bmm``: B times the pick's
      launches.
@@ -1525,12 +1531,13 @@ def splitk_sweep(gen):
     (the sum over the splits, then the scales) against ``gemm_ref`` or
     dequantize-then-matmul; two runs bitwise identical per (shape, pair, s).
     A planted fault, a reduction that drops the last split, must read at
-    least 3 times its limit."""
+    least 3 times its limit. Also returns each pair's B6 launches."""
     import torch
 
     from repro_torch.core.gemm import dtype_name
     from repro_torch.core.op import GemmOp
     from repro_torch.core.selector import default_selector
+    from repro_torch.kernels.common import LAUNCHES
     from repro_torch.kernels.splitk import ops as splitk_ops
     from repro_torch.kernels.splitk.splitk_gemm import (
         k_per_split, splitk_partials, splitk_partials_plain,
@@ -1540,7 +1547,13 @@ def splitk_sweep(gen):
     errs = {}
     cases = bitwise = empty = 0
     fault = None
+    launches = dict.fromkeys((p[0] for p in SPLITK_PAIRS), 0)
+
+    def b6_launches():
+        return sum(v for key, v in LAUNCHES.items() if key.startswith("splitk_partials"))
+
     for (m, n, k), pair in ((shape, pair) for shape in SPLITK_SHAPES for pair in SPLITK_PAIRS):
+        launches[pair[0]] -= b6_launches()
         a, b, qkw, ref_acc, out, tol = _splitk_operands(m, n, k, pair, gen)
         bits = qkw.get("b_bits", 8)
         in_dtype = f"{dtype_name(a.dtype)}*int{bits}" if qkw else dtype_name(a.dtype)
@@ -1576,10 +1589,11 @@ def splitk_sweep(gen):
             if fault["max_abs_diff"] < 3 * limit:
                 raise AssertionError(f"B6 planted fault reads {fault['max_abs_diff']:.4e}, under "
                                      f"3 x its limit {limit:.4e}")
+        launches[pair[0]] += b6_launches()
     torch.cuda.synchronize()
     if not empty:
         raise AssertionError("no B6 case had an empty split")
-    return errs, cases, bitwise, empty, fault
+    return errs, cases, bitwise, empty, fault, launches
 
 
 #: split factors of the baseline comparison, and its prompt M: the first served prompt's
@@ -1660,36 +1674,85 @@ def baseline_comparison(gen):
 
 
 def time_splitk(gen):
-    """B6 for the kernels line: at the decode shape 4x14336x4096 (mlp.gate),
-    s = 4, bf16, the pick's tile, one block per tile; its partials against
-    the plain version; device ms beside the plain version and torch.matmul
-    of the whole GEMM; the bound reads A and B once and writes the s * M * N
-    f32 partials."""
+    """B6 at the decode shape 4x14336x4096 (mlp.gate), s = 4, the bf16
+    pick's tile, one block per tile, on every operand pair: its partials
+    against the plain version first (dequantized, times the scales the
+    reduction applies after them: 2e-2 for bf16 activations, 1e-4 for f32
+    and int8 ones; int8 activations bitwise), then device and event ms
+    beside the plain version and a library call of the whole GEMM:
+    ``torch.matmul`` in f32 for f32 activations (on the dequantized weight
+    for the ladder's), else ``torch.matmul`` on the dequantized bf16 weight,
+    and ``torch._int_mm`` too for int8 x int8. The bound reads A and B once
+    at their widths (packed int4: K * N / 2 bytes) and writes the s * M * N
+    f32 partials. Returns one row per pair."""
     import torch
 
     from repro_torch.core.gemm import dtype_name
     from repro_torch.core.op import GemmOp
     from repro_torch.core.selector import default_selector
+    from repro_torch.kernels.common import mainloop, rung_of
     from repro_torch.kernels.splitk.splitk_gemm import splitk_partials, splitk_partials_plain
 
     m, n, k, sp = 4, 14336, 4096, 4
-    a, b, _, _ = _operands(m, n, k, torch.bfloat16, gen)
-    s = default_selector("cuda").select_op(GemmOp.plain(m, n, k, in_dtype=dtype_name(a.dtype)))
-    err = close(splitk_partials(a, b, s.cfg, sp), splitk_partials_plain(a, b, s.cfg, sp), 2e-2,
-                "B6 timing shape")
-    bs = _rotating(b)
+    cfg = default_selector("cuda").select_op(
+        GemmOp.plain(m, n, k, in_dtype="bfloat16")).cfg
+    rows = []
     it = iter(range(10**9))
-    ms, ev = time_ms(lambda: splitk_partials(a, bs[next(it) % len(bs)], s.cfg, sp))
-    plain, plain_ev = time_ms(lambda: splitk_partials_plain(a, bs[next(it) % len(bs)], s.cfg, sp))
-    lib, lib_ev = time_ms(lambda: torch.matmul(a, bs[next(it) % len(bs)]))
-    bnd, by = bound_ms((m * k + k * n) * 2 + sp * m * n * 4, 2 * m * n * k)
-    log(f"  B6 {m}x{n}x{k} s={sp} {s.cfg.name}: device {ms:.4f} ms, events {ev:.4f} ms; plain "
-        f"{plain:.4f} ms; torch.matmul {lib:.4f} ms; bound {bnd:.5f} ms by {by}")
-    return dict(shape=[m, n, k], policy=f"split-K s={sp}", tile=s.cfg.name, g=0, s=sp,
-                max_abs_err=err, ms=ms, event_ms=ev, plain_ms=plain, plain_event_ms=plain_ev,
-                library_ms=lib, library_event_ms=lib_ev,
-                library_of="torch.matmul of the whole GEMM (B6 and its reduction compose it)",
-                bound_ms=bnd, bound_by=by)
+    for pair in SPLITK_PAIRS:
+        name, act, bits, act_q, tol = pair
+        if bits is None:
+            a, b, _, _ = _operands(m, n, k, getattr(torch, act), gen)
+            a_lib, w_lib, dequant, b_bits = a, b, None, 8
+        else:
+            a, b, qkw, a_ref, w_ref, _, tol = _quant_operands(m, n, k, pair, gen)
+            b_bits = bits
+            dequant = qkw["scale"][None, :] * (qkw["scale_a"][:, None] if act_q else 1.0)
+            lib_dtype = torch.float32 if act == "float32" and not act_q else torch.bfloat16
+            a_lib, w_lib = a_ref.to(lib_dtype), w_ref.to(lib_dtype)
+        what = f"B6 timing {m}x{n}x{k} {name} s={sp} {cfg.name}"
+        got = splitk_partials(a, b, cfg, sp, b_bits=b_bits)
+        want = splitk_partials_plain(a, b, cfg, sp, b_bits=b_bits)
+        bitwise = bool(torch.equal(got, want))
+        if act_q and not bitwise:
+            raise AssertionError(f"{what}: int8-activation partials differ from the plain "
+                                 f"version's bits")
+        err = (close(got, want, tol, what) if dequant is None
+               else close(got * dequant, want * dequant, tol, what))
+        del got, want
+        bs = _rotating(b)
+        ms, ev = time_ms(lambda: splitk_partials(a, bs[next(it) % len(bs)], cfg, sp,
+                                                 b_bits=b_bits))
+        plain, plain_ev = time_ms(lambda: splitk_partials_plain(
+            a, bs[next(it) % len(bs)], cfg, sp, b_bits=b_bits), iters=3 if act_q else 20)
+        ws = _rotating(w_lib)
+        lib, lib_ev = time_ms(lambda: torch.matmul(a_lib, ws[next(it) % len(ws)]))
+        label = f"torch.matmul in {dtype_name(w_lib.dtype)} of the whole GEMM" + (
+            "" if bits is None else " on the dequantized weight")
+        row = dict(pair=name, rung=rung_of(a.dtype, b.dtype, b_bits),
+                   mainloop=mainloop("splitk_partials", a.dtype), shape=[m, n, k],
+                   policy=f"split-K s={sp}", tile=cfg.name, g=0, s=sp, max_abs_err=err,
+                   bitwise=bitwise, ms=ms, event_ms=ev, plain_ms=plain, plain_event_ms=plain_ev,
+                   library_ms=lib, library_event_ms=lib_ev, library_of=label)
+        del ws
+        if act_q and bits == 8:
+            int_mm, int_label = _int_mm_yardstick(a, b)
+            row["dense_library_ms"] = lib
+            row["library_ms"], row["library_event_ms"] = (
+                time_ms(int_mm) if int_mm is not None else (None, None))
+            row["library_of"] = int_label and f"{int_label} of the whole GEMM"
+        a_bytes = a.element_size()
+        b_bytes = 0.5 if b_bits == 4 else b.element_size()
+        peak = PEAK_INT8 if act_q else PEAK_F32 if act == "float32" else PEAK_BF16
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            m * k * a_bytes + k * n * b_bytes + sp * m * n * 4, 2 * m * n * k, peak)
+        rows.append(row)
+        log(f"  B6 {m}x{n}x{k} s={sp} {cfg.name} {name} ({row['mainloop']}): device {ms:.5f} ms, "
+            f"events {ev:.5f} ms; plain {plain:.4f} ms; {row['library_of']} "
+            f"{row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 5)}"
+            f" ms; bound {row['bound_ms']:.5f} ms by {row['bound_by']}; max err {err:.3e}"
+            f"{', bitwise' if bitwise else ''}")
+        del bs
+    return rows
 
 
 def batched_check(gen):
@@ -2308,15 +2371,18 @@ def main() -> int:
     b12_s8_rows = b12_s8_table(quant_rows)
     f32_rows = f32_table(gen)
     t0 = time.perf_counter()
-    sk_errs, sk_cases, sk_bitwise, sk_empty, sk_fault = splitk_sweep(gen)
+    sk_errs, sk_cases, sk_bitwise, sk_empty, sk_fault, sk_launches = splitk_sweep(gen)
     log(f"B6 sweep {SPLITK_SHAPES} x {[p[0] for p in SPLITK_PAIRS]} x s {SPLITK_S} x g "
         f"{SPLITK_G}: {sk_cases} cases agree with the plain version and the reference; max "
         f"errors {sk_errs}; {sk_bitwise} bitwise repeats; {sk_empty} cases with empty splits "
-        f"read 0; planted fault {sk_fault} ({time.perf_counter() - t0:.1f}s)")
+        f"read 0; planted fault {sk_fault}; launches by pair {sk_launches} "
+        f"({time.perf_counter() - t0:.1f}s)")
     t0 = time.perf_counter()
     log("the baseline comparison at granite-8b's projections (device ms):")
     compare_rows, compare_launches, compare_err = baseline_comparison(gen)
-    timed["splitk_partials"] = time_splitk(gen)
+    log("B6 at 4x14336x4096, s = 4, on every operand pair (device ms):")
+    splitk_rows = time_splitk(gen)
+    timed["splitk_partials"] = next(r for r in splitk_rows if r["pair"] == "bf16")
     batched = batched_check(gen)
     log(f"baseline comparison, B6 timing and gemm_batched ({time.perf_counter() - t0:.1f}s)")
     gc.collect()
@@ -2373,7 +2439,7 @@ def main() -> int:
         sweep_max_err=max(v for key, v in sk_errs.items() if key.startswith("splitk_partials")),
         event_ms=t["event_ms"], plain_event_ms=t["plain_event_ms"],
         library_event_ms=t["library_event_ms"], launches_in="the baseline comparison",
-        mainloop=mainloop("splitk_partials", torch.bfloat16),
+        mainloop=t["mainloop"],
     ))
     not_served = []
     for rung, (_, _, pair_source) in RUNGS.items():
@@ -2409,7 +2475,8 @@ def main() -> int:
                   build_source_s=cuda_lib.build_info.get("source_seconds"), kernels=kernels,
                   picks=picks, gemms=gemms, grouped=grouped_rows, quant=quant_rows, serve=serve,
                   splitk_cases=sk_cases, splitk_errs=sk_errs, splitk_bitwise=sk_bitwise,
-                  splitk_empty=sk_empty, splitk_fault=sk_fault, compare=compare_rows,
+                  splitk_empty=sk_empty, splitk_fault=sk_fault, splitk_launches=sk_launches,
+                  splitk_pairs=splitk_rows, compare=compare_rows,
                   compare_launches=compare_launches, compare_max_err=compare_err,
                   batched=batched,
                   sweep_cases=cases, b5_cases=b5_cases, b5_bitwise=b5_bitwise,

@@ -23,14 +23,15 @@ pair, each tree's times, the ratio of the mean times and whether every run
 of every tree gave the same output bytes. Timed: B1 at 4x14336x4096 (DP
 8x128x128), B2, B3 and their composition B2+B3 at 4x4096x14336 (ALL_SK
 8x256x128), and B5 at 64x4x1024x2048 (DP 8x256x128) and 64x16x1024x2048
-(ALL_SK 16x128x128), all with g = 132, each on six operand pairs: bf16,
+(ALL_SK 16x128x128), all with g = 132, and B6 at 4x14336x4096 (split-K s =
+4, 8x128x128, g = 0, one block per tile), each on six operand pairs: bf16,
 bf16 x int8 and bf16 x packed int4 (the rungs with bf16 activations), f32,
 and int8 x int8 and int8 x packed int4 (the int8-dynamic and int4-dynamic
 rungs). Before it is timed, each call is held against its plain version
 (``dp_gemm_region_plain``, ``streamk_phase1_plain`` on the contributor
-slots, ``streamk_fixup_plain``, ``gemm_grouped_streamk_plain``): 2e-2 x
-max|ref| for bf16 activations, 1e-4 for f32 and int8 ones; a disagreement
-raises.
+slots, ``streamk_fixup_plain``, ``gemm_grouped_streamk_plain``,
+``splitk_partials_plain``): 2e-2 x max|ref| for bf16 activations, 1e-4 for
+f32 and int8 ones; a disagreement raises.
 """
 
 import hashlib
@@ -75,6 +76,10 @@ from repro_torch.core.quant import quantize_activations, quantize_weight  # noqa
 from repro_torch.core.workpart import GemmShape, partition  # noqa: E402
 from repro_torch.kernels import cuda_lib  # noqa: E402
 from repro_torch.kernels.dp.dp_gemm import dp_gemm_region, dp_gemm_region_plain  # noqa: E402
+from repro_torch.kernels.splitk.splitk_gemm import (  # noqa: E402
+    splitk_partials,
+    splitk_partials_plain,
+)
 from repro_torch.kernels.streamk import ops as sk_ops  # noqa: E402
 from repro_torch.kernels.streamk.grouped import (  # noqa: E402
     gemm_grouped_streamk,
@@ -178,6 +183,16 @@ def main() -> int:
         out[name] = time_ms(
             lambda: dp_gemm_region(a, bs[next(turn) % len(bs)], cfg1, c=c, g=132, **kw))
         del bs
+    for pair, a, b, kw, tol in rungs(randn(4, 4096), randn(4096, 14336)):
+        bits = kw.get("b_bits", 8)
+        got = splitk_partials(a, b, cfg1, 4, b_bits=bits)
+        check(got, splitk_partials_plain(a, b, cfg1, 4, b_bits=bits), tol, f"B6 {pair}")
+        name = key("B6", "4x14336x4096 s4", pair, a.dtype, "splitk_partials")
+        digests[name] = digest(got)
+        bs = copies(b)
+        out[name] = time_ms(lambda: splitk_partials(a, bs[next(turn) % len(bs)], cfg1, 4,
+                                                    b_bits=bits))
+        del bs, got
     cfg2 = TileConfig(8, 256, 128)
     part = partition(GemmShape(4, 4096, 14336), cfg2, 132, ALL_SK)
     used = (torch.arange(range_math(part)[3] + 1, device="cuda")[None, :]

@@ -1,9 +1,8 @@
-// The s8 tensor-core mainloop of B1, B2 and B5 for int8 activations (NVIDIA
-// Hopper, sm_90a): stream_k.cuh and grouped.cuh take mma_s8_subblock in
-// place of sk_common.cuh's SIMT mac_subblock when A is int8, whether B is
-// int8 (the int8-dynamic rung) or packed int4 (int8 x int4, int4-dynamic).
-// B6 keeps the SIMT loop on int8 activations; bf16 activations run
-// mma_bf16.cuh. mainloop_smem_bytes, at the end, sizes the launch of
+// The s8 tensor-core mainloop of B1, B2, B5 and B6 for int8 activations
+// (NVIDIA Hopper, sm_90a): stream_k.cuh, grouped.cuh and splitk.cuh take
+// mma_s8_subblock in place of sk_common.cuh's SIMT mac_subblock when A is
+// int8, whether B is int8 (the int8-dynamic rung) or packed int4 (int8 x
+// int4, int4-dynamic). bf16 activations run mma_bf16.cuh. mainloop_smem_bytes, at the end, sizes the launch of
 // whichever loop a kernel runs.
 //
 // Contract (that of mac_subblock for int8 activations): the f32 sums over
@@ -318,9 +317,9 @@ __device__ __forceinline__ void mma_s8_subblock(const int8_t* __restrict__ a,
   __syncthreads();  // the next sub-block refills the ring
 }
 
-// Dynamic shared memory of one block of B1, B2 or B5: the bf16 tensor-core
-// ring for bf16 activations, the s8 one for int8 activations, the SIMT ring
-// for f32 (B6 sizes its SIMT ring with smem_bytes whatever the inputs).
+// Dynamic shared memory of one block of B1, B2, B5 or B6: the bf16
+// tensor-core ring for bf16 activations, the s8 one for int8 activations,
+// the SIMT ring for f32.
 template <typename TA, typename TB, bool P4, int SM>
 constexpr int mainloop_smem_bytes() {
   if constexpr (uses_mma<TA>())

@@ -21,7 +21,7 @@
 // at olmoe's decode shape (DP form, 64x4x1024x2048) 0.066 and 0.054 ms
 // against byte bounds of 0.040 and 0.020 ms and the SIMT loop's 0.270 and
 // 0.291 ms (H100 80GB HBM3 at 700 W, kernel_ab.py); B1's and B2's times are
-// in PERF.md. Their B6 stays on the SIMT loop.
+// in PERF.md. B6 runs the loop of B1 on every pair (splitk.cuh).
 
 #pragma once
 

@@ -32,7 +32,9 @@
 //   B6  splitk_kernel   <- src/repro/kernels/splitk/splitk_gemm.py:_splitk_kernel
 //       block (x, sp) strides over the output tiles x, x + grid, ... and
 //       writes split sp's f32 partial of each into partials[sp] (s, M, N);
-//       the caller sums over s and applies the dequant scales.
+//       the caller sums over s and applies the dequant scales
+//       (splitk_mma_kernel for bf16 activations, splitk_s8_kernel for int8
+//       ones).
 //
 // This file instantiates B6 for the dense inputs too; the pairs' B6 comes
 // with their B1 and B2 from quant_*.cu.
@@ -55,9 +57,9 @@
 // mainloop of mma_s8.cuh, as B5 does: mma.sync.m16n8k32 on the int8 codes,
 // each bk step's exact int32 sum entering the f32 sum where the SIMT loop's
 // did, so the outputs keep that loop's bits (PERF.md has the times). f32
-// activations keep the SIMT FMA loop (exact f32 products, no TF32); B3 and
-// B6 are unchanged. (Device times on an H100 80GB HBM3 at 700 W,
-// kernel_ab.py, g = 132.)
+// activations keep the SIMT FMA loop (exact f32 products, no TF32); B3
+// multiplies nothing. B6 runs the mainloop B1 runs on each pair. (Device
+// times on an H100 80GB HBM3 at 700 W, kernel_ab.py, g = 132.)
 //
 // Each extern "C" entry launches on the caller's stream and returns
 // cudaGetLastError(), which the Python wrapper checks.

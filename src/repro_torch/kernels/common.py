@@ -40,7 +40,8 @@ RUNGS = ("int8", "int8-dynamic", "int4", "int4-dynamic")
 
 #: the kernels whose sub-blocks run a tensor-core mainloop on the
 #: activation dtypes of :data:`MMA_ACTIVATIONS`
-MMA_KERNELS = ("dp_gemm_region", "streamk_phase1", "grouped_streamk_sk", "grouped_streamk_dp")
+MMA_KERNELS = ("dp_gemm_region", "streamk_phase1", "grouped_streamk_sk", "grouped_streamk_dp",
+               "splitk_partials")
 #: ``csrc/mma_bf16.cuh`` serves bf16 activations (``uses_mma``),
 #: ``csrc/mma_s8.cuh`` int8 ones
 MMA_ACTIVATIONS = (torch.bfloat16, torch.int8)
@@ -48,10 +49,10 @@ MMA_ACTIVATIONS = (torch.bfloat16, torch.int8)
 
 def mainloop(kernel: str, a_dtype: torch.dtype) -> Optional[str]:
     """The MAC ``kernel`` runs for activations of ``a_dtype``: ``"mma"``, a
-    tensor-core mainloop, for B1, B2 and both B5 forms with bf16 activations
-    (``csrc/mma_bf16.cuh``) or int8 ones (``csrc/mma_s8.cuh``), whatever the
-    weights; ``"simt"``, ``mac_subblock`` of ``csrc/sk_common.cuh``, for f32
-    activations and for B6 (``splitk_partials``); None for B3
+    tensor-core mainloop, for B1, B2, both B5 forms and B6 with bf16
+    activations (``csrc/mma_bf16.cuh``) or int8 ones (``csrc/mma_s8.cuh``),
+    whatever the weights; ``"simt"``, ``mac_subblock`` of
+    ``csrc/sk_common.cuh``, for f32 activations; None for B3
     (``streamk_fixup``), which sums f32 partials and multiplies nothing."""
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel {kernel!r}; expected one of {KERNELS}")

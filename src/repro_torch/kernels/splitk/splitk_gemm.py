@@ -9,7 +9,7 @@ its own f32 partial, and the caller reduces over the splits. Split ``sp``
 covers ``k`` in ``[sp * kps * bk, (sp + 1) * kps * bk)`` cut to ``[0, K)``,
 the TPU version's boundaries.
 
-The CUDA kernel is ``splitk_kernel`` in ``csrc/splitk.cuh``. The TPU pads A
+The CUDA kernels are in ``csrc/splitk.cuh``, one per mainloop (below). The TPU pads A
 and B up to whole tiles and K up to ``bk * s`` and returns padded
 ``(s, Mp, Np)`` partials; here nothing is padded or copied (the loads mask
 the ragged M, N and K edges) and the partials are ``(s, M, N)``. A split
@@ -21,17 +21,22 @@ bit-identical run to run. (On the TPU, ``g`` pads the tile dimension up to
 whole waves of ``g`` programs whose surplus recomputes the last tile; the
 partials are the same.)
 
-The quantized pairs run through the same kernel, instantiated per operand
-pair (``csrc/quant_*.cu``): float activations against int8 or packed int4
-weights, and int8 activations against either, whose int32 sums enter the
-f32 partial at every ``bk`` step (a split starts on one). The partials are
-unscaled: :func:`repro_torch.kernels.splitk.ops.gemm` applies the dequant
-scales once, after the reduction, as ``repro``'s ``ops.gemm`` does.
+Every operand pair is instantiated (``csrc/stream_k.cu``, and
+``csrc/quant_*.cu`` for the ladder's), and each sub-block runs the mainloop
+B1 runs for its activations (:func:`repro_torch.kernels.common.mainloop`):
+bf16 activations (x bf16, int8 or packed int4) ``splitk_mma_kernel`` on the
+tensor cores of ``csrc/mma_bf16.cuh``; int8 activations (x int8 or packed
+int4) ``splitk_s8_kernel`` on the s8 tensor cores of ``csrc/mma_s8.cuh``,
+whose exact int32 sums enter the f32 partial at every ``bk`` step (a split
+starts on one), so its partials are the plain version's bit for bit; f32
+activations ``splitk_kernel``, SIMT FMA on f32 accumulators (no TF32), the
+cp.async ring of ``csrc/sk_common.cuh``. The partials are unscaled:
+:func:`repro_torch.kernels.splitk.ops.gemm` applies the dequant scales
+once, after the reduction, as ``repro``'s ``ops.gemm`` does.
 
 What bounds it on the H100: at the decode shapes it reads B once and
 writes ``s * M * N * 4`` bytes of partials, both at a few operations per
-byte, so bytes bound it. SIMT FMA on f32 accumulators (no TF32), the
-cp.async ring of ``csrc/sk_common.cuh``.
+byte, so bytes bound it.
 
 On a CPU tensor :func:`splitk_partials` runs the plain PyTorch version
 :func:`splitk_partials_plain`, which the tests and ``chip_smoke.py`` hold

@@ -848,6 +848,74 @@ def test_cuda_splitk_matches_plain_version(cuda_device, pair):
                    tol)
 
 
+#: B6's pairs on a tensor-core mainloop: bf16 activations (mma_subblock) and
+#: int8 ones (mma_s8_subblock), as (weight bits or None for bf16, int8 activations)
+SPLITK_MMA_PAIRS = {"bf16": (None, False), "bf16*int8": (8, False), "bf16*int4": (4, False),
+                    "int8*int8": (8, True), "int8*int4": (4, True)}
+#: the s8 test's shapes, and K = 200 below bk * s for s >= 2 (empty splits)
+SPLITK_MMA_SHAPES = S8_2D_SHAPES + ((57, 384, 200),)
+
+
+@pytest.mark.parametrize("pair", list(SPLITK_MMA_PAIRS))
+@pytest.mark.parametrize("bm", [8, 16, 32, 64], ids=lambda bm: f"sm{bm}")
+def test_cuda_splitk_mma_mainloops_match_plain_version(cuda_device, bm, pair):
+    """B6 on the tensor-core mainloops at sub-block rows SM = bm, bn 128 and
+    256, bk 128 and 256, s in {1, 2, 4, 8}, g in {0, 3, 132}, against
+    splitk_partials_plain: ragged M, N and K, odd K, rows that are not
+    16-byte aligned, empty splits (K = 200), and splits that start at odd
+    multiples of bk = 128 (inside int4's 256-deep chunk). int8 activations
+    add each bk step's exact int32 sum in the plain version's order, so
+    their partials are its bits; bf16 ones sum in another order and are
+    held at 2e-2 x max|ref| dequantized, as the scales apply after the
+    reduction. Empty splits read 0; each call counts one launch of
+    splitk_partials on its rung."""
+    bits, act_q = SPLITK_MMA_PAIRS[pair]
+    odd_starts = empty = 0
+    for m, n, k in SPLITK_MMA_SHAPES:
+        assert common.sub_block_rows(bm, m) == bm
+        r = np.random.default_rng(bm + n + k)
+        a = torch.from_numpy(r.normal(size=(m, k)).astype(np.float32))
+        w = torch.from_numpy((r.normal(size=(k, n)) / np.sqrt(k)).astype(np.float32))
+        dequant = torch.ones(m, n)
+        if bits is None:
+            a, b = a.to(torch.bfloat16), w.to(torch.bfloat16)
+        else:
+            q = quantize_weight(w, bits=bits)
+            b, dequant = q.values, dequant * q.scales[None, :]
+            if act_q:
+                a, scale_a = quantize_activations(a)
+                dequant = dequant * scale_a[:, None]
+            else:
+                a = a.to(torch.bfloat16)
+        b_bits = bits or 8
+        rung = common.launch_name("splitk_partials", common.rung_of(a.dtype, b.dtype, b_bits))
+        da, db = a.to(cuda_device), b.to(cuda_device)
+        for bk in (128, 256):
+            for s in (1, 2, 4, 8):
+                want = splitk_partials_plain(a, b, TileConfig(bm, 128, bk), s, b_bits=b_bits)
+                kps = -(-(-(-k // bk)) // s)
+                first_empty = -(-k // (kps * bk))
+                odd_starts += bk == 128 and kps % 2 == 1 and first_empty > 1
+                for bn in (128, 256):
+                    for g in (0, 3, 132):
+                        what = (pair, bm, m, n, k, bn, bk, s, g)
+                        with common.count_launches() as log:
+                            got = splitk_partials(da, db, TileConfig(bm, bn, bk), s, g=g,
+                                                  b_bits=b_bits)
+                        assert log == [rung], what
+                        assert tuple(got.shape) == (s, m, n), what
+                        if act_q:
+                            assert torch.equal(got.cpu(), want), what
+                        else:
+                            _close_max(got.cpu() * dequant, want * dequant, TOL[torch.bfloat16],
+                                       what)
+                        if first_empty < s:
+                            assert not got[first_empty:].any(), what
+                            empty += 1
+    assert odd_starts, "no split started at an odd multiple of bk = 128"
+    assert empty, "no case had an empty split"
+
+
 def test_cuda_splitk_and_dp_baselines_launch_their_kernels(cuda_device):
     """splitk.ops.gemm is one B6 launch, dp.ops.gemm one B1 launch, each
     counted under its rung; both agree with the f32 reference."""

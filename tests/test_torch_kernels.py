@@ -183,16 +183,15 @@ def test_launch_counters_count_only_kernel_launches():
 
 
 #: the MAC each kernel runs, by activation dtype (f32, bf16, int8): a
-#: tensor-core mainloop ("mma") for B1, B2 and both B5 forms on bf16 and
-#: int8 activations, the SIMT loop on f32 ones and for B6; B3 multiplies
-#: nothing
+#: tensor-core mainloop ("mma") for B1, B2, both B5 forms and B6 on bf16
+#: and int8 activations, the SIMT loop on f32 ones; B3 multiplies nothing
 MAINLOOPS = {
     "dp_gemm_region": ("simt", "mma", "mma"),
     "streamk_phase1": ("simt", "mma", "mma"),
     "streamk_fixup": (None, None, None),
     "grouped_streamk_sk": ("simt", "mma", "mma"),
     "grouped_streamk_dp": ("simt", "mma", "mma"),
-    "splitk_partials": ("simt", "simt", "simt"),
+    "splitk_partials": ("simt", "mma", "mma"),
 }
 
 
