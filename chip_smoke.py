@@ -31,7 +31,8 @@ Phases (any failure raises and the script exits non-zero):
      launch nothing; the Stream-K form with split tiles is bitwise
      deterministic (bf16 activations run the tensor-core mainloop of
      ``csrc/mma_bf16.cuh``, int8 ones that of ``csrc/mma_s8.cuh``, f32 ones
-     the SIMT loop);
+     the SIMT loop in the Stream-K form and the f32 FMA mainloop of
+     ``csrc/fma_f32.cuh`` in the DP form);
    * each kernel timed with CUDA events at a decode shape it serves (device
      time of calls queued to run back to back, and the time of calls as the
      host issues them; see ``time_ms``), beside its plain version, one
@@ -61,14 +62,17 @@ Phases (any failure raises and the script exits non-zero):
      and B1 and the B2+B3 composition at their decode shapes, on the
      bf16-activation rungs (``B12_SIMT_MS``) and on the int8-activation ones
      (now on ``csrc/mma_s8.cuh``, beside ``B12_S8_SIMT_MS``), beside the
-     library call; and B1, B2+B3 and both B5 forms on f32 activations (the
-     SIMT loop) beside ``torch.matmul``/``torch.bmm`` in f32 (``F32_TABLE``);
+     library call; and B1, B2+B3 and both B5 forms on f32 activations, with
+     f32, int8 and packed int4 weights (the SIMT loop; B5's DP form the f32
+     FMA mainloop of ``csrc/fma_f32.cuh``) beside ``torch.matmul``/``torch.bmm``
+     in f32 (``F32_TABLE``, ``F32_PAIRS``);
    * B6, the split-K baseline, on every operand pair (f32, bf16 and the six
      quantized ones; bf16 activations run ``csrc/mma_bf16.cuh``'s
      tensor-core mainloop, int8 ones ``csrc/mma_s8.cuh``'s, f32 ones the
-     SIMT loop) x s in {1, 2, 4, 8} x g in {0, 66, 132, 264} at the sweep
-     shape, a ragged unaligned one, an odd K and K < bk * s: its partials
-     against ``splitk_partials_plain`` (empty splits read 0),
+     f32 FMA mainloop of ``csrc/fma_f32.cuh``) x s in {1, 2, 4, 8} x g in
+     {0, 66, 132, 264} at the sweep shape, a ragged unaligned one, an odd K
+     and K < bk * s: its partials against ``splitk_partials_plain`` (empty
+     splits read 0),
      ``splitk.ops.gemm`` against ``gemm_ref`` or dequantize-then-matmul, two
      runs bitwise identical, and a planted fault (the reduction drops the
      last split) that must read at least 3 times its limit; each pair's
@@ -144,7 +148,7 @@ reported), and every planted fault must read at least 3 times its limit.
 The line before the last is the ``kernels`` JSON: every kernel (B6's launches
 from the baseline comparison, the others' from the served runs), and one entry
 per (kernel, rung) that a served path ran; each entry names the mainloop
-it ran (``mainloop``: ``mma`` or ``simt``; null for B3, which multiplies
+it ran (``mainloop``: ``mma``, ``fma`` or ``simt``; null for B3, which multiplies
 nothing); the last line is ``{"ok": true,
 "device": {...}}``. Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -1027,19 +1031,26 @@ F32_TABLE = (("B1", "dp_gemm_region", (4, 14336, 4096), "dp", (8, 128, 128)),
              ("B2+B3 router", "streamk_phase1", (4, 64, 2048), None, None),
              ("B5a", "grouped_streamk_sk", (64, 16, 1024, 2048), "all_sk", (16, 128, 128)),
              ("B5b", "grouped_streamk_dp", (64, 4, 1024, 2048), "dp", (8, 256, 128)))
+#: the f32-activation pairs of the f32 table, as (pair, weight bits or None for f32): the
+#: router is timed on f32 alone, the GEMM every olmoe rung serves
+F32_PAIRS = (("f32", None), ("f32*int8", 8), ("f32*int4", 4))
 
 
 def f32_table(gen):
-    """B1, the B2+B3 composition and both B5 forms on f32 activations and
-    weights (the SIMT mainloop) at ``F32_TABLE``'s shapes: device ms beside
-    ``torch.matmul`` or ``torch.bmm`` in f32 (TF32 off) and the bound
-    (bytes over 3.35 TB/s or operations over 67 TFLOP/s; B2+B3: B2's and
-    B3's added), each call first held against that library call at the f32
-    tolerance, 1e-4; returns the rows."""
+    """B1, the B2+B3 composition and both B5 forms on f32 activations, with
+    f32, int8 and packed int4 weights (the SIMT mainloop; B5's DP form on
+    the f32 FMA mainloop of ``csrc/fma_f32.cuh``) at ``F32_TABLE``'s shapes:
+    device ms beside ``torch.matmul`` or ``torch.bmm`` in f32 (TF32 off; on
+    the dequantized weight for the quantized pairs) and the bound (bytes
+    over 3.35 TB/s or operations over 67 TFLOP/s: A and C in f32, B at 4, 1
+    or 0.5 bytes a weight plus its f32 scales; B2+B3: B2's and B3's added),
+    each call first held against that library call at the f32 tolerance,
+    1e-4; returns the rows."""
     import torch
 
     from repro_torch.core.op import GemmOp
     from repro_torch.core.policies import ALL_POLICIES, TileConfig
+    from repro_torch.core.quant import quantize_weight
     from repro_torch.core.selector import default_selector
     from repro_torch.core.workpart import GemmShape, partition
     from repro_torch.kernels.common import mainloop
@@ -1050,8 +1061,9 @@ def f32_table(gen):
     policies = {p.name: p for p in ALL_POLICIES}
     rows = []
     it = iter(range(10**9))
-    log("B1, B2+B3 and B5, f32 activations (device ms), bound, torch.matmul / torch.bmm in f32:")
-    log("| kernel | shape | policy / tile, g | ms | bound (by) | library | mainloop |")
+    log("B1, B2+B3 and B5, f32 activations (device ms), bound, torch.matmul / torch.bmm in f32 "
+        "(quantized pairs: on the dequantized weight):")
+    log("| kernel | pair | shape | policy / tile, g | ms | bound (by) | library | mainloop |")
     for label, name, shape, pol, tile in F32_TABLE:
         *lead, m, n, k = shape
         if pol is None:
@@ -1061,38 +1073,53 @@ def f32_table(gen):
         else:
             policy, cfg, grid = policies[pol], TileConfig(*tile), 132
         a = torch.randn(*lead, m, k, generator=gen, device="cuda")
-        bs = _rotating(torch.randn(*lead, k, n, generator=gen, device="cuda") / math.sqrt(k))
+        w = torch.randn(*lead, k, n, generator=gen, device="cuda") / math.sqrt(k)
         groups = lead[0] if lead else 1
         c = torch.empty(m, n, device="cuda") if name == "dp_gemm_region" else None
-
-        def kernel(b, a=a, c=c, name=name, policy=policy, cfg=cfg, grid=grid):
-            if name == "dp_gemm_region":
-                return dp_gemm_region(a, b, cfg, c=c, g=grid)
-            if name == "streamk_phase1":
-                return sk_ops.gemm(a, b, policy=policy, cfg=cfg, g=grid, out_dtype=torch.float32)
-            return gemm_grouped_streamk(a, b, policy=policy, cfg=cfg, g=grid,
-                                        out_dtype=torch.float32)
-
         library = torch.bmm if lead else torch.matmul
-        err = close(kernel(bs[0]), library(a, bs[0]), 1e-4, f"{label} f32 table")
-        ms = time_ms(lambda: kernel(bs[next(it) % len(bs)]))[0]
-        lib = time_ms(lambda: library(a, bs[next(it) % len(bs)]))[0]
-        if name == "streamk_phase1":
-            part = partition(GemmShape(m, n, k), cfg, grid, policy)
-            nbytes, ops, slot_bytes, elems, adds = _sk_region_bytes_ops(part, m, n, k, 4, 4)
-            b2, b3 = bound_ms(nbytes, ops, PEAK_F32), bound_ms(slot_bytes + elems * 4, adds,
-                                                             PEAK_F32)
-            bnd, by = b2[0] + b3[0], b2[1]
-        else:
-            bnd, by = bound_ms(groups * (m * k + k * n + m * n) * 4, 2 * groups * m * n * k,
-                               PEAK_F32)
-        log(f"| {label} {name} | {'x'.join(map(str, shape))} | {policy.name} / {cfg.name}, {grid} "
-            f"| {ms:.5f} | {bnd:.5f} ({by}) | {lib:.5f} | {mainloop(name, torch.float32)} |")
-        rows.append(dict(kernel=label, name=name, shape=list(shape), policy=policy.name,
-                         tile=cfg.name, g=grid, max_abs_err=err, ms=ms, bound_ms=bnd, bound_by=by,
-                         library_ms=lib, library_of=library.__name__,
-                         mainloop=mainloop(name, torch.float32)))
-        del bs
+        for pair, bits in F32_PAIRS[:1] if pol is None else F32_PAIRS:
+            if bits is None:
+                b, w_lib, kw, b_bytes = w, w, {}, 4
+            else:
+                q = quantize_weight(w, bits=bits)
+                b, w_lib = q.values, q.dequantize()
+                kw, b_bytes = dict(scale=q.scales, b_bits=bits), bits / 8
+            bs = _rotating(b)
+            ws = _rotating(w_lib)
+
+            def kernel(b, a=a, c=c, name=name, policy=policy, cfg=cfg, grid=grid, kw=kw):
+                if name == "dp_gemm_region":
+                    return dp_gemm_region(a, b, cfg, c=c, g=grid, **kw)
+                if name == "streamk_phase1":
+                    return sk_ops.gemm(a, b, policy=policy, cfg=cfg, g=grid,
+                                       out_dtype=torch.float32, **kw)
+                return gemm_grouped_streamk(a, b, policy=policy, cfg=cfg, g=grid,
+                                            out_dtype=torch.float32, **kw)
+
+            err = close(kernel(bs[0]), library(a, ws[0]), 1e-4, f"{label} {pair} f32 table")
+            ms = time_ms(lambda: kernel(bs[next(it) % len(bs)]))[0]
+            lib = time_ms(lambda: library(a, ws[next(it) % len(ws)]))[0]
+            scale_bytes = 0 if bits is None else groups * n * 4
+            if name == "streamk_phase1":
+                part = partition(GemmShape(m, n, k), cfg, grid, policy)
+                nbytes, ops, slot_bytes, elems, adds = _sk_region_bytes_ops(part, m, n, k, 4,
+                                                                            b_bytes)
+                b2, b3 = bound_ms(nbytes, ops, PEAK_F32), bound_ms(
+                    slot_bytes + scale_bytes + elems * 4, adds, PEAK_F32)
+                bnd, by = b2[0] + b3[0], b2[1]
+            else:
+                bnd, by = bound_ms(groups * (m * k * 4 + k * n * b_bytes + m * n * 4)
+                                   + scale_bytes, 2 * groups * m * n * k, PEAK_F32)
+            log(f"| {label} {name} | {pair} | {'x'.join(map(str, shape))} | {policy.name} / "
+                f"{cfg.name}, {grid} | {ms:.5f} | {bnd:.5f} ({by}) | {lib:.5f} | "
+                f"{mainloop(name, torch.float32)} |")
+            rows.append(dict(kernel=label, name=name, pair=pair, shape=list(shape),
+                             policy=policy.name, tile=cfg.name, g=grid, max_abs_err=err, ms=ms,
+                             bound_ms=bnd, bound_by=by, library_ms=lib,
+                             library_of=library.__name__ + ("" if bits is None
+                                                            else " on the dequantized weight"),
+                             mainloop=mainloop(name, torch.float32)))
+            del bs, ws
     return rows
 
 

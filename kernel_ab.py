@@ -14,7 +14,7 @@ s, two at once 553 and 583 s), and then time them in turns in one call:
 parent, change, change, parent, each with ``--out FILE``. Each run prints
 one JSON line of device ms per call (calls queued behind a spin kernel,
 back to back, the weights rotated through copies that together pass 200
-MB, four times the 50 MB L2), one of the mainloop each kernel runs per
+MB, four times the 50 MB L2), one of the mainloop each timed call runs per
 operand pair (``repro_torch.kernels.common.mainloop``; null for a tree that
 predates it) and one of a digest of the output bytes of each checked call
 (sha256, first 16 hex digits); with ``--out`` it also appends all three as
@@ -24,9 +24,10 @@ of every tree gave the same output bytes. Timed: B1 at 4x14336x4096 (DP
 8x128x128), B2, B3 and their composition B2+B3 at 4x4096x14336 (ALL_SK
 8x256x128), and B5 at 64x4x1024x2048 (DP 8x256x128) and 64x16x1024x2048
 (ALL_SK 16x128x128), all with g = 132, and B6 at 4x14336x4096 (split-K s =
-4, 8x128x128, g = 0, one block per tile), each on six operand pairs: bf16,
-bf16 x int8 and bf16 x packed int4 (the rungs with bf16 activations), f32,
-and int8 x int8 and int8 x packed int4 (the int8-dynamic and int4-dynamic
+4, 8x128x128, g = 0, one block per tile), each on eight operand pairs:
+bf16, bf16 x int8 and bf16 x packed int4 (the rungs with bf16
+activations), f32, f32 x int8 and f32 x packed int4 (f32 activations), and
+int8 x int8 and int8 x packed int4 (the int8-dynamic and int4-dynamic
 rungs). Before it is timed, each call is held against its plain version
 (``dp_gemm_region_plain``, ``streamk_phase1_plain`` on the contributor
 slots, ``streamk_fixup_plain``, ``gemm_grouped_streamk_plain``,
@@ -115,13 +116,16 @@ def time_ms(fn, iters=30):
 
 
 def rungs(a, b):
-    """(pair, activations, weight, quantized kwargs, tolerance) of the six
+    """(pair, activations, weight, quantized kwargs, tolerance) of the eight
     operand pairs, from bf16 ``a`` (..., M, K) and ``b`` (..., K, N)."""
     yield "bf16", a, b, {}, 2e-2
     for bits in (8, 4):
         q = quantize_weight(b, bits=bits)
         yield f"bf16*int{bits}", a, q.values, dict(scale=q.scales, b_bits=bits), 2e-2
     yield "f32", a.float(), b.float(), {}, 1e-4
+    for bits in (8, 4):
+        q = quantize_weight(b, bits=bits)
+        yield f"f32*int{bits}", a.float(), q.values, dict(scale=q.scales, b_bits=bits), 1e-4
     qa, scale_a = quantize_activations(a)
     for bits in (8, 4):
         q = quantize_weight(b, bits=bits)
@@ -167,9 +171,10 @@ def main() -> int:
 
     def key(name, shape, pair, a_dtype, kernel=None):
         """The JSON key of one timing; notes the mainloop ``kernel`` runs."""
+        k_ = f"{name} {shape}" + ("" if pair == "bf16" else f" {pair}")
         if kernel is not None and mainloop is not None:
-            loops[f"{name} {pair}"] = mainloop(kernel, a_dtype)
-        return f"{name} {shape}" + ("" if pair == "bf16" else f" {pair}")
+            loops[k_] = mainloop(kernel, a_dtype)
+        return k_
 
     cfg1 = TileConfig(8, 128, 128)
     for pair, a, b, kw, tol in rungs(randn(4, 4096), randn(4096, 14336)):

@@ -59,9 +59,13 @@
 // transposed (int4: sign-extended) into a column-major strip by byte
 // permutes, so the result is the SIMT loop's bit for bit. int8 x int8 then
 // takes 0.066 ms (SIMT: 0.270) and int8 x int4 0.054 (0.291); the Stream-K
-// form at 64x16x1024x2048 0.084 (0.311) and 0.072 (0.325). f32 activations
-// keep the SIMT FMA loop (no TF32): 0.31 ms. (Device times on an H100 80GB
-// HBM3 at 700 W, kernel_ab.py, DP form at 64x4x1024x2048, g = 132.)
+// form at 64x16x1024x2048 0.084 (0.311) and 0.072 (0.325). With f32
+// activations (f32, int8 or packed int4 weights) the DP form runs the f32
+// FMA mainloop of fma_f32.cuh (no TF32; each weight read from shared memory
+// and widened once per block): 0.181 / 0.078 / 0.064 ms (SIMT: 0.312 /
+// 0.351 / 0.254); the Stream-K form keeps the SIMT loop (0.306 ms on f32 at
+// 64x16x1024x2048). (Device times on an H100 80GB HBM3 at 700 W,
+// kernel_ab.py, DP form at 64x4x1024x2048, g = 132.)
 //
 // The kernels are in grouped.cuh; this file instantiates them for f32
 // inputs, grouped_bf16.cu for bf16 inputs and quant_*.cu for the pairs of

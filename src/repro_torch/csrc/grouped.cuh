@@ -4,11 +4,13 @@
 // the sources compile in parallel. With bf16 activations (the dense bf16,
 // int8 and int4 rungs) each sub-block runs the tensor-core mainloop of
 // mma_bf16.cuh, with int8 activations (int8 or packed int4 weights) the s8
-// tensor-core mainloop of mma_s8.cuh; f32 activations run sk_common.cuh's
-// SIMT loop.
+// tensor-core mainloop of mma_s8.cuh. With f32 activations (x f32, int8 or
+// packed int4) the DP form runs the f32 FMA mainloop of fma_f32.cuh and the
+// Stream-K form sk_common.cuh's SIMT loop.
 
 #pragma once
 
+#include "fma_f32.cuh"
 #include "mma_bf16.cuh"
 #include "mma_s8.cuh"
 #include "sk_common.cuh"
@@ -132,7 +134,7 @@ __global__ void __launch_bounds__(kThreads)
             park_subblock_mma<SM>(acc, out + (int64_t)sm0 * bn + sn0, bn);
         } else {
           float acc[TM][4];
-          mac_subblock<TA, TB, P4, SM>(g.a, g.b, rb.row_end, n, k, row0, col0, kbeg, kend, bk,
+          mac_subblock<TA, TB, P4, SM>(g.a, g.b, rb.row_end, n, k, row0, col0, kbeg, kend,
                                        aligned, acc, smem);
           if (whole) {
             store_subblock<TOut, SM>(g, acc, rb.row_end, row0, col0, n);
@@ -192,7 +194,6 @@ __global__ void __launch_bounds__(kThreads)
                       const int* __restrict__ tab, int m, int n, int k, int bm, int bn, int bk,
                       int nt, int n_tiles, bool aligned, Epilogue epi) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  TA* smem = reinterpret_cast<TA*>(smem_raw);
   for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     const RowBlock rb = row_block(tab, t / nt);
     const Group<TA, TB, TOut> g = group_of<P4>(a, b, c, epi, rb.group, m, n, k);
@@ -213,14 +214,24 @@ __global__ void __launch_bounds__(kThreads)
                                   smem_raw);
           store_subblock_mma<SM>(g.c, g.epi, acc, rb.row_end, row0, col0, n);
         } else {
-          float acc[SM / 8][4];
-          mac_subblock<TA, TB, P4, SM>(g.a, g.b, rb.row_end, n, k, row0, col0, 0, k, bk, aligned,
-                                       acc, smem);
-          store_subblock<TOut, SM>(g, acc, rb.row_end, row0, col0, n);
+          float acc[SM][fma_tn<SM>()];
+          fma_subblock<TB, P4, SM>(g.a, g.b, rb.row_end, n, k, row0, col0, 0, k, aligned, acc,
+                                   smem_raw);
+          store_subblock_fma<SM>(g.c, g.epi, acc, rb.row_end, row0, col0, n);
         }
       }
     }
   }
+}
+
+// Dynamic shared memory of a DP-form block: the f32 FMA ring for f32
+// activations, else the ring of the loop the Stream-K form runs too.
+template <typename TA, typename TB, bool P4, int SM>
+constexpr int grouped_dp_smem_bytes() {
+  if constexpr (std::is_same<TA, float>::value)
+    return fma_smem_bytes<TB, P4, SM>();
+  else
+    return mainloop_smem_bytes<TA, TB, P4, SM>();
 }
 
 template <typename TA, typename TB, bool P4, typename TOut>
@@ -238,7 +249,7 @@ int launch_grouped(int sm, bool sk_form, const void* a, const void* b, void* c, 
         mainloop_smem_bytes<TA, TB, P4, S>(), grid, stream, ap, bp, cp, tab, ws, counters,   \
         m, n, k, bm, bn, bk, nt, ipt, ipw, total, aligned, epi);                             \
   return launch<grouped_dp_kernel<TA, TB, P4, TOut, S>>(                                     \
-      mainloop_smem_bytes<TA, TB, P4, S>(), grid, stream, ap, bp, cp, tab, m, n, k, bm, bn,  \
+      grouped_dp_smem_bytes<TA, TB, P4, S>(), grid, stream, ap, bp, cp, tab, m, n, k, bm, bn, \
       bk, nt, n_tiles, aligned, epi)
   switch (sm) {
     case 8: SK_GROUPED(8);

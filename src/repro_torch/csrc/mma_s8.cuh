@@ -2,18 +2,21 @@
 // (NVIDIA Hopper, sm_90a): stream_k.cuh, grouped.cuh and splitk.cuh take
 // mma_s8_subblock in place of sk_common.cuh's SIMT mac_subblock when A is
 // int8, whether B is int8 (the int8-dynamic rung) or packed int4 (int8 x
-// int4, int4-dynamic). bf16 activations run mma_bf16.cuh. mainloop_smem_bytes, at the end, sizes the launch of
-// whichever loop a kernel runs.
+// int4, int4-dynamic). bf16 activations run mma_bf16.cuh. mainloop_smem_bytes,
+// at the end, sizes the launch of whichever loop a kernel runs, but for the
+// f32 FMA loop of fma_f32.cuh (B5's DP form and B6 on f32 activations),
+// which fma_smem_bytes sizes.
 //
-// Contract (that of mac_subblock for int8 activations): the f32 sums over
+// Contract (that of mac_subblock, on int8 activations): the f32 sums over
 // [kbeg, kend) of one SM x 128 sub-block of A @ B, with ragged M, N and K
 // masked by the loads, zeros for a sub-block outside C, and kbeg a multiple
 // of bk. Each bk step's exact int32 sum is added into the f32 accumulator at
 // the step's end (every absolute k that is a multiple of bk) and at kend, as
 // repro's mixed_dot converts each k-step's int32 partial. Every step sum is
 // below 2^24 (at most 256 x 127^2), so the conversion is exact, and the f32
-// additions run in the SIMT loop's order: the result is the SIMT loop's,
-// bit for bit, for a whole tile and for a Stream-K segment alike.
+// additions run in the order of the SIMT loop this replaced and of the
+// plain versions' kstep_dot: the result is theirs, bit for bit, for a whole
+// tile and for a Stream-K segment alike.
 //
 // What bounded the SIMT loop at the MoE decode shapes (4 tokens, 8-row
 // sub-blocks) was its thread map: 8 row groups x 32 column groups, so every
@@ -319,7 +322,8 @@ __device__ __forceinline__ void mma_s8_subblock(const int8_t* __restrict__ a,
 
 // Dynamic shared memory of one block of B1, B2, B5 or B6: the bf16
 // tensor-core ring for bf16 activations, the s8 one for int8 activations,
-// the SIMT ring for f32.
+// the SIMT ring for f32 (B1, B2 and B5's Stream-K form; B5's DP form and B6
+// size the f32 FMA ring with fma_smem_bytes).
 template <typename TA, typename TB, bool P4, int SM>
 constexpr int mainloop_smem_bytes() {
   if constexpr (uses_mma<TA>())

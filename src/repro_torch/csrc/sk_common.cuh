@@ -1,5 +1,9 @@
 // Device code shared by the Stream-K++ kernels for NVIDIA Hopper (sm_90a):
 // stream_k.cuh (B1-B3), grouped.cuh (B5) and splitk.cuh (B6) include it.
+// Its SIMT mainloop, mac_subblock, serves the f32-activation rungs of B1,
+// B2 and B5's Stream-K form; the other rungs and kernels run the loops of
+// mma_bf16.cuh (bf16 activations), mma_s8.cuh (int8) and fma_f32.cuh (f32,
+// B5's DP form and B6), which keep its contract.
 //
 // A logical bm x bn tile (any TileConfig: bm a multiple of 8, bn of 128) is
 // walked in SM x 128 sub-blocks (SM in {8, 16, 32, 64} divides bm, chosen by
@@ -13,25 +17,13 @@
 // element. The loads mask ragged M, N and K edges (cp.async zero-fills past
 // the edge), so callers pad nothing and never copy a weight.
 //
-// The MAC (the TPU's mixed_dot, src/repro/kernels/common.py:125) has three
-// cases, chosen by the operand types TA and TB (P4: B holds packed int4):
-//   * float x float (f32 or bf16, one type): SIMT FMA into f32, no TF32, so
-//     f32 inputs keep full f32 products;
-//   * float activations x int8 or packed int4 weights: both widened to f32
-//     (exact), FMA into f32;
-//   * int8 activations x int8 or packed int4 weights (B6; B1, B2 and B5 run
-//     them on mma_s8.cuh, with the same sums): int32 multiply-add,
-//     added into the f32 accumulator at each of the tile's bk boundaries, as
-//     the TPU converts each k-step's int32 partial (each is at most
-//     bk * 127^2 < 2^24, so the conversion is exact, and a Stream-K segment
-//     or a split-K split, which starts on a bk boundary, carries the same
-//     arithmetic as the DP path).
-// Packed int4 B (two nibbles per byte along K, even k in the low nibble,
-// src/repro/core/quant.py:83-110) is staged packed, half a byte per weight,
-// and each nibble is sign-extended, into the MAC's type (f32, or int for
-// int8 activations, never widened to f32 there), as it is multiplied; a
-// chunk starts on an even k, and packed rows are masked against
-// ceil(kend / 2).
+// The MAC (the TPU's mixed_dot, src/repro/kernels/common.py:125) is an f32
+// FMA, no TF32, so f32 inputs keep full f32 products; int8 or packed int4
+// weights are widened to f32 (exact) first. Packed int4 B (two nibbles per
+// byte along K, even k in the low nibble, src/repro/core/quant.py:83-110)
+// is staged packed, half a byte per weight, and each nibble is
+// sign-extended as it is multiplied; a chunk starts on an even k, and
+// packed rows are masked against ceil(kend / 2).
 //
 // Epilogue order (src/repro/kernels/common.py:81-104): scale_a (per row) ->
 // scale (per column) -> bias -> activation -> binary, on the f32
@@ -63,20 +55,10 @@ __device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
   return __float2bfloat16_rn(0.f);
 }
 
-// The MAC's type: int32 for int8 activations (the int8 x int8 rung), f32
-// otherwise.
-template <typename TA>
-using mac_t = typename std::conditional<std::is_same<TA, int8_t>::value, int, float>::type;
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-__device__ __forceinline__ float widen(float x, float) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x, float) { return __bfloat162float(x); }
-__device__ __forceinline__ float widen(int8_t x, float) { return (float)x; }
-__device__ __forceinline__ int widen(int8_t x, int) { return (int)x; }
-
-__device__ __forceinline__ float mac(float a, float b, float s) { return fmaf(a, b, s); }
-__device__ __forceinline__ int mac(int a, int b, int s) { return s + a * b; }
-
-// Four consecutive B elements of one k row, widened to the MAC type V.
+// Four consecutive B elements of one k row, widened to f32.
 __device__ __forceinline__ void load4(const float* p, float v[4]) {
   const float4 q = *reinterpret_cast<const float4*>(p);
   v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
@@ -89,22 +71,20 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
   v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
 }
 
-template <typename V>
-__device__ __forceinline__ void load4(const int8_t* p, V v[4]) {
+__device__ __forceinline__ void load4(const int8_t* p, float v[4]) {
   const char4 q = *reinterpret_cast<const char4*>(p);
-  v[0] = (V)q.x; v[1] = (V)q.y; v[2] = (V)q.z; v[3] = (V)q.w;
+  v[0] = (float)q.x; v[1] = (float)q.y; v[2] = (float)q.z; v[3] = (float)q.w;
 }
 
 // Four packed int4 bytes of one packed row: lo[j] is the even k (low
 // nibble), hi[j] the odd k (high nibble) of column j, sign-extended.
-template <typename V>
-__device__ __forceinline__ void unpack4(const int8_t* p, V lo[4], V hi[4]) {
+__device__ __forceinline__ void unpack4(const int8_t* p, float lo[4], float hi[4]) {
   const unsigned word = *reinterpret_cast<const unsigned*>(p);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const unsigned byte = (word >> (8 * j)) & 0xFFu;
-    lo[j] = (V)((int)(byte << 28) >> 28);
-    hi[j] = (V)((int)(byte << 24) >> 28);
+    lo[j] = (float)((int)(byte << 28) >> 28);
+    hi[j] = (float)((int)(byte << 24) >> 28);
   }
 }
 
@@ -242,31 +222,30 @@ __device__ __forceinline__ void load_chunk(const TA* __restrict__ a, const TB* _
 
 // One staged chunk into the thread's sums s (TM rows x 4 columns).
 template <typename TA, typename TB, bool P4, int TM>
-__device__ __forceinline__ void mac_chunk(const TA* a_s, const TB* b_s, mac_t<TA> (&s)[TM][4]) {
-  using V = mac_t<TA>;
+__device__ __forceinline__ void mac_chunk(const TA* a_s, const TB* b_s, float (&s)[TM][4]) {
   if constexpr (P4) {
 #pragma unroll 4
     for (int kp = 0; kp < kKC / 2; ++kp) {
-      V lo[4], hi[4];
-      unpack4<V>(b_s + kp * kSN, lo, hi);
+      float lo[4], hi[4];
+      unpack4(b_s + kp * kSN, lo, hi);
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
-        const V a0 = widen(a_s[i * kKC + 2 * kp], V());
-        const V a1 = widen(a_s[i * kKC + 2 * kp + 1], V());
+        const float a0 = widen(a_s[i * kKC + 2 * kp]);
+        const float a1 = widen(a_s[i * kKC + 2 * kp + 1]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = mac(a1, hi[j], mac(a0, lo[j], s[i][j]));
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a1, hi[j], fmaf(a0, lo[j], s[i][j]));
       }
     }
   } else {
 #pragma unroll 8
     for (int kk = 0; kk < kKC; ++kk) {
-      V bv[4];
+      float bv[4];
       load4(b_s + kk * kSN, bv);
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
-        const V av = widen(a_s[i * kKC + kk], V());
+        const float av = widen(a_s[i * kKC + kk]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = mac(av, bv[j], s[i][j]);
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av, bv[j], s[i][j]);
       }
     }
   }
@@ -276,36 +255,27 @@ __device__ __forceinline__ void mac_chunk(const TA* a_s, const TB* b_s, mac_t<TA
 // for this thread's rows/columns of one SM x 128 sub-block. The K range
 // streams through a kStages-deep ring of shared-memory chunks, kStages - 1
 // of them in flight while the block multiplies the oldest one. kbeg is a
-// multiple of bk; the int32 sums of the int8 x int8 MAC enter acc at every
-// bk boundary and at kend (the float MACs sum into f32 throughout). A
-// sub-block entirely outside C accumulates nothing (its sums are zeros).
+// multiple of bk. A sub-block entirely outside C accumulates nothing (its
+// sums are zeros).
 template <typename TA, typename TB, bool P4, int SM>
 __device__ __forceinline__ void mac_subblock(const TA* __restrict__ a, const TB* __restrict__ b,
                                              int m, int n, int k, int row0, int col0, int kbeg,
-                                             int kend, int bk, bool aligned,
-                                             float (&acc)[SM / 8][4], TA* smem) {
+                                             int kend, bool aligned, float (&acc)[SM / 8][4],
+                                             TA* smem) {
   constexpr int TM = SM / 8;
   constexpr int A_SLOT = SM * kKC;          // elements of TA
   constexpr int B_SLOT = b_rows<P4>() * kSN;  // elements of TB
-  constexpr bool kInt = std::is_same<mac_t<TA>, int>::value;
   const int tn = threadIdx.x & 31;
   const int tm = threadIdx.x >> 5;
-  // the int32 step sums of the int8 x int8 MAC; the float MACs sum straight
-  // into acc (s is then unused and costs no registers)
-  int s[kInt ? TM : 1][4];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      acc[i][j] = 0.f;
-      if constexpr (kInt) s[i][j] = 0;
-    }
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
   if (row0 >= m || col0 >= n) return;  // uniform across the block
 
   TA* as = smem;
   TB* bs = reinterpret_cast<TB*>(smem + kStages * A_SLOT);
   const int nchunks = (kend - kbeg + kKC - 1) / kKC;
-  const int step_chunks = bk / kKC;
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
     if (st < nchunks)
@@ -325,20 +295,7 @@ __device__ __forceinline__ void mac_subblock(const TA* __restrict__ a, const TB*
     cp_async_commit();
     const TA* a_s = as + (c % kStages) * A_SLOT + tm * TM * kKC;
     const TB* b_s = bs + (c % kStages) * B_SLOT + tn * 4;
-    if constexpr (kInt) {
-      mac_chunk<TA, TB, P4, TM>(a_s, b_s, s);
-      if (c == nchunks - 1 || (c + 1) % step_chunks == 0) {  // a bk step ends
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            acc[i][j] += (float)s[i][j];
-            s[i][j] = 0;
-          }
-      }
-    } else {
-      mac_chunk<TA, TB, P4, TM>(a_s, b_s, acc);
-    }
+    mac_chunk<TA, TB, P4, TM>(a_s, b_s, acc);
   }
   cp_async_wait<0>();
   __syncthreads();  // the next sub-block refills the ring

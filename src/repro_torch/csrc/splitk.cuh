@@ -1,6 +1,7 @@
 // B6: the fixed-factor split-K GEMM's partials for NVIDIA Hopper (sm_90a).
 //
-//   splitk_kernel      <- src/repro/kernels/splitk/splitk_gemm.py:_splitk_kernel
+//   splitk_fma_kernel  <- src/repro/kernels/splitk/splitk_gemm.py:_splitk_kernel
+//                         (f32 activations)
 //   splitk_mma_kernel  (the same, bf16 activations)
 //   splitk_s8_kernel   (the same, int8 activations)
 //
@@ -22,22 +23,23 @@
 // and the result is bit-identical run to run (no atomics). The TPU's grid
 // ran the k-steps of a (tile, split) in order with one VMEM accumulator;
 // here a sub-block mainloop's K loop over [kbeg, kend) takes that place.
-// Which loop depends on the activations, as for B1 (stream_k.cuh):
+// Which loop depends on the activations:
 //
 //   * bf16 (x bf16, int8 or packed int4): mma_subblock of mma_bf16.cuh,
 //     mma.sync.m16n8k16 fed by ldmatrix, int8 and int4 widened to bf16 once
 //     per block (splitk_mma_kernel);
 //   * int8 (x int8 or packed int4): mma_s8_subblock of mma_s8.cuh,
 //     mma.sync.m16n8k32, each bk step's exact int32 sum added into the f32
-//     partial in the SIMT loop's order, so the partials are that loop's bit
-//     for bit (splitk_s8_kernel); a split starts on a bk boundary, as that
-//     loop needs, because kbeg = sp * kps * bk;
-//   * f32 (x f32, int8 or int4): sk_common.cuh's SIMT mac_subblock, f32 FMA,
-//     no TF32 (splitk_kernel).
+//     partial in kstep_dot's order, so the partials are the plain version's
+//     bit for bit (splitk_s8_kernel); a split starts on a bk boundary, as
+//     that loop needs, because kbeg = sp * kps * bk;
+//   * f32 (x f32, int8 or packed int4): fma_subblock of fma_f32.cuh, f32
+//     FMA with no TF32, each weight read from shared memory and widened
+//     once per block (splitk_fma_kernel).
 //
-// Each is a kernel of its own, not a compile-time branch inside
-// splitk_kernel, for the reason B1's are (stream_k.cuh): such a branch moved
-// the SASS of dp_kernel's SIMT instantiations.
+// Each is a kernel of its own, not a compile-time branch inside one, for
+// the reason B1's are (stream_k.cuh): such a branch moved the SASS of
+// dp_kernel's SIMT instantiations.
 //
 // What bounds it on the H100: at the decode shapes (M = 4 against a 4096 x
 // 14336 weight) it reads B once and writes s * M * N f32 partials, both far
@@ -49,28 +51,27 @@
 
 #pragma once
 
+#include "fma_f32.cuh"
 #include "mma_s8.cuh"
 
 namespace {
 
-template <typename TA, typename TB, bool P4, int SM>
+// B6 on the f32 FMA mainloop, for f32 activations (f32, int8 or packed int4
+// weights): block (x, sp) strides over tiles x, x + gridDim.x, ... of split
+// sp, each sub-block multiplied by fma_subblock over the split's K range and
+// flushed into split sp's partials, masked at M and N; an empty split (past
+// K) multiplies nothing and writes zeros.
+template <typename TB, bool P4, int SM>
 __global__ void __launch_bounds__(kThreads)
-    splitk_kernel(const TA* __restrict__ a, const TB* __restrict__ b,
-                  float* __restrict__ partials, int m, int n, int k, int bm, int bn, int bk,
-                  int n_tiles_n, int n_total, int kps, bool aligned) {
+    splitk_fma_kernel(const float* __restrict__ a, const TB* __restrict__ b,
+                      float* __restrict__ partials, int m, int n, int k, int bm, int bn, int bk,
+                      int n_tiles_n, int n_total, int kps, bool aligned) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  TA* smem = reinterpret_cast<TA*>(smem_raw);
-  constexpr int TM = SM / 8;
-  const int tn = threadIdx.x & 31;
-  const int tm = threadIdx.x >> 5;
   const int sp = blockIdx.y;
-  // the split's K range; an empty one (past K) multiplies nothing and
-  // writes zeros
   const int64_t span = (int64_t)kps * bk;
   const int kbeg = (int)min((int64_t)k, sp * span);
   const int kend = (int)min((int64_t)k, (sp + 1) * span);
   float* out = partials + (int64_t)sp * m * n;
-  float acc[TM][4];
   for (int t = blockIdx.x; t < n_total; t += gridDim.x) {
     const int tile_m = t / n_tiles_n;
     const int tile_n = t % n_tiles_n;
@@ -80,24 +81,15 @@ __global__ void __launch_bounds__(kThreads)
       for (int sn0 = 0; sn0 < bn; sn0 += kSN) {
         const int col0 = tile_n * bn + sn0;
         if (col0 >= n) break;
-        mac_subblock<TA, TB, P4, SM>(a, b, m, n, k, row0, col0, kbeg, kend, bk, aligned, acc,
-                                     smem);
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const int64_t row = row0 + tm * TM + i;
-          if (row >= m) continue;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int col = col0 + tn * 4 + j;
-            if (col < n) out[row * n + col] = acc[i][j];
-          }
-        }
+        float acc[SM][fma_tn<SM>()];
+        fma_subblock<TB, P4, SM>(a, b, m, n, k, row0, col0, kbeg, kend, aligned, acc, smem_raw);
+        store_subblock_fma<SM>(out, Epilogue{}, acc, m, row0, col0, n);
       }
     }
   }
 }
 
-// B6 on the tensor-core mainloop, for bf16 activations: splitk_kernel's
+// B6 on the tensor-core mainloop, for bf16 activations: splitk_fma_kernel's
 // walk and K range, each sub-block multiplied by mma_subblock and flushed
 // from its fragments into split sp's partials, masked at M and N.
 template <typename TB, bool P4, int SM>
@@ -182,8 +174,8 @@ int splitk_entry(int sm, const void* a, const void* b, void* partials, int m, in
                                            ap, bp, p, m, n, k, bm, bn, bk, n_tiles_n, n_total, \
                                            kps, al);                                           \
   else                                                                                         \
-    return launch<splitk_kernel<TA, TB, P4, S>>(mainloop_smem_bytes<TA, TB, P4, S>(), blocks,  \
-                                                st, ap, bp, p, m, n, k, bm, bn, bk, n_tiles_n, \
+    return launch<splitk_fma_kernel<TB, P4, S>>(fma_smem_bytes<TB, P4, S>(), blocks, st, ap,   \
+                                                bp, p, m, n, k, bm, bn, bk, n_tiles_n,         \
                                                 n_total, kps, al)
   switch (sm) {
     case 8: SK_SPLITK(8);

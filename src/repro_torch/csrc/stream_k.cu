@@ -29,12 +29,12 @@
 //
 // B6, the fixed-factor split-K baseline (splitk.cuh), sits beside them:
 //
-//   B6  splitk_kernel   <- src/repro/kernels/splitk/splitk_gemm.py:_splitk_kernel
+//   B6  splitk_fma_kernel <- src/repro/kernels/splitk/splitk_gemm.py:_splitk_kernel
 //       block (x, sp) strides over the output tiles x, x + grid, ... and
 //       writes split sp's f32 partial of each into partials[sp] (s, M, N);
 //       the caller sums over s and applies the dequant scales
-//       (splitk_mma_kernel for bf16 activations, splitk_s8_kernel for int8
-//       ones).
+//       (splitk_fma_kernel for f32 activations, splitk_mma_kernel for bf16
+//       ones, splitk_s8_kernel for int8 ones).
 //
 // This file instantiates B6 for the dense inputs too; the pairs' B6 comes
 // with their B1 and B2 from quant_*.cu.
@@ -58,7 +58,9 @@
 // each bk step's exact int32 sum entering the f32 sum where the SIMT loop's
 // did, so the outputs keep that loop's bits (PERF.md has the times). f32
 // activations keep the SIMT FMA loop (exact f32 products, no TF32); B3
-// multiplies nothing. B6 runs the mainloop B1 runs on each pair. (Device
+// multiplies nothing. B6 runs the mainloop B1 runs on bf16 and int8
+// activations, and on f32 ones the f32 FMA mainloop of fma_f32.cuh, which
+// reads and widens each weight once per block (splitk.cuh). (Device
 // times on an H100 80GB HBM3 at 700 W, kernel_ab.py, g = 132.)
 //
 // Each extern "C" entry launches on the caller's stream and returns

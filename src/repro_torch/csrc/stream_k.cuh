@@ -40,7 +40,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int sn0 = 0; sn0 < bn; sn0 += kSN) {
         const int col0 = tile_n * bn + sn0;
         if (col0 >= n) break;
-        mac_subblock<TA, TB, P4, SM>(a, b, m, n, k, row0, col0, 0, k, bk, aligned, acc, smem);
+        mac_subblock<TA, TB, P4, SM>(a, b, m, n, k, row0, col0, 0, k, aligned, acc, smem);
 #pragma unroll
         for (int i = 0; i < TM; ++i) {
           const int64_t row = row0 + tm * TM + i;
@@ -160,7 +160,7 @@ __global__ void __launch_bounds__(kThreads)
                                   smem_raw);
           park_subblock_mma<SM>(frag, out + (int64_t)sm0 * bn + sn0, bn);
         } else {
-          mac_subblock<TA, TB, P4, SM>(a, b, m, n, k, row0, col0, kbeg, kend, bk, aligned, acc,
+          mac_subblock<TA, TB, P4, SM>(a, b, m, n, k, row0, col0, kbeg, kend, aligned, acc,
                                        smem);
 #pragma unroll
           for (int i = 0; i < TM; ++i) {

@@ -38,27 +38,31 @@ KERNELS = (
 RUNGS = ("int8", "int8-dynamic", "int4", "int4-dynamic")
 
 
-#: the kernels whose sub-blocks run a tensor-core mainloop on the
-#: activation dtypes of :data:`MMA_ACTIVATIONS`
-MMA_KERNELS = ("dp_gemm_region", "streamk_phase1", "grouped_streamk_sk", "grouped_streamk_dp",
-               "splitk_partials")
-#: ``csrc/mma_bf16.cuh`` serves bf16 activations (``uses_mma``),
-#: ``csrc/mma_s8.cuh`` int8 ones
+#: the activation dtypes on which every kernel that multiplies runs a
+#: tensor-core mainloop: ``csrc/mma_bf16.cuh`` serves bf16 activations
+#: (``uses_mma``), ``csrc/mma_s8.cuh`` int8 ones
 MMA_ACTIVATIONS = (torch.bfloat16, torch.int8)
+#: the kernels whose f32-activation rungs run the f32 FMA mainloop of
+#: ``csrc/fma_f32.cuh``; the others' run the SIMT loop
+FMA_KERNELS = ("grouped_streamk_dp", "splitk_partials")
 
 
 def mainloop(kernel: str, a_dtype: torch.dtype) -> Optional[str]:
     """The MAC ``kernel`` runs for activations of ``a_dtype``: ``"mma"``, a
     tensor-core mainloop, for B1, B2, both B5 forms and B6 with bf16
     activations (``csrc/mma_bf16.cuh``) or int8 ones (``csrc/mma_s8.cuh``),
-    whatever the weights; ``"simt"``, ``mac_subblock`` of
-    ``csrc/sk_common.cuh``, for f32 activations; None for B3
-    (``streamk_fixup``), which sums f32 partials and multiplies nothing."""
+    whatever the weights; with f32 activations ``"fma"``, ``fma_subblock``
+    of ``csrc/fma_f32.cuh``, for B5's DP form and B6, and ``"simt"``,
+    ``mac_subblock`` of ``csrc/sk_common.cuh``, for B1, B2 and B5's
+    Stream-K form; None for B3 (``streamk_fixup``), which sums f32 partials
+    and multiplies nothing."""
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel {kernel!r}; expected one of {KERNELS}")
     if kernel == "streamk_fixup":
         return None
-    return "mma" if kernel in MMA_KERNELS and a_dtype in MMA_ACTIVATIONS else "simt"
+    if a_dtype in MMA_ACTIVATIONS:
+        return "mma"
+    return "fma" if kernel in FMA_KERNELS else "simt"
 
 
 def launch_name(kernel: str, rung: Optional[str] = None) -> str:

@@ -916,6 +916,102 @@ def test_cuda_splitk_mma_mainloops_match_plain_version(cuda_device, bm, pair):
     assert empty, "no case had an empty split"
 
 
+# ---------------------------------------------------------------------------
+# B5's DP form and B6 on the f32 FMA mainloop (csrc/fma_f32.cuh): the
+# f32-activation pairs
+# ---------------------------------------------------------------------------
+
+#: the pairs that run fma_subblock: f32 activations x f32, int8 or packed int4 weights
+FMA_BITS = {"f32": None, "f32*int8": 8, "f32*int4": 4}
+
+
+def _fma_operands(lead, m, n, k, bits, seed):
+    """f32 activations and the pair's weight, from numpy: (a, b, quantized
+    kwargs, the dequant row the plain partials are scaled by)."""
+    r = np.random.default_rng(seed)
+    a = torch.from_numpy(r.normal(size=(*lead, m, k)).astype(np.float32))
+    w = torch.from_numpy((r.normal(size=(*lead, k, n)) / np.sqrt(k)).astype(np.float32))
+    if bits is None:
+        return a, w, {}, torch.ones(n)
+    q = quantize_weight(w, bits=bits)
+    return a, q.values, dict(scale=q.scales, b_bits=bits), q.scales
+
+
+@pytest.mark.parametrize("pair", list(FMA_BITS))
+@pytest.mark.parametrize("bm", [8, 16, 32, 64], ids=lambda bm: f"sm{bm}")
+def test_cuda_fma_mainloop_matches_plain_version(cuda_device, bm, pair):
+    """B5's DP form and B6 on the f32 FMA mainloop at sub-block rows SM = bm
+    (TN = 4 columns a lane at SM 8-32, 2 at SM = 64), against their plain
+    versions at 1e-4 x max|ref| (f32 sums over K slices in another order):
+    B5b at MMA_SHAPES with full and ragged group sizes (an empty group),
+    bn 128 and 256, bk 128 and 256, g 3 and 132, no epilogue and every stage
+    (bias -> activation -> binary; the per-expert scale for int8 and int4);
+    B6 at S8_2D_SHAPES and K = 200 (empty splits), bn 128 and 256, bk 128
+    and 256, s 1, 2, 4 and 8, g 0, 3 and 132. Both carry ragged M, N and
+    K, odd K (int4's zero pad nibble) and rows that are not 16-byte aligned
+    (the element-wise staging path). Every call runs twice with the same
+    bytes; short groups leave their rows 0, empty splits read 0, and each
+    call counts one launch of its kernel on its rung."""
+    bits = FMA_BITS[pair]
+    b_bits = bits or 8
+    assert common.sub_block_rows(bm, 64) == bm
+    assert common.mainloop("grouped_streamk_dp", torch.float32) == "fma"
+    assert common.mainloop("splitk_partials", torch.float32) == "fma"
+    empty = 0
+    for gm, m, n, k in MMA_SHAPES:
+        a, b, qkw, _ = _fma_operands((gm,), m, n, k, bits, seed=bm + n + k)
+        r = np.random.default_rng(bm + k)
+        bias = torch.from_numpy(r.normal(size=(gm, n)).astype(np.float32))
+        operand = torch.from_numpy(r.normal(size=(gm, m, n)).astype(np.float32))
+        da, db, dq = a.to(cuda_device), b.to(cuda_device), _to(qkw, cuda_device)
+        rung = common.launch_name("grouped_streamk_dp", common.rung_of(a.dtype, b.dtype, b_bits))
+        for sizes in ((m,) * gm, (0, m, 7, 33, 1)[:gm]):
+            for epi, reads in S8_EPILOGUES:
+                ekw = {key: v for key, v in (("bias", bias), ("operand", operand))
+                       if key in reads}
+                want = gemm_grouped_streamk_plain(a, b, sizes=sizes, out_dtype=torch.float32,
+                                                  epilogue=epi, **qkw, **ekw)
+                dev_e = _to(ekw, cuda_device)
+                for bn in (128, 256):
+                    for bk in (128, 256):
+                        for g in (3, 132):
+                            what = ("B5b", pair, bm, gm, m, n, k, bn, bk, sizes, epi.name, g)
+                            with common.count_launches() as log:
+                                run = [gemm_grouped_streamk(
+                                    da, db, policy=DP, cfg=TileConfig(bm, bn, bk), g=g,
+                                    out_dtype=torch.float32, epilogue=epi, group_sizes=sizes,
+                                    **dq, **dev_e) for _ in range(2)]
+                            assert log == [rung, rung], what
+                            assert torch.equal(run[0], run[1]), what
+                            _close_max(run[0], want, 1e-4, what)
+                            for i, s_ in enumerate(sizes):
+                                assert not run[0][i, s_:].any(), what
+    for m, n, k in SPLITK_MMA_SHAPES:
+        assert common.sub_block_rows(bm, m) == bm
+        a, b, qkw, scale = _fma_operands((), m, n, k, bits, seed=bm + n + k)
+        da, db = a.to(cuda_device), b.to(cuda_device)
+        rung = common.launch_name("splitk_partials", common.rung_of(a.dtype, b.dtype, b_bits))
+        for bk in (128, 256):
+            for s in (1, 2, 4, 8):
+                want = splitk_partials_plain(a, b, TileConfig(bm, 128, bk), s, b_bits=b_bits)
+                kps = -(-(-(-k // bk)) // s)
+                first_empty = -(-k // (kps * bk))
+                for bn in (128, 256):
+                    for g in (0, 3, 132):
+                        what = ("B6", pair, bm, m, n, k, bn, bk, s, g)
+                        with common.count_launches() as log:
+                            run = [splitk_partials(da, db, TileConfig(bm, bn, bk), s, g=g,
+                                                   b_bits=b_bits) for _ in range(2)]
+                        assert log == [rung, rung], what
+                        assert tuple(run[0].shape) == (s, m, n), what
+                        assert torch.equal(run[0], run[1]), what
+                        _close_max(run[0].cpu() * scale, want * scale, 1e-4, what)
+                        if first_empty < s:
+                            assert not run[0][first_empty:].any(), what
+                            empty += 1
+    assert empty, "no case had an empty split"
+
+
 def test_cuda_splitk_and_dp_baselines_launch_their_kernels(cuda_device):
     """splitk.ops.gemm is one B6 launch, dp.ops.gemm one B1 launch, each
     counted under its rung; both agree with the f32 reference."""
