@@ -63,9 +63,10 @@ Phases (any failure raises and the script exits non-zero):
      bf16-activation rungs (``B12_SIMT_MS``) and on the int8-activation ones
      (now on ``csrc/mma_s8.cuh``, beside ``B12_S8_SIMT_MS``), beside the
      library call; and B1, B2+B3 and both B5 forms on f32 activations, with
-     f32, int8 and packed int4 weights (the SIMT loop; B5's DP form the f32
-     FMA mainloop of ``csrc/fma_f32.cuh``) beside ``torch.matmul``/``torch.bmm``
-     in f32 (``F32_TABLE``, ``F32_PAIRS``);
+     f32, int8 and packed int4 weights (the f32 FMA mainloop of
+     ``csrc/fma_f32.cuh``; B5's Stream-K form the SIMT loop) beside
+     ``torch.matmul``/``torch.bmm`` in f32, B1's and B2's calls also held
+     against their plain versions (``F32_TABLE``, ``F32_PAIRS``);
    * B6, the split-K baseline, on every operand pair (f32, bf16 and the six
      quantized ones; bf16 activations run ``csrc/mma_bf16.cuh``'s
      tensor-core mainloop, int8 ones ``csrc/mma_s8.cuh``'s, f32 ones the
@@ -1038,14 +1039,18 @@ F32_PAIRS = (("f32", None), ("f32*int8", 8), ("f32*int4", 4))
 
 def f32_table(gen):
     """B1, the B2+B3 composition and both B5 forms on f32 activations, with
-    f32, int8 and packed int4 weights (the SIMT mainloop; B5's DP form on
-    the f32 FMA mainloop of ``csrc/fma_f32.cuh``) at ``F32_TABLE``'s shapes:
-    device ms beside ``torch.matmul`` or ``torch.bmm`` in f32 (TF32 off; on
-    the dequantized weight for the quantized pairs) and the bound (bytes
-    over 3.35 TB/s or operations over 67 TFLOP/s: A and C in f32, B at 4, 1
-    or 0.5 bytes a weight plus its f32 scales; B2+B3: B2's and B3's added),
-    each call first held against that library call at the f32 tolerance,
-    1e-4; returns the rows."""
+    f32, int8 and packed int4 weights (the f32 FMA mainloop of
+    ``csrc/fma_f32.cuh``; B5's Stream-K form the SIMT loop) at
+    ``F32_TABLE``'s shapes: device ms beside ``torch.matmul`` or
+    ``torch.bmm`` in f32 (TF32 off; on the dequantized weight for the
+    quantized pairs) and the bound (bytes over 3.35 TB/s or operations over
+    67 TFLOP/s: A and C in f32, B at 4, 1 or 0.5 bytes a weight plus its f32
+    scales; B2+B3: B2's and B3's added), each call first held against that
+    library call at the f32 tolerance, 1e-4, and B1's and B2's also against
+    their plain versions (``dp_gemm_region_plain``; ``streamk_phase1_plain``
+    on the contributor slots) at 1e-4; each row's plain version (B2+B3:
+    ``streamk_phase1_plain`` then ``streamk_fixup_plain``; B5:
+    ``gemm_grouped_streamk_plain``) timed beside it; returns the rows."""
     import torch
 
     from repro_torch.core.op import GemmOp
@@ -1054,16 +1059,25 @@ def f32_table(gen):
     from repro_torch.core.selector import default_selector
     from repro_torch.core.workpart import GemmShape, partition
     from repro_torch.kernels.common import mainloop
-    from repro_torch.kernels.dp.dp_gemm import dp_gemm_region
+    from repro_torch.kernels.dp.dp_gemm import dp_gemm_region, dp_gemm_region_plain
     from repro_torch.kernels.streamk import ops as sk_ops
-    from repro_torch.kernels.streamk.grouped import gemm_grouped_streamk
+    from repro_torch.kernels.streamk.grouped import (
+        gemm_grouped_streamk,
+        gemm_grouped_streamk_plain,
+    )
+    from repro_torch.kernels.streamk.streamk_gemm import (
+        streamk_fixup_plain,
+        streamk_phase1,
+        streamk_phase1_plain,
+    )
 
     policies = {p.name: p for p in ALL_POLICIES}
     rows = []
     it = iter(range(10**9))
     log("B1, B2+B3 and B5, f32 activations (device ms), bound, torch.matmul / torch.bmm in f32 "
         "(quantized pairs: on the dequantized weight):")
-    log("| kernel | pair | shape | policy / tile, g | ms | bound (by) | library | mainloop |")
+    log("| kernel | pair | shape | policy / tile, g | ms | bound (by) | plain | library | "
+        "mainloop |")
     for label, name, shape, pol, tile in F32_TABLE:
         *lead, m, n, k = shape
         if pol is None:
@@ -1096,12 +1110,39 @@ def f32_table(gen):
                 return gemm_grouped_streamk(a, b, policy=policy, cfg=cfg, g=grid,
                                             out_dtype=torch.float32, **kw)
 
+            def plain(b=bs[0], a=a, name=name, cfg=cfg, kw=kw):
+                if name == "dp_gemm_region":
+                    return dp_gemm_region_plain(a, b, cfg, torch.empty(m, n, device="cuda"), **kw)
+                if name == "streamk_phase1":  # the ALL_SK composition: B2, then B3
+                    return streamk_fixup_plain(
+                        streamk_phase1_plain(a, b, part, b_bits=kw.get("b_bits", 8)), part,
+                        torch.empty(m, n, device="cuda"), scale=kw.get("scale"))
+                return gemm_grouped_streamk_plain(a, b, sizes=(m,) * groups,
+                                                  out_dtype=torch.float32, bk=cfg.bk, **kw)
+
             err = close(kernel(bs[0]), library(a, ws[0]), 1e-4, f"{label} {pair} f32 table")
-            ms = time_ms(lambda: kernel(bs[next(it) % len(bs)]))[0]
-            lib = time_ms(lambda: library(a, ws[next(it) % len(ws)]))[0]
-            scale_bytes = 0 if bits is None else groups * n * 4
+            plain_err = None
+            if name == "dp_gemm_region":
+                plain_err = close(dp_gemm_region(a, bs[0], cfg, c=c, g=grid, **kw),
+                                  dp_gemm_region_plain(a, bs[0], cfg, torch.empty_like(c), **kw),
+                                  1e-4, f"{label} {pair} against its plain version")
             if name == "streamk_phase1":
                 part = partition(GemmShape(m, n, k), cfg, grid, policy)
+            if name == "streamk_phase1" and part.sk_tiles:
+                b_bits = kw.get("b_bits", 8)
+                partials = streamk_phase1(a, bs[0], part, b_bits=b_bits)
+                used = _used_slots(partials, part)[:, :, 0, 0]
+                plain_err = close(partials[used],
+                                  streamk_phase1_plain(a, bs[0], part, b_bits=b_bits)[used],
+                                  1e-4, f"{label} {pair} B2 against its plain version")
+            if name == "streamk_phase1" and part.dp_tiles:
+                raise AssertionError(f"{label}: the plain composition times ALL_SK alone, "
+                                     f"not {policy.name}")
+            ms = time_ms(lambda: kernel(bs[next(it) % len(bs)]))[0]
+            lib = time_ms(lambda: library(a, ws[next(it) % len(ws)]))[0]
+            plain_ms = time_ms(plain)[0]
+            scale_bytes = 0 if bits is None else groups * n * 4
+            if name == "streamk_phase1":
                 nbytes, ops, slot_bytes, elems, adds = _sk_region_bytes_ops(part, m, n, k, 4,
                                                                             b_bytes)
                 b2, b3 = bound_ms(nbytes, ops, PEAK_F32), bound_ms(
@@ -1111,10 +1152,11 @@ def f32_table(gen):
                 bnd, by = bound_ms(groups * (m * k * 4 + k * n * b_bytes + m * n * 4)
                                    + scale_bytes, 2 * groups * m * n * k, PEAK_F32)
             log(f"| {label} {name} | {pair} | {'x'.join(map(str, shape))} | {policy.name} / "
-                f"{cfg.name}, {grid} | {ms:.5f} | {bnd:.5f} ({by}) | {lib:.5f} | "
+                f"{cfg.name}, {grid} | {ms:.5f} | {bnd:.5f} ({by}) | {plain_ms:.4f} | {lib:.5f} | "
                 f"{mainloop(name, torch.float32)} |")
             rows.append(dict(kernel=label, name=name, pair=pair, shape=list(shape),
-                             policy=policy.name, tile=cfg.name, g=grid, max_abs_err=err, ms=ms,
+                             policy=policy.name, tile=cfg.name, g=grid, max_abs_err=err,
+                             plain_max_abs_err=plain_err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bnd, bound_by=by, library_ms=lib,
                              library_of=library.__name__ + ("" if bits is None
                                                             else " on the dequantized weight"),
@@ -2295,8 +2337,8 @@ def planted_fault_diff(model, params, selector, prompt, want, *, grouped, rung=N
 
 
 #: name fragments of the hand-written kernels in profiler traces
-GEMM_KERNELS = ("dp_kernel", "dp_mma_kernel", "dp_s8_kernel", "streamk_kernel", "fixup_kernel",
-                "grouped_sk_kernel", "grouped_dp_kernel")
+GEMM_KERNELS = ("dp_fma_kernel", "dp_mma_kernel", "dp_s8_kernel", "streamk_kernel",
+                "fixup_kernel", "grouped_sk_kernel", "grouped_dp_kernel")
 
 
 def decode_breakdown(step, iters=5):

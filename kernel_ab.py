@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's dense Hopper kernels of one checkout at decode shapes.
 
-    python3 kernel_ab.py <tree> [--build-only] [--out FILE]
+    python3 kernel_ab.py <tree> [--build-only | --served] [--out FILE]
     python3 kernel_ab.py --report FILE
 
 ``<tree>`` is the root of a checkout (``.`` for this one); its
@@ -28,16 +28,30 @@ of every tree gave the same output bytes. Timed: B1 at 4x14336x4096 (DP
 bf16, bf16 x int8 and bf16 x packed int4 (the rungs with bf16
 activations), f32, f32 x int8 and f32 x packed int4 (f32 activations), and
 int8 x int8 and int8 x packed int4 (the int8-dynamic and int4-dynamic
-rungs). Before it is timed, each call is held against its plain version
-(``dp_gemm_region_plain``, ``streamk_phase1_plain`` on the contributor
-slots, ``streamk_fixup_plain``, ``gemm_grouped_streamk_plain``,
-``splitk_partials_plain``): 2e-2 x max|ref| for bf16 activations, 1e-4 for
-f32 and int8 ones; a disagreement raises.
+rungs); and olmoe-1b-7b's router, the one f32 GEMM a served path runs:
+the composition at 4x64x2048, f32, under the H100 selector's pick (row
+``B2+B3 router``; held against the same composition on the CPU, where
+each kernel runs its plain version). Before it is timed, each call is held
+against its plain version (``dp_gemm_region_plain``,
+``streamk_phase1_plain`` on the contributor slots, ``streamk_fixup_plain``,
+``gemm_grouped_streamk_plain``, ``splitk_partials_plain``): 2e-2 x
+max|ref| for bf16 activations, 1e-4 for f32 and int8 ones; a disagreement
+raises.
+
+``--served`` times served decode steps instead: olmoe-1b-7b dense and on
+the int8-dynamic rung, and granite-8b dense, each at full width from seed
+0 with 4 slots, on the cuda backend and the card's default selector; after
+three warm steps, ``SERVED_REPS`` steps are each traced by
+``torch.profiler``, and each step's device ms in the GEMM kernels (names in
+``GEMM_KERNELS``) is one sample. The report gives each tree's median,
+least and most, and the ratio of the medians.
 """
 
+import gc
 import hashlib
 import json
 import math
+import statistics
 import sys
 import time
 
@@ -51,10 +65,25 @@ def report(path) -> int:
     ms = {t: {} for t in trees}
     dig = {}
     for r in runs:
-        for key, v in r["ms"].items():
+        for key, v in r.get("ms", {}).items():
             ms[r["tree"]].setdefault(key, []).append(v)
-        for key, v in r["digests"].items():
+        for key, v in r.get("digests", {}).items():
             dig.setdefault(key, set()).add(v)
+    served = {t: {} for t in trees}
+    for r in runs:
+        for key, v in r.get("served", {}).items():
+            served[r["tree"]].setdefault(key, []).extend(v)
+    if any(served.values()):
+        print("| served GEMM ms a decode step | " + " | ".join(
+            f"{t}: median (least-most, n)" for t in trees) + " | ratio of medians |")
+        for key in served[trees[0]]:
+            meds = [statistics.median(served[t][key]) for t in trees if served[t].get(key)]
+            cells = [f"{statistics.median(v):.4f} ({min(v):.4f}-{max(v):.4f}, {len(v)})"
+                     for v in (served[t].get(key, []) for t in trees) if v]
+            ratio = f"{meds[-1] / meds[0]:.4f}" if len(meds) == len(trees) else "-"
+            print(f"| {key} | " + " | ".join(cells) + f" | {ratio} |")
+    if not any(ms.values()):
+        return 0
     print("| kernel, shape, pair | " + " | ".join(trees) + " | ratio | same bytes |")
     for key in ms[trees[0]]:
         cells = [" / ".join(f"{v:.5f}" for v in ms[t].get(key, [])) for t in trees]
@@ -72,8 +101,10 @@ sys.path.insert(0, f"{tree}/src")
 
 import torch  # noqa: E402
 
+from repro_torch.core.op import GemmOp  # noqa: E402
 from repro_torch.core.policies import ALL_SK, DP, TileConfig  # noqa: E402
 from repro_torch.core.quant import quantize_activations, quantize_weight  # noqa: E402
+from repro_torch.core.selector import default_selector  # noqa: E402
 from repro_torch.core.workpart import GemmShape, partition  # noqa: E402
 from repro_torch.kernels import cuda_lib  # noqa: E402
 from repro_torch.kernels.dp.dp_gemm import dp_gemm_region, dp_gemm_region_plain  # noqa: E402
@@ -152,6 +183,51 @@ def digest(t):
     return hashlib.sha256(raw).hexdigest()[:16]
 
 
+#: the kernels a served step's GEMMs launch, by the names a trace gives them
+GEMM_KERNELS = ("dp_kernel", "dp_fma_kernel", "dp_mma_kernel", "dp_s8_kernel",
+                "streamk_kernel", "fixup_kernel", "grouped_sk_kernel", "grouped_dp_kernel")
+SERVED = (("olmoe-1b-7b", None), ("olmoe-1b-7b", "int8-dynamic"), ("granite-8b", None))
+SERVED_REPS = 9
+
+
+def served():
+    """GEMM device ms of traced warm decode steps, per config of ``SERVED``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.gemm import gemm_context
+    from repro_torch.models.lm import LM
+
+    out = {}
+    for arch, rung in SERVED:
+        model = LM(get_config(arch))
+        params = model.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
+        if rung == "int8-dynamic":
+            params = model.quantize_weights(params, bits=8, act_bits=8)[0]
+        cache = model.init_cache(4, 256, device="cuda")
+        toks = torch.ones(4, 1, dtype=torch.long, device="cuda")
+        cur = torch.zeros(4, dtype=torch.long, device="cuda")
+        samples = []
+        with gemm_context(selector=default_selector("cuda"), backend="cuda"):
+            for _ in range(3):
+                model.decode_step(params, cache, toks, cur)
+            torch.cuda.synchronize()
+            for _ in range(SERVED_REPS):
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    model.decode_step(params, cache, toks, cur)
+                    torch.cuda.synchronize()
+                samples.append(sum(e.time_range.elapsed_us() for e in prof.events()
+                                   if e.device_type == DeviceType.CUDA
+                                   and any(g in e.name for g in GEMM_KERNELS)) / 1e3)
+        out[f"{arch} {rung or 'dense'}"] = samples
+        print(tree, arch, rung or "dense", samples, flush=True)
+        del model, params, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -160,6 +236,12 @@ def main() -> int:
     cuda_lib.library()
     print(tree, "build", round(time.perf_counter() - t0, 1), flush=True)
     if "--build-only" in sys.argv:
+        return 0
+    if "--served" in sys.argv:
+        rec = dict(tree=tree, served=served())
+        if "--out" in sys.argv:
+            with open(sys.argv[sys.argv.index("--out") + 1], "a") as f:
+                f.write(json.dumps(rec) + "\n")
         return 0
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -225,6 +307,18 @@ def main() -> int:
             a, bs[next(turn) % len(bs)], policy=ALL_SK, cfg=cfg2, g=132, out_dtype=out_dt,
             **kw))
         del bs, partials, want
+    pick = default_selector("cuda").select_op(
+        GemmOp.plain(4, 64, 2048, in_dtype="float32", out_dtype="float32"))
+    a, b = randn(4, 2048).float(), randn(2048, 64).float()
+    router = dict(policy=pick.policy, cfg=pick.cfg, g=pick.g, out_dtype=torch.float32)
+    got = sk_ops.gemm(a, b, **router)
+    check(got, sk_ops.gemm(a.cpu(), b.cpu(), **router).cuda(), 1e-4, "B2+B3 router")
+    name = key("B2+B3 router", "4x64x2048", "f32", a.dtype, "streamk_phase1")
+    print(tree, "router pick", pick.policy.name, pick.cfg.name, pick.g, flush=True)
+    digests[name] = digest(got)
+    bs = copies(b)
+    out[name] = time_ms(lambda: sk_ops.gemm(a, bs[next(turn) % len(bs)], **router))
+    del bs
     for m, pol, cfg in ((4, DP, TileConfig(8, 256, 128)), (16, ALL_SK, TileConfig(16, 128, 128))):
         ga, gb = randn(64, m, 2048), randn(64, 2048, 1024)  # 268 MB of weights: past the L2
         for pair, a, b, kw, tol in rungs(ga, gb):

@@ -1,8 +1,10 @@
-// The f32 FMA mainloop of B5's DP form and B6 for f32 activations (NVIDIA
-// Hopper, sm_90a): grouped.cuh's grouped_dp_kernel and splitk.cuh's
-// splitk_fma_kernel take fma_subblock in place of sk_common.cuh's SIMT
-// mac_subblock when A is f32, whatever B is: f32 (the dense pair), int8 or
-// packed int4 (the f32 x int8 and f32 x int4 pairs of the ladder). No TF32:
+// The f32 FMA mainloop of B1, B2, B5's DP form and B6 for f32 activations
+// (NVIDIA Hopper, sm_90a): stream_k.cuh's dp_fma_kernel and streamk_kernel,
+// grouped.cuh's grouped_dp_kernel and splitk.cuh's splitk_fma_kernel take
+// fma_subblock in place of sk_common.cuh's SIMT mac_subblock when A is f32,
+// whatever B is: f32 (the dense pair), int8 or packed int4 (the f32 x int8
+// and f32 x int4 pairs of the ladder); B5's Stream-K form alone keeps the
+// SIMT loop. No TF32:
 // every product is one f32 FMA of the f32 activation and the exact f32 value
 // of the weight, as repro's mixed_dot forms it (1e-4, docs/kernels.md).
 //
@@ -31,7 +33,11 @@
 //     shuffles that also spreads the rows: lane s ends with rows s, s + KS,
 //     ... (fma_row). The order is fixed, so the sums are bit-identical from
 //     run to run; it is not the SIMT loop's order (1e-4 against the plain
-//     version).
+//     version). Dense f32 B2 (olmoe's router) takes the k-ordered map
+//     instead (ORDERED, ord_chunk): a thread owns one column and every
+//     other row and sums each over k in order, one FMA per k, the SIMT
+//     loop's order and bits; its weights, read by two threads, need no
+//     widening.
 //   * A sub-block whose rows lie at most half inside C (M = 4 in SM = 8,
 //     the decode shape) multiplies only that half: the other rows are
 //     zeros, and their FMAs were half the loop's work there.
@@ -62,7 +68,10 @@
 // FMAs, widening and barrier, not its bytes, set the pace.
 //
 // After the reduction, thread (warp, lane) holds acc[r][j] at sub-block row
-// fma_row(r) and column fma_col(j); store_subblock_fma flushes it.
+// fma_row(r) and column fma_col(j); store_subblock_fma flushes it through
+// the epilogue (B1, B5's DP form, B6), park_subblock_fma parks it in an f32
+// partial slot (B2's segments on int8 and int4 weights; park_subblock_ordered
+// parks the k-ordered map's).
 
 #pragma once
 
@@ -256,6 +265,44 @@ __device__ __forceinline__ void fma_chunk(const float* a_s, const unsigned char*
   }
 }
 
+// The k-ordered map of dense f32 B2 (fma_subblock<float, false, SM, true>):
+// thread (warp w, lane l) owns column ord_col = 32 (w % 4) + l and rows
+// ord_row(r) = 2 r + w / 4, r < SM / 2, and sums each over k in ascending
+// order, one FMA per k: the order of the SIMT loop this replaced, so the
+// partials keep that loop's bits. A warp's B reads are 32 adjacent words of
+// a staged row and its A reads one broadcast row quad, so neither conflicts.
+__device__ __forceinline__ int ord_col() {
+  return ((threadIdx.x >> 5) & 3) * 32 + (threadIdx.x & 31);
+}
+__device__ __forceinline__ int ord_row(int r) { return 2 * r + (threadIdx.x >> 7); }
+
+// One staged f32 chunk into this thread's k-ordered sums; rows at or past
+// ROWS are all past M (zeros): their sums stay 0.
+template <int SM, int ROWS>
+__device__ __forceinline__ void ord_chunk(const float* a_s, const unsigned char* b_s,
+                                          float (&acc)[SM / 2]) {
+  constexpr int KC = mma_kc<float, false>();
+  const int c = ord_col();
+  const int h = threadIdx.x >> 7;
+  // unrolled: rolled, it read 13 % slower on the H100 and spilled still
+#pragma unroll
+  for (int kq0 = 0; kq0 < KC; kq0 += 4) {
+    const float* bp = reinterpret_cast<const float*>(
+        b_s + kq0 * kSN * 4 + fma_seg<float>(c >> 2, kq0 >> 2) * 16) + (c & 3);
+    float bv[4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) bv[kk] = bp[kk * kSN];
+#pragma unroll
+    for (int r = 0; r < ROWS / 2; ++r) {
+      const float4 av = *reinterpret_cast<const float4*>(a_s + (2 * r + h) * KC + kq0);
+      acc[r] = fmaf(av.x, bv[0], acc[r]);
+      acc[r] = fmaf(av.y, bv[1], acc[r]);
+      acc[r] = fmaf(av.z, bv[2], acc[r]);
+      acc[r] = fmaf(av.w, bv[3], acc[r]);
+    }
+  }
+}
+
 // Sum the KS slices of each column and spread the rows: at level L the
 // lanes that differ in bit L of the slice swap halves, each keeping the rows
 // whose bit L matches its own (in place, the kept rows packed to the front).
@@ -280,21 +327,28 @@ __device__ __forceinline__ void fma_reduce(float (&acc)[SM][fma_tn<SM>()]) {
 
 // acc = the sums over [kbeg, kend) of the SM x 128 sub-block at (row0, col0)
 // of A (f32) @ B (f32, int8, or packed int4 when P4), reduced over the K
-// slices: thread's acc[r][j] is row fma_row(r), column fma_col(j). S - 1
-// chunks are in flight while the block multiplies the oldest.
-template <typename TB, bool P4, int SM>
+// slices: thread's acc[r][j] is row fma_row(r), column fma_col(j). With
+// ORDERED (dense f32 only), acc is float[SM / 2] in the k-ordered map:
+// acc[r] is row ord_row(r), column ord_col(). S - 1 chunks are in flight
+// while the block multiplies the oldest.
+template <typename TB, bool P4, int SM, bool ORDERED = false, typename Acc>
 __device__ __forceinline__ void fma_subblock(const float* __restrict__ a,
                                              const TB* __restrict__ b, int m, int n, int k,
                                              int row0, int col0, int kbeg, int kend, bool aligned,
-                                             float (&acc)[SM][fma_tn<SM>()],
-                                             unsigned char* smem) {
+                                             Acc& acc, unsigned char* smem) {
+  static_assert(!ORDERED || std::is_same<TB, float>::value, "the k-ordered map is dense f32's");
   constexpr int KC = mma_kc<TB, P4>();
   constexpr int S = fma_stages<TB, P4, SM>();
   constexpr int A_SLOT = fma_a_slot_bytes<TB, P4, SM>();
+  if constexpr (ORDERED) {
 #pragma unroll
-  for (int i = 0; i < SM; ++i)
+    for (int i = 0; i < SM / 2; ++i) acc[i] = 0.f;
+  } else {
 #pragma unroll
-    for (int j = 0; j < fma_tn<SM>(); ++j) acc[i][j] = 0.f;
+    for (int i = 0; i < SM; ++i)
+#pragma unroll
+      for (int j = 0; j < fma_tn<SM>(); ++j) acc[i][j] = 0.f;
+  }
   if (row0 >= m || col0 >= n) return;  // uniform across the block
 
   unsigned char* ring_b = smem + S * A_SLOT;
@@ -323,14 +377,21 @@ __device__ __forceinline__ void fma_subblock(const float* __restrict__ a,
     cp_async_commit();
     const int slot = c % S;
     const float* a_s = reinterpret_cast<const float*>(smem + slot * A_SLOT);
-    if (half)
-      fma_chunk<TB, P4, SM, SM / 2>(a_s, ring_b + slot * kMChunkBytes, acc);
-    else
-      fma_chunk<TB, P4, SM, SM>(a_s, ring_b + slot * kMChunkBytes, acc);
+    if constexpr (ORDERED) {
+      if (half)
+        ord_chunk<SM, SM / 2>(a_s, ring_b + slot * kMChunkBytes, acc);
+      else
+        ord_chunk<SM, SM>(a_s, ring_b + slot * kMChunkBytes, acc);
+    } else {
+      if (half)
+        fma_chunk<TB, P4, SM, SM / 2>(a_s, ring_b + slot * kMChunkBytes, acc);
+      else
+        fma_chunk<TB, P4, SM, SM>(a_s, ring_b + slot * kMChunkBytes, acc);
+    }
   }
   cp_async_wait<0>();
   __syncthreads();  // the next sub-block refills the ring
-  fma_reduce<SM>(acc);
+  if constexpr (!ORDERED) fma_reduce<SM>(acc);
 }
 
 // Flush one reduced sub-block through the epilogue into the row-major C (n
@@ -350,6 +411,33 @@ __device__ __forceinline__ void store_subblock_fma(TOut* __restrict__ c, const E
         c[row * n + col] = from_f32<TOut>(apply_epilogue<TOut>(acc[r][j], epi, row, col, n));
     }
   }
+}
+
+// Park one reduced sub-block in an f32 partial slot: all SM rows and 128
+// columns of it, zeros outside C included (`dst` is the sub-block's corner
+// in the row-major slot, `bn` columns a row), one TN-wide vector store per
+// row a thread holds.
+template <int SM>
+__device__ __forceinline__ void park_subblock_fma(const float (&acc)[SM][fma_tn<SM>()],
+                                                  float* dst, int bn) {
+#pragma unroll
+  for (int r = 0; r < fma_rows<SM>(); ++r) {
+    float* p = dst + (int64_t)fma_row<SM>(r) * bn + fma_col<SM>(0);
+    if constexpr (fma_tn<SM>() == 4)
+      *reinterpret_cast<float4*>(p) = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    else
+      *reinterpret_cast<float2*>(p) = make_float2(acc[r][0], acc[r][1]);
+  }
+}
+
+// Park a k-ordered sub-block (ORDERED fma_subblock) the same way: all SM
+// rows and 128 columns, zeros outside C included; a warp stores 32 adjacent
+// words of a row.
+template <int SM>
+__device__ __forceinline__ void park_subblock_ordered(const float (&acc)[SM / 2], float* dst,
+                                                      int bn) {
+#pragma unroll
+  for (int r = 0; r < SM / 2; ++r) dst[(int64_t)ord_row(r) * bn + ord_col()] = acc[r];
 }
 
 }  // namespace

@@ -224,16 +224,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Dynamic shared memory of a DP-form block: the f32 FMA ring for f32
-// activations, else the ring of the loop the Stream-K form runs too.
-template <typename TA, typename TB, bool P4, int SM>
-constexpr int grouped_dp_smem_bytes() {
-  if constexpr (std::is_same<TA, float>::value)
-    return fma_smem_bytes<TB, P4, SM>();
-  else
-    return mainloop_smem_bytes<TA, TB, P4, SM>();
-}
-
 template <typename TA, typename TB, bool P4, typename TOut>
 int launch_grouped(int sm, bool sk_form, const void* a, const void* b, void* c, const int* tab,
                    float* ws, int* counters, int m, int n, int k, int bm, int bn, int bk, int nt,
@@ -243,13 +233,16 @@ int launch_grouped(int sm, bool sk_form, const void* a, const void* b, void* c, 
   const TB* bp = static_cast<const TB*>(b);
   TOut* cp = static_cast<TOut*>(c);
   const int total = n_tiles * ipt;
+  // the Stream-K form's f32 rungs run the SIMT loop (smem_bytes sizes its ring)
+  constexpr bool simt = std::is_same<TA, float>::value;
 #define SK_GROUPED(S)                                                                        \
   if (sk_form)                                                                               \
     return launch<grouped_sk_kernel<TA, TB, P4, TOut, S>>(                                   \
-        mainloop_smem_bytes<TA, TB, P4, S>(), grid, stream, ap, bp, cp, tab, ws, counters,   \
-        m, n, k, bm, bn, bk, nt, ipt, ipw, total, aligned, epi);                             \
+        simt ? smem_bytes<TA, TB, P4, S>() : mainloop_smem_bytes<TA, TB, P4, S>(), grid,     \
+        stream, ap, bp, cp, tab, ws, counters, m, n, k, bm, bn, bk, nt, ipt, ipw, total,     \
+        aligned, epi);                                                                       \
   return launch<grouped_dp_kernel<TA, TB, P4, TOut, S>>(                                     \
-      grouped_dp_smem_bytes<TA, TB, P4, S>(), grid, stream, ap, bp, cp, tab, m, n, k, bm, bn, \
+      mainloop_smem_bytes<TA, TB, P4, S>(), grid, stream, ap, bp, cp, tab, m, n, k, bm, bn,  \
       bk, nt, n_tiles, aligned, epi)
   switch (sm) {
     case 8: SK_GROUPED(8);

@@ -4,7 +4,7 @@
 // (uses_mma), whatever B is: bf16 (the dense rung), int8 or packed int4 (the
 // int8 and int4 rungs). int8 activations run the s8 loop of mma_s8.cuh,
 // which reuses the helpers here; f32 activations run the f32 FMA loop of
-// fma_f32.cuh (B5's DP form, B6) or the SIMT loop (B1, B2, B5's Stream-K
+// fma_f32.cuh (B1, B2, B5's DP form, B6) or the SIMT loop (B5's Stream-K
 // form). The helpers at the end flush the fragments through the epilogue
 // (B1, B5; B6's partials with an empty one) or park them in an f32 partial
 // slot (B2, B5's split tiles); mma_s8.cuh sizes the launch of either loop.

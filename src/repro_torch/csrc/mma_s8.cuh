@@ -2,10 +2,9 @@
 // (NVIDIA Hopper, sm_90a): stream_k.cuh, grouped.cuh and splitk.cuh take
 // mma_s8_subblock in place of sk_common.cuh's SIMT mac_subblock when A is
 // int8, whether B is int8 (the int8-dynamic rung) or packed int4 (int8 x
-// int4, int4-dynamic). bf16 activations run mma_bf16.cuh. mainloop_smem_bytes,
-// at the end, sizes the launch of whichever loop a kernel runs, but for the
-// f32 FMA loop of fma_f32.cuh (B5's DP form and B6 on f32 activations),
-// which fma_smem_bytes sizes.
+// int4, int4-dynamic). bf16 activations run mma_bf16.cuh, f32 ones
+// fma_f32.cuh. mainloop_smem_bytes, at the end, sizes the launch of
+// whichever of the three loops a kernel runs.
 //
 // Contract (that of mac_subblock, on int8 activations): the f32 sums over
 // [kbeg, kend) of one SM x 128 sub-block of A @ B, with ragged M, N and K
@@ -53,7 +52,7 @@
 
 #pragma once
 
-#include "mma_bf16.cuh"
+#include "fma_f32.cuh"
 
 namespace {
 
@@ -322,8 +321,8 @@ __device__ __forceinline__ void mma_s8_subblock(const int8_t* __restrict__ a,
 
 // Dynamic shared memory of one block of B1, B2, B5 or B6: the bf16
 // tensor-core ring for bf16 activations, the s8 one for int8 activations,
-// the SIMT ring for f32 (B1, B2 and B5's Stream-K form; B5's DP form and B6
-// size the f32 FMA ring with fma_smem_bytes).
+// the f32 FMA ring for f32 (B5's Stream-K form, whose f32 rungs still run
+// the SIMT loop, sizes that loop's ring with smem_bytes).
 template <typename TA, typename TB, bool P4, int SM>
 constexpr int mainloop_smem_bytes() {
   if constexpr (uses_mma<TA>())
@@ -331,7 +330,7 @@ constexpr int mainloop_smem_bytes() {
   else if constexpr (std::is_same<TA, int8_t>::value)
     return mma_s8_smem_bytes<P4, SM>();
   else
-    return smem_bytes<TA, TB, P4, SM>();
+    return fma_smem_bytes<TB, P4, SM>();
 }
 
 }  // namespace

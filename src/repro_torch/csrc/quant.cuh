@@ -21,10 +21,10 @@
 // at olmoe's decode shape (DP form, 64x4x1024x2048) 0.066 and 0.054 ms
 // against byte bounds of 0.040 and 0.020 ms and the SIMT loop's 0.270 and
 // 0.291 ms (H100 80GB HBM3 at 700 W, kernel_ab.py); B1's and B2's times are
-// in PERF.md. B6 runs B1's loop on the bf16- and int8-activation pairs; on
-// f32_i8 and f32_i4 B6 and B5's DP form run the f32 FMA mainloop of
-// fma_f32.cuh, B1, B2 and B5's Stream-K form the SIMT loop (splitk.cuh,
-// grouped.cuh).
+// in PERF.md. B6 runs B1's loop on every pair; on f32_i8 and f32_i4 B1, B2,
+// B5's DP form and B6 run the f32 FMA mainloop of fma_f32.cuh, B5's
+// Stream-K form the SIMT loop of sk_common.cuh (stream_k.cuh, grouped.cuh,
+// splitk.cuh).
 
 #pragma once
 

@@ -1,9 +1,9 @@
 // Device code shared by the Stream-K++ kernels for NVIDIA Hopper (sm_90a):
 // stream_k.cuh (B1-B3), grouped.cuh (B5) and splitk.cuh (B6) include it.
-// Its SIMT mainloop, mac_subblock, serves the f32-activation rungs of B1,
-// B2 and B5's Stream-K form; the other rungs and kernels run the loops of
-// mma_bf16.cuh (bf16 activations), mma_s8.cuh (int8) and fma_f32.cuh (f32,
-// B5's DP form and B6), which keep its contract.
+// Its SIMT mainloop, mac_subblock, serves the f32-activation rungs of B5's
+// Stream-K form alone; the other rungs and kernels run the loops of
+// mma_bf16.cuh (bf16 activations), mma_s8.cuh (int8) and fma_f32.cuh (f32:
+// B1, B2, B5's DP form and B6), which keep its contract.
 //
 // A logical bm x bn tile (any TileConfig: bm a multiple of 8, bn of 128) is
 // walked in SM x 128 sub-blocks (SM in {8, 16, 32, 64} divides bm, chosen by

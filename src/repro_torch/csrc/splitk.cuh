@@ -38,8 +38,8 @@
 //     once per block (splitk_fma_kernel).
 //
 // Each is a kernel of its own, not a compile-time branch inside one, for
-// the reason B1's are (stream_k.cuh): such a branch moved the SASS of
-// dp_kernel's SIMT instantiations.
+// the reason B1's are (stream_k.cuh): such a branch once moved the SASS of
+// the instantiations it did not take.
 //
 // What bounds it on the H100: at the decode shapes (M = 4 against a 4096 x
 // 14336 weight) it reads B once and writes s * M * N f32 partials, both far
@@ -174,8 +174,8 @@ int splitk_entry(int sm, const void* a, const void* b, void* partials, int m, in
                                            ap, bp, p, m, n, k, bm, bn, bk, n_tiles_n, n_total, \
                                            kps, al);                                           \
   else                                                                                         \
-    return launch<splitk_fma_kernel<TB, P4, S>>(fma_smem_bytes<TB, P4, S>(), blocks, st, ap,   \
-                                                bp, p, m, n, k, bm, bn, bk, n_tiles_n,         \
+    return launch<splitk_fma_kernel<TB, P4, S>>(mainloop_smem_bytes<TA, TB, P4, S>(), blocks,  \
+                                                st, ap, bp, p, m, n, k, bm, bn, bk, n_tiles_n, \
                                                 n_total, kps, al)
   switch (sm) {
     case 8: SK_SPLITK(8);

@@ -3,10 +3,11 @@
 // Three kernels compose one GEMM under a Stream-K++ policy, exactly as the
 // JAX package's Pallas kernels do on the TPU:
 //
-//   B1  dp_kernel       <- src/repro/kernels/dp/dp_gemm.py:_dp_kernel
+//   B1  dp_fma_kernel   <- src/repro/kernels/dp/dp_gemm.py:_dp_kernel
 //       g persistent blocks stride over the output tiles
 //       [tile_offset, m_tiles * n_tiles) and write epilogue(A @ B) into C
-//       (dp_mma_kernel for bf16 activations, dp_s8_kernel for int8 ones).
+//       (dp_fma_kernel for f32 activations, dp_mma_kernel for bf16 ones,
+//       dp_s8_kernel for int8 ones).
 //   B2  streamk_kernel  <- src/repro/kernels/streamk/streamk_gemm.py:_streamk_kernel
 //       block x owns the flattened MAC-iteration range
 //       [x * ipw, min((x + 1) * ipw, total)) and writes each tile segment's
@@ -17,11 +18,11 @@
 //       order (deterministic, bit-identical run to run), applies the
 //       epilogue and writes the tile straight into C at (tm, tn).
 //
-// The kernels are templates in stream_k.cuh; the sub-block MAC, its
-// cp.async ring, the epilogue and the launch helper live in sk_common.cuh,
-// which grouped.cuh (B5) shares. This file instantiates B1 and B2 for the
-// dense inputs (f32 x f32, bf16 x bf16) and B3, which only reads f32
-// partials; the quantization ladder's
+// The kernels are templates in stream_k.cuh; the sub-block mainloops live
+// in mma_bf16.cuh, mma_s8.cuh and fma_f32.cuh, the epilogue and the launch
+// helper in sk_common.cuh, all shared with grouped.cuh (B5) and splitk.cuh.
+// This file instantiates B1 and B2 for the dense inputs (f32 x f32, bf16 x
+// bf16) and B3, which only reads f32 partials; the quantization ladder's
 // pairs are instantiated in quant_*.cu (see quant.cuh) and reached from the
 // entries below. B2's partials stay f32 and unscaled whatever the inputs:
 // the dequant scales apply once, in B3's fix-up and in B1's flush, as on
@@ -56,12 +57,14 @@
 // int8-dynamic rung, and int8 x packed int4) they run the s8 tensor-core
 // mainloop of mma_s8.cuh, as B5 does: mma.sync.m16n8k32 on the int8 codes,
 // each bk step's exact int32 sum entering the f32 sum where the SIMT loop's
-// did, so the outputs keep that loop's bits (PERF.md has the times). f32
-// activations keep the SIMT FMA loop (exact f32 products, no TF32); B3
-// multiplies nothing. B6 runs the mainloop B1 runs on bf16 and int8
-// activations, and on f32 ones the f32 FMA mainloop of fma_f32.cuh, which
-// reads and widens each weight once per block (splitk.cuh). (Device
-// times on an H100 80GB HBM3 at 700 W, kernel_ab.py, g = 132.)
+// did, so the outputs keep that loop's bits (PERF.md has the times). With
+// f32 activations (the dense f32 pair, f32 x int8 and f32 x int4) they run
+// the f32 FMA mainloop of fma_f32.cuh: exact f32 products (no TF32), each
+// weight read from shared memory and widened once per block, and B2 parks
+// the reduced sums with park_subblock_fma (PERF.md has the times). B3
+// multiplies nothing. B6 runs the mainloop B1 runs on the same
+// activations (splitk.cuh). (Device times on an H100 80GB HBM3 at 700 W,
+// kernel_ab.py, g = 132.)
 //
 // Each extern "C" entry launches on the caller's stream and returns
 // cudaGetLastError(), which the Python wrapper checks.

@@ -4,15 +4,14 @@
 // sources compile in parallel. With bf16 activations (the dense bf16, int8
 // and int4 rungs) each sub-block of B1 and B2 runs the tensor-core mainloop
 // of mma_bf16.cuh, with int8 activations (int8 or packed int4 weights) the
-// s8 tensor-core mainloop of mma_s8.cuh; f32 activations run sk_common.cuh's
-// SIMT loop. B3 multiplies nothing: it reads B2's f32 partials whatever the
-// inputs.
+// s8 tensor-core mainloop of mma_s8.cuh, with f32 activations (f32, int8 or
+// packed int4 weights) the f32 FMA mainloop of fma_f32.cuh. B3 multiplies
+// nothing: it reads B2's f32 partials whatever the inputs.
 
 #pragma once
 
-#include "mma_bf16.cuh"
+#include "fma_f32.cuh"
 #include "mma_s8.cuh"
-#include "sk_common.cuh"
 
 namespace {
 
@@ -20,17 +19,19 @@ namespace {
 // B1: data-parallel region
 // ---------------------------------------------------------------------------
 
-template <typename TA, typename TB, bool P4, typename TOut, int SM>
+// B1 on the f32 FMA mainloop, for f32 activations (f32, int8 or packed
+// int4 weights): g blocks stride over the output tiles [tile_offset,
+// n_total); each SM x 128 sub-block of a tile is multiplied by fma_subblock
+// over all of K and flushed through the epilogue, masked at M and N. B1's
+// three mainloops are kernels of their own and not compile-time branches
+// inside one: such a branch once moved the SASS of the instantiations it
+// did not take (int8 x int8 at SM = 8 ran 2.5 % slower on the H100).
+template <typename TB, bool P4, typename TOut, int SM>
 __global__ void __launch_bounds__(kThreads)
-    dp_kernel(const TA* __restrict__ a, const TB* __restrict__ b, TOut* __restrict__ c, int m,
-              int n, int k, int bm, int bn, int bk, int n_tiles_n, int tile_offset, int n_total,
-              bool aligned, Epilogue epi) {
+    dp_fma_kernel(const float* __restrict__ a, const TB* __restrict__ b, TOut* __restrict__ c,
+                  int m, int n, int k, int bm, int bn, int n_tiles_n, int tile_offset,
+                  int n_total, bool aligned, Epilogue epi) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  TA* smem = reinterpret_cast<TA*>(smem_raw);
-  constexpr int TM = SM / 8;
-  const int tn = threadIdx.x & 31;
-  const int tm = threadIdx.x >> 5;
-  float acc[TM][4];
   for (int t = tile_offset + blockIdx.x; t < n_total; t += gridDim.x) {
     const int tile_m = t / n_tiles_n;
     const int tile_n = t % n_tiles_n;
@@ -40,29 +41,17 @@ __global__ void __launch_bounds__(kThreads)
       for (int sn0 = 0; sn0 < bn; sn0 += kSN) {
         const int col0 = tile_n * bn + sn0;
         if (col0 >= n) break;
-        mac_subblock<TA, TB, P4, SM>(a, b, m, n, k, row0, col0, 0, k, aligned, acc, smem);
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const int64_t row = row0 + tm * TM + i;
-          if (row >= m) continue;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int col = col0 + tn * 4 + j;
-            if (col < n)
-              c[row * n + col] = from_f32<TOut>(apply_epilogue<TOut>(acc[i][j], epi, row, col, n));
-          }
-        }
+        float acc[SM][fma_tn<SM>()];
+        fma_subblock<TB, P4, SM>(a, b, m, n, k, row0, col0, 0, k, aligned, acc, smem_raw);
+        store_subblock_fma<SM>(c, epi, acc, m, row0, col0, n);
       }
     }
   }
 }
 
-// B1 on the tensor-core mainloop, for bf16 activations: dp_kernel's walk
-// over the tiles, each sub-block multiplied by mma_subblock and flushed from
-// its fragments. A kernel of its own and not a compile-time branch inside
-// dp_kernel: such a branch changed the SASS of dp_kernel's SIMT
-// instantiations (int8 x int8 at SM = 8 ran 2.5 % slower on the H100),
-// which keep the code they had.
+// B1 on the tensor-core mainloop, for bf16 activations: dp_fma_kernel's
+// walk over the tiles, each sub-block multiplied by mma_subblock and flushed
+// from its fragments.
 template <typename TB, bool P4, typename TOut, int SM>
 __global__ void __launch_bounds__(kThreads)
     dp_mma_kernel(const __nv_bfloat16* __restrict__ a, const TB* __restrict__ b,
@@ -89,9 +78,9 @@ __global__ void __launch_bounds__(kThreads)
 // B1 on the s8 tensor-core mainloop, for int8 activations (int8 or packed
 // int4 weights): dp_mma_kernel's walk, each sub-block multiplied by
 // mma_s8_subblock, which adds each bk step's exact int32 sum into the f32
-// accumulator where dp_kernel's SIMT loop did (so C is that loop's, bit for
-// bit), and flushed from its fragments. A kernel of its own for the reason
-// dp_mma_kernel is one.
+// accumulator at every bk step in order, as kstep_dot does (so C with the
+// dequant scales alone is the plain version's, bit for bit), and flushed
+// from its fragments.
 template <bool P4, typename TOut, int SM>
 __global__ void __launch_bounds__(kThreads)
     dp_s8_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
@@ -119,21 +108,25 @@ __global__ void __launch_bounds__(kThreads)
 // B2: the Stream-K sweep
 // ---------------------------------------------------------------------------
 
+// Each SM x 128 sub-block of a segment runs the mainloop of its activations
+// over the segment's [kbeg, kend), kbeg a multiple of bk: mma_subblock
+// (bf16), mma_s8_subblock (int8) or fma_subblock (f32), and parks its sums
+// in the segment's slot, all SM rows and 128 columns (zeros outside C).
+// Dense f32 runs fma_subblock's k-ordered map: olmoe's router is this pair,
+// and its served routing is its logits' top-8, where near-tied experts flip
+// on any change of rounding and each flip moves the logits on; summed in
+// the SIMT loop's order, the router keeps that loop's bits (which on the
+// H100 were torch.matmul's at the router's shapes).
 template <typename TA, typename TB, bool P4, int SM>
 __global__ void __launch_bounds__(kThreads)
     streamk_kernel(const TA* __restrict__ a, const TB* __restrict__ b,
                    float* __restrict__ partials, int m, int n, int k, int bm, int bn, int bk,
                    int n_tiles_n, int ipt, int ipw, int total, int mc, bool aligned) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  TA* smem = reinterpret_cast<TA*>(smem_raw);
-  constexpr int TM = SM / 8;
-  const int tn = threadIdx.x & 31;
-  const int tm = threadIdx.x >> 5;
   const int x = blockIdx.x;
   const int64_t start = (int64_t)x * ipw;
   if (start >= total) return;
   const int end = (int)min((int64_t)total, start + ipw);
-  float acc[TM][4];  // the SIMT loop's; the mma loops keep their fragments in frag
   int it = (int)start;
   while (it < end) {
     const int tile = it / ipt;
@@ -159,15 +152,16 @@ __global__ void __launch_bounds__(kThreads)
           mma_s8_subblock<P4, SM>(a, b, m, n, k, row0, col0, kbeg, kend, bk, aligned, frag,
                                   smem_raw);
           park_subblock_mma<SM>(frag, out + (int64_t)sm0 * bn + sn0, bn);
+        } else if constexpr (std::is_same<TB, float>::value) {
+          float acc[SM / 2];
+          fma_subblock<TB, P4, SM, true>(a, b, m, n, k, row0, col0, kbeg, kend, aligned, acc,
+                                         smem_raw);
+          park_subblock_ordered<SM>(acc, out + (int64_t)sm0 * bn + sn0, bn);
         } else {
-          mac_subblock<TA, TB, P4, SM>(a, b, m, n, k, row0, col0, kbeg, kend, aligned, acc,
-                                       smem);
-#pragma unroll
-          for (int i = 0; i < TM; ++i) {
-            float* dst = out + (int64_t)(sm0 + tm * TM + i) * bn + sn0 + tn * 4;
-            *reinterpret_cast<float4*>(dst) =
-                make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-          }
+          float acc[SM][fma_tn<SM>()];
+          fma_subblock<TB, P4, SM>(a, b, m, n, k, row0, col0, kbeg, kend, aligned, acc,
+                                   smem_raw);
+          park_subblock_fma<SM>(acc, out + (int64_t)sm0 * bn + sn0, bn);
         }
       }
     }
@@ -210,7 +204,7 @@ int launch_dp(int sm, const void* a, const void* b, void* c, int m, int n, int k
   const TA* ap = static_cast<const TA*>(a);
   const TB* bp = static_cast<const TB*>(b);
   TOut* cp = static_cast<TOut*>(c);
-#define SK_DP(S)                                                                            \
+#define SK_DP(S)                                                                                 \
   if constexpr (uses_mma<TA>())                                                                  \
     return launch<dp_mma_kernel<TB, P4, TOut, S>>(mainloop_smem_bytes<TA, TB, P4, S>(), grid,    \
                                                   stream, ap, bp, cp, m, n, k, bm, bn, n_tiles_n, \
@@ -220,9 +214,9 @@ int launch_dp(int sm, const void* a, const void* b, void* c, int m, int n, int k
                                              ap, bp, cp, m, n, k, bm, bn, bk, n_tiles_n,         \
                                              tile_offset, n_total, aligned, epi);                \
   else                                                                                           \
-    return launch<dp_kernel<TA, TB, P4, TOut, S>>(mainloop_smem_bytes<TA, TB, P4, S>(), grid,    \
-                                                  stream, ap, bp, cp, m, n, k, bm, bn, bk,       \
-                                                  n_tiles_n, tile_offset, n_total, aligned, epi)
+    return launch<dp_fma_kernel<TB, P4, TOut, S>>(mainloop_smem_bytes<TA, TB, P4, S>(), grid,    \
+                                                  stream, ap, bp, cp, m, n, k, bm, bn, n_tiles_n, \
+                                                  tile_offset, n_total, aligned, epi)
   switch (sm) {
     case 8: SK_DP(8);
     case 16: SK_DP(16);

@@ -43,8 +43,8 @@ RUNGS = ("int8", "int8-dynamic", "int4", "int4-dynamic")
 #: (``uses_mma``), ``csrc/mma_s8.cuh`` int8 ones
 MMA_ACTIVATIONS = (torch.bfloat16, torch.int8)
 #: the kernels whose f32-activation rungs run the f32 FMA mainloop of
-#: ``csrc/fma_f32.cuh``; the others' run the SIMT loop
-FMA_KERNELS = ("grouped_streamk_dp", "splitk_partials")
+#: ``csrc/fma_f32.cuh``; B5's Stream-K form runs the SIMT loop on them
+FMA_KERNELS = ("dp_gemm_region", "streamk_phase1", "grouped_streamk_dp", "splitk_partials")
 
 
 def mainloop(kernel: str, a_dtype: torch.dtype) -> Optional[str]:
@@ -52,8 +52,9 @@ def mainloop(kernel: str, a_dtype: torch.dtype) -> Optional[str]:
     tensor-core mainloop, for B1, B2, both B5 forms and B6 with bf16
     activations (``csrc/mma_bf16.cuh``) or int8 ones (``csrc/mma_s8.cuh``),
     whatever the weights; with f32 activations ``"fma"``, ``fma_subblock``
-    of ``csrc/fma_f32.cuh``, for B5's DP form and B6, and ``"simt"``,
-    ``mac_subblock`` of ``csrc/sk_common.cuh``, for B1, B2 and B5's
+    of ``csrc/fma_f32.cuh`` (dense f32 B2 in its k-ordered map), for B1,
+    B2, B5's DP form and B6, and
+    ``"simt"``, ``mac_subblock`` of ``csrc/sk_common.cuh``, for B5's
     Stream-K form; None for B3 (``streamk_fixup``), which sums f32 partials
     and multiplies nothing."""
     if kernel not in KERNELS:

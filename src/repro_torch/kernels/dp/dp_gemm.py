@@ -1,15 +1,15 @@
 """Kernel B1: the data-parallel tiled GEMM region, hand-written for Hopper.
 
 Replaces ``src/repro/kernels/dp/dp_gemm.py:_dp_kernel`` (launched there by
-``dp_gemm_region``). The CUDA kernel is ``dp_kernel`` in
-``csrc/stream_k.cu`` (``dp_mma_kernel`` for bf16 activations,
-``dp_s8_kernel`` for int8 ones): ``g`` persistent blocks (one per tile when ``g == 0``)
-stride over the output tiles ``[tile_offset, m_tiles * n_tiles)``; each
-logical ``bm x bn`` tile is walked in sub-blocks whose K loop is staged
-through shared memory, and the epilogue runs on the f32 accumulator before
-the cast. On the TPU the surplus programs of a wave-padded grid clamp onto
-the last tile; here a block whose stride runs past the last tile simply
-stops, which writes the same C.
+``dp_gemm_region``). The CUDA kernels are in ``csrc/stream_k.cuh``:
+``dp_fma_kernel`` for f32 activations, ``dp_mma_kernel`` for bf16 ones,
+``dp_s8_kernel`` for int8 ones. ``g`` persistent blocks (one per tile when
+``g == 0``) stride over the output tiles ``[tile_offset, m_tiles *
+n_tiles)``; each logical ``bm x bn`` tile is walked in sub-blocks whose K
+loop is staged through shared memory, and the epilogue runs on the f32
+accumulator before the cast. On the TPU the surplus programs of a
+wave-padded grid clamp onto the last tile; here a block whose stride runs
+past the last tile simply stops, which writes the same C.
 
 The quantized rungs run through the same kernel, instantiated per operand
 pair (``csrc/quant_*.cu``): float activations against int8 or packed int4
@@ -34,9 +34,13 @@ from 0.133 to 0.034 ms. int8 activations (the ``int8-dynamic`` rung, and
 int8 x int4) run the s8 tensor-core mainloop of ``csrc/mma_s8.cuh``
 (``dp_s8_kernel``): ``mma.sync`` on the int8 codes, each ``bk`` step's
 exact int32 sum added into the f32 accumulator in the SIMT loop's order, so
-C keeps that loop's bits. f32 activations keep SIMT FMA (exact f32
-products, no TF32); :func:`repro_torch.kernels.common.mainloop` names the
-loop a call runs.
+C with the dequant scales alone is the plain version's, bit for bit. f32
+activations (f32, int8 or packed int4 weights) run the f32 FMA mainloop of
+``csrc/fma_f32.cuh`` (``dp_fma_kernel``): exact f32 products (no TF32),
+each weight read from shared memory and widened once per block, the K
+slices of a warp summed by a fixed shuffle tree (1e-4 against the plain
+version, the same bits run to run).
+:func:`repro_torch.kernels.common.mainloop` names the loop a call runs.
 
 On a CPU tensor :func:`dp_gemm_region` runs the plain PyTorch version
 :func:`dp_gemm_region_plain`, which the tests and ``chip_smoke.py`` hold the

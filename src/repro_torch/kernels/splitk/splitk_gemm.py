@@ -29,8 +29,9 @@ tensor cores of ``csrc/mma_bf16.cuh``; int8 activations (x int8 or packed
 int4) ``splitk_s8_kernel`` on the s8 tensor cores of ``csrc/mma_s8.cuh``,
 whose exact int32 sums enter the f32 partial at every ``bk`` step (a split
 starts on one), so its partials are the plain version's bit for bit; f32
-activations ``splitk_kernel``, SIMT FMA on f32 accumulators (no TF32), the
-cp.async ring of ``csrc/sk_common.cuh``. The partials are unscaled:
+activations ``splitk_fma_kernel`` on the f32 FMA mainloop of
+``csrc/fma_f32.cuh`` (exact f32 products, no TF32, each weight read from
+shared memory and widened once per block). The partials are unscaled:
 :func:`repro_torch.kernels.splitk.ops.gemm` applies the dequant scales
 once, after the reduction, as ``repro``'s ``ops.gemm`` does.
 

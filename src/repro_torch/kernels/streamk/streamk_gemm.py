@@ -3,7 +3,7 @@ hand-written for Hopper.
 
 **B2 :func:`streamk_phase1`** replaces
 ``src/repro/kernels/streamk/streamk_gemm.py:_streamk_kernel``. The CUDA
-kernel (``streamk_kernel`` in ``csrc/stream_k.cu``) launches ``g`` blocks;
+kernel (``streamk_kernel`` in ``csrc/stream_k.cuh``) launches ``g`` blocks;
 block ``x`` walks its contiguous range of flattened MAC iterations
 ``[x * ipw, min((x + 1) * ipw, total))`` with the integer math of the TPU
 version's ``_range_math``/``_sk_block_indices`` and writes each tile
@@ -43,7 +43,10 @@ on bf16 / int8 / int4 (SIMT: 0.103 / 0.168 / 0.112) and B3 0.007 ms. int8
 activations (``int8-dynamic``, and int8 x int4) run the s8 tensor-core
 mainloop of ``csrc/mma_s8.cuh`` over each segment and park into the same
 slots, with the SIMT loop's bits (each ``bk`` step's exact int32 sum added
-in order); f32 activations keep SIMT FMA (no TF32).
+in order); f32 activations (f32, int8 or packed int4 weights) run the f32
+FMA mainloop of ``csrc/fma_f32.cuh`` (exact f32 products, no TF32) and park
+its reduced sums in the same slots (``park_subblock_fma``), all of a
+sub-block's rows and columns, zeros outside C.
 
 On CPU tensors the wrappers run the plain PyTorch versions beside them; on
 CUDA tensors they launch the kernels or raise.

@@ -1012,6 +1012,158 @@ def test_cuda_fma_mainloop_matches_plain_version(cuda_device, bm, pair):
     assert empty, "no case had an empty split"
 
 
+# B1 and B2 on the f32 FMA mainloop: dp_fma_kernel and streamk_kernel's f32
+# branch run fma_subblock on the f32-activation pairs
+
+
+def _outside_c(part, m, n):
+    """(sk_tiles, bm, bn): True where a tile's element lies past M or N."""
+    cfg = part.cfg
+    t = torch.arange(part.sk_tiles)
+    rows = (t // part.n_tiles * cfg.bm)[:, None, None] + torch.arange(cfg.bm)[None, :, None]
+    cols = (t % part.n_tiles * cfg.bn)[:, None, None] + torch.arange(cfg.bn)[None, None, :]
+    return (rows >= m) | (cols >= n)
+
+
+def _k_ordered_phase1(a, b, part):
+    """Dense f32 B2's slots as one f32 FMA per k over each segment in
+    ascending k, the SIMT loop's order. ``a`` holds signed powers of two, so
+    each product is exact and each FMA one rounded f32 addition."""
+    cfg = part.cfg
+    ipt, _, ipw, mc = range_math(part)
+    m, k = a.shape
+    n = b.shape[1]
+    partials = torch.zeros((part.sk_tiles, mc + 1, cfg.bm, cfg.bn))
+    for r in part.sk_ranges:
+        it = r.start
+        while it < r.end:
+            tile = it // ipt
+            seg_end = min(r.end, (tile + 1) * ipt)
+            k0 = (it - tile * ipt) * cfg.bk
+            k1 = min((seg_end - tile * ipt) * cfg.bk, k)
+            slot = min(max(r.wg - (tile * ipt) // ipw, 0), mc - 1)
+            tm, tn = part.tile_mn(tile)
+            rows = slice(tm * cfg.bm, min((tm + 1) * cfg.bm, m))
+            cols = slice(tn * cfg.bn, min((tn + 1) * cfg.bn, n))
+            prods = a[rows, k0:k1, None] * b[None, k0:k1, cols]
+            acc = torch.zeros(prods.shape[0], prods.shape[2])
+            for kk in range(k1 - k0):
+                acc = acc + prods[:, kk]
+            partials[tile, slot, : acc.shape[0], : acc.shape[1]] = acc
+            it = seg_end
+    return partials
+
+
+def _close_before_bf16(got, want, tol, what):
+    """A bf16 output against the f32 reference: within tol x max(1,
+    max|want|) before the one round to nearest bf16 (2^-8 of |x|)."""
+    got, want = got.cpu().float(), want.cpu().float()
+    near = tol * max(1.0, want.abs().max().item())
+    err = (got - want).abs() - (near + want.abs()) * 2.0**-8
+    assert (err <= near).all(), (what, err.max().item())
+
+
+@pytest.mark.parametrize("pair", list(FMA_BITS))
+@pytest.mark.parametrize("bm", [8, 16, 32, 64], ids=lambda bm: f"sm{bm}")
+def test_cuda_fma_b12_mainloop_matches_plain_version(cuda_device, bm, pair):
+    """B1, and B2 then B3, on the f32 FMA mainloop at sub-block rows SM =
+    bm (TN = 4 columns a lane at SM 8-32, 2 at SM = 64), bn 128 and 256, bk
+    128 and 256, against their plain versions at 1e-4 x max|ref| (f32 sums
+    over K slices in another order): S8_2D_SHAPES, so ragged M, N and K, odd
+    K (int4's zero pad nibble) and rows that are not 16-byte aligned (the
+    element-wise staging path). B1 with the per-row and per-column scales
+    and every epilogue stage, f32 output and bf16 output (the latter within
+    1e-4 x max|ref| before its one bf16 rounding); B2 under ALL_SK at g 7,
+    132 and one whose segments start at odd multiples of bk = 128 (inside
+    int4's 256-deep chunk), its partials on every contributor slot, where
+    an element or a whole sub-block outside C must read 0, then B3 over
+    them with every epilogue stage. Every B1 and B2 call runs twice with
+    the same bytes and counts one launch of its kernel on its rung. Dense
+    f32 B2 (olmoe's router) sums each segment in k order, one FMA per k:
+    on activations that are signed powers of two its partials equal that
+    chain bit for bit."""
+    bits = FMA_BITS[pair]
+    b_bits = bits or 8
+    assert common.mainloop("dp_gemm_region", torch.float32) == "fma"
+    assert common.mainloop("streamk_phase1", torch.float32) == "fma"
+    odd_starts = outside_sub_blocks = 0
+    for m, n, k in S8_2D_SHAPES:
+        assert common.sub_block_rows(bm, m) == bm
+        a, b, qkw, _ = _fma_operands((), m, n, k, bits, seed=bm + n + k)
+        r = np.random.default_rng(k)
+        scale_a = torch.from_numpy(r.uniform(0.5, 1.5, size=m).astype(np.float32))
+        bias = torch.from_numpy(r.normal(size=(n,)).astype(np.float32))
+        operand = torch.from_numpy(r.normal(size=(m, n)).astype(np.float32))
+        scale = qkw.get("scale")
+        da, db = a.to(cuda_device), b.to(cuda_device)
+        rung = common.rung_of(a.dtype, b.dtype, b_bits)
+        dp_rung = common.launch_name("dp_gemm_region", rung)
+        sk_rung = common.launch_name("streamk_phase1", rung)
+        for bn in (128, 256):
+            for bk in (128, 256):
+                cfg = TileConfig(bm, bn, bk)
+                total = -(-m // bm) * -(-n // bn) * -(-k // bk)
+                parts = []
+                for g in (7, 132, -(-total // 3)):
+                    what = ("B2", pair, bm, m, n, k, cfg.name, g)
+                    part = partition(GemmShape(m, n, k), cfg, g, ALL_SK)
+                    odd_starts += bk == 128 and sum(s_ % 2 for s_ in _segment_starts(part))
+                    want_p = streamk_phase1_plain(a, b, part, b_bits=b_bits)
+                    with common.count_launches() as log:
+                        run = [streamk_phase1(da, db, part, b_bits=b_bits) for _ in range(2)]
+                    assert log == [sk_rung, sk_rung], what
+                    used = (torch.arange(range_math(part)[3] + 1)[None, :]
+                            < n_contributors(part)[:, None])
+                    got_p = run[0].cpu()
+                    assert torch.equal(got_p[used], run[1].cpu()[used]), what
+                    _close_max(got_p[used], want_p[used], 1e-4, what)
+                    outside = _outside_c(part, m, n)[:, None].expand_as(got_p)
+                    assert not got_p[used[..., None, None].expand_as(got_p) & outside].any(), what
+                    outside_sub_blocks += int(bn == 256 and -(-n // 128) % 2)
+                    parts.append((g, part, want_p, run[0]))
+                    if bits is None and g == 132:
+                        r2 = np.random.default_rng(m + n)
+                        a2 = torch.from_numpy((r2.choice([-1.0, 1.0], size=(m, k)) * 2.0
+                                               ** r2.integers(-2, 3, size=(m, k)))
+                                              .astype(np.float32))
+                        got2 = streamk_phase1(a2.to(cuda_device), db, part).cpu()
+                        want2 = _k_ordered_phase1(a2, b, part)
+                        assert torch.equal(got2[used], want2[used]), ("k order", *what)
+                for epi, reads in MMA_EPILOGUES:
+                    ekw = {key: v for key, v in (("bias", bias), ("operand", operand),
+                                                 ("scale_a", scale_a)) if key in reads}
+                    ekw["scale"] = scale
+                    what = (pair, bm, m, n, k, cfg.name, epi.name)
+                    # B1 over every tile, f32 and bf16 output
+                    want = dp_gemm_region_plain(a, b, cfg, torch.zeros(m, n), epilogue=epi,
+                                                b_bits=b_bits, **ekw)
+                    for out in (torch.float32, torch.bfloat16):
+                        okw = {key: v if v is None or key.startswith("scale") else v.to(out)
+                               for key, v in ekw.items()}
+                        want_o = want if out == torch.float32 else dp_gemm_region_plain(
+                            a, b, cfg, torch.zeros(m, n), epilogue=epi, b_bits=b_bits,
+                            **{key: v if v is None else v.float() for key, v in okw.items()})
+                        with common.count_launches() as log:
+                            run = [dp_gemm_region(da, db, cfg, g=132, out_dtype=out,
+                                                  epilogue=epi, b_bits=b_bits,
+                                                  **_to(okw, cuda_device)) for _ in range(2)]
+                        assert log == [dp_rung, dp_rung], ("B1", out, *what)
+                        assert run[0].dtype == out and torch.equal(run[0], run[1]), ("B1", *what)
+                        if out == torch.float32:
+                            _close_max(run[0], want_o, 1e-4, ("B1", out, *what))
+                        else:
+                            _close_before_bf16(run[0], want_o, 1e-4, ("B1", out, *what))
+                    # B3 over B2's partials
+                    for g, part, want_p, got_p in parts:
+                        want_c = streamk_fixup_plain(want_p, part, torch.zeros(m, n),
+                                                     epilogue=epi, **ekw)
+                        got_c = streamk_fixup(got_p, part, torch.zeros(m, n, device=cuda_device),
+                                              epilogue=epi, **_to(ekw, cuda_device))
+                        _close_max(got_c, want_c, 1e-4, ("B2+B3", g, *what))
+    assert odd_starts, "no Stream-K segment started at an odd multiple of bk"
+    assert outside_sub_blocks, "no case had a sub-block wholly outside C"
+
+
 def test_cuda_splitk_and_dp_baselines_launch_their_kernels(cuda_device):
     """splitk.ops.gemm is one B6 launch, dp.ops.gemm one B1 launch, each
     counted under its rung; both agree with the f32 reference."""

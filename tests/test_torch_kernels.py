@@ -184,11 +184,12 @@ def test_launch_counters_count_only_kernel_launches():
 
 #: the MAC each kernel runs, by activation dtype (f32, bf16, int8): a
 #: tensor-core mainloop ("mma") for B1, B2, both B5 forms and B6 on bf16
-#: and int8 activations; on f32 ones the f32 FMA mainloop ("fma") for B5's
-#: DP form and B6, the SIMT loop for the others; B3 multiplies nothing
+#: and int8 activations; on f32 ones the f32 FMA mainloop ("fma") for B1,
+#: B2, B5's DP form and B6, the SIMT loop for B5's Stream-K form; B3
+#: multiplies nothing
 MAINLOOPS = {
-    "dp_gemm_region": ("simt", "mma", "mma"),
-    "streamk_phase1": ("simt", "mma", "mma"),
+    "dp_gemm_region": ("fma", "mma", "mma"),
+    "streamk_phase1": ("fma", "mma", "mma"),
     "streamk_fixup": (None, None, None),
     "grouped_streamk_sk": ("simt", "mma", "mma"),
     "grouped_streamk_dp": ("fma", "mma", "mma"),
