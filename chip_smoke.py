@@ -10,19 +10,20 @@ Phases (any failure raises and the script exits non-zero):
    (one nvcc per source, all at once) and prints the build time and the
    ptxas register/spill report.
 2. Kernels against their plain PyTorch versions, on the card:
-   * B1-B3, the full sweep at M=64, N=4096, K=4096 (and two small ragged
-     shapes, one per staging path; with bf16 activations B1's and B2's
-     sub-blocks run the tensor-core mainloop of ``csrc/mma_bf16.cuh``, with
-     int8 ones that of ``csrc/mma_s8.cuh``): all
+   * B1 and B2 (with B3, the fix-up, fused into its tail: one launch per
+     Stream-K region), the full sweep at M=64, N=4096, K=4096 (and two small
+     ragged shapes, one per staging path; with bf16 activations B1's and
+     B2's sub-blocks run the tensor-core mainloop of ``csrc/mma_bf16.cuh``,
+     with int8 ones that of ``csrc/mma_s8.cuh``): all
      8 policies x 2 grid sizes x {bf16 (2e-2), f32 (1e-4)} x epilogues
-     {none, mul_silu, bias+gelu}; B2's
-     partials against the plain phase 1 (the contributor slots), B3's and
-     B1's C against their plain versions, the composed C against the
-     f32-accumulated ``gemm_ref``;
+     {none, mul_silu, bias+gelu}; the split tiles' contributor slots against
+     the plain sweep, the Stream-K region's C against the plain sweep then
+     the plain fix-up, B1's C against its plain version, the composed C
+     against the f32-accumulated ``gemm_ref``;
    * the plain projection shapes of granite-8b and olmoe-1b-7b (attention,
      MLP, router in f32, lm_head), M in {1, 4, 64} and each served prompt
      length, under the H100 selector's pick, DP and ALL_SK, against
-     ``gemm_ref``; B2+B3 bitwise identical across two runs;
+     ``gemm_ref``; the Stream-K region bitwise identical across two runs;
    * B5, the grouped kernel, at olmoe-1b-7b's expert shapes (64 experts x
      4 or 16 rows, 2048 -> 1024 and 1024 -> 2048) and a small unaligned one:
      every policy x g in {66, 132, 264} x {bf16, f32} x epilogues {none,
@@ -31,18 +32,19 @@ Phases (any failure raises and the script exits non-zero):
      launch nothing; the Stream-K form with split tiles is bitwise
      deterministic (bf16 activations run the tensor-core mainloop of
      ``csrc/mma_bf16.cuh``, int8 ones that of ``csrc/mma_s8.cuh``, f32 ones
-     the SIMT loop in the Stream-K form and the f32 FMA mainloop of
-     ``csrc/fma_f32.cuh`` in the DP form);
+     the f32 FMA mainloop of ``csrc/fma_f32.cuh``);
    * each kernel timed with CUDA events at a decode shape it serves (device
      time of calls queued to run back to back, and the time of calls as the
      host issues them; see ``time_ms``), beside its plain version, one
-     library call computing the same function (``torch.matmul`` for B1, and
-     for B2/B3 the whole GEMM they compose; ``torch.bmm`` for B5) and its
+     library call computing the same function (``torch.matmul`` for B1 and
+     for the Stream-K region, which computes the whole GEMM under ALL_SK;
+     ``torch.bmm`` for B5) and its
      bound (bytes over 3.35 TB/s or operations over 989 TFLOP/s, whichever
      is larger);
    * the quantization ladder (int8 and packed int4 weights with their
      per-output-channel scales; int8 activations with per-row scales and an
-     int32 MAC): B1-B3 through ``ops.gemm`` and phase by phase, and both B5
+     int32 MAC): B1 and the Stream-K region through ``ops.gemm`` and each on
+     its own, and both B5
      forms, on each of the six operand pairs (f32 or bf16 x int8, int8 x
      int8, f32 or bf16 or int8 x int4), every policy x g in {66, 132, 264} x the
      epilogues, at the sweep shapes plus an odd K and at the grouped shapes
@@ -64,7 +66,7 @@ Phases (any failure raises and the script exits non-zero):
      (now on ``csrc/mma_s8.cuh``, beside ``B12_S8_SIMT_MS``), beside the
      library call; and B1, B2+B3 and both B5 forms on f32 activations, with
      f32, int8 and packed int4 weights (the f32 FMA mainloop of
-     ``csrc/fma_f32.cuh``; B5's Stream-K form the SIMT loop) beside
+     ``csrc/fma_f32.cuh``) beside
      ``torch.matmul``/``torch.bmm`` in f32, B1's and B2's calls also held
      against their plain versions (``F32_TABLE``, ``F32_PAIRS``);
    * B6, the split-K baseline, on every operand pair (f32, bf16 and the six
@@ -149,8 +151,8 @@ reported), and every planted fault must read at least 3 times its limit.
 The line before the last is the ``kernels`` JSON: every kernel (B6's launches
 from the baseline comparison, the others' from the served runs), and one entry
 per (kernel, rung) that a served path ran; each entry names the mainloop
-it ran (``mainloop``: ``mma``, ``fma`` or ``simt``; null for B3, which multiplies
-nothing); the last line is ``{"ok": true,
+it ran (``mainloop``: ``mma`` or ``fma``); B3 has no entry of its own, being
+fused into B2 (``streamk_phase1``); the last line is ``{"ok": true,
 "device": {...}}``. Details go to ``chiprun_out/chip_smoke.json``.
 """
 
@@ -187,14 +189,13 @@ GROUPED_RAGGED = (5, 20, 302, 200)
 REPLACES = {
     "dp_gemm_region": "src/repro/kernels/dp/dp_gemm.py:40",
     "streamk_phase1": "src/repro/kernels/streamk/streamk_gemm.py:78",
-    "streamk_fixup": "src/repro/kernels/streamk/streamk_gemm.py:179",
     "grouped_streamk_sk": "src/repro/kernels/streamk/grouped.py:93",
     "grouped_streamk_dp": "src/repro/kernels/streamk/grouped.py:156",
     "splitk_partials": "src/repro/kernels/splitk/splitk_gemm.py:28",
 }
 SOURCE = "src/repro_torch/csrc/stream_k.cuh"  # instantiated by stream_k.cu and quant_*.cu
 GROUPED_SOURCE = "src/repro_torch/csrc/grouped.cuh"  # by grouped.cu, grouped_bf16.cu, quant_*.cu
-SOURCES = dict.fromkeys(("dp_gemm_region", "streamk_phase1", "streamk_fixup"), SOURCE)
+SOURCES = dict.fromkeys(("dp_gemm_region", "streamk_phase1"), SOURCE)
 SOURCES.update(dict.fromkeys(("grouped_streamk_sk", "grouped_streamk_dp"), GROUPED_SOURCE))
 SOURCES["splitk_partials"] = "src/repro_torch/csrc/splitk.cuh"  # by stream_k.cu and quant_*.cu
 #: the kernels a served path runs (B6 has no served caller)
@@ -353,14 +354,17 @@ def _operands(m, n, k, dtype, gen):
 
 
 def _used_slots(partials, part):
+    """(sk_tiles, mc + 1, 1, 1): the contributor slots of split tiles, below
+    the tile's contributor count: those the card defines on every pair (a
+    tile that one block owns whole is flushed from registers; dense f32
+    parks it in slot 0 first)."""
     import torch
 
     from repro_torch.kernels.streamk.streamk_gemm import n_contributors
 
     nc = n_contributors(part, partials.device)
-    return (torch.arange(partials.shape[1], device=partials.device)[None, :] < nc[:, None])[
-        :, :, None, None
-    ]
+    used = torch.arange(partials.shape[1], device=partials.device)[None, :] < nc[:, None]
+    return (used & (nc > 1)[:, None])[:, :, None, None]
 
 
 #: the full sweep's shapes: the main one, a ragged one whose rows stay
@@ -381,12 +385,12 @@ def sweep(gen):
     from repro_torch.kernels.streamk import ops
     from repro_torch.kernels.streamk.ref import gemm_ref
     from repro_torch.kernels.streamk.streamk_gemm import (
-        streamk_fixup, streamk_fixup_plain, streamk_phase1, streamk_phase1_plain,
+        streamk_fixup_plain, streamk_phase1_plain, streamk_region,
     )
     from repro_torch.core.op import GemmOp
     from repro_torch.core.gemm import dtype_name
 
-    errs = {"dp_gemm_region": 0.0, "streamk_phase1": 0.0, "streamk_fixup": 0.0, "gemm": 0.0}
+    errs = {"dp_gemm_region": 0.0, "streamk_phase1": 0.0, "gemm": 0.0}
     sel = default_selector("cuda")
     cases = 0
     for (m, n, k), dtype, tol in (
@@ -412,16 +416,16 @@ def sweep(gen):
                     c_k = torch.zeros(m, n, dtype=dtype, device="cuda")
                     c_p = torch.zeros(m, n, dtype=dtype, device="cuda")
                     if part.sk_tiles:
-                        p_k = streamk_phase1(a, b, part)
+                        _, p_k = streamk_region(a, b, part, c_k, epilogue=epi, workspace=True,
+                                                **kw)
                         p_p = streamk_phase1_plain(a, b, part)
                         used = _used_slots(p_k, part)
-                        errs["streamk_phase1"] = max(errs["streamk_phase1"], close(
-                            torch.where(used, p_k, 0.0), torch.where(used, p_p, 0.0), tol,
-                            what + " B2"))
-                        streamk_fixup(p_k, part, c_k, epilogue=epi, **kw)
-                        streamk_fixup_plain(p_k, part, c_p, epilogue=epi, **kw)
-                        errs["streamk_fixup"] = max(errs["streamk_fixup"],
-                                                    close(c_k, c_p, tol, what + " B3"))
+                        streamk_fixup_plain(p_p, part, c_p, epilogue=epi, **kw)
+                        errs["streamk_phase1"] = max(
+                            errs["streamk_phase1"],
+                            close(torch.where(used, p_k, 0.0), torch.where(used, p_p, 0.0), tol,
+                                  what + " B2 slots"),
+                            close(c_k, c_p, tol, what + " B2+B3"))
                     if part.dp_tiles:
                         dp_gemm_region(a, b, cfg, c=c_k, tile_offset=part.sk_tiles, g=g,
                                        epilogue=epi, **kw)
@@ -455,7 +459,7 @@ def slice_shapes(gen, arch, nk_dtypes):
     from repro_torch.core.workpart import GemmShape, partition
     from repro_torch.kernels.streamk import ops
     from repro_torch.kernels.streamk.ref import gemm_ref
-    from repro_torch.kernels.streamk.streamk_gemm import streamk_fixup, streamk_phase1
+    from repro_torch.kernels.streamk.streamk_gemm import streamk_region
 
     sel = default_selector("cuda")
     worst = 0.0
@@ -471,12 +475,10 @@ def slice_shapes(gen, arch, nk_dtypes):
             for pol, cfg, g in ((s.policy, s.cfg, s.g), (DP, s.cfg, s.g), (ALL_SK, s.cfg, s.g)):
                 c = ops.gemm(a, b, policy=pol, cfg=cfg, g=g)
                 worst = max(worst, close(c, want, tol, f"{m}x{n}x{k} {dt} {pol.name} {cfg.name}"))
-            # determinism: the sweep and the ordered fix-up are bit-identical
+            # determinism: the sweep with its ordered fix-up is bit-identical
             part = partition(GemmShape(m, n, k), s.cfg, s.g, ALL_SK)
-            c1 = torch.empty(m, n, dtype=a.dtype, device="cuda")
-            c2 = torch.empty(m, n, dtype=a.dtype, device="cuda")
-            streamk_fixup(streamk_phase1(a, b, part), part, c1)
-            streamk_fixup(streamk_phase1(a, b, part), part, c2)
+            c1 = streamk_region(a, b, part, torch.empty(m, n, dtype=a.dtype, device="cuda"))
+            c2 = streamk_region(a, b, part, torch.empty(m, n, dtype=a.dtype, device="cuda"))
             if not torch.equal(c1, c2):
                 raise AssertionError(f"{m}x{n}x{k}: B2+B3 not bitwise deterministic")
     torch.cuda.synchronize()
@@ -490,29 +492,27 @@ def _rotating(b, min_bytes=200 * 2**20):
     return [b.clone() for _ in range(copies)]
 
 
-def _sk_region_bytes_ops(part, m, n, k, a_bytes, b_bytes):
-    """What the SK region's real data (rows < M, columns < N) needs, for A
-    and B elements of ``a_bytes`` and ``b_bytes`` (0.5 for packed int4):
-    (B2 bytes, B2 operations, partial bytes, C elements, B3 additions).
-    B2 reads each A row and B column of the region once, writes each
-    contributor's partial of each real element once and does 2 operations
-    per real multiply-add; B3 reads those partials back, adds each
-    element's contributors and writes C."""
+def _sk_region_bytes_ops(part, m, n, k, a_bytes, b_bytes, c_bytes, extra_bytes=0):
+    """(bytes, operations) that the function of the fused Stream-K region,
+    its C tiles = epilogue(A @ B), needs on its real data (rows < M, columns
+    < N), for A, B and C elements of ``a_bytes``, ``b_bytes`` (0.5 for
+    packed int4) and ``c_bytes``, and ``extra_bytes`` of dequant scales:
+    each A row and B column the region touches read once, each C element
+    written once, 2 operations per multiply-add. The split tiles' slot
+    round trip and their fix-up additions are the kernel's own
+    decomposition, not the function's, and are not counted."""
     cfg = part.cfg
-    rows, cols, elems, slot_bytes, adds = set(), set(), 0, 0, 0
-    for c in part.contributions:
+    rows, cols, elems = set(), set(), 0
+    for c in part.contributions:  # one per Stream-K tile
         tm, tn = part.tile_mn(c.tile)
-        r = max(0, min(m, (tm + 1) * cfg.bm) - tm * cfg.bm)
-        q = max(0, min(n, (tn + 1) * cfg.bn) - tn * cfg.bn)
         rows.add(tm)
         cols.add(tn)
-        elems += r * q
-        slot_bytes += c.num_contributors * r * q * 4
-        adds += (c.num_contributors - 1) * r * q
+        elems += (max(0, min(m, (tm + 1) * cfg.bm) - tm * cfg.bm)
+                  * max(0, min(n, (tn + 1) * cfg.bn) - tn * cfg.bn))
     a_rows = sum(max(0, min(m, (t + 1) * cfg.bm) - t * cfg.bm) for t in rows)
     b_cols = sum(max(0, min(n, (t + 1) * cfg.bn) - t * cfg.bn) for t in cols)
     read = (a_rows * a_bytes + b_cols * b_bytes) * k
-    return read + slot_bytes, 2 * elems * k, slot_bytes, elems, adds
+    return read + elems * c_bytes + extra_bytes, 2 * elems * k
 
 
 def bound_ms(nbytes, ops, peak=PEAK_BF16):
@@ -522,9 +522,9 @@ def bound_ms(nbytes, ops, peak=PEAK_BF16):
 
 def time_kernels(gen):
     """Each kernel at a decode shape (M = 4 slots) where the H100 selector
-    uses it: B1 at mlp.gate (4, 14336, 4096, DP), B2/B3 at mlp.out
-    (4, 4096, 14336, ALL_SK); then each again, beside its plain version, at
-    the sweep shape (64, 4096, 4096)."""
+    uses it: B1 at mlp.gate (4, 14336, 4096, DP), B2 (with B3 fused in) at
+    mlp.out (4, 4096, 14336, ALL_SK); then each again, beside its plain
+    version, at the sweep shape (64, 4096, 4096)."""
     import torch
 
     from repro_torch.core.gemm import dtype_name
@@ -535,8 +535,11 @@ def time_kernels(gen):
     from repro_torch.kernels.dp.dp_gemm import dp_gemm_region, dp_gemm_region_plain
     from repro_torch.kernels.streamk import ops as sk_ops
     from repro_torch.kernels.streamk.streamk_gemm import (
-        streamk_fixup, streamk_fixup_plain, streamk_phase1, streamk_phase1_plain,
+        streamk_fixup_plain, streamk_phase1_plain, streamk_region,
     )
+
+    def plain_region(a, b, part, c):
+        return streamk_fixup_plain(streamk_phase1_plain(a, b, part), part, c)
 
     sel = default_selector("cuda")
     out = {}
@@ -562,48 +565,37 @@ def time_kernels(gen):
                                  bound_by=by, library_ms=lib, event_ms=ev,
                                  plain_event_ms=plain_ev, library_event_ms=lib_ev)
 
-    # B2 and B3 ----------------------------------------------------------------
+    # B2 with B3 fused in -------------------------------------------------------
     m, n, k = 4, 4096, 14336
     a, b, _, _ = _operands(m, n, k, torch.bfloat16, gen)
     s = sel.select_op(GemmOp.plain(m, n, k, in_dtype=dtype_name(a.dtype)))
     part = partition(GemmShape(m, n, k), s.cfg, s.g, s.policy)
-    if not part.sk_tiles:
-        raise AssertionError(f"expected a Stream-K pick at {m}x{n}x{k}, got {s.policy.name}")
-    p_k = streamk_phase1(a, b, part)
-    used = _used_slots(p_k, part)
-    err2 = close(torch.where(used, p_k, 0.0),
-                 torch.where(used, streamk_phase1_plain(a, b, part), 0.0), 2e-2, "B2 timing")
-    bs = _rotating(b)
-    ms2, ev2 = time_ms(lambda: streamk_phase1(a, bs[next(it) % len(bs)], part))
-    # one call: the plain sweep issues hundreds of small launches per call
-    plain2, plain_ev2 = time_ms(lambda: streamk_phase1_plain(a, bs[next(it) % len(bs)], part),
-                                iters=1)
-    nbytes, ops, slot_bytes, elems, adds = _sk_region_bytes_ops(part, m, n, k, 2, 2)
-    bnd2, by2 = bound_ms(nbytes, ops)
-    # no single library call computes B2's partials or B3's reduction: their
-    # yardstick is torch.matmul of the whole GEMM they compose, beside the
-    # composition's own time
-    lib23, lib23_ev = time_ms(lambda: torch.matmul(a, bs[next(it) % len(bs)]))
-    composed, composed_ev = time_ms(
-        lambda: sk_ops.gemm(a, bs[next(it) % len(bs)], policy=ALL_SK, cfg=s.cfg, g=s.g))
-    composition = dict(library_of="torch.matmul of the whole GEMM (B2 + B3 compose it)",
-                       composed_ms=composed, composed_event_ms=composed_ev,
-                       library_event_ms=lib23_ev)
-    out["streamk_phase1"] = dict(shape=[m, n, k], policy=s.policy.name, tile=s.cfg.name, g=s.g,
-                                 max_abs_err=err2, ms=ms2, plain_ms=plain2, bound_ms=bnd2,
-                                 bound_by=by2, library_ms=lib23, event_ms=ev2,
-                                 plain_event_ms=plain_ev2, **composition)
+    if not part.sk_tiles or part.dp_tiles:
+        raise AssertionError(f"expected an ALL_SK pick at {m}x{n}x{k}, got {s.policy.name}")
     c = torch.empty(m, n, dtype=a.dtype, device="cuda")
     c_p = torch.empty_like(c)
-    err3 = close(streamk_fixup(p_k, part, c), streamk_fixup_plain(p_k, part, c_p), 2e-2,
-                 "B3 timing")
-    ms3, ev3 = time_ms(lambda: streamk_fixup(p_k, part, c))
-    plain3, plain_ev3 = time_ms(lambda: streamk_fixup_plain(p_k, part, c_p))
-    bnd3, by3 = bound_ms(slot_bytes + elems * 2, adds, PEAK_F32)
-    out["streamk_fixup"] = dict(shape=[m, n, k], policy=s.policy.name, tile=s.cfg.name, g=s.g,
-                                max_abs_err=err3, ms=ms3, plain_ms=plain3, bound_ms=bnd3,
-                                bound_by=by3, library_ms=lib23, event_ms=ev3,
-                                plain_event_ms=plain_ev3, **composition)
+    c_k, p_k = streamk_region(a, b, part, c, workspace=True)
+    used = _used_slots(p_k, part)
+    p_p = streamk_phase1_plain(a, b, part)
+    err2 = max(close(torch.where(used, p_k, 0.0), torch.where(used, p_p, 0.0), 2e-2,
+                     "B2 timing, split-tile slots"),
+               close(c_k, streamk_fixup_plain(p_p, part, c_p), 2e-2, "B2+B3 timing"))
+    bs = _rotating(b)
+    ms2, ev2 = time_ms(lambda: streamk_region(a, bs[next(it) % len(bs)], part, c))
+    # one call: the plain sweep issues hundreds of small launches per call
+    plain2, plain_ev2 = time_ms(lambda: plain_region(a, bs[next(it) % len(bs)], part, c_p),
+                                iters=1)
+    bnd2, by2 = bound_ms(*_sk_region_bytes_ops(part, m, n, k, 2, 2, 2))
+    # under ALL_SK the region is the whole GEMM: torch.matmul computes it
+    lib2, lib2_ev = time_ms(lambda: torch.matmul(a, bs[next(it) % len(bs)]))
+    composed, composed_ev = time_ms(
+        lambda: sk_ops.gemm(a, bs[next(it) % len(bs)], policy=ALL_SK, cfg=s.cfg, g=s.g))
+    out["streamk_phase1"] = dict(
+        shape=[m, n, k], policy=s.policy.name, tile=s.cfg.name, g=s.g, max_abs_err=err2,
+        ms=ms2, plain_ms=plain2, bound_ms=bnd2, bound_by=by2, library_ms=lib2, event_ms=ev2,
+        plain_event_ms=plain_ev2, library_event_ms=lib2_ev,
+        library_of="torch.matmul of the whole GEMM (the ALL_SK region computes it)",
+        composed_ms=composed, composed_event_ms=composed_ev)
 
     # each kernel beside its plain version at the sweep shape (device ms)
     m, n, k = SWEEP_SHAPES[0]
@@ -611,16 +603,13 @@ def time_kernels(gen):
     bs = _rotating(b)
     cfg = sel.select_op(GemmOp.plain(m, n, k, in_dtype=dtype_name(a.dtype))).cfg
     part = partition(GemmShape(m, n, k), cfg, 132, ALL_SK)
-    p_k = streamk_phase1(a, b, part)
     c = torch.empty(m, n, dtype=a.dtype, device="cuda")
     c_p = torch.empty_like(c)
     pairs = {
         "dp_gemm_region": (lambda: dp_gemm_region(a, bs[next(it) % len(bs)], cfg, c=c, g=132),
                            lambda: dp_gemm_region_plain(a, bs[next(it) % len(bs)], cfg, c_p)),
-        "streamk_phase1": (lambda: streamk_phase1(a, bs[next(it) % len(bs)], part),
-                           lambda: streamk_phase1_plain(a, bs[next(it) % len(bs)], part)),
-        "streamk_fixup": (lambda: streamk_fixup(p_k, part, c),
-                          lambda: streamk_fixup_plain(p_k, part, c_p)),
+        "streamk_phase1": (lambda: streamk_region(a, bs[next(it) % len(bs)], part, c),
+                           lambda: plain_region(a, bs[next(it) % len(bs)], part, c_p)),
     }
     for name, (kernel, plain) in pairs.items():
         out[name].update(sweep_shape=[m, n, k, cfg.name], sweep_ms=time_ms(kernel)[0],
@@ -916,10 +905,10 @@ B12_SIMT_MS = {
 
 
 def b12_table(timed, quant_rows):
-    """Log B1 and the B2+B3 composition on the bf16-activation rungs at the
-    decode shapes of the kernel table: this run's device ms beside the SIMT
-    mainloop's (``B12_SIMT_MS``), the bound (B2+B3: B2's and B3's added, two
-    launches in turn) and the library call; returns the rows."""
+    """Log B1 and the B2+B3 composition (one launch: B3 is fused into B2)
+    on the bf16-activation rungs at the decode shapes of the kernel table:
+    this run's device ms beside the SIMT mainloop's (``B12_SIMT_MS``), the
+    bound and the library call; returns the rows."""
     import torch
 
     from repro_torch.kernels.common import mainloop
@@ -934,21 +923,15 @@ def b12_table(timed, quant_rows):
         rung_rows = {rung: next(r for r in quant_rows if r["kernel"] == name
                                 and r["rung"] == rung and r["shape"][0] == N_SLOTS)
                      for rung in ("int8", "int4")}
-        fixups = {rung: next(r for r in quant_rows if r["kernel"] == "streamk_fixup"
-                             and r["rung"] == rung and r["shape"][0] == N_SLOTS)
-                  for rung in ("int8", "int4")}
+        bound = {"bf16": dense["bound_ms"],
+                 **{r: row["bound_ms"] for r, row in rung_rows.items()}}
         if name == "dp_gemm_region":
             ms = {"bf16": dense["ms"], **{r: row["ms"] for r, row in rung_rows.items()}}
-            bound = {"bf16": dense["bound_ms"],
-                     **{r: row["bound_ms"] for r, row in rung_rows.items()}}
             label = "B1 dp_gemm_region"
         else:
             ms = {"bf16": dense["composed_ms"],
                   **{r: row["composed_ms"] for r, row in rung_rows.items()}}
-            bound = {"bf16": dense["bound_ms"] + timed["streamk_fixup"]["bound_ms"],
-                     **{r: row["bound_ms"] + fixups[r]["bound_ms"]
-                        for r, row in rung_rows.items()}}
-            label = "B2+B3 streamk_phase1 + streamk_fixup"
+            label = "B2+B3 streamk_phase1 (B3 fused)"
         lib = {"bf16": dense["library_ms"],
                **{r: row["library_ms"] for r, row in rung_rows.items()}}
         cells = " | ".join(f"{ms[p]:.4f} ({B12_SIMT_MS[name, p]:.4f})" for p in ms)
@@ -975,10 +958,10 @@ B12_S8_SIMT_MS = {
 
 
 def b12_s8_table(quant_rows):
-    """Log B1 and the B2+B3 composition on the int8-activation rungs
-    (int8-dynamic and int4-dynamic) at the decode shapes of the kernel
-    table: this run's device ms beside the SIMT mainloop's
-    (``B12_S8_SIMT_MS``), the bound (B2+B3: B2's and B3's added), the rung's
+    """Log B1 and the B2+B3 composition (one launch: B3 is fused into B2)
+    on the int8-activation rungs (int8-dynamic and int4-dynamic) at the
+    decode shapes of the kernel table: this run's device ms beside the SIMT
+    mainloop's (``B12_S8_SIMT_MS``), the bound, the rung's
     library yardstick (``torch._int_mm`` for int8-dynamic, ``torch.matmul``
     on the dequantized bf16 weight for int4-dynamic) and ``torch.matmul`` on
     the dequantized bf16 weight for both (the int8 rung's yardstick, timed
@@ -1000,15 +983,13 @@ def b12_s8_table(quant_rows):
 
     for name in ("dp_gemm_region", "streamk_phase1"):
         own = {rung: decode_row(name, rung) for rung in rungs}
+        bound = {r: row["bound_ms"] for r, row in own.items()}
         if name == "dp_gemm_region":
             ms = {r: row["ms"] for r, row in own.items()}
-            bound = {r: row["bound_ms"] for r, row in own.items()}
             label = "B1 dp_gemm_region"
         else:
             ms = {r: row["composed_ms"] for r, row in own.items()}
-            bound = {r: row["bound_ms"] + decode_row("streamk_fixup", r)["bound_ms"]
-                     for r, row in own.items()}
-            label = "B2+B3 streamk_phase1 + streamk_fixup"
+            label = "B2+B3 streamk_phase1 (B3 fused)"
         lib = {r: row["library_ms"] for r, row in own.items()}
         dense_lib = decode_row(name, "int8")["library_ms"]
         shape = own[rungs[0]]["shape"]
@@ -1038,17 +1019,18 @@ F32_PAIRS = (("f32", None), ("f32*int8", 8), ("f32*int4", 4))
 
 
 def f32_table(gen):
-    """B1, the B2+B3 composition and both B5 forms on f32 activations, with
-    f32, int8 and packed int4 weights (the f32 FMA mainloop of
-    ``csrc/fma_f32.cuh``; B5's Stream-K form the SIMT loop) at
+    """B1, the B2+B3 composition (one launch) and both B5 forms on f32
+    activations, with f32, int8 and packed int4 weights (the f32 FMA
+    mainloop of ``csrc/fma_f32.cuh``) at
     ``F32_TABLE``'s shapes: device ms beside ``torch.matmul`` or
     ``torch.bmm`` in f32 (TF32 off; on the dequantized weight for the
     quantized pairs) and the bound (bytes over 3.35 TB/s or operations over
     67 TFLOP/s: A and C in f32, B at 4, 1 or 0.5 bytes a weight plus its f32
-    scales; B2+B3: B2's and B3's added), each call first held against that
-    library call at the f32 tolerance, 1e-4, and B1's and B2's also against
-    their plain versions (``dp_gemm_region_plain``; ``streamk_phase1_plain``
-    on the contributor slots) at 1e-4; each row's plain version (B2+B3:
+    scales; B2+B3: the split tiles' partials written and read back too),
+    each call first held against that library call at the f32 tolerance,
+    1e-4, and B1's and B2's also against their plain versions
+    (``dp_gemm_region_plain``; ``streamk_phase1_plain`` on the split tiles'
+    contributor slots) at 1e-4; each row's plain version (B2+B3:
     ``streamk_phase1_plain`` then ``streamk_fixup_plain``; B5:
     ``gemm_grouped_streamk_plain``) timed beside it; returns the rows."""
     import torch
@@ -1067,8 +1049,8 @@ def f32_table(gen):
     )
     from repro_torch.kernels.streamk.streamk_gemm import (
         streamk_fixup_plain,
-        streamk_phase1,
         streamk_phase1_plain,
+        streamk_region,
     )
 
     policies = {p.name: p for p in ALL_POLICIES}
@@ -1113,7 +1095,7 @@ def f32_table(gen):
             def plain(b=bs[0], a=a, name=name, cfg=cfg, kw=kw):
                 if name == "dp_gemm_region":
                     return dp_gemm_region_plain(a, b, cfg, torch.empty(m, n, device="cuda"), **kw)
-                if name == "streamk_phase1":  # the ALL_SK composition: B2, then B3
+                if name == "streamk_phase1":  # the plain ALL_SK composition: B2, then B3
                     return streamk_fixup_plain(
                         streamk_phase1_plain(a, b, part, b_bits=kw.get("b_bits", 8)), part,
                         torch.empty(m, n, device="cuda"), scale=kw.get("scale"))
@@ -1130,11 +1112,13 @@ def f32_table(gen):
                 part = partition(GemmShape(m, n, k), cfg, grid, policy)
             if name == "streamk_phase1" and part.sk_tiles:
                 b_bits = kw.get("b_bits", 8)
-                partials = streamk_phase1(a, bs[0], part, b_bits=b_bits)
+                _, partials = streamk_region(a, bs[0], part, torch.empty(m, n, device="cuda"),
+                                             b_bits=b_bits, workspace=True)
                 used = _used_slots(partials, part)[:, :, 0, 0]
                 plain_err = close(partials[used],
                                   streamk_phase1_plain(a, bs[0], part, b_bits=b_bits)[used],
-                                  1e-4, f"{label} {pair} B2 against its plain version")
+                                  1e-4, f"{label} {pair} B2 against its plain version"
+                                  ) if used.any() else 0.0
             if name == "streamk_phase1" and part.dp_tiles:
                 raise AssertionError(f"{label}: the plain composition times ALL_SK alone, "
                                      f"not {policy.name}")
@@ -1143,11 +1127,8 @@ def f32_table(gen):
             plain_ms = time_ms(plain)[0]
             scale_bytes = 0 if bits is None else groups * n * 4
             if name == "streamk_phase1":
-                nbytes, ops, slot_bytes, elems, adds = _sk_region_bytes_ops(part, m, n, k, 4,
-                                                                            b_bytes)
-                b2, b3 = bound_ms(nbytes, ops, PEAK_F32), bound_ms(
-                    slot_bytes + scale_bytes + elems * 4, adds, PEAK_F32)
-                bnd, by = b2[0] + b3[0], b2[1]
+                bnd, by = bound_ms(*_sk_region_bytes_ops(part, m, n, k, 4, b_bytes, 4,
+                                                         scale_bytes), PEAK_F32)
             else:
                 bnd, by = bound_ms(groups * (m * k * 4 + k * n * b_bytes + m * n * 4)
                                    + scale_bytes, 2 * groups * m * n * k, PEAK_F32)
@@ -1180,7 +1161,7 @@ def grouped_entry(rows, name):
 
 
 # ---------------------------------------------------------------------------
-# Phase 2c: the quantization ladder, B1-B3 and B5 on int8 and int4 weights
+# Phase 2c: the quantization ladder, B1, B2 (B3 fused) and B5 on int8 and int4 weights
 # ---------------------------------------------------------------------------
 
 
@@ -1212,11 +1193,13 @@ QUANT_SWEEP_SHAPES = SWEEP_SHAPES + ((13, 400, 331),)
 
 
 def quant_sweep(gen):
-    """B1-B3 on every pair of the ladder: all policies x g in {66, 132, 264} x
-    epilogues {none, mul_silu, bias+gelu} at each quantized sweep shape,
-    through ``ops.gemm`` against dequantize-then-matmul, and at g 66 and 132
-    phase by phase against the plain versions (B2's partials, B3's and B1's
-    C). The Stream-K composition is bitwise deterministic on every pair."""
+    """B1 and the Stream-K region (B2 with B3 fused in) on every pair of the
+    ladder: all policies x g in {66, 132, 264} x epilogues {none, mul_silu,
+    bias+gelu} at each quantized sweep shape, through ``ops.gemm`` against
+    dequantize-then-matmul, and at g 66 and 132 each kernel on its own
+    against its plain version (the split tiles' partials and the region's C
+    against the plain sweep and fix-up, B1's C). The Stream-K composition
+    is bitwise deterministic on every pair."""
     import torch
 
     from repro_torch.core.gemm import dtype_name
@@ -1227,7 +1210,7 @@ def quant_sweep(gen):
     from repro_torch.kernels.dp.dp_gemm import dp_gemm_region, dp_gemm_region_plain
     from repro_torch.kernels.streamk import ops
     from repro_torch.kernels.streamk.streamk_gemm import (
-        streamk_fixup, streamk_fixup_plain, streamk_phase1, streamk_phase1_plain,
+        streamk_fixup_plain, streamk_phase1_plain, streamk_region,
     )
 
     errs = {}
@@ -1258,22 +1241,22 @@ def quant_sweep(gen):
                     key = f"gemm {pair[0]}"
                     errs[key] = max(errs.get(key, 0.0), close(c, want, tol, what))
                     cases += 1
-                    if g == 264:  # the composition only: the phases are held at 66 and 132
+                    if g == 264:  # the composition only: the kernels are held at 66 and 132
                         continue
                     c_k = torch.zeros(m, n, dtype=out, device="cuda")
                     c_p = torch.zeros(m, n, dtype=out, device="cuda")
                     if part.sk_tiles:
-                        p_k = streamk_phase1(a, b, part, b_bits=bits)
+                        _, p_k = streamk_region(a, b, part, c_k, epilogue=epi, b_bits=bits,
+                                                workspace=True, **scales, **kw)
                         p_p = streamk_phase1_plain(a, b, part, b_bits=bits)
                         used = _used_slots(p_k, part)
+                        streamk_fixup_plain(p_p, part, c_p, epilogue=epi, **scales, **kw)
                         key = f"streamk_phase1 {pair[0]}"
-                        errs[key] = max(errs.get(key, 0.0), close(
-                            torch.where(used, p_k, 0.0), torch.where(used, p_p, 0.0), tol,
-                            what + " B2"))
-                        streamk_fixup(p_k, part, c_k, epilogue=epi, **scales, **kw)
-                        streamk_fixup_plain(p_k, part, c_p, epilogue=epi, **scales, **kw)
-                        key = f"streamk_fixup {pair[0]}"
-                        errs[key] = max(errs.get(key, 0.0), close(c_k, c_p, tol, what + " B3"))
+                        errs[key] = max(
+                            errs.get(key, 0.0),
+                            close(torch.where(used, p_k, 0.0), torch.where(used, p_p, 0.0), tol,
+                                  what + " B2 slots"),
+                            close(c_k, c_p, tol, what + " B2+B3"))
                     if part.dp_tiles:
                         dp_gemm_region(a, b, cfg, c=c_k, tile_offset=part.sk_tiles, g=g,
                                        epilogue=epi, **qkw, **kw)
@@ -1400,10 +1383,11 @@ def _quant_bound(m, n, k, gc, a_bytes, b_bytes, act_q, peak):
 def time_quant(gen):
     """Each rung's kernels (the served rungs and int4-dynamic, int8 x int4)
     at the decode (M = 4) and prompt (M = 57) shapes of the served runs: B1
-    at mlp.gate (N 14336, K 4096), B2 and B3 at mlp.out (N 4096, K 14336)
-    and B5 at olmoe-1b-7b's expert shapes; device and event ms beside the
+    at mlp.gate (N 14336, K 4096), B2 (with B3 fused in) at mlp.out (N
+    4096, K 14336) and B5 at olmoe-1b-7b's expert shapes; device and event
+    ms beside the
     plain version, the bound (the int8 and int4 widths of B) and a library
-    yardstick: ``torch._int_mm`` for int8 x int8 B1-B3, else
+    yardstick: ``torch._int_mm`` for int8 x int8 B1 and B2, else
     ``torch.matmul``/``torch.bmm`` on the dequantized bf16 weight, a dense
     yardstick that reads 2 bytes per weight."""
     import torch
@@ -1420,7 +1404,7 @@ def time_quant(gen):
         gemm_grouped_streamk, gemm_grouped_streamk_plain,
     )
     from repro_torch.kernels.streamk.streamk_gemm import (
-        streamk_fixup, streamk_fixup_plain, streamk_phase1, streamk_phase1_plain,
+        streamk_fixup_plain, streamk_phase1_plain, streamk_region,
     )
 
     sel = default_selector("cuda")
@@ -1482,7 +1466,7 @@ def time_quant(gen):
                   lambda: dp_gemm_region_plain(a, vs[next(it) % len(vs)], s.cfg, c_p, **kw),
                   err, bnd, by, lib, label)
 
-            # B2 and B3 at mlp.out ------------------------------------------------
+            # B2 with B3 fused in, at mlp.out ---------------------------------------
             n, k = 4096, 14336
             a, a_dense, q, kw = operands(m, n, k)
             scales = {key: v for key, v in kw.items() if key != "b_bits"}
@@ -1492,41 +1476,36 @@ def time_quant(gen):
             if not part.sk_tiles:
                 part, policy = partition(GemmShape(m, n, k), s.cfg, s.g, ALL_SK), ALL_SK
             pol = policy.name if policy == s.policy else f"{policy.name} (pick {s.policy.name})"
-            p_k = streamk_phase1(a, q.values, part, b_bits=bits)
+            c = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
+            c_p = torch.empty_like(c)
+            c_k, p_k = streamk_region(a, q.values, part, c, b_bits=bits, workspace=True,
+                                      **scales)
             used = _used_slots(p_k, part)
-            err2 = close(torch.where(used, p_k, 0.0), torch.where(
-                used, streamk_phase1_plain(a, q.values, part, b_bits=bits), 0.0), 2e-2,
-                f"B2[{rung}] timing")
+            p_p = streamk_phase1_plain(a, q.values, part, b_bits=bits)
+            err2 = max(close(torch.where(used, p_k, 0.0), torch.where(used, p_p, 0.0), 2e-2,
+                             f"B2[{rung}] timing, split-tile slots"),
+                       close(c_k, streamk_fixup_plain(p_p, part, c_p, **scales), 2e-2,
+                             f"B2+B3[{rung}] timing"))
             vs = _rotating(q.values)
             if act_q and bits == 8:
                 lib, label = _int_mm_yardstick(a, q.values)
-                label = label and f"{label} of the whole GEMM (B2 + B3 compose it)"
+                label = label and f"{label} of the whole GEMM (the ALL_SK region computes it)"
             else:
                 ws = _rotating(q.dequantize(torch.bfloat16))
                 lib, label = (lambda: torch.matmul(a_dense, ws[next(it) % len(ws)]),
                               "torch.matmul on the dequantized bf16 weight, the whole GEMM "
                               "(dense yardstick)")
-            nbytes, ops, slot_bytes, elems, adds = _sk_region_bytes_ops(part, m, n, k, a_bytes,
-                                                                        b_bytes)
-            bnd, by = bound_ms(nbytes, ops, peak)
+            bnd, by = bound_ms(*_sk_region_bytes_ops(
+                part, m, n, k, a_bytes, b_bytes, 2, n * 4 + (m * 4 if act_q else 0)), peak)
             timed("streamk_phase1", (m, n, k), pol, s.cfg, s.g,
-                  lambda: streamk_phase1(a, vs[next(it) % len(vs)], part, b_bits=bits),
-                  lambda: streamk_phase1_plain(a, vs[next(it) % len(vs)], part, b_bits=bits),
+                  lambda: streamk_region(a, vs[next(it) % len(vs)], part, c, b_bits=bits,
+                                         **scales),
+                  lambda: streamk_fixup_plain(streamk_phase1_plain(
+                      a, vs[next(it) % len(vs)], part, b_bits=bits), part, c_p, **scales),
                   err2, bnd, by, lib, label, plain_iters=1)
             rows[-1]["composed_ms"] = time_ms(lambda: sk_ops.gemm(
                 a, vs[next(it) % len(vs)], policy=policy, cfg=s.cfg, g=s.g,
                 out_dtype=torch.bfloat16, **kw))[0]
-            c = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
-            c_p = torch.empty_like(c)
-            err3 = close(streamk_fixup(p_k, part, c, rung=rung, **scales),
-                         streamk_fixup_plain(p_k, part, c_p, **scales), 2e-2,
-                         f"B3[{rung}] timing")
-            bnd3, by3 = bound_ms(slot_bytes + elems * 2 + n * 4 + (m * 4 if act_q else 0),
-                                 adds + elems * (2 if act_q else 1), PEAK_F32)
-            timed("streamk_fixup", (m, n, k), pol, s.cfg, s.g,
-                  lambda: streamk_fixup(p_k, part, c, rung=rung, **scales),
-                  lambda: streamk_fixup_plain(p_k, part, c_p, **scales),
-                  err3, bnd3, by3, lib, label)
 
         # B5 at olmoe-1b-7b's expert shapes, both forms -----------------------------
         for gc, m, n, k in GROUPED_SHAPES:
@@ -1718,7 +1697,7 @@ def baseline_comparison(gen):
     needed = {"dp_gemm_region"}  # the DP baseline
     for m, n, k, a, b, s, fns in cases:
         part = partition(GemmShape(m, n, k), s.cfg, s.g, s.policy)
-        needed |= {"streamk_phase1", "streamk_fixup"} if part.sk_tiles else set()
+        needed |= {"streamk_phase1"} if part.sk_tiles else set()
         needed |= {"dp_gemm_region"} if part.dp_tiles else set()
     missing = sorted(name for name in needed if not launches.get(name))
     if missing:
@@ -1843,7 +1822,7 @@ def batched_check(gen):
     [e] = ctx.log
     sel = e.selection
     part = partition(GemmShape(m, n, k), sel.cfg, sel.g, sel.policy)
-    per = (["streamk_phase1", "streamk_fixup"] if part.sk_tiles else []) + (
+    per = (["streamk_phase1"] if part.sk_tiles else []) + (
         ["dp_gemm_region"] if part.dp_tiles else [])
     if e.op.fused or e.op.kind != "batched" or len(e.op.key) != 7 or launched != per * nb:
         raise AssertionError(f"gemm_batched: key {e.op.key}, launches {launched}, expected "
@@ -1876,7 +1855,7 @@ def _kernels_of(entry):
     part = partition(GemmShape(*entry.local_mnk), sel.cfg, sel.g, sel.policy)
     names = set()
     if part.sk_tiles:
-        names |= {launch_name("streamk_phase1", rung), launch_name("streamk_fixup", rung)}
+        names.add(launch_name("streamk_phase1", rung))
     if part.dp_tiles:
         names.add(launch_name("dp_gemm_region", rung))
     return names
@@ -2008,6 +1987,9 @@ def serve_run(arch, model, params, rung, failures, dense_logits=None):
         with gemm_context(selector=engine.selector, backend=backend):
             breakdown[backend] = decode_breakdown(step)
     del scratch_cache
+    if breakdown["cuda"]["fixup_ms"]:
+        raise AssertionError(f"{label}: a fix-up kernel ran in a traced decode step "
+                             f"({breakdown['cuda']['fixup_ms']} ms)")
     for backend, bd in breakdown.items():
         log(f"{label} warm decode step, {backend} backend: {bd['step_ms']:.2f} ms wall, "
             f"{bd['enqueue_ms']:.2f} ms host enqueue, device busy {bd['device_busy_ms']} ms "
@@ -2338,14 +2320,15 @@ def planted_fault_diff(model, params, selector, prompt, want, *, grouped, rung=N
 
 #: name fragments of the hand-written kernels in profiler traces
 GEMM_KERNELS = ("dp_fma_kernel", "dp_mma_kernel", "dp_s8_kernel", "streamk_kernel",
-                "fixup_kernel", "grouped_sk_kernel", "grouped_dp_kernel")
+                "grouped_sk_kernel", "grouped_dp_kernel")
 
 
 def decode_breakdown(step, iters=5):
     """Where a warm decode step's time goes: wall time (host clock ending in
     a synchronise), the host's enqueue time (until ``step`` returns), and,
     from one ``torch.profiler`` trace, the device's busy time, the share of
-    it in the GEMM kernels, and the busiest kernels by name."""
+    it in the GEMM kernels, the device ms of any kernel named a fix-up (B3
+    is fused into B2: none should run), and the busiest kernels by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2372,6 +2355,7 @@ def decode_breakdown(step, iters=5):
         # None when the trace holds no device events ("not measured")
         device_busy_ms=busy or None, gemm_kernels_ms=gemm if busy else None,
         idle_share=1.0 - busy / wall_ms if busy else None,
+        fixup_ms=sum(v for name, v in by_name.items() if "fixup" in name),
         top_kernels=[[name[:90], ms] for name, ms in top],
     )
 
@@ -2515,7 +2499,7 @@ def main() -> int:
         for name in SERVED_KERNELS:
             key = f"{name}[{rung}]"
             # each (kernel, rung) that a served path ran: its count from the model that
-            # serves it (granite-8b for B1-B3, olmoe-1b-7b for B5), else from the other
+            # serves it (granite-8b for B1 and B2, olmoe-1b-7b for B5), else from the other
             arch = "olmoe-1b-7b" if name.startswith("grouped") else "granite-8b"
             other = "granite-8b" if arch != "granite-8b" else "olmoe-1b-7b"
             counts = {a: serve[a][rung]["launches"].get(key, 0) for a in (arch, other)}
@@ -2526,9 +2510,7 @@ def main() -> int:
                 continue
             t = quant_entry(quant_rows, name, rung)
             kernels.append(dict(
-                name=key, route="cuda", source=SOURCES[name],
-                instantiated_in=SOURCE.replace(".cuh", ".cu") if name == "streamk_fixup"
-                else pair_source,
+                name=key, route="cuda", source=SOURCES[name], instantiated_in=pair_source,
                 replaces=REPLACES[name], launches=counts[arch],
                 max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
                 bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"],

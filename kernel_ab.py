@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's dense Hopper kernels of one checkout at decode shapes.
 
-    python3 kernel_ab.py <tree> [--build-only | --served] [--out FILE]
+    python3 kernel_ab.py <tree> [--build-only | --served | --occupancy] [--out FILE]
     python3 kernel_ab.py --report FILE
 
 ``<tree>`` is the root of a checkout (``.`` for this one); its
@@ -21,8 +21,9 @@ predates it) and one of a digest of the output bytes of each checked call
 one JSON record to FILE. ``--report FILE`` then prints, per kernel and
 pair, each tree's times, the ratio of the mean times and whether every run
 of every tree gave the same output bytes. Timed: B1 at 4x14336x4096 (DP
-8x128x128), B2, B3 and their composition B2+B3 at 4x4096x14336 (ALL_SK
-8x256x128), and B5 at 64x4x1024x2048 (DP 8x256x128) and 64x16x1024x2048
+8x128x128), the Stream-K region B2+B3 at 4x4096x14336 (ALL_SK 8x256x128:
+one launch on a tree that fuses the fix-up into the sweep, the sweep and
+the fix-up in turn on an older one, under the same row names), and B5 at 64x4x1024x2048 (DP 8x256x128) and 64x16x1024x2048
 (ALL_SK 16x128x128), all with g = 132, and B6 at 4x14336x4096 (split-K s =
 4, 8x128x128, g = 0, one block per tile), each on eight operand pairs:
 bf16, bf16 x int8 and bf16 x packed int4 (the rungs with bf16
@@ -32,11 +33,11 @@ rungs); and olmoe-1b-7b's router, the one f32 GEMM a served path runs:
 the composition at 4x64x2048, f32, under the H100 selector's pick (row
 ``B2+B3 router``; held against the same composition on the CPU, where
 each kernel runs its plain version). Before it is timed, each call is held
-against its plain version (``dp_gemm_region_plain``,
-``streamk_phase1_plain`` on the contributor slots, ``streamk_fixup_plain``,
-``gemm_grouped_streamk_plain``, ``splitk_partials_plain``): 2e-2 x
-max|ref| for bf16 activations, 1e-4 for f32 and int8 ones; a disagreement
-raises.
+against its plain version (``dp_gemm_region_plain``; for B2+B3
+``streamk_phase1_plain`` on the contributor slots of split tiles and
+``streamk_fixup_plain`` of it on C; ``gemm_grouped_streamk_plain``,
+``splitk_partials_plain``): 2e-2 x max|ref| for bf16 activations, 1e-4
+for f32 and int8 ones; a disagreement raises.
 
 ``--served`` times served decode steps instead: olmoe-1b-7b dense and on
 the int8-dynamic rung, and granite-8b dense, each at full width from seed
@@ -45,6 +46,13 @@ three warm steps, ``SERVED_REPS`` steps are each traced by
 ``torch.profiler``, and each step's device ms in the GEMM kernels (names in
 ``GEMM_KERNELS``) is one sample. The report gives each tree's median,
 least and most, and the ratio of the medians.
+
+``--occupancy`` times the Stream-K region B2+B3 instead at the two grid
+sizes the selector offers on the card beside g/2, g = 132 (one block an
+SM) and g = 264 (two), on the instantiations of ``streamk_kernel`` whose
+register count decides whether two blocks fit on an SM: dense f32 at M =
+32 and 64 and int8 x packed int4 at M = 64, each at Mx4096x14336 (ALL_SK
+Mx128x128), held against the plain composition first as above.
 """
 
 import gc
@@ -127,6 +135,11 @@ from repro_torch.kernels.streamk.streamk_gemm import (  # noqa: E402
 )
 
 try:
+    from repro_torch.kernels.streamk.streamk_gemm import streamk_region  # noqa: E402
+except ImportError:  # a tree from before the fix-up was fused into the sweep
+    streamk_region = None
+
+try:
     from repro_torch.kernels.common import mainloop  # noqa: E402
 except ImportError:  # a tree from before the mainloop was named per kernel
     mainloop = None
@@ -177,6 +190,18 @@ def check(got, want, tol, what):
         raise AssertionError(f"{what}: max|err| {err:.3e}")
 
 
+def sk_region(a, b, part, c, kw):
+    """(C with its Stream-K tiles written, the contributor slots): one
+    launch on a tree that fuses the fix-up into the sweep, the sweep and
+    then the fix-up on an older one."""
+    bits = kw.get("b_bits", 8)
+    scales = {k_: v for k_, v in kw.items() if k_ != "b_bits"}
+    if streamk_region is not None:
+        return streamk_region(a, b, part, c, b_bits=bits, workspace=True, **scales)
+    partials = streamk_phase1(a, b, part, b_bits=bits)
+    return streamk_fixup(partials, part, c, **scales), partials
+
+
 def digest(t):
     """The first 16 hex digits of the sha256 of ``t``'s bytes."""
     raw = t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes()
@@ -184,8 +209,10 @@ def digest(t):
 
 
 #: the kernels a served step's GEMMs launch, by the names a trace gives them
-GEMM_KERNELS = ("dp_kernel", "dp_fma_kernel", "dp_mma_kernel", "dp_s8_kernel",
-                "streamk_kernel", "fixup_kernel", "grouped_sk_kernel", "grouped_dp_kernel")
+#: (``fixup_kernel`` runs on a tree from before the fix-up was fused into
+#: ``streamk_kernel``)
+GEMM_KERNELS = ("dp_fma_kernel", "dp_mma_kernel", "dp_s8_kernel", "streamk_kernel",
+                "fixup_kernel", "grouped_sk_kernel", "grouped_dp_kernel")
 SERVED = (("olmoe-1b-7b", None), ("olmoe-1b-7b", "int8-dynamic"), ("granite-8b", None))
 SERVED_REPS = 9
 
@@ -228,6 +255,33 @@ def served():
     return out
 
 
+def occupancy(randn, turn):
+    """(ms, digests) of B2+B3 at g = 132 and 264, per ``--occupancy``."""
+    out, digests = {}, {}
+    for m, pairs in ((32, ("f32",)), (64, ("f32", "int8*int4"))):
+        cfg = TileConfig(m, 128, 128)
+        for pair, a, b, kw, tol in rungs(randn(m, 14336), randn(14336, 4096)):
+            if pair not in pairs:
+                continue
+            for g in (132, 264):
+                part = partition(GemmShape(m, 4096, 14336), cfg, g, ALL_SK)
+                out_dt = torch.float32 if a.dtype == torch.float32 else torch.bfloat16
+                scales = {k_: v for k_, v in kw.items() if k_ != "b_bits"}
+                c = torch.empty(m, 4096, dtype=out_dt, device="cuda")
+                got = sk_region(a, b, part, c, kw)[0]
+                want = streamk_phase1_plain(a, b, part, b_bits=kw.get("b_bits", 8))
+                check(got, streamk_fixup_plain(want, part, torch.empty_like(c), **scales), tol,
+                      f"B2+B3 {pair} m={m} g={g}")
+                name = f"B2+B3 occupancy {m}x4096x14336 g{g} {pair}"
+                digests[name] = digest(got)
+                bs = copies(b)
+                out[name] = time_ms(lambda: sk_ops.gemm(
+                    a, bs[next(turn) % len(bs)], policy=ALL_SK, cfg=cfg, g=g,
+                    out_dtype=out_dt, **kw))
+                del bs, want, got
+    return out, digests
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -250,6 +304,13 @@ def main() -> int:
 
     out, loops, digests = {}, {}, {}
     turn = iter(range(10**9))
+    if "--occupancy" in sys.argv:
+        out, digests = occupancy(randn, turn)
+        print(tree, json.dumps(out), flush=True)
+        if "--out" in sys.argv:
+            with open(sys.argv[sys.argv.index("--out") + 1], "a") as f:
+                f.write(json.dumps(dict(tree=tree, ms=out, digests=digests)) + "\n")
+        return 0
 
     def key(name, shape, pair, a_dtype, kernel=None):
         """The JSON key of one timing; notes the mainloop ``kernel`` runs."""
@@ -282,28 +343,24 @@ def main() -> int:
         del bs, got
     cfg2 = TileConfig(8, 256, 128)
     part = partition(GemmShape(4, 4096, 14336), cfg2, 132, ALL_SK)
-    used = (torch.arange(range_math(part)[3] + 1, device="cuda")[None, :]
-            < n_contributors(part, "cuda")[:, None])
+    nc = n_contributors(part, "cuda")
+    # the slots the card defines on every pair: those of split tiles, below their count
+    split = (torch.arange(range_math(part)[3] + 1, device="cuda")[None, :] < nc[:, None]) & (
+        nc > 1)[:, None]
     for pair, a, b, kw, tol in rungs(randn(4, 14336), randn(14336, 4096)):
         out_dt = torch.float32 if a.dtype == torch.float32 else torch.bfloat16
         bits = kw.get("b_bits", 8)
         scales = {k_: v for k_, v in kw.items() if k_ != "b_bits"}
-        partials = streamk_phase1(a, b, part, b_bits=bits)
-        want = streamk_phase1_plain(a, b, part, b_bits=bits)
-        check(partials[used], want[used], tol, f"B2 {pair}")
         c = torch.empty(4, 4096, dtype=out_dt, device="cuda")
-        got = streamk_fixup(partials, part, c, **scales)
+        got, partials = sk_region(a, b, part, c, kw)
+        want = streamk_phase1_plain(a, b, part, b_bits=bits)
+        check(partials[split], want[split], tol, f"B2 {pair}")
         check(got, streamk_fixup_plain(want, part, torch.empty_like(c), **scales), tol,
-              f"B3 {pair}")
-        name2 = key("B2", "4x4096x14336", pair, a.dtype, "streamk_phase1")
-        name3 = key("B3", "4x4096x14336", pair, a.dtype)
-        digests[name2], digests[name3] = digest(partials[used]), digest(got)
+              f"B2+B3 {pair}")
+        name = key("B2+B3", "4x4096x14336", pair, a.dtype, "streamk_phase1")
+        digests[name] = digest(got)
         bs = copies(b)
-        out[name2] = time_ms(
-            lambda: streamk_phase1(a, bs[next(turn) % len(bs)], part, b_bits=bits))
-        out[name3] = time_ms(
-            lambda: streamk_fixup(partials, part, c, **scales))
-        out[key("B2+B3", "4x4096x14336", pair, a.dtype)] = time_ms(lambda: sk_ops.gemm(
+        out[name] = time_ms(lambda: sk_ops.gemm(
             a, bs[next(turn) % len(bs)], policy=ALL_SK, cfg=cfg2, g=132, out_dtype=out_dt,
             **kw))
         del bs, partials, want

@@ -1,14 +1,12 @@
-// The f32 FMA mainloop of B1, B2, B5's DP form and B6 for f32 activations
-// (NVIDIA Hopper, sm_90a): stream_k.cuh's dp_fma_kernel and streamk_kernel,
-// grouped.cuh's grouped_dp_kernel and splitk.cuh's splitk_fma_kernel take
-// fma_subblock in place of sk_common.cuh's SIMT mac_subblock when A is f32,
-// whatever B is: f32 (the dense pair), int8 or packed int4 (the f32 x int8
-// and f32 x int4 pairs of the ladder); B5's Stream-K form alone keeps the
-// SIMT loop. No TF32:
-// every product is one f32 FMA of the f32 activation and the exact f32 value
+// The f32 FMA mainloop of B1, B2, B5 and B6 for f32 activations (NVIDIA
+// Hopper, sm_90a): stream_k.cuh's dp_fma_kernel and streamk_kernel,
+// grouped.cuh's grouped_sk_kernel and grouped_dp_kernel and splitk.cuh's
+// splitk_fma_kernel run fma_subblock when A is f32, whatever B is: f32 (the
+// dense pair), int8 or packed int4 (the f32 x int8 and f32 x int4 pairs of
+// the ladder). No TF32: every product is one f32 FMA of the f32 activation and the exact f32 value
 // of the weight, as repro's mixed_dot forms it (1e-4, docs/kernels.md).
 //
-// Contract (that of mac_subblock): the f32 sums over [kbeg, kend) of one
+// Contract (sk_common.cuh's): the f32 sums over [kbeg, kend) of one
 // SM x 128 sub-block of A @ B, with ragged M, N and K masked by the loads,
 // zeros for a sub-block outside C, and kbeg a multiple of the tile's bk;
 // operands whose rows are not 16-byte aligned fill the same ring element by
@@ -69,9 +67,10 @@
 //
 // After the reduction, thread (warp, lane) holds acc[r][j] at sub-block row
 // fma_row(r) and column fma_col(j); store_subblock_fma flushes it through
-// the epilogue (B1, B5's DP form, B6), park_subblock_fma parks it in an f32
-// partial slot (B2's segments on int8 and int4 weights; park_subblock_ordered
-// parks the k-ordered map's).
+// the epilogue (B1, B6, and the whole tiles of B2 and both B5 forms),
+// park_subblock_fma parks it in an f32 partial slot (the segments of B2's
+// and B5's split tiles). The k-ordered map parks with park_subblock_ordered,
+// whole tiles too (stream_k.cuh flushes their one slot).
 
 #pragma once
 

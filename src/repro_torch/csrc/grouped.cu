@@ -24,7 +24,8 @@
 // slot, fences, and bumps the tile's arrival counter. The block that arrives
 // last sums the tile's slots in ascending workgroup order, applies the
 // epilogue, writes C and resets the counter for the next launch. The sum
-// order is fixed, so the result is bit-identical run to run.
+// order is fixed, so the result is bit-identical run to run. That tail is
+// fix_up_split_tile of sk_common.cuh, which B2 (stream_k.cuh) runs too.
 //
 // Workspace: a split tile has contributors first_wg..last_wg; contributor x
 // keeps its segment in slot 2x (when its range starts inside the tile) or
@@ -43,28 +44,24 @@
 // against 2048 x 1024 weights) it reads every expert's weights once, 268 MB
 // per call in bf16 (134 MB int8, 67 MB packed int4), for 8 operations per
 // weight (4 rows): bound by bytes, far below the card's 295 operations per byte
-// (0.0806 / 0.0406 / 0.0206 ms at 3.35 TB/s). The SIMT loop of sk_common.cuh
-// had all 8 row groups of a block read and widen every weight, so it ran at
-// 1.2 TB/s in bf16 (0.230 ms) and the int8 -> f32 conversions made int8
-// slower still (0.355 ms). With bf16 activations (the dense, int8 and int4
-// rungs) each sub-block now runs the tensor-core mainloop of mma_bf16.cuh:
+// (0.0806 / 0.0406 / 0.0206 ms at 3.35 TB/s). With bf16 activations (the
+// dense, int8 and int4 rungs) each sub-block runs the tensor-core mainloop of mma_bf16.cuh:
 // mma.sync fed by ldmatrix, each weight read from shared memory and widened
-// once per block, 16 KB chunks with 64 KB of B in flight. bf16 then streams
-// at 2.7 TB/s (0.098 ms, 82 % of the bound); int8 and int4 take 0.084 and
-// 0.066 ms, bound no longer by bytes but by the passes of the loop (a
+// once per block, 16 KB chunks with 64 KB of B in flight. bf16 streams at
+// 2.7 TB/s (0.098 ms, 82 % of the bound); int8 and int4 take 0.084 and
+// 0.066 ms, bound not by bytes but by the passes of the loop (a
 // barrier, the widening and the MMAs per 16 KB chunk). With int8
 // activations (int8 or packed int4 weights) each sub-block runs the s8
 // tensor-core mainloop of mma_s8.cuh: mma.sync.m16n8k32 with exact int32
 // sums per bk step, each weight read from shared memory once per block and
 // transposed (int4: sign-extended) into a column-major strip by byte
-// permutes, so the result is the SIMT loop's bit for bit. int8 x int8 then
-// takes 0.066 ms (SIMT: 0.270) and int8 x int4 0.054 (0.291); the Stream-K
-// form at 64x16x1024x2048 0.084 (0.311) and 0.072 (0.325). With f32
-// activations (f32, int8 or packed int4 weights) the DP form runs the f32
-// FMA mainloop of fma_f32.cuh (no TF32; each weight read from shared memory
-// and widened once per block): 0.181 / 0.078 / 0.064 ms (SIMT: 0.312 /
-// 0.351 / 0.254); the Stream-K form keeps the SIMT loop (0.306 ms on f32 at
-// 64x16x1024x2048). (Device times on an H100 80GB HBM3 at 700 W,
+// permutes, each bk step's int32 sum entering the f32 sum in k order. int8
+// x int8 takes 0.066 ms and int8 x int4 0.054; the Stream-K form at
+// 64x16x1024x2048 0.084 and 0.072. With f32 activations (f32, int8 or
+// packed int4 weights) both forms run the f32 FMA mainloop of fma_f32.cuh
+// (no TF32; each weight read from shared memory and widened once per
+// block): the DP form takes 0.181 / 0.078 / 0.064 ms (PERF.md has the
+// Stream-K form's times). (Device times on an H100 80GB HBM3 at 700 W,
 // kernel_ab.py, DP form at 64x4x1024x2048, g = 132.)
 //
 // The kernels are in grouped.cuh; this file instantiates them for f32

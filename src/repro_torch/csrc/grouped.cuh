@@ -2,11 +2,12 @@
 // grouped.cu instantiates them for f32 inputs, grouped_bf16.cu for bf16
 // inputs and each quant_*.cu for one pair of the quantization ladder, so
 // the sources compile in parallel. With bf16 activations (the dense bf16,
-// int8 and int4 rungs) each sub-block runs the tensor-core mainloop of
-// mma_bf16.cuh, with int8 activations (int8 or packed int4 weights) the s8
-// tensor-core mainloop of mma_s8.cuh. With f32 activations (x f32, int8 or
-// packed int4) the DP form runs the f32 FMA mainloop of fma_f32.cuh and the
-// Stream-K form sk_common.cuh's SIMT loop.
+// int8 and int4 rungs) each sub-block of both forms runs the tensor-core
+// mainloop of mma_bf16.cuh, with int8 activations (int8 or packed int4
+// weights) the s8 tensor-core mainloop of mma_s8.cuh, and with f32
+// activations (x f32, int8 or packed int4) the f32 FMA mainloop of
+// fma_f32.cuh. The Stream-K form finishes a split tile with
+// fix_up_split_tile (sk_common.cuh), the tail B2 shares.
 
 #pragma once
 
@@ -53,43 +54,26 @@ __device__ __forceinline__ Group<TA, TB, TOut> group_of(const TA* a, const TB* b
   return g;
 }
 
-// Flush one multiplied sub-block through the epilogue into C.
-template <typename TOut, int SM, typename TA, typename TB>
-__device__ __forceinline__ void store_subblock(const Group<TA, TB, TOut>& g,
-                                               const float (&acc)[SM / 8][4], int row_end,
-                                               int row0, int col0, int n) {
-  constexpr int TM = SM / 8;
-  const int tn = threadIdx.x & 31;
-  const int tm = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int64_t row = row0 + tm * TM + i;
-    if (row >= row_end) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col0 + tn * 4 + j;
-      if (col < n)
-        g.c[row * n + col] = from_f32<TOut>(apply_epilogue<TOut>(acc[i][j], g.epi, row, col, n));
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Stream-K form
 // ---------------------------------------------------------------------------
 
+// Blocks an SM that __launch_bounds__ promises the Stream-K form: 1 on f32
+// activations, where the FMA loop's sums need 128-255 registers (held to 128
+// at SM = 8, f32 x int8 spilled 88/108 bytes); 0, no promise, on the others, whose SASS it leaves as it was.
+template <typename TA>
+__host__ __device__ constexpr int sk_min_blocks() {
+  return std::is_same<TA, float>::value ? 1 : 0;
+}
+
 template <typename TA, typename TB, bool P4, typename TOut, int SM>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, sk_min_blocks<TA>())
     grouped_sk_kernel(const TA* __restrict__ a, const TB* __restrict__ b, TOut* __restrict__ c,
                       const int* __restrict__ tab, float* __restrict__ ws,
                       int* __restrict__ counters, int m, int n, int k, int bm, int bn, int bk,
                       int nt, int ipt, int ipw, int total, bool aligned, Epilogue epi) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  TA* smem = reinterpret_cast<TA*>(smem_raw);
   __shared__ int last_arrival;
-  constexpr int TM = SM / 8;
-  const int tn = threadIdx.x & 31;
-  const int tm = threadIdx.x >> 5;
   const int x = blockIdx.x;
   const int64_t start = (int64_t)x * ipw;
   if (start >= total) return;
@@ -133,19 +117,13 @@ __global__ void __launch_bounds__(kThreads)
           else
             park_subblock_mma<SM>(acc, out + (int64_t)sm0 * bn + sn0, bn);
         } else {
-          float acc[TM][4];
-          mac_subblock<TA, TB, P4, SM>(g.a, g.b, rb.row_end, n, k, row0, col0, kbeg, kend,
-                                       aligned, acc, smem);
-          if (whole) {
-            store_subblock<TOut, SM>(g, acc, rb.row_end, row0, col0, n);
-          } else {
-#pragma unroll
-            for (int i = 0; i < TM; ++i) {
-              float* dst = out + (int64_t)(sm0 + tm * TM + i) * bn + sn0 + tn * 4;
-              *reinterpret_cast<float4*>(dst) =
-                  make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-            }
-          }
+          float acc[SM][fma_tn<SM>()];
+          fma_subblock<TB, P4, SM>(g.a, g.b, rb.row_end, n, k, row0, col0, kbeg, kend, aligned,
+                                   acc, smem_raw);
+          if (whole)
+            store_subblock_fma<SM>(g.c, g.epi, acc, rb.row_end, row0, col0, n);
+          else
+            park_subblock_fma<SM>(acc, out + (int64_t)sm0 * bn + sn0, bn);
         }
       }
     }
@@ -153,33 +131,11 @@ __global__ void __launch_bounds__(kThreads)
       it = seg_end;
       continue;
     }
-    // Publish the slot, then arrive; the last of the tile's contributors
-    // finishes it. Nobody waits on anybody.
-    __threadfence();
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      const int prev = atomicAdd(&counters[first_wg], 1);
-      last_arrival = prev == last_wg - first_wg;
-      if (last_arrival) {
-        counters[first_wg] = 0;  // every contributor has arrived: ready for the next launch
-        __threadfence();         // acquire the other contributors' slots
-      }
-    }
-    __syncthreads();
-    if (last_arrival) {
-      for (int e = threadIdx.x; e < bm * bn; e += kThreads) {
-        const int64_t row = rb.row0 + e / bn;
-        const int col = tile_n * bn + e % bn;
-        if (row >= rb.row_end || col >= n) continue;
-        float sum = 0.f;
-        for (int w = first_wg; w <= last_wg; ++w) {
-          const int slot = 2 * w + ((int64_t)w * ipw >= (int64_t)t * ipt ? 0 : 1);
-          sum += __ldcg(ws + slot * tile_elems + e);  // L2: the slots of other SMs
-        }
-        g.c[row * n + col] = from_f32<TOut>(apply_epilogue<TOut>(sum, g.epi, row, col, n));
-      }
-    }
-    __syncthreads();  // last_arrival is reused by the next split segment
+    // the last of the tile's contributors to arrive finishes it
+    fix_up_split_tile<TOut>(
+        counters, first_wg, first_wg, last_wg,
+        [&](int w) { return 2 * w + ((int64_t)w * ipw >= (int64_t)t * ipt ? 0 : 1); }, ws,
+        tile_elems, g.c, g.epi, rb.row0, rb.row_end, tile_n * bn, n, bm, bn, last_arrival);
     it = seg_end;
   }
 }
@@ -233,14 +189,11 @@ int launch_grouped(int sm, bool sk_form, const void* a, const void* b, void* c, 
   const TB* bp = static_cast<const TB*>(b);
   TOut* cp = static_cast<TOut*>(c);
   const int total = n_tiles * ipt;
-  // the Stream-K form's f32 rungs run the SIMT loop (smem_bytes sizes its ring)
-  constexpr bool simt = std::is_same<TA, float>::value;
 #define SK_GROUPED(S)                                                                        \
   if (sk_form)                                                                               \
     return launch<grouped_sk_kernel<TA, TB, P4, TOut, S>>(                                   \
-        simt ? smem_bytes<TA, TB, P4, S>() : mainloop_smem_bytes<TA, TB, P4, S>(), grid,     \
-        stream, ap, bp, cp, tab, ws, counters, m, n, k, bm, bn, bk, nt, ipt, ipw, total,     \
-        aligned, epi);                                                                       \
+        mainloop_smem_bytes<TA, TB, P4, S>(), grid, stream, ap, bp, cp, tab, ws, counters, m, \
+        n, k, bm, bn, bk, nt, ipt, ipw, total, aligned, epi);                                \
   return launch<grouped_dp_kernel<TA, TB, P4, TOut, S>>(                                     \
       mainloop_smem_bytes<TA, TB, P4, S>(), grid, stream, ap, bp, cp, tab, m, n, k, bm, bn,  \
       bk, nt, n_tiles, aligned, epi)

@@ -1,15 +1,15 @@
 // The tensor-core mainloop of B1, B2, B5 and B6 for bf16 activations
 // (NVIDIA Hopper, sm_90a): stream_k.cuh, grouped.cuh and splitk.cuh take
-// mma_subblock in place of sk_common.cuh's SIMT mac_subblock when A is bf16
-// (uses_mma), whatever B is: bf16 (the dense rung), int8 or packed int4 (the
-// int8 and int4 rungs). int8 activations run the s8 loop of mma_s8.cuh,
-// which reuses the helpers here; f32 activations run the f32 FMA loop of
-// fma_f32.cuh (B1, B2, B5's DP form, B6) or the SIMT loop (B5's Stream-K
-// form). The helpers at the end flush the fragments through the epilogue
-// (B1, B5; B6's partials with an empty one) or park them in an f32 partial
-// slot (B2, B5's split tiles); mma_s8.cuh sizes the launch of either loop.
+// mma_subblock when A is bf16 (uses_mma), whatever B is: bf16 (the dense
+// rung), int8 or packed int4 (the int8 and int4 rungs). int8 activations run
+// the s8 loop of mma_s8.cuh, which reuses the helpers here; f32 activations
+// run the f32 FMA loop of fma_f32.cuh. The helpers at the end flush the
+// fragments through the epilogue (B1, whole tiles of B2 and B5; B6's
+// partials with an empty one) or park them in an f32 partial slot (the
+// segments of B2's and B5's split tiles); mma_s8.cuh sizes the launch of
+// either loop.
 //
-// Contract (that of mac_subblock): the f32 sums over [kbeg, kend) of one
+// Contract (sk_common.cuh's): the f32 sums over [kbeg, kend) of one
 // SM x 128 sub-block of A @ B, with ragged M, N and K masked by the loads,
 // zeros for a sub-block outside C, and kbeg a multiple of the tile's bk.
 //

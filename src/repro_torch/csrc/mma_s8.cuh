@@ -1,12 +1,11 @@
 // The s8 tensor-core mainloop of B1, B2, B5 and B6 for int8 activations
 // (NVIDIA Hopper, sm_90a): stream_k.cuh, grouped.cuh and splitk.cuh take
-// mma_s8_subblock in place of sk_common.cuh's SIMT mac_subblock when A is
-// int8, whether B is int8 (the int8-dynamic rung) or packed int4 (int8 x
+// mma_s8_subblock when A is int8, whether B is int8 (the int8-dynamic rung) or packed int4 (int8 x
 // int4, int4-dynamic). bf16 activations run mma_bf16.cuh, f32 ones
 // fma_f32.cuh. mainloop_smem_bytes, at the end, sizes the launch of
 // whichever of the three loops a kernel runs.
 //
-// Contract (that of mac_subblock, on int8 activations): the f32 sums over
+// Contract (sk_common.cuh's, on int8 activations): the f32 sums over
 // [kbeg, kend) of one SM x 128 sub-block of A @ B, with ragged M, N and K
 // masked by the loads, zeros for a sub-block outside C, and kbeg a multiple
 // of bk. Each bk step's exact int32 sum is added into the f32 accumulator at
@@ -321,8 +320,7 @@ __device__ __forceinline__ void mma_s8_subblock(const int8_t* __restrict__ a,
 
 // Dynamic shared memory of one block of B1, B2, B5 or B6: the bf16
 // tensor-core ring for bf16 activations, the s8 one for int8 activations,
-// the f32 FMA ring for f32 (B5's Stream-K form, whose f32 rungs still run
-// the SIMT loop, sizes that loop's ring with smem_bytes).
+// the f32 FMA ring for f32.
 template <typename TA, typename TB, bool P4, int SM>
 constexpr int mainloop_smem_bytes() {
   if constexpr (uses_mma<TA>())

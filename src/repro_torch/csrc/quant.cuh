@@ -9,9 +9,9 @@
 //                     (a weight quantized with bits=4, act_bits=8)
 //
 // so the six compile in parallel with stream_k.cu, grouped.cu and
-// grouped_bf16.cu. The pair's B1, B2 and B6 are reached from stream_k.cu's
-// entries and its B5 from grouped.cu's, by dtype code; B3 is shared (it
-// reads f32 partials whatever the inputs).
+// grouped_bf16.cu. The pair's B1, B2 (which finishes its own split tiles:
+// B3 is fused into it) and B6 are reached from stream_k.cu's entries and
+// its B5 from grouped.cu's, by dtype code.
 //
 // What bounds them on the H100 is what bounds the dense kernels (see
 // stream_k.cu and grouped.cu): at the serving shapes, reading B. The pairs
@@ -22,9 +22,8 @@
 // against byte bounds of 0.040 and 0.020 ms and the SIMT loop's 0.270 and
 // 0.291 ms (H100 80GB HBM3 at 700 W, kernel_ab.py); B1's and B2's times are
 // in PERF.md. B6 runs B1's loop on every pair; on f32_i8 and f32_i4 B1, B2,
-// B5's DP form and B6 run the f32 FMA mainloop of fma_f32.cuh, B5's
-// Stream-K form the SIMT loop of sk_common.cuh (stream_k.cuh, grouped.cuh,
-// splitk.cuh).
+// both B5 forms and B6 run the f32 FMA mainloop of fma_f32.cuh
+// (stream_k.cuh, grouped.cuh, splitk.cuh).
 
 #pragma once
 
@@ -37,10 +36,11 @@
       int bn, int bk, int n_tiles_n, int tile_offset, int n_total, int grid, int aligned,    \
       const void *bias, const void *operand, const void *scale, const void *scale_a, int act, \
       int binary, void *stream
-#define SK_QUANT_P1_PARAMS                                                                 \
-  int sm, const void *a, const void *b, void *partials, int m, int n, int k, int bm, int bn, \
-      int bk, int n_tiles_n, int ipt, int ipw, int total, int mc, int grid, int aligned,     \
-      void *stream
+#define SK_QUANT_P1_PARAMS                                                                  \
+  int out_dt, int sm, const void *a, const void *b, void *c, void *partials, void *counters, \
+      int m, int n, int k, int bm, int bn, int bk, int n_tiles_n, int ipt, int ipw, int total, \
+      int mc, int grid, int aligned, const void *bias, const void *operand,                  \
+      const void *scale, const void *scale_a, int act, int binary, void *stream
 #define SK_QUANT_GROUPED_PARAMS                                                               \
   int out_dt, int sm, int sk_form, const void *a, const void *b, void *c, const void *tab,    \
       void *ws, void *counters, int m, int n, int k, int bm, int bn, int bk, int nt,          \
@@ -66,8 +66,9 @@
                                 scale_a, act, binary, stream);                                  \
   }                                                                                             \
   int sk_streamk_phase1_##tag(SK_QUANT_P1_PARAMS) {                                             \
-    return streamk_entry<TA, TB, P4>(sm, a, b, partials, m, n, k, bm, bn, bk, n_tiles_n, ipt,   \
-                                     ipw, total, mc, grid, aligned, stream);                    \
+    return streamk_entry<TA, TB, P4>(out_dt, sm, a, b, c, partials, counters, m, n, k, bm, bn,  \
+                                     bk, n_tiles_n, ipt, ipw, total, mc, grid, aligned, bias,   \
+                                     operand, scale, scale_a, act, binary, stream);             \
   }                                                                                             \
   int sk_grouped_gemm_##tag(SK_QUANT_GROUPED_PARAMS) {                                          \
     return grouped_entry<TA, TB, P4>(out_dt, sm, sk_form, a, b, c, tab, ws, counters, m, n, k,  \

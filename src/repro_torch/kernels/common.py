@@ -25,7 +25,6 @@ from repro_torch.core.workpart import cdiv
 KERNELS = (
     "dp_gemm_region",
     "streamk_phase1",
-    "streamk_fixup",
     "grouped_streamk_sk",
     "grouped_streamk_dp",
     "splitk_partials",
@@ -38,32 +37,44 @@ KERNELS = (
 RUNGS = ("int8", "int8-dynamic", "int4", "int4-dynamic")
 
 
-#: the activation dtypes on which every kernel that multiplies runs a
-#: tensor-core mainloop: ``csrc/mma_bf16.cuh`` serves bf16 activations
-#: (``uses_mma``), ``csrc/mma_s8.cuh`` int8 ones
+#: the activation dtypes on which every kernel runs a tensor-core mainloop:
+#: ``csrc/mma_bf16.cuh`` serves bf16 activations (``uses_mma``),
+#: ``csrc/mma_s8.cuh`` int8 ones
 MMA_ACTIVATIONS = (torch.bfloat16, torch.int8)
-#: the kernels whose f32-activation rungs run the f32 FMA mainloop of
-#: ``csrc/fma_f32.cuh``; B5's Stream-K form runs the SIMT loop on them
-FMA_KERNELS = ("dp_gemm_region", "streamk_phase1", "grouped_streamk_dp", "splitk_partials")
 
 
-def mainloop(kernel: str, a_dtype: torch.dtype) -> Optional[str]:
+def mainloop(kernel: str, a_dtype: torch.dtype) -> str:
     """The MAC ``kernel`` runs for activations of ``a_dtype``: ``"mma"``, a
-    tensor-core mainloop, for B1, B2, both B5 forms and B6 with bf16
-    activations (``csrc/mma_bf16.cuh``) or int8 ones (``csrc/mma_s8.cuh``),
-    whatever the weights; with f32 activations ``"fma"``, ``fma_subblock``
-    of ``csrc/fma_f32.cuh`` (dense f32 B2 in its k-ordered map), for B1,
-    B2, B5's DP form and B6, and
-    ``"simt"``, ``mac_subblock`` of ``csrc/sk_common.cuh``, for B5's
-    Stream-K form; None for B3 (``streamk_fixup``), which sums f32 partials
-    and multiplies nothing."""
+    tensor-core mainloop, for bf16 activations (``csrc/mma_bf16.cuh``) or
+    int8 ones (``csrc/mma_s8.cuh``), whatever the weights; ``"fma"``,
+    ``fma_subblock`` of ``csrc/fma_f32.cuh``, for f32 activations (dense f32
+    B2 in its k-ordered map). The same for B1, B2 (which runs B3's fix-up
+    in its tail and multiplies nothing more there), both B5 forms and B6."""
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel {kernel!r}; expected one of {KERNELS}")
-    if kernel == "streamk_fixup":
-        return None
-    if a_dtype in MMA_ACTIVATIONS:
-        return "mma"
-    return "fma" if kernel in FMA_KERNELS else "simt"
+    return "mma" if a_dtype in MMA_ACTIVATIONS else "fma"
+
+
+#: per-device arrival counters of the split tiles of B2 (indexed by tile)
+#: and of B5's Stream-K form (indexed by first workgroup): zeroed once, and
+#: every launch leaves them at 0 (the last contributor to a tile resets its
+#: counter). Launches in turn on one stream may share them; two streams
+#: must not, or one launch's arrivals would count toward the other's tiles.
+ARRIVAL_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+
+
+def arrival_counters(n: int, device) -> torch.Tensor:
+    """At least ``n`` int32 arrival counters on ``device``, all 0 between
+    launches; grown (a new zeroed tensor) when ``n`` passes what it holds,
+    so a call costs no memset launch."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:  # one key per card
+        device = torch.device("cuda", torch.cuda.current_device())
+    cnt = ARRIVAL_COUNTERS.get(device)
+    if cnt is None or cnt.numel() < n:
+        cnt = torch.zeros(max(n, 264), dtype=torch.int32, device=device)
+        ARRIVAL_COUNTERS[device] = cnt
+    return cnt
 
 
 def launch_name(kernel: str, rung: Optional[str] = None) -> str:

@@ -45,8 +45,7 @@ _I = ctypes.c_int
 #: c_void_p so ctypes never truncates them to 32 bits).
 _SIGNATURES = {
     "sk_dp_gemm": [_I, _I, _I, _I, _P, _P, _P, *[_I] * 11, _P, _P, _P, _P, _I, _I, _P],
-    "sk_streamk_phase1": [_I, _I, _I, _P, _P, _P, *[_I] * 13, _P],
-    "sk_streamk_fixup": [_I, _P, _P, *[_I] * 9, _P, _P, _P, _P, _I, _I, _P],
+    "sk_streamk_phase1": [_I, _I, _I, _I, *[_P] * 5, *[_I] * 13, _P, _P, _P, _P, _I, _I, _P],
     "sk_grouped_gemm": [*[_I] * 5, *[_P] * 6, *[_I] * 12, _P, _P, _P, _P, _I, _I, _P],
     "sk_splitk_partials": [_I, _I, _I, _P, _P, _P, *[_I] * 12, _P],
 }

@@ -127,7 +127,7 @@ def dp_gemm_region(
     ``a`` (M, K) and ``b`` (K, N) are NOT padded; with ``b_bits=4`` ``b`` is
     packed int4, ``(ceil(K/2), N)``. ``c`` (M, N) is written in place for
     the region's tiles (allocated when None — then ``tile_offset`` must be
-    0); tiles below ``tile_offset`` keep what the Stream-K fix-up wrote
+    0); tiles below ``tile_offset`` keep what the Stream-K region wrote
     there. ``bias`` (N,) and ``operand`` (M, N) feed the epilogue, after
     the dequant ``scale_a`` (M,) and ``scale`` (N,). ``g`` > 0 is the number
     of persistent blocks (the selected grid size); 0 launches one block per

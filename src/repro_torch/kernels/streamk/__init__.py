@@ -1,1 +1,1 @@
-"""Kernels B2/B3 (Stream-K sweep, fix-up) and the policy composition."""
+"""Kernels B2/B3 (the Stream-K sweep with its fix-up fused in), B5 and the policy composition."""

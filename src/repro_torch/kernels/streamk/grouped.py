@@ -39,9 +39,11 @@ they run the s8 tensor-core mainloop of ``csrc/mma_s8.cuh``
 (``mma.sync.m16n8k32``, exact int32 sums per ``bk`` step, the weights
 transposed into column-major strips once per block), which gives the SIMT
 loop's bits: 0.270 -> 0.066 ms for int8 x int8 and 0.291 -> 0.054 ms for
-int8 x int4 (same card and script). f32 activations keep the SIMT loop (see
-``csrc/grouped.cu``); :func:`repro_torch.kernels.common.mainloop` names the
-one a call runs.
+int8 x int4 (same card and script). f32 activations (f32, int8 or packed
+int4 weights) run the f32 FMA mainloop of ``csrc/fma_f32.cuh`` in both forms
+(see ``csrc/grouped.cu``); :func:`repro_torch.kernels.common.mainloop` names
+the one a call runs. A split tile's last contributor finishes it with
+``fix_up_split_tile`` (``csrc/sk_common.cuh``), the tail B2 runs too.
 
 The quantized rungs run through the same kernels, instantiated per operand
 pair (``csrc/quant_*.cu``): the stacked expert weights are int8 ``(G, K, N)``
@@ -59,7 +61,7 @@ or raises.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -70,6 +72,7 @@ from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.common import (
     DTYPE_CODES,
     apply_epilogue,
+    arrival_counters,
     b_code,
     check_b_bits,
     check_cuda_operands,
@@ -97,25 +100,12 @@ def row_block_table(sizes: Tuple[int, ...], bm: int) -> np.ndarray:
     return np.asarray(rows, np.int32).reshape(-1, 3)
 
 
-#: per-device arrival counters of the Stream-K form's split tiles; every
-#: launch leaves them at 0 (the last contributor resets its tile's counter)
-_COUNTERS: Dict[torch.device, torch.Tensor] = {}
-
-
 @lru_cache(maxsize=256)
 def _table(sizes, bm: int, device) -> torch.Tensor:
     """The row-block table's device copy, kept per (sizes, bm, device): a
     decode step dispatches the same few grouped shapes every layer, and a
     copy per call would be a host-to-device transfer per call."""
     return torch.from_numpy(row_block_table(sizes, bm)).to(device)
-
-
-def _counters(g: int, device) -> torch.Tensor:
-    cnt = _COUNTERS.get(device)
-    if cnt is None or cnt.numel() < g:
-        cnt = torch.zeros(max(g, 264), dtype=torch.int32, device=device)
-        _COUNTERS[device] = cnt
-    return cnt
 
 
 def gemm_grouped_streamk_plain(
@@ -208,7 +198,7 @@ def gemm_grouped_streamk(
         grid = g
         if ipw % ipt:  # some workgroup boundary falls inside a tile
             ws = torch.empty((g, 2, cfg.bm, cfg.bn), dtype=torch.float32, device=a.device)
-            counters = _counters(g, a.device)
+            counters = arrival_counters(g, a.device)
     else:
         ipw = ipt
         grid = min(g, n_tiles)

@@ -3,20 +3,24 @@
 Counterpart of ``repro.kernels.streamk.ops.gemm``. It composes the policy's
 phases (§4.1 of the paper):
 
-  1. the Stream-K sweep over the SK region (:func:`streamk_phase1`, B2),
-  2. the deterministic fix-up, which writes the SK tiles straight into C
-     (:func:`streamk_fixup`, B3),
-  3. the data-parallel region over the remaining tiles
+  1. the Stream-K region (:func:`streamk_region`): the Stream-K sweep (B2)
+     with its deterministic fix-up (B3) fused into its tail, which writes
+     the SK tiles straight into C,
+  2. the data-parallel region over the remaining tiles
      (:func:`dp_gemm_region`, B1, from ``tile_offset = sk_tiles``).
 
-A partition whose Stream-K region is empty (DP itself, or a HYBRID whose
-remainder wave is empty at this ``g``) runs the DP region alone; ALL_SK has
-no phase 3. Nothing is padded: C is allocated once at (M, N) and every
-kernel masks the ragged edges itself, so a weight is never copied.
+On the TPU the sweep and the fix-up are two kernels, in turn; on the card a
+split tile's last contributor to arrive finishes it (an arrival counter per
+tile, the contributor slots summed in the TPU fix-up's order), so a Stream-K
+region is one launch and a HYBRID two. A partition whose Stream-K region is
+empty (DP itself, or a HYBRID whose remainder wave is empty at this ``g``)
+runs the DP region alone; ALL_SK has no phase 2. Nothing is padded: C is
+allocated once at (M, N) and every kernel masks the ragged edges itself, so
+a weight is never copied.
 
 Quantized weights (int8, or int4 packed two nibbles per byte along K) go
-through the same three phases; their dequant scales apply in the fix-up and
-the DP flush, never to B2's partials.
+through the same phases; their dequant scales apply in the flush of each
+tile, never to the sweep's partials.
 """
 
 from __future__ import annotations
@@ -27,9 +31,8 @@ import torch
 
 from repro_torch.core.policies import DP, Policy, TileConfig
 from repro_torch.core.workpart import GemmShape, partition
-from repro_torch.kernels.common import rung_of
 from repro_torch.kernels.dp.dp_gemm import dp_gemm_region
-from repro_torch.kernels.streamk.streamk_gemm import streamk_fixup, streamk_phase1
+from repro_torch.kernels.streamk.streamk_gemm import streamk_region
 
 #: Partitions are static per (shape, tile, g, policy) and cost O(g + tiles)
 #: Python objects to build; a serving loop dispatches the same few hundred
@@ -54,7 +57,7 @@ def gemm(
     b_bits: int = 8,
 ) -> torch.Tensor:
     """``a @ b`` under a Stream-K++ scheduling policy with an optional fused
-    epilogue (applied to the f32 accumulator in the fix-up / DP flush).
+    epilogue (applied to the f32 accumulator where a tile is flushed).
 
     a: (M, K), b: (K, N) -> (M, N) in ``out_dtype`` (default ``a.dtype``);
     ``bias`` (N,) and ``operand`` (M, N) feed the epilogue's bias-add and
@@ -77,8 +80,7 @@ def gemm(
         # the DP region still launches with the selected grid size
         return dp_gemm_region(a, b, cfg, c=c, g=g, b_bits=b_bits, **epi)
 
-    partials = streamk_phase1(a, b, part, b_bits=b_bits)
-    streamk_fixup(partials, part, c, rung=rung_of(a.dtype, b.dtype, b_bits), **epi)
+    streamk_region(a, b, part, c, b_bits=b_bits, **epi)
     if part.dp_tiles:
         dp_gemm_region(
             a, b, cfg, c=c, tile_offset=part.sk_tiles, g=g, b_bits=b_bits, **epi

@@ -30,7 +30,7 @@ from repro_torch.core.quant import quantize_activations, quantize_weight
 from repro_torch.core.workpart import GemmShape, partition
 from repro_torch.kernels import common
 from repro_torch.kernels.dp import ops as dp_ops
-from repro_torch.kernels.dp.dp_gemm import dp_gemm_region, dp_gemm_region_plain
+from repro_torch.kernels.dp.dp_gemm import dp_gemm_region, dp_gemm_region_plain, tile_index
 from repro_torch.kernels.splitk import ops as splitk_ops
 from repro_torch.kernels.splitk.splitk_gemm import splitk_partials, splitk_partials_plain
 from repro_torch.kernels.streamk import ops
@@ -38,10 +38,9 @@ from repro_torch.kernels.streamk.grouped import gemm_grouped_streamk, gemm_group
 from repro_torch.kernels.streamk.streamk_gemm import (
     n_contributors,
     range_math,
-    streamk_fixup,
     streamk_fixup_plain,
-    streamk_phase1,
     streamk_phase1_plain,
+    streamk_region,
 )
 from repro_torch.models.lm import LM
 from repro_torch.serve.engine import ServeConfig, ServeEngine
@@ -90,8 +89,9 @@ def test_cuda_kernels_match_plain_versions(cuda_device, pol_idx, dtype):
 
 @pytest.mark.parametrize("pair", ["bf16", "bf16*int8", "bf16*int4", "int8*int8", "int8*int4"])
 def test_cuda_streamk_is_bitwise_deterministic(cuda_device, pair):
-    """B2 then B3 sum the contributor slots in a fixed order: two runs give
-    the same bits, on each rung whose B2 runs a tensor-core mainloop
+    """The fused Stream-K region sums the contributor slots of a split tile
+    in a fixed order: two runs give the same bits, on each rung whose B2
+    runs a tensor-core mainloop
     (mma_bf16.cuh for bf16 activations, mma_s8.cuh for int8 ones, with
     per-row activation scales and an f32 output)."""
     a, b, _, _ = _inputs(4, 4096, 4096, torch.bfloat16, seed=5)
@@ -108,14 +108,13 @@ def test_cuda_streamk_is_bitwise_deterministic(cuda_device, pair):
     outs = []
     for _ in range(2):
         c = torch.empty(4, 4096, dtype=out, device=cuda_device)
-        p = streamk_phase1(a, b, part, b_bits=kw.get("b_bits", 8))
-        outs.append(streamk_fixup(p, part, c, scale=kw.get("scale"),
-                                  scale_a=kw.get("scale_a")))
+        outs.append(streamk_region(a, b, part, c, b_bits=kw.get("b_bits", 8),
+                                   scale=kw.get("scale"), scale_a=kw.get("scale_a")))
     assert torch.equal(outs[0], outs[1])
 
 
 def test_cuda_launch_counters_count_each_kernel(cuda_device):
-    """A HYBRID partition launches each of B2, B3 and B1 once."""
+    """A HYBRID partition launches B2 (with B3 fused in) and B1 once each."""
     a, b, _, _ = (t.to(cuda_device) for t in _inputs(20, 300, 520, torch.float32, seed=6))
     cfg = TileConfig(8, 128, 128)
     part = partition(GemmShape(20, 300, 520), cfg, 4, HYBRIDS[0])
@@ -123,9 +122,9 @@ def test_cuda_launch_counters_count_each_kernel(cuda_device):
     common.reset_launch_counts()
     with common.count_launches() as log:
         ops.gemm(a, b, policy=HYBRIDS[0], cfg=cfg, g=4)
-    assert log == ["streamk_phase1", "streamk_fixup", "dp_gemm_region"]
+    assert log == ["streamk_phase1", "dp_gemm_region"]
     assert common.LAUNCHES == dict(dict.fromkeys(common.LAUNCHES, 0), dp_gemm_region=1,
-                                   streamk_phase1=1, streamk_fixup=1)
+                                   streamk_phase1=1)
     common.reset_launch_counts()
 
 
@@ -163,7 +162,7 @@ def test_cuda_wrappers_raise_on_quantized_arguments(cuda_device, kw):
     for c in got:
         assert torch.equal(c, want)
     assert torch.equal(grouped[0], torch.full((20, 300), 260.0, device=cuda_device))
-    assert log == ["streamk_phase1[int4-dynamic]", "streamk_fixup[int4-dynamic]",
+    assert log == ["streamk_phase1[int4-dynamic]",
                    "dp_gemm_region[int4-dynamic]", "splitk_partials[int4-dynamic]",
                    "grouped_streamk_sk[int4-dynamic]"]
 
@@ -467,6 +466,15 @@ def _close_max(got, want, tol, what):
     assert err <= tol * max(1.0, want.abs().max().item()), (what, err)
 
 
+def _split_slots(part):
+    """(sk_tiles, mc + 1): the contributor slots of split tiles, below the
+    tile's contributor count: those the card defines on every pair (a tile
+    that one block owns whole is flushed from registers; dense f32 parks it
+    in slot 0 first)."""
+    nc = n_contributors(part)
+    return (torch.arange(range_math(part)[3] + 1)[None, :] < nc[:, None]) & (nc > 1)[:, None]
+
+
 def _segment_starts(part):
     """The k-iteration offset within its tile at which each Stream-K
     segment starts."""
@@ -484,14 +492,15 @@ def _segment_starts(part):
 @pytest.mark.parametrize("pair", list(MMA_BITS))
 @pytest.mark.parametrize("bm", [8, 16, 32, 64], ids=lambda bm: f"sm{bm}")
 def test_cuda_mma_mainloop_matches_plain_version(cuda_device, bm, pair):
-    """B1, and B2 then B3, on the tensor-core mainloop at sub-block rows
-    SM = bm, bn 128 and 256, against dp_gemm_region_plain and
-    streamk_phase1_plain / streamk_fixup_plain (2e-2 x max|ref|): ragged M,
-    N and K, rows that are not 16-byte aligned, every epilogue stage, and
-    ALL_SK partitions at g 7, 132 and one whose segments start at odd
-    multiples of bk = 128 (inside int4's 256-deep chunk). B2's partials are
-    compared on every contributor slot whole, so a sub-block outside C must
-    read 0."""
+    """B1, and B2 with B3 fused in, on the tensor-core mainloop at
+    sub-block rows SM = bm, bn 128 and 256, against dp_gemm_region_plain
+    and streamk_phase1_plain then streamk_fixup_plain (2e-2 x max|ref|):
+    ragged M, N and K, rows that are not 16-byte aligned, every epilogue
+    stage, and ALL_SK partitions at g 7, 132 and one whose segments start
+    at odd multiples of bk = 128 (inside int4's 256-deep chunk). The split
+    tiles' partials are compared on every contributor slot whole, so a
+    sub-block outside C must read 0; every fused call runs twice with the
+    same bytes."""
     bits = MMA_BITS[pair]
     odd_starts = 0
     for m, n, k in MMA_2D_SHAPES:
@@ -517,23 +526,25 @@ def test_cuda_mma_mainloop_matches_plain_version(cuda_device, bm, pair):
                 got = dp_gemm_region(da, db, cfg, g=132, out_dtype=torch.bfloat16,
                                      epilogue=epi, b_bits=b_bits, **dkw)
                 _close_max(got, want, TOL[torch.bfloat16], ("B1", *what))
-                # B2 then B3 under ALL_SK
+                # B2 with B3 fused in, under ALL_SK
                 tiles = -(-m // bm) * -(-n // bn)
                 total = tiles * -(-k // 128)
                 for g in (7, 132, -(-total // 3)):
                     part = partition(GemmShape(m, n, k), cfg, g, ALL_SK)
                     odd_starts += sum(s_ % 2 for s_ in _segment_starts(part))
                     want_p = streamk_phase1_plain(a, b, part, b_bits=b_bits)
-                    got_p = streamk_phase1(da, db, part, b_bits=b_bits)
-                    used = (torch.arange(range_math(part)[3] + 1)[None, :]
-                            < n_contributors(part)[:, None])
-                    _close_max(got_p.cpu()[used], want_p[used], TOL[torch.bfloat16],
-                               ("B2", g, *what))
+                    run = [streamk_region(da, db, part, torch.zeros(
+                        m, n, dtype=torch.bfloat16, device=cuda_device), epilogue=epi,
+                        b_bits=b_bits, workspace=True, **dkw) for _ in range(2)]
+                    got_c, got_p = run[0]
+                    assert torch.equal(got_c, run[1][0]), ("B2+B3", g, *what)
+                    used = _split_slots(part)
+                    if used.any():
+                        _close_max(got_p.cpu()[used], want_p[used], TOL[torch.bfloat16],
+                                   ("B2", g, *what))
                     want_c = streamk_fixup_plain(
                         want_p, part, torch.zeros(m, n, dtype=torch.bfloat16), epilogue=epi,
                         **ekw)
-                    got_c = streamk_fixup(got_p, part, torch.zeros(
-                        m, n, dtype=torch.bfloat16, device=cuda_device), epilogue=epi, **dkw)
                     _close_max(got_c, want_c, TOL[torch.bfloat16], ("B2+B3", g, *what))
     assert odd_starts, "no Stream-K segment started at an odd multiple of bk"
 
@@ -552,17 +563,18 @@ S8_2D_SHAPES = ((64, 384, 1152), (57, 302, 203), (57, 256, 331))
 @pytest.mark.parametrize("pair", list(S8_BITS))
 @pytest.mark.parametrize("bm", [8, 16, 32, 64], ids=lambda bm: f"sm{bm}")
 def test_cuda_s8_mainloop_matches_plain_version(cuda_device, bm, pair):
-    """B1, and B2 then B3, on the s8 tensor-core mainloop at sub-block rows
-    SM = bm, bn 128 and 256, bk 128 and 256, against dp_gemm_region_plain
-    and streamk_phase1_plain / streamk_fixup_plain: ragged M, N and K, odd K,
-    rows that are not 16-byte aligned, per-row and per-column scales with
-    every epilogue stage, f32 output, and ALL_SK partitions at g 7, 132 and
-    one whose segments start at odd multiples of bk = 128 (inside int4's
-    256-deep chunk). Each bk step's int32 sum enters the f32 sum in order,
-    as ``kstep_dot`` adds them, so B1 with the scales alone and B2's
-    partials (every contributor slot whole, so a sub-block outside C must
-    read 0) equal the plain versions bit for bit; the full epilogue is held
-    at 1e-4 x max|ref|."""
+    """B1, and B2 with B3 fused in, on the s8 tensor-core mainloop at
+    sub-block rows SM = bm, bn 128 and 256, bk 128 and 256, against
+    dp_gemm_region_plain and streamk_phase1_plain then streamk_fixup_plain:
+    ragged M, N and K, odd K, rows that are not 16-byte aligned, per-row and
+    per-column scales with every epilogue stage, f32 output, and ALL_SK
+    partitions at g 7, 132 and one whose segments start at odd multiples of
+    bk = 128 (inside int4's 256-deep chunk). Each bk step's int32 sum enters
+    the f32 sum in order, as ``kstep_dot`` adds them, so B1 with the scales
+    alone and the split tiles' partials (every contributor slot whole, so a
+    sub-block outside C must read 0) equal the plain versions bit for bit;
+    the fused C is held at 1e-4 x max|ref|. Every fused call runs twice
+    with the same bytes."""
     bits = S8_BITS[pair]
     odd_starts = 0
     for m, n, k in S8_2D_SHAPES:
@@ -585,14 +597,15 @@ def test_cuda_s8_mainloop_matches_plain_version(cuda_device, bm, pair):
                     part = partition(GemmShape(m, n, k), cfg, g, ALL_SK)
                     starts = _segment_starts(part)
                     odd_starts += bk == 128 and sum(s_ % 2 for s_ in starts)
-                    # B2's partials: every contributor slot whole, bit for bit
+                    # the split tiles' partials: every contributor slot whole, bit for bit
                     want_p = streamk_phase1_plain(a, q.values, part, b_bits=bits)
-                    got_p = streamk_phase1(da, db, part, b_bits=bits)
-                    used = (torch.arange(range_math(part)[3] + 1)[None, :]
-                            < n_contributors(part)[:, None])
+                    _, got_p = streamk_region(da, db, part, torch.zeros(m, n, device=cuda_device),
+                                              b_bits=bits, workspace=True,
+                                              **_to(scales, cuda_device))
+                    used = _split_slots(part)
                     assert torch.equal(got_p.cpu()[used], want_p[used]), (pair, bm, m, n, k,
                                                                            cfg.name, g)
-                    parts.append((g, part, want_p, got_p))
+                    parts.append((g, part, want_p))
                 for epi, reads in S8_EPILOGUES:
                     ekw = dict(scales, **{key: v for key, v in (("bias", bias),
                                                                 ("operand", operand))
@@ -607,13 +620,15 @@ def test_cuda_s8_mainloop_matches_plain_version(cuda_device, bm, pair):
                     _close_max(got, want, 1e-4, ("B1", *what))
                     if not reads:
                         assert torch.equal(got.cpu(), want), ("B1", *what)
-                    # B3 over B2's partials
-                    for g, part, want_p, got_p in parts:
+                    # the fused region against the plain composition
+                    for g, part, want_p in parts:
                         want_c = streamk_fixup_plain(want_p, part, torch.zeros(m, n),
                                                      epilogue=epi, **ekw)
-                        got_c = streamk_fixup(got_p, part, torch.zeros(m, n, device=cuda_device),
-                                              epilogue=epi, **dkw)
-                        _close_max(got_c, want_c, 1e-4, ("B2+B3", g, *what))
+                        run = [streamk_region(da, db, part, torch.zeros(m, n, device=cuda_device),
+                                              epilogue=epi, b_bits=bits, **dkw)
+                               for _ in range(2)]
+                        assert torch.equal(run[0], run[1]), ("B2+B3", g, *what)
+                        _close_max(run[0], want_c, 1e-4, ("B2+B3", g, *what))
     assert odd_starts, "no Stream-K segment started at an odd multiple of bk"
 
 
@@ -1025,6 +1040,12 @@ def _outside_c(part, m, n):
     return (rows >= m) | (cols >= n)
 
 
+def _tile_of(part, m, n):
+    """(M, N): each element's Stream-K tile index, -1 outside the region."""
+    t = tile_index(m, n, part.cfg, "cpu")
+    return torch.where(t < part.sk_tiles, t, -1)
+
+
 def _k_ordered_phase1(a, b, part):
     """Dense f32 B2's slots as one f32 FMA per k over each segment in
     ascending k, the SIMT loop's order. ``a`` holds signed powers of two, so
@@ -1066,8 +1087,8 @@ def _close_before_bf16(got, want, tol, what):
 @pytest.mark.parametrize("pair", list(FMA_BITS))
 @pytest.mark.parametrize("bm", [8, 16, 32, 64], ids=lambda bm: f"sm{bm}")
 def test_cuda_fma_b12_mainloop_matches_plain_version(cuda_device, bm, pair):
-    """B1, and B2 then B3, on the f32 FMA mainloop at sub-block rows SM =
-    bm (TN = 4 columns a lane at SM 8-32, 2 at SM = 64), bn 128 and 256, bk
+    """B1, and B2 with B3 fused in, on the f32 FMA mainloop at sub-block
+    rows SM = bm (TN = 4 columns a lane at SM 8-32, 2 at SM = 64), bn 128 and 256, bk
     128 and 256, against their plain versions at 1e-4 x max|ref| (f32 sums
     over K slices in another order): S8_2D_SHAPES, so ragged M, N and K, odd
     K (int4's zero pad nibble) and rows that are not 16-byte aligned (the
@@ -1075,13 +1096,14 @@ def test_cuda_fma_b12_mainloop_matches_plain_version(cuda_device, bm, pair):
     and every epilogue stage, f32 output and bf16 output (the latter within
     1e-4 x max|ref| before its one bf16 rounding); B2 under ALL_SK at g 7,
     132 and one whose segments start at odd multiples of bk = 128 (inside
-    int4's 256-deep chunk), its partials on every contributor slot, where
-    an element or a whole sub-block outside C must read 0, then B3 over
-    them with every epilogue stage. Every B1 and B2 call runs twice with
-    the same bytes and counts one launch of its kernel on its rung. Dense
-    f32 B2 (olmoe's router) sums each segment in k order, one FMA per k:
-    on activations that are signed powers of two its partials equal that
-    chain bit for bit."""
+    int4's 256-deep chunk), the split tiles' partials on every contributor
+    slot, where an element or a whole sub-block outside C must read 0, and
+    C with every epilogue stage against the plain composition. Every B1 and
+    B2 call runs twice with the same bytes and counts one launch of its
+    kernel on its rung. Dense f32 B2 (olmoe's router) sums each segment in
+    k order, one FMA per k: on activations that are signed powers of two
+    its split tiles' partials equal that chain bit for bit, and so do its
+    whole tiles, flushed into C."""
     bits = FMA_BITS[pair]
     b_bits = bits or 8
     assert common.mainloop("dp_gemm_region", torch.float32) == "fma"
@@ -1110,25 +1132,38 @@ def test_cuda_fma_b12_mainloop_matches_plain_version(cuda_device, bm, pair):
                     odd_starts += bk == 128 and sum(s_ % 2 for s_ in _segment_starts(part))
                     want_p = streamk_phase1_plain(a, b, part, b_bits=b_bits)
                     with common.count_launches() as log:
-                        run = [streamk_phase1(da, db, part, b_bits=b_bits) for _ in range(2)]
+                        run = [streamk_region(da, db, part, torch.zeros(m, n, device=cuda_device),
+                                              b_bits=b_bits, workspace=True) for _ in range(2)]
                     assert log == [sk_rung, sk_rung], what
-                    used = (torch.arange(range_math(part)[3] + 1)[None, :]
-                            < n_contributors(part)[:, None])
-                    got_p = run[0].cpu()
-                    assert torch.equal(got_p[used], run[1].cpu()[used]), what
-                    _close_max(got_p[used], want_p[used], 1e-4, what)
+                    used = _split_slots(part)
+                    got_p = run[0][1].cpu()
+                    assert torch.equal(run[0][0], run[1][0]), what
+                    assert torch.equal(got_p[used], run[1][1].cpu()[used]), what
+                    if used.any():
+                        _close_max(got_p[used], want_p[used], 1e-4, what)
                     outside = _outside_c(part, m, n)[:, None].expand_as(got_p)
                     assert not got_p[used[..., None, None].expand_as(got_p) & outside].any(), what
-                    outside_sub_blocks += int(bn == 256 and -(-n // 128) % 2)
-                    parts.append((g, part, want_p, run[0]))
+                    outside_sub_blocks += int(bn == 256 and -(-n // 128) % 2
+                                              and bool(used.any()))
+                    parts.append((g, part, want_p))
                     if bits is None and g == 132:
                         r2 = np.random.default_rng(m + n)
                         a2 = torch.from_numpy((r2.choice([-1.0, 1.0], size=(m, k)) * 2.0
                                                ** r2.integers(-2, 3, size=(m, k)))
                                               .astype(np.float32))
-                        got2 = streamk_phase1(a2.to(cuda_device), db, part).cpu()
+                        c2, got2 = streamk_region(a2.to(cuda_device), db, part,
+                                                  torch.zeros(m, n, device=cuda_device),
+                                                  workspace=True)
                         want2 = _k_ordered_phase1(a2, b, part)
-                        assert torch.equal(got2[used], want2[used]), ("k order", *what)
+                        assert torch.equal(got2.cpu()[used], want2[used]), ("k order", *what)
+                        # a whole tile's flush is its one slot's k-ordered sum
+                        whole = n_contributors(part) == 1
+                        want_c2 = streamk_fixup_plain(want2 * whole[:, None, None, None], part,
+                                                      torch.zeros(m, n))
+                        tile = _tile_of(part, m, n)
+                        in_whole = (tile >= 0) & whole[tile.clamp(min=0)]
+                        assert torch.equal(c2.cpu()[in_whole], want_c2[in_whole]), (
+                            "k order, whole tiles", *what)
                 for epi, reads in MMA_EPILOGUES:
                     ekw = {key: v for key, v in (("bias", bias), ("operand", operand),
                                                  ("scale_a", scale_a)) if key in reads}
@@ -1153,12 +1188,13 @@ def test_cuda_fma_b12_mainloop_matches_plain_version(cuda_device, bm, pair):
                             _close_max(run[0], want_o, 1e-4, ("B1", out, *what))
                         else:
                             _close_before_bf16(run[0], want_o, 1e-4, ("B1", out, *what))
-                    # B3 over B2's partials
-                    for g, part, want_p, got_p in parts:
+                    # the fused region against the plain composition
+                    for g, part, want_p in parts:
                         want_c = streamk_fixup_plain(want_p, part, torch.zeros(m, n),
                                                      epilogue=epi, **ekw)
-                        got_c = streamk_fixup(got_p, part, torch.zeros(m, n, device=cuda_device),
-                                              epilogue=epi, **_to(ekw, cuda_device))
+                        got_c = streamk_region(da, db, part, torch.zeros(m, n, device=cuda_device),
+                                               epilogue=epi, b_bits=b_bits,
+                                               **_to(ekw, cuda_device))
                         _close_max(got_c, want_c, 1e-4, ("B2+B3", g, *what))
     assert odd_starts, "no Stream-K segment started at an odd multiple of bk"
     assert outside_sub_blocks, "no case had a sub-block wholly outside C"
@@ -1188,6 +1224,128 @@ def test_cuda_gemm_batched_runs_the_pick_per_batch_entry(cuda_device):
     [e] = ctx.log
     assert e.op.kind == "batched" and not e.op.fused
     part = partition(GemmShape(4, 768, 512), e.selection.cfg, e.selection.g, e.selection.policy)
-    per_entry = 2 * bool(part.sk_tiles) + bool(part.dp_tiles)
+    per_entry = bool(part.sk_tiles) + bool(part.dp_tiles)
     assert len(log) == 3 * per_entry
     _close(got, torch.bmm(x, w), TOL[torch.float32])
+
+
+#: the eight operand pairs of the fused Stream-K region: (activations) * (weights)
+REGION_PAIRS = ("bf16", "bf16*int8", "bf16*int4", "f32", "f32*int8", "f32*int4",
+                "int8*int8", "int8*int4")
+
+
+def _pair_operands(pair, m, n, k, seed):
+    """(a, b, quantized kwargs, output dtype) of one operand pair, from numpy."""
+    r = np.random.default_rng(seed)
+    a = torch.from_numpy(r.normal(size=(m, k)).astype(np.float32))
+    w = torch.from_numpy((r.normal(size=(k, n)) / np.sqrt(k)).astype(np.float32))
+    act, _, weights = pair.partition("*")
+    kw = {}
+    if weights:
+        q = quantize_weight(w, bits=int(weights[3:]))
+        b, kw = q.values, dict(scale=q.scales, b_bits=q.bits)
+    else:
+        b = w.to(torch.bfloat16 if act == "bf16" else torch.float32)
+    if act == "int8":
+        a, kw["scale_a"] = quantize_activations(a)
+        return a, b, kw, torch.float32
+    a = a.to(torch.bfloat16) if act == "bf16" else a
+    return a, b, kw, a.dtype
+
+
+def test_cuda_streamk_region_leaves_counters_at_zero(cuda_device):
+    """50 fused Stream-K regions back to back, no host synchronisation
+    between them, of mixed shapes (ragged M, N and K, odd K, the router's
+    4x64x2048), policies (ALL_SK and HYBRIDs), grid sizes and all eight
+    operand pairs: each writes what the plain composition writes (2e-2 x
+    max|ref| for bf16 output, 1e-4 for f32), and a copy of the arrival
+    counters queued behind each launch reads all 0, so every launch leaves
+    them as it found them. Many of the cases split a tile."""
+    shapes = ((4, 1024, 4096), (20, 300, 520), (57, 302, 203), (64, 384, 1152), (4, 64, 2048))
+    pols = (ALL_SK, *HYBRIDS[:3])
+    cases, i = [], 0
+    while len(cases) < 50:
+        pair, (m, n, k) = REGION_PAIRS[i % 8], shapes[i % 5]
+        pol, g = pols[i % 4], (7, 66, 132)[i % 3]
+        i += 1
+        cfg = TileConfig(8 if m <= 8 else 16, 128 * (1 + i % 2), 128)
+        part = partition(GemmShape(m, n, k), cfg, g, pol)
+        if not part.sk_tiles:
+            continue
+        a, b, kw, out = _pair_operands(pair, m, n, k, seed=i)
+        bits = kw.pop("b_bits", 8)
+        want = streamk_region(a, b, part, torch.zeros(m, n, dtype=out), b_bits=bits, **kw)
+        cases.append((pair, part, a.to(cuda_device), b.to(cuda_device), _to(kw, cuda_device),
+                      bits, out, want))
+    device = cases[0][2].device  # the kernels' own key: cuda:<index>
+    counters = common.arrival_counters(max(c[1].sk_tiles for c in cases), device)
+    outs, snaps = [], []
+    for pair, part, a, b, kw, bits, out, _ in cases:
+        c = torch.zeros(a.shape[0], b.shape[1], dtype=out, device=cuda_device)
+        outs.append(streamk_region(a, b, part, c, b_bits=bits, **kw))
+        snaps.append(counters.clone())
+    assert common.arrival_counters(1, device) is counters
+    assert common.arrival_counters(1, cuda_device) is counters
+    split = 0
+    for (pair, part, *_, out, want), got, snap in zip(cases, outs, snaps):
+        what = (pair, part.shape, part.cfg.name, part.g, part.policy.name)
+        _close_max(got, want, TOL[out], what)
+        assert not snap.any(), what
+        split += part.max_contributors > 1
+    assert split >= 10, split
+
+
+@pytest.mark.parametrize("pair", list(FMA_BITS))
+@pytest.mark.parametrize("bm", [8, 16, 32, 64], ids=lambda bm: f"sm{bm}")
+def test_cuda_fma_grouped_sk_matches_plain_version(cuda_device, bm, pair):
+    """B5's Stream-K form (B5a) on the f32 FMA mainloop at sub-block rows
+    SM = bm (TN = 4 columns a lane at SM 8-32, 2 at SM = 64), against
+    gemm_grouped_streamk_plain at 1e-4 x max|ref| (f32 sums over K slices in
+    another order): MMA_SHAPES (ragged N and K, odd K, rows that are not
+    16-byte aligned) with full and ragged group sizes (an empty group), bn
+    128 and 256, bk 128 and 256, g 7, 132 and one whose segments start at
+    odd multiples of bk, no epilogue and every stage (the per-expert scale
+    for int8 and int4). Whole tiles flush from registers and split tiles
+    park and meet in the shared tail; both occur. Every call runs twice with
+    the same bytes, short groups leave their rows 0, and each call counts
+    one launch of B5a on its rung."""
+    bits = FMA_BITS[pair]
+    b_bits = bits or 8
+    assert common.sub_block_rows(bm, 64) == bm
+    assert common.mainloop("grouped_streamk_sk", torch.float32) == "fma"
+    split = whole = 0
+    for gm, m, n, k in MMA_SHAPES:
+        a, b, qkw, _ = _fma_operands((gm,), m, n, k, bits, seed=bm + n + k + 1)
+        r = np.random.default_rng(bm + k + 1)
+        bias = torch.from_numpy(r.normal(size=(gm, n)).astype(np.float32))
+        operand = torch.from_numpy(r.normal(size=(gm, m, n)).astype(np.float32))
+        da, db, dq = a.to(cuda_device), b.to(cuda_device), _to(qkw, cuda_device)
+        rung = common.launch_name("grouped_streamk_sk", common.rung_of(a.dtype, b.dtype, b_bits))
+        for sizes in ((m,) * gm, (0, m, 7, 33, 1)[:gm]):
+            for epi, reads in S8_EPILOGUES:
+                ekw = {key: v for key, v in (("bias", bias), ("operand", operand))
+                       if key in reads}
+                want = gemm_grouped_streamk_plain(a, b, sizes=sizes, out_dtype=torch.float32,
+                                                  epilogue=epi, **qkw, **ekw)
+                dev_e = _to(ekw, cuda_device)
+                for bn in (128, 256):
+                    for bk in (128, 256):
+                        n_tiles = sum(-(-s_ // bm) for s_ in sizes) * -(-n // bn)
+                        ipt = -(-k // bk)
+                        for g in (7, 132, -(-n_tiles * ipt // 3)):
+                            what = ("B5a", pair, bm, gm, m, n, k, bn, bk, sizes, epi.name, g)
+                            with common.count_launches() as log:
+                                run = [gemm_grouped_streamk(
+                                    da, db, policy=ALL_SK, cfg=TileConfig(bm, bn, bk), g=g,
+                                    out_dtype=torch.float32, epilogue=epi, group_sizes=sizes,
+                                    **dq, **dev_e) for _ in range(2)]
+                            assert log == [rung, rung], what
+                            assert torch.equal(run[0], run[1]), what
+                            _close_max(run[0], want, 1e-4, what)
+                            for i, s_ in enumerate(sizes):
+                                assert not run[0][i, s_:].any(), what
+                            ipw = -(-n_tiles * ipt // g)
+                            splits = n_tiles * ipt > ipw and ipw % ipt != 0
+                            split += splits
+                            whole += ipw >= ipt
+    assert split and whole, (split, whole)

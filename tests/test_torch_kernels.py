@@ -29,13 +29,15 @@ from repro_torch.core.op import Epilogue
 from repro_torch.core.policies import ALL_POLICIES, ALL_SK, HYBRIDS, TileConfig
 from repro_torch.core.workpart import GemmShape, partition
 from repro_torch.kernels import common
-from repro_torch.kernels.dp.dp_gemm import dp_gemm_region
+from repro_torch.kernels.dp.dp_gemm import dp_gemm_region, tile_index
 from repro_torch.kernels.streamk import ops
 from repro_torch.kernels.streamk.ref import gemm_ref, streamk_partition_ref
 from repro_torch.kernels.streamk.streamk_gemm import (
     n_contributors,
     streamk_fixup,
     streamk_phase1,
+    streamk_phase1_plain,
+    streamk_region,
 )
 
 CFG = (8, 128, 128)
@@ -155,9 +157,9 @@ def test_quantized_arguments_raise(kw, monkeypatch):
     a = torch.ones(20, 520, dtype=torch.int8)
     b = torch.ones(260, 300, dtype=torch.int8)  # ceil(520 / 2) packed rows
     calls = []
-    phase1 = ops.streamk_phase1
-    monkeypatch.setattr(ops, "streamk_phase1",
-                        lambda *a_, **k_: calls.append(1) or phase1(*a_, **k_))
+    region = ops.streamk_region
+    monkeypatch.setattr(ops, "streamk_region",
+                        lambda *a_, **k_: calls.append(1) or region(*a_, **k_))
     want = torch.full((20, 300), 260.0)
     for name, v in kw.items():
         want = want * (v[:, None] if name == "scale_a" else v[None, :])
@@ -175,8 +177,8 @@ def test_launch_counters_count_only_kernel_launches():
     with common.count_launches() as log:
         ops.gemm(a, b, policy=HYBRIDS[1], cfg=TileConfig(*CFG), g=4)
     assert log == [] and sum(common.LAUNCHES.values()) == 0
-    common.record_launch("streamk_fixup")
-    assert common.LAUNCHES["streamk_fixup"] == 1
+    common.record_launch("streamk_phase1")
+    assert common.LAUNCHES["streamk_phase1"] == 1
     common.reset_launch_counts()
     assert sum(common.LAUNCHES.values()) == 0
 
@@ -184,14 +186,12 @@ def test_launch_counters_count_only_kernel_launches():
 
 #: the MAC each kernel runs, by activation dtype (f32, bf16, int8): a
 #: tensor-core mainloop ("mma") for B1, B2, both B5 forms and B6 on bf16
-#: and int8 activations; on f32 ones the f32 FMA mainloop ("fma") for B1,
-#: B2, B5's DP form and B6, the SIMT loop for B5's Stream-K form; B3
-#: multiplies nothing
+#: and int8 activations, the f32 FMA mainloop ("fma") for all of them on f32
+#: ones; B3 is no kernel of its own (B2 runs the fix-up in its tail)
 MAINLOOPS = {
     "dp_gemm_region": ("fma", "mma", "mma"),
     "streamk_phase1": ("fma", "mma", "mma"),
-    "streamk_fixup": (None, None, None),
-    "grouped_streamk_sk": ("simt", "mma", "mma"),
+    "grouped_streamk_sk": ("fma", "mma", "mma"),
     "grouped_streamk_dp": ("fma", "mma", "mma"),
     "splitk_partials": ("fma", "mma", "mma"),
 }
@@ -206,3 +206,68 @@ def test_mainloop_names_each_kernels_mac(kernel, a_dtype):
     assert common.mainloop(kernel, a_dtype) == MAINLOOPS[kernel][col]
     with pytest.raises(ValueError, match="unknown kernel"):
         common.mainloop(f"{kernel}[int8]", a_dtype)
+
+
+@pytest.mark.parametrize("dname", ["f32", "bf16"])
+@pytest.mark.parametrize("g", [4, 7])
+@pytest.mark.parametrize("pol", [ALL_SK, HYBRIDS[0], HYBRIDS[2]], ids=lambda p: p.name)
+def test_streamk_region_matches_jax(pol, g, dname):
+    """The fused Stream-K region's plain version (the sweep, then the
+    fix-up) writes C's Stream-K tiles as the JAX package's composition
+    writes them, with bias, a per-column dequant scale and a per-row
+    scale_a in the epilogue (1e-4 for f32, 2e-2 for bf16), and leaves the
+    DP tiles alone; with ``workspace=True`` it hands back the sweep's
+    contributor slots."""
+    m, n, k = SHAPE
+    (ja, jb, jbias, _), (ta, tb, tbias, _) = _inputs(m, n, k, dname, seed=11)
+    r = np.random.default_rng(12)
+    scale = r.uniform(0.5, 1.5, size=n).astype(np.float32)
+    scale_a = r.uniform(0.5, 1.5, size=m).astype(np.float32)
+    out = jnp.bfloat16 if dname == "bf16" else jnp.float32
+    want = j_ops.gemm(ja, jb, policy=J_POLICIES[ALL_POLICIES.index(pol)], cfg=JTile(*CFG),
+                      g=g, interpret=True, out_dtype=out, epilogue=JEpilogue(bias=True),
+                      bias=jbias, scale=jnp.asarray(scale), scale_a=jnp.asarray(scale_a))
+    part = partition(GemmShape(m, n, k), TileConfig(*CFG), g, pol)
+    assert part.sk_tiles
+    c = torch.full((m, n), float("nan"), dtype=DTYPES[dname][2])
+    got, partials = streamk_region(
+        ta, tb, part, c, epilogue=Epilogue(bias=True), bias=tbias,
+        scale=torch.from_numpy(scale), scale_a=torch.from_numpy(scale_a), workspace=True)
+    assert got is c
+    sk = tile_index(m, n, TileConfig(*CFG), "cpu") < part.sk_tiles
+    assert torch.isnan(c[~sk].float()).all() and not torch.isnan(c[sk].float()).any()
+    _close(c[sk], np.asarray(want.astype(jnp.float32))[sk.numpy()], DTYPES[dname][3])
+    assert torch.equal(partials, streamk_phase1_plain(ta, tb, part))
+
+
+@pytest.mark.parametrize("pol", [ALL_SK, HYBRIDS[0]], ids=lambda p: p.name)
+def test_gemm_runs_one_streamk_region_and_no_separate_fixup(pol, monkeypatch):
+    """``ops.gemm`` issues the Stream-K region (the sweep with its fix-up
+    fused in) and then, for a HYBRID, the DP region: no separate fix-up
+    call, and the result is gemm_ref's."""
+    m, n, k = SHAPE
+    _, (ta, tb, _, _) = _inputs(m, n, k, "f32", seed=13)
+    calls = []
+    for name in ("streamk_region", "dp_gemm_region"):
+        fn = getattr(ops, name)
+        monkeypatch.setattr(ops, name, lambda *a_, _n=name, _f=fn, **k_:
+                            calls.append(_n) or _f(*a_, **k_))
+    assert not hasattr(ops, "streamk_fixup") and not hasattr(ops, "streamk_phase1")
+    got = ops.gemm(ta, tb, policy=pol, cfg=TileConfig(*CFG), g=4, out_dtype=torch.float32)
+    part = partition(GemmShape(m, n, k), TileConfig(*CFG), 4, pol)
+    assert calls == ["streamk_region"] + ["dp_gemm_region"] * bool(part.dp_tiles)
+    _close(got, gemm_ref(ta, tb).numpy(), 1e-4)
+
+
+@pytest.mark.parametrize("phase", ["sweep", "fixup"])
+def test_phases_alone_run_only_on_cpu_tensors(phase):
+    """The sweep and the fix-up on their own are plain versions: on a
+    non-CPU tensor they raise, since on the card they are one kernel."""
+    m, n, k = SHAPE
+    part = partition(GemmShape(m, n, k), TileConfig(*CFG), 4, ALL_SK)
+    a, b = torch.empty(m, k, device="meta"), torch.empty(k, n, device="meta")
+    with pytest.raises(ValueError, match="streamk_region"):
+        if phase == "sweep":
+            streamk_phase1(a, b, part)
+        else:
+            streamk_fixup(torch.empty(1, device="meta"), part, torch.empty(m, n, device="meta"))
