@@ -122,6 +122,30 @@ Phases (any failure raises and the script exits non-zero):
    first prompt (prefill and two decode steps) held against the ``torch``
    backend under granite's ``LOGITS_TOL`` and compared with the
    model-dtype cache (reported).
+4. Tune (``phase_tune``): online adaptation on the card. granite-8b at full
+   width serves the same four requests through a cold selector (nominal
+   H100, Hopper tiles, an empty database and sieve) whose
+   ``AdaptiveTuner`` (``hot_threshold=1``, one round a decode step, top-5
+   budget) times each missed fingerprint on the hand-written kernels with
+   ``measure_wallclock`` and journals it to a temporary directory; then
+   olmoe-1b-7b at full width and ``TUNE_OLMOE_LAYERS`` layers, for the
+   fused grouped fingerprints. The journal is replayed into a fresh
+   database (its snapshot round trip must give equal records), calibrated
+   (the bf16 profile must fit on at least ``MIN_RECORDS`` records; the
+   baseline comparison's shapes are tuned besides when the served ones
+   give fewer), and sieved (true-negative rate 1.0). granite-8b is served
+   again from that warm ``SelectorState``, launch counters zeroed just
+   before and read just after: every dispatch must be a database hit, every
+   kernel its picks call for must launch, and its prefill logits hold
+   ``LOGITS_TOL`` against the ``torch`` backend. Reported: the phase's
+   seconds, measurements and records, the winners by policy and g, the
+   sieve's elimination rate over the tuned keys, the fitted terms beside
+   the nominal ones, each winner's model rank under the nominal machine
+   and under the calibration, and a warm decode step's GEMM ms with the
+   tuned picks beside the nominal model's (``kernel_ab.py --tuned`` times
+   each decode projection's two picks on their own). The tuner's times
+   keep the weights in L2 and are issued by the host back to back (the
+   paper's protocol), unlike phase 2's.
 
 Tolerances: a kernel output ``x`` agrees with its reference ``r`` when
 ``max|x - r| <= tol * max(1, max|r|)``: 1e-4 for f32 inputs (f32 sums in
@@ -2191,6 +2215,227 @@ def phase_kv_int8():
                 logits_tol=tol, vs_model_dtype_cache_max_abs_diff=vs_model)
 
 
+#: the tune phase: top-k budget of the card's sweeps, and olmoe-1b-7b's depth there (full
+#: width; two layers reach every fingerprint kind its 16 do)
+TUNE_TOP_K, TUNE_OLMOE_LAYERS = 5, 2
+
+
+def phase_tune(failures):
+    """The tuning slice's main path on the card (see the module docstring,
+    phase 4): online adaptation timing the hand-written kernels while
+    granite-8b (full) and olmoe-1b-7b (full width, ``TUNE_OLMOE_LAYERS``
+    layers) serve; the journal replayed, calibrated and sieved; granite-8b
+    served again from that warm ``SelectorState``. Hard checks append to
+    ``failures``. Returns the phase's record."""
+    import dataclasses
+    import tempfile
+    from collections import Counter
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import costmodel
+    from repro_torch.core.adaptive import AdaptiveConfig, AdaptiveTuner
+    from repro_torch.core.calibrate import (
+        MIN_RECORDS,
+        CalibrationError,
+        calibrate_db,
+        key_dtypes,
+        profile_key,
+    )
+    from repro_torch.core.gemm import gemm_context
+    from repro_torch.core.op import GemmOp
+    from repro_torch.core.policies import HOPPER_TILE_CONFIGS
+    from repro_torch.core.selector import KernelSelector, SelectorState, default_selector
+    from repro_torch.core.tuner import Tuner, TuningDatabase, _key_shape, measure_wallclock
+    from repro_torch.kernels.common import LAUNCHES, reset_launch_counts
+    from repro_torch.models.lm import LM
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    t_phase = time.perf_counter()
+    h100 = costmodel.H100
+    bf16 = profile_key(costmodel.profile_for("bfloat16"))
+    granite = LM(get_config("granite-8b"))
+    granite_params = granite.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
+    prompts = serve_prompts(granite.cfg.vocab_size)
+    tmp = tempfile.TemporaryDirectory()
+    journal = str(Path(tmp.name) / "tune.jsonl")
+
+    def engine_for(model, params, selector=None, adaptive=None):
+        eng = ServeEngine(model, params, ServeConfig(n_slots=N_SLOTS, max_seq=MAX_SEQ, eos=-1),
+                          backend="cuda", selector=selector, adaptive=adaptive,
+                          adapt_every=1 if adaptive is not None else 0)
+        for p in serve_prompts(model.cfg.vocab_size):
+            eng.submit(p, max_new_tokens=8)
+        return eng
+
+    # 1. cold: every fingerprint misses once (hot_threshold=1), is timed on the kernels
+    #    between decode steps (top-k budget) and journaled
+    cold = TuningDatabase()
+    selector = KernelSelector(mach=h100, tile_configs=HOPPER_TILE_CONFIGS,
+                              state=SelectorState(db=cold, sieve=cold.build_sieve()))
+    tuner = Tuner(policies=selector.policies, tile_configs=selector.tile_configs,
+                  measure_fn=measure_wallclock(), mach=h100, grid_sizes=selector.grid_sizes,
+                  top_k=TUNE_TOP_K)
+    adaptive = AdaptiveTuner(selector, tuner=tuner, journal=journal,
+                             config=AdaptiveConfig(hot_threshold=1, top_k=TUNE_TOP_K))
+    served = {}
+    t0 = time.perf_counter()
+    eng = engine_for(granite, granite_params, adaptive=adaptive)
+    done = eng.run()
+    served["granite-8b"] = dict(requests=len(done), seconds=time.perf_counter() - t0,
+                                records=len(cold.records), measurements=tuner.measurements)
+    olmoe = LM(dataclasses.replace(get_config("olmoe-1b-7b"), n_layers=TUNE_OLMOE_LAYERS))
+    olmoe_params = olmoe.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
+    t0 = time.perf_counter()
+    eng = engine_for(olmoe, olmoe_params, adaptive=adaptive)
+    done_o = eng.run()
+    served["olmoe-1b-7b"] = dict(requests=len(done_o), seconds=time.perf_counter() - t0,
+                                 records=len(cold.records), measurements=tuner.measurements)
+    del olmoe_params
+    if len(done) != 4 or len(done_o) != 4:
+        failures.append(f"tune: served {len(done)}/4 granite and {len(done_o)}/4 olmoe requests")
+    fused = [k for k in cold.records if len(k) == 8]
+    if not fused:
+        failures.append("tune: no fused grouped fingerprint was tuned")
+    n_bf16 = sum(profile_key(key_dtypes(k)) == bf16 for k in cold.records)
+    extra = []
+    if n_bf16 < MIN_RECORDS:
+        # the baseline comparison's shapes (phase 2) as GemmOp targets, so the bf16 fit
+        # has the records it needs; MIN_RECORDS stays as it is
+        extra = [GemmOp.plain(m, n, k, in_dtype="bfloat16") for m in (N_SLOTS, PROMPT_M)
+                 for n, k in SLICE_NK]
+        extra = [op for op in extra if op.key not in cold.records]
+        tuner.tune(extra, journal=journal)
+    log(f"tune: cold serve adapted {adaptive.stats.adaptations} fingerprints "
+        f"({adaptive.stats.misses} misses, sieve generation {selector.sieve_generation}); "
+        f"{len(extra)} baseline-comparison targets tuned besides; {tuner.measurements} "
+        f"measurements")
+
+    # 2. the journal replayed into a fresh database, its snapshot round trip, the
+    #    calibration and the sieve
+    db = TuningDatabase()
+    db.replay_journal(journal)
+    snap = str(Path(tmp.name) / "tune.json")
+    db.save(snap)
+    back = TuningDatabase.load(snap)
+    as_dicts = lambda d: {k: dataclasses.asdict(r) for k, r in d.records.items()}  # noqa: E731
+    if as_dicts(back) != as_dicts(db) or back.per_policy != db.per_policy or db.load_errors:
+        failures.append("tune: the snapshot round trip changed the records")
+    n_bf16 = sum(profile_key(key_dtypes(k)) == bf16 for k in db.records)
+    cm = None
+    try:
+        cm = calibrate_db(db, base=h100)
+    except CalibrationError as e:
+        failures.append(f"tune: calibration refused: {e}")
+    if cm is not None and (bf16 not in cm.fitted_profiles or n_bf16 < MIN_RECORDS):
+        failures.append(f"tune: the bf16 profile fitted on {n_bf16} records "
+                        f"(MIN_RECORDS {MIN_RECORDS}), fitted {cm.fitted_profiles}")
+    if cm is not None:
+        db.set_calibration(cm)
+    sieve = db.build_sieve()
+    try:
+        tn = sieve.validate_true_negative_rate(db.winners())
+    except AssertionError as e:  # a winner the sieve prunes
+        tn = str(e)
+    for key in db.records:
+        sieve.candidates(key)
+    elim = sieve.stats.elimination_rate
+    if tn != 1.0:
+        failures.append(f"tune: the sieve's true-negative rate is {tn}")
+    terms = lambda m: dict(peak_tflops=m.peak_flops / 1e12, hbm_gbps=m.hbm_bw / 1e9,  # noqa: E731
+                           launch_us=m.launch_overhead_s * 1e6,
+                           fixup_us=m.fixup_serial_s * 1e6)
+    fitted = {pk: terms(m) for pk, m in cm.profiles} if cm is not None else {}
+    ranker = Tuner(policies=selector.policies, tile_configs=selector.tile_configs, mach=h100,
+                   grid_sizes=selector.grid_sizes)
+
+    def ranks(calibration):
+        ranker.calibration = calibration
+        return dict(sorted(Counter(
+            ranker._model_rank(_key_shape(k, k), key_dtypes(k), r.policy, r.cfg, r.g)
+            for k, r in db.records.items()).items()))
+
+    rank_nominal, rank_fitted = ranks(None), ranks(cm) if cm is not None else None
+    by_policy = dict(sorted(Counter(r.policy for r in db.records.values()).items()))
+    by_g = dict(sorted(Counter(r.g for r in db.records.values()).items()))
+    dp_share = by_policy.get("dp", 0) / max(len(db.records), 1)
+    log(f"tune: {len(db.records)} records replayed from the journal; winners by policy "
+        f"{by_policy}, by g {by_g} (DP share {dp_share:.3f}); sieve true-negative rate {tn}, "
+        f"elimination rate over the tuned keys {elim:.4f}")
+    log(f"tune: nominal H100 {terms(h100)}; calibrated "
+        f"{ {pk: {k: round(v, 3) for k, v in t.items()} for pk, t in fitted.items()} }, median "
+        f"|rel resid| {cm.residual if cm is not None else None}; winner model_rank nominal "
+        f"{rank_nominal}, calibrated {rank_fitted}")
+
+    # 3. granite-8b served again from the warm state: launch counters zeroed just before and
+    #    read just after; every dispatch a database hit; logits against the torch backend
+    warm = KernelSelector(mach=h100, tile_configs=HOPPER_TILE_CONFIGS,
+                          state=SelectorState(db=db, sieve=sieve, calibration=cm))
+    eng = engine_for(granite, granite_params, selector=warm)
+    reset_launch_counts()
+    done = eng.run()
+    torch.cuda.synchronize()
+    launches = {name: n for name, n in LAUNCHES.items() if n}
+    needed = set()
+    for e in eng.selection_log:
+        needed |= _kernels_of(e)
+    sources = dict(Counter(e.selection.source for e in eng.selection_log))
+    st = warm.stats
+    if len(done) != 4 or sources != {"tuned": len(eng.selection_log)} or (
+            st.sieve_hits or st.fallbacks or st.model_warm or st.xarch_seeds):
+        failures.append(f"tune: warm serve {len(done)}/4, sources {sources} (sieve "
+                        f"{st.sieve_hits}, fallback {st.fallbacks}, model {st.model_warm})")
+    missing = sorted(name for name in needed if not launches.get(name))
+    if missing or not needed:
+        failures.append(f"tune: the warm serve never launched {missing}")
+    got = eng.prefill_logits(prompts[0])
+    with gemm_context(backend="torch"):
+        want, _ = granite.prefill(granite_params, torch.as_tensor(prompts[0], device="cuda")[None])
+    diff = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    tol = LOGITS_TOL["granite-8b"]
+    if not torch.isfinite(got).all() or diff > tol * scale:
+        failures.append(f"tune: warm prefill logits max|diff| {diff:.4f} > {tol} * {scale:.4f}")
+
+    # 4. a warm decode step's GEMM device ms: the tuned picks beside the nominal model's
+    cur = torch.zeros(N_SLOTS, dtype=torch.long, device="cuda")
+    toks = torch.ones(N_SLOTS, 1, dtype=torch.long, device="cuda")
+    scratch = granite.init_cache(N_SLOTS, MAX_SEQ, device="cuda")
+
+    def step():
+        granite.decode_step(granite_params, scratch, toks, cur)
+
+    steps = {}
+    for name, sel in (("nominal", default_selector("cuda")), ("tuned", warm)):
+        with gemm_context(selector=sel, backend="cuda"):
+            steps[name] = decode_breakdown(step)
+    del scratch
+    tmp.cleanup()
+    del granite_params
+    for name, bd in steps.items():
+        log(f"tune: warm decode step, {name} picks: GEMM kernels {bd['gemm_kernels_ms']} ms, "
+            f"device busy {bd['device_busy_ms']} ms, {bd['step_ms']:.2f} ms wall")
+    seconds = time.perf_counter() - t_phase
+    log(f"tune: warm serve launches {launches}; logits vs torch backend max|diff| {diff:.4f} "
+        f"(limit {tol * scale:.4f}); phase {seconds:.1f}s")
+    return dict(
+        seconds=seconds, measurements=tuner.measurements, records=len(db.records),
+        served=served, extra_targets=len(extra), adaptations=adaptive.stats.adaptations,
+        misses=adaptive.stats.misses, sieve_generation=selector.sieve_generation,
+        fused_records=len(fused), bf16_records=n_bf16, winners_by_policy=by_policy,
+        winners_by_g=by_g, dp_share=dp_share, true_negative_rate=tn, elimination_rate=elim,
+        nominal=terms(h100), calibrated=fitted,
+        calibration_records=cm.n_records if cm is not None else 0,
+        calibration_residual=cm.residual if cm is not None else None,
+        model_rank_nominal=rank_nominal, model_rank_calibrated=rank_fitted,
+        warm_sources=sources, warm_launches=launches, warm_logits_max_abs_diff=diff,
+        warm_logits_max_abs=scale, logits_tol=tol,
+        decode_gemm_ms={name: bd["gemm_kernels_ms"] for name, bd in steps.items()},
+        decode_breakdown=steps,
+    )
+
+
 class Routes(list):
     """Each MoE layer's top-k expert choice ((T, k) indices) in call order,
     and ``router_err``: the largest max|diff| of a layer's router logits
@@ -2455,6 +2700,9 @@ def main() -> int:
     t0 = time.perf_counter()
     serve["olmoe-1b-7b"] = phase_serve("olmoe-1b-7b", failures)
     log(f"olmoe-1b-7b served dense and on {list(RUNGS)} ({time.perf_counter() - t0:.1f}s)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tune = phase_tune(failures)
 
     from repro_torch.kernels import cuda_lib
     from repro_torch.kernels.common import mainloop
@@ -2536,7 +2784,7 @@ def main() -> int:
                   slice_max_err=slice_err, not_served=not_served, failures=failures,
                   b5_table=b5_rows, b5_s8_table=b5_s8_rows, b12_table=b12_rows,
                   b12_s8_table=b12_s8_rows, f32_table=f32_rows,
-                  kv_int8=kv_int8,
+                  kv_int8=kv_int8, tune=tune,
                   seconds=time.perf_counter() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

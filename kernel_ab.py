@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's dense Hopper kernels of one checkout at decode shapes.
 
-    python3 kernel_ab.py <tree> [--build-only | --served | --occupancy] [--out FILE]
+    python3 kernel_ab.py <tree> [--build-only | --served | --occupancy | --tuned] [--out FILE]
     python3 kernel_ab.py --report FILE
 
 ``<tree>`` is the root of a checkout (``.`` for this one); its
@@ -53,6 +53,16 @@ SM) and g = 264 (two), on the instantiations of ``streamk_kernel`` whose
 register count decides whether two blocks fit on an SM: dense f32 at M =
 32 and 64 and int8 x packed int4 at M = 64, each at Mx4096x14336 (ALL_SK
 Mx128x128), held against the plain composition first as above.
+
+``--tuned`` compares, at each of granite-8b's decode projections (full
+width, seed 0, 4 slots, one decode step's dispatches under the card's
+default selector), the default selector's pick with the one a wall-clock
+tune gives it (``measure_wallclock``, top-5 budget, the selector's
+policies, tiles and grid sizes, served through a warm ``SelectorState``).
+Each pick is timed alone as above, with the weights rotated past the L2
+and with one copy left in it, beside the tuner's own reading (50 calls
+issued back to back by the host, weights in L2); each row also gives its
+dispatches a step and the sum over a step of each pick's time past the L2.
 """
 
 import gc
@@ -255,6 +265,71 @@ def served():
     return out
 
 
+def tuned():
+    """Per ``--tuned``: granite-8b's decode projections, each under the
+    default selector's pick and under a wall-clock tune's."""
+    from collections import Counter
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.gemm import gemm_context
+    from repro_torch.core.selector import KernelSelector, SelectorState
+    from repro_torch.core.tuner import Tuner, measure_wallclock
+    from repro_torch.models.lm import LM
+
+    model = LM(get_config("granite-8b"))
+    params = model.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
+    cache = model.init_cache(4, 256, device="cuda")
+    toks = torch.ones(4, 1, dtype=torch.long, device="cuda")
+    cur = torch.zeros(4, dtype=torch.long, device="cuda")
+    nominal = default_selector("cuda")
+    with gemm_context(selector=nominal, backend="cuda") as ctx:
+        model.decode_step(params, cache, toks, cur)
+    del model, params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_step = Counter(e.op.key for e in ctx.log)
+    entries, tags = {}, {}
+    for e in ctx.log:
+        if not e.op.fused:
+            entries.setdefault(e.op.key, e)
+            tags.setdefault(e.op.key, {})[e.tag] = None
+    entries = list(entries.values())
+    tuner = Tuner(policies=nominal.policies, tile_configs=nominal.tile_configs,
+                  measure_fn=measure_wallclock(), mach=nominal.mach,
+                  grid_sizes=nominal.grid_sizes, top_k=5)
+    db = tuner.tune([e.op for e in entries])
+    warm = KernelSelector(mach=nominal.mach, tile_configs=nominal.tile_configs,
+                          state=SelectorState(db=db, sieve=db.build_sieve()))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    turn = iter(range(10**9))
+    rows = []
+    for e in entries:
+        m, n, k = e.op.local
+        a = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+        b = torch.randn(k, n, generator=gen, device="cuda").bfloat16()
+        bs = copies(b)
+        row = dict(tag="/".join(tags[e.op.key]), shape=[m, n, k],
+                   per_step=per_step[e.op.key],
+                   tuner_ms=2 * m * n * k / (db.records[e.op.key].tflops * 1e12) * 1e3)
+        for name, sel in (("nominal", e.selection), ("tuned", warm.select_op(e.op))):
+            if name == "tuned" and sel.source != "tuned":
+                raise AssertionError(f"{e.tag}: the warm selector's source is {sel.source}")
+            kw = dict(policy=sel.policy, cfg=sel.cfg, g=sel.g)
+            check(sk_ops.gemm(a, b, **kw), a.float() @ b.float(), 2e-2, f"{e.tag} {name}")
+            row[f"{name}_pick"] = f"{sel.policy.name}/{sel.cfg.name}/g{sel.g}"
+            row[f"{name}_ms"] = time_ms(
+                lambda kw=kw: sk_ops.gemm(a, bs[next(turn) % len(bs)], **kw))
+            row[f"{name}_l2_ms"] = time_ms(lambda kw=kw: sk_ops.gemm(a, b, **kw))
+        rows.append(row)
+        print(tree, json.dumps(row), flush=True)
+        del bs
+    step = {name: sum(r["per_step"] * r[f"{name}_ms"] for r in rows)
+            for name in ("nominal", "tuned")}
+    print(tree, "a step's decode projections alone, ms past the L2", json.dumps(step),
+          flush=True)
+    return dict(rows=rows, step_ms=step)
+
+
 def occupancy(randn, turn):
     """(ms, digests) of B2+B3 at g = 132 and 264, per ``--occupancy``."""
     out, digests = {}, {}
@@ -293,6 +368,12 @@ def main() -> int:
         return 0
     if "--served" in sys.argv:
         rec = dict(tree=tree, served=served())
+        if "--out" in sys.argv:
+            with open(sys.argv[sys.argv.index("--out") + 1], "a") as f:
+                f.write(json.dumps(rec) + "\n")
+        return 0
+    if "--tuned" in sys.argv:
+        rec = dict(tree=tree, tuned=tuned())
         if "--out" in sys.argv:
             with open(sys.argv[sys.argv.index("--out") + 1], "a") as f:
                 f.write(json.dumps(rec) + "\n")

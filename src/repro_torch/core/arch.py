@@ -18,7 +18,8 @@ few percent, so the ratio term is quantized (:data:`_RATIO_STEP`).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import json
+from dataclasses import asdict, dataclass
 
 from repro_torch.core.costmodel import V5E, Machine
 
@@ -37,7 +38,7 @@ class ArchProfile:
     """One machine class: the coordinates tuning records federate within.
 
     Frozen and hashable — profiles key dictionaries (per-class record
-    partitions).
+    partitions) and participate in journal entries.
     """
 
     #: execution backend tag ("tpu", "gpu", "cpu", ...)
@@ -57,6 +58,24 @@ class ArchProfile:
         return (
             f"{self.backend}:l{self.lanes}"
             f":v{self.vmem_bytes >> 20}m:r{self.flops_per_byte}"
+        )
+
+    def to_json(self) -> dict:
+        """JSON payload (the ``{"arch": ...}`` journal entry body)."""
+        d = asdict(self)
+        d["cls"] = self.cls
+        return d
+
+    @classmethod
+    def from_json(cls, d: dict) -> "ArchProfile":
+        """Inverse of :meth:`to_json` (the redundant ``cls`` field is
+        ignored — the class string is always re-derived, so a hand-edited
+        payload cannot desynchronize the two)."""
+        return cls(
+            backend=str(d.get("backend", "tpu")),
+            lanes=int(d.get("lanes", 8)),
+            vmem_bytes=int(d.get("vmem_bytes", V5E.vmem_bytes)),
+            flops_per_byte=int(d.get("flops_per_byte", 250)),
         )
 
     @classmethod
@@ -95,3 +114,18 @@ def detect_arch(mach: Machine = V5E) -> ArchProfile:
         vmem_bytes=int(smem),
         flops_per_byte=prof.flops_per_byte,
     )
+
+
+def arch_entry(profile: ArchProfile) -> str:
+    """One journal line declaring the producer's arch profile — the third
+    tagged entry type the tuning journal understands (see the registry in
+    :mod:`repro_torch.core.tuner`). Consumers store it in
+    ``TuningDatabase.arch_profiles`` keyed by class string, so a merged
+    fleet knows the coordinates behind every class it carries."""
+    return json.dumps({"arch": profile.to_json()})
+
+
+def append_arch(path: str, profile: ArchProfile) -> None:
+    """Append an arch-profile entry to the JSONL journal."""
+    with open(path, "a") as f:
+        f.write(arch_entry(profile) + "\n")

@@ -298,6 +298,19 @@ def gemm_time_s(
     return t
 
 
+def gemm_tflops(
+    shape: GemmShape,
+    cfg: TileConfig,
+    policy: Policy,
+    mach: Machine = V5E,
+    g: Optional[int] = None,
+    dt: DtypeBytes = DEFAULT_DTYPES,
+) -> float:
+    """Modeled effective TFLOP/s (true FLOPs / modeled time) — the tuner's
+    objective, matching ckProfiler's reporting."""
+    return shape.flops / gemm_time_s(shape, cfg, policy, mach, g, dt) / 1e12
+
+
 @lru_cache(maxsize=50_000)
 def rank_candidates(
     shape: GemmShape,
@@ -336,3 +349,34 @@ def rank_candidates(
         raise AssertionError("no tile config fits VMEM")
     out.sort(key=lambda c: c[3])  # stable: ties keep iteration order
     return tuple(out)
+
+
+def best_config(
+    shape: GemmShape,
+    policy: Policy,
+    mach: Machine = V5E,
+    tile_configs=DEFAULT_TILE_CONFIGS,
+    g: Optional[int] = None,
+    dt: DtypeBytes = DEFAULT_DTYPES,
+) -> tuple[TileConfig, float]:
+    """Best tile config for a fixed (policy, g): the argmin of
+    :func:`rank_candidates` restricted to that policy and grid size. VMEM
+    feasibility uses the op's real byte-widths: a config that fits bf16
+    operands can overflow for f32."""
+    ranked = rank_candidates(
+        shape,
+        mach,
+        (policy,),
+        tuple(tile_configs),
+        (g or mach.lanes,),
+        dt,
+    )
+    _, cfg, g_win, t = ranked[0]
+    return cfg, shape.flops / t / 1e12
+
+
+def dp_baseline_tflops(
+    shape: GemmShape, mach: Machine = V5E, dt: DtypeBytes = DEFAULT_DTYPES
+) -> float:
+    """The paper's comparison baseline: best data-parallel configuration."""
+    return best_config(shape, DP, mach, dt=dt)[1]

@@ -135,6 +135,30 @@ class OpenSieve:
         """Policies whose filter answers "possibly present" for this key."""
         return self.candidates_any(key, arch=arch)
 
+    def validate_true_negative_rate(self, winners: Mapping[MNK, Policy]) -> float:
+        """Assert the Bloom contract on a winner map: the true winner is never
+        pruned. Returns the measured TN rate over non-winner (size, policy)
+        pairs (1.0 == every "absent" answer was correct; Bloom guarantees the
+        converse direction, this checks our plumbing end-to-end)."""
+        for size, pol in winners.items():
+            key = _as_key_bytes(size)
+            if key not in self.filters[pol.name]:
+                raise AssertionError(
+                    f"false negative for {size}/{pol.name} — Bloom contract broken"
+                )
+        # TN rate: of all negative answers, how many are genuinely negative.
+        # By construction every negative is genuine (no false negatives), so
+        # this is 1.0 unless plumbing is broken; we still measure it honestly.
+        negatives = genuine = 0
+        for size in winners:
+            key = _as_key_bytes(size)
+            for p in self.policies:
+                if key not in self.filters[p.name]:
+                    negatives += 1
+                    if winners[size].name != p.name:
+                        genuine += 1
+        return genuine / negatives if negatives else 1.0
+
     # -- federation -----------------------------------------------------------
     def merge(
         self, other: "OpenSieve", generation: Optional[int] = None
@@ -147,7 +171,10 @@ class OpenSieve:
         lands in, so the union is bit-identical to the full rebuild).
 
         The result's ``generation`` defaults to ``max(ours, theirs) + 1`` —
-        a merge is a new build version. Mismatched policy registries or filter
+        a merge is a new build version, so every
+        :meth:`~repro_torch.core.selector.KernelSelector.hot_swap` consumer
+        re-resolves against the union rather than trusting picks memoised
+        under either input. Mismatched policy registries or filter
         parameters raise descriptively (see :meth:`BloomFilter.merge`)."""
         mine = {p.name for p in self.policies}
         theirs = {p.name for p in other.policies}
@@ -229,3 +256,19 @@ class OpenSieve:
         return "\n".join(lines)
 
     # -- info -----------------------------------------------------------------
+    def summary(self) -> Dict[str, Dict[str, float]]:
+        """Per-filter occupancy stats. ``n_items`` is the raw add-counter —
+        after ``BloomFilter.merge`` it is only an upper bound on distinct
+        keys — so capacity planning reads the saturation-derived
+        ``est_items`` instead."""
+        return {
+            name: {
+                "n_items": f.n_items,
+                "est_items": f.est_items,
+                "n_bits": f.n_bits,
+                "n_hashes": f.n_hashes,
+                "saturation": f.saturation,
+                "est_fp_rate": f.est_fp_rate,
+            }
+            for name, f in self.filters.items()
+        }

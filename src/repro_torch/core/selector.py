@@ -1,8 +1,11 @@
 """Runtime kernel selection: Open-sieve query -> candidate policies -> pick
-(the port's copy of ``repro.core.selector``, without calibration and online
-adaptation; artifacts install only through one :class:`SelectorState`, and
-:func:`default_selector` scores under the nominal H100 and the Hopper tile
-set on a CUDA device).
+(the port's copy of ``repro.core.selector``). Artifacts — the tuning
+database, the sieve, a calibration and the arch class — install only through
+one :class:`SelectorState` (the JAX package's deprecated
+``db=/sieve=/calibration=`` keywords are not ported); :meth:`hot_swap`
+replaces them mid-stream, and the ``on_miss`` hook feeds online adaptation
+(:mod:`repro_torch.core.adaptive`). :func:`default_selector` scores under
+the nominal H100 and the Hopper tile set on a CUDA device.
 
 Dispatch path for a :class:`repro.core.op.GemmOp` (selection keys on the op
 fingerprint — per-shard local shape, group count, dtypes, epilogue):
@@ -10,23 +13,30 @@ fingerprint — per-shard local shape, group count, dtypes, epilogue):
      Only records of the selector's OWN arch class qualify: a record tuned
      on a different machine class (:mod:`repro_torch.core.arch`) instead supplies
      its winner/runner-up policies as a *warm seed*, re-ranked by the cost
-     model under the local machine — the ``"xarch"`` source.
+     model under the local (calibrated) machine — the ``"xarch"`` source,
+     which still counts as a miss for online adaptation so local
+     measurements eventually supersede the import.
   2. Otherwise query the Bloom filters. Policies answering "definitely
      absent" are pruned (the paper's headline: up to ~95.8% of evaluations
      skipped, 100% true-negative rate). Surviving candidates are scored with
      the fast analytical model — at the op's *actual* operand byte-widths,
      jointly over the swept grid sizes — and the best wins.
   3. If every filter says absent (a size the tuner never saw and no filter
-     aliases): fall back to the naive single-policy default the original
-     Stream-K paper proposes — data-parallel — scored against ALL_SK for
-     safety.
+     aliases): with a :class:`~repro_torch.core.calibrate.CalibratedMachine`
+     installed, dispatch from the calibrated model's argmin over ALL
+     policies (the ``"model"`` analytical-first warm start — still reported
+     to the miss hook, so online adaptation measures hot shapes and
+     promotes them to real database records); otherwise fall back to the
+     naive single-policy default the original Stream-K paper proposes —
+     data-parallel — scored against ALL_SK for safety.
 
 Plain 2-D ops key as the legacy ``(M, N, K)`` tuple, so tuning databases and
 sieves built from bare problem sizes keep working; grouped / epilogue-fused
 ops key (and therefore tune and prune) independently.
 
 Selection runs on the host at every dispatch (PyTorch is eager) and is
-memoised per op key; the recorded ``SelectionLog`` is how tests and
+memoised per op key — so the miss hook fires per *dispatch*, where the JAX
+package's fires per jit trace; the recorded ``SelectionLog`` is how tests and
 benchmarks introspect dispatch decisions. ``SelectorStats`` counts every
 dispatch exactly once (cold source, cache hit, or forced), and memoised
 repeats re-credit their evals/pruned, so ``elimination_rate`` is weighted by
@@ -44,7 +54,7 @@ untouched.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 from repro_torch.core import costmodel
 from repro_torch.core.arch import DEFAULT_ARCH
@@ -73,7 +83,7 @@ class Selection:
 
     policy: Policy
     cfg: TileConfig
-    source: str  # "tuned" | "xarch" | "sieve" | "fallback" | "forced"
+    source: str  # "tuned" | "xarch" | "sieve" | "model" | "fallback" | "forced"
     evals: int  # how many (policy) evaluations the scorer performed
     pruned: int  # how many the Bloom filters eliminated
     #: grid size the kernel launches with (tuned winner's g, or the scored
@@ -89,9 +99,12 @@ class SelectorStats:
     tuned_hits: int = 0
     #: dispatches seeded by a foreign arch class's record — its winner /
     #: runner-up policies re-ranked under the LOCAL machine (never applied
-    #: verbatim)
+    #: verbatim); still a miss for online adaptation
     xarch_seeds: int = 0
     sieve_hits: int = 0
+    #: unseen fingerprints dispatched from the calibrated model's argmin —
+    #: the analytical-first warm start (still misses for online adaptation)
+    model_warm: int = 0
     fallbacks: int = 0
     cache_hits: int = 0  # memoised repeats of an already-selected op
     forced: int = 0  # caller-supplied (policy, cfg) overrides
@@ -117,16 +130,27 @@ def _cfg_from_name(name: str) -> TileConfig:
     return TileConfig(bm, bn, bk)
 
 
+#: Miss-hook signature: called once per dispatch whose (memoised) selection
+#: did NOT come from the tuning database — the signal online adaptation
+#: feeds on. Must be cheap; it runs on every dispatch.
+MissHook = Callable[[GemmOp, Selection], None]
+
+
 @dataclass(frozen=True)
 class SelectorState:
     """One atomic snapshot of a selector's installed tuning artifacts.
 
-    The database, sieve and arch class travel as a single frozen value
-    that ``KernelSelector(state=...)`` installs, so a database from one
+    The database, sieve, calibration and arch class travel as a single
+    frozen value: ``KernelSelector(state=...)`` and ``hot_swap(state=...)``
+    install all four in one reference assignment, so a database from one
     generation is never paired with a sieve from another."""
 
     db: Optional[TuningDatabase] = None
     sieve: Optional[OpenSieve] = None
+    #: installed CalibratedMachine (or None): when set, all cost-model
+    #: scoring runs under the fitted per-dtype-profile machine, and unseen
+    #: fingerprints dispatch via the "model" source instead of the fallback
+    calibration: object = None
     #: the selector's own arch class (:mod:`repro_torch.core.arch`) — the class
     #: whose records qualify as direct database hits; every other class is
     #: an ``"xarch"`` warm seed
@@ -139,8 +163,9 @@ class KernelSelector:
     candidate pruning + cost-model scoring -> unsieved cost-model fallback.
 
     Tuning artifacts live in one frozen :class:`SelectorState`
-    (``self.state``); the ``db``/``sieve``/``arch`` properties read through
-    to it."""
+    (``self.state``); the ``db``/``sieve``/``calibration``/``arch``
+    properties read through to it. Install new artifacts atomically with
+    :meth:`hot_swap`."""
 
     def __init__(
         self,
@@ -149,11 +174,13 @@ class KernelSelector:
         tile_configs: Sequence[TileConfig] = DEFAULT_TILE_CONFIGS,
         grid_sizes: Optional[Sequence[int]] = None,
         state: Optional[SelectorState] = None,
+        on_miss: Optional[MissHook] = None,
     ):
         self._state = state if state is not None else SelectorState()
         self.mach = mach
         self.policies = tuple(policies)
         self.tile_configs = tuple(tile_configs)
+        self.on_miss = on_miss
         self.grid_sizes = (
             tuple(grid_sizes)
             if grid_sizes is not None
@@ -165,7 +192,7 @@ class KernelSelector:
     # -- state ---------------------------------------------------------------
     @property
     def state(self) -> SelectorState:
-        """The installed artifact snapshot (frozen)."""
+        """The installed artifact snapshot (frozen; swap via hot_swap)."""
         return self._state
 
     @property
@@ -179,17 +206,68 @@ class KernelSelector:
         return self._state.sieve
 
     @property
+    def calibration(self):
+        """Installed CalibratedMachine or None (view into ``state``)."""
+        return self._state.calibration
+
+    @property
     def arch(self) -> str:
         """This selector's arch class (view into ``state``)."""
         return self._state.arch
 
+    @property
+    def sieve_generation(self) -> int:
+        """Build version of the currently installed sieve (0 when none)."""
+        return self.sieve.generation if self.sieve is not None else 0
+
+    def _notify_miss(self, op: GemmOp, sel: Selection) -> None:
+        if self.on_miss is not None and sel.source != "tuned":
+            self.on_miss(op, sel)
+
+    # -- online adaptation --------------------------------------------------
+    def hot_swap(
+        self,
+        state: Optional[SelectorState] = None,
+        keys: Optional[Iterable[OpKey]] = None,
+    ) -> int:
+        """Install updated tuning artifacts mid-stream.
+
+        ``state`` (None: keep the installed one) swaps database, sieve,
+        calibration and arch class together in one reference assignment.
+        Memoised selections for ``keys`` (all keys when ``None``) are
+        dropped so the next dispatch of a freshly tuned fingerprint
+        re-resolves against the new artifacts instead of replaying a stale
+        sieve/fallback pick. Installing a different calibration drops the
+        memo wholesale regardless of ``keys``: the (frozen, hashable)
+        machines inside it key every scoring cache, and new constants
+        re-score EVERY non-tuned pick. Returns the number of cache entries
+        invalidated."""
+        if state is not None:
+            if state.calibration is not self._state.calibration:
+                keys = None
+            self._state = state
+        if keys is None:
+            n = len(self._cache)
+            self._cache.clear()
+            return n
+        return sum(1 for k in keys if self._cache.pop(k, None) is not None)
+
     # -- scoring -----------------------------------------------------------
+    def scoring_machine(self, dt: DtypeBytes) -> costmodel.Machine:
+        """Machine the cost model scores under for a byte-width profile:
+        the installed calibration's per-profile fit, else the nominal
+        machine. Frozen/hashable either way — it participates in every
+        scoring-cache key."""
+        if self.calibration is not None:
+            return self.calibration.machine_for(dt)
+        return self.mach
+
     def _score(
         self, size: MNK, pols: Sequence[Policy], dt: DtypeBytes
     ) -> Tuple[Policy, TileConfig, int, int]:
         """Best (policy, cfg, g) over the candidate policies — the argmin of
         :func:`costmodel.rank_candidates` at the op's real byte-widths,
-        under the selector's machine. ``evals`` counts
+        under the (possibly calibrated) scoring machine. ``evals`` counts
         *policies* scored (the unit Bloom pruning removes), whatever the
         width of the inner cfg x g sweep. ``size`` is a bare local (M, N, K)
         or an already-built shape (e.g. the GroupedGemmShape of a fused
@@ -197,7 +275,7 @@ class KernelSelector:
         shape = size if isinstance(size, GemmShape) else GemmShape(*size)
         pol, cfg, g, _ = costmodel.rank_candidates(
             shape,
-            self.mach,
+            self.scoring_machine(dt),
             tuple(pols),
             self.tile_configs,
             self.grid_sizes,
@@ -221,7 +299,7 @@ class KernelSelector:
         """Warm-seed candidates from foreign-class records of this
         fingerprint: the winner (and distinct runner-up) policies every
         other arch class measured for the key. Never dispatched verbatim —
-        the caller re-ranks them under the LOCAL machine, so a
+        the caller re-ranks them under the LOCAL (calibrated) machine, so a
         sibling generation's pick is advice, not an answer. Classes iterate
         in sorted order, keeping the seed set deterministic across fleets."""
         if self.db is None:
@@ -273,7 +351,9 @@ class KernelSelector:
         elif xpols:
             # A different arch class tuned this fingerprint: its winner /
             # runner-up policies seed the candidate set, re-ranked under the
-            # local machine (no filter consulted — zero pruned).
+            # local machine (no filter consulted — zero pruned). Still a
+            # miss for adaptation: the seed serves until a local round
+            # measures the shape and supersedes it with a real record.
             pol, cfg, g, evals = self._score(size, xpols, dt)
             sel = Selection(pol, cfg, "xarch", evals, 0, g=g)
         elif self.sieve is not None:
@@ -282,9 +362,19 @@ class KernelSelector:
             if cands:
                 pol, cfg, g, evals = self._score(size, cands, dt)
                 sel = Selection(pol, cfg, "sieve", evals, pruned, g=g)
+            elif self.calibration is not None:
+                # every filter said "definitely absent" — with a calibrated
+                # model installed, the unseen fingerprint dispatches from
+                # the model's argmin over ALL policies (analytical-first
+                # warm start) instead of the naive DP-vs-SK fallback
+                pol, cfg, g, evals = self._score(size, self.policies, dt)
+                sel = Selection(pol, cfg, "model", evals, pruned, g=g)
             else:
                 pol, cfg, g, evals = self._score(size, (DP, ALL_SK), dt)
                 sel = Selection(pol, cfg, "fallback", evals, pruned, g=g)
+        elif self.calibration is not None:
+            pol, cfg, g, evals = self._score(size, self.policies, dt)
+            sel = Selection(pol, cfg, "model", evals, 0, g=g)
         else:
             pol, cfg, g, evals = self._score(size, self.policies, dt)
             sel = Selection(pol, cfg, "fallback", evals, 0, g=g)
@@ -310,10 +400,13 @@ class KernelSelector:
             self.stats.xarch_seeds += 1
         elif sel.source == "sieve":
             self.stats.sieve_hits += 1
+        elif sel.source == "model":
+            self.stats.model_warm += 1
         else:
             self.stats.fallbacks += 1
         self.stats.evals += sel.evals
         self.stats.pruned += sel.pruned
+        self._notify_miss(op, sel)
         return sel
 
     def select(self, m: int, n: int, k: int) -> Selection:
@@ -344,6 +437,7 @@ class KernelSelector:
         )
         self.stats.evals += sel.evals
         self.stats.pruned += sel.pruned
+        self._notify_miss(op, base)
         return sel
 
     def record_forced(
@@ -356,15 +450,22 @@ class KernelSelector:
         """Account a fully caller-forced (policy, cfg, g) dispatch (tuner
         sweeps, tests). It performs no evaluations and prunes nothing, so it
         leaves ``elimination_rate`` untouched — but it is a real dispatch,
-        visible as one ``forced`` lookup."""
+        visible as one ``forced`` lookup. Forced dispatches of *untuned*
+        fingerprints still feed the miss hook: the caller knowing a config
+        is exactly the traffic online adaptation wants to learn from."""
         self.stats.lookups += 1
         self.stats.forced += 1
-        return Selection(policy, cfg, "forced", 0, 0, g=g)
+        sel = Selection(policy, cfg, "forced", 0, 0, g=g)
+        if self._db_record(op) is None:
+            self._notify_miss(op, sel)
+        return sel
 
 
 def default_selector(device=None) -> KernelSelector:
     """Selector with no tuning artifacts: pure cost-model scoring over all
-    policies. On a CUDA device it scores under the nominal
+    policies (what the models and the serve engine use when no tuned
+    database is supplied; ``launch/serve.py --db/--journal/--calibrate``
+    builds a warm one). On a CUDA device it scores under the nominal
     :data:`~repro_torch.core.costmodel.H100` with the Hopper tile set (the
     TPU tiles overflow a block's shared memory); elsewhere it keeps the JAX
     package's V5E defaults, so CPU selections match ``repro`` exactly."""

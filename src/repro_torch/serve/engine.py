@@ -10,7 +10,11 @@ so both packages draw the same tokens from the same logits and seed.
 
 On the card the engine serves through the ``cuda`` backend (the
 hand-written kernels) and the device's default selector (nominal H100,
-Hopper tiles) unless the caller names others.
+Hopper tiles) unless the caller names others. An
+:class:`~repro_torch.core.adaptive.AdaptiveTuner` (``adaptive=``) rides the
+decode loop: every ``adapt_every`` engine steps it gets one round to tune
+the hottest untuned fingerprints the traffic produced, and ``run()`` drains
+what is left at its end.
 """
 
 from __future__ import annotations
@@ -24,11 +28,36 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.adaptive import AdaptiveTuner
 from repro_torch.core.gemm import gemm_context
 from repro_torch.core.selector import KernelSelector, SelectorStats, default_selector
 from repro_torch.models.lm import resolve_device
 
 log = logging.getLogger("repro_torch.serve")
+
+
+@dataclass(frozen=True)
+class DispatchStats:
+    """Point-in-time view of the engine's dispatch health: the selector's
+    counters plus the online-adaptation loop's. Selector fields
+    (``tuned_hits``, ``lookups``, ...) are reachable directly via attribute
+    delegation."""
+
+    selector: SelectorStats
+    misses: int  # untuned dispatches observed (adaptive) or cold non-DB hits
+    adaptations: int  # tuning records committed online
+    sieve_generation: int  # build version of the live sieve
+    db_records: int  # tuning database size
+    pending_hot: int  # promoted fingerprints awaiting an adaptation round
+    #: unseen fingerprints served from the calibrated model's argmin (the
+    #: "model" selection source)
+    model_warm: int = 0
+    #: dispatches seeded from a foreign arch class's record (the "xarch"
+    #: selection source)
+    xarch_seeds: int = 0
+
+    def __getattr__(self, name):
+        return getattr(self.selector, name)
 
 
 @dataclass
@@ -55,9 +84,10 @@ class ServeConfig:
 
 class EngineCore:
     """Shared substrate of the serving engines: the dispatch context
-    (selector, backend, selection-log mirroring), host sampling, request
-    validation, and the run() drain loop. Subclasses implement
-    :meth:`step` (one scheduling quantum) and :meth:`outstanding`."""
+    (selector, backend, selection-log mirroring), the adaptive-tuner hooks,
+    host sampling, request validation, and the run() drain loop. Subclasses
+    implement :meth:`step` (one scheduling quantum) and
+    :meth:`outstanding`."""
 
     def __init__(
         self,
@@ -70,11 +100,20 @@ class EngineCore:
         selector: Optional[KernelSelector] = None,
         backend: Optional[str] = None,
         device=None,
+        adaptive: Optional[AdaptiveTuner] = None,
+        adapt_every: int = 0,
     ):
         self.model = model
         self.params = params
         self.device = resolve_device(device)
         self.div = div or {}
+        # the tuner is bound to a selector: without an explicit one the
+        # engine serves through the tuner's
+        if adaptive is not None and selector is None:
+            selector = adaptive.selector
+        self.adaptive = adaptive
+        self.adapt_every = adapt_every
+        self._steps = 0
         self.selector = selector if selector is not None else default_selector(self.device)
         self.backend = backend or ("cuda" if self.device.type == "cuda" else "torch")
         self.selection_log: List = []
@@ -100,6 +139,30 @@ class EngineCore:
         """Counters of the selector that served this engine's traffic."""
         return self.selector.stats
 
+    @property
+    def dispatch_stats(self) -> DispatchStats:
+        """The selector's counters with the adaptation loop's beside them."""
+        sel = self.selector
+        ad = self.adaptive
+        if ad is not None:
+            misses = ad.stats.misses
+            adaptations = ad.stats.adaptations
+            pending = ad.pending_hot
+            db_records = len(ad.db.records)
+        else:
+            # without an adaptive loop, "miss" degrades to the cold
+            # non-database selections the selector itself counted
+            misses = (sel.stats.sieve_hits + sel.stats.model_warm
+                      + sel.stats.xarch_seeds + sel.stats.fallbacks)
+            adaptations = pending = 0
+            db_records = len(sel.db.records) if sel.db is not None else 0
+        return DispatchStats(
+            selector=sel.stats, misses=misses, adaptations=adaptations,
+            sieve_generation=sel.sieve_generation, db_records=db_records,
+            pending_hot=pending, model_warm=sel.stats.model_warm,
+            xarch_seeds=sel.stats.xarch_seeds,
+        )
+
     def _sample(self, logits: np.ndarray, temperature: float) -> int:
         if temperature <= 0.0:
             return int(np.argmax(logits))
@@ -114,6 +177,13 @@ class EngineCore:
         if len(prompt) > self._max_seq:
             raise ValueError(f"prompt length {len(prompt)} exceeds max_seq {self._max_seq}")
         return prompt
+
+    def _maybe_adapt(self):
+        self._steps += 1
+        if self.adaptive is not None and self.adapt_every > 0 and (
+            self._steps % self.adapt_every == 0
+        ):
+            self.adaptive.adapt()
 
     def step(self) -> bool:  # pragma: no cover - abstract
         """One scheduling quantum; False when there was nothing to do."""
@@ -133,6 +203,10 @@ class EngineCore:
                 seen[r.uid] = r
             if not self.step():
                 break
+        if self.adaptive is not None and self.adapt_every > 0:
+            # end-of-run flush: short traces must still commit what they
+            # learned (and journal it) before the process goes away
+            self.adaptive.drain()
         self.unfinished = self.outstanding()
         self.exhausted = bool(self.unfinished)
         if self.exhausted:
@@ -158,6 +232,8 @@ class ServeEngine(EngineCore):
         selector: Optional[KernelSelector] = None,
         backend: Optional[str] = None,
         device=None,
+        adaptive: Optional[AdaptiveTuner] = None,
+        adapt_every: int = 0,
     ):
         super().__init__(
             model,
@@ -168,6 +244,8 @@ class ServeEngine(EngineCore):
             selector=selector,
             backend=backend,
             device=device,
+            adaptive=adaptive,
+            adapt_every=adapt_every,
         )
         self.cfg = cfg
         self.cache = model.init_cache(cfg.n_slots, cfg.max_seq, device=self.device)
@@ -269,4 +347,5 @@ class ServeEngine(EngineCore):
                 req.done = True
                 self.slot_req[i] = None
                 self.pos[i] = 0
+        self._maybe_adapt()
         return True

@@ -1349,3 +1349,62 @@ def test_cuda_fma_grouped_sk_matches_plain_version(cuda_device, bm, pair):
                             split += splits
                             whole += ipw >= ipt
     assert split and whole, (split, whole)
+
+
+@pytest.mark.parametrize("profile", ["bfloat16", "int8*int8", "float32"])
+def test_cuda_measure_wallclock_times_the_kernels(cuda_device, profile):
+    """``measure_wallclock``, the tuner's clock on the card, over every Hopper
+    tile the sweep keeps for the profile (``vmem_working_set`` within the
+    H100's 232,448 bytes) x every policy x g in {66, 132, 264}, and, for bf16,
+    a fused grouped target over the same space. Each measurement launches
+    only the port's kernels, as many times as its policy's partition implies,
+    gives a finite positive TFLOP/s, and its last output holds ``gemm_ref``
+    at the kernel tolerance (the output's dtype). A pair the kernels do not
+    take raises."""
+    from repro_torch.core import costmodel
+    from repro_torch.core.op import GemmOp
+    from repro_torch.core.policies import HOPPER_TILE_CONFIGS
+    from repro_torch.core.tuner import measure_wallclock
+    from repro_torch.kernels.streamk.ref import gemm_ref
+
+    measure = measure_wallclock(warmup=1, iters=2)
+    calls = 3
+    dt = costmodel.profile_for(profile)
+    tiles = [c for c in HOPPER_TILE_CONFIGS
+             if costmodel.vmem_working_set(c, dt) <= costmodel.H100.vmem_bytes]
+    assert tiles and (profile == "float32") == (len(tiles) < len(HOPPER_TILE_CONFIGS))
+    rung = common.rung_of(torch.int8, torch.int8) if profile == "int8*int8" else None
+    targets = [GemmOp.plain(40, 392, 520, in_dtype=profile)]
+    if profile == "bfloat16":
+        targets.append(GemmOp(16, 384, 520, g=6, kind="grouped", fused=True,
+                              in_dtype=profile, out_dtype=profile))
+    n = 0
+    for op in targets:
+        shape = costmodel.op_shape(op)
+        for cfg in tiles:
+            for pol in ALL_POLICIES:
+                for g in costmodel.default_grid_sizes(costmodel.H100):
+                    what = (op.key, cfg.name, pol.name, g)
+                    with common.count_launches() as log:
+                        tflops = measure(shape, pol, cfg, g, dt)
+                    if op.fused:
+                        name = "grouped_streamk_dp" if pol is DP else "grouped_streamk_sk"
+                        want = [common.launch_name(name, rung)] * calls
+                    else:
+                        part = partition(GemmShape(op.m, op.n, op.k), cfg, g, pol)
+                        per = [common.launch_name("streamk_phase1", rung)] * bool(part.sk_tiles)
+                        if part.dp_tiles or not part.sk_tiles:
+                            per.append(common.launch_name("dp_gemm_region", rung))
+                        want = per * calls
+                    assert sorted(log) == sorted(want), what
+                    assert np.isfinite(tflops) and tflops > 0, what
+                    a, b, c = measure.last
+                    ref = (torch.bmm(a.float(), b.float()) if op.fused else gemm_ref(
+                        a, b, torch.float32))
+                    _close_max(c, ref, TOL[c.dtype], what)
+                    n += 1
+    assert n == len(targets) * len(tiles) * len(ALL_POLICIES) * 3
+    if profile == "float32":
+        with pytest.raises(NotImplementedError, match="no CUDA kernel"):
+            measure(GemmShape(8, 128, 128), DP, tiles[0], 66,
+                    costmodel.profile_for("bfloat16*float32"))

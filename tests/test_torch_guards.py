@@ -33,7 +33,10 @@ def test_port_import_leaves_jax_out():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     code = ("import repro_torch, repro_torch.launch.serve, repro_torch.kernels.streamk.ops, "
             "repro_torch.kernels.streamk.grouped, repro_torch.core.quant, "
-            "repro_torch.kernels.splitk.ops, repro_torch.kernels.dp.ops, sys; "
+            "repro_torch.kernels.splitk.ops, repro_torch.kernels.dp.ops, "
+            "repro_torch.launch.tune, repro_torch.core.tuner, repro_torch.core.calibrate, "
+            "repro_torch.core.adaptive, repro_torch.configs.gemm_suite, "
+            "repro_torch.utils.logging, sys; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]")
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
