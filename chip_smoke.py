@@ -146,6 +146,34 @@ Phases (any failure raises and the script exits non-zero):
    each decode projection's two picks on their own). The tuner's times
    keep the weights in L2 and are issued by the host back to back (the
    paper's protocol), unlike phase 2's.
+5. Paged serving and the fleet (``phase_paged``), on the ``cuda`` backend,
+   page size 16, the equal-memory pool of 64 pages, 4 active, max_seq 256:
+   (a) granite-8b at full width on phase 3's bf16 weights (run at the end
+   of its phase 3, before they are freed): the four prompts through
+   ``PagedServeEngine`` with whole-prompt prefill and with chunks of 16,
+   launch counters zeroed just before each run and read just after (B1 and
+   B2 must launch, and every kernel the selections call for), the greedy
+   tokens set beside phase 3's dense run (reported); one paged decode step
+   held against the dense engine's step on the same prefilled requests, and
+   the chunked prefill's last-chunk logits against the whole prompt's, both
+   at ``LOGITS_TOL``, with a planted fault each that must read at least 3
+   times the limit (request 0's first page-table entry pointing at request
+   1's first page; the last chunk attending over a zeroed prefix); the
+   gather of a decode step's largest view timed on its own. (b) olmoe-1b-7b
+   at full width and ``PAGED_OLMOE_LAYERS`` layers, paged with chunks of 16:
+   one B5 launch per fused grouped dispatch, the chunked logits against the
+   ``torch`` backend replaying the run's top-8 choices chunk by chunk at
+   olmoe's ``LOGITS_TOL``, the router at ``ROUTER_TOL``, and the same
+   planted fault. (c) The serve CLI (``repro_torch.launch.serve.main``) at
+   full width: granite-8b, ``--paged --prefill-chunk 16 --replay poisson
+   --requests 8 --workers 2 --adapt --adapt-every 1 --top-k 5
+   --gossip-every 2`` into a temporary journal (worker 1's gossip must
+   absorb entries), then the same command with ``--merge-journals`` and
+   without ``--adapt`` (every decode dispatch must be a database hit); both
+   exit 0 with every request completed, B1 and B2 launched. Reported: the
+   phase's seconds, wall ms per decode step paged beside dense, peak pages
+   and residents, admission counters, the step SLO percentiles, gossip
+   rounds and entries, and the fleet's merged records and conflicts.
 
 Tolerances: a kernel output ``x`` agrees with its reference ``r`` when
 ``max|x - r| <= tol * max(1, max|r|)``: 1e-4 for f32 inputs (f32 sums in
@@ -1898,11 +1926,12 @@ def _gemm_weight_bytes(params):
         params["lm_head"])
 
 
-def phase_serve(arch, failures):
+def phase_serve(arch, failures, then=None):
     """Serve ``arch`` at full width on the ``cuda`` backend: dense bf16, then
     on each rung of the quantization ladder, quantized from the same bf16
-    weights (each quantized tree freed before the next). Returns the runs'
-    records by rung ("dense" first); see the module docstring."""
+    weights (each quantized tree freed before the next). ``then(model,
+    params, runs)``, when given, runs last, on the bf16 weights. Returns the
+    runs' records by rung ("dense" first); see the module docstring."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1933,6 +1962,8 @@ def phase_serve(arch, failures):
         del qparams
         gc.collect()
         torch.cuda.empty_cache()
+    if then is not None:
+        then(model, params, runs)
     return runs
 
 
@@ -2105,7 +2136,8 @@ def serve_run(arch, model, params, rung, failures, dense_logits=None):
         planted_fault_replayed_routing_max_abs_diff=fault_replayed,
         router_max_rel_err=routes_cuda.router_err if hold_replayed else None,
         selector=dict(lookups=st.lookups, cache_hits=st.cache_hits, fallbacks=st.fallbacks),
-        picks=picks, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        tokens={r.uid: r.out_tokens for r in done}, picks=picks,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
     )
     log(f"{label} served 4/4: prefill {serve['prefill_tok_s']:.1f} tok/s, decode "
         f"{serve['decode_tok_s']:.1f} tok/s, decode step {step_ms:.2f} ms "
@@ -2436,6 +2468,363 @@ def phase_tune(failures):
     )
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: paged serving and the fleet
+# ---------------------------------------------------------------------------
+
+
+#: the paged pool of phase 5: 16-row pages, the dense engine's rows (N_SLOTS x MAX_SEQ / 16
+#: = 64 pages, the equal-memory pool), N_SLOTS active, and the chunk of chunked prefill
+PAGE_SIZE, PREFILL_CHUNK = 16, 16
+#: olmoe-1b-7b's depth in phase 5 (b): full width, two layers reach every fingerprint kind
+PAGED_OLMOE_LAYERS = 2
+
+
+def _paged_engine(model, params, chunk):
+    """A ``PagedServeEngine`` of phase 5 on the card and the ``cuda``
+    backend; raises if its pool or its GEMMs would run anywhere else."""
+    from repro_torch.serve import PagedServeConfig, PagedServeEngine
+
+    eng = PagedServeEngine(model, params, PagedServeConfig(
+        page_size=PAGE_SIZE, max_pages=N_SLOTS * MAX_SEQ // PAGE_SIZE, max_active=N_SLOTS,
+        max_seq=MAX_SEQ, prefill_chunk=chunk, eos=-1), backend="cuda")
+    where = {key: a.device.type for key, a in eng.kv.pool["attn"].items()}
+    if eng.backend != "cuda" or eng.device.type != "cuda" or set(where.values()) != {"cuda"}:
+        raise AssertionError(f"paged engine off the card: backend {eng.backend}, device "
+                             f"{eng.device}, pool {where}")
+    return eng
+
+
+def paged_run(label, model, params, chunk, dense_tokens=None):
+    """Serve the four prompts through a paged engine (``chunk`` 0: whole-
+    prompt prefill), launch counters zeroed just before and read just after:
+    every kernel the selections call for must have launched, and each fused
+    grouped dispatch must be exactly one B5 launch. Returns the run's
+    record (timing, pool and admission counters, tokens against
+    ``dense_tokens`` by request)."""
+    import torch
+
+    from repro_torch.kernels.common import LAUNCHES, reset_launch_counts
+
+    cfg = model.cfg
+    eng = _paged_engine(model, params, chunk)
+    for p in serve_prompts(cfg.vocab_size):
+        eng.submit(p, max_new_tokens=8)
+    reset_launch_counts()
+    done = sorted(eng.run(), key=lambda r: r.uid)
+    torch.cuda.synchronize()
+    launches = {name: n for name, n in LAUNCHES.items() if n}
+    if len(done) != 4 or eng.exhausted or any(len(r.out_tokens) != 8 for r in done):
+        raise AssertionError(f"{label}: served {len(done)}/4 requests")
+    needed = set()
+    for e in eng.selection_log:
+        needed |= _kernels_of(e)
+    missing = [name for name in needed if launches.get(name, 0) <= 0]
+    if missing or not needed:
+        raise AssertionError(f"{label}: {missing} selected but never launched")
+    grouped = sum(1 for e in eng.selection_log if e.op.fused)
+    b5 = sum(n for name, n in launches.items() if name.startswith("grouped_streamk"))
+    if b5 != grouped:
+        raise AssertionError(f"{label}: {b5} B5 launches for {grouped} grouped dispatches")
+    tokens = {r.uid: r.out_tokens for r in done}
+    agree = None
+    if dense_tokens is not None:
+        agree = sum(a == b for uid, toks in tokens.items()
+                    for a, b in zip(toks, dense_tokens[uid]))
+    tm, m = eng.timing, eng.metrics()
+    step_ms = tm["decode_s"] / max(tm["decode_steps"], 1) * 1e3
+    log(f"{label}: launches {launches}; {grouped} grouped dispatches; decode step "
+        f"{step_ms:.2f} ms wall over {tm['decode_steps']} steps, prefill {tm['prefill_s']:.3f}s "
+        f"for {tm['prefill_tokens']} tokens; pool peak {m['peak_used_pages']}/{m['n_pages']} "
+        f"pages, peak {m['peak_resident']} resident; admitted {m['admitted']}, rejected "
+        f"{m['rejected']}, truncated {m['truncated']}, stall events {m['stall_events']}; "
+        f"greedy tokens equal to the dense run's: {agree}/32")
+    return dict(chunk=chunk, launches=launches, needed=sorted(needed), grouped=grouped,
+                timing=dict(tm), decode_step_ms=step_ms, metrics=m, tokens=tokens,
+                tokens_equal_dense=agree)
+
+
+def paged_decode_check(model, params, failures):
+    """One paged decode step (gather the view, the unchanged decode step on
+    it, scatter the new rows) against the dense engine's step on the same
+    prefilled requests and tokens, both on the ``cuda`` backend, held at
+    granite's ``LOGITS_TOL``; then the planted fault, request 0's first
+    page-table entry pointing at request 1's first page, which must read at
+    least 3 times the limit. Also times the step's gather on its own."""
+    import torch
+
+    from repro_torch.core.gemm import gemm_context
+    from repro_torch.serve import PageTable, ServeConfig, ServeEngine
+
+    prompts = serve_prompts(model.cfg.vocab_size)
+    dense = ServeEngine(model, params, ServeConfig(n_slots=N_SLOTS, max_seq=MAX_SEQ, eos=-1),
+                        backend="cuda")
+    paged = _paged_engine(model, params, 0)
+    for eng in (dense, paged):
+        for p in prompts:
+            eng.submit(p, max_new_tokens=8)
+    dense._admit()
+    paged._admit()
+    while paged._prefill_tick():
+        pass
+    reqs = paged._decode_candidates()
+    if len(reqs) != 4:
+        raise AssertionError(f"paged decode check: {len(reqs)} requests prefilled of 4")
+    tokens = np.array([[r.out_tokens[-1]] for r in dense.slot_req], np.int64)
+    pos = np.array([r.pos for r in reqs], np.int64)
+    if not (pos == dense.pos).all():
+        raise AssertionError(f"paged decode check: positions {pos} vs dense {dense.pos}")
+    tables = [r.table for r in reqs]
+    with gemm_context(selector=dense.selector, backend="cuda"):
+        want, _ = model.decode_step(params, dense.cache, torch.as_tensor(tokens, device="cuda"),
+                                    torch.as_tensor(dense.pos, device="cuda"))
+    with paged._dispatch_ctx():
+        got = paged._paged_decode(paged.kv.padded_tables(tables), tokens, pos, 4)
+        bad_tables = [PageTable([reqs[1].table.pages[0]] + reqs[0].table.pages[1:])] + tables[1:]
+        bad = paged._paged_decode(paged.kv.padded_tables(bad_tables), tokens, pos, 4)
+    got, want, bad = got.float(), want.float(), bad.float()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"paged decode check: bad logits {tuple(got.shape)}")
+    tol = LOGITS_TOL["granite-8b"]
+    diff = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    fault = (bad - want).abs().max().item() if torch.isfinite(bad).all() else math.inf
+    log(f"paged decode step vs the dense engine's step (granite-8b, cuda backend): max|diff| "
+        f"{diff:.4f} (max|logit| {scale:.4f}, limit {tol * scale:.4f}); planted fault (request "
+        f"0's first page -> request 1's) {fault:.4f} (must be >= {3 * tol * scale:.4f})")
+    if diff > tol * scale:
+        failures.append(f"paged decode logits: max|diff| {diff:.4f} > {tol} * {scale:.4f}")
+    if fault < 3 * tol * scale:
+        failures.append(f"paged decode planted fault must read at least 3x the limit: "
+                        f"{fault:.4f} < 3 * {tol} * {scale:.4f}")
+    # the gather of the run's largest view: 5 pages a request (prompt and 8
+    # new tokens), padded to 8
+    pages_2d = paged.kv.padded_tables(
+        [PageTable(r.table.pages + paged.kv.alloc(5 - len(r.table.pages))) for r in reqs])
+    view = paged.kv.gather_view(paged.kv.pool, pages_2d)
+    gather_bytes = 2 * sum(a.numel() * a.element_size() for a in view["attn"].values())
+    gather_ms, gather_event_ms = time_ms(lambda: paged.kv.gather_view(paged.kv.pool, pages_2d))
+    log(f"gather of a decode step's view {tuple(view['attn']['k'].shape)}: {gather_ms:.4f} ms "
+        f"device ({gather_event_ms:.4f} event), {gather_bytes / 1e6:.1f} MB read and written, "
+        f"{gather_bytes / gather_ms / 1e6:.0f} GB/s")
+    return dict(logits_max_abs_diff=diff, logits_max_abs=scale, logits_tol=tol,
+                planted_fault_max_abs_diff=fault, gather_view_shape=list(view["attn"]["k"].shape),
+                gather_ms=gather_ms, gather_event_ms=gather_event_ms, gather_bytes=gather_bytes)
+
+
+def chunked_prefill_check(model, params, failures, *, tol, routing=False):
+    """Prefill the first prompt through a paged engine in ``PREFILL_CHUNK``
+    chunks; its last chunk's logits against the whole-prompt prefill on the
+    ``cuda`` backend (``routing``: against the ``torch`` backend replaying
+    the chunked run's top-k choices, with the router logits held against
+    ``torch.matmul`` at ``ROUTER_TOL``), within ``tol`` x max|logit|; then
+    the planted fault, the last chunk attending over a zeroed prefix (a
+    view without its cache prefix), which must read at least 3 times the
+    limit."""
+    import torch
+
+    from repro_torch.core.gemm import gemm_context
+
+    label = f"{model.cfg.name} chunked prefill"
+    prompt = serve_prompts(model.cfg.vocab_size)[0]
+    tokens = torch.as_tensor(prompt, device="cuda")[None]
+    eng = _paged_engine(model, params, PREFILL_CHUNK)
+    eng.submit(prompt, max_new_tokens=8)
+    eng._admit()
+    req = eng.active[0]
+    chunks = []
+    paged_chunk = eng._paged_chunk
+
+    def recording(*a):
+        chunks.append(paged_chunk(*a))
+        return chunks[-1]
+
+    eng._paged_chunk = recording
+    with routing_log(check_router=routing) as routes:
+        while len(prompt) - req.prefilled > PREFILL_CHUNK:
+            eng._prefill_tick()
+        start = req.prefilled
+        eng._prefill_tick()  # the last chunk
+    got = chunks[-1].float()
+    view = eng.kv.gather_view(eng.kv.pool, eng.kv.padded_tables([req.table]))
+    for leaf in view["attn"].values():
+        leaf[:, :, :start] = 0
+    with routing_log() as bad_routes, eng._dispatch_ctx():
+        bad, _ = model.prefill_chunk(params, view, tokens[:, start:],
+                                     torch.tensor([start], device="cuda"))
+    if routing:
+        def chained(replay):
+            with routing_replay(replay), gemm_context(backend="torch"):
+                out, cache = model.prefill(params, tokens[:, :PREFILL_CHUNK], max_seq=MAX_SEQ)
+                for s in range(PREFILL_CHUNK, len(prompt), PREFILL_CHUNK):
+                    out, cache = model.prefill_chunk(params, cache, tokens[:, s:s + PREFILL_CHUNK],
+                                                     torch.tensor([s], device="cuda"))
+            return out.float()
+
+        want = chained(routes)
+        bad_want = chained(routes[:-len(bad_routes)] + list(bad_routes))
+    else:
+        with gemm_context(selector=eng.selector, backend="cuda"):
+            want, _ = model.prefill(params, tokens)
+        want = bad_want = want.float()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: bad logits {tuple(got.shape)}")
+    diff = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    fault = (bad.float() - bad_want).abs().max().item() if torch.isfinite(bad).all() else math.inf
+    against = ("the torch backend replaying its top-k choices, chunk by chunk" if routing
+               else "the whole-prompt prefill")
+    log(f"{label} ({len(prompt)} tokens, {len(chunks) + 1} chunks of {PREFILL_CHUNK}) vs "
+        f"{against}: max|diff| {diff:.4f} (max|logit| {scale:.4f}, limit {tol * scale:.4f}); "
+        f"planted fault (the last chunk without its prefix) {fault:.4f} (must be >= "
+        f"{3 * tol * scale:.4f})" + (f"; router logits vs torch.matmul {routes.router_err:.3e} "
+                                     f"(limit {ROUTER_TOL})" if routing else ""))
+    if diff > tol * scale:
+        failures.append(f"{label}: max|diff| {diff:.4f} > {tol} * {scale:.4f}")
+    if fault < 3 * tol * scale:
+        failures.append(f"{label}: the planted fault must read at least 3x the limit: "
+                        f"{fault:.4f} < 3 * {tol} * {scale:.4f}")
+    if routing and routes.router_err > ROUTER_TOL:
+        failures.append(f"{label}: router logits vs torch.matmul {routes.router_err:.3e} > "
+                        f"{ROUTER_TOL}")
+    return dict(prompt_len=len(prompt), chunks=len(chunks) + 1, logits_max_abs_diff=diff,
+                logits_max_abs=scale, logits_tol=tol, planted_fault_max_abs_diff=fault,
+                router_max_rel_err=routes.router_err if routing else None)
+
+
+def phase_paged_granite(model, params, runs, failures):
+    """Phase 5 (a): granite-8b at full width on phase 3's bf16 weights,
+    paged, whole-prompt and chunked (see the module docstring)."""
+    t0 = time.perf_counter()
+    dense = runs["dense"]
+    dense_tokens = {int(uid): toks for uid, toks in dense["tokens"].items()}
+    out = dict(whole=paged_run("granite-8b paged", model, params, 0, dense_tokens),
+               chunked=paged_run(f"granite-8b paged, chunks of {PREFILL_CHUNK}", model, params,
+                                 PREFILL_CHUNK, dense_tokens))
+    for name in ("dp_gemm_region", "streamk_phase1"):  # B1 and B2 on the cuda backend
+        for run in ("whole", "chunked"):
+            if out[run]["launches"].get(name, 0) <= 0:
+                raise AssertionError(f"granite-8b paged ({run}): {name} never launched")
+    out["decode"] = paged_decode_check(model, params, failures)
+    out["chunk"] = chunked_prefill_check(model, params, failures, tol=LOGITS_TOL["granite-8b"])
+    out["dense_decode_step_ms"] = dense["decode_step_ms"]
+    out["seconds"] = time.perf_counter() - t0
+    log(f"granite-8b wall ms per decode step: paged {out['whole']['decode_step_ms']:.2f} "
+        f"(chunked {out['chunked']['decode_step_ms']:.2f}) beside dense "
+        f"{dense['decode_step_ms']:.2f} (phase 3); phase 5 (a) {out['seconds']:.1f}s")
+    return out
+
+
+def phase_paged_olmoe(failures):
+    """Phase 5 (b): olmoe-1b-7b at full width and ``PAGED_OLMOE_LAYERS``
+    layers, paged with chunked prefill: one B5 launch per fused grouped
+    dispatch, and the chunked logits held as phase 3 holds olmoe's."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+
+    t0 = time.perf_counter()
+    model = LM(dataclasses.replace(get_config("olmoe-1b-7b"), n_layers=PAGED_OLMOE_LAYERS))
+    params = model.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
+    out = dict(run=paged_run(f"olmoe-1b-7b x {PAGED_OLMOE_LAYERS} layers paged, chunks of "
+                             f"{PREFILL_CHUNK}", model, params, PREFILL_CHUNK))
+    if out["run"]["grouped"] <= 0:
+        raise AssertionError("olmoe-1b-7b paged: no fused grouped dispatch")
+    out["chunk"] = chunked_prefill_check(model, params, failures,
+                                         tol=LOGITS_TOL["olmoe-1b-7b"], routing=True)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_fleet_cli(failures):
+    """Phase 5 (c): the serve CLI at full width, in this process through
+    ``main(argv)``: granite-8b, paged with chunked prefill, poisson replay,
+    two gossiping workers adapting online into a temporary journal; then the
+    same command with ``--merge-journals`` and without ``--adapt``, where
+    every decode dispatch must be a database hit."""
+    import os
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels.common import LAUNCHES, reset_launch_counts
+    from repro_torch.launch import serve as cli
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        base = ["--arch", "granite-8b", "--preset", "full", "--paged", "--prefill-chunk",
+                str(PREFILL_CHUNK), "--replay", "poisson", "--requests", "8", "--slots",
+                str(N_SLOTS), "--max-seq", str(MAX_SEQ), "--max-new-tokens", "8", "--workers",
+                "2", "--journal", os.path.join(tmp, "fleet.jsonl"), "--top-k", "5",
+                "--gossip-every", "2"]
+        for name, extra in (("adapt", ["--adapt", "--adapt-every", "1"]),
+                            ("merged", ["--merge-journals"])):
+            summary = os.path.join(tmp, f"{name}.json")
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = cli.main(base + extra + ["--summary-json", summary])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {n: c for n, c in LAUNCHES.items() if c}
+            with open(summary) as f:
+                run = json.load(f)
+            run.update(rc=rc, seconds=seconds, launches=launches)
+            out[name] = run
+            gc.collect()
+            torch.cuda.empty_cache()
+            label = f"serve CLI ({name})"
+            if rc != 0 or run["completed"] != 8:
+                raise AssertionError(f"{label}: rc {rc}, {run['completed']}/8 requests")
+            if not run["device"].startswith("cuda") or {w["backend"] for w in run["workers"]} != {
+                    "cuda"}:
+                raise AssertionError(f"{label}: served on {run['device']}, backends "
+                                     f"{[w['backend'] for w in run['workers']]}")
+            for kernel in ("dp_gemm_region", "streamk_phase1"):
+                if launches.get(kernel, 0) <= 0:
+                    raise AssertionError(f"{label}: {kernel} never launched")
+            for w in run["workers"]:
+                m, slo, gs = w["pool"], w.get("slo_steps", {}), w.get("gossip", {})
+                step_ms = w["timing"]["decode_s"] / max(w["timing"]["decode_steps"], 1) * 1e3
+                log(f"{label} worker {w['worker']}: {w['completed']}/{w['requests']} requests, "
+                    f"decode {step_ms:.2f} ms/step wall; pool peak {m['peak_used_pages']}/{m['n_pages']} pages, peak "
+                    f"{m['peak_resident']} resident; admitted {m['admitted']}, rejected "
+                    f"{m['rejected']}, truncated {m['truncated']}, stalls {m['stall_events']}; SLO "
+                    f"steps latency p50 {slo.get('latency_p50')} p99 {slo.get('latency_p99')}, "
+                    f"ttft p50 {slo.get('ttft_p50')} p99 {slo.get('ttft_p99')}; gossip "
+                    f"{gs.get('rounds')} rounds, {gs.get('entries')} entries, "
+                    f"{gs.get('swaps')} swaps; sources {w['sources']}, decode "
+                    f"{w['decode_sources']}")
+            fed = run.get("federation", {})
+            log(f"{label}: rc {rc} in {seconds:.1f}s; launches {launches}; fleet journals "
+                f"federate to {fed.get('records')} records, {fed.get('conflicts')} conflicts")
+        w1 = out["adapt"]["workers"][1]["gossip"]
+        if w1["rounds"] <= 0 or w1["entries"] <= 0:
+            failures.append(f"serve CLI: worker 1's gossip absorbed nothing: {w1}")
+        for w in out["merged"]["workers"]:
+            if set(w["decode_sources"]) != {"tuned"}:
+                failures.append(f"serve CLI --merge-journals: worker {w['worker']}'s decode "
+                                f"dispatches were {w['decode_sources']}, not all tuned")
+    return out
+
+
+def phase_paged(granite, failures):
+    """Phase 5 (b) and (c), with (a) run beforehand inside phase 3
+    (``granite``, on its weights); returns the phase's record."""
+    t0 = time.perf_counter()
+    out = dict(granite=granite, olmoe=phase_paged_olmoe(failures))
+    gc.collect()
+    import torch
+
+    torch.cuda.empty_cache()
+    out["cli"] = phase_fleet_cli(failures)
+    out["seconds"] = time.perf_counter() - t0 + granite["seconds"]
+    log(f"phase 5 (paged serving and the fleet): {out['seconds']:.1f}s")
+    return out
+
+
 class Routes(list):
     """Each MoE layer's top-k expert choice ((T, k) indices) in call order,
     and ``router_err``: the largest max|diff| of a layer's router logits
@@ -2688,7 +3077,12 @@ def main() -> int:
 
     failures = []
     t0 = time.perf_counter()
-    serve = {"granite-8b": phase_serve("granite-8b", failures)}
+    paged = {}  # phase 5 (a) runs on phase 3's granite-8b weights, before they are freed
+
+    def paged_granite(model, params, runs):
+        paged["granite"] = phase_paged_granite(model, params, runs, failures)
+
+    serve = {"granite-8b": phase_serve("granite-8b", failures, then=paged_granite)}
     log(f"granite-8b served dense and on {list(RUNGS)} ({time.perf_counter() - t0:.1f}s)")
     gc.collect()  # granite's weights go before the next model's arrive
     torch.cuda.empty_cache()
@@ -2703,6 +3097,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     tune = phase_tune(failures)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paged = phase_paged(paged["granite"], failures)
 
     from repro_torch.kernels import cuda_lib
     from repro_torch.kernels.common import mainloop
@@ -2784,7 +3181,7 @@ def main() -> int:
                   slice_max_err=slice_err, not_served=not_served, failures=failures,
                   b5_table=b5_rows, b5_s8_table=b5_s8_rows, b12_table=b12_rows,
                   b12_s8_table=b12_s8_rows, f32_table=f32_rows,
-                  kv_int8=kv_int8, tune=tune,
+                  kv_int8=kv_int8, tune=tune, paged=paged,
                   seconds=time.perf_counter() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

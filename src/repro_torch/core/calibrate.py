@@ -30,7 +30,7 @@ fallback. It is hashable/frozen — scoring caches key on the Machine
 instance, so installing a calibration can never read stale default-``V5E``
 scores — and it persists as its own journal entry type
 (:func:`calibration_entry` / ``TuningDatabase.replay_journal``), merged
-across a fleet (the federation module, not ported yet) under the same hybrid
+across a fleet (:mod:`repro_torch.core.federate`) under the same hybrid
 ``(wall, version)`` last-writer-wins stamps as tuning records.
 
 Fitting refuses to run under :data:`MIN_RECORDS` usable records — a fit on

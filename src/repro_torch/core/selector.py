@@ -53,7 +53,7 @@ untouched.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 from repro_torch.core import costmodel
@@ -155,6 +155,17 @@ class SelectorState:
     #: whose records qualify as direct database hits; every other class is
     #: an ``"xarch"`` warm seed
     arch: str = DEFAULT_ARCH
+    #: provenance of the install (e.g. the MergeReport behind a federation
+    #: round). Excluded from equality — identical artifacts compare equal
+    #: whatever produced them. Unknown attribute reads delegate here, so
+    #: ``federate_selector``'s result reads ``.merged`` / ``.conflicts``.
+    report: object = field(default=None, compare=False)
+
+    def __getattr__(self, name: str):
+        report = object.__getattribute__(self, "report")
+        if report is not None:
+            return getattr(report, name)
+        raise AttributeError(f"{type(self).__name__} has no attribute {name!r}")
 
 
 class KernelSelector:

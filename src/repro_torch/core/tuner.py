@@ -38,8 +38,9 @@ dispatch identically. Likewise records written before federation carry no
 
 ``Tuner.tune(shard=(i, n))`` tunes only the ``i``-th of ``n`` deterministic,
 disjoint slices of the target list (strided, so the suite's size-correlated
-cost balances across workers); the merge of the shards' journals (the
-federation module) is not ported yet.
+cost balances across workers);
+:func:`repro_torch.core.federate.merge_journal_shards` folds the shards'
+journals back into the unsharded sweep's database.
 """
 
 from __future__ import annotations
@@ -1036,9 +1037,9 @@ class Tuner:
 
         ``shard=(i, n)`` restricts the sweep to worker ``i``'s slice of the
         target list (see :func:`shard_targets`): n workers each tune their
-        own slice — journaling to their own shard file; the merge that
-        reassembles the unsharded sweep's database (the JAX package's
-        ``merge_journal_shards``) is not ported yet."""
+        own slice — journaling to their own shard file — and
+        :func:`~repro_torch.core.federate.merge_journal_shards` reassembles
+        the unsharded sweep's database."""
         if shard is not None:
             sizes = shard_targets(sizes, *shard)
         db = TuningDatabase(arch=self.arch)

@@ -13,6 +13,11 @@ H100's grid sizes (66, 132, 264). With ``--device cpu`` the analytical model
 under TPU-v5e constants and the default tiles stands in for the clock, as
 in the JAX package, and the records equal ``repro``'s.
 
+``--workers N`` shards the sweep across N simulated workers: each tunes a
+disjoint slice of the suite into its own journal shard (one after another,
+on the one device), and ``merge_journal_shards`` folds the shards back into
+the single-worker database, as the JAX package's ``--workers`` does.
+
 ``--top-k 5`` measures only the cost model's top-5 ranked candidates per
 size (plus DP's best-ranked and one second policy), ``--calibrate`` fits a
 CalibratedMachine from the sweep's records (journaled with ``--journal`` so
@@ -27,6 +32,7 @@ Examples::
     PYTHONPATH=src python -m repro_torch.launch.tune --stride 8 --top-k 5 \\
         --calibrate --journal artifacts/tune.jsonl
     PYTHONPATH=src python -m repro_torch.launch.tune --device cpu --stride 64
+    PYTHONPATH=src python -m repro_torch.launch.tune --stride 8 --workers 4
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import tempfile
 import time
 from collections import Counter
 
@@ -46,6 +53,7 @@ from repro_torch.core.calibrate import (
     key_dtypes,
     machine_from_json,
 )
+from repro_torch.core.federate import merge_journal_shards
 from repro_torch.core.policies import DEFAULT_TILE_CONFIGS, HOPPER_TILE_CONFIGS
 from repro_torch.core.tuner import Tuner, _key_shape, measure_wallclock
 
@@ -71,7 +79,7 @@ def main(argv=None) -> int:
                     help="the sieve's C++ header (default: artifacts/opensieve.hpp)")
     ap.add_argument("--stride", type=int, default=1, help="suite subsample stride")
     ap.add_argument("--workers", type=int, default=1,
-                    help="federated sweeps wait for the port's federation module; only 1")
+                    help="shard the sweep across N simulated workers and merge journals")
     ap.add_argument("--journal", default=None,
                     help="append each record (and the --calibrate fit) to this JSONL "
                     "tuning journal")
@@ -87,12 +95,8 @@ def main(argv=None) -> int:
                     help="cuda (default): time the hand-written kernels on the card; "
                     "cpu: the analytical model under TPU-v5e constants")
     args = ap.parse_args(argv)
-    if args.workers != 1:
-        raise SystemExit(
-            "--workers: federated sweeps (shard journals merged back into one database) "
-            "need the federation module, which the port does not have yet; run with "
-            "--workers 1"
-        )
+    if args.workers < 1:
+        raise SystemExit(f"--workers must be >= 1, got {args.workers}")
 
     on_card = args.device == "cuda"
     mach = costmodel.H100 if on_card else costmodel.V5E
@@ -114,7 +118,20 @@ def main(argv=None) -> int:
                       mach=mach, top_k=args.top_k)
     else:
         tuner = Tuner(tile_configs=DEFAULT_TILE_CONFIGS, mach=mach, top_k=args.top_k)
-    db = tuner.tune(sizes, journal=args.journal)
+    if args.workers > 1:
+        with tempfile.TemporaryDirectory() as tmp:
+            paths = []
+            for i in range(args.workers):
+                p = os.path.join(tmp, f"shard{i}.jsonl")
+                tuner.tune(sizes, shard=(i, args.workers), journal=p)
+                paths.append(p)
+            db, report = merge_journal_shards(paths)
+        print(
+            f"federated: {args.workers} worker shards merged to "
+            f"{len(db.records)} records ({report.conflicts} conflicts)"
+        )
+    else:
+        db = tuner.tune(sizes, journal=args.journal)
     print(
         f"tuned {len(sizes)} sizes in {time.time() - t0:.1f}s "
         f"({tuner.measurements} measurements"

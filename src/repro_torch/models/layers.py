@@ -191,6 +191,9 @@ def attn_apply(
       ``cfg.kv_cache_dtype == "int8"`` the row is quantized into the int8
       ``k``/``v`` and the f32 ``k_scale``/``v_scale``, and the whole cache is
       dequantized to the model dtype for the attention, as ``repro`` does.
+    * chunked prefill (``cache`` + ``cur_pos``, S tokens): the same, with
+      the chunk's S rows written at ``cur_pos .. cur_pos + S - 1`` and each
+      query row attending over the cache prefix and the chunk's causal span.
     """
     b, s, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -205,21 +208,26 @@ def attn_apply(
     knew = rope(knew, positions, cfg.rope_theta)
 
     if cache is not None:
-        if cur_pos is None or s != 1:
-            raise NotImplementedError("decode takes one token per slot at cur_pos")
-        bidx = torch.arange(b, device=x.device)
+        if cur_pos is None:
+            raise NotImplementedError("a cached call needs cur_pos, the first token's position")
+        # the S new rows land at cur_pos .. cur_pos + S - 1 (S = 1 at decode,
+        # a prompt chunk's length at chunked prefill); each query row then
+        # attends over the cache prefix and the chunk's causal span, which
+        # one decode_attention mask covers
+        bidx = torch.arange(b, device=x.device)[:, None]
+        pos_block = cur_pos[:, None] + torch.arange(s, device=x.device)[None, :]  # (B, S)
         if cfg.kv_cache_dtype == "int8":
             for key, new in (("k", knew), ("v", vnew)):
-                cache[key][bidx, cur_pos], cache[f"{key}_scale"][bidx, cur_pos] = kv_quantize(
-                    new[:, 0])
+                cache[key][bidx, pos_block], cache[f"{key}_scale"][bidx, pos_block] = (
+                    kv_quantize(new))
             dt = as_dtype(cfg.dtype)
             k_full = kv_dequantize(cache["k"], cache["k_scale"], dt)
             v_full = kv_dequantize(cache["v"], cache["v_scale"], dt)
         else:
-            cache["k"][bidx, cur_pos] = knew[:, 0]
-            cache["v"][bidx, cur_pos] = vnew[:, 0]
+            cache["k"][bidx, pos_block] = knew
+            cache["v"][bidx, pos_block] = vnew
             k_full, v_full = cache["k"], cache["v"]
-        out = decode_attention(q, k_full, v_full, cur_pos, window=window)
+        out = decode_attention(q, k_full, v_full, pos_block, window=window)
         new_cache = cache
     else:
         qpos = positions if positions.dim() == 1 else positions[0]

@@ -204,18 +204,46 @@ class LM:
         x = L.norm_apply(params["final_norm"], x, cfg)
         return self._head(params, x[:, -1:], div), cache
 
+    def prefill_chunk(self, params: Params, cache, tokens: torch.Tensor, cur_pos: torch.Tensor,
+                      *, div: Optional[Dict[str, int]] = None):
+        """One prompt chunk ``tokens`` (B, C) against an existing decode
+        cache: the chunk's K/V rows are written IN PLACE at ``cur_pos ..
+        cur_pos + C - 1`` (``cur_pos`` (B,): the chunk's first position) and
+        each query row attends over the cache prefix and the chunk's causal
+        span, so chaining chunks over a split prompt is the incremental
+        :meth:`prefill`. Returns (last-position logits (B, 1, V), cache).
+        Only the attention-cache families with the uniform cache, as
+        ``repro``'s ``prefill_chunk``."""
+        cfg = self.cfg
+        if cfg.family not in ("dense", "vlm", "moe"):
+            raise ValueError(
+                f"prefill_chunk supports attention-cache families, not {cfg.family!r} "
+                "(SSM state has no incremental chunk scatter)")
+        if cfg.window_cache:
+            raise ValueError("prefill_chunk requires the uniform decode cache; ring caches "
+                             "drop positions later chunks must attend over")
+        div = div or {}
+        x = self._cached_layers(params, cache, tokens, cur_pos, div)
+        return self._head(params, x[:, -1:], div), cache
+
     def decode_step(self, params: Params, cache, tokens: torch.Tensor, cur_pos: torch.Tensor,
                     *, div: Optional[Dict[str, int]] = None):
         """One decode step: ``tokens`` (B, 1) at ``cur_pos`` (B,). The cache
         is updated in place and returned. Returns (logits (B, 1, V), cache)."""
-        cfg = self.cfg
         div = div or {}
+        x = self._cached_layers(params, cache, tokens, cur_pos, div)
+        return self._head(params, x, div), cache
+
+    def _cached_layers(self, params, cache, tokens, cur_pos, div):
+        """The layer stack over ``tokens`` (B, S) at ``cur_pos .. cur_pos +
+        S - 1`` against the decode cache, which each layer writes in place;
+        returns the final-norm hidden states (B, S, D)."""
+        cfg = self.cfg
         x = self._embed(params, tokens)
-        positions = cur_pos[:, None]
+        positions = cur_pos[:, None] + torch.arange(tokens.shape[1], device=tokens.device)
         for i in range(cfg.n_layers):
             p = _map(lambda a: a[i], params["layers"])
             layer_cache = {key: leaf[i] for key, leaf in cache["attn"].items()}
             x, _ = self._layer(p, x, div=div, positions=positions, cache=layer_cache,
                                cur_pos=cur_pos)
-        x = L.norm_apply(params["final_norm"], x, cfg)
-        return self._head(params, x, div), cache
+        return L.norm_apply(params["final_norm"], x, cfg)

@@ -70,6 +70,7 @@ class Request:
     temperature: float = 0.0
     out_tokens: List[int] = field(default_factory=list)
     done: bool = False
+    truncated: bool = False  # retired early (the paged engine's anti-deadlock)
 
 
 @dataclass
@@ -85,9 +86,9 @@ class ServeConfig:
 class EngineCore:
     """Shared substrate of the serving engines: the dispatch context
     (selector, backend, selection-log mirroring), the adaptive-tuner hooks,
-    host sampling, request validation, and the run() drain loop. Subclasses
-    implement :meth:`step` (one scheduling quantum) and
-    :meth:`outstanding`."""
+    host sampling, request validation, the prefill/decode timers, and the
+    run() drain loop. Subclasses implement :meth:`step` (one scheduling
+    quantum) and :meth:`outstanding`."""
 
     def __init__(
         self,
@@ -123,6 +124,18 @@ class EngineCore:
         self._uid = 0
         self.unfinished: List[Request] = []
         self.exhausted: bool = False
+        #: host seconds spent in prefill / decode, and tokens each produced
+        #: (synchronised with the device, so they are wall times of the work)
+        self.timing = {"prefill_s": 0.0, "prefill_tokens": 0, "decode_s": 0.0,
+                       "decode_steps": 0, "decode_tokens": 0}
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _timer(self) -> float:
+        self._sync()
+        return time.perf_counter()
 
     @contextmanager
     def _dispatch_ctx(self):
@@ -251,10 +264,6 @@ class ServeEngine(EngineCore):
         self.cache = model.init_cache(cfg.n_slots, cfg.max_seq, device=self.device)
         self.pos = np.zeros((cfg.n_slots,), np.int64)  # next write position
         self.slot_req: List[Optional[Request]] = [None] * cfg.n_slots
-        #: host seconds spent in prefill / decode, and tokens each produced
-        #: (synchronised with the device, so they are wall times of the work)
-        self.timing = {"prefill_s": 0.0, "prefill_tokens": 0, "decode_s": 0.0,
-                       "decode_steps": 0, "decode_tokens": 0}
 
     def submit(self, prompt, max_new_tokens: int = 32, temperature: float = 0.0) -> int:
         """Queue a request; returns its uid."""
@@ -275,10 +284,6 @@ class ServeEngine(EngineCore):
                 self._prefill_slot(slot, self._queue.pop(0))
             if not self._queue:
                 break
-
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
 
     def prefill_logits(self, prompt) -> torch.Tensor:
         """Last-position logits (1, 1, V) of one prompt, through this
@@ -310,10 +315,6 @@ class ServeEngine(EngineCore):
             req.done = True
             self.slot_req[slot] = None
             self.pos[slot] = 0
-
-    def _timer(self) -> float:
-        self._sync()
-        return time.perf_counter()
 
     def step(self) -> bool:
         """One decode step for every active slot."""

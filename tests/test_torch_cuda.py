@@ -1408,3 +1408,109 @@ def test_cuda_measure_wallclock_times_the_kernels(cuda_device, profile):
         with pytest.raises(NotImplementedError, match="no CUDA kernel"):
             measure(GemmShape(8, 128, 128), DP, tiles[0], 66,
                     costmodel.profile_for("bfloat16*float32"))
+
+
+# ---------------------------------------------------------------------------
+# Paged serving: the paged engine's decode step, chunked prefill, the pool
+# ---------------------------------------------------------------------------
+
+
+def _reduced_f32(device, **over):
+    model = LM(dataclasses.replace(get_reduced("granite-8b"), dtype="float32", **over))
+    return model, model.init_params(device, torch.Generator(device=device).manual_seed(0))
+
+
+def test_cuda_paged_decode_step_matches_dense_step(cuda_device):
+    """One paged decode step (gather, decode_step on the view, scatter) on
+    the ``cuda`` backend against the dense engine's step on the same
+    prefilled requests (the paged side chunked): the same logits within 1e-4
+    x max|logit|, and the K row the step wrote, read back from the pool,
+    within 1e-4 of the dense cache's."""
+    from repro_torch.serve import PagedServeConfig, PagedServeEngine, PageTable
+
+    model, params = _reduced_f32(cuda_device)
+    prompts = [np.array(p, np.int32) for p in ([5, 17, 3, 99, 42, 7, 8, 9, 10], [200, 1, 64])]
+    dense = ServeEngine(model, params, ServeConfig(n_slots=4, max_seq=32, eos=-1),
+                        backend="cuda", device=cuda_device)
+    paged = PagedServeEngine(model, params, PagedServeConfig(
+        page_size=4, max_pages=16, max_active=4, max_seq=32, eos=-1, prefill_chunk=4),
+        backend="cuda", device=cuda_device)
+    for e in (dense, paged):
+        for p in prompts:
+            e.submit(p, max_new_tokens=4)
+    dense._admit()
+    paged._admit()
+    while paged._prefill_tick():
+        pass
+    reqs = paged._decode_candidates()
+    assert [r.out_tokens for r in reqs] == [r.out_tokens for r in dense.slot_req[:2]]
+    tokens = np.zeros((4, 1), np.int64)
+    pos = np.zeros((4,), np.int64)
+    for i, r in enumerate(reqs):
+        tokens[i, 0], pos[i] = r.out_tokens[-1], r.pos
+    tables = [r.table for r in reqs] + [PageTable(), PageTable()]
+    with paged._dispatch_ctx():
+        got = paged._paged_decode(paged.kv.padded_tables(tables), tokens, pos, len(reqs))
+    with gemm_context(selector=dense.selector, backend="cuda", device=cuda_device):
+        want, _ = model.decode_step(params, dense.cache,
+                                    torch.as_tensor(tokens, device=cuda_device),
+                                    torch.as_tensor(dense.pos, device=cuda_device))
+    got, want = got[:2].float().cpu(), want[:2].float().cpu()
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    for i, r in enumerate(reqs):
+        page, off = r.table.pages[r.pos // 4], r.pos % 4
+        row = paged.kv.pool["attn"]["k"][:, page, off].float().cpu()
+        ref = dense.cache["attn"]["k"][:, i, r.pos].float().cpu()
+        assert (row - ref).abs().max() <= 1e-4 * max(1.0, ref.abs().max())
+
+
+def test_cuda_prefill_chunk_matches_torch_backend(cuda_device):
+    """``prefill_chunk`` on the ``cuda`` backend against the ``torch``
+    backend on the card: logits within 1e-4 x max|logit|, the chunk's cache
+    rows within 1e-4 x max|row|."""
+    model, params = _reduced_f32(cuda_device)
+    prompt = torch.tensor([[5, 17, 3, 99, 42, 7, 11, 2, 8, 61, 30, 12, 4]], device=cuda_device)
+    out = {}
+    for backend in ("cuda", "torch"):
+        with gemm_context(backend=backend, device=cuda_device):
+            _, cache = model.prefill(params, prompt[:, :5], max_seq=16)
+            logits, cache = model.prefill_chunk(params, cache, prompt[:, 5:],
+                                                torch.tensor([5], device=cuda_device))
+        out[backend] = logits.float().cpu(), {k: v.float().cpu() for k, v in cache["attn"].items()}
+    (got, gc), (want, wc) = out["cuda"], out["torch"]
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    for key in gc:
+        assert (gc[key][:, :, :13] - wc[key][:, :, :13]).abs().max() <= 1e-4 * max(
+            1.0, wc[key].abs().max())
+
+
+@pytest.mark.parametrize("kv", ["model", "int8"])
+def test_cuda_pool_adapters_match_cpu(cuda_device, kv):
+    """The pool adapters on CUDA tensors give the CPU's values bit for bit
+    (the scratch page, which padded rows write in any order, aside)."""
+    from repro_torch.serve import PagedKVCache, PageTable
+
+    model = LM(dataclasses.replace(get_reduced("granite-8b"), kv_cache_dtype=kv))
+    ps = 4
+    pools = {dev: PagedKVCache(model, page_size=ps, n_pages=7, device=dev)
+             for dev in ("cpu", cuda_device)}
+    gen = torch.Generator().manual_seed(0)
+    for key, a in pools["cpu"].pool["attn"].items():
+        a.copy_(torch.randint(-127, 128, a.shape, generator=gen).to(a.dtype)
+                if a.dtype == torch.int8 else torch.randn(a.shape, generator=gen).to(a.dtype))
+        pools[cuda_device].pool["attn"][key].copy_(a)
+    tables = [PageTable([3, 0, 5]), PageTable([6]), PageTable(), PageTable()]
+    pages_2d = pools["cpu"].padded_tables(tables)
+    pos = np.array([9, 2, 0, 0])
+    res = {}
+    for dev, kvc in pools.items():
+        view = kvc.gather_view(kvc.pool, pages_2d)
+        rows = kvc.rows_at(view, pos)
+        rows = {"attn": {k: r.flip(1).contiguous() for k, r in rows["attn"].items()}}
+        kvc.scatter_rows(kvc.pool, pages_2d[np.arange(4), pos // ps], pos % ps, rows)
+        fresh = kvc.gather_view(kvc.pool, np.array([[6, 3]]))
+        kvc.scatter_prefill(kvc.pool, [1, 4], fresh)
+        res[dev] = view, {k: a[:, :7] for k, a in kvc.pool["attn"].items()}
+    for key in res["cpu"][0]["attn"]:
+        assert torch.equal(res["cpu"][0]["attn"][key], res[cuda_device][0]["attn"][key].cpu())
+        assert torch.equal(res["cpu"][1][key], res[cuda_device][1][key].cpu())

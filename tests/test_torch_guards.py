@@ -36,7 +36,9 @@ def test_port_import_leaves_jax_out():
             "repro_torch.kernels.splitk.ops, repro_torch.kernels.dp.ops, "
             "repro_torch.launch.tune, repro_torch.core.tuner, repro_torch.core.calibrate, "
             "repro_torch.core.adaptive, repro_torch.configs.gemm_suite, "
-            "repro_torch.utils.logging, sys; "
+            "repro_torch.utils.logging, repro_torch.serve.paged_kv, "
+            "repro_torch.serve.scheduler, repro_torch.core.federate, "
+            "repro_torch.core.gossip, sys; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]")
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
