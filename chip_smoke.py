@@ -16,18 +16,20 @@ Phases (any failure raises and the script exits non-zero):
      B2's sub-blocks run the tensor-core mainloop of ``csrc/mma_bf16.cuh``,
      with int8 ones that of ``csrc/mma_s8.cuh``): all
      8 policies x 2 grid sizes x {bf16 (2e-2), f32 (1e-4)} x epilogues
-     {none, mul_silu, bias+gelu}; the split tiles' contributor slots against
+     {none, mul_silu, bias+gelu, square}; the split tiles' contributor slots against
      the plain sweep, the Stream-K region's C against the plain sweep then
      the plain fix-up, B1's C against its plain version, the composed C
      against the f32-accumulated ``gemm_ref``;
    * the plain projection shapes of granite-8b and olmoe-1b-7b (attention,
      MLP, router in f32, lm_head), M in {1, 4, 64} and each served prompt
-     length, under the H100 selector's pick, DP and ALL_SK, against
+     length, and those of phase 6's four models (``arch_nk``) at M in {4,
+     64}, under the H100 selector's pick, DP and ALL_SK, against
      ``gemm_ref``; the Stream-K region bitwise identical across two runs;
    * B5, the grouped kernel, at olmoe-1b-7b's expert shapes (64 experts x
      4 or 16 rows, 2048 -> 1024 and 1024 -> 2048) and a small unaligned one:
      every policy x g in {66, 132, 264} x {bf16, f32} x epilogues {none,
-     gelu, bias, mul_silu} x group sizes {full, ragged with empty groups}
+     gelu, bias, mul_silu, square} x group sizes {full, ragged with empty
+     groups}
      against its plain version and per-group ``gemm_ref``; all-empty sizes
      launch nothing; the Stream-K form with split tiles is bitwise
      deterministic (bf16 activations run the tensor-core mainloop of
@@ -47,7 +49,7 @@ Phases (any failure raises and the script exits non-zero):
      its own, and both B5
      forms, on each of the six operand pairs (f32 or bf16 x int8, int8 x
      int8, f32 or bf16 or int8 x int4), every policy x g in {66, 132, 264} x the
-     epilogues, at the sweep shapes plus an odd K and at the grouped shapes
+     epilogues (``square`` among them), at the sweep shapes plus an odd K and at the grouped shapes
      (ragged sizes, odd K), against the plain versions and
      dequantize-then-matmul; the Stream-K forms bitwise deterministic; then
      each served rung's kernels timed at the decode (M = 4) and prompt
@@ -159,7 +161,9 @@ Phases (any failure raises and the script exits non-zero):
    at ``LOGITS_TOL``, with a planted fault each that must read at least 3
    times the limit (request 0's first page-table entry pointing at request
    1's first page; the last chunk attending over a zeroed prefix); the
-   gather of a decode step's largest view timed on its own. (b) olmoe-1b-7b
+   dense step with its cache cut to the paged view's rows read against both
+   steps (reported: whether they differ only by the attention's length);
+   the gather of a decode step's largest view timed on its own. (b) olmoe-1b-7b
    at full width and ``PAGED_OLMOE_LAYERS`` layers, paged with chunks of 16:
    one B5 launch per fused grouped dispatch, the chunked logits against the
    ``torch`` backend replaying the run's top-8 choices chunk by chunk at
@@ -174,6 +178,31 @@ Phases (any failure raises and the script exits non-zero):
    phase's seconds, wall ms per decode step paged beside dense, peak pages
    and residents, admission counters, the step SLO percentiles, gossip
    rounds and entries, and the fleet's merged records and conflicts.
+6. Four more configs (``phase_archs``), dense bf16 on the ``cuda`` backend
+   through ``serve_run`` as in phase 3 (4 slots, max_seq 256, the four
+   seeded prompts x 8 tokens, seeded random weights, the selector's
+   cost-model path), one model on the card at a time, each freed before
+   the next: nemotron-4-15b at full width (32 layers, squared-ReLU MLP on
+   the ``square`` epilogue), gemma3-27b at full width (62 layers, 5:1
+   local:global windows of 1024, the tied head, d_head 168), and
+   mistral-large-123b and qwen3-moe-235b-a22b at full width cut to 2
+   layers (``ARCH_CELLS``: 245 and 463 GB of weights do not fit one card).
+   Each: the instantiated parameter count equal to ``cfg.param_count()``,
+   the launch checks of phase 3, greedy tokens in range, the first
+   prompt's logits against the ``torch`` backend within ``LOGITS_TOL``
+   (qwen3-moe with the ``cuda`` run's top-8 choices replayed and its router
+   at ``ROUTER_TOL``; B5 at G = 128), a planted fault that must read at
+   least 3 times the limit (the dense models: every GEMM with a DP region
+   drops its last K chunk, since their prefill picks hybrids; qwen3-moe:
+   every grouped GEMM), the decode breakdown beside the weight-read floor,
+   and the peak memory. gemma3 also: its tied head's GEMM timed at the
+   decode shape, built once (a warm decode step must not allocate a copy of
+   it), and one long request (``long_request_check``): a 1100-token prompt
+   past the window, max_seq 1152, its prefill logits against the ``torch``
+   backend, 8 greedy decode steps on the uniform cache beside the same
+   steps on the ring path (``windowed_cache_from_uniform``, then
+   ``decode_step_windowed`` fed the uniform path's tokens) within
+   ``LOGITS_TOL`` a step, and the planted fault of every layer made global.
 
 Tolerances: a kernel output ``x`` agrees with its reference ``r`` when
 ``max|x - r| <= tol * max(1, max|r|)``: 1e-4 for f32 inputs (f32 sums in
@@ -205,7 +234,8 @@ from the baseline comparison, the others' from the served runs), and one entry
 per (kernel, rung) that a served path ran; each entry names the mainloop
 it ran (``mainloop``: ``mma`` or ``fma``); B3 has no entry of its own, being
 fused into B2 (``streamk_phase1``); the last line is ``{"ok": true,
-"device": {...}}``. Details go to ``chiprun_out/chip_smoke.json``.
+"device": {...}}``. Details go to ``chiprun_out/chip_smoke.json`` (phase 6's
+runs, their launch counts by kernel included, under ``archs``).
 """
 
 from __future__ import annotations
@@ -272,7 +302,8 @@ TIMED_RUNGS = dict(RUNGS, **{"int4-dynamic": (4, 8, "src/repro_torch/csrc/quant_
 #: limit holds the reading with the torch backend replaying the cuda run's
 #: top-8 choices (7.8e-3 to 8.7e-3 on the H100; each backend routing alone
 #: reads 2.3e-2 to 6.3e-2 between sound implementations, from routing flips)
-LOGITS_TOL = {"granite-8b": 3e-2, "olmoe-1b-7b": 5e-2}
+LOGITS_TOL = {"granite-8b": 3e-2, "olmoe-1b-7b": 5e-2, "nemotron-4-15b": 3e-2,
+              "gemma3-27b": 3e-2, "mistral-large-123b": 3e-2, "qwen3-moe-235b-a22b": 5e-2}
 #: a MoE layer's router logits (an f32 GEMM) against ``torch.matmul`` of the
 #: same input, x max(1, max|ref|): the f32 kernel tolerance
 ROUTER_TOL = 1e-4
@@ -426,7 +457,7 @@ SWEEP_SHAPES = ((64, 4096, 4096), (20, 392, 520), (17, 302, 200))
 
 
 def sweep(gen):
-    """All policies x 2 g x 2 dtypes x 3 epilogues at each sweep shape."""
+    """All policies x 2 g x 2 dtypes x 4 epilogues at each sweep shape."""
     import torch
 
     from repro_torch.core.op import Epilogue
@@ -456,6 +487,7 @@ def sweep(gen):
             ("none", Epilogue(), {}),
             ("mul_silu", Epilogue(binary="mul_silu"), {"operand": operand}),
             ("bias+gelu", Epilogue(activation="gelu", bias=True), {"bias": bias}),
+            ("square", Epilogue(activation="square"), {}),  # nemotron-4-15b's MLP
         ):
             want = epi.apply(ref_acc, **{key: v for key, v in kw.items()}).to(dtype)
             for pol in ALL_POLICIES:
@@ -500,8 +532,9 @@ def slice_ms(arch):
     return sorted({1, N_SLOTS, 64} | lens)
 
 
-def slice_shapes(gen, arch, nk_dtypes):
-    """A model's plain projection shapes under the H100 pick, DP and ALL_SK."""
+def slice_shapes(gen, arch, nk_dtypes, ms=None):
+    """A model's plain projection shapes under the H100 pick, DP and ALL_SK,
+    at each M of ``ms`` (default: ``slice_ms(arch)``)."""
     import torch
 
     from repro_torch.core.gemm import as_dtype, dtype_name
@@ -516,7 +549,7 @@ def slice_shapes(gen, arch, nk_dtypes):
     sel = default_selector("cuda")
     worst = 0.0
     picks = []
-    for m in slice_ms(arch):
+    for m in ms or slice_ms(arch):
         for n, k, dt in nk_dtypes:
             a, b, _, _ = _operands(m, n, k, as_dtype(dt), gen)
             tol = 2e-2 if a.dtype == torch.bfloat16 else 1e-4
@@ -535,6 +568,19 @@ def slice_shapes(gen, arch, nk_dtypes):
                 raise AssertionError(f"{m}x{n}x{k}: B2+B3 not bitwise deterministic")
     torch.cuda.synchronize()
     return worst, picks
+
+
+def arch_nk(cfg):
+    """A config's plain projection shapes (N, K, dtype): attention q, k/v and
+    o, the dense MLP's in (and gate) and out, the head, and a MoE model's f32
+    router."""
+    d, qd, kvd, bf = cfg.d_model, cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head, "bfloat16"
+    nk = [(qd, d, bf), (kvd, d, bf), (d, qd, bf)]
+    if cfg.family == "moe":
+        nk.append((cfg.n_experts, d, "float32"))
+    else:
+        nk += [(cfg.d_ff, d, bf), (d, cfg.d_ff, bf)]
+    return list(dict.fromkeys(nk + [(cfg.vocab_size, d, bf)]))  # gemma3's q and o coincide
 
 
 def _rotating(b, min_bytes=200 * 2**20):
@@ -745,7 +791,7 @@ def sweep_grouped(gen):
     """B5 at olmoe-1b-7b's expert shapes and a small unaligned one: every
     policy (DP; ALL_SK and the HYBRIDs, which run the Stream-K form) x g in
     {66, 132, 264} x {bf16 (2e-2), f32 (1e-4)} x epilogues {none, gelu,
-    bias, mul_silu} x group sizes {full, ragged with empty groups}, against
+    bias, mul_silu, square} x group sizes {full, ragged with empty groups}, against
     the plain version and per-group ``gemm_ref``; all-empty sizes launch
     nothing; the Stream-K form with split tiles is bit-identical across two
     runs."""
@@ -772,7 +818,8 @@ def sweep_grouped(gen):
                         >= torch.tensor(sizes, device="cuda")[:, None])[:, :, None]
                 for epi, kw in ((Epilogue(), {}), (Epilogue(activation="gelu"), {}),
                                 (Epilogue(bias=True), {"bias": bias}),
-                                (Epilogue(binary="mul_silu"), {"operand": operand})):
+                                (Epilogue(binary="mul_silu"), {"operand": operand}),
+                                (Epilogue(activation="square"), {})):
                     what = f"B5 {gc}x{m}x{n}x{k} {dtype} {cfg.name} {epi.name} sizes={sizes}"
                     want = gemm_grouped_streamk_plain(a, b, sizes=sizes, out_dtype=dtype,
                                                       epilogue=epi, **kw)
@@ -1247,7 +1294,7 @@ QUANT_SWEEP_SHAPES = SWEEP_SHAPES + ((13, 400, 331),)
 def quant_sweep(gen):
     """B1 and the Stream-K region (B2 with B3 fused in) on every pair of the
     ladder: all policies x g in {66, 132, 264} x epilogues {none, mul_silu,
-    bias+gelu} at each quantized sweep shape, through ``ops.gemm`` against
+    bias+gelu, square} at each quantized sweep shape, through ``ops.gemm`` against
     dequantize-then-matmul, and at g 66 and 132 each kernel on its own
     against its plain version (the split tiles' partials and the region's C
     against the plain sweep and fix-up, B1's C). The Stream-K composition
@@ -1282,6 +1329,7 @@ def quant_sweep(gen):
             ("none", Epilogue(), {}),
             ("mul_silu", Epilogue(binary="mul_silu"), {"operand": operand}),
             ("bias+gelu", Epilogue(activation="gelu", bias=True), {"bias": bias}),
+            ("square", Epilogue(activation="square"), {}),  # nemotron-4-15b's MLP
         ):
             want = epi.apply(ref_acc, **kw).to(out)
             for pol in ALL_POLICIES:
@@ -1332,7 +1380,7 @@ QUANT_GROUPED_SHAPES = GROUPED_SHAPES + (GROUPED_RAGGED, GROUPED_RAGGED[:3] + (2
 
 def quant_sweep_grouped(gen):
     """B5 on every pair of the ladder: every policy x g in {66, 132, 264} x
-    epilogues {none, gelu, bias, mul_silu} x group sizes {full, ragged with
+    epilogues {none, gelu, bias, mul_silu, square} x group sizes {full, ragged with
     empty groups}, against the plain version and the per-group
     dequantize-then-matmul reference; rows past a group's size stay 0; the
     Stream-K form with split tiles is bitwise deterministic."""
@@ -1359,7 +1407,8 @@ def quant_sweep_grouped(gen):
                     >= torch.tensor(sizes, device="cuda")[:, None])[:, :, None]
             for epi, kw in ((Epilogue(), {}), (Epilogue(activation="gelu"), {}),
                             (Epilogue(bias=True), {"bias": bias}),
-                            (Epilogue(binary="mul_silu"), {"operand": operand})):
+                            (Epilogue(binary="mul_silu"), {"operand": operand}),
+                            (Epilogue(activation="square"), {})):
                 what = f"B5 {gc}x{m}x{n}x{k} {pair[0]} {cfg.name} {epi.name} sizes={sizes}"
                 want = gemm_grouped_streamk_plain(a, b, sizes=sizes, out_dtype=out,
                                                   epilogue=epi, bk=cfg.bk, **qkw, **kw)
@@ -1915,15 +1964,16 @@ def _kernels_of(entry):
 
 def _gemm_weight_bytes(params):
     """Bytes of every GEMM weight: the stacked projections, routers and
-    experts (the norms are (L, D)) and lm_head; a quantized one counts its
+    experts (the norms are (L, D)) and the head, ``lm_head`` or, tied, the
+    embedding table it reads (counted once); a quantized one counts its
     values and scales."""
     from repro_torch.core.quant import is_quantized
 
     def nbytes(t):
         return t.nbytes if is_quantized(t) else t.numel() * t.element_size()
 
-    return sum(nbytes(t) for t in _leaves(params["layers"]) if t.dim() >= 3) + nbytes(
-        params["lm_head"])
+    head = params["lm_head"] if "lm_head" in params else params["embed"]
+    return sum(nbytes(t) for t in _leaves(params["layers"]) if t.dim() >= 3) + nbytes(head)
 
 
 def phase_serve(arch, failures, then=None):
@@ -1967,12 +2017,13 @@ def phase_serve(arch, failures, then=None):
     return runs
 
 
-def serve_run(arch, model, params, rung, failures, dense_logits=None):
+def serve_run(arch, model, params, rung, failures, dense_logits=None, b1_fault=False):
     """One served run of ``model`` on ``params`` (dense when ``rung`` is
     None) with its checks: launch counts, logits against the ``torch``
     backend (a breach, dense or quantized, is appended to ``failures``, so
-    every run reports before the script fails), a planted fault, timings
-    and the decode breakdown."""
+    every run reports before the script fails), a planted fault (with
+    ``b1_fault``, on every GEMM with a DP region; see ``planted_fault_diff``),
+    timings and the decode breakdown."""
     import torch
 
     from repro_torch.core.gemm import gemm_context
@@ -2084,7 +2135,7 @@ def serve_run(arch, model, params, rung, failures, dense_logits=None):
     # DP and grouped GEMM of the rung; read as the limit is held
     fault, fault_replayed = planted_fault_diff(
         model, params, engine.selector, prompts[0], want, grouped=cfg.family == "moe",
-        rung=rung, replay=hold_replayed)
+        rung=rung, replay=hold_replayed, b1=b1_fault)
     fault_held = fault_replayed if hold_replayed else fault
     breaches = []
     if held > tol * scale:
@@ -2127,6 +2178,9 @@ def serve_run(arch, model, params, rung, failures, dense_logits=None):
         decode_s=tm["decode_s"], decode_tok_s=tm["decode_tokens"] / tm["decode_s"],
         decode_step_ms=step_ms, decode_floor_ms=floor_ms, weight_bytes=weight_bytes,
         launches=launches, grouped_dispatches=grouped, launches_per_prefill=per(pre),
+        grouped_g=sorted({e.op.g for e in engine.selection_log if e.op.fused}),
+        square_dispatches=sum(1 for e in engine.selection_log
+                              if e.op.epilogue.activation == "square"),
         prefill_len=len(prompts[0]), launches_per_decode_step=per(dec),
         decode_breakdown=breakdown, logits_max_abs_diff=diff, logits_max_abs=scale,
         logits_tol=tol, planted_fault_max_abs_diff=fault, same_argmax=same_top,
@@ -2550,7 +2604,10 @@ def paged_decode_check(model, params, failures):
     prefilled requests and tokens, both on the ``cuda`` backend, held at
     granite's ``LOGITS_TOL``; then the planted fault, request 0's first
     page-table entry pointing at request 1's first page, which must read at
-    least 3 times the limit. Also times the step's gather on its own."""
+    least 3 times the limit. The dense step with its cache cut to the
+    view's rows is read against both (reported): whether the two steps
+    differ only by the attention's length. Also times the step's gather on
+    its own."""
     import torch
 
     from repro_torch.core.gemm import gemm_context
@@ -2575,23 +2632,37 @@ def paged_decode_check(model, params, failures):
     if not (pos == dense.pos).all():
         raise AssertionError(f"paged decode check: positions {pos} vs dense {dense.pos}")
     tables = [r.table for r in reqs]
+    pages_2d = paged.kv.padded_tables(tables)
+    view_rows = pages_2d.shape[1] * PAGE_SIZE
+    # the dense cache cut to the view's rows: the same step with the
+    # attention summed over as many rows as the paged view's
+    cut_cache = {"attn": {key: leaf[:, :, :view_rows].clone()
+                          for key, leaf in dense.cache["attn"].items()}}
     with gemm_context(selector=dense.selector, backend="cuda"):
         want, _ = model.decode_step(params, dense.cache, torch.as_tensor(tokens, device="cuda"),
                                     torch.as_tensor(dense.pos, device="cuda"))
+        cut, _ = model.decode_step(params, cut_cache, torch.as_tensor(tokens, device="cuda"),
+                                   torch.as_tensor(dense.pos, device="cuda"))
+    del cut_cache
     with paged._dispatch_ctx():
-        got = paged._paged_decode(paged.kv.padded_tables(tables), tokens, pos, 4)
+        got = paged._paged_decode(pages_2d, tokens, pos, 4)
         bad_tables = [PageTable([reqs[1].table.pages[0]] + reqs[0].table.pages[1:])] + tables[1:]
         bad = paged._paged_decode(paged.kv.padded_tables(bad_tables), tokens, pos, 4)
-    got, want, bad = got.float(), want.float(), bad.float()
+    got, want, bad, cut = got.float(), want.float(), bad.float(), cut.float()
     if got.shape != want.shape or not torch.isfinite(got).all():
         raise AssertionError(f"paged decode check: bad logits {tuple(got.shape)}")
     tol = LOGITS_TOL["granite-8b"]
     diff = (got - want).abs().max().item()
     scale = want.abs().max().item()
     fault = (bad - want).abs().max().item() if torch.isfinite(bad).all() else math.inf
+    cut_vs_paged = (cut - got).abs().max().item()
+    cut_vs_dense = (cut - want).abs().max().item()
     log(f"paged decode step vs the dense engine's step (granite-8b, cuda backend): max|diff| "
         f"{diff:.4f} (max|logit| {scale:.4f}, limit {tol * scale:.4f}); planted fault (request "
         f"0's first page -> request 1's) {fault:.4f} (must be >= {3 * tol * scale:.4f})")
+    log(f"the dense step with its cache cut to the view's {view_rows} rows (of {MAX_SEQ}): vs "
+        f"the paged step {cut_vs_paged:.4f} ({cut_vs_paged / scale:.3e} x max|logit|), vs the "
+        f"uncut dense step {cut_vs_dense:.4f} ({cut_vs_dense / scale:.3e}); reported")
     if diff > tol * scale:
         failures.append(f"paged decode logits: max|diff| {diff:.4f} > {tol} * {scale:.4f}")
     if fault < 3 * tol * scale:
@@ -2608,7 +2679,10 @@ def paged_decode_check(model, params, failures):
         f"device ({gather_event_ms:.4f} event), {gather_bytes / 1e6:.1f} MB read and written, "
         f"{gather_bytes / gather_ms / 1e6:.0f} GB/s")
     return dict(logits_max_abs_diff=diff, logits_max_abs=scale, logits_tol=tol,
-                planted_fault_max_abs_diff=fault, gather_view_shape=list(view["attn"]["k"].shape),
+                planted_fault_max_abs_diff=fault, view_rows=view_rows,
+                cut_cache_vs_paged_max_abs_diff=cut_vs_paged,
+                cut_cache_vs_dense_max_abs_diff=cut_vs_dense,
+                gather_view_shape=list(view["attn"]["k"].shape),
                 gather_ms=gather_ms, gather_event_ms=gather_event_ms, gather_bytes=gather_bytes)
 
 
@@ -2825,6 +2899,222 @@ def phase_paged(granite, failures):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: four more configs at full width
+# ---------------------------------------------------------------------------
+
+#: phase 6's cells: (arch, layers). The two that fit the card serve every layer; mistral
+#: (245 GB of bf16 weights) and qwen3-moe (463 GB) keep their full widths and two layers
+ARCH_CELLS = (("nemotron-4-15b", None), ("gemma3-27b", None), ("mistral-large-123b", 2),
+              ("qwen3-moe-235b-a22b", 2))
+#: gemma3's long request: a prompt past its 1024-row window, and the cache length it serves
+#: in; the ring path decodes ``LONG_NEW`` tokens
+LONG_PROMPT, LONG_MAX_SEQ, LONG_NEW = 1100, 1152, 8
+
+
+def phase_archs(failures):
+    """Phase 6: serve nemotron-4-15b and gemma3-27b at full width, then
+    mistral-large-123b and qwen3-moe-235b-a22b at full width cut to
+    ``ARCH_CELLS``' layers, one model on the card at a time (see the module
+    docstring). Returns each model's record by arch."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+
+    t_phase = time.perf_counter()
+    out = {}
+    for arch, layers in ARCH_CELLS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        torch.cuda.reset_peak_memory_stats()
+        model = LM(cfg)
+        params = model.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
+        n_params = sum(t.numel() for t in _leaves(params))
+        head_bytes = 0
+        if cfg.tie_embeddings:  # the tied head's one contiguous copy, made here at load
+            head = model.head_weight(params)
+            head_bytes = head.numel() * head.element_size()
+            del head
+        torch.cuda.synchronize()
+        label = arch if not layers else f"{arch} x {layers} layers"
+        log(f"{label}: {n_params / 1e9:.3f} B parameters (cfg.param_count() "
+            f"{cfg.param_count() / 1e9:.3f} B), {torch.cuda.memory_allocated() / 1e9:.2f} GB on "
+            f"the card (tied head copy {head_bytes / 1e9:.2f} GB) in "
+            f"{time.perf_counter() - t0:.1f}s")
+        if n_params != cfg.param_count():
+            failures.append(f"{label}: {n_params} parameters instantiated, cfg.param_count() "
+                            f"{cfg.param_count()}")
+        run = serve_run(arch, model, params, None, failures, b1_fault=cfg.family == "dense")
+        run.pop("logits")
+        run.update(layers=cfg.n_layers, n_params=n_params, param_count=cfg.param_count(),
+                   head_copy_bytes=head_bytes)
+        grouped_g = run["grouped_g"]
+        if cfg.family == "moe":
+            b5 = sum(n for name, n in run["launches"].items() if name.startswith("grouped"))
+            log(f"{label}: {b5} B5 launches at G = {grouped_g}")
+            if grouped_g != [cfg.n_experts] or b5 <= 0:
+                failures.append(f"{label}: B5 ran at G = {grouped_g} ({b5} launches), not "
+                                f"G = {cfg.n_experts}")
+        if cfg.mlp_act == "squared_relu" and not run["square_dispatches"]:
+            failures.append(f"{label}: no mlp.in dispatch carried the square epilogue")
+        run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9  # load and serve
+        if cfg.tie_embeddings:
+            run["head"] = tied_head_check(model, params, head_bytes, failures)
+        if cfg.window:
+            torch.cuda.reset_peak_memory_stats()
+            run["long"] = long_request_check(model, params, failures)
+            run["long"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        run["seconds"] = time.perf_counter() - t0
+        log(f"{label}: peak {run['peak_gb']:.2f} GB allocated on the card while loaded and "
+            f"served" + (f", {run['long']['peak_gb']:.2f} GB in the long request" if cfg.window
+                         else "") + f"; {run['seconds']:.1f}s")
+        out[arch] = run
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase 6 (four more configs): {time.perf_counter() - t_phase:.1f}s")
+    return out
+
+
+def tied_head_check(model, params, head_bytes, failures):
+    """gemma3's tied head: the device ms of its GEMM at the decode shape (M
+    = ``N_SLOTS``, the selector's pick), and the memory a warm decode step
+    allocates beyond what it holds, which must stay below the head's copy:
+    a dispatch that copied ``embed.T`` would allocate all of it."""
+    import torch
+
+    from repro_torch.core.gemm import gemm, gemm_context
+    from repro_torch.core.selector import default_selector
+
+    cfg = model.cfg
+    head = model.head_weight(params)
+    x = torch.randn(N_SLOTS, 1, cfg.d_model, device="cuda").to(torch.bfloat16)
+    with gemm_context(selector=default_selector("cuda"), backend="cuda") as ctx:
+        head_ms, head_event_ms = time_ms(lambda: gemm(x, head, tag="lm_head",
+                                                      out_dtype=cfg.dtype))
+    sel = ctx.log[0].selection
+    cache = model.init_cache(N_SLOTS, MAX_SEQ, device="cuda")
+    toks = torch.ones(N_SLOTS, 1, dtype=torch.long, device="cuda")
+    cur = torch.zeros(N_SLOTS, dtype=torch.long, device="cuda")
+    with gemm_context(backend="cuda"):
+        model.decode_step(params, cache, toks, cur)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model.decode_step(params, cache, toks, cur)
+        torch.cuda.synchronize()
+    transient = torch.cuda.max_memory_allocated() - before
+    same = model.head_weight(params) is head
+    log(f"{cfg.name} tied head ({cfg.d_model} x {cfg.vocab_size}, {head_bytes / 1e9:.2f} GB, "
+        f"built once): {sel.policy.name}/{sel.cfg.name}/g{sel.g} at M = {N_SLOTS}: device "
+        f"{head_ms:.4f} ms, events {head_event_ms:.4f} ms; a warm decode step allocates "
+        f"{transient / 1e9:.3f} GB beyond what it holds; the same copy on every dispatch: {same}")
+    if not same or transient >= head_bytes // 2:
+        failures.append(f"{cfg.name}: the tied head was copied at dispatch (same copy: {same}; "
+                        f"a decode step allocated {transient / 1e9:.3f} GB)")
+    return dict(device_ms=head_ms, event_ms=head_event_ms, bytes=head_bytes,
+                pick=f"{sel.policy.name}/{sel.cfg.name}/g{sel.g}",
+                decode_step_transient_bytes=transient, reused=same)
+
+
+@contextmanager
+def windows_off(model):
+    """The planted fault of the long request: every layer of ``model`` made
+    global (no window), its parameters and tied head left as they are."""
+    import dataclasses
+
+    cfg = model.cfg
+    model.cfg = dataclasses.replace(cfg, window=0, global_every=0)
+    try:
+        yield model
+    finally:
+        model.cfg = cfg
+
+
+def long_request_check(model, params, failures):
+    """gemma3's long request, a seeded prompt of ``LONG_PROMPT`` tokens past
+    the 1024-row window, cache length ``LONG_MAX_SEQ``: (a) its prefill
+    logits on the ``cuda`` backend against the ``torch`` backend within
+    ``LOGITS_TOL``; (b) ``LONG_NEW`` greedy decode steps on the uniform
+    cache, and the same steps on the ring path
+    (``windowed_cache_from_uniform`` of the prefill cache, then
+    ``decode_step_windowed`` fed the uniform path's tokens), each step's
+    logits within ``LOGITS_TOL`` of the uniform step's, with the tokens'
+    agreement reported; (c) the planted fault, every layer global, whose
+    prefill logits must read at least 3 times (a)'s limit against the
+    ``torch`` backend's."""
+    import torch
+
+    from repro_torch.core.gemm import gemm_context
+
+    t0 = time.perf_counter()
+    cfg = model.cfg
+    tol = LOGITS_TOL[cfg.name]
+    prompt = np.random.default_rng(1).integers(1, cfg.vocab_size, size=LONG_PROMPT)
+    tokens = torch.as_tensor(prompt, device="cuda")[None]
+    with gemm_context(backend="cuda"):
+        got, ucache = model.prefill(params, tokens, max_seq=LONG_MAX_SEQ)
+        ring = model.windowed_cache_from_uniform(ucache, LONG_PROMPT)
+    with gemm_context(backend="torch"):
+        want, _ = model.prefill(params, tokens, max_seq=LONG_MAX_SEQ)
+    got, want = got.float(), want.float()
+    if got.shape != (1, 1, cfg.vocab_size) or not torch.isfinite(got).all():
+        raise AssertionError(f"{cfg.name} long request: bad prefill logits {tuple(got.shape)}")
+    diff = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    with windows_off(model), gemm_context(backend="cuda"):
+        bad, _ = model.prefill(params, tokens, max_seq=LONG_MAX_SEQ)
+    fault = (bad.float() - want).abs().max().item() if torch.isfinite(bad).all() else math.inf
+    del bad
+
+    # (b) the uniform cache's greedy steps, then the ring path fed its tokens
+    uniform, fed = [], []
+    tok = got.argmax(-1)
+    with gemm_context(backend="cuda"):
+        for i in range(LONG_NEW):
+            pos = torch.tensor([LONG_PROMPT + i], device="cuda")
+            fed.append(tok)
+            out, ucache = model.decode_step(params, ucache, tok, pos)
+            uniform.append(out.float())
+            tok = out.argmax(-1)
+        ring_steps = []
+        for i in range(LONG_NEW):
+            pos = torch.tensor([LONG_PROMPT + i], device="cuda")
+            out, ring = model.decode_step_windowed(params, ring, fed[i], pos)
+            ring_steps.append(out.float())
+    del ucache, ring
+    ring_diffs = [(r - u).abs().max().item() / u.abs().max().item()
+                  for r, u in zip(ring_steps, uniform)]
+    agree = sum(int(r.argmax()) == int(u.argmax()) for r, u in zip(ring_steps, uniform))
+    ring_ok = all(torch.isfinite(r).all() for r in ring_steps)
+    log(f"{cfg.name} long request ({LONG_PROMPT} tokens, window {cfg.window}, max_seq "
+        f"{LONG_MAX_SEQ}): prefill logits vs the torch backend max|diff| {diff:.4f} (max|logit| "
+        f"{scale:.4f}, limit {tol * scale:.4f}); planted fault (every layer global) {fault:.4f} "
+        f"({fault / scale:.3e} x max|logit|, must be >= {3 * tol * scale:.4f})")
+    log(f"{cfg.name} ring path, {LONG_NEW} steps fed the uniform path's tokens: max|diff| x "
+        f"max|logit| per step {[f'{d:.2e}' for d in ring_diffs]} (limit {tol}); greedy tokens "
+        f"agree {agree}/{LONG_NEW} ({time.perf_counter() - t0:.1f}s)")
+    if diff > tol * scale:
+        failures.append(f"{cfg.name} long request: prefill logits max|diff| {diff:.4f} > {tol} "
+                        f"* {scale:.4f}")
+    if not ring_ok or max(ring_diffs) > tol:
+        failures.append(f"{cfg.name} ring path: per-step max|diff| x max|logit| {ring_diffs} "
+                        f"> {tol}")
+    if fault < 3 * tol * scale:
+        failures.append(f"{cfg.name} long request: the planted fault (every layer global) "
+                        f"must read at least 3x the limit: {fault:.4f} < 3 * {tol} * "
+                        f"{scale:.4f}")
+    return dict(prompt_len=LONG_PROMPT, max_seq=LONG_MAX_SEQ, new_tokens=LONG_NEW,
+                logits_max_abs_diff=diff, logits_max_abs=scale, logits_tol=tol,
+                planted_fault_max_abs_diff=fault, ring_step_rel_diffs=ring_diffs,
+                ring_tokens_agree=agree, seconds=time.perf_counter() - t0)
+
+
 class Routes(list):
     """Each MoE layer's top-k expert choice ((T, k) indices) in call order,
     and ``router_err``: the largest max|diff| of a layer's router logits
@@ -2911,27 +3201,34 @@ def routing_flips(routes_a, routes_b):
 
 
 def planted_fault_diff(model, params, selector, prompt, want, *, grouped, rung=None,
-                       replay=False):
+                       replay=False, b1=False):
     """max|logit diff| against ``want`` of a prefill whose GEMMs of one kind
     drop their last K chunk (``cfg.bk`` of K): the DP-policy GEMMs (the
-    reading a B1 that skips one chunk of its K loop would give), or, with
-    ``grouped``, every fused grouped GEMM (a B5 that does the same); on a
-    quantized ``rung``, every DP-policy and grouped GEMM of the rung. A
-    non-finite prefill reads as infinitely far. Returns that and, with
-    ``replay``, the same prefill against the ``torch`` backend replaying its
-    top-k choices (else None)."""
+    reading a B1 that skips one chunk of its K loop would give), with ``b1``
+    every GEMM whose partition has a DP region (a hybrid pick runs B1 there:
+    the models whose prefill picks no pure DP), or, with ``grouped``, every
+    fused grouped GEMM (a B5 that does the same); on a quantized ``rung``,
+    every DP-policy and grouped GEMM of the rung. A non-finite prefill reads
+    as infinitely far. Returns that and, with ``replay``, the same prefill
+    against the ``torch`` backend replaying its top-k choices (else None)."""
     import torch
 
     from repro_torch.core.gemm import gemm_context, get_backend, register_backend
     from repro_torch.core.policies import DP
+    from repro_torch.core.workpart import GemmShape, partition
 
     cuda = get_backend("cuda")
 
     def drop_last_k_chunk(x, w, *, op, policy, cfg, **kw):
         if rung is not None:
             hit = RUNG_OF.get(op.in_dtype) == rung and (op.fused or policy == DP)
+        elif grouped:
+            hit = op.fused
+        elif b1:
+            shape = GemmShape(x.shape[1], w.shape[-1], x.shape[-1])
+            hit = not op.fused and partition(shape, cfg, kw["g"], policy).dp_tiles > 0
         else:
-            hit = op.fused if grouped else policy == DP
+            hit = policy == DP
         if hit and x.shape[-1] > cfg.bk:
             kk = x.shape[-1] - cfg.bk  # a multiple of bk: even, so packed int4 rows are kk / 2
             kw_rows = kk // 2 if kw.get("b_bits") == 4 else kk
@@ -3005,6 +3302,8 @@ def _leaves(tree):
 def main() -> int:
     import torch
 
+    from repro_torch.configs import get_config
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the H100", file=sys.stderr)
         return 2
@@ -3022,9 +3321,15 @@ def main() -> int:
     slice_err, picks = slice_shapes(gen, "granite-8b", GRANITE_NK)
     olmoe_err, olmoe_picks = slice_shapes(gen, "olmoe-1b-7b", OLMOE_NK)
     slice_err, picks = max(slice_err, olmoe_err), picks + olmoe_picks
-    log(f"slice shapes: {len(picks)} shapes (granite-8b, olmoe-1b-7b) x (pick, dp, all_sk) "
-        f"agree with gemm_ref, max err {slice_err:.3e}; B2+B3 bitwise deterministic "
-        f"({time.perf_counter() - t0:.1f}s)")
+    for arch, _ in ARCH_CELLS:  # phase 6's models, at the decode batch and M = 64
+        arch_err, arch_picks = slice_shapes(gen, arch, arch_nk(get_config(arch)),
+                                            ms=(N_SLOTS, 64))
+        slice_err, picks = max(slice_err, arch_err), picks + arch_picks
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"slice shapes: {len(picks)} shapes (granite-8b, olmoe-1b-7b and phase 6's "
+        f"{[a for a, _ in ARCH_CELLS]}) x (pick, dp, all_sk) agree with gemm_ref, max err "
+        f"{slice_err:.3e}; B2+B3 bitwise deterministic ({time.perf_counter() - t0:.1f}s)")
     t0 = time.perf_counter()
     b5_errs, b5_cases, b5_bitwise = sweep_grouped(gen)
     errs.update(b5_errs)
@@ -3100,6 +3405,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paged = phase_paged(paged["granite"], failures)
+    gc.collect()
+    torch.cuda.empty_cache()
+    archs = phase_archs(failures)
 
     from repro_torch.kernels import cuda_lib
     from repro_torch.kernels.common import mainloop
@@ -3181,7 +3489,7 @@ def main() -> int:
                   slice_max_err=slice_err, not_served=not_served, failures=failures,
                   b5_table=b5_rows, b5_s8_table=b5_s8_rows, b12_table=b12_rows,
                   b12_s8_table=b12_s8_rows, f32_table=f32_rows,
-                  kv_int8=kv_int8, tune=tune, paged=paged,
+                  kv_int8=kv_int8, tune=tune, paged=paged, archs=archs,
                   seconds=time.perf_counter() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

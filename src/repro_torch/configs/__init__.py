@@ -1,6 +1,8 @@
 """Architecture registry of the port: ``--arch <id>`` resolution to the full
 config and its reduced smoke-test variant. The port serves the dense family
-(granite-8b) and the MoE family (olmoe-1b-7b)."""
+(granite-8b, nemotron-4-15b, gemma3-27b with its sliding windows and tied
+head, mistral-large-123b) and the MoE family (olmoe-1b-7b,
+qwen3-moe-235b-a22b)."""
 
 from __future__ import annotations
 
@@ -13,6 +15,10 @@ from repro_torch.models.config import ModelConfig
 _MODULES: Dict[str, str] = {
     "granite-8b": "repro_torch.configs.granite_8b",
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "nemotron-4-15b": "repro_torch.configs.nemotron_4_15b",
+    "gemma3-27b": "repro_torch.configs.gemma3_27b",
+    "mistral-large-123b": "repro_torch.configs.mistral_large_123b",
+    "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b_a22b",
 }
 
 

@@ -46,6 +46,7 @@ Example::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \\
         --preset full --requests 4 --slots 4 --max-seq 256 --max-new-tokens 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b --preset full
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-27b --preset full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b --preset full \\
         --quantize int4
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b --device cpu \\

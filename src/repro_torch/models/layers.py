@@ -6,7 +6,8 @@ expert projections through :func:`~repro_torch.core.gemm.gemm_grouped`), so
 the Stream-K++ selection layer sees every matmul and, on the card, every one
 runs on the hand-written kernels. Attention stays plain torch einsum math in f32,
 as in the JAX package: a chunked online softmax for prefill and a direct
-softmax over the KV cache for decode. Layouts are the JAX package's: weights
+softmax over the KV cache for decode (a sliding window masks both), or over
+a local layer's ring of ``window`` slots (``attn_apply_ring``). Layouts are the JAX package's: weights
 ``(K, N)`` for ``x @ w``, activations ``(B, S, H, dh)``, caches
 ``(B, S, KV, dh)`` (with ``kv_cache_dtype="int8"``: int8 values and f32
 per-(token, head) scales ``(B, S, KV)``).
@@ -166,6 +167,63 @@ def decode_attention(
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bqkgs,bskd->bqkgd", p, v_cache.to(torch.float32))
     return out.reshape(b, sq, h, dh).to(q.dtype)
+
+
+def decode_attention_ring(
+    q: torch.Tensor,  # (B, 1, H, dh)
+    k_ring: torch.Tensor,  # (B, W, KV, dh): slot j holds the most recent
+    v_ring: torch.Tensor,  # position p with p % W == j
+    cur_pos: torch.Tensor,  # (B,)
+    window: int,
+) -> torch.Tensor:
+    """One token's attention over a ring-buffer window cache: O(W) reads in
+    place of O(S), the windowed-cache decode of local-attention layers."""
+    b, _, h, dh = q.shape
+    w, kvh = k_ring.shape[1], k_ring.shape[2]
+    groups = h // kvh
+    scale = 1.0 / math.sqrt(dh)
+    qg = q.reshape(b, kvh, groups, dh).to(torch.float32)
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, k_ring.to(torch.float32)) * scale
+    # slot j holds position cur - ((cur - j) mod W); negative: not written yet
+    slots = torch.arange(w, device=q.device)[None, :]
+    kpos = cur_pos[:, None] - torch.remainder(cur_pos[:, None] - slots, w)
+    valid = (kpos >= 0) & (cur_pos[:, None] - kpos < window)
+    scores = torch.where(valid[:, None, None, :], scores, _NEG)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v_ring.to(torch.float32))
+    return out.reshape(b, 1, h, dh).to(q.dtype)
+
+
+def attn_apply_ring(
+    p: Params,
+    x: torch.Tensor,  # (B, 1, D)
+    cfg: ModelConfig,
+    *,
+    div: Dict[str, int],
+    cache: Dict[str, torch.Tensor],  # k/v rings (B, W, KV, dh)
+    cur_pos: torch.Tensor,  # (B,)
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """A local-attention layer's decode step against its ring cache: the new
+    K/V row is written IN PLACE at slot ``cur_pos % W`` (``repro`` returns
+    an updated copy), then the token attends over the ring."""
+    b = x.shape[0]
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    db, dtp = div.get("batch", 1), div.get("model", 1)
+    w = cache["k"].shape[1]
+
+    q = gemm(x, p["wq"], divisors=(db, dtp, 1), tag="attn.q").reshape(b, 1, h, dh)
+    knew = gemm(x, p["wk"], divisors=(db, dtp, 1), tag="attn.k").reshape(b, 1, kv, dh)
+    vnew = gemm(x, p["wv"], divisors=(db, dtp, 1), tag="attn.v").reshape(b, 1, kv, dh)
+    q = rope(q, cur_pos[:, None], cfg.rope_theta)
+    knew = rope(knew, cur_pos[:, None], cfg.rope_theta)
+
+    bidx = torch.arange(b, device=x.device)
+    slot = torch.remainder(cur_pos, w)
+    cache["k"][bidx, slot] = knew[:, 0]
+    cache["v"][bidx, slot] = vnew[:, 0]
+    out = decode_attention_ring(q, cache["k"], cache["v"], cur_pos, cfg.window)
+    y = gemm(out.reshape(b, 1, h * dh), p["wo"], divisors=(db, 1, dtp), tag="attn.o")
+    return y, cache
 
 
 def attn_apply(

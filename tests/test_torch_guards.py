@@ -38,7 +38,9 @@ def test_port_import_leaves_jax_out():
             "repro_torch.core.adaptive, repro_torch.configs.gemm_suite, "
             "repro_torch.utils.logging, repro_torch.serve.paged_kv, "
             "repro_torch.serve.scheduler, repro_torch.core.federate, "
-            "repro_torch.core.gossip, sys; "
+            "repro_torch.core.gossip, repro_torch.models, repro_torch.configs.nemotron_4_15b, "
+            "repro_torch.configs.gemma3_27b, repro_torch.configs.mistral_large_123b, "
+            "repro_torch.configs.qwen3_moe_235b_a22b, sys; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]")
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,

@@ -85,6 +85,7 @@ EPILOGUES = {
     "mul_silu": dict(binary="mul_silu"),
     "bias+gelu": dict(activation="gelu", bias=True),
     "add": dict(binary="add"),
+    "square": dict(activation="square"),  # nemotron-4-15b's squared-ReLU MLP
 }
 
 

@@ -1,6 +1,7 @@
 """Paged KV serving of the port against ``repro``'s, on the CPU: reduced
-granite-8b and olmoe-1b-7b in f32 with ``repro``'s parameters carried
-across by ``params_from_jax``.
+granite-8b and olmoe-1b-7b in f32 (and gemma3-27b, with its sliding windows
+and tied head, for the engine) with ``repro``'s parameters carried across by
+``params_from_jax``.
 
 * The page pool: the allocator's page ids, FIFO recycling, ``try_alloc``'s
   atomicity, its errors and ``occupancy()`` equal ``repro``'s;
@@ -57,7 +58,9 @@ from repro_torch.serve import (
     ServeEngine,
 )
 
-ARCHS = ["granite-8b", "olmoe-1b-7b"]
+#: gemma3-27b reduced serves with the uniform cache: window 8, every third layer
+#: global, so the paged view's longer prompts mask on the local layers
+ARCHS = ["granite-8b", "olmoe-1b-7b", "gemma3-27b"]
 
 
 @functools.lru_cache(maxsize=None)
