@@ -22,8 +22,9 @@ Phases (any failure raises and the script exits non-zero):
      against the f32-accumulated ``gemm_ref``;
    * the plain projection shapes of granite-8b and olmoe-1b-7b (attention,
      MLP, router in f32, lm_head), M in {1, 4, 64} and each served prompt
-     length, and those of phase 6's four models (``arch_nk``) at M in {4,
-     64}, under the H100 selector's pick, DP and ALL_SK, against
+     length, and those of phase 6's and phase 7's eight models (``arch_nk``)
+     at M in {4, 64} (whisper's also at 1500, its frames), under the H100
+     selector's pick, DP and ALL_SK, against
      ``gemm_ref``; the Stream-K region bitwise identical across two runs;
    * B5, the grouped kernel, at olmoe-1b-7b's expert shapes (64 experts x
      4 or 16 rows, 2048 -> 1024 and 1024 -> 2048) and a small unaligned one:
@@ -203,6 +204,29 @@ Phases (any failure raises and the script exits non-zero):
    steps on the ring path (``windowed_cache_from_uniform``, then
    ``decode_step_windowed`` fed the uniform path's tokens) within
    ``LOGITS_TOL`` a step, and the planted fault of every layer made global.
+7. The other families (``phase_families``), dense bf16 on the ``cuda``
+   backend, seeded random weights, the selector's cost-model path, each at
+   full width and full depth, one model on the card at a time
+   (``FAMILY_CELLS``; llava-next-34b, 68.78 GB of weights, last): mamba2-1.3b
+   (the SSD block, its tied head N = 50280), zamba2-1.2b (Mamba2 layers and
+   the shared attention and MLP block at every 6th layer) and
+   llava-next-34b through ``serve_run`` as in phase 6, with the planted
+   fault on every GEMM with a DP region; whisper-large-v3 through
+   ``whisper_run``: four requests of 1500 seeded frame embeddings and an
+   8-token decoder prompt, ``EncDec.prefill`` as one batch, then 8 greedy
+   decode steps, the prefill's and every step's logits against the
+   ``torch`` backend fed the same tokens within ``LOGITS_TOL``, the same
+   planted fault on the prefill, and the decode breakdown beside the floor.
+   Each: the instantiated count equal to ``cfg.param_count()``, B1 and B2
+   launched and B5 not, the peak memory; the tied heads timed at the
+   decode shape (``tied_head_check``; whisper's rows are not 16-byte
+   aligned). mamba2 also: 8 requests through 4 slots give each request the
+   tokens of the same prompt served alone in a fresh engine
+   (``slot_reuse_check``). llava also: one image request
+   (``image_request_check``), 576 seeded patch embeddings before the first
+   prompt's text, max_seq 704, its prefill's and 8 decode steps' logits
+   against the ``torch`` backend fed the same tokens, and the planted fault
+   of the patches dropped.
 
 Tolerances: a kernel output ``x`` agrees with its reference ``r`` when
 ``max|x - r| <= tol * max(1, max|r|)``: 1e-4 for f32 inputs (f32 sums in
@@ -235,7 +259,8 @@ per (kernel, rung) that a served path ran; each entry names the mainloop
 it ran (``mainloop``: ``mma`` or ``fma``); B3 has no entry of its own, being
 fused into B2 (``streamk_phase1``); the last line is ``{"ok": true,
 "device": {...}}``. Details go to ``chiprun_out/chip_smoke.json`` (phase 6's
-runs, their launch counts by kernel included, under ``archs``).
+runs, their launch counts by kernel included, under ``archs``, phase 7's
+under ``families``).
 """
 
 from __future__ import annotations
@@ -303,7 +328,9 @@ TIMED_RUNGS = dict(RUNGS, **{"int4-dynamic": (4, 8, "src/repro_torch/csrc/quant_
 #: top-8 choices (7.8e-3 to 8.7e-3 on the H100; each backend routing alone
 #: reads 2.3e-2 to 6.3e-2 between sound implementations, from routing flips)
 LOGITS_TOL = {"granite-8b": 3e-2, "olmoe-1b-7b": 5e-2, "nemotron-4-15b": 3e-2,
-              "gemma3-27b": 3e-2, "mistral-large-123b": 3e-2, "qwen3-moe-235b-a22b": 5e-2}
+              "gemma3-27b": 3e-2, "mistral-large-123b": 3e-2, "qwen3-moe-235b-a22b": 5e-2,
+              "mamba2-1.3b": 3e-2, "zamba2-1.2b": 3e-2, "llava-next-34b": 3e-2,
+              "whisper-large-v3": 3e-2}
 #: a MoE layer's router logits (an f32 GEMM) against ``torch.matmul`` of the
 #: same input, x max(1, max|ref|): the f32 kernel tolerance
 ROUTER_TOL = 1e-4
@@ -572,14 +599,21 @@ def slice_shapes(gen, arch, nk_dtypes, ms=None):
 
 def arch_nk(cfg):
     """A config's plain projection shapes (N, K, dtype): attention q, k/v and
-    o, the dense MLP's in (and gate) and out, the head, and a MoE model's f32
-    router."""
-    d, qd, kvd, bf = cfg.d_model, cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head, "bfloat16"
-    nk = [(qd, d, bf), (kvd, d, bf), (d, qd, bf)]
+    o, the dense MLP's in (and gate) and out, a MoE model's f32 router,
+    Mamba2's fused input projection and its output projection, and the
+    head."""
+    d, bf = cfg.d_model, "bfloat16"
+    nk = []
+    if cfg.n_heads:
+        qd, kvd = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
+        nk += [(qd, d, bf), (kvd, d, bf), (d, qd, bf)]
     if cfg.family == "moe":
         nk.append((cfg.n_experts, d, "float32"))
-    else:
+    elif cfg.d_ff:
         nk += [(cfg.d_ff, d, bf), (d, cfg.d_ff, bf)]
+    if cfg.ssm_state:
+        din, ds = cfg.d_inner, cfg.ssm_state
+        nk += [(2 * din + 2 * ds + cfg.ssm_heads, d, bf), (d, din, bf)]
     return list(dict.fromkeys(nk + [(cfg.vocab_size, d, bf)]))  # gemma3's q and o coincide
 
 
@@ -1962,18 +1996,34 @@ def _kernels_of(entry):
     return names
 
 
-def _gemm_weight_bytes(params):
-    """Bytes of every GEMM weight: the stacked projections, routers and
-    experts (the norms are (L, D)) and the head, ``lm_head`` or, tied, the
-    embedding table it reads (counted once); a quantized one counts its
-    values and scales."""
-    from repro_torch.core.quant import is_quantized
+def _gemm_weight_bytes(model, params):
+    """Bytes of the GEMM weights one decode step reads (a quantized one
+    counts its values and scales): every stacked projection, router and
+    expert of the decoder (not Mamba2's conv, not the norms), the hybrid's
+    shared block once per layer that runs it, and the head, ``lm_head`` or,
+    tied, the embedding table it reads (counted once). An encoder-decoder's
+    step reads neither the encoder nor the cross-attention K/V projections
+    (their K/V are cached at prefill)."""
+    from repro_torch.core.quant import QUANT_WEIGHT_NAMES, is_quantized
+
+    gemm_weights = QUANT_WEIGHT_NAMES | {"router"}  # the projections, and a MoE's router
 
     def nbytes(t):
         return t.nbytes if is_quantized(t) else t.numel() * t.element_size()
 
-    head = params["lm_head"] if "lm_head" in params else params["embed"]
-    return sum(nbytes(t) for t in _leaves(params["layers"]) if t.dim() >= 3) + nbytes(head)
+    def weights(tree, skip=frozenset()):
+        total = 0
+        for key, leaf in tree.items():
+            if isinstance(leaf, dict):
+                total += weights(leaf, frozenset({"wk", "wv"}) if key == "cross_attn" else skip)
+            elif key in gemm_weights and key not in skip:
+                total += nbytes(leaf)
+        return total
+
+    total = weights(params["dec_layers"] if "dec_layers" in params else params["layers"])
+    if "shared_attn" in params:
+        total += weights(params["shared_attn"]) * sum(model.layer_flags()["use_attn"])
+    return total + nbytes(params["lm_head"] if "lm_head" in params else params["embed"])
 
 
 def phase_serve(arch, failures, then=None):
@@ -2032,7 +2082,7 @@ def serve_run(arch, model, params, rung, failures, dense_logits=None, b1_fault=F
 
     cfg = model.cfg
     label = arch if rung is None else f"{arch} [{rung}]"
-    weight_bytes = _gemm_weight_bytes(params)
+    weight_bytes = _gemm_weight_bytes(model, params)
     n_slots, max_seq = N_SLOTS, MAX_SEQ
     engine = ServeEngine(model, params, ServeConfig(n_slots=n_slots, max_seq=max_seq, eos=-1),
                          backend="cuda")
@@ -2076,7 +2126,7 @@ def serve_run(arch, model, params, rung, failures, dense_logits=None, b1_fault=F
     cur = torch.zeros(n_slots, dtype=torch.long, device="cuda")
     toks = torch.ones(n_slots, 1, dtype=torch.long, device="cuda")
     scratch_cache = model.init_cache(n_slots, max_seq, device="cuda")
-    with count_launches() as dec, gemm_context(selector=engine.selector, backend="cuda"):
+    with count_launches() as dec, gemm_context(selector=engine.selector, backend="cuda") as dctx:
         model.decode_step(params, scratch_cache, toks, cur)
     b5_per_step = sum(1 for n in dec if n.startswith("grouped_streamk"))
     if cfg.family == "moe" and b5_per_step != 3 * cfg.n_layers:
@@ -2108,12 +2158,16 @@ def serve_run(arch, model, params, rung, failures, dense_logits=None, b1_fault=F
     # MoE model, count the routing choices the two backends made differently
     tol = LOGITS_TOL[arch] if rung is None else QUANT_LOGITS_TOL[arch, rung]
     # the dense MoE run holds its limit on the routing-replayed reading, with
-    # the router GEMM checked on its own (see ROUTER_TOL)
+    # the router GEMM checked on its own (see ROUTER_TOL); an SSM or hybrid
+    # stack on the layer-replayed reading (see ``layer_replayed_diff``)
     hold_replayed = cfg.family == "moe" and rung is None
-    with routing_log(check_router=hold_replayed) as routes_cuda:
+    hold_layers = cfg.family in ("ssm", "hybrid") and rung is None
+    tokens = torch.as_tensor(prompts[0], device="cuda")[None]
+    with routing_log(check_router=hold_replayed) as routes_cuda, \
+            layer_trace(hold_layers) as layers_cuda:
         got = engine.prefill_logits(prompts[0])
     with routing_log() as routes_torch, gemm_context(backend="torch"):
-        want, _ = model.prefill(params, torch.as_tensor(prompts[0], device="cuda")[None])
+        want, _ = model.prefill(params, tokens)
     flips = routing_flips(routes_cuda, routes_torch)
     if got.shape != (1, 1, cfg.vocab_size) or not torch.isfinite(got).all():
         raise AssertionError(f"{label}: bad prefill logits {tuple(got.shape)}")
@@ -2128,18 +2182,26 @@ def serve_run(arch, model, params, rung, failures, dense_logits=None, b1_fault=F
             want_r, _ = model.prefill(params, torch.as_tensor(prompts[0], device="cuda")[None])
         replayed = (got.float() - want_r.float()).abs().max().item()
         del want_r
-    held = replayed if hold_replayed else diff
+    layer_readings = None
+    if hold_layers:
+        layer_readings = layer_replayed_diff(lambda: model.prefill(params, tokens)[0], layers_cuda,
+                                             got)
+    del layers_cuda
+    held = replayed if hold_replayed else max(layer_readings) * scale if hold_layers else diff
     same_top = int(got.float().argmax()) == int(want.float().argmax())
     # the same check must catch a kernel that skips a K chunk: B1 under the
     # DP policy for the dense model, B5 for the MoE model; on a rung, every
     # DP and grouped GEMM of the rung; read as the limit is held
     fault, fault_replayed = planted_fault_diff(
         model, params, engine.selector, prompts[0], want, grouped=cfg.family == "moe",
-        rung=rung, replay=hold_replayed, b1=b1_fault)
-    fault_held = fault_replayed if hold_replayed else fault
+        rung=rung, replay=hold_replayed, b1=b1_fault, layers=hold_layers)
+    if hold_layers:
+        fault_replayed *= scale  # the fault run's layer-replayed reading, on the logits' scale
+    fault_held = fault_replayed if hold_replayed or hold_layers else fault
     breaches = []
     if held > tol * scale:
-        what = "with the cuda run's routing replayed" if hold_replayed else "each routing alone"
+        what = ("with the cuda run's routing replayed" if hold_replayed else
+                "each layer fed the cuda run's input" if hold_layers else "each routing alone")
         other = "" if replayed is None or hold_replayed else (
             f"; with the cuda run's routing replayed: max|diff| {replayed:.4f}")
         breaches.append(f"{label} prefill logits ({what}): max|diff| {held:.4f} > {tol} * "
@@ -2182,10 +2244,13 @@ def serve_run(arch, model, params, rung, failures, dense_logits=None, b1_fault=F
         square_dispatches=sum(1 for e in engine.selection_log
                               if e.op.epilogue.activation == "square"),
         prefill_len=len(prompts[0]), launches_per_decode_step=per(dec),
+        dispatches_per_decode_step=len(dctx.log),
         decode_breakdown=breakdown, logits_max_abs_diff=diff, logits_max_abs=scale,
         logits_tol=tol, planted_fault_max_abs_diff=fault, same_argmax=same_top,
         routing_flips=flips, logits_replayed_routing_max_abs_diff=replayed,
-        logits_held="replayed_routing" if hold_replayed else "own_routing",
+        logits_held=("replayed_routing" if hold_replayed else
+                     "replayed_layers" if hold_layers else "own_routing"),
+        layer_replayed_readings=layer_readings,
         logits_held_max_abs_diff=held, planted_fault_held_max_abs_diff=fault_held,
         planted_fault_replayed_routing_max_abs_diff=fault_replayed,
         router_max_rel_err=routes_cuda.router_err if hold_replayed else None,
@@ -2197,7 +2262,8 @@ def serve_run(arch, model, params, rung, failures, dense_logits=None, b1_fault=F
         f"{serve['decode_tok_s']:.1f} tok/s, decode step {step_ms:.2f} ms "
         f"(weight-read floor {floor_ms:.2f} ms)")
     log(f"launches per prefill ({len(prompts[0])} tokens): {serve['launches_per_prefill']}; "
-        f"per decode step: {serve['launches_per_decode_step']}")
+        f"per decode step: {serve['launches_per_decode_step']} ({len(dctx.log)} GEMM "
+        f"dispatches)")
     log(f"{label} prefill logits vs torch backend: max|diff| {diff:.4f} (max|logit| "
         f"{scale:.4f}, limit {tol * scale:.4f}), same argmax: {same_top}; planted fault "
         f"{fault:.4f}; routing flips {flips}; vs the dense bf16 run: {vs_dense}")
@@ -2209,10 +2275,65 @@ def serve_run(arch, model, params, rung, failures, dense_logits=None, b1_fault=F
         log(f"{label} prefill logits vs the torch backend replaying the cuda run's top-"
             f"{cfg.top_k} choices: max|diff| {replayed:.4f} ({replayed / scale:.3e} x max|logit|;"
             f" {held_by})")
+    if hold_layers:
+        worst = int(np.argmax(layer_readings[:-1]))
+        log(f"{label} prefill with each layer of the torch backend fed the cuda run's input to "
+            f"that layer: max|diff| x max|output| per layer up to {layer_readings[worst]:.3e} "
+            f"(layer {worst}), logits "
+            f"{layer_readings[-1]:.3e}; held at the limit {tol} (the reading above, each backend "
+            f"on its own input, {diff / scale:.3e}, is reported); planted fault "
+            f"{fault_replayed / scale:.3e}")
     log(f"selector: {st.lookups} lookups, {st.cache_hits} cache hits, {st.fallbacks} cold picks")
     for key, val in sorted(picks.items()):
         log(f"  {key} -> {val}")
     return serve
+
+
+@contextmanager
+def layer_trace(enabled=True, replay=None):
+    """Record, while the block runs, each decoder layer's input and output
+    (``LM._block``) in call order under whatever backend is active; with
+    ``replay``, an earlier trace, layer i runs on that trace's input to
+    layer i in place of its own. Disabled, it records nothing."""
+    from repro_torch.models.lm import LM
+
+    trace = []
+    if not enabled:
+        yield trace
+        return
+    block = LM._block
+
+    def recording(self, params, i, x, **kw):
+        if replay is not None:
+            x = replay[len(trace)][0]
+        out = block(self, params, i, x, **kw)
+        trace.append((x, out[0]))
+        return out
+
+    LM._block = recording
+    try:
+        yield trace
+    finally:
+        LM._block = block
+
+
+def layer_replayed_diff(prefill, trace, got):
+    """The reading an SSM or hybrid stack holds its limit on: ``prefill``
+    runs on the ``torch`` backend with each layer fed the input it had in
+    ``trace``, the run that gave the logits ``got``. Returns each layer's
+    max|diff| over its max|output|, then the logits' max|diff| over
+    max|logit|: the kernels' rounding of every layer, without the growth
+    the layers after it give it. Such a stack amplifies a layer's rounding
+    about 5-7 times more than a dense stack of its depth (PERF.md §7), so
+    the reading with each backend on its own input measures the stack and
+    not the kernels; a fault in any layer still reads in full."""
+    from repro_torch.core.gemm import gemm_context
+
+    with layer_trace(replay=trace) as mine, gemm_context(backend="torch"):
+        want = prefill().float()
+    rel = [((a[1].float() - b[1].float()).abs().max() / b[1].float().abs().max()).item()
+           for a, b in zip(trace, mine)]
+    return rel + [(got.float() - want).abs().max().item() / want.abs().max().item()]
 
 
 #: layers of the int8-KV-cache phase: granite-8b at full width, its depth cut to 2
@@ -3115,6 +3236,320 @@ def long_request_check(model, params, failures):
                 ring_tokens_agree=agree, seconds=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the SSM, hybrid, encoder-decoder and VLM families at full width
+# ---------------------------------------------------------------------------
+
+#: phase 7's cells, each at full width and full depth, one model on the card at a time;
+#: llava-next-34b (68.78 GB of bf16 weights) last, when every other model has been freed
+FAMILY_CELLS = ("mamba2-1.3b", "zamba2-1.2b", "whisper-large-v3", "llava-next-34b")
+#: mamba2's slot reuse: this many requests through ``N_SLOTS`` slots
+REUSE_REQUESTS = 8
+#: llava's image request: its cache length and decode steps
+IMAGE_MAX_SEQ, IMAGE_STEPS = 704, 8
+#: whisper: requests in one batch, decoder prompt tokens, decode steps
+WHISPER_REQUESTS, WHISPER_PROMPT, WHISPER_STEPS = 4, 8, 8
+
+
+def phase_families(failures):
+    """Phase 7: serve mamba2-1.3b, zamba2-1.2b, whisper-large-v3 and
+    llava-next-34b at full width and full depth, one model on the card at a
+    time (see the module docstring). Returns each model's record by arch."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    out = {}
+    for arch in FAMILY_CELLS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(cfg)
+        params = model.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
+        n_params = sum(t.numel() for t in _leaves(params))
+        head_bytes = 0
+        if cfg.tie_embeddings:  # the tied head's one contiguous copy, made here at load
+            head = model.head_weight(params)
+            head_bytes = head.numel() * head.element_size()
+            del head
+        torch.cuda.synchronize()
+        log(f"{arch}: {n_params / 1e9:.3f} B parameters (cfg.param_count() "
+            f"{cfg.param_count() / 1e9:.3f} B), {torch.cuda.memory_allocated() / 1e9:.2f} GB on "
+            f"the card (tied head copy {head_bytes / 1e9:.2f} GB) in "
+            f"{time.perf_counter() - t0:.1f}s")
+        if n_params != cfg.param_count():
+            failures.append(f"{arch}: {n_params} parameters instantiated, cfg.param_count() "
+                            f"{cfg.param_count()}")
+        if cfg.family == "encdec":
+            run = whisper_run(model, params, failures)
+        else:
+            run = serve_run(arch, model, params, None, failures, b1_fault=True)
+            run.pop("logits")
+        run.update(layers=cfg.n_layers, n_params=n_params, param_count=cfg.param_count(),
+                   head_copy_bytes=head_bytes)
+        launches = run["launches"]
+        b5 = sum(n for name, n in launches.items() if name.startswith("grouped"))
+        if not launches.get("dp_gemm_region") or not launches.get("streamk_phase1") or b5:
+            failures.append(f"{arch}: B1 and B2 must launch and B5 must not: {launches}")
+        run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9  # load and serve
+        if cfg.tie_embeddings:
+            run["head"] = tied_head_check(model, params, head_bytes, failures)
+        if arch == "mamba2-1.3b":
+            run["slot_reuse"] = slot_reuse_check(model, params, failures)
+        if cfg.family == "vlm":
+            torch.cuda.reset_peak_memory_stats()
+            run["image"] = image_request_check(model, params, failures)
+            run["image"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        run["seconds"] = time.perf_counter() - t0
+        log(f"{arch}: peak {run['peak_gb']:.2f} GB allocated on the card while loaded and "
+            f"served; {run['seconds']:.1f}s")
+        out[arch] = run
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase 7 (the SSM, hybrid, encoder-decoder and VLM families): "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    return out
+
+
+def slot_reuse_check(model, params, failures):
+    """mamba2's state across requests: ``REUSE_REQUESTS`` seeded prompts
+    served through ``N_SLOTS`` slots (each slot serves two requests in turn)
+    give each request the greedy tokens of the same prompt served alone in
+    a fresh engine, so a slot's prefill replaces its SSM state and conv
+    tail."""
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    t0 = time.perf_counter()
+    cfg = model.cfg
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(rng.integers(16, 65)))
+               for _ in range(REUSE_REQUESTS)]
+
+    def serve(batch):
+        engine = ServeEngine(model, params, ServeConfig(n_slots=N_SLOTS, max_seq=MAX_SEQ, eos=-1),
+                             backend="cuda")
+        for p in batch:
+            engine.submit(p, max_new_tokens=8)
+        return [r.out_tokens for r in sorted(engine.run(), key=lambda r: r.uid)]
+
+    shared = serve(prompts)
+    alone = [serve([p])[0] for p in prompts]
+    same = sum(a == b for a, b in zip(shared, alone))
+    log(f"{cfg.name} slot reuse: {REUSE_REQUESTS} requests through {N_SLOTS} slots give the "
+        f"tokens of each served alone: {same}/{REUSE_REQUESTS} ({time.perf_counter() - t0:.1f}s)")
+    if len(shared) != REUSE_REQUESTS or same != REUSE_REQUESTS:
+        failures.append(f"{cfg.name}: reused slots gave other tokens than each request served "
+                        f"alone ({same}/{REUSE_REQUESTS} equal): {shared} vs {alone}")
+    return dict(requests=REUSE_REQUESTS, slots=N_SLOTS, equal=same, tokens=shared,
+                seconds=time.perf_counter() - t0)
+
+
+def _held_steps(label, got, want, tol, failures):
+    """Each step's max|diff| of ``got`` against ``want`` over that step's
+    max|logit|; a non-finite step or a reading above ``tol`` is a failure."""
+    import torch
+
+    readings = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not torch.isfinite(g).all():
+            failures.append(f"{label}: step {i} logits not finite")
+            readings.append(math.inf)
+            continue
+        readings.append((g - w).abs().max().item() / w.abs().max().item())
+    if max(readings) > tol:
+        failures.append(f"{label}: max|diff| x max|logit| per step {readings} > {tol}")
+    return readings
+
+
+def _greedy_steps(model, params, cache, first, pos0, steps, fed=None):
+    """``steps`` decode steps from the greedy token of the ``first`` logits
+    at positions ``pos0 ...``, or fed ``fed``'s tokens; returns (each
+    step's f32 logits, the tokens fed)."""
+    import torch
+
+    tok, out, tokens = first[:, -1].argmax(-1, keepdim=True), [], []
+    for i in range(steps):
+        tok = fed[i] if fed is not None else tok
+        tokens.append(tok)
+        pos = torch.full((tok.shape[0],), pos0 + i, device="cuda")
+        logits, cache = model.decode_step(params, cache, tok, pos)
+        out.append(logits.float())
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+    return out, tokens
+
+
+def image_request_check(model, params, failures):
+    """llava's image request: ``n_patches`` seeded patch embeddings, drawn
+    at the token embeddings' scale (std 1/sqrt(vocab), the init of the
+    embedding table), before the first serve prompt's text (the token array
+    is the text padded by the patch count, so text token i sits at position
+    P + i); prefill with ``max_seq`` ``IMAGE_MAX_SEQ`` and ``IMAGE_STEPS``
+    greedy decode steps on the ``cuda`` backend, the prefill's and every
+    step's logits against the ``torch`` backend fed the same tokens within
+    ``LOGITS_TOL``, and the planted fault, the patches dropped on the same
+    tokens, which must read at least 3 times the limit."""
+    import torch
+
+    from repro_torch.core.gemm import gemm_context
+
+    t0 = time.perf_counter()
+    cfg = model.cfg
+    tol = LOGITS_TOL[cfg.name]
+    p = cfg.n_patches
+    text = serve_prompts(cfg.vocab_size)[0]
+    tokens = torch.as_tensor(np.concatenate([text, np.zeros(p, text.dtype)]), device="cuda")[None]
+    std = 1.0 / math.sqrt(cfg.vocab_size)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    patches = (torch.randn(1, p, cfg.d_model, generator=gen, device="cuda") * std).to(
+        torch.bfloat16)
+    pos0 = p + len(text)
+    runs = {}
+    for backend in ("cuda", "torch"):
+        with gemm_context(backend=backend):
+            first, cache = model.prefill(params, tokens, max_seq=IMAGE_MAX_SEQ,
+                                         patch_embeds=patches)
+            steps, fed = _greedy_steps(model, params, cache, first, pos0, IMAGE_STEPS,
+                                       fed=runs["cuda"][1] if backend == "torch" else None)
+        runs[backend] = ([first.float()] + steps, fed)
+        del cache
+    got, want = runs["cuda"][0], runs["torch"][0]
+    readings = _held_steps(f"{cfg.name} image request", got, want, tol, failures)
+    with gemm_context(backend="cuda"):
+        bad, _ = model.prefill(params, tokens, max_seq=IMAGE_MAX_SEQ)
+    scale = want[0].abs().max().item()
+    fault = (bad.float() - want[0]).abs().max().item() if torch.isfinite(bad).all() else math.inf
+    if fault < 3 * tol * scale:
+        failures.append(f"{cfg.name} image request: the planted fault (patches dropped) must "
+                        f"read at least 3x the limit: {fault:.4f} < 3 * {tol} * {scale:.4f}")
+    new = [int(t) for t in torch.cat(runs["cuda"][1] + [got[-1][:, -1].argmax(-1, keepdim=True)],
+                                     dim=1)[0]]
+    if not all(0 <= t < cfg.vocab_size for t in new):
+        failures.append(f"{cfg.name} image request: bad tokens {new}")
+    log(f"{cfg.name} image request ({p} patches at std {std:.5f}, {len(text)} text tokens, "
+        f"max_seq {IMAGE_MAX_SEQ}): prefill and {IMAGE_STEPS} decode steps vs the torch backend "
+        f"fed the same tokens, max|diff| x max|logit| {[f'{r:.2e}' for r in readings]} (limit "
+        f"{tol}); planted fault (patches dropped) {fault:.4f} ({fault / scale:.3e} x max|logit|, "
+        f"must be >= {3 * tol * scale:.4f}); tokens {new} ({time.perf_counter() - t0:.1f}s)")
+    return dict(patches=p, patch_std=std, text_len=len(text), max_seq=IMAGE_MAX_SEQ,
+                decode_steps=IMAGE_STEPS, step_readings=readings, logits_tol=tol,
+                logits_max_abs=scale, planted_fault_max_abs_diff=fault, tokens=new,
+                seconds=time.perf_counter() - t0)
+
+
+def whisper_run(model, params, failures):
+    """whisper-large-v3 through ``EncDec.prefill`` and
+    ``EncDec.decode_step``: ``WHISPER_REQUESTS`` requests of
+    ``enc_frames`` seeded frame embeddings (standard normal) and a seeded
+    ``WHISPER_PROMPT``-token decoder prompt, prefilled as one batch, then
+    ``WHISPER_STEPS`` greedy decode steps with ``max_seq`` ``MAX_SEQ``, on
+    the ``cuda`` backend with launch counters zeroed just before; the
+    prefill's and every step's logits against the ``torch`` backend fed the
+    same tokens within ``LOGITS_TOL``; the planted fault (every GEMM with a
+    DP region drops its last K chunk) on the prefill; the decode breakdown
+    beside the weight-read floor."""
+    import torch
+
+    from repro_torch.core.gemm import gemm_context
+    from repro_torch.core.selector import default_selector
+    from repro_torch.kernels.common import LAUNCHES, count_launches, reset_launch_counts
+
+    t0 = time.perf_counter()
+    cfg = model.cfg
+    arch, tol, n = cfg.name, LOGITS_TOL[cfg.name], WHISPER_REQUESTS
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    frames = torch.randn(n, cfg.enc_frames, cfg.d_model, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    prompts = torch.as_tensor(np.random.default_rng(1).integers(
+        1, cfg.vocab_size, (n, WHISPER_PROMPT)), device="cuda")
+    selector = default_selector("cuda")
+    reset_launch_counts()
+    with gemm_context(selector=selector, backend="cuda") as ctx:
+        t1 = time.perf_counter()
+        first, cache = model.prefill(params, frames, prompts, max_seq=MAX_SEQ)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        steps, fed = _greedy_steps(model, params, cache, first, WHISPER_PROMPT, WHISPER_STEPS)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t1
+    launches = {name: c for name, c in LAUNCHES.items() if c}
+    needed = set()
+    for e in ctx.log:
+        needed |= _kernels_of(e)
+    unlaunched = sorted(name for name in needed if not launches.get(name))
+    if unlaunched:
+        failures.append(f"{arch}: {unlaunched} were selected but never launched")
+    got = [first.float()] + steps
+    tokens = torch.cat(fed + [got[-1][:, -1].argmax(-1, keepdim=True)], dim=1)
+    if not ((tokens >= 0) & (tokens < cfg.vocab_size)).all():
+        failures.append(f"{arch}: bad tokens {tokens.tolist()}")
+
+    with gemm_context(backend="torch"):
+        want_first, tcache = model.prefill(params, frames, prompts, max_seq=MAX_SEQ)
+        want_steps, _ = _greedy_steps(model, params, tcache, want_first, WHISPER_PROMPT,
+                                      WHISPER_STEPS, fed=fed)
+    del tcache
+    want = [want_first.float()] + want_steps
+    readings = _held_steps(f"{arch} prefill and decode", got, want, tol, failures)
+    scale = want[0].abs().max().item()
+    fault, _ = planted_fault_diff(model, params, selector, None, want[0], grouped=False, b1=True,
+                                  prefill=lambda: model.prefill(params, frames, prompts)[0])
+    if fault < 3 * tol * scale:
+        failures.append(f"{arch}: a planted fault must read at least 3x the limit: max|diff| "
+                        f"{fault:.4f} < 3 * {tol} * {scale:.4f}")
+
+    # one warm decode step, broken down, on the cuda run's cache (it rewrites one row)
+    tok, cur = fed[0], torch.full((n,), WHISPER_PROMPT + WHISPER_STEPS, device="cuda")
+    with count_launches() as dec, gemm_context(selector=selector, backend="cuda") as dctx:
+        model.decode_step(params, cache, tok, cur)
+    breakdown = {}
+    for backend in ("cuda", "torch"):
+        with gemm_context(selector=selector, backend=backend):
+            breakdown[backend] = decode_breakdown(
+                lambda: model.decode_step(params, cache, tok, cur))
+    del cache
+    weight_bytes = _gemm_weight_bytes(model, params)
+    floor_ms = weight_bytes / HBM_BW * 1e3
+    for backend, bd in breakdown.items():
+        log(f"{arch} warm decode step, {backend} backend: {bd['step_ms']:.2f} ms wall, "
+            f"{bd['enqueue_ms']:.2f} ms host enqueue, device busy {bd['device_busy_ms']} ms "
+            f"(GEMM kernels {bd['gemm_kernels_ms']} ms), idle share {bd['idle_share']}")
+        for name, ms in bd["top_kernels"]:
+            log(f"    {ms:9.3f} ms  {name}")
+    if breakdown["cuda"]["fixup_ms"]:
+        failures.append(f"{arch}: a fix-up kernel ran in a traced decode step")
+    per = {name: dec.count(name) for name in sorted(set(dec))}
+    picks = {}
+    for e in ctx.log:
+        s = e.selection
+        picks.setdefault(f"{e.tag} {e.local_mnk} {e.op.in_dtype}",
+                         f"{s.policy.name}/{s.cfg.name}/g{s.g}")
+    step_ms = decode_s / WHISPER_STEPS * 1e3
+    log(f"{arch}: {n} requests x {cfg.enc_frames} frames + {WHISPER_PROMPT} prompt tokens, "
+        f"prefill {prefill_s:.2f}s, {WHISPER_STEPS} decode steps at {step_ms:.2f} ms (weight-read "
+        f"floor {floor_ms:.2f} ms); launches {launches}; per decode step {per} "
+        f"({len(dctx.log)} GEMM dispatches)")
+    log(f"{arch} logits vs the torch backend fed the same tokens, max|diff| x max|logit| per "
+        f"step {[f'{r:.2e}' for r in readings]} (limit {tol}); planted fault {fault:.4f} "
+        f"({fault / scale:.3e} x max|logit|, must be >= {3 * tol * scale:.4f}); tokens "
+        f"{tokens.tolist()}")
+    for key, val in sorted(picks.items()):
+        log(f"  {key} -> {val}")
+    return dict(arch=arch, requests=n, frames=cfg.enc_frames, prompt_len=WHISPER_PROMPT,
+                decode_steps=WHISPER_STEPS, prefill_s=prefill_s,
+                prefill_tok_s=n * (cfg.enc_frames + WHISPER_PROMPT) / prefill_s,
+                decode_s=decode_s, decode_step_ms=step_ms,
+                decode_tok_s=n * WHISPER_STEPS / decode_s, decode_floor_ms=floor_ms,
+                weight_bytes=weight_bytes, launches=launches, launches_per_decode_step=per,
+                dispatches_per_decode_step=len(dctx.log), decode_breakdown=breakdown,
+                step_readings=readings, logits_tol=tol, logits_max_abs=scale,
+                planted_fault_max_abs_diff=fault, tokens=tokens.tolist(), picks=picks,
+                seconds=time.perf_counter() - t0)
+
+
 class Routes(list):
     """Each MoE layer's top-k expert choice ((T, k) indices) in call order,
     and ``router_err``: the largest max|diff| of a layer's router logits
@@ -3201,7 +3636,7 @@ def routing_flips(routes_a, routes_b):
 
 
 def planted_fault_diff(model, params, selector, prompt, want, *, grouped, rung=None,
-                       replay=False, b1=False):
+                       replay=False, b1=False, prefill=None, layers=False):
     """max|logit diff| against ``want`` of a prefill whose GEMMs of one kind
     drop their last K chunk (``cfg.bk`` of K): the DP-policy GEMMs (the
     reading a B1 that skips one chunk of its K loop would give), with ``b1``
@@ -3210,7 +3645,11 @@ def planted_fault_diff(model, params, selector, prompt, want, *, grouped, rung=N
     fused grouped GEMM (a B5 that does the same); on a quantized ``rung``,
     every DP-policy and grouped GEMM of the rung. A non-finite prefill reads
     as infinitely far. Returns that and, with ``replay``, the same prefill
-    against the ``torch`` backend replaying its top-k choices (else None)."""
+    against the ``torch`` backend replaying its top-k choices (else None).
+    ``prefill``, when given, is the prefill to run (it returns the logits),
+    in place of ``model.prefill`` of ``prompt``. With ``layers``, the second
+    value is the fault run's largest layer-replayed reading
+    (``layer_replayed_diff``), over the scale of each reading."""
     import torch
 
     from repro_torch.core.gemm import gemm_context, get_backend, register_backend
@@ -3236,12 +3675,17 @@ def planted_fault_diff(model, params, selector, prompt, want, *, grouped, rung=N
         return cuda(x, w, op=op, policy=policy, cfg=cfg, **kw)
 
     register_backend("cuda_planted_fault", drop_last_k_chunk, overwrite=True)
-    tokens = torch.as_tensor(prompt, device="cuda")[None]
-    with routing_log() as routes, gemm_context(selector=selector, backend="cuda_planted_fault"):
-        bad, _ = model.prefill(params, tokens)
+    tokens = None if prompt is None else torch.as_tensor(prompt, device="cuda")[None]
+    if prefill is None:
+        prefill = lambda: model.prefill(params, tokens)[0]  # noqa: E731
+    with routing_log() as routes, layer_trace(layers) as trace, \
+            gemm_context(selector=selector, backend="cuda_planted_fault"):
+        bad = prefill()
     if not torch.isfinite(bad).all():
-        return math.inf, math.inf if replay else None
+        return math.inf, math.inf if replay or layers else None
     replayed = None
+    if layers:
+        replayed = max(layer_replayed_diff(prefill, trace, bad))
     if replay:
         with routing_replay(routes), gemm_context(backend="torch"):
             want_r, _ = model.prefill(params, tokens)
@@ -3321,14 +3765,17 @@ def main() -> int:
     slice_err, picks = slice_shapes(gen, "granite-8b", GRANITE_NK)
     olmoe_err, olmoe_picks = slice_shapes(gen, "olmoe-1b-7b", OLMOE_NK)
     slice_err, picks = max(slice_err, olmoe_err), picks + olmoe_picks
-    for arch, _ in ARCH_CELLS:  # phase 6's models, at the decode batch and M = 64
-        arch_err, arch_picks = slice_shapes(gen, arch, arch_nk(get_config(arch)),
-                                            ms=(N_SLOTS, 64))
+    for arch in [a for a, _ in ARCH_CELLS] + list(FAMILY_CELLS):
+        # phase 6's and 7's models at the decode batch and M = 64 (whisper also at its
+        # 1500 frames, the M of a request's cross K/V projections)
+        ms = (N_SLOTS, 64, 1500) if arch == "whisper-large-v3" else (N_SLOTS, 64)
+        arch_err, arch_picks = slice_shapes(gen, arch, arch_nk(get_config(arch)), ms=ms)
         slice_err, picks = max(slice_err, arch_err), picks + arch_picks
         gc.collect()
         torch.cuda.empty_cache()
-    log(f"slice shapes: {len(picks)} shapes (granite-8b, olmoe-1b-7b and phase 6's "
-        f"{[a for a, _ in ARCH_CELLS]}) x (pick, dp, all_sk) agree with gemm_ref, max err "
+    log(f"slice shapes: {len(picks)} shapes (granite-8b, olmoe-1b-7b, phase 6's "
+        f"{[a for a, _ in ARCH_CELLS]} and phase 7's {list(FAMILY_CELLS)}) x (pick, dp, all_sk) "
+        f"agree with gemm_ref, max err "
         f"{slice_err:.3e}; B2+B3 bitwise deterministic ({time.perf_counter() - t0:.1f}s)")
     t0 = time.perf_counter()
     b5_errs, b5_cases, b5_bitwise = sweep_grouped(gen)
@@ -3408,6 +3855,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     archs = phase_archs(failures)
+    gc.collect()
+    torch.cuda.empty_cache()
+    families = phase_families(failures)
 
     from repro_torch.kernels import cuda_lib
     from repro_torch.kernels.common import mainloop
@@ -3489,7 +3939,7 @@ def main() -> int:
                   slice_max_err=slice_err, not_served=not_served, failures=failures,
                   b5_table=b5_rows, b5_s8_table=b5_s8_rows, b12_table=b12_rows,
                   b12_s8_table=b12_s8_rows, f32_table=f32_rows,
-                  kv_int8=kv_int8, tune=tune, paged=paged, archs=archs,
+                  kv_int8=kv_int8, tune=tune, paged=paged, archs=archs, families=families,
                   seconds=time.perf_counter() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

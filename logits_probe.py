@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""How far routing flips move olmoe-1b-7b's served prefill logits on the card.
+"""How far routing flips, or a deep stack's amplification of rounding, move
+a model's served prefill logits on the card.
 
-    python3 logits_probe.py <tree> [--spread]
+    python3 logits_probe.py <tree> [--spread] [--arch ARCH]
 
 ``<tree>`` is the root of a checkout (``.`` for this one); its
 ``src/repro_torch`` is imported and its kernels built at first use, so the
-parent of a change can be read by the same script. The model is
-olmoe-1b-7b at full width with ``chip_smoke.py``'s seeded weights, 4 slots
-and its first served prompt. One JSON line, every distance as max|diff|
-over the ``torch`` backend's max|logit|:
+parent of a change can be read by the same script. The model is ``ARCH``
+(olmoe-1b-7b unless given; a decoder-only arch) at full width with
+``chip_smoke.py``'s seeded weights, 4 slots and its first served prompt.
+One JSON line (with the card's name and power limit from ``nvidia-smi``),
+every distance as max|diff| over the ``torch`` backend's max|logit|:
 
 * ``cuda_vs_torch``: the ``cuda`` backend's prefill logits against the
   ``torch`` backend's, each routing on its own (``chip_smoke.py``'s
@@ -20,10 +22,16 @@ over the ``torch`` backend's max|logit|:
 * with ``--spread``, ``torch_vs_variant``: the ``torch`` backend against
   sound variants of itself that sum K in another order (2, 4 or 8 slices
   added in f32, or in float64), each rounded once to the output type; so
-  the spread routing flips give between correct implementations.
+  the spread routing flips give between correct implementations; and
+  ``torch_vs_variant_layers``: the same variants with each decoder layer
+  fed the ``torch`` run's input to it (``chip_smoke.py``'s
+  ``layer_trace``), the largest over the layers of max|diff| over the
+  layer's max|output|: the spread without the growth the layers after a
+  layer give it (what ``chip_smoke.py`` holds for an SSM or hybrid stack).
 """
 
 import json
+import subprocess
 import sys
 from contextlib import contextmanager
 
@@ -37,7 +45,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import gemm as gemm_mod  # noqa: E402
 from repro_torch.core.gemm import gemm, gemm_context, register_backend  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
-from repro_torch.models.lm import LM  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serve.engine import ServeConfig, ServeEngine  # noqa: E402
 
 
@@ -100,8 +108,9 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_config("olmoe-1b-7b")
-    model = LM(cfg)
+    arch = sys.argv[sys.argv.index("--arch") + 1] if "--arch" in sys.argv else "olmoe-1b-7b"
+    cfg = get_config(arch)
+    model = build_model(cfg)
     params = model.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
     rng = np.random.default_rng(0)  # chip_smoke.py's serve_prompts
     prompt = rng.integers(1, cfg.vocab_size, size=int(rng.integers(16, 65)))
@@ -126,17 +135,31 @@ def main() -> int:
     def dist(x, y):
         return (x.float() - y.float()).abs().max().item() / scale
 
-    out = dict(tree=tree, device=torch.cuda.get_device_name(0), max_logit=scale,
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    out = dict(tree=tree, arch=arch, device=torch.cuda.get_device_name(0), card=card,
+               max_logit=scale,
                cuda_vs_torch=dist(got, want), expert_sets_differ=sets_differ(r_cuda, r_torch),
                torch_replaying_cuda=dist(got, want_replayed),
                cuda_replaying_torch=dist(got_replayed, want))
     if "--spread" in sys.argv:
-        spread = {}
+        sys.path.insert(0, tree)
+        from chip_smoke import layer_trace
+
+        with layer_trace() as trace:
+            torch_prefill()
+        spread, layered = {}, {}
         for name, parts, acc in (("k_in_2", 2, torch.float32), ("k_in_4", 4, torch.float32),
                                  ("k_in_8", 8, torch.float32), ("f64_acc", 1, torch.float64)):
             register_backend(f"torch_{name}", k_order_variant(parts, acc), overwrite=True)
             spread[name] = dist(torch_prefill(f"torch_{name}"), want)
+            with layer_trace(replay=trace) as mine:
+                torch_prefill(f"torch_{name}")
+            layered[name] = max(((a[1].float() - b[1].float()).abs().max()
+                                 / a[1].float().abs().max()).item()
+                                for a, b in zip(trace, mine))
         out["torch_vs_variant"] = spread
+        out["torch_vs_variant_layers"] = layered
     print(json.dumps(out), flush=True)
     return 0
 

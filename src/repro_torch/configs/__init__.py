@@ -1,8 +1,10 @@
 """Architecture registry of the port: ``--arch <id>`` resolution to the full
-config and its reduced smoke-test variant. The port serves the dense family
-(granite-8b, nemotron-4-15b, gemma3-27b with its sliding windows and tied
-head, mistral-large-123b) and the MoE family (olmoe-1b-7b,
-qwen3-moe-235b-a22b)."""
+config and its reduced smoke-test variant, for all ten of ``repro``'s
+configs: the dense family (granite-8b, nemotron-4-15b, gemma3-27b with its
+sliding windows and tied head, mistral-large-123b), the MoE family
+(olmoe-1b-7b, qwen3-moe-235b-a22b), the SSM (mamba2-1.3b), the hybrid
+(zamba2-1.2b), the VLM (llava-next-34b) and the encoder-decoder
+(whisper-large-v3)."""
 
 from __future__ import annotations
 
@@ -19,6 +21,10 @@ _MODULES: Dict[str, str] = {
     "gemma3-27b": "repro_torch.configs.gemma3_27b",
     "mistral-large-123b": "repro_torch.configs.mistral_large_123b",
     "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b_a22b",
+    "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
+    "llava-next-34b": "repro_torch.configs.llava_next_34b",
+    "whisper-large-v3": "repro_torch.configs.whisper_large_v3",
 }
 
 

@@ -3,6 +3,9 @@
 Builds the model with random weights from a seeded ``torch.Generator``,
 submits ``--requests`` seeded prompts to a :class:`ServeEngine`, drains it,
 and logs throughput plus the Stream-K++ dispatch decisions the traffic made.
+Every decoder-only arch serves (dense, MoE, SSM, hybrid, and the VLM on its
+text); the encoder-decoder is refused, as ``repro``'s CLI refuses it
+(``EncDec.prefill`` and ``EncDec.decode_step`` serve it).
 It runs on the CUDA device through the hand-written kernels unless
 ``--device cpu`` is given (then the ``torch`` backend serves, unless
 ``--backend cuda`` asks for the kernels' plain versions). ``--quantize``
@@ -89,7 +92,8 @@ from repro_torch.core.gossip import GossipExchange
 from repro_torch.core.policies import DEFAULT_TILE_CONFIGS, HOPPER_TILE_CONFIGS
 from repro_torch.core.selector import KernelSelector, SelectorState
 from repro_torch.core.tuner import Tuner, TuningDatabase, measure_wallclock
-from repro_torch.models.lm import LM, resolve_device
+from repro_torch.models import build_model
+from repro_torch.models.lm import resolve_device
 from repro_torch.serve import (
     AdmissionError,
     PagedServeConfig,
@@ -409,8 +413,10 @@ def main(argv=None) -> int:
     cfg = preset_config(args.arch, args.preset)
     if args.dtype:
         cfg = dataclasses.replace(cfg, dtype=args.dtype)
+    if cfg.family == "encdec":
+        raise SystemExit("serve CLI drives decoder-only archs; see examples/ for enc-dec")
     device = resolve_device(args.device)
-    model = LM(cfg)
+    model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init_params(device, torch.Generator(device=device).manual_seed(args.seed))
     log.info("built %s (%s, %s) on %s in %.1fs", cfg.name, args.preset, cfg.dtype, device,

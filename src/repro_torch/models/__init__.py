@@ -1,4 +1,5 @@
-"""The LMs of the port: config, shape cells, layers, and the layer-looped LM."""
+"""The models of the port: config, shape cells, layers, the layer-looped LM and
+the encoder-decoder."""
 
 from repro_torch.models.config import (
     ALL_SHAPES,
@@ -15,13 +16,13 @@ from repro_torch.models.config import (
 
 def build_model(cfg: ModelConfig):
     """The model object of a config (``repro.models.build_model``): the
-    decoder-only :class:`~repro_torch.models.lm.LM`. The encoder-decoder
-    family is not ported yet."""
+    :class:`~repro_torch.models.encdec.EncDec` for the encoder-decoder
+    family, the decoder-only :class:`~repro_torch.models.lm.LM` for every
+    other."""
     if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder family (models/encdec.py) is not ported yet "
-            "(ROADMAP A7)"
-        )
+        from repro_torch.models.encdec import EncDec
+
+        return EncDec(cfg)
     from repro_torch.models.lm import LM
 
     return LM(cfg)

@@ -1,9 +1,8 @@
 """Model configuration (the port's copy of ``repro.models.config``): one
 dataclass describing every architecture family in the assigned pool (dense /
 MoE / SSM / hybrid / enc-dec / VLM backbones), its exact parameter count, and
-the assigned input-shape cells. The port serves the dense and MoE families;
-the other fields are kept so configs compare field for field with the JAX
-package's."""
+the assigned input-shape cells. The port serves every family; configs
+compare field for field with the JAX package's."""
 
 from __future__ import annotations
 

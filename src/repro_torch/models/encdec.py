@@ -1,0 +1,229 @@
+"""Whisper-style encoder-decoder (the port's counterpart of
+``repro.models.encdec``).
+
+The conv frontend is a stub, as in ``repro``: the caller feeds the frame
+embeddings (B, enc_frames, d_model) the two strided convs would produce.
+Positions are sinusoidal and absolute in the encoder and the decoder; no
+attention applies RoPE. Every projection goes through
+:func:`repro_torch.core.gemm.gemm` under ``repro``'s tags (the cross K/V
+projections as ``xattn.k``/``xattn.v``), and the head is tied to the token
+embedding (:class:`~repro_torch.models.lm.TiedHead`: one contiguous copy of
+``embed.T`` per embedding tensor).
+
+The decode cache holds, per decoder layer, the self-attention K/V
+(L, B, S_max, KV, dh), written in place at each step, and the
+cross-attention K/V (L, B, enc_frames, KV, dh), computed once from the
+encoder's output at prefill and carried through decode unchanged.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core.gemm import as_dtype, gemm
+from repro_torch.dist.sharding import ArraySpec, init_leaf
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.lm import TiedHead, _map, _stack_specs, _zeros, resolve_device
+
+Params = Dict[str, Any]
+
+
+def sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Sinusoidal embeddings (..., d) of ``positions`` in f32: sines, then
+    cosines, at ``d / 2`` frequencies."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10_000.0)
+                      * torch.arange(half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].to(torch.float32) * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+class EncDec:
+    """Encoder (L_enc x bidirectional attention and MLP over the frames) and
+    decoder (L x causal self-attention, cross-attention over the encoder's
+    output, MLP), layernorms, the tied head."""
+
+    def __init__(self, cfg: ModelConfig):
+        if cfg.family != "encdec":
+            raise ValueError(f"EncDec serves the encdec family, not {cfg.family!r}")
+        self.cfg = cfg
+        self._tied_head = TiedHead()
+
+    # -- parameters ---------------------------------------------------------
+    def param_specs(self) -> Params:
+        """The ArraySpec tree of the parameters (``repro``'s tree and layout)."""
+        cfg = self.cfg
+        enc_layer = {
+            "norm1": L.norm_spec(cfg),
+            "attn": L.attn_specs(cfg),
+            "norm2": L.norm_spec(cfg),
+            "mlp": L.mlp_specs(cfg),
+        }
+        dec_layer = {
+            "norm1": L.norm_spec(cfg),
+            "self_attn": L.attn_specs(cfg),
+            "norm2": L.norm_spec(cfg),
+            "cross_attn": L.attn_specs(cfg),
+            "norm3": L.norm_spec(cfg),
+            "mlp": L.mlp_specs(cfg),
+        }
+        return {
+            "embed": ArraySpec((cfg.vocab_size, cfg.d_model), cfg.dtype, ("vocab", "embed")),
+            "enc_layers": _stack_specs(enc_layer, cfg.n_enc_layers),
+            "enc_final_norm": L.norm_spec(cfg),
+            "dec_layers": _stack_specs(dec_layer, cfg.n_layers),
+            "final_norm": L.norm_spec(cfg),
+        }
+
+    def init_params(self, device=None, generator: Optional[torch.Generator] = None) -> Params:
+        """Random weights drawn from ``generator`` (seed 0 when None) on
+        ``device`` (the card unless ``device='cpu'``), leaf by leaf in the
+        order of the spec tree."""
+        dev = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        return _map(lambda s: init_leaf(s, generator, dev), self.param_specs())
+
+    def head_weight(self, params) -> torch.Tensor:
+        """The tied head's ``(d_model, vocab)`` weight, made once per
+        embedding tensor and kept on the model."""
+        return self._tied_head.weight(params["embed"], self.cfg.dtype)
+
+    # -- encoder ----------------------------------------------------------------
+    def encode(self, params: Params, frames: torch.Tensor, *,
+               div: Optional[Dict[str, int]] = None) -> torch.Tensor:
+        """The encoder's output (B, F, D) over the frame embeddings (B, F, D)."""
+        cfg = self.cfg
+        div = div or {}
+        dt = as_dtype(cfg.dtype)
+        f = frames.shape[1]
+        x = frames.to(dt) + sinusoid(torch.arange(f, device=frames.device), cfg.d_model).to(dt)
+        for i in range(cfg.n_enc_layers):
+            p = _map(lambda a: a[i], params["enc_layers"])
+            h = L.norm_apply(p["norm1"], x, cfg)
+            a, _ = L.attn_apply(p["attn"], h, cfg, div=div, mask_kind="bidir", use_rope=False)
+            x = x + a
+            h = L.norm_apply(p["norm2"], x, cfg)
+            x = x + L.mlp_apply(p["mlp"], h, cfg, div=div)
+        return L.norm_apply(params["enc_final_norm"], x, cfg)
+
+    # -- decoder ---------------------------------------------------------------
+    def _cross_kv(self, p, enc_out, div) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A decoder layer's cross-attention K/V (B, F, KV, dh) of the
+        encoder's output."""
+        cfg = self.cfg
+        b, f = enc_out.shape[:2]
+        db, dtp = div.get("batch", 1), div.get("model", 1)
+        return tuple(gemm(enc_out, p["cross_attn"][f"w{key}"], divisors=(db, dtp, 1),
+                          tag=f"xattn.{key}").reshape(b, f, cfg.n_kv_heads, cfg.d_head)
+                     for key in "kv")
+
+    def _dec_stack(self, params, x, enc_out, *, div, positions, cache=None, cur_pos=None):
+        """The decoder layers over ``x`` (B, S, D). Without ``cache``: the
+        cross K/V from ``enc_out``; returns (x, each layer's fresh
+        ``{"attn": K/V, "cross": K/V}``). With ``cache``: one step at
+        ``cur_pos``, the self-attention rows written in place and the cross
+        K/V read from it; returns (x, None)."""
+        cfg = self.cfg
+        fresh = []
+        for i in range(cfg.n_layers):
+            p = _map(lambda a: a[i], params["dec_layers"])
+            layer = None if cache is None else {key: leaf[i] for key, leaf in cache["attn"].items()}
+            h = L.norm_apply(p["norm1"], x, cfg)
+            a, kv = L.attn_apply(p["self_attn"], h, cfg, div=div, positions=positions,
+                                 use_rope=False, cache=layer, cur_pos=cur_pos)
+            x = x + a
+            h = L.norm_apply(p["norm2"], x, cfg)
+            if cache is None:
+                ck, cv = self._cross_kv(p, enc_out, div)
+                fresh.append({"attn": kv, "cross": {"k": ck, "v": cv}})
+            else:
+                ck, cv = cache["cross"]["k"][i], cache["cross"]["v"][i]
+            a, _ = L.attn_apply(p["cross_attn"], h, cfg, div=div, use_rope=False,
+                                kv_override=(ck, cv))
+            x = x + a
+            h = L.norm_apply(p["norm3"], x, cfg)
+            x = x + L.mlp_apply(p["mlp"], h, cfg, div=div)
+        return x, (fresh if cache is None else None)
+
+    def _dec_embed(self, params, tokens, positions):
+        dt = as_dtype(self.cfg.dtype)
+        return params["embed"][tokens].to(dt) + sinusoid(positions, self.cfg.d_model).to(dt)
+
+    def _head(self, params, x, div):
+        cfg = self.cfg
+        return gemm(x, self.head_weight(params),
+                    divisors=(div.get("batch", 1), div.get("model", 1), 1), tag="lm_head",
+                    out_dtype=cfg.dtype)
+
+    # -- public ----------------------------------------------------------------
+    def forward(self, params: Params, frames: torch.Tensor, dec_tokens: torch.Tensor, *,
+                div: Optional[Dict[str, int]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Teacher-forced logits (B, S, V) of ``dec_tokens`` (B, S) over the
+        frame embeddings ``frames`` (B, F, D), and a zero aux loss."""
+        div = div or {}
+        enc_out = self.encode(params, frames, div=div)
+        positions = torch.arange(dec_tokens.shape[1], device=dec_tokens.device)
+        x = self._dec_embed(params, dec_tokens, positions)
+        x, _ = self._dec_stack(params, x, enc_out, div=div, positions=positions)
+        x = L.norm_apply(params["final_norm"], x, self.cfg)
+        return self._head(params, x, div), torch.zeros((), dtype=torch.float32,
+                                                       device=dec_tokens.device)
+
+    # -- serving -----------------------------------------------------------------
+    def cache_specs(self, batch: int, max_seq: int) -> Params:
+        """The ArraySpec tree of the decode cache (``repro``'s): ``attn``
+        and ``cross``, ``{"k", "v"}`` each, (L, batch, max_seq, KV, dh) and
+        (L, batch, enc_frames, KV, dh) in the model dtype."""
+        cfg = self.cfg
+        n, kv, dh = cfg.n_layers, cfg.n_kv_heads, cfg.d_head
+        axes = ("stack", "batch", "kv_seq", "kv_heads", None)
+        return {
+            "attn": {key: ArraySpec((n, batch, max_seq, kv, dh), cfg.dtype, axes, init="zeros")
+                     for key in "kv"},
+            "cross": {key: ArraySpec((n, batch, cfg.enc_frames, kv, dh), cfg.dtype, axes,
+                                     init="zeros") for key in "kv"},
+        }
+
+    def init_cache(self, batch: int, max_seq: int, device=None):
+        """The zeroed decode cache on ``device`` (the card unless
+        ``device='cpu'``)."""
+        return _zeros(self.cache_specs(batch, max_seq), resolve_device(device))
+
+    def prefill(self, params: Params, frames: torch.Tensor, dec_tokens: torch.Tensor, *,
+                max_seq: Optional[int] = None, div: Optional[Dict[str, int]] = None):
+        """Encode ``frames`` (B, F, D), run the decoder prompt ``dec_tokens``
+        (B, S), and build the decode cache (the prompt's self-attention rows,
+        the cross K/V). Returns (last-position logits (B, 1, V), cache)."""
+        cfg = self.cfg
+        div = div or {}
+        b, s = dec_tokens.shape
+        enc_out = self.encode(params, frames, div=div)
+        positions = torch.arange(s, device=dec_tokens.device)
+        x = self._dec_embed(params, dec_tokens, positions)
+        x, fresh = self._dec_stack(params, x, enc_out, div=div, positions=positions)
+        x = L.norm_apply(params["final_norm"], x, cfg)
+        logits = self._head(params, x[:, -1:], div)
+        cache = _zeros(self.cache_specs(b, max_seq or s), dec_tokens.device)
+        for i, entry in enumerate(fresh):
+            for key in "kv":
+                cache["attn"][key][i, :, :s] = entry["attn"][key]
+                cache["cross"][key][i] = entry["cross"][key]
+        return logits, cache
+
+    def decode_step(self, params: Params, cache, tokens: torch.Tensor, cur_pos: torch.Tensor,
+                    *, div: Optional[Dict[str, int]] = None):
+        """One decode step: ``tokens`` (B, 1) at ``cur_pos`` (B,). The
+        self-attention cache is updated in place; the cross K/V are read as
+        they are. Returns (logits (B, 1, V), cache)."""
+        div = div or {}
+        positions = cur_pos[:, None]
+        x = self._dec_embed(params, tokens, positions)
+        x, _ = self._dec_stack(params, x, None, div=div, positions=positions, cache=cache,
+                               cur_pos=cur_pos)
+        x = L.norm_apply(params["final_norm"], x, self.cfg)
+        return self._head(params, x, div), cache

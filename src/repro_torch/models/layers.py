@@ -1,5 +1,5 @@
-"""Model building blocks (counterpart of the dense and global-MoE parts of
-``repro.models.layers``).
+"""Model building blocks (counterpart of the dense, global-MoE, encoder and
+cross-attention parts of ``repro.models.layers``).
 
 Every projection routes through :func:`repro_torch.core.gemm.gemm` (the MoE
 expert projections through :func:`~repro_torch.core.gemm.gemm_grouped`), so
@@ -237,8 +237,10 @@ def attn_apply(
     positions: Optional[torch.Tensor] = None,  # (S,) or (B, S)
     cache: Optional[Dict[str, torch.Tensor]] = None,  # k/v (B, S_max, KV, dh) [+ scales]
     cur_pos: Optional[torch.Tensor] = None,  # (B,) decode position
+    kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # cross-attention k, v
+    use_rope: bool = True,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """GQA attention.
+    """GQA attention (RoPE on q and k unless ``use_rope=False``).
 
     * prefill (``cache is None``): chunked attention over ``x`` itself;
       returns the fresh ``{"k", "v"}`` of the prompt for the caller's cache.
@@ -252,18 +254,34 @@ def attn_apply(
     * chunked prefill (``cache`` + ``cur_pos``, S tokens): the same, with
       the chunk's S rows written at ``cur_pos .. cur_pos + S - 1`` and each
       query row attending over the cache prefix and the chunk's causal span.
+    * cross-attention (``kv_override``, the encoder's (k, v), each
+      (B, Sk, KV, dh)): only the query projection runs, and every query row
+      attends over all of ``k``/``v`` (the ``bidir`` mask); nothing is
+      cached, and the second return value is None.
     """
     b, s, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     db, dtp = div.get("batch", 1), div.get("model", 1)
 
     q = gemm(x, p["wq"], divisors=(db, dtp, 1), tag="attn.q").reshape(b, s, h, dh)
-    knew = gemm(x, p["wk"], divisors=(db, dtp, 1), tag="attn.k").reshape(b, s, kv, dh)
-    vnew = gemm(x, p["wv"], divisors=(db, dtp, 1), tag="attn.v").reshape(b, s, kv, dh)
     if positions is None:
         positions = torch.arange(s, device=x.device)
-    q = rope(q, positions, cfg.rope_theta)
-    knew = rope(knew, positions, cfg.rope_theta)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+    if kv_override is not None:
+        if cache is not None:
+            raise ValueError("cross-attention reads kv_override and keeps no cache")
+        k_full, v_full = kv_override
+        out = chunked_attention(
+            q, k_full, v_full, mask_kind="bidir", q_positions=torch.arange(s, device=x.device),
+            k_positions=torch.arange(k_full.shape[1], device=x.device), chunk=cfg.attn_chunk,
+        )
+        y = gemm(out.reshape(b, s, h * dh), p["wo"], divisors=(db, 1, dtp), tag="attn.o")
+        return y, None
+    knew = gemm(x, p["wk"], divisors=(db, dtp, 1), tag="attn.k").reshape(b, s, kv, dh)
+    vnew = gemm(x, p["wv"], divisors=(db, dtp, 1), tag="attn.v").reshape(b, s, kv, dh)
+    if use_rope:
+        knew = rope(knew, positions, cfg.rope_theta)
 
     if cache is not None:
         if cur_pos is None:

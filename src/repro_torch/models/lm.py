@@ -1,5 +1,5 @@
-"""Decoder-only LM (counterpart of the dense and MoE families of
-``repro.models.lm``).
+"""Decoder-only LM (counterpart of ``repro.models.lm``): the dense, MoE,
+SSM (mamba2), hybrid (zamba2) and VLM (llava) families.
 
 Parameters keep the JAX package's tree and layout — ``layers`` leaves are
 stacked ``(L, ...)``, and a tied model has no ``lm_head`` leaf — so
@@ -12,7 +12,24 @@ per layer in place of ``repro``'s scanned flags. The decode cache is one
 stacked ``(L, B, S_max, KV, dh)`` pair written in place (int8, with f32
 ``(L, B, S_max, KV)`` scales, under ``kv_cache_dtype="int8"``); with
 ``window_cache`` a local:global stack keeps ``window``-slot rings for its
-local layers and full stripes for its global ones.
+local layers and full stripes for its global ones. An SSM or hybrid layer
+is a Mamba2 block (:mod:`repro_torch.models.ssd`); its decode state is the
+stacked ``ssm`` subtree, ``h`` (L, B, nh, dh, ds) in f32 and the conv tail
+(L, B, width - 1, conv_dim), also written in place.
+
+The hybrid's shared (weight-tied) attention and MLP block runs only at the
+layers ``layer_flags()["use_attn"]`` marks (every ``attn_every``-th).
+``repro`` runs it at every layer and multiplies its output by a 0/1 gate;
+at an unmarked layer that adds exactly 0, so the logits are the same, and
+a decode step reads the shared block's weights 6 times where the gate would
+read them 38 (zamba2-1.2b). The cache keeps ``repro``'s layout, one
+attention entry per layer, but only the marked layers' rows are written and
+read (``repro`` also writes the unmarked layers' rows at prefill, and never
+uses them).
+
+A VLM's prompt may carry ``patch_embeds`` (B, P, D), the stubbed vision
+frontend's output: they take the first P positions, and the first S - P
+token embeddings follow them (``forward`` and ``prefill``).
 """
 
 from __future__ import annotations
@@ -27,6 +44,7 @@ from repro_torch.core.gemm import as_dtype, gemm
 from repro_torch.core.quant import QuantizedTensor, quantize_lm_params
 from repro_torch.dist.sharding import ArraySpec, init_leaf
 from repro_torch.models import layers as L
+from repro_torch.models import ssd
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
@@ -95,25 +113,42 @@ def params_from_jax(tree, device=None) -> Params:
     return _map(leaf, tree)
 
 
+class TiedHead:
+    """The ``(d_model, vocab)`` weight a tied head reads: a contiguous copy
+    of ``embed.T`` in the model dtype (the kernels read row-major operands).
+    The copy is made once per embedding tensor and kept, so a dispatch never
+    copies the table; an in-place write to the embedding (its version
+    moves) or another embedding tensor rebuilds it."""
+
+    def __init__(self):
+        #: (weak reference to the embedding it was built from, that tensor's
+        #: version, the copy)
+        self._entry = None
+
+    def weight(self, embed: torch.Tensor, dtype) -> torch.Tensor:
+        entry = self._entry
+        if entry is None or entry[0]() is not embed or entry[1] != embed._version:
+            self._entry = None  # free the old copy before the new one is made
+            head = embed.T.to(as_dtype(dtype)).contiguous()
+            self._entry = (weakref.ref(embed), embed._version, head)
+        return self._entry[2]
+
+
 class LM:
-    """The LM: embed -> L x (norm, GQA attention, norm, MLP or MoE) -> norm ->
-    lm_head (or, tied, the embedding's transpose), every projection through
-    the Stream-K++ dispatch."""
+    """The LM: embed (a VLM's patch embeddings first) -> L x (norm, GQA
+    attention, norm, MLP or MoE; or norm, Mamba2 block, and at the hybrid's
+    marked layers the shared attention and MLP block) -> norm -> lm_head
+    (or, tied, the embedding's transpose), every projection through the
+    Stream-K++ dispatch."""
 
     def __init__(self, cfg: ModelConfig):
-        if cfg.family not in ("dense", "moe"):
-            raise NotImplementedError(
-                f"the port serves the dense and moe families, not {cfg.family!r}: the "
-                "ssm/hybrid block (models/ssd.py), the encoder-decoder and the VLM frontend "
-                "are not ported yet (ROADMAP A7)"
-            )
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm"):
+            raise ValueError(f"LM serves the decoder-only families, not {cfg.family!r}")
         if cfg.kv_cache_dtype not in ("model", "int8"):
             raise ValueError(f"kv_cache_dtype must be 'model' or 'int8', not "
                              f"{cfg.kv_cache_dtype!r}")
         self.cfg = cfg
-        #: the tied head: (weak reference to the embedding it was built from,
-        #: that tensor's version, the contiguous (d_model, vocab) copy)
-        self._tied_head = None
+        self._tied_head = TiedHead()
 
     # -- parameters ---------------------------------------------------------
     def quantize_weights(
@@ -131,13 +166,20 @@ class LM:
         quantizable keys)."""
         return quantize_lm_params(params, bits=bits, act_bits=act_bits)
 
+    @property
+    def _has_ssm(self) -> bool:
+        return self.cfg.family in ("ssm", "hybrid")
+
     def layer_flags(self) -> Dict[str, List[bool]]:
         """Per-layer flags: ``is_global``, gemma3's local:global pattern
         ``...LLLLLG`` (every ``global_every``-th layer is global; every layer
-        is without it)."""
+        is without it), and ``use_attn``, the layers where the hybrid's
+        shared block runs (``i % attn_every == attn_every - 1``; none
+        without it)."""
         cfg = self.cfg
-        g = cfg.global_every
-        return {"is_global": [not g or (i + 1) % g == 0 for i in range(cfg.n_layers)]}
+        g, a = cfg.global_every, cfg.attn_every
+        return {"is_global": [not g or (i + 1) % g == 0 for i in range(cfg.n_layers)],
+                "use_attn": [bool(a) and i % a == a - 1 for i in range(cfg.n_layers)]}
 
     def _windows(self) -> List[Tuple[str, int]]:
         """(mask kind, window) of each layer: local layers of a windowed
@@ -152,20 +194,28 @@ class LM:
         """The ArraySpec tree of the parameters (``repro``'s tree and layout)."""
         cfg = self.cfg
         d, v = cfg.d_model, cfg.vocab_size
-        layer = {
-            "norm1": L.norm_spec(cfg),
-            "attn": L.attn_specs(cfg),
-            "norm2": L.norm_spec(cfg),
-        }
-        if cfg.family == "moe":
-            layer["moe"] = L.moe_specs(cfg)
+        layer = {"norm1": L.norm_spec(cfg)}
+        if self._has_ssm:
+            layer["ssm"] = ssd.ssd_specs(cfg)
         else:
-            layer["mlp"] = L.mlp_specs(cfg)
+            layer["attn"] = L.attn_specs(cfg)
+            layer["norm2"] = L.norm_spec(cfg)
+            if cfg.family == "moe":
+                layer["moe"] = L.moe_specs(cfg)
+            else:
+                layer["mlp"] = L.mlp_specs(cfg)
         specs = {
             "embed": ArraySpec((v, d), cfg.dtype, ("vocab", "embed")),
             "layers": _stack_specs(layer, cfg.n_layers),
             "final_norm": L.norm_spec(cfg),
         }
+        if cfg.family == "hybrid" and cfg.attn_every:
+            specs["shared_attn"] = {
+                "norm1": L.norm_spec(cfg),
+                "attn": L.attn_specs(cfg),
+                "norm2": L.norm_spec(cfg),
+                "mlp": L.mlp_specs(cfg),
+            }
         if not cfg.tie_embeddings:
             specs["lm_head"] = ArraySpec((d, v), cfg.dtype, ("embed", "vocab"))
         return specs
@@ -180,25 +230,24 @@ class LM:
         return _map(lambda s: init_leaf(s, generator, dev), self.param_specs())
 
     # -- embedding / head -----------------------------------------------------
-    def _embed(self, params, tokens):
-        return params["embed"][tokens].to(as_dtype(self.cfg.dtype))
+    def _embed(self, params, tokens, patch_embeds=None):
+        """Token embeddings (B, S, D) in the model dtype; a VLM's
+        ``patch_embeds`` (B, P, D) take the first P positions and the first
+        S - P token embeddings follow."""
+        dt = as_dtype(self.cfg.dtype)
+        x = params["embed"][tokens].to(dt)
+        if self.cfg.family == "vlm" and patch_embeds is not None:
+            p = patch_embeds.to(dt)
+            x = torch.cat([p, x[:, :x.shape[1] - p.shape[1]]], dim=1)
+        return x
 
     def head_weight(self, params) -> torch.Tensor:
         """The ``(d_model, vocab)`` weight the head reads: ``lm_head``, or,
-        with tied embeddings, a contiguous copy of ``embed.T`` in the model
-        dtype (the kernels read row-major operands). The copy is made once
-        per embedding tensor and kept on the model, so a decode step never
-        copies the table; an in-place write to the embedding (its version
-        moves) or another parameter tree rebuilds it."""
+        with tied embeddings, :class:`TiedHead`'s copy of ``embed.T``, made
+        once per embedding tensor and kept on the model."""
         if not self.cfg.tie_embeddings:
             return params["lm_head"]
-        embed = params["embed"]
-        cached = self._tied_head
-        if cached is None or cached[0]() is not embed or cached[1] != embed._version:
-            self._tied_head = None  # free the old copy before the new one is made
-            head = embed.T.to(as_dtype(self.cfg.dtype)).contiguous()
-            self._tied_head = (weakref.ref(embed), embed._version, head)
-        return self._tied_head[2]
+        return self._tied_head.weight(params["embed"], self.cfg.dtype)
 
     def _head(self, params, x, div):
         return gemm(
@@ -209,9 +258,41 @@ class LM:
             out_dtype=self.cfg.dtype,
         )
 
+    def _block(self, params, i, x, *, div, positions, window, cache=None, cur_pos=None):
+        """Layer ``i`` of the stack; ``window`` is its (mask kind, window),
+        ``cache`` the whole decode cache or None. Returns (x, its fresh cache
+        entries, ``{"attn": K/V}`` and/or ``{"ssm": state}``, the MoE aux
+        loss or 0). Against a cache, every entry is written in place."""
+        p = self._layer_params(params, i)
+        attn_cache = None if cache is None or "attn" not in cache else {
+            key: leaf[i] for key, leaf in cache["attn"].items()}
+        if not self._has_ssm:
+            x, kv, aux = self._layer(p, x, div=div, positions=positions, window=window,
+                                     cache=attn_cache, cur_pos=cur_pos)
+            return x, {"attn": kv}, aux
+        cfg = self.cfg
+        state = None if cache is None else {key: leaf[i] for key, leaf in cache["ssm"].items()}
+        h = L.norm_apply(p["norm1"], x, cfg)
+        out, new_state = ssd.ssd_apply(p["ssm"], h, cfg, div=div, state=state)
+        x = x + out
+        fresh = {"ssm": new_state}
+        if state is not None:
+            for key, leaf in new_state.items():
+                state[key].copy_(leaf)
+        if cfg.family == "hybrid" and self.layer_flags()["use_attn"][i]:
+            shared = params["shared_attn"]
+            h = L.norm_apply(shared["norm1"], x, cfg)
+            out, fresh["attn"] = L.attn_apply(shared["attn"], h, cfg, div=div,
+                                              positions=positions, cache=attn_cache,
+                                              cur_pos=cur_pos)
+            x = x + out
+            h = L.norm_apply(shared["norm2"], x, cfg)
+            x = x + L.mlp_apply(shared["mlp"], h, cfg, div=div)
+        return x, fresh, 0.0
+
     def _layer(self, p, x, *, div, positions, window, cache=None, cur_pos=None):
-        """One decoder layer; ``window`` is the layer's (mask kind, window).
-        Returns (x, fresh or cached K/V, the MoE aux loss or 0)."""
+        """One attention layer; ``window`` is the layer's (mask kind,
+        window). Returns (x, fresh or cached K/V, the MoE aux loss or 0)."""
         cfg = self.cfg
         mask_kind, win = window
         h = L.norm_apply(p["norm1"], x, cfg)
@@ -231,17 +312,18 @@ class LM:
 
     # -- teacher forcing ---------------------------------------------------------
     def forward(self, params: Params, tokens: torch.Tensor, *,
-                div: Optional[Dict[str, int]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Teacher-forced logits (B, S, V) of ``tokens`` (B, S) and the summed
-        MoE aux load-balance loss (0 for a dense model)."""
+                div: Optional[Dict[str, int]] = None,
+                patch_embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Teacher-forced logits (B, S, V) of ``tokens`` (B, S) (a VLM's
+        ``patch_embeds`` first) and the summed MoE aux load-balance loss (0
+        for the other families)."""
         cfg = self.cfg
         div = div or {}
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, patch_embeds)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for i, window in enumerate(self._windows()):
-            x, _, aux_i = self._layer(self._layer_params(params, i), x, div=div,
-                                      positions=positions, window=window)
+            x, _, aux_i = self._block(params, i, x, div=div, positions=positions, window=window)
             aux = aux + aux_i
         x = L.norm_apply(params["final_norm"], x, cfg)
         return self._head(params, x, div), aux
@@ -251,29 +333,46 @@ class LM:
         """The ArraySpec tree of the decode cache (``repro``'s): ``{"attn":
         {"k", "v"}}``, each ``(L, batch, max_seq, KV, dh)`` in the model
         dtype, or int8 with f32 ``k_scale``/``v_scale`` ``(L, batch,
-        max_seq, KV)`` under ``kv_cache_dtype="int8"``; a dense local:global
-        stack with ``window_cache`` gets :meth:`cache_specs_windowed`."""
+        max_seq, KV)`` under ``kv_cache_dtype="int8"``; for the SSM and the
+        hybrid ``{"ssm": {"h", "conv"}}``, ``h`` ``(L, batch, nh, dh, ds)``
+        in f32 and ``conv`` ``(L, batch, width - 1, conv_dim)`` in the model
+        dtype, beside the hybrid's ``attn``; a dense local:global stack with
+        ``window_cache`` gets :meth:`cache_specs_windowed`."""
         if self._ring_cache:
             return self.cache_specs_windowed(batch, max_seq)
         return self._uniform_cache_specs(batch, max_seq)
 
     @property
     def _ring_cache(self) -> bool:
-        """Whether decode keeps ring caches: ``window_cache`` on a dense
-        local:global stack (``repro``'s condition)."""
+        """Whether decode keeps ring caches: ``window_cache`` on a dense or
+        VLM local:global stack (``repro``'s condition)."""
         cfg = self.cfg
-        return bool(cfg.window_cache and cfg.global_every and cfg.family == "dense")
+        return bool(cfg.window_cache and cfg.global_every and cfg.family in ("dense", "vlm"))
 
     def _uniform_cache_specs(self, batch: int, max_seq: int) -> Params:
         cfg = self.cfg
-        shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.d_head)
-        axes = ("stack", "batch", "kv_seq", "kv_heads", None)
-        kv_dt = "int8" if cfg.kv_cache_dtype == "int8" else cfg.dtype
-        attn = {key: ArraySpec(shape, kv_dt, axes, init="zeros") for key in "kv"}
-        if cfg.kv_cache_dtype == "int8":
-            for key in "kv":
-                attn[f"{key}_scale"] = ArraySpec(shape[:-1], "float32", axes[:-1], init="zeros")
-        return {"attn": attn}
+        n = cfg.n_layers
+        out = {}
+        if cfg.family != "ssm":
+            shape = (n, batch, max_seq, cfg.n_kv_heads, cfg.d_head)
+            axes = ("stack", "batch", "kv_seq", "kv_heads", None)
+            kv_dt = "int8" if cfg.kv_cache_dtype == "int8" else cfg.dtype
+            attn = {key: ArraySpec(shape, kv_dt, axes, init="zeros") for key in "kv"}
+            if cfg.kv_cache_dtype == "int8":
+                for key in "kv":
+                    attn[f"{key}_scale"] = ArraySpec(shape[:-1], "float32", axes[:-1],
+                                                     init="zeros")
+            out["attn"] = attn
+        if self._has_ssm:
+            nh, dh, ds = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+            conv_dim = cfg.d_inner + 2 * ds
+            out["ssm"] = {
+                "h": ArraySpec((n, batch, nh, dh, ds), "float32",
+                               ("stack", "batch", "ssm_inner", None, None), init="zeros"),
+                "conv": ArraySpec((n, batch, cfg.ssm_conv_width - 1, conv_dim), cfg.dtype,
+                                  ("stack", "batch", None, "ssm_inner"), init="zeros"),
+            }
+        return out
 
     def _layer_split(self) -> Tuple[List[int], List[int]]:
         """The local and the global layers' indices, each in layer order:
@@ -362,20 +461,26 @@ class LM:
         return self._head(params, x, div), cache
 
     def prefill(self, params: Params, tokens: torch.Tensor, *, max_seq: Optional[int] = None,
-                div: Optional[Dict[str, int]] = None):
-        """Run the prompt ``tokens`` (B, S), build the uniform decode cache
-        (also under ``window_cache``: ``windowed_cache_from_uniform`` makes
-        the windowed one from it). Returns
+                div: Optional[Dict[str, int]] = None,
+                patch_embeds: Optional[torch.Tensor] = None):
+        """Run the prompt ``tokens`` (B, S) (a VLM's ``patch_embeds`` first),
+        build the uniform decode cache (also under ``window_cache``:
+        ``windowed_cache_from_uniform`` makes the windowed one from it); an
+        SSM layer hands its final state and conv tail over. Returns
         (last-position logits (B, 1, V), cache)."""
         cfg = self.cfg
         div = div or {}
         b, s = tokens.shape
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, patch_embeds)
         positions = torch.arange(s, device=tokens.device)
         cache = _zeros(self._uniform_cache_specs(b, max_seq or s), tokens.device)
         for i, window in enumerate(self._windows()):
-            x, kv, _ = self._layer(self._layer_params(params, i), x, div=div,
-                                   positions=positions, window=window)
+            x, fresh, _ = self._block(params, i, x, div=div, positions=positions, window=window)
+            for key, leaf in fresh.get("ssm", {}).items():
+                cache["ssm"][key][i] = leaf
+            kv = fresh.get("attn")
+            if kv is None:
+                continue
             for key in "kv":
                 if cfg.kv_cache_dtype == "int8":
                     cache["attn"][key][i, :, :s], cache["attn"][f"{key}_scale"][i, :, :s] = (
@@ -425,8 +530,6 @@ class LM:
         x = self._embed(params, tokens)
         positions = cur_pos[:, None] + torch.arange(tokens.shape[1], device=tokens.device)
         for i, window in enumerate(self._windows()):
-            layer_cache = {key: leaf[i] for key, leaf in cache["attn"].items()}
-            x, _, _ = self._layer(self._layer_params(params, i), x, div=div,
-                                  positions=positions, window=window, cache=layer_cache,
-                                  cur_pos=cur_pos)
+            x, _, _ = self._block(params, i, x, div=div, positions=positions, window=window,
+                                  cache=cache, cur_pos=cur_pos)
         return L.norm_apply(params["final_norm"], x, self.cfg)

@@ -1,0 +1,199 @@
+"""The Mamba2 / SSD block (state-space duality, arXiv:2405.21060), the
+port's counterpart of ``repro.models.ssd``.
+
+Prefill runs the chunked SSD algorithm: a quadratic "attention" inside each
+chunk of ``ssm_chunk`` steps and a linear recurrence of the state across
+chunks (a Python loop over the chunks in place of ``lax.scan``). Decode
+carries the ``(heads, d_head, d_state)`` state and the conv tail per layer
+and costs O(1) a token. Both projections go through
+:func:`repro_torch.core.gemm.gemm` under ``repro``'s tags (``ssm.in``,
+``ssm.out``), so the selector sees the same dispatches; the scan, the
+depthwise conv and the gates are plain torch ops, as they are plain ``jnp``
+ops in ``repro``.
+
+``repro``'s three-operand einsums are contracted pairwise here, so no
+``(B, nc, Q, Q, nh, dh)`` product is ever formed: at mamba2-1.3b's width
+(Q = 256, nh = dh = 64) that would be 1.07 GB a layer in f32. The scan runs
+in f32 throughout, and the casts to the model dtype sit where ``repro``
+puts them: the conv output after its f32 silu, ``y`` before the ``silu(z)``
+gate (which multiplies in the model dtype), and the decode conv in f32.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.gemm import as_dtype, gemm
+from repro_torch.dist.sharding import ArraySpec
+from repro_torch.models.config import ModelConfig
+
+Params = Dict[str, torch.Tensor]
+
+
+def ssd_specs(cfg: ModelConfig) -> Dict[str, ArraySpec]:
+    """Specs of one Mamba2 block (``repro``'s tree and layout)."""
+    d, din, ds, nh = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    conv_dim = din + 2 * ds
+    dt = cfg.dtype
+    return {
+        # the fused input projection: [z (din), x (din), B (ds), C (ds), dt (nh)]
+        "w_in": ArraySpec((d, 2 * din + 2 * ds + nh), dt, ("embed", "ssm_inner")),
+        "conv_w": ArraySpec((cfg.ssm_conv_width, conv_dim), dt, (None, "ssm_inner")),
+        "conv_b": ArraySpec((conv_dim,), dt, ("ssm_inner",), init="zeros"),
+        "a_log": ArraySpec((nh,), "float32", (None,), init="zeros"),
+        "d_skip": ArraySpec((nh,), "float32", (None,), init="ones"),
+        "dt_bias": ArraySpec((nh,), "float32", (None,), init="zeros"),
+        "w_out": ArraySpec((din, d), dt, ("ssm_inner", "embed")),
+    }
+
+
+def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
+    """(z, xBC, dt) of the fused projection's output."""
+    din, ds = cfg.d_inner, cfg.ssm_state
+    return (zxbcdt[..., :din], zxbcdt[..., din:2 * din + 2 * ds],
+            zxbcdt[..., 2 * din + 2 * ds:])
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over the sequence by shifted adds (the width is
+    tiny), in the input's dtype; the silu runs in f32 and is cast back."""
+    width, s = w.shape[0], xbc.shape[1]
+    out = xbc * w[width - 1]
+    for i in range(1, width):
+        shifted = F.pad(xbc, (0, 0, i, 0))[:, :s]
+        out = out + shifted * w[width - 1 - i]
+    return F.silu((out + b).to(torch.float32)).to(xbc.dtype)
+
+
+def _ssd_chunked(
+    x: torch.Tensor,  # (B, S, nh, dh)
+    dt: torch.Tensor,  # (B, S, nh), softplus'd
+    a: torch.Tensor,  # (nh,), negative
+    b_in: torch.Tensor,  # (B, S, ds)
+    c_in: torch.Tensor,  # (B, S, ds)
+    chunk: int,
+    h0: Optional[torch.Tensor] = None,  # (B, nh, dh, ds) initial state
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD in f32: returns (y (B, S, nh, dh), final state
+    (B, nh, dh, ds)). ``S`` must be a multiple of ``chunk``."""
+    bsz, s, nh, dh = x.shape
+    ds = b_in.shape[-1]
+    nc = s // chunk
+    if nc * chunk != s:
+        raise ValueError(f"seq {s} must be a multiple of the chunk {chunk}")
+    f32 = torch.float32
+    xc = x.reshape(bsz, nc, chunk, nh, dh).to(f32)
+    dtc = dt.reshape(bsz, nc, chunk, nh).to(f32)
+    bc = b_in.reshape(bsz, nc, chunk, ds).to(f32)
+    cc = c_in.reshape(bsz, nc, chunk, ds).to(f32)
+
+    da_cs = torch.cumsum(dtc * a, dim=2)  # inclusive cumulative decay in the chunk (<= 0)
+
+    # inside the chunk: L[i, j] = exp(da_cs[i] - da_cs[j]) for i >= j, else 0
+    mask = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool, device=x.device))
+    lmat = torch.where(mask[None, None, :, :, None],
+                       torch.exp(da_cs[:, :, :, None, :] - da_cs[:, :, None, :, :]), 0.0)
+    scores = torch.einsum("bnis,bnjs->bnij", cc, bc)  # (B, nc, Q, Q)
+    weights = (scores[..., None] * lmat).permute(0, 1, 4, 2, 3)  # (B, nc, nh, Qi, Qj)
+    xdt = (xc * dtc[..., None]).permute(0, 1, 3, 2, 4)  # (B, nc, nh, Qj, dh)
+    y_intra = torch.matmul(weights, xdt).permute(0, 1, 3, 2, 4)  # (B, nc, Q, nh, dh)
+
+    # each chunk's contribution to the state: sum_j exp(da_cs[last] - da_cs[j]) dt_j B_j x_j
+    decay_to_end = torch.exp(da_cs[:, :, -1:, :] - da_cs)  # (B, nc, Q, nh)
+    states = torch.einsum("bnjhd,bnjs->bnhds", xc * (decay_to_end * dtc)[..., None], bc)
+    chunk_decay = torch.exp(da_cs[:, :, -1, :])  # (B, nc, nh)
+
+    # across chunks: the state before each chunk, then the final one
+    h = h0.to(f32) if h0 is not None else torch.zeros(bsz, nh, dh, ds, dtype=f32,
+                                                       device=x.device)
+    h_starts = []
+    for n in range(nc):
+        h_starts.append(h)
+        h = h * chunk_decay[:, n, :, None, None] + states[:, n]
+    h_starts = torch.stack(h_starts, dim=1)  # (B, nc, nh, dh, ds)
+
+    # the state's share of the output: y_i += exp(da_cs[i]) * C_i . h_start
+    y_inter = torch.einsum("bnis,bnhds->bnihd", cc, h_starts) * torch.exp(da_cs)[..., None]
+    return (y_intra + y_inter).reshape(bsz, s, nh, dh), h
+
+
+def ssd_apply(
+    p: Params,
+    x: torch.Tensor,  # (B, S, D)
+    cfg: ModelConfig,
+    *,
+    div: Dict[str, int],
+    state: Optional[Dict[str, torch.Tensor]] = None,  # the decode carry
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The Mamba2 block. Without ``state`` (or with S > 1): the causal conv
+    and the chunked SSD over the prompt, the prompt padded to the chunk with
+    steps that leave the state as it was (``dt`` = 0 after the softplus:
+    decay 1, input 0). With ``state`` and one token: the O(1) recurrence.
+    Returns (output (B, S, D), the new state ``{"h", "conv"}``: new tensors,
+    ``state`` is left as it was)."""
+    bsz, s, _ = x.shape
+    din, ds, nh, dh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    db, dtp = div.get("batch", 1), div.get("model", 1)
+    f32 = torch.float32
+
+    zxbcdt = gemm(x, p["w_in"], divisors=(db, dtp, 1), tag="ssm.in")
+    z, xbc, dt_raw = _split_proj(cfg, zxbcdt)
+    a = -torch.exp(p["a_log"])
+    dt = F.softplus(dt_raw.to(f32) + p["dt_bias"])
+
+    if state is None or s > 1:
+        xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
+        xs = xbc[..., :din].reshape(bsz, s, nh, dh)
+        b_in, c_in = xbc[..., din:din + ds], xbc[..., din + ds:]
+        pad = (-s) % cfg.ssm_chunk
+        y, h_final = _ssd_chunked(
+            F.pad(xs, (0, 0, 0, 0, 0, pad)), F.pad(dt, (0, 0, 0, pad)), a,
+            F.pad(b_in, (0, 0, 0, pad)), F.pad(c_in, (0, 0, 0, pad)), cfg.ssm_chunk,
+            state["h"] if state is not None else None)
+        y = y[:, :s] + xs * p["d_skip"][None, None, :, None]
+        new_state = {"h": h_final, "conv": xbc_raw_tail(zxbcdt, cfg, s)}
+    else:
+        conv_state = state["conv"]  # (B, width - 1, conv_dim)
+        xbc_raw = zxbcdt[:, 0, din:2 * din + 2 * ds]
+        window = torch.cat([conv_state, xbc_raw[:, None]], dim=1)
+        conv_out = torch.einsum("bwc,wc->bc", window.to(f32), p["conv_w"].to(f32))
+        xbc_t = F.silu(conv_out + p["conv_b"].to(f32)).to(x.dtype)
+        xs = xbc_t[:, :din].reshape(bsz, nh, dh).to(f32)
+        b_t, c_t = xbc_t[:, din:din + ds].to(f32), xbc_t[:, din + ds:].to(f32)
+        dt_t = dt[:, 0]  # (B, nh)
+        decay = torch.exp(dt_t * a)
+        h = (state["h"] * decay[:, :, None, None]
+             + (dt_t[:, :, None] * xs)[..., None] * b_t[:, None, None, :])
+        y = torch.einsum("bhds,bs->bhd", h, c_t) + xs * p["d_skip"][None, :, None]
+        y = y[:, None]  # (B, 1, nh, dh)
+        new_state = {"h": h, "conv": torch.cat([conv_state[:, 1:], xbc_raw[:, None]], dim=1)}
+
+    y = y.reshape(bsz, s, din).to(x.dtype)
+    y = y * F.silu(z.to(f32)).to(x.dtype)
+    return gemm(y, p["w_out"], divisors=(db, 1, dtp), tag="ssm.out"), new_state
+
+
+def xbc_raw_tail(zxbcdt: torch.Tensor, cfg: ModelConfig, s: int) -> torch.Tensor:
+    """The last ``ssm_conv_width - 1`` pre-conv inputs of the prompt, the
+    decode conv's cache (left-padded with zeros when the prompt is
+    shorter)."""
+    din, ds, width = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv_width
+    tail = zxbcdt[:, max(0, s - (width - 1)):s, din:2 * din + 2 * ds]
+    if s < width - 1:
+        tail = F.pad(tail, (0, 0, width - 1 - s, 0))
+    return tail
+
+
+def ssd_init_state(cfg: ModelConfig, batch: int, device=None) -> Dict[str, torch.Tensor]:
+    """A zero state: ``h`` (B, nh, dh, ds) in f32 and the conv tail
+    (B, width - 1, conv_dim) in the model dtype."""
+    nh, dh, ds = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    conv_dim = cfg.d_inner + 2 * ds
+    return {
+        "h": torch.zeros(batch, nh, dh, ds, dtype=torch.float32, device=device),
+        "conv": torch.zeros(batch, cfg.ssm_conv_width - 1, conv_dim, dtype=as_dtype(cfg.dtype),
+                            device=device),
+    }

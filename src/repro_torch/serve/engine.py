@@ -1,6 +1,6 @@
 """Batched serving engine with slot-based continuous batching (counterpart of
-the slot engine of ``repro.serve.engine``), for the dense and MoE LMs alike:
-the model carries the difference.
+the slot engine of ``repro.serve.engine``), for every decoder-only family
+alike: the model carries the difference.
 
 ``n_slots`` sequences share one stacked KV cache. New requests are admitted
 into free slots between decode steps, so the decode GEMMs stay at a steady
@@ -231,6 +231,16 @@ class EngineCore:
         return [r for r in seen.values() if r.done]
 
 
+def _place(pool, fresh, slot: int):
+    """Write each leaf of a one-sequence cache tree ``fresh`` (L, 1, ...)
+    into ``pool`` (L, n_slots, ...) at ``slot``, in place."""
+    for key, leaf in fresh.items():
+        if isinstance(leaf, dict):
+            _place(pool[key], leaf, slot)
+        else:
+            pool[key][:, slot] = leaf[:, 0]
+
+
 class ServeEngine(EngineCore):
     """Slot engine: ``n_slots`` sequences share one stacked KV cache out to
     ``max_seq``."""
@@ -294,16 +304,17 @@ class ServeEngine(EngineCore):
         return logits
 
     def _prefill_slot(self, slot: int, req: Request):
-        """Prefill one request, then copy its cache into the shared pool at
-        the slot index."""
+        """Prefill one request, then copy every leaf of its cache into the
+        shared pool at the slot index (K/V rows and their scales, an SSM
+        layer's state and conv tail: a reused slot keeps nothing of the
+        request before)."""
         t0 = self._timer()
         tokens = torch.as_tensor(req.prompt, dtype=torch.long, device=self.device)[None, :]
         with self._dispatch_ctx():
             logits, cache1 = self.model.prefill(
                 self.params, tokens, max_seq=self.cfg.max_seq, div=self.div
             )
-        for key, leaf in cache1["attn"].items():  # k/v, and their scales for an int8 cache
-            self.cache["attn"][key][:, slot] = leaf[:, 0]
+        _place(self.cache, cache1, slot)
         self.pos[slot] = len(req.prompt)
         self.slot_req[slot] = req
         tok = self._sample(logits[0, -1].float().cpu().numpy(), req.temperature)

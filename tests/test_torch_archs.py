@@ -8,8 +8,9 @@ reduced and in f32, with ``repro``'s parameters carried across by
 * Configs: every ``FULL`` and ``reduced()`` field for field, the derived
   properties, ``param_count()``/``active_param_count()`` for all of
   ``repro``'s configs (and the instantiated tree's count for the port's),
-  the shape cells and ``applicable_shapes``; ``build_model`` refuses the
-  encoder-decoder family.
+  the shape cells and ``applicable_shapes``; ``build_model`` builds all ten
+  (``LM``, or ``EncDec`` for whisper), each reduced tree counting
+  ``param_count()``.
 * Each new arch: parameters carried across exactly; ``forward`` logits
   within 1e-4 x max|logit| of ``repro``'s (aux loss too), prefill logits
   and cache rows within 1e-4, and the same greedy tokens as ``repro``'s
@@ -107,8 +108,9 @@ def _close(got, want, tol):
 
 
 def test_port_registers_the_six_archs():
-    assert list_archs() == PORT_ARCHS
-    assert set(PORT_ARCHS) <= set(j_list_archs())
+    """The six dense and MoE archs, among all ten of ``repro``'s."""
+    assert set(PORT_ARCHS) <= set(list_archs())
+    assert list_archs() == sorted(j_list_archs())
 
 
 @pytest.mark.parametrize("arch", PORT_ARCHS)
@@ -148,12 +150,14 @@ def test_instantiated_tree_counts_param_count(arch):
     assert ("lm_head" in params) == (not model.cfg.tie_embeddings)
 
 
-def test_build_model_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A7"):
-        build_model(ModelConfig(**dataclasses.asdict(j_get_reduced("whisper-large-v3"))))
-    for arch in ("mamba2-1.3b", "zamba2-1.2b", "llava-next-34b"):
-        with pytest.raises(NotImplementedError, match="A7"):
-            LM(ModelConfig(**dataclasses.asdict(j_get_reduced(arch))))
+@pytest.mark.parametrize("arch", j_list_archs())
+def test_build_model_builds_every_arch(arch):
+    from repro_torch.models.encdec import EncDec
+
+    cfg = ModelConfig(**dataclasses.asdict(j_get_reduced(arch)))
+    model = build_model(cfg)
+    assert type(model) is (EncDec if cfg.family == "encdec" else LM)
+    assert _count(model.init_params("cpu")) == cfg.param_count()
 
 
 # -- the new archs against repro --------------------------------------------------

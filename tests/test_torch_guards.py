@@ -40,7 +40,10 @@ def test_port_import_leaves_jax_out():
             "repro_torch.serve.scheduler, repro_torch.core.federate, "
             "repro_torch.core.gossip, repro_torch.models, repro_torch.configs.nemotron_4_15b, "
             "repro_torch.configs.gemma3_27b, repro_torch.configs.mistral_large_123b, "
-            "repro_torch.configs.qwen3_moe_235b_a22b, sys; "
+            "repro_torch.configs.qwen3_moe_235b_a22b, repro_torch.models.ssd, "
+            "repro_torch.models.encdec, repro_torch.configs.mamba2_1_3b, "
+            "repro_torch.configs.zamba2_1_2b, repro_torch.configs.llava_next_34b, "
+            "repro_torch.configs.whisper_large_v3, sys; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]")
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
