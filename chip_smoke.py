@@ -227,6 +227,38 @@ Phases (any failure raises and the script exits non-zero):
    prompt's text, max_seq 704, its prefill's and 8 decode steps' logits
    against the ``torch`` backend fed the same tokens, and the planted fault
    of the patches dropped.
+8. Training (``phase_train``), one model on the card at a time: granite-8b
+   and olmoe-1b-7b at full width, their depth cut to 8 of 36 and 4 of 16
+   layers (``TRAIN_CELLS``; their params, gradients and AdamW state, 16
+   bytes a parameter, do not fit one card at full depth), dense bf16,
+   seeded weights, the selector's cost-model path, ``SyntheticLMData(seed
+   0)`` at batch 1 x ``TRAIN_SEQ`` 4096 tokens, per-layer remat, AdamW on
+   ``warmup_cosine(3e-4, 2, steps)``. Each: the instantiated count equal to
+   ``cfg.param_count()``; one step's loss and gradients through the
+   kernels (forward on the hand-written kernels, backward from
+   ``GemmGrad``) against autograd through the ``torch`` backend (the loss
+   within ``TRAIN_LOSS_TOL``, the whole gradient tree within
+   ``TRAIN_GRAD_TOL`` in relative L2, every leaf with a gradient, the
+   worst leaf reported; olmoe with the ``torch`` backend replaying the
+   ``cuda`` run's top-8 choices layer by layer, its own routing reported),
+   and a planted fault, the ``mul_silu`` VJP without the gate's term, that
+   must read at least 3 times the limit; the step's launches, forward,
+   remat recompute and ``GemmGrad``'s accumulator recompute; each forward
+   GEMM at its training shape and pick against the ``torch`` backend's
+   formula, timed beside ``torch.matmul`` and its bound, and the backward's
+   two f32 products timed at the same shapes (``train_gemm_check``); then
+   the slice's main path, ``Trainer.fit`` for ``TRAIN_STEPS`` on one
+   repeated batch with the launch counters zeroed just before and read just
+   after (granite: B1 and/or B2 and no B5; olmoe: B5, and the kernels the
+   f32 router's pick calls for), its losses finite and falling; one more step split by CUDA events
+   (forward, backward, optimizer) and traced (the GEMM kernels' device ms,
+   the library GEMMs', the rest), 6NT over the step time at 989 TFLOP/s,
+   the peak memory; then ``STREAM_STEPS`` of the stream uninterrupted, and
+   the same run checkpointed every 2 steps (``CheckpointManager`` in a
+   temporary directory of the checkout) with a failure injected after step
+   2, and a fresh ``Trainer`` resuming from that checkpoint: the restored
+   state bit for bit the saved one, its steps 3 and 4 within
+   ``RESUME_TOL`` of the uninterrupted run (whether bitwise, reported).
 
 Tolerances: a kernel output ``x`` agrees with its reference ``r`` when
 ``max|x - r| <= tol * max(1, max|r|)``: 1e-4 for f32 inputs (f32 sums in
@@ -260,7 +292,9 @@ it ran (``mainloop``: ``mma`` or ``fma``); B3 has no entry of its own, being
 fused into B2 (``streamk_phase1``); the last line is ``{"ok": true,
 "device": {...}}``. Details go to ``chiprun_out/chip_smoke.json`` (phase 6's
 runs, their launch counts by kernel included, under ``archs``, phase 7's
-under ``families``).
+under ``families``, phase 8's under ``train``). Each kernel entry of the
+served runs also carries ``train_launches``: its launches in phase 8's
+``Trainer.fit``, by trained model.
 """
 
 from __future__ import annotations
@@ -268,10 +302,11 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import numpy as np
@@ -3550,6 +3585,568 @@ def whisper_run(model, params, failures):
                 seconds=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: training
+# ---------------------------------------------------------------------------
+
+#: the trained cells: (arch, layers kept of the full depth), full width
+TRAIN_CELLS = (("granite-8b", 8), ("olmoe-1b-7b", 4))
+TRAIN_SEQ = 4096  # repro's train_4k sequence, one row (its global batch 256 cut to 1)
+TRAIN_STEPS = 6  # Trainer.fit on one repeated batch
+STREAM_STEPS = 4  # Trainer.fit on the stream, checkpointed every 2 steps
+#: one step's loss, the cuda path against the torch backend (relative)
+TRAIN_LOSS_TOL = 1e-2
+#: the whole gradient tree, the cuda path against the torch backend (relative L2)
+TRAIN_GRAD_TOL = 3e-2
+#: the resumed run's losses against the uninterrupted run's (relative)
+RESUME_TOL = 1e-3
+#: the layers of the checkpointed stream run, at full width: one checkpoint
+#: (bf16 params, f32 master, mu and nu) of 8 layers is 30 GB, and a call on
+#: the card may write 45 GiB in all, deletions included
+RESUME_LAYERS = 1
+
+
+class RestoreOnly:
+    """A ``CheckpointManager`` for the resumed run: it restores, and writes
+    nothing (the card's machine allows one checkpoint write a model)."""
+
+    def __init__(self, manager):
+        self.manager = manager
+
+    def __getattr__(self, name):
+        return getattr(self.manager, name)
+
+    def save(self, *args, **kwargs):
+        pass
+
+
+class RepeatedBatch:
+    """A data stream whose every step is ``data``'s batch 0 (the repeated
+    batch, on which the loss must fall); its state is ``data``'s."""
+
+    def __init__(self, data):
+        self.data = data
+
+    @property
+    def state(self):
+        return self.data.state
+
+    def batch_at(self, step):
+        return self.data.batch_at(0)
+
+    def state_dict(self):
+        return self.data.state_dict()
+
+    def load_state_dict(self, d):
+        self.data.load_state_dict(d)
+
+
+def _grad_step(model, params, batch, backend=None, selector=None):
+    """One forward and backward on ``backend`` (None: the cuda kernels with
+    ``GemmGrad``): the loss, {leaf path: gradient or None} (the leaves'
+    ``.grad`` cleared), the selection log, how many of its entries the
+    forward made, the launches of the forward and of the backward by
+    counter, and the forward's and the backward's ms (CUDA events)."""
+    import torch
+
+    from repro_torch.core.gemm import gemm_context
+    from repro_torch.kernels.common import LAUNCHES, reset_launch_counts
+    from repro_torch.utils.trees import tree_items
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    with gemm_context(selector=selector, backend=backend) as ctx:
+        reset_launch_counts()
+        ev[0].record()
+        loss, _ = model.loss_fn(params, batch)
+        ev[1].record()
+        torch.cuda.synchronize()
+        fwd, n_fwd = {k: v for k, v in LAUNCHES.items() if v}, len(ctx.log)
+        reset_launch_counts()
+        loss.backward()
+        ev[2].record()
+        torch.cuda.synchronize()
+        bwd, entries = {k: v for k, v in LAUNCHES.items() if v}, list(ctx.log)
+    grads = {}
+    for name, p in tree_items(params):
+        grads[name], p.grad = p.grad, None
+    return dict(loss=loss.item(), grads=grads, log=entries, n_fwd=n_fwd, fwd=fwd, bwd=bwd,
+                fwd_ms=ev[0].elapsed_time(ev[1]), bwd_ms=ev[1].elapsed_time(ev[2]))
+
+
+def ksplit_backend(parts):
+    """A sound variant of the ``torch`` backend that sums K in ``parts`` f32
+    slices (the same function, another summation order): how far two
+    correct implementations' gradients lie apart."""
+    import torch
+
+    from repro_torch.core.gemm import as_dtype
+
+    def backend(x, w, *, op, policy, cfg, g, bias, operand, **kw):
+        k = x.shape[-1]
+        cut = [k * i // parts for i in range(parts + 1)]
+        acc = sum(torch.matmul(x[..., a:b].float(), w[:, a:b].float())
+                  for a, b in zip(cut, cut[1:]))
+        acc = op.epilogue.apply(acc, bias=None if bias is None else bias[:, None, :],
+                                operand=operand)
+        return acc.to(as_dtype(op.out_dtype))
+
+    return backend
+
+
+def _grad_diff(grads, want):
+    """(the tree's relative L2 distance, [the worst leaf, its relative L2
+    distance]) of ``grads`` from ``want``, in f32; a missing gradient reads
+    as zeros."""
+    num = den = 0.0
+    worst = ["", 0.0]
+    for name, w in want.items():
+        g, wf = grads.get(name), w.float()
+        d2 = (wf if g is None else g.float() - wf).square().sum().item()
+        w2 = wf.square().sum().item()
+        num, den = num + d2, den + w2
+        rel = math.sqrt(d2 / max(w2, 1e-30))
+        if rel > worst[1]:
+            worst = [name, rel]
+    return math.sqrt(num / max(den, 1e-30)), worst
+
+
+@contextmanager
+def routing_by_layer(record=None, replay=None):
+    """Record (into the dict ``record``) or replay (from ``replay``) each MoE
+    layer's top-k expert choice, keyed by the address of the layer's router
+    weight (a view into the stacked router, so a layer's forward and its
+    remat recompute share the key); replayed gates are the layer's own
+    probabilities at the recorded experts."""
+    import torch
+
+    from repro_torch.models import layers
+
+    moe_apply = layers.moe_apply
+
+    def wrapped(p, x, cfg, *, div):
+        key, topk = p["router"].data_ptr(), torch.topk
+
+        def choose(probs, k, dim=-1):
+            if replay is not None:
+                idx = replay[key]
+                return probs.gather(dim, idx), idx
+            vals, idx = topk(probs, k, dim=dim)
+            record.setdefault(key, idx)
+            return vals, idx
+
+        torch.topk = choose
+        try:
+            return moe_apply(p, x, cfg, div=div)
+        finally:
+            torch.topk = topk
+
+    layers.moe_apply = wrapped
+    try:
+        yield
+    finally:
+        layers.moe_apply = moe_apply
+
+
+@contextmanager
+def gate_term_dropped():
+    """The planted fault: ``GemmGrad``'s backward loses the ``mul_silu``
+    gate's term (no gradient reaches the operand), so the gate projections
+    get none and every layer below loses that path's share of dX."""
+    from repro_torch.core import gemm as gemm_mod
+
+    real = gemm_mod.GemmGrad.backward
+
+    def backward(ctx, dout):
+        grads = list(real(ctx, dout))
+        if ctx.kwargs["op"].epilogue.binary == "mul_silu":
+            grads[3] = None
+        return tuple(grads)
+
+    gemm_mod.GemmGrad.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        gemm_mod.GemmGrad.backward = staticmethod(real)
+
+
+def _op_counts(entries):
+    """(tag, op key) -> [its first entry, its dispatches] over a log."""
+    out = {}
+    for e in entries:
+        out.setdefault((e.tag, e.op.key), [e, 0])[1] += 1
+    return out
+
+
+def _kernel_counts(entries):
+    """The launches the selections of ``entries`` call for, by counter."""
+    counts = {}
+    for e in entries:
+        for name in _kernels_of(e):
+            counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
+def train_gemm_check(entries, gen):
+    """Each forward GEMM of a training step (one per (tag, op key)) at its
+    training shape and pick: the kernel against the ``torch`` backend's f32
+    formula with the op's epilogue on seeded operands (2e-2 bf16, 1e-4 f32),
+    then its device ms beside the library call of the same product
+    (``torch.matmul``, batched for the grouped ops; f32 for the router) and
+    the bound, and the two f32 ``torch.matmul`` products of its backward
+    (dX, dW) timed at the same shapes."""
+    import torch
+
+    from repro_torch.core.gemm import as_dtype, get_backend
+
+    cuda, ref_fn = get_backend("cuda"), get_backend("torch")
+    rows = []
+    for (tag, key), (e, n) in _op_counts(entries).items():
+        op, s = e.op, e.selection
+        g, m, nn, k = op.g, op.m, op.n, op.k
+        dt = as_dtype(op.in_dtype)
+        a = torch.randn(g, m, k, generator=gen, device="cuda").to(dt)
+        b = (torch.randn(g, k, nn, generator=gen, device="cuda") / math.sqrt(k)).to(dt)
+        operand = (torch.randn(g, m, nn, generator=gen, device="cuda").to(dt)
+                   if op.epilogue.binary != "none" else None)
+        kw = dict(op=op, policy=s.policy, cfg=s.cfg, g=s.g, bias=None, operand=operand)
+        tol = 2e-2 if dt == torch.bfloat16 else 1e-4
+        err = close(cuda(a, b, **kw), ref_fn(a, b, **kw), tol, f"train {tag} {key}")
+        ms, _ = time_ms(lambda: cuda(a, b, **kw), iters=5, warmup=1)
+        lib, _ = time_ms(lambda: torch.matmul(a, b), iters=5, warmup=1)
+        af, bf = a.float(), b.float()
+        dacc = torch.randn(g, m, nn, generator=gen, device="cuda")
+        dx_ms, _ = time_ms(lambda: torch.matmul(dacc, bf.transpose(1, 2)), iters=5, warmup=1)
+        dw_ms, _ = time_ms(lambda: torch.matmul(af.transpose(1, 2), dacc), iters=5, warmup=1)
+        nbytes = g * (m * k + k * nn + m * nn * (2 if operand is not None else 1)) \
+            * a.element_size()
+        bnd, by = bound_ms(nbytes, 2 * g * m * nn * k,
+                           peak=PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32)
+        rows.append(dict(tag=tag, key=list(key), g=g, m=m, n=nn, k=k, dtype=op.in_dtype,
+                         epilogue=op.epilogue.name, policy=s.policy.name, tile=s.cfg.name,
+                         sel_g=s.g, dispatches=n, kernels=sorted(_kernels_of(e)),
+                         max_abs_err=err, ms=ms, library_ms=lib, bound_ms=bnd, bound_by=by,
+                         bwd_dx_ms=dx_ms, bwd_dw_ms=dw_ms))
+        log(f"  train gemm {tag} {g}x{m}x{nn}x{k} {op.in_dtype} {op.epilogue.name} "
+            f"{s.policy.name}/{s.cfg.name} g={s.g} x{n}: err {err:.2e}, {ms:.4f} ms "
+            f"(torch.matmul {lib:.4f}, bound {bnd:.4f} by {by}); backward f32 dX {dx_ms:.4f}, "
+            f"dW {dw_ms:.4f} ms")
+        del a, b, af, bf, dacc, operand
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _split_step(model, opt, state, batch):
+    """One more training step timed by CUDA events in three parts (forward,
+    backward, optimizer), then one traced by ``torch.profiler``: the device
+    ms of the hand-written GEMM kernels, of the library's GEMMs (the f32
+    attention einsums and the backward's f32 products) and of the rest."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train.trainer import take_grads
+
+    def step(ev=None):
+        def mark(i):
+            if ev:
+                ev[i].record()
+
+        mark(0)
+        loss, _ = model.loss_fn(state["params"], batch)
+        mark(1)
+        loss.backward()
+        mark(2)
+        opt.update(take_grads(state["params"]), state["opt"], state["params"])
+        state["step"] = state["step"] + 1
+        mark(3)
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(ev)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    by_name = device_ms_by_name(prof)
+    ours = sum(v for n, v in by_name.items() if any(f in n for f in GEMM_KERNELS))
+    lib = sum(v for n, v in by_name.items()
+              if "gemm" in n.lower() and not any(f in n for f in GEMM_KERNELS))
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return dict(step_ms=wall, forward_ms=ev[0].elapsed_time(ev[1]),
+                backward_ms=ev[1].elapsed_time(ev[2]), optimizer_ms=ev[2].elapsed_time(ev[3]),
+                # None when the trace holds no device events ("not measured")
+                device_busy_ms=busy or None, gemm_kernels_ms=ours if busy else None,
+                library_gemm_ms=lib if busy else None, other_ms=busy - ours - lib if busy else None,
+                top_kernels=[[n[:90], v] for n, v in top])
+
+
+def _state_bits(state):
+    """{leaf path: a CPU copy of its bits} (bf16 as int16)."""
+    import torch
+
+    from repro_torch.utils.trees import tree_items
+
+    return {name: (t.detach().view(torch.int16) if t.dtype == torch.bfloat16 else t.detach())
+            .to("cpu", copy=True) for name, t in tree_items(state)}
+
+
+def _fresh_state(model, opt):
+    """The train state of the seeded weights (the generator seeded 0)."""
+    import torch
+
+    from repro_torch.train import init_train_state
+
+    params = model.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
+    return init_train_state(model, opt, params)
+
+
+def _free():
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_cell(arch, layers, failures):
+    """Phase 8 for one model (see the module docstring). Returns its record."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.gemm import register_backend
+    from repro_torch.core.selector import default_selector
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels.common import LAUNCHES, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer, warmup_cosine
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train.trainer import to_device_batch
+    from repro_torch.utils.trees import tree_count, tree_items
+
+    t_cell = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    model, moe = build_model(cfg), cfg.family == "moe"
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
+    rec = dict(layers=layers, n_params=tree_count(params), param_count=cfg.param_count(),
+               active_params=cfg.active_param_count())
+    log(f"train {arch} x {layers} layers: {rec['n_params'] / 1e9:.3f} B parameters "
+        f"(cfg.param_count() {cfg.param_count() / 1e9:.3f} B)")
+    if rec["n_params"] != cfg.param_count():
+        failures.append(f"train {arch}: {rec['n_params']} parameters instantiated, "
+                        f"cfg.param_count() {cfg.param_count()}")
+    data = SyntheticLMData(cfg, batch=1, seq_len=TRAIN_SEQ, seed=0)
+    batch = to_device_batch(data.batch_at(0), "cuda")
+    for _, p in tree_items(params):
+        p.requires_grad_(True)
+
+    # -- one step's gradients: the kernels forward with GemmGrad's backward,
+    # against autograd through the torch backend (olmoe's routing replayed)
+    routes = {}
+    with routing_by_layer(record=routes) if moe else nullcontext():
+        run = _grad_step(model, params, batch, selector=default_selector("cuda"))
+    fwd_log, bwd_log = run["log"][: run["n_fwd"]], run["log"][run["n_fwd"]:]
+    remat = _kernel_counts(bwd_log)
+    rec["launches_step"] = dict(
+        forward=run["fwd"], backward=run["bwd"], remat_recompute=remat,
+        accumulator_recompute={k: v - remat.get(k, 0) for k, v in run["bwd"].items()},
+        forward_dispatches=len(fwd_log), remat_dispatches=len(bwd_log))
+    rec["picks"] = {f"{tag} {list(key)}": [e.selection.policy.name, e.selection.cfg.name,
+                                           e.selection.g, n]
+                    for (tag, key), (e, n) in _op_counts(fwd_log).items()}
+    missing = [name for name, g in run["grads"].items() if g is None]
+    if missing:
+        failures.append(f"train {arch}: no gradient reached {missing}")
+    with routing_by_layer(replay=routes) if moe else nullcontext():
+        ref = _grad_step(model, params, batch, backend="torch")
+    loss_rel = abs(run["loss"] - ref["loss"]) / abs(ref["loss"])
+    grad_rel, worst = _grad_diff(run["grads"], ref["grads"])
+    rec["grads"] = dict(loss_cuda=run["loss"], loss_torch=ref["loss"], loss_rel=loss_rel,
+                        tree_rel_l2=grad_rel, worst_leaf=worst,
+                        routing="replayed" if moe else None, every_leaf=not missing,
+                        cuda_forward_ms=run["fwd_ms"], cuda_backward_ms=run["bwd_ms"],
+                        torch_forward_ms=ref["fwd_ms"], torch_backward_ms=ref["bwd_ms"])
+    # the spread between sound implementations: the torch backend summing K
+    # in two halves, against the torch backend (reported)
+    register_backend("torch_ksplit2", ksplit_backend(2), overwrite=True)
+    with routing_by_layer(replay=routes) if moe else nullcontext():
+        variant = _grad_step(model, params, batch, backend="torch_ksplit2")
+    rec["grads"]["sound_variant_tree_rel_l2"] = _grad_diff(variant["grads"], ref["grads"])[0]
+    rec["grads"]["sound_variant_loss_rel"] = abs(variant["loss"] - ref["loss"]) / abs(ref["loss"])
+    del variant
+    if moe:  # the torch backend routing on its own: reported
+        own = _grad_step(model, params, batch, backend="torch")
+        rec["grads"]["own_routing_tree_rel_l2"] = _grad_diff(run["grads"], own["grads"])[0]
+        rec["grads"]["own_routing_loss_rel"] = abs(run["loss"] - own["loss"]) / abs(own["loss"])
+        del own
+    del run
+    # the planted fault, read as the limit is held
+    with gate_term_dropped(), routing_by_layer(replay=routes) if moe else nullcontext():
+        bad = _grad_step(model, params, batch)
+    fault = _grad_diff(bad["grads"], ref["grads"])[0]
+    del bad, ref
+    rec["grads"].update(fault="mul_silu VJP with the gate's term dropped",
+                        fault_tree_rel_l2=fault)
+    log(f"train {arch}: loss cuda {rec['grads']['loss_cuda']:.5f}, torch "
+        f"{rec['grads']['loss_torch']:.5f} (rel {loss_rel:.2e}); gradient tree rel L2 "
+        f"{grad_rel:.3e}, worst leaf {worst[0]} {worst[1]:.3e} (a sound variant, K summed in "
+        f"two halves: {rec['grads']['sound_variant_tree_rel_l2']:.3e}); planted fault (gate term "
+        f"dropped) {fault:.3e}; launches a step {rec['launches_step']}")
+    if not loss_rel <= TRAIN_LOSS_TOL:
+        failures.append(f"train {arch}: loss rel {loss_rel:.3e} > {TRAIN_LOSS_TOL}")
+    if not grad_rel <= TRAIN_GRAD_TOL:
+        failures.append(f"train {arch}: gradient tree rel L2 {grad_rel:.3e} > {TRAIN_GRAD_TOL}")
+    if not fault >= 3 * TRAIN_GRAD_TOL:
+        failures.append(f"train {arch}: planted fault reads {fault:.3e} < 3 x {TRAIN_GRAD_TOL}")
+    rec["grad_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    # -- the forward GEMMs at their training shapes, held and timed
+    rec["gemms"] = train_gemm_check(fwd_log, torch.Generator(device="cuda").manual_seed(1))
+    rec["gemm_ms_step"] = sum(r["ms"] * r["dispatches"] for r in rec["gemms"])
+    rec["library_ms_step"] = sum(r["library_ms"] * r["dispatches"] for r in rec["gemms"])
+    rec["backward_products_ms_step"] = sum((r["bwd_dx_ms"] + r["bwd_dw_ms"]) * r["dispatches"]
+                                           for r in rec["gemms"])
+    del params
+    _free()
+
+    def optimizer(steps):
+        return make_optimizer("adamw", warmup_cosine(3e-4, 2, steps))
+
+    # -- the main path: Trainer.fit on one repeated batch, its launches counted
+    torch.cuda.reset_peak_memory_stats()
+    opt = optimizer(TRAIN_STEPS)
+    state = _fresh_state(model, opt)
+    trainer = Trainer(model, opt, RepeatedBatch(data),
+                      TrainerConfig(total_steps=TRAIN_STEPS, log_every=1))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state = trainer.fit(state)
+    fit_s = time.perf_counter() - t0
+    launches = rec["fit_launches"] = {k: v for k, v in LAUNCHES.items() if v}
+    hist = trainer.history
+    rec["repeated"] = dict(history=hist, seconds=fit_s, ewma_step_s=trainer.monitor.ewma.mean,
+                           stragglers=trainer.monitor.flagged)
+    log(f"train {arch}: repeated batch, {TRAIN_STEPS} steps in {fit_s:.1f}s: {hist}; "
+        f"launches {launches}")
+    if not all(math.isfinite(x) for x in hist) or not hist[-1] < hist[0]:
+        failures.append(f"train {arch}: repeated-batch losses must be finite and fall: {hist}")
+    b5 = sum(n for name, n in launches.items() if name.startswith("grouped"))
+    if moe:
+        # the f32 router runs the kernels its pick calls for at M = 4096 (the
+        # H100 cost model picks DP there: B1 on the f32 FMA loop; B2 at decode)
+        router = [e for e in fwd_log if e.tag == "moe.router"]
+        rec["router_kernels"] = sorted(set().union(*map(_kernels_of, router)))
+        if not b5 or not router or not all(launches.get(k) for k in rec["router_kernels"]):
+            failures.append(f"train {arch}: B5 and the router's kernels "
+                            f"{rec['router_kernels']} must launch: {launches}")
+    elif b5 or not (launches.get("dp_gemm_region") or launches.get("streamk_phase1")):
+        failures.append(f"train {arch}: B1 and/or B2 must launch and B5 must not: {launches}")
+    split = rec["split"] = _split_step(model, opt, state, batch)
+    rec["train_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    step_s = split["step_ms"] / 1e3
+    split["mfu"] = 6 * rec["n_params"] * TRAIN_SEQ / step_s / PEAK_BF16
+    split["mfu_active"] = 6 * rec["active_params"] * TRAIN_SEQ / step_s / PEAK_BF16
+    log(f"train {arch}: a step {split['step_ms']:.1f} ms (forward {split['forward_ms']:.1f}, "
+        f"backward {split['backward_ms']:.1f}, optimizer {split['optimizer_ms']:.1f}); device "
+        f"ms: GEMM kernels {split['gemm_kernels_ms']}, library GEMMs "
+        f"{split['library_gemm_ms']}, other {split['other_ms']}; 6NT / step / 989 TFLOP/s = "
+        f"{split['mfu']:.4f}; peak {rec['train_peak_gb']:.2f} GB")
+    del state, trainer
+    _free()
+
+    # -- the stream, at RESUME_LAYERS: uninterrupted; then checkpointed every
+    # 2 steps with a crash after step 2, and a fresh trainer resuming from
+    # that checkpoint
+    del model
+    _free()
+    cfg = dataclasses.replace(cfg, n_layers=RESUME_LAYERS)
+    model = build_model(cfg)
+
+    def stream_trainer(**kw):
+        opt = optimizer(STREAM_STEPS)
+        tcfg = TrainerConfig(total_steps=STREAM_STEPS, log_every=1, ckpt_every=2, ckpt_keep=1,
+                             async_ckpt=False, ckpt_dir=kw.pop("ckpt_dir", None))
+        data = SyntheticLMData(cfg, batch=1, seq_len=TRAIN_SEQ, seed=0)
+        return opt, Trainer(model, opt, data, tcfg, **kw)
+
+    opt, t_u = stream_trainer()
+    t_u.fit(_fresh_state(model, opt))
+    _free()
+    with tempfile.TemporaryDirectory(prefix=".train_ckpt_", dir=ROOT) as d:
+
+        def crash(step):
+            if step == 2:
+                raise RuntimeError("injected after step 2")
+
+        opt, t_b = stream_trainer(ckpt_dir=d, failure_injector=crash)
+        state = _fresh_state(model, opt)
+        t0 = time.perf_counter()
+        try:
+            t_b.fit(state)
+            failures.append(f"train {arch}: the injected failure did not fire")
+        except RuntimeError as e:
+            if "injected" not in str(e):
+                raise
+        crash_s = time.perf_counter() - t0
+        saved = _state_bits(state)  # the state the step-2 checkpoint holds
+        del state, t_b
+        _free()
+        seen = {}
+
+        def check_restored(step):  # called before each step: the first sees the restore
+            if not seen:
+                seen.update(step=step, s=time.perf_counter() - t0)
+                now = dict(tree_items(state))
+                seen["differ"] = [n for n in saved
+                                  if not torch.equal(saved[n], _state_bits({"x": now[n]})["x"])]
+
+        opt, t_c = stream_trainer(ckpt_dir=d, failure_injector=check_restored)
+        t_c.ckpt = RestoreOnly(t_c.ckpt)
+        state = _fresh_state(model, opt)
+        t0 = time.perf_counter()
+        t_c.fit(state)  # restores IN PLACE into ``state``
+        resumed_s = time.perf_counter() - t0
+        del saved, state
+        ckpt_bytes = sum(os.path.getsize(os.path.join(dp, f))
+                         for dp, _, fs in os.walk(d) for f in fs)
+    u, c, step = t_u.history, t_c.history, seen.get("step")
+    rel = [abs(a - b) / abs(b) for a, b in zip(c, u[2:])]
+    rec["stream"] = dict(layers=RESUME_LAYERS, history=u, resumed_at_step=step, resumed=c,
+                         resumed_rel=rel,
+                         bitwise=c == u[2:], restored_differ=seen.get("differ"),
+                         crash_run_s=crash_s, restore_s=seen.get("s"), resumed_run_s=resumed_s,
+                         checkpoint_gb=ckpt_bytes / 1e9)
+    log(f"train {arch} x {RESUME_LAYERS} layer(s): stream {u}; resumed at step {step}: {c} "
+        f"(rel {rel}, bitwise "
+        f"{c == u[2:]}); restored leaves that differ from the saved state: "
+        f"{seen.get('differ')}; one checkpoint {ckpt_bytes / 1e9:.2f} GB; crash run "
+        f"{crash_s:.1f}s, restore {seen.get('s', 0):.1f}s, resumed run {resumed_s:.1f}s")
+    if step != 2 or seen.get("differ") or len(c) != 2 or not all(r <= RESUME_TOL for r in rel):
+        failures.append(f"train {arch}: the resume from step 2: at step {step}, leaves that "
+                        f"differ {seen.get('differ')}, losses {c} against {u[2:]}")
+    if not all(math.isfinite(x) for x in u + c):
+        failures.append(f"train {arch}: non-finite stream losses {u} {c}")
+    del t_c, t_u, model
+    _free()
+    rec["seconds"] = time.perf_counter() - t_cell
+    log(f"train {arch}: {rec['seconds']:.1f}s")
+    return rec
+
+
+def phase_train(failures):
+    """Phase 8: train granite-8b and olmoe-1b-7b at full width with their
+    depth cut (``TRAIN_CELLS``), one model on the card at a time. Returns
+    each model's record by arch."""
+    t0 = time.perf_counter()
+    out = {arch: train_cell(arch, layers, failures) for arch, layers in TRAIN_CELLS}
+    log(f"phase 8 (training): {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 class Routes(list):
     """Each MoE layer's top-k expert choice ((T, k) indices) in call order,
     and ``router_err``: the largest max|diff| of a layer's router logits
@@ -3858,6 +4455,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     families = phase_families(failures)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_train(failures)
 
     from repro_torch.kernels import cuda_lib
     from repro_torch.kernels.common import mainloop
@@ -3881,6 +4481,8 @@ def main() -> int:
             g=t["g"], sweep_max_err=errs[name], event_ms=t["event_ms"],
             plain_event_ms=t["plain_event_ms"], library_event_ms=t.get("library_event_ms"),
             launches_in=arch, launches_other_model=serve[other]["dense"]["launches"].get(name, 0),
+            # phase 8's main path: Trainer.fit's launches, by trained model
+            train_launches={a: train[a]["fit_launches"].get(name, 0) for a in train},
             **extra,
         ))
     # B6 has no served caller: its launches are those of the baseline comparison, the
@@ -3940,6 +4542,7 @@ def main() -> int:
                   b5_table=b5_rows, b5_s8_table=b5_s8_rows, b12_table=b12_rows,
                   b12_s8_table=b12_s8_rows, f32_table=f32_rows,
                   kv_int8=kv_int8, tune=tune, paged=paged, archs=archs, families=families,
+                  train=train,
                   seconds=time.perf_counter() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

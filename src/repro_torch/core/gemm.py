@@ -35,10 +35,25 @@ on a CPU tensor runs ``torch``: on the card the hand-written kernels are the
 default, never a library matmul. The selector, when none is installed, is
 :func:`~repro_torch.core.selector.default_selector` for the operands'
 device (nominal H100 and the Hopper tiles on a CUDA device).
+
+Gradients. The ``torch`` backend is differentiated by autograd directly.
+Any other backend, when grad is enabled and ``x``, ``w``, ``bias`` or
+``operand`` requires grad, runs inside :class:`GemmGrad`: its forward is
+the selected kernel with its fused epilogue, unchanged (the same bits as a
+dispatch without grad); its backward is what autograd computes through the
+``torch`` backend's formula. A dispatch without grad (under
+``torch.no_grad()``, or with nothing requiring grad, as every serve step)
+calls the backend as it always has: no ``Function``, no saved tensors. A
+quantized weight under grad is refused: the port trains dense weights
+only, as ``repro`` does. The selection log records every dispatch,
+including those that an activation-checkpointed (remat) layer repeats in
+the backward; :class:`GemmGrad`'s own recompute of the accumulator calls
+the backend without a selection and is not logged.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 from contextlib import contextmanager
 from dataclasses import dataclass, field
@@ -46,7 +61,7 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.core.op import Epilogue, GemmOp, as_epilogue
+from repro_torch.core.op import EPILOGUE_NONE, Epilogue, GemmOp, as_epilogue
 from repro_torch.core.policies import Policy, TileConfig
 from repro_torch.core.quant import QuantizedTensor, is_quantized, quantize_activations, unpack_int4
 from repro_torch.core.selector import KernelSelector, Selection, default_selector
@@ -234,6 +249,26 @@ def gemm_context(
         _state.ctx = old
 
 
+def current_context() -> GemmContext:
+    """The calling thread's dispatch context (made on first use)."""
+    return _ctx()
+
+
+@contextmanager
+def installed_context(ctx: GemmContext):
+    """Run a block under ``ctx`` itself (not a child context): the same
+    selector, backend and log, on whichever thread runs the block. The
+    context is thread-local, and autograd runs a CUDA backward, so a remat
+    recompute, on a thread of its own: a checkpointed block re-installs its
+    caller's context so that its recompute dispatches as its forward did."""
+    old = getattr(_state, "ctx", None)
+    _state.ctx = ctx
+    try:
+        yield ctx
+    finally:
+        _state.ctx = old
+
+
 def current_selector(device=None) -> KernelSelector:
     """The active context's selector, made for ``device`` on first use."""
     ctx = _ctx()
@@ -242,8 +277,80 @@ def current_selector(device=None) -> KernelSelector:
     return ctx.selector
 
 
+class GemmGrad(torch.autograd.Function):
+    """A backend's dispatch with a gradient: the forward runs the backend as
+    selected (``x`` (G, M, K), ``w`` (G, K, N), ``bias`` (G, N) or None,
+    ``operand`` (G, M, N) or None), and the backward gives what autograd
+    computes through :func:`_torch_backend` on the same inputs.
+
+    Backward: the f32 accumulator ``acc = x @ w``, where the epilogue's VJP
+    needs it (an activation, or ``mul_silu``), is recomputed by the same
+    backend at the same policy, tile and ``g`` with the epilogue cut to the
+    identity and an f32 output (nothing of the forward is kept but its
+    inputs); the epilogue's VJP is taken in plain torch through
+    :meth:`Epilogue.apply` (into ``acc``, ``bias`` and ``operand``, so a
+    ``mul_silu`` gate's own GEMM trains through it); then ``dX = dacc @ Wᵀ``
+    and ``dW = Xᵀ @ dacc`` by ``torch.matmul`` in f32, each cast to its
+    operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, operand, fn, kwargs):
+        ctx.fn = fn
+        ctx.kwargs = {k: kwargs[k] for k in ("op", "policy", "cfg", "g")}
+        ctx.save_for_backward(x, w, bias, operand)
+        return fn(x, w, **kwargs)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, w, bias, operand = ctx.saved_tensors
+        f32 = torch.float32
+        op = ctx.kwargs["op"]
+        epi = op.epilogue
+        dbias = doperand = None
+        if epi.activation == "none" and epi.binary != "mul_silu":
+            # the epilogue is acc (+ bias) (+ operand): its VJP needs no acc
+            dacc = dout.to(f32)
+            if ctx.needs_input_grad[2]:
+                dbias = dacc.sum(dim=1).to(bias.dtype)
+            if ctx.needs_input_grad[3]:
+                doperand = dacc.to(operand.dtype)
+        else:
+            acc_op = dataclasses.replace(op, epilogue=EPILOGUE_NONE, out_dtype="float32")
+            acc = ctx.fn(x, w, **dict(ctx.kwargs, op=acc_op, bias=None, operand=None))
+            with torch.enable_grad():
+                acc = acc.detach().requires_grad_()
+                b = None if bias is None else bias.detach().requires_grad_(ctx.needs_input_grad[2])
+                o = None if operand is None else operand.detach().requires_grad_(
+                    ctx.needs_input_grad[3])
+                y = epi.apply(acc, bias=None if b is None else b[:, None, :], operand=o)
+                wrt = [t for t in (acc, b, o) if t is not None and t.requires_grad]
+                grads = dict(zip(map(id, wrt), torch.autograd.grad(y, wrt, dout.to(f32))))
+            dacc = grads[id(acc)]
+            if b is not None and b.requires_grad:
+                dbias = grads[id(b)]
+            if o is not None and o.requires_grad:
+                doperand = grads[id(o)]
+            del acc, y, grads
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.matmul(dacc, w.to(f32).transpose(1, 2)).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.matmul(x.to(f32).transpose(1, 2), dacc).to(w.dtype)
+        return dx, dw, dbias, doperand, None, None
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
 def _dispatch(x, w, op: GemmOp, *, tag, policy, cfg, g, bias, operand, scale=None,
               scale_a=None, b_bits=8):
+    if (scale is not None or scale_a is not None or b_bits != 8) and _needs_grad(
+            x, w, bias, operand):
+        raise NotImplementedError(
+            "a quantized weight has no gradient: the port trains dense weights only; run "
+            "a quantized model under torch.no_grad()"
+        )
     ctx = _ctx()
     selector = current_selector(x.device)
     if policy is None and cfg is None and g is None:
@@ -262,7 +369,10 @@ def _dispatch(x, w, op: GemmOp, *, tag, policy, cfg, g, bias, operand, scale=Non
         kwargs["scale_a"] = scale_a
     if b_bits != 8:
         kwargs["b_bits"] = b_bits
-    return get_backend(name)(x, w, **kwargs)
+    fn = get_backend(name)
+    if name != "torch" and _needs_grad(x, w, bias, operand):
+        return GemmGrad.apply(x, w, bias, operand, fn, kwargs)
+    return fn(x, w, **kwargs)
 
 
 def _infer_epilogue(epilogue, bias, operand) -> Epilogue:

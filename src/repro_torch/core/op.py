@@ -88,19 +88,22 @@ class Epilogue:
     def apply(self, acc, *, bias=None, operand=None):
         """Reference semantics on an f32 accumulator (backends and kernels
         must match this). ``gelu`` is the tanh approximation, as
-        ``jax.nn.gelu``'s default in the JAX package."""
+        ``jax.nn.gelu``'s default in the JAX package. Differentiable: the
+        gradient of a dispatch takes its VJP through this function."""
         if self.bias:
             if bias is None:
                 raise ValueError(f"epilogue {self.name} requires a bias operand")
             acc = acc + bias.to(torch.float32)
+        # relu as ``torch.maximum`` against 0, as ``repro``'s ``jnp.maximum``:
+        # the same values, and at exactly 0 both give half the gradient
         if self.activation == "relu":
-            acc = torch.clamp_min(acc, 0.0)
+            acc = torch.maximum(acc, acc.new_zeros(()))
         elif self.activation == "gelu":
             acc = F.gelu(acc, approximate="tanh")
         elif self.activation == "silu":
             acc = F.silu(acc)
         elif self.activation == "square":
-            acc = torch.square(torch.clamp_min(acc, 0.0))
+            acc = torch.square(torch.maximum(acc, acc.new_zeros(())))
         if self.binary != "none":
             if operand is None:
                 raise ValueError(f"epilogue {self.name} requires an operand")

@@ -14,6 +14,8 @@ The decode cache holds, per decoder layer, the self-attention K/V
 (L, B, S_max, KV, dh), written in place at each step, and the
 cross-attention K/V (L, B, enc_frames, KV, dh), computed once from the
 encoder's output at prefill and carried through decode unchanged.
+``loss_fn`` is ``repro``'s; under grad the encoder and decoder layers are
+recomputed in the backward when ``cfg.remat``.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ from repro_torch.core.gemm import as_dtype, gemm
 from repro_torch.dist.sharding import ArraySpec, init_leaf
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import TiedHead, _map, _stack_specs, _zeros, resolve_device
+from repro_torch.models.lm import (TiedHead, _map, _stack_specs, _zeros, grad_tracking,
+                                   remat_call, resolve_device, token_loss)
 
 Params = Dict[str, Any]
 
@@ -102,13 +105,18 @@ class EncDec:
         dt = as_dtype(cfg.dtype)
         f = frames.shape[1]
         x = frames.to(dt) + sinusoid(torch.arange(f, device=frames.device), cfg.d_model).to(dt)
-        for i in range(cfg.n_enc_layers):
+
+        def layer(x, i):
             p = _map(lambda a: a[i], params["enc_layers"])
             h = L.norm_apply(p["norm1"], x, cfg)
             a, _ = L.attn_apply(p["attn"], h, cfg, div=div, mask_kind="bidir", use_rope=False)
             x = x + a
             h = L.norm_apply(p["norm2"], x, cfg)
-            x = x + L.mlp_apply(p["mlp"], h, cfg, div=div)
+            return x + L.mlp_apply(p["mlp"], h, cfg, div=div)
+
+        remat = cfg.remat and grad_tracking(params)
+        for i in range(cfg.n_enc_layers):
+            x = remat_call(remat, layer, x, i)
         return L.norm_apply(params["enc_final_norm"], x, cfg)
 
     # -- decoder ---------------------------------------------------------------
@@ -130,7 +138,8 @@ class EncDec:
         K/V read from it; returns (x, None)."""
         cfg = self.cfg
         fresh = []
-        for i in range(cfg.n_layers):
+
+        def layer(x, i, enc_out):
             p = _map(lambda a: a[i], params["dec_layers"])
             layer = None if cache is None else {key: leaf[i] for key, leaf in cache["attn"].items()}
             h = L.norm_apply(p["norm1"], x, cfg)
@@ -138,16 +147,27 @@ class EncDec:
                                  use_rope=False, cache=layer, cur_pos=cur_pos)
             x = x + a
             h = L.norm_apply(p["norm2"], x, cfg)
+            entry = None
             if cache is None:
                 ck, cv = self._cross_kv(p, enc_out, div)
-                fresh.append({"attn": kv, "cross": {"k": ck, "v": cv}})
+                entry = {"attn": kv, "cross": {"k": ck, "v": cv}}
             else:
                 ck, cv = cache["cross"]["k"][i], cache["cross"]["v"][i]
             a, _ = L.attn_apply(p["cross_attn"], h, cfg, div=div, use_rope=False,
                                 kv_override=(ck, cv))
             x = x + a
             h = L.norm_apply(p["norm3"], x, cfg)
-            x = x + L.mlp_apply(p["mlp"], h, cfg, div=div)
+            return x + L.mlp_apply(p["mlp"], h, cfg, div=div), entry
+
+        if cache is None and cfg.remat and grad_tracking(params):
+            # training: each layer recomputed in the backward; the fresh
+            # K/V (a serving handoff) are not kept
+            for i in range(cfg.n_layers):
+                x = remat_call(True, lambda x, i, e: layer(x, i, e)[0], x, i, enc_out)
+            return x, None
+        for i in range(cfg.n_layers):
+            x, entry = layer(x, i, enc_out)
+            fresh.append(entry)
         return x, (fresh if cache is None else None)
 
     def _dec_embed(self, params, tokens, positions):
@@ -173,6 +193,22 @@ class EncDec:
         x = L.norm_apply(params["final_norm"], x, self.cfg)
         return self._head(params, x, div), torch.zeros((), dtype=torch.float32,
                                                        device=dec_tokens.device)
+
+    def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor], *,
+                div: Optional[Dict[str, int]] = None):
+        """(loss, metrics) of a batch (``frames`` (B, F, D), ``tokens``,
+        ``labels`` and optionally ``loss_mask`` (B, S)), as ``repro``'s
+        ``EncDec.loss_fn``: the mean NLL over the mask with the logits in
+        f32, no aux or z-loss; metrics ``nll`` and ``ntokens``. Under grad
+        the encoder and decoder layers are recomputed in the backward when
+        ``cfg.remat``."""
+        logits, _ = self.forward(params, batch["frames"], batch["tokens"], div=div)
+        labels = batch["labels"]
+        mask = batch.get("loss_mask")
+        if mask is None:
+            mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+        loss, _, _ = token_loss(logits, labels, mask)
+        return loss, {"nll": loss.detach(), "ntokens": torch.sum(mask).detach()}
 
     # -- serving -----------------------------------------------------------------
     def cache_specs(self, batch: int, max_seq: int) -> Params:

@@ -20,6 +20,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.gemm import as_dtype, gemm, gemm_grouped
 from repro_torch.core.op import Epilogue
@@ -104,6 +105,20 @@ def kv_dequantize(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> t
     return (q.to(torch.float32) * scale[..., None]).to(dtype)
 
 
+def _chunk_step(m_i, l_i, acc, qg, kb, vb, valid, scale):
+    """One KV chunk of the online softmax: the running max ``m_i``, sum
+    ``l_i`` and output ``acc`` after the chunk ``kb``/``vb`` (B, C, KV, dh)
+    under ``valid`` (Sq, C)."""
+    s = torch.einsum("bqkgd,bckd->bqkgc", qg, kb.to(torch.float32)) * scale
+    s = torch.where(valid[None, :, None, None, :], s, _NEG)
+    m_cur = torch.maximum(m_i, s.amax(dim=-1))
+    p = torch.exp(s - m_cur[..., None])
+    corr = torch.exp(m_i - m_cur)
+    l_cur = l_i * corr + p.sum(dim=-1)
+    acc = acc * corr[..., None] + torch.einsum("bqkgc,bckd->bqkgd", p, vb.to(torch.float32))
+    return m_cur, l_cur, acc
+
+
 def chunked_attention(
     q: torch.Tensor,  # (B, Sq, H, dh)
     k: torch.Tensor,  # (B, Sk, KV, dh)
@@ -114,30 +129,33 @@ def chunked_attention(
     q_positions: torch.Tensor,  # (Sq,)
     k_positions: torch.Tensor,  # (Sk,)
     chunk: int = 1024,
+    remat_step: bool = False,
 ) -> torch.Tensor:
     """Online-softmax attention over KV chunks (a Python loop in place of
     ``lax.scan``): score memory is O(B*H*Sq*chunk). The last chunk is simply
-    shorter — eager torch needs no padding to a static shape."""
+    shorter — eager torch needs no padding to a static shape. With
+    ``remat_step`` (``cfg.attn_remat``), when grad is on, each chunk step is
+    checkpointed (``torch.utils.checkpoint``, as ``repro``'s
+    ``jax.checkpoint(step)``): the backward recomputes a chunk's scores and
+    probabilities instead of keeping them for every chunk."""
     b, sq, h, dh = q.shape
     kvh = k.shape[2]
     groups = h // kvh
     scale = 1.0 / math.sqrt(dh)
+    remat = remat_step and torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
     qg = q.reshape(b, sq, kvh, groups, dh).to(torch.float32)
     m_i = torch.full((b, sq, kvh, groups), -math.inf, device=q.device)
     l_i = torch.zeros((b, sq, kvh, groups), device=q.device)
     acc = torch.zeros((b, sq, kvh, groups, dh), device=q.device)
     for c0 in range(0, k.shape[1], chunk):
-        kb = k[:, c0 : c0 + chunk].to(torch.float32)
-        vb = v[:, c0 : c0 + chunk].to(torch.float32)
-        s = torch.einsum("bqkgd,bckd->bqkgc", qg, kb) * scale
+        kb, vb = k[:, c0 : c0 + chunk], v[:, c0 : c0 + chunk]
         valid = _mask(mask_kind, q_positions, k_positions[c0 : c0 + chunk], window)
-        s = torch.where(valid[None, :, None, None, :], s, _NEG)
-        m_cur = torch.maximum(m_i, s.amax(dim=-1))
-        p = torch.exp(s - m_cur[..., None])
-        corr = torch.exp(m_i - m_cur)
-        l_i = l_i * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bqkgc,bckd->bqkgd", p, vb)
-        m_i = m_cur
+        if remat:
+            m_i, l_i, acc = checkpoint(_chunk_step, m_i, l_i, acc, qg, kb, vb, valid, scale,
+                                       use_reentrant=False)
+        else:
+            m_i, l_i, acc = _chunk_step(m_i, l_i, acc, qg, kb, vb, valid, scale)
     out = acc / torch.clamp_min(l_i, 1e-30)[..., None]
     return out.reshape(b, sq, h, dh).to(q.dtype)
 
@@ -275,6 +293,7 @@ def attn_apply(
         out = chunked_attention(
             q, k_full, v_full, mask_kind="bidir", q_positions=torch.arange(s, device=x.device),
             k_positions=torch.arange(k_full.shape[1], device=x.device), chunk=cfg.attn_chunk,
+            remat_step=cfg.attn_remat,
         )
         y = gemm(out.reshape(b, s, h * dh), p["wo"], divisors=(db, 1, dtp), tag="attn.o")
         return y, None
@@ -310,6 +329,7 @@ def attn_apply(
         out = chunked_attention(
             q, knew, vnew, mask_kind=mask_kind, window=window,
             q_positions=qpos, k_positions=qpos, chunk=cfg.attn_chunk,
+            remat_step=cfg.attn_remat,
         )
         new_cache = {"k": knew, "v": vnew}
     y = gemm(out.reshape(b, s, h * dh), p["wo"], divisors=(db, 1, dtp), tag="attn.o")

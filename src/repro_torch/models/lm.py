@@ -30,6 +30,11 @@ uses them).
 A VLM's prompt may carry ``patch_embeds`` (B, P, D), the stubbed vision
 frontend's output: they take the first P positions, and the first S - P
 token embeddings follow them (``forward`` and ``prefill``).
+
+Training: ``loss_fn`` is ``repro``'s loss; under grad (a parameter that
+requires it) ``forward`` recomputes each layer in the backward when
+``cfg.remat`` (:func:`remat_call`), and the tied head's copy is made anew
+in each forward so its gradient reaches the embedding.
 """
 
 from __future__ import annotations
@@ -39,13 +44,15 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.gemm import as_dtype, gemm
+from repro_torch.core.gemm import as_dtype, current_context, gemm, installed_context
 from repro_torch.core.quant import QuantizedTensor, quantize_lm_params
 from repro_torch.dist.sharding import ArraySpec, init_leaf
 from repro_torch.models import layers as L
 from repro_torch.models import ssd
 from repro_torch.models.config import ModelConfig
+from repro_torch.utils.trees import tree_leaves
 
 Params = Dict[str, Any]
 
@@ -68,6 +75,43 @@ def _map(fn, tree):
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def grad_tracking(params) -> bool:
+    """Whether a forward over ``params`` builds a graph: grad is enabled and
+    some parameter leaf requires grad (a training step, not a serve step)."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tree_leaves(params))
+
+
+def remat_call(enabled: bool, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``enabled`` (the
+    block's activations are recomputed in the backward, as ``repro``'s
+    ``jax.checkpoint`` of its scanned layer body). The recompute runs under
+    the caller's dispatch context (backend, selector, log), also where the
+    backward runs on autograd's device thread, so it dispatches exactly as
+    the forward did."""
+    if not enabled:
+        return fn(*args)
+    ctx = current_context()
+
+    def run(*a):
+        with installed_context(ctx):
+            return fn(*a)
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
+def token_loss(logits, labels, mask):
+    """(the masked mean NLL, logz (B, S), the mask's sum clamped to 1) of f32
+    ``logits`` (B, S, V) against ``labels`` (B, S), as ``repro``'s loss
+    functions compute them (logsumexp and the gold logit in f32)."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = (logz - gold) * mask
+    denom = torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.sum(nll) / denom, logz, denom
 
 
 #: the window of a global layer in a windowed stack: effectively infinite
@@ -118,7 +162,10 @@ class TiedHead:
     of ``embed.T`` in the model dtype (the kernels read row-major operands).
     The copy is made once per embedding tensor and kept, so a dispatch never
     copies the table; an in-place write to the embedding (its version
-    moves) or another embedding tensor rebuilds it."""
+    moves) or another embedding tensor rebuilds it. Under grad, with an
+    embedding that requires it, the copy is made in each forward and never
+    kept: a kept copy would hold one step's graph into the next, and the
+    head's gradient must reach the embedding through it."""
 
     def __init__(self):
         #: (weak reference to the embedding it was built from, that tensor's
@@ -126,6 +173,8 @@ class TiedHead:
         self._entry = None
 
     def weight(self, embed: torch.Tensor, dtype) -> torch.Tensor:
+        if torch.is_grad_enabled() and embed.requires_grad:
+            return embed.T.to(as_dtype(dtype)).contiguous()
         entry = self._entry
         if entry is None or entry[0]() is not embed or entry[1] != embed._version:
             self._entry = None  # free the old copy before the new one is made
@@ -322,11 +371,53 @@ class LM:
         x = self._embed(params, tokens, patch_embeds)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-        for i, window in enumerate(self._windows()):
+        remat = cfg.remat and grad_tracking(params)
+
+        def block(x, i, window):
             x, _, aux_i = self._block(params, i, x, div=div, positions=positions, window=window)
+            return x, aux_i
+
+        for i, window in enumerate(self._windows()):
+            x, aux_i = remat_call(remat, block, x, i, window)
             aux = aux + aux_i
         x = L.norm_apply(params["final_norm"], x, cfg)
         return self._head(params, x, div), aux
+
+    def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor], *,
+                div: Optional[Dict[str, int]] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(loss, metrics) of a batch, as ``repro``'s ``LM.loss_fn``: the
+        mean NLL over ``loss_mask`` (all ones when absent; a VLM's patch
+        positions masked out), plus the MoE aux loss and a ``1e-4`` z-loss on
+        ``logsumexp``, with the logits in f32. ``batch`` holds ``tokens`` and
+        ``labels`` (B, S), and optionally ``loss_mask`` (B, S) and a VLM's
+        ``patch_embeds`` (B, P, D). Metrics: ``nll``, ``aux``, ``zloss``,
+        ``ntokens`` (detached 0-d f32 tensors).
+
+        Under grad each layer is recomputed in the backward when
+        ``cfg.remat`` (``torch.utils.checkpoint``; the hybrid's shared block
+        still only at its marked layers), and each attention chunk step when
+        ``cfg.attn_remat``."""
+        logits, aux = self.forward(params, batch["tokens"], div=div,
+                                   patch_embeds=batch.get("patch_embeds"))
+        labels = batch["labels"]
+        mask = batch.get("loss_mask")
+        if mask is None:
+            mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+        if self.cfg.family == "vlm" and "patch_embeds" in batch:
+            # no LM loss on image-patch positions
+            mask = mask.clone()
+            mask[:, : batch["patch_embeds"].shape[1]] = 0.0
+        nll, logz, denom = token_loss(logits, labels, mask)
+        loss = nll + aux
+        # z-loss for logit drift stability at scale
+        zloss = 1e-4 * torch.sum(torch.square(logz) * mask) / denom
+        metrics = {
+            "nll": nll.detach(),
+            "aux": torch.as_tensor(aux, dtype=torch.float32).detach(),
+            "zloss": zloss.detach(),
+            "ntokens": torch.sum(mask).detach(),
+        }
+        return loss + zloss, metrics
 
     # -- serving -----------------------------------------------------------------
     def cache_specs(self, batch: int, max_seq: int) -> Params:

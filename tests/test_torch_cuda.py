@@ -1514,3 +1514,52 @@ def test_cuda_pool_adapters_match_cpu(cuda_device, kv):
     for key in res["cpu"][0]["attn"]:
         assert torch.equal(res["cpu"][0]["attn"][key], res[cuda_device][0]["attn"][key].cpu())
         assert torch.equal(res["cpu"][1][key], res[cuda_device][1][key].cpu())
+
+
+GRAD_EPILOGUES = [Epilogue(), Epilogue(bias=True), Epilogue(activation="gelu"),
+                  Epilogue(activation="square"), Epilogue(binary="mul_silu"),
+                  Epilogue(activation="gelu", bias=True, binary="add")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["plain", "grouped", "grouped_loop"])
+@pytest.mark.parametrize("epi", GRAD_EPILOGUES, ids=lambda e: e.name)
+def test_cuda_gemm_grad_matches_autograd_through_the_torch_backend(cuda_device, epi, kind,
+                                                                   dtype):
+    """A dispatch with grad on the card: the forward launches the kernels
+    (the same bits as without grad) and ``GemmGrad``'s gradients equal
+    autograd's through the ``torch`` backend (dX, dW, dbias, doperand)."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    g, m, k, n = (1, 96, 512, 384) if kind == "plain" else (8, 40, 512, 384)
+    lead = () if kind == "plain" else (g,)
+    r = lambda *shape: torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    ops_in = {"x": r(*lead, m, k), "w": r(*lead, k, n) / k ** 0.5}
+    if epi.bias:
+        ops_in["bias"] = r(*lead, n)
+    if epi.binary != "none":
+        ops_in["operand"] = r(*lead, m, n)
+
+    def run(backend, grad=True):
+        leaves = {key: v.clone().requires_grad_(grad) for key, v in ops_in.items()}
+        kw = dict(epilogue=epi, bias=leaves.get("bias"), operand=leaves.get("operand"))
+        with gemm_context(backend=backend):
+            if kind == "plain":
+                out = gemm(leaves["x"], leaves["w"], **kw)
+            else:
+                out = gemm_grouped(leaves["x"], leaves["w"], fused=kind == "grouped", **kw)
+        if not grad:
+            return out, None
+        out.backward(torch.linspace(-1, 1, out.numel(), device="cuda").reshape(out.shape)
+                     .to(out.dtype))
+        return out.detach(), {key: v.grad for key, v in leaves.items()}
+
+    common.reset_launch_counts()
+    out, got = run("cuda")
+    assert sum(common.LAUNCHES.values()) > 0
+    assert torch.equal(out, run("cuda", grad=False)[0])
+    _, want = run("torch")
+    tol = TOL[dtype]
+    for key, ref in want.items():
+        assert got[key] is not None and got[key].dtype == ref.dtype, key
+        scale = max(1.0, ref.float().abs().max().item())
+        assert (got[key].float() - ref.float()).abs().max().item() <= tol * scale, key

@@ -16,6 +16,7 @@ from repro_torch.core.gemm import gemm_context
 from repro_torch.core.policies import ALL_SK, TileConfig
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.streamk import ops
+from repro_torch.launch import train as t_train
 from repro_torch.models.lm import LM, resolve_device
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 
@@ -43,7 +44,9 @@ def test_port_import_leaves_jax_out():
             "repro_torch.configs.qwen3_moe_235b_a22b, repro_torch.models.ssd, "
             "repro_torch.models.encdec, repro_torch.configs.mamba2_1_3b, "
             "repro_torch.configs.zamba2_1_2b, repro_torch.configs.llava_next_34b, "
-            "repro_torch.configs.whisper_large_v3, sys; "
+            "repro_torch.configs.whisper_large_v3, repro_torch.launch.train, "
+            "repro_torch.train, repro_torch.optim, repro_torch.data, repro_torch.checkpoint, "
+            "repro_torch.dist.compression, repro_torch.utils.trees, repro_torch.utils.timing, sys; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]")
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
@@ -88,6 +91,8 @@ def test_entry_points_refuse_to_fall_back_to_cpu(no_cuda):
             pass
     with gemm_context(backend="cuda", device="cpu"):
         pass
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_train.main(["--arch", "granite-8b", "--preset", "reduced", "--steps", "1"])
 
 
 def test_kernel_build_needs_nvcc_and_never_runs_at_import(no_cuda, monkeypatch):
