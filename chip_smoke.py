@@ -259,6 +259,35 @@ Phases (any failure raises and the script exits non-zero):
    2, and a fresh ``Trainer`` resuming from that checkpoint: the restored
    state bit for bit the saved one, its steps 3 and 4 within
    ``RESUME_TOL`` of the uninterrupted run (whether bitwise, reported).
+9. Sharding plans and the dry run (``phase_shard``). (a) Started with the
+   build in a child process that never touches the card (``start_dryrun``):
+   ``repro_torch.launch.dryrun.lower_cell`` traces granite-8b and
+   olmoe-1b-7b at full width and depth on every applicable shape cell on
+   both production meshes ((16, 16) and (2, 16, 16)), and the other eight
+   configs at ``decode_32k`` on (16, 16), on the meta device under the H100
+   selector; every cell must reach ``ok``, every plain GEMM's local M be
+   the global M over the cell's ``div["batch"]`` and its N or K over
+   ``div["model"]`` (the grouped ones: experts over ``div["model"]``), and
+   the FLOP counter's share of the dispatch equal 2 G M N K over the log;
+   each cell's unique GEMMs, per-device argument GB, FLOPs and seconds are
+   logged. (b) Every unique per-shard GEMM of granite-8b and olmoe-1b-7b at
+   ``train_4k``, ``prefill_32k`` and ``decode_32k`` (single pod) on seeded
+   operands at its local shape, launched once on the ``cuda`` backend with
+   the recorded policy, tile and g and held against the ``torch`` backend
+   (2e-2 bf16, 1e-4 the f32 router), the launch counters zeroed just before
+   and read just after, then timed beside ``torch.matmul`` and the bound.
+   (c) Inside phase 3, on its olmoe-1b-7b weights: the model served through
+   ``ServeEngine`` on ``moe_impl="sharded"`` (``div`` batch 4: the 4 slots
+   route as 4 token groups) and on ``moe_impl="hinted"``, launch counts
+   read as in phase 3, and a (4, 35) prefill batch of the four prompts held
+   against the ``torch`` backend of the same variant replaying the ``cuda``
+   run's top-8 choices at olmoe's ``LOGITS_TOL``, each layer's router GEMM
+   against ``torch.matmul`` at ``ROUTER_TOL`` (the own-routing reading
+   reported). (d) The serve CLI at full width, granite-8b, without a plan
+   and with ``--mesh-model 1``: the same greedy tokens. Every check of the
+   phase has a planted fault (a divisor or a log entry off; each GEMM, the
+   variants' grouped GEMMs and the router with their last K chunk dropped;
+   a changed token) that must be caught, the numeric ones at 3x or more.
 
 Tolerances: a kernel output ``x`` agrees with its reference ``r`` when
 ``max|x - r| <= tol * max(1, max|r|)``: 1e-4 for f32 inputs (f32 sums in
@@ -292,9 +321,12 @@ it ran (``mainloop``: ``mma`` or ``fma``); B3 has no entry of its own, being
 fused into B2 (``streamk_phase1``); the last line is ``{"ok": true,
 "device": {...}}``. Details go to ``chiprun_out/chip_smoke.json`` (phase 6's
 runs, their launch counts by kernel included, under ``archs``, phase 7's
-under ``families``, phase 8's under ``train``). Each kernel entry of the
-served runs also carries ``train_launches``: its launches in phase 8's
-``Trainer.fit``, by trained model.
+under ``families``, phase 8's under ``train``, phase 9's under ``shard``;
+the dry run's artifacts go to ``chiprun_out/phase9_dryrun.json``). Each
+kernel entry of the served runs also carries ``train_launches``: its
+launches in phase 8's ``Trainer.fit``, by trained model, and phase 9's
+``shard_gemm_launches`` (the per-shard GEMMs) and ``moe_variant_launches``
+(olmoe on each MoE variant).
 """
 
 from __future__ import annotations
@@ -4147,10 +4179,553 @@ def phase_train(failures):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: sharding plans, the dry run, the per-shard GEMMs, the MoE variants
+# ---------------------------------------------------------------------------
+
+#: the models whose every applicable cell is traced on both production meshes
+#: and whose per-shard GEMMs run on the card; the other configs are traced at
+#: decode_32k on the single-pod mesh
+DRYRUN_ARCHS = ("granite-8b", "olmoe-1b-7b")
+PER_SHARD_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+#: olmoe-1b-7b served on the mesh-aware MoE dispatches: (moe_impl, div); the
+#: 4 slots route as 4 token groups under the sharded one
+MOE_VARIANTS = (("sharded", {"batch": 4, "model": 1}), ("hinted", None))
+
+
+def dryrun_cells():
+    """(arch, shape, multi_pod) of phase 9 (a), in run order."""
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.models import applicable_shapes
+
+    cells = [(arch, shape.name, mp) for arch in DRYRUN_ARCHS
+             for shape in applicable_shapes(get_config(arch)) for mp in (False, True)]
+    return cells + [(arch, "decode_32k", False) for arch in list_archs()
+                    if arch not in DRYRUN_ARCHS]
+
+
+def dryrun_worker(path):
+    """Phase 9 (a)'s traces, in a process of their own (they need no card,
+    so they run while the kernels build): ``lower_cell`` of every cell of
+    ``dryrun_cells()`` on the meta device; the artifacts go to ``path``."""
+    from repro_torch.launch.dryrun import lower_cell
+
+    out = []
+    for arch, shape, mp in dryrun_cells():
+        t0 = time.perf_counter()
+        try:
+            art = lower_cell(arch, shape, mp)
+        except Exception as e:  # reported as the cell's status, checked in phase 9
+            art = dict(arch=arch, shape=shape, mesh="multi_pod" if mp else "single_pod",
+                       status="error", error=f"{type(e).__name__}: {e}"[:2000])
+        art["seconds"] = time.perf_counter() - t0
+        print(f"dry run {arch} {shape} {art['mesh']}: {art['status']} "
+              f"({art['seconds']:.1f}s)", flush=True)
+        out.append(art)
+    Path(path).write_text(json.dumps(out))
+
+
+def start_dryrun():
+    """Start phase 9 (a)'s dry run in a child process (no card: CUDA hidden
+    from it); returns (the process, its artifacts' path)."""
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    path = out_dir / "phase9_dryrun.json"
+    if path.exists():
+        path.unlink()
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+            f"chip_smoke.dryrun_worker({str(path)!r})")
+    logf = open(out_dir / "phase9_dryrun.log", "w")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, stdout=logf,
+                            stderr=subprocess.STDOUT,
+                            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    logf.close()
+    return proc, path
+
+
+def dispatch_problems(art):
+    """What is wrong with one cell's dispatch table: every plain GEMM's M
+    divided by the cell's ``div["batch"]`` and N or K (or neither: the
+    router) by ``div["model"]``, every grouped GEMM's experts by
+    ``div["model"]``, each ``local_mnk`` the global dims over those divisors
+    and its key ``tag:local_mnk``; and the FLOP identity (the dispatch's
+    share of ``FlopCounterMode``'s count equals 2 G M N K over the log)."""
+    div = art["config"]["div"]
+    db, dm = div["batch"], div["model"]
+    out = []
+    for key, e in art["dispatch"].items():
+        d = tuple(e["divisors"])
+        if e["kind"] == "grouped":
+            ok = d == (1, 1, 1) and e["g_divisor"] == dm and (
+                e["groups"] == max(1, e["global_groups"] // dm))
+        else:
+            ok = d in ((db, dm, 1), (db, 1, dm), (db, 1, 1))
+        local = [max(1, g // x) for g, x in zip(e["global_mnk"], d)]
+        tag = key.rsplit(":", 1)[0]
+        if not ok or e["local_mnk"] != local or key != f"{tag}:{tuple(local)}":
+            out.append(f"{key}: divisors {d}, g_divisor {e['g_divisor']}, global "
+                       f"{e['global_mnk']} x {e['global_groups']} under div {div}")
+    if art["cost"]["gemm_flops"] != art["cost"]["gemm_flops_logged"]:
+        out.append(f"FLOP identity: the dispatch ran {art['cost']['gemm_flops']:.6e}, its log "
+                   f"asks for {art['cost']['gemm_flops_logged']:.6e}")
+    return out
+
+
+def phase_dryrun(proc, path, failures):
+    """Phase 9 (a): wait for the dry run started with the build, log each
+    cell (status, unique GEMMs, per-device argument GB, FLOPs, seconds) and
+    hold every cell to ``ok`` and ``dispatch_problems``; two planted faults
+    (a divisor off by one shard factor, a doubled M in one log entry) must
+    be caught."""
+    t0 = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        failures.append("phase 9 (a): the dry run did not finish in 600 s")
+        return None
+    waited = time.perf_counter() - t0
+    if rc != 0 or not path.exists():
+        failures.append(f"phase 9 (a): the dry run exited {rc} "
+                        "(chiprun_out/phase9_dryrun.log)")
+        return None
+    arts = json.loads(path.read_text())
+    want = dryrun_cells()
+    cells = [(a["arch"], a["shape"], a["mesh"] == "multi_pod") for a in arts]
+    if cells != want:
+        failures.append(f"phase 9 (a): traced cells {cells} != {want}")
+    for art in arts:
+        label = f"dry run {art['arch']} {art['shape']} {art['mesh']}"
+        if art["status"] != "ok":
+            failures.append(f"{label}: {art['status']} {art.get('error', art.get('reason'))}")
+            continue
+        problems = dispatch_problems(art)
+        failures.extend(f"{label}: {p}" for p in problems)
+        log(f"{label}: ok, {len(art['dispatch'])} unique GEMMs ({art['dispatches']} "
+            f"dispatches), div {art['config']['div']}, argument "
+            f"{art['memory']['argument_size'] / 1e9:.3f} GB a device, {art['cost']['flops']:.4e} "
+            f"FLOPs (GEMMs {art['cost']['gemm_flops']:.4e} = 2GMNK over the log: "
+            f"{not problems}), {art['seconds']:.1f}s")
+    # the planted faults: a cell whose table claims the wrong split, and one
+    # whose log claims a GEMM twice the size of the one that ran
+    ok = [a for a in arts if a["status"] == "ok" and a["dispatch"]]
+    faults = {}
+    if ok:
+        bad = json.loads(json.dumps(ok[0]))
+        bad["config"]["div"]["batch"] *= 2
+        faults["div"] = len(dispatch_problems(bad))
+        bad = json.loads(json.dumps(ok[0]))
+        e = next(iter(bad["dispatch"].values()))
+        bad["cost"]["gemm_flops_logged"] += 2 * e["global_groups"] * math.prod(e["global_mnk"])
+        faults["flops"] = len(dispatch_problems(bad))
+    log(f"phase 9 (a) planted faults (problems found; each must be > 0): {faults}")
+    if not faults or not all(faults.values()):
+        failures.append(f"phase 9 (a): a planted fault went unseen: {faults}")
+    log(f"phase 9 (a): {len(arts)} cells traced in {sum(a['seconds'] for a in arts):.1f}s "
+        f"(beside the build); waited {waited:.1f}s after phase 8")
+    return dict(cells=[{k: a.get(k) for k in ("arch", "shape", "mesh", "status", "memory",
+                                               "cost", "seconds", "dispatches")}
+                       | {"unique_gemms": len(a.get("dispatch", {})),
+                          "div": a.get("config", {}).get("div")} for a in arts],
+                planted_faults=faults, waited_s=waited, artifacts=arts)
+
+
+def _epilogue_of(fields):
+    from repro_torch.core.op import Epilogue
+
+    return Epilogue(**fields)
+
+
+def per_shard_gemms(arts):
+    """The unique per-shard GEMMs of ``DRYRUN_ARCHS`` at ``PER_SHARD_SHAPES``
+    on the single-pod mesh: (arch, shape, key, entry), one per (tag, local
+    shape, groups, dtype, epilogue, selection)."""
+    seen, out = set(), []
+    for art in arts:
+        if (art["status"] != "ok" or art["arch"] not in DRYRUN_ARCHS
+                or art["shape"] not in PER_SHARD_SHAPES or art["mesh"] != "single_pod"):
+            continue
+        for key, e in art["dispatch"].items():
+            uid = (key, e["groups"], e["in_dtype"], e["epilogue"], e["policy"], e["cfg"], e["g"])
+            if uid not in seen:
+                seen.add(uid)
+                out.append((art["arch"], art["shape"], key, e))
+    return out
+
+
+def phase_shard_gemms(arts, gen, failures):
+    """Phase 9 (b): each unique per-shard GEMM of the dry run at its local
+    shape, on seeded operands made on the card, launched once through the
+    ``cuda`` backend with the recorded selection (policy, tile, g) and held
+    against the ``torch`` backend's f32 formula with the op's epilogue (2e-2
+    bf16, 1e-4 for the f32 router), the launch counters zeroed just before
+    and read just after (every kernel the selection calls for must launch);
+    a planted fault (the last K chunk dropped, half of K where K <= bk)
+    must read at least 3x the limit; then timed (``time_ms``; weights under
+    200 MB rotated past the L2, for both) beside ``torch.matmul`` of the
+    same operands and the bound. No GEMM may fall back: the ``cuda`` backend has no
+    plain path on CUDA tensors, and a refused selection is a failure."""
+    import itertools
+    from types import SimpleNamespace
+
+    import torch
+
+    from repro_torch.core.gemm import as_dtype, get_backend
+    from repro_torch.core.op import GemmOp
+    from repro_torch.core.policies import ALL_POLICIES, TileConfig
+    from repro_torch.core.selector import Selection
+    from repro_torch.kernels.common import LAUNCHES, reset_launch_counts
+
+    cuda, ref_fn = get_backend("cuda"), get_backend("torch")
+    policies = {p.name: p for p in ALL_POLICIES}
+    rows, launched = [], {}
+    t_phase = time.perf_counter()
+    for arch, shape, key, e in per_shard_gemms(arts):
+        (m, n, k), g = e["local_mnk"], e["groups"]
+        epi = _epilogue_of(e["epilogue_fields"])
+        op = GemmOp(m, n, k, g=g, kind=e["kind"], in_dtype=e["in_dtype"],
+                    out_dtype=e["out_dtype"], epilogue=epi, fused=e["fused"])
+        policy, cfg = policies[e["policy"]], TileConfig(*e["tile"])
+        label = f"shard gemm {arch} {shape} {key} G={g} {e['in_dtype']} {epi.name}"
+        try:
+            dt = as_dtype(e["in_dtype"])
+            a = torch.randn(g, m, k, generator=gen, device="cuda").to(dt)
+            b = (torch.randn(g, k, n, generator=gen, device="cuda") / math.sqrt(k)).to(dt)
+            operand = (torch.randn(g, m, n, generator=gen, device="cuda").to(dt)
+                       if epi.binary != "none" else None)
+            bias = torch.randn(g, n, generator=gen, device="cuda").to(dt) if epi.bias else None
+            kw = dict(op=op, policy=policy, cfg=cfg, g=e["g"], bias=bias, operand=operand)
+            tol = 2e-2 if dt == torch.bfloat16 else 1e-4
+            entry = SimpleNamespace(op=op, local_mnk=(m, n, k), selection=Selection(
+                policy, cfg, "forced", 0, 0, e["g"]))
+            needed = _kernels_of(entry)
+            reset_launch_counts()
+            got = cuda(a, b, **kw)
+            torch.cuda.synchronize()
+            counts = {name: c for name, c in LAUNCHES.items() if c}
+            for name, c in counts.items():
+                launched[name] = launched.get(name, 0) + c
+            want = ref_fn(a, b, **kw)
+            err = close(got, want, tol, label)
+            missing = sorted(name for name in needed if not counts.get(name))
+            if missing or set(counts) - set(needed):
+                raise AssertionError(f"{label}: launched {counts}, the selection calls for "
+                                     f"{sorted(needed)}")
+            cut = cfg.bk if k > cfg.bk else k // 2
+            bad = cuda(a[..., : k - cut].contiguous(), b[:, : k - cut].contiguous(), **kw)
+            scale = max(1.0, want.float().abs().max().item())
+            fault = (bad.float() - want.float()).abs().max().item() / scale
+            del got, want, bad
+            if fault < 3 * tol:
+                raise AssertionError(f"{label}: the planted fault reads {fault:.3e} < 3 x {tol}")
+            copies = _rotating(b) if b.numel() * b.element_size() < 200 * 2**20 else [b]
+            it = itertools.cycle(copies)
+            big = 2 * g * m * n * k > 2e11
+            iters, warm = (5, 1) if big else (20, 3)
+            ms, event_ms = time_ms(lambda: cuda(a, next(it), **kw), iters=iters, warmup=warm)
+            lib, _ = time_ms(lambda: torch.matmul(a, next(it)), iters=iters, warmup=warm)
+            nbytes = g * (m * k + k * n + m * n * (2 if operand is not None else 1)) \
+                * a.element_size()
+            bnd, by = bound_ms(nbytes, 2 * g * m * n * k,
+                               peak=PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32)
+            row = dict(arch=arch, shape=shape, key=key, groups=g, m=m, n=n, k=k,
+                       dtype=e["in_dtype"], epilogue=epi.name, policy=policy.name,
+                       tile=cfg.name, g=e["g"], kernels=sorted(needed), launches=counts,
+                       max_abs_err=err, tol=tol, fault=fault, ms=ms, event_ms=event_ms,
+                       library_ms=lib, bound_ms=bnd, bound_by=by)
+            rows.append(row)
+            log(f"  {label}: {policy.name}/{cfg.name} g={e['g']} -> {sorted(needed)}; err "
+                f"{err:.2e}, fault {fault:.2e} (>= {3 * tol:.0e}); {ms:.4f} ms (torch.matmul "
+                f"{lib:.4f}, bound {bnd:.4f} by {by})")
+            del a, b, operand, bias, copies
+        except Exception as ex:
+            failures.append(f"{label}: {type(ex).__name__}: {ex}"[:600])
+        torch.cuda.empty_cache()
+    for name in ("dp_gemm_region", "streamk_phase1"):
+        if not launched.get(name):
+            failures.append(f"phase 9 (b): {name} never launched")
+    if not any(name.startswith("grouped_streamk") for name in launched):
+        failures.append("phase 9 (b): B5 never launched")
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 9 (b): {len(rows)} per-shard GEMMs on the kernels, launches {launched} "
+        f"({seconds:.1f}s)")
+    return dict(rows=rows, launches=launched, seconds=seconds)
+
+
+
+
+@contextmanager
+def own_routing_log(check_router=False):
+    """Record, in call order, the top-k indices each MoE layer's own
+    ``torch.topk`` returned, whatever its ``moe_impl`` (the sharded one
+    routes (G, T/G) token groups: flattened to (T, k)). With
+    ``check_router``, each layer's router GEMM is issued once more on the
+    active backend and held against ``torch.matmul`` of the layer's input,
+    and so is a planted fault of it (the last K chunk dropped)."""
+    import torch
+
+    from repro_torch.core.gemm import gemm
+    from repro_torch.models import layers
+
+    routes = Routes()
+    routes.router_fault = math.inf
+    moe_apply = layers.moe_apply
+
+    def recording(p, x, cfg, *, div):
+        if check_router:
+            xf = x.reshape(-1, x.shape[-1]).float()
+            w = p["router"]
+            ref = torch.matmul(xf, w.float())
+            scale = max(1.0, ref.abs().max().item())
+            err = (gemm(xf, w, tag="moe.router").float() - ref).abs().max().item() / scale
+            k = xf.shape[1]
+            keep = k - 128 if k > 128 else k // 2  # the last K chunk dropped
+            bad = gemm(xf[:, :keep].contiguous(), w[:keep].contiguous(), tag="moe.router")
+            routes.router_err = max(routes.router_err, err)
+            routes.router_fault = min(routes.router_fault,
+                                      (bad.float() - ref).abs().max().item() / scale)
+        topk = torch.topk
+
+        def spy(probs, k, dim=-1):
+            vals, idx = topk(probs, k, dim=dim)
+            routes.append(idx.reshape(-1, k))
+            return vals, idx
+
+        torch.topk = spy
+        try:
+            return moe_apply(p, x, cfg, div=div)
+        finally:
+            torch.topk = topk
+
+    layers.moe_apply = recording
+    try:
+        yield routes
+    finally:
+        layers.moe_apply = moe_apply
+
+
+def moe_variant_run(impl, div, model, params, failures):
+    """Phase 9 (c), one variant: olmoe-1b-7b (the caller's full-width bf16
+    weights) with ``moe_impl=impl`` served through ``ServeEngine`` on the
+    ``cuda`` backend (4 slots, the four seeded prompts x 8 tokens; ``div``
+    None: the engine's own, no plan), launch counters zeroed just before and
+    read just after; then the four prompts cut to the shortest one's length
+    as one (4, S) prefill batch (the sharded variant routes it as 4 token
+    groups): its logits against the ``torch`` backend replaying the ``cuda``
+    run's top-8 choices (held at olmoe's ``LOGITS_TOL``; each backend routing
+    on its own reported), each layer's router GEMM against ``torch.matmul``
+    (``ROUTER_TOL``), and a planted fault of each (every fused grouped GEMM,
+    and the router, with their last K chunk dropped) at 3x or more."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.gemm import gemm_context, get_backend, register_backend
+    from repro_torch.kernels.common import LAUNCHES, reset_launch_counts
+    from repro_torch.models.lm import LM
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    t0 = time.perf_counter()
+    arch = "olmoe-1b-7b"
+    vmodel = LM(dataclasses.replace(model.cfg, moe_impl=impl))
+    cfg = vmodel.cfg
+    label = f"{arch} moe_impl={impl}"
+    engine = ServeEngine(vmodel, params, ServeConfig(n_slots=N_SLOTS, max_seq=MAX_SEQ, eos=-1),
+                         div=div, backend="cuda")
+    prompts = serve_prompts(cfg.vocab_size)
+    for p in prompts:
+        engine.submit(p, max_new_tokens=8)
+    reset_launch_counts()
+    done = engine.run()
+    torch.cuda.synchronize()
+    launches = {name: c for name, c in LAUNCHES.items() if c}
+    if len(done) != 4 or any(len(r.out_tokens) != 8 or not all(
+            0 <= t < cfg.vocab_size for t in r.out_tokens) for r in done):
+        raise AssertionError(f"{label}: served {len(done)}/4 requests")
+    needed = set()
+    for e in engine.selection_log:
+        needed |= _kernels_of(e)
+    for name in needed:
+        if not launches.get(name):
+            failures.append(f"{label}: {name} was selected but never launched")
+    grouped = sum(1 for e in engine.selection_log if e.op.fused)
+    b5 = sum(c for name, c in launches.items() if name.startswith("grouped_streamk"))
+    if b5 != grouped or not grouped:
+        failures.append(f"{label}: {b5} B5 launches for {grouped} grouped dispatches")
+    expert_m = sorted({e.local_mnk[0] for e in engine.selection_log if e.op.fused})
+
+    s = min(len(p) for p in prompts)
+    tokens = torch.as_tensor(np.stack([p[:s] for p in prompts]), device="cuda")
+    bdiv = engine.div
+
+    def prefill():
+        return vmodel.prefill(params, tokens, div=bdiv)[0]
+
+    with own_routing_log(check_router=True) as routes, gemm_context(backend="cuda"):
+        got = prefill()
+    with own_routing_log() as routes_torch, gemm_context(backend="torch"):
+        want_own = prefill()
+    with routing_replay(routes), gemm_context(backend="torch"):
+        want = prefill()
+    if not torch.isfinite(got).all() or got.shape != (4, 1, cfg.vocab_size):
+        raise AssertionError(f"{label}: bad prefill logits {tuple(got.shape)}")
+    scale = want.float().abs().max().item()
+    replayed = (got.float() - want.float()).abs().max().item()
+    own = (got.float() - want_own.float()).abs().max().item()
+    flips = routing_flips(routes, routes_torch)
+
+    cuda = get_backend("cuda")
+
+    def drop_last_k_chunk(x, w, *, op, policy, cfg, **kw):
+        if op.fused and x.shape[-1] > cfg.bk:
+            kk = x.shape[-1] - cfg.bk
+            x, w = x[..., :kk].contiguous(), w[:, :kk].contiguous()
+        return cuda(x, w, op=op, policy=policy, cfg=cfg, **kw)
+
+    register_backend("cuda_grouped_fault", drop_last_k_chunk, overwrite=True)
+    with own_routing_log() as fault_routes, gemm_context(backend="cuda_grouped_fault"):
+        bad = prefill()
+    with routing_replay(fault_routes), gemm_context(backend="torch"):
+        want_f = prefill()
+    fault = (bad.float() - want_f.float()).abs().max().item() if torch.isfinite(
+        bad).all() else math.inf
+    tol = LOGITS_TOL[arch]
+    if replayed > tol * scale:
+        failures.append(f"{label}: prefill logits with the cuda run's routing replayed: "
+                        f"max|diff| {replayed:.4f} > {tol} * {scale:.4f}")
+    if routes.router_err > ROUTER_TOL:
+        failures.append(f"{label}: router logits vs torch.matmul: {routes.router_err:.3e} > "
+                        f"{ROUTER_TOL}")
+    if fault < 3 * tol * scale:
+        failures.append(f"{label}: the planted fault reads {fault:.4f} < 3 * {tol} * "
+                        f"{scale:.4f}")
+    if routes.router_fault < 3 * ROUTER_TOL:
+        failures.append(f"{label}: the router's planted fault reads {routes.router_fault:.3e} "
+                        f"< 3 * {ROUTER_TOL}")
+    seconds = time.perf_counter() - t0
+    log(f"{label}: served 4/4 with div {engine.div}, launches {launches} ({grouped} grouped "
+        f"dispatches at expert M {expert_m}); a (4, {s}) prefill batch vs the torch "
+        f"backend replaying the cuda run's top-{cfg.top_k}: max|diff| {replayed:.4f} "
+        f"({replayed / scale:.3e} x max|logit|, limit {tol}); each routing alone {own:.4f} "
+        f"(flips {flips['assignments']}); router {routes.router_err:.3e} (limit {ROUTER_TOL}); "
+        f"planted faults {fault:.4f} (>= {3 * tol * scale:.4f}) and router "
+        f"{routes.router_fault:.3e} ({seconds:.1f}s)")
+    return dict(impl=impl, div=engine.div, launches=launches, grouped_dispatches=grouped,
+                expert_m=expert_m, tokens={r.uid: r.out_tokens for r in done},
+                prefill_batch=[4, s], logits_replayed_max_abs_diff=replayed,
+                logits_own_routing_max_abs_diff=own, logits_max_abs=scale, logits_tol=tol,
+                routing_flips=flips, router_max_rel_err=routes.router_err,
+                router_fault=routes.router_fault, planted_fault_max_abs_diff=fault,
+                timing=dict(engine.timing), seconds=seconds)
+
+
+def phase_moe_variants(model, params, failures):
+    """Phase 9 (c), run on phase 3's olmoe-1b-7b weights before they are
+    freed: each of ``MOE_VARIANTS`` (``moe_variant_run``)."""
+    t0 = time.perf_counter()
+    out = {impl: moe_variant_run(impl, div, model, params, failures)
+           for impl, div in MOE_VARIANTS}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 9 (c) (olmoe-1b-7b on the sharded and hinted dispatch): {out['seconds']:.1f}s")
+    return out
+
+
+def tokens_agree(a, b):
+    """Whether two CLI summaries served the same greedy tokens, worker by
+    worker and request by request."""
+    return [w["out_tokens"] for w in a["workers"]] == [w["out_tokens"] for w in b["workers"]]
+
+
+def phase_mesh_model_cli(failures):
+    """Phase 9 (d): the serve CLI (``repro_torch.launch.serve.main``) at
+    full width, granite-8b, 4 requests x 8 tokens, without a plan and with
+    ``--mesh-model 1`` (a (data 1, model 1) plan: every divisor 1), launch
+    counters zeroed just before each run and read just after: both exit 0
+    with B1 and B2 launched, the plan's divisors logged, and the same greedy
+    tokens; a planted fault (one token changed in the second summary) must
+    read as a disagreement."""
+    import os
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels.common import LAUNCHES, reset_launch_counts
+    from repro_torch.launch import serve as cli
+
+    t0 = time.perf_counter()
+    base = ["--arch", "granite-8b", "--preset", "full", "--requests", "4", "--slots",
+            str(N_SLOTS), "--max-seq", str(MAX_SEQ), "--max-new-tokens", "8"]
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, extra in (("no_plan", []), ("mesh_model_1", ["--mesh-model", "1"])):
+            summary = os.path.join(tmp, f"{name}.json")
+            reset_launch_counts()
+            t1 = time.perf_counter()
+            rc = cli.main(base + extra + ["--summary-json", summary])
+            torch.cuda.synchronize()
+            launches = {n: c for n, c in LAUNCHES.items() if c}
+            with open(summary) as f:
+                run = json.load(f)
+            run.update(rc=rc, launches=launches, seconds=time.perf_counter() - t1)
+            runs[name] = run
+            gc.collect()
+            torch.cuda.empty_cache()
+            if rc != 0 or run["completed"] != 4:
+                failures.append(f"serve CLI {name}: rc {rc}, {run['completed']}/4 requests")
+            for kernel in ("dp_gemm_region", "streamk_phase1"):
+                if not launches.get(kernel):
+                    failures.append(f"serve CLI {name}: {kernel} never launched")
+    plan = runs["mesh_model_1"].get("mesh")
+    if plan != {"shape": {"data": 1, "model": 1}, "gemm_div": {"batch": 1, "model": 1}}:
+        failures.append(f"serve CLI --mesh-model 1: plan {plan}")
+    same = tokens_agree(runs["no_plan"], runs["mesh_model_1"])
+    planted = json.loads(json.dumps(runs["mesh_model_1"]))
+    planted["workers"][0]["out_tokens"][0][-1] += 1
+    fault_seen = not tokens_agree(runs["no_plan"], planted)
+    if not same:
+        failures.append("serve CLI --mesh-model 1: greedy tokens differ from the run without "
+                        "a plan")
+    if not fault_seen:
+        failures.append("serve CLI --mesh-model 1: the planted token went unseen")
+    seconds = time.perf_counter() - t0
+    log(f"phase 9 (d) serve CLI granite-8b: plan {plan}; tokens equal without and with the "
+        f"plan: {same}; planted fault seen: {fault_seen}; launches "
+        f"{runs['mesh_model_1']['launches']} ({seconds:.1f}s)")
+    return dict(runs={k: {key: v[key] for key in ("rc", "completed", "launches", "seconds",
+                                                   "mesh") if key in v}
+                      for k, v in runs.items()},
+                tokens=[w["out_tokens"] for w in runs["mesh_model_1"]["workers"]],
+                same_tokens=same, fault_seen=fault_seen, seconds=seconds)
+
+
+def phase_shard(dry, moe_variants, gen, failures):
+    """Phase 9: (a) the dry run's cells, (b) the per-shard GEMMs on the
+    kernels, (c) the MoE variants' record (run inside phase 3), (d) the
+    serve CLI's ``--mesh-model``. Returns the phase's record."""
+    import torch
+
+    t0 = time.perf_counter()
+    dryrun = phase_dryrun(*dry, failures)
+    gemms = phase_shard_gemms(dryrun["artifacts"], gen, failures) if dryrun else None
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli = phase_mesh_model_cli(failures)
+    seconds = time.perf_counter() - t0 + moe_variants["seconds"]
+    log(f"phase 9 (plans, dry run, per-shard GEMMs, MoE variants, --mesh-model): "
+        f"{seconds:.1f}s ((c) {moe_variants['seconds']:.1f}s of it inside phase 3)")
+    if dryrun:
+        dryrun.pop("artifacts")
+    return dict(dryrun=dryrun, shard_gemms=gemms, moe_variants=moe_variants, mesh_model_cli=cli,
+                seconds=seconds)
+
+
 class Routes(list):
     """Each MoE layer's top-k expert choice ((T, k) indices) in call order,
     and ``router_err``: the largest max|diff| of a layer's router logits
-    against ``torch.matmul`` of the same input, over max(1, max|ref|)."""
+    against ``torch.matmul`` of the same input, over max(1, max|ref|)
+    (``own_routing_log`` adds ``router_fault``: the least such reading of
+    the router GEMM with its last K chunk dropped)."""
 
     router_err = 0.0
 
@@ -4203,7 +4778,13 @@ def routing_replay(routes):
     def replaying(p, x, cfg, *, div):
         idx = next(queue)
         topk = torch.topk
-        torch.topk = lambda probs, k, dim=-1: (probs.gather(dim, idx), idx)
+
+        def take(probs, k, dim=-1):
+            # (T, k) recorded; a layer routing (G, T/G) token groups asks per group
+            i = idx.reshape(*probs.shape[:-1], idx.shape[-1])
+            return probs.gather(dim, i), i
+
+        torch.topk = take
         try:
             return moe_apply(p, x, cfg, div=div)
         finally:
@@ -4343,11 +4924,24 @@ def _leaves(tree):
 def main() -> int:
     import torch
 
-    from repro_torch.configs import get_config
-
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the H100", file=sys.stderr)
         return 2
+    # phase 9 (a)'s traces need no card: they run beside the build
+    dry = start_dryrun()
+    try:
+        return run_phases(dry)
+    finally:
+        if dry[0].poll() is None:
+            dry[0].kill()
+        dry[0].wait()
+
+
+def run_phases(dry) -> int:
+    import torch
+
+    from repro_torch.configs import get_config
+
     torch.backends.cuda.matmul.allow_tf32 = False  # the f32 references stay f32
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -4441,7 +5035,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    serve["olmoe-1b-7b"] = phase_serve("olmoe-1b-7b", failures)
+    moe_variants = {}  # phase 9 (c) runs on phase 3's olmoe-1b-7b weights, before they are freed
+
+    def olmoe_variants(model, params, runs):
+        moe_variants.update(phase_moe_variants(model, params, failures))
+
+    serve["olmoe-1b-7b"] = phase_serve("olmoe-1b-7b", failures, then=olmoe_variants)
     log(f"olmoe-1b-7b served dense and on {list(RUNGS)} ({time.perf_counter() - t0:.1f}s)")
     gc.collect()
     torch.cuda.empty_cache()
@@ -4458,6 +5057,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train = phase_train(failures)
+    gc.collect()
+    torch.cuda.empty_cache()
+    shard = phase_shard(dry, moe_variants, gen, failures)
+    shard_launches = (shard["shard_gemms"] or {}).get("launches", {})
 
     from repro_torch.kernels import cuda_lib
     from repro_torch.kernels.common import mainloop
@@ -4483,6 +5086,10 @@ def main() -> int:
             launches_in=arch, launches_other_model=serve[other]["dense"]["launches"].get(name, 0),
             # phase 8's main path: Trainer.fit's launches, by trained model
             train_launches={a: train[a]["fit_launches"].get(name, 0) for a in train},
+            # phase 9's: the per-shard GEMMs, and olmoe on the MoE variants
+            shard_gemm_launches=shard_launches.get(name, 0),
+            moe_variant_launches={impl: moe_variants[impl]["launches"].get(name, 0)
+                                  for impl, _ in MOE_VARIANTS},
             **extra,
         ))
     # B6 has no served caller: its launches are those of the baseline comparison, the
@@ -4542,7 +5149,7 @@ def main() -> int:
                   b5_table=b5_rows, b5_s8_table=b5_s8_rows, b12_table=b12_rows,
                   b12_s8_table=b12_s8_rows, f32_table=f32_rows,
                   kv_int8=kv_int8, tune=tune, paged=paged, archs=archs, families=families,
-                  train=train,
+                  train=train, shard=shard,
                   seconds=time.perf_counter() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,3 +1,3 @@
-from repro_torch.data.pipeline import PipelineState, SyntheticLMData
+from repro_torch.data.pipeline import PipelineState, SyntheticLMData, input_specs
 
-__all__ = ["PipelineState", "SyntheticLMData"]
+__all__ = ["PipelineState", "SyntheticLMData", "input_specs"]

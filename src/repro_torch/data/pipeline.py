@@ -11,8 +11,8 @@ host state needs to survive a preemption except the integer step.
 The "document" stream packs variable-length documents into fixed-length
 rows with EOS separators and a loss mask — the realistic shape of an LM
 pipeline — and the modality stubs (patch/frame embeddings) are generated
-the same counter-mode way. ``repro``'s ``input_specs``, the dry-run's
-shape contract, comes with the dry-run (ROADMAP A9).
+the same counter-mode way. :func:`input_specs` is the dry run's shape
+contract: meta tensors for every model input of an (arch, shape) cell.
 """
 
 from __future__ import annotations
@@ -21,8 +21,9 @@ from dataclasses import dataclass
 from typing import Dict, Iterator
 
 import numpy as np
+import torch
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, ShapeConfig
 
 
 @dataclass
@@ -110,3 +111,27 @@ class SyntheticLMData:
     def load_state_dict(self, d):
         self.state = PipelineState.from_dict(d)
 
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+    """Meta-tensor stand-ins for every model input of an (arch, shape) cell,
+    ``repro``'s shapes and dtypes (int32 tokens, f32 masks and embeddings):
+    the dry run's contract, no storage allocated."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def meta(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    f32, i32 = torch.float32, torch.int32
+    if shape.kind == "decode":
+        # one new token against a seq_len-deep cache
+        return {"tokens": meta((b, 1), i32), "cur_pos": meta((b,), i32)}
+    specs = {"tokens": meta((b, s), i32)}
+    if shape.kind == "train":
+        specs["labels"] = meta((b, s), i32)
+        specs["loss_mask"] = meta((b, s), f32)
+    if cfg.family == "vlm":
+        specs["patch_embeds"] = meta((b, cfg.n_patches, cfg.d_model), f32)
+    if cfg.family == "encdec":
+        specs["frames"] = meta((b, cfg.enc_frames, cfg.d_model), f32)
+    return specs

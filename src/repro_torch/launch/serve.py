@@ -44,6 +44,12 @@ the federation of every shard (``core/federate.py``), and ``--gossip-every
 N`` folds the siblings' fresh commits into each worker's live selector
 every N engine steps (``core/gossip.py``).
 
+``--mesh-model N`` installs a sharding plan over the host's ranks as
+(data, model = N) (``launch/mesh.py make_host_mesh``): the engines then
+take their GEMM divisors from it (``serve_gemm_div``), so every dispatch
+fingerprints the per-shard local MNK. One process is one rank, so only
+N = 1 runs here; N > 1 fails in ``make_host_mesh``'s check.
+
 Example::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \\
@@ -92,6 +98,8 @@ from repro_torch.core.gossip import GossipExchange
 from repro_torch.core.policies import DEFAULT_TILE_CONFIGS, HOPPER_TILE_CONFIGS
 from repro_torch.core.selector import KernelSelector, SelectorState
 from repro_torch.core.tuner import Tuner, TuningDatabase, measure_wallclock
+from repro_torch.dist.sharding import ShardingPlan, use_plan
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import build_model
 from repro_torch.models.lm import resolve_device
 from repro_torch.serve import (
@@ -363,6 +371,9 @@ def main(argv=None) -> int:
     ap.add_argument("--merge-journals", action="store_true",
                     help="federate every existing journal shard (<journal> and "
                     "<journal>.shard*) into each worker's warm-start database")
+    ap.add_argument("--mesh-model", type=int, default=0,
+                    help="install a (data, model=N) host-mesh sharding plan so dispatch "
+                    "fingerprints key on the per-shard local MNK (0: no plan)")
     ap.add_argument("--gossip-every", type=int, default=0,
                     help="poll the sibling workers' journal shards every N engine steps and "
                     "fold fresh commits into the live selector (0: off; needs --journal)")
@@ -432,6 +443,12 @@ def main(argv=None) -> int:
                  ", dynamic int8 activations" if act_bits else "",
                  time.perf_counter() - t0, n_skipped)
 
+    plan = None
+    if args.mesh_model:
+        mesh = make_host_mesh(model=args.mesh_model)
+        plan = ShardingPlan(mesh)
+        log.info("mesh plan installed: %s -> gemm divisors %s", mesh.shape, plan.gemm_div())
+
     # a deterministic request stream, dealt round-robin across the workers;
     # prompt lengths respect the cache bound (submit() rejects len > max_seq)
     rng = np.random.default_rng(args.seed)
@@ -444,6 +461,37 @@ def main(argv=None) -> int:
     # all start from the artifacts of before the run, so worker 1 must not
     # warm-start from what worker 0 journals moments ago in this same run
     workers = [build_worker(args, device, w) for w in range(args.workers)]
+    with use_plan(plan):
+        done, runs = serve_workers(args, model, params, device, workers, prompts)
+    summary = dict(arch=cfg.name, preset=args.preset, dtype=cfg.dtype, device=str(device),
+                   requests=args.requests, completed=len(done),
+                   tokens=sum(len(r.out_tokens) for r in done), workers=runs)
+    if plan is not None:
+        summary["mesh"] = dict(shape=plan.mesh.shape, gemm_div=plan.gemm_div())
+    log.info("served %d/%d requests, %d tokens across %d worker(s)", len(done), args.requests,
+             summary["tokens"], args.workers)
+    if args.workers > 1 and args.journal:
+        # the federation summary: what the fleet learned in this run
+        shard_paths = [shard_journal_path(args.journal, w, args.workers)
+                       for w in range(args.workers)]
+        merged, rep = merge_journal_shards(shard_paths, into=TuningDatabase(), missing_ok=True)
+        summary["federation"] = dict(records=merged.n_records(), sources=rep.sources,
+                                     examined=rep.examined, conflicts=rep.conflicts,
+                                     superseded=rep.superseded, load_errors=rep.load_errors)
+        log.info("fleet journals federate to %d records (%d shards, %d conflicts); re-run "
+                 "with --merge-journals to warm-start every worker from them",
+                 merged.n_records(), rep.sources, rep.conflicts)
+    if args.summary_json:
+        with open(args.summary_json, "w") as f:
+            json.dump(summary, f, indent=1)
+    return 0 if len(done) == args.requests else 1
+
+
+def serve_workers(args, model, params, device, workers, prompts):
+    """Serve ``prompts`` (dealt round-robin) through one engine per worker,
+    one worker after another; returns (finished requests, each worker's
+    summary). Engines are built here, so under an installed plan they take
+    its GEMM divisors."""
     done, runs = [], []
     for w, (selector, adaptive) in enumerate(workers):
         gossip = None
@@ -484,26 +532,7 @@ def main(argv=None) -> int:
                 served = engine.run()
         done.extend(served)
         runs.append(_worker_summary(w, engine, served, wprompts, gossip, args))
-    summary = dict(arch=cfg.name, preset=args.preset, dtype=cfg.dtype, device=str(device),
-                   requests=args.requests, completed=len(done),
-                   tokens=sum(len(r.out_tokens) for r in done), workers=runs)
-    log.info("served %d/%d requests, %d tokens across %d worker(s)", len(done), args.requests,
-             summary["tokens"], args.workers)
-    if args.workers > 1 and args.journal:
-        # the federation summary: what the fleet learned in this run
-        shard_paths = [shard_journal_path(args.journal, w, args.workers)
-                       for w in range(args.workers)]
-        merged, rep = merge_journal_shards(shard_paths, into=TuningDatabase(), missing_ok=True)
-        summary["federation"] = dict(records=merged.n_records(), sources=rep.sources,
-                                     examined=rep.examined, conflicts=rep.conflicts,
-                                     superseded=rep.superseded, load_errors=rep.load_errors)
-        log.info("fleet journals federate to %d records (%d shards, %d conflicts); re-run "
-                 "with --merge-journals to warm-start every worker from them",
-                 merged.n_records(), rep.sources, rep.conflicts)
-    if args.summary_json:
-        with open(args.summary_json, "w") as f:
-            json.dump(summary, f, indent=1)
-    return 0 if len(done) == args.requests else 1
+    return done, runs
 
 
 def _worker_summary(w, engine, served, prompts, gossip, args) -> dict:
@@ -518,7 +547,8 @@ def _worker_summary(w, engine, served, prompts, gossip, args) -> dict:
         tm["decode_tokens"] / max(tm["decode_s"], 1e-9),
     )
     out = dict(worker=w, completed=len(served), requests=len(prompts), backend=engine.backend,
-               timing=dict(tm))
+               timing=dict(tm),
+               out_tokens=[list(r.out_tokens) for r in sorted(served, key=lambda r: r.uid)])
     if args.paged:
         m = engine.metrics()
         out["pool"] = m

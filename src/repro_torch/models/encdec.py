@@ -26,7 +26,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.gemm import as_dtype, gemm
-from repro_torch.dist.sharding import ArraySpec, init_leaf
+from repro_torch.dist.sharding import ArraySpec, constrain, init_leaf
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import (TiedHead, _map, _stack_specs, _zeros, grad_tracking,
@@ -110,9 +110,9 @@ class EncDec:
             p = _map(lambda a: a[i], params["enc_layers"])
             h = L.norm_apply(p["norm1"], x, cfg)
             a, _ = L.attn_apply(p["attn"], h, cfg, div=div, mask_kind="bidir", use_rope=False)
-            x = x + a
+            x = constrain(x + a, "batch", "seq", None)
             h = L.norm_apply(p["norm2"], x, cfg)
-            return x + L.mlp_apply(p["mlp"], h, cfg, div=div)
+            return constrain(x + L.mlp_apply(p["mlp"], h, cfg, div=div), "batch", "seq", None)
 
         remat = cfg.remat and grad_tracking(params)
         for i in range(cfg.n_enc_layers):
@@ -145,7 +145,7 @@ class EncDec:
             h = L.norm_apply(p["norm1"], x, cfg)
             a, kv = L.attn_apply(p["self_attn"], h, cfg, div=div, positions=positions,
                                  use_rope=False, cache=layer, cur_pos=cur_pos)
-            x = x + a
+            x = constrain(x + a, "batch", "seq", None)
             h = L.norm_apply(p["norm2"], x, cfg)
             entry = None
             if cache is None:
@@ -155,9 +155,10 @@ class EncDec:
                 ck, cv = cache["cross"]["k"][i], cache["cross"]["v"][i]
             a, _ = L.attn_apply(p["cross_attn"], h, cfg, div=div, use_rope=False,
                                 kv_override=(ck, cv))
-            x = x + a
+            x = constrain(x + a, "batch", "seq", None)
             h = L.norm_apply(p["norm3"], x, cfg)
-            return x + L.mlp_apply(p["mlp"], h, cfg, div=div), entry
+            x = constrain(x + L.mlp_apply(p["mlp"], h, cfg, div=div), "batch", "seq", None)
+            return x, entry
 
         if cache is None and cfg.remat and grad_tracking(params):
             # training: each layer recomputed in the backward; the fresh

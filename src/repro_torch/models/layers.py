@@ -1,4 +1,4 @@
-"""Model building blocks (counterpart of the dense, global-MoE, encoder and
+"""Model building blocks (counterpart of the dense, MoE, encoder and
 cross-attention parts of ``repro.models.layers``).
 
 Every projection routes through :func:`repro_torch.core.gemm.gemm` (the MoE
@@ -24,8 +24,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.gemm import as_dtype, gemm, gemm_grouped
 from repro_torch.core.op import Epilogue
-from repro_torch.core.quant import quantize_activations
-from repro_torch.dist.sharding import ArraySpec
+from repro_torch.core.quant import is_quantized, quantize_activations
+from repro_torch.dist.sharding import ArraySpec, constrain, current_plan
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -386,24 +386,39 @@ def moe_specs(cfg: ModelConfig) -> Dict[str, ArraySpec]:
 def moe_apply(
     p: Params, x: torch.Tensor, cfg: ModelConfig, *, div: Dict[str, int]
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Capacity-based top-k MoE over the global token space (the JAX
-    package's ``moe_impl="global"``). Returns (output, aux load-balance loss).
+    """Capacity-based top-k MoE. Returns (output, aux load-balance loss).
 
-    Routing is deterministic and needs no sort: assignments are taken
-    rank-major (every token's first choice before any second choice), a
-    cumulative sum gives each assignment its position in its expert, and
-    positions past the capacity land in a trash column. Every expert then
-    runs at ``cap`` rows, empty or not, through three grouped GEMMs (one
-    selection and, on the card, one kernel launch each)."""
-    if cfg.moe_impl != "global":
-        raise NotImplementedError(
-            f"moe_impl={cfg.moe_impl!r} needs a device mesh or sharding hints; the port "
-            "runs the global capacity dispatch only"
-        )
+    ``cfg.moe_impl`` picks the dispatch, as in ``repro``: ``global`` routes
+    over the global token space rank-major (every token's first choice
+    before any second choice); ``hinted`` routes token-major (a token's
+    choices in turn, GShard's priority) with the sharding hints of
+    ``repro``'s perf variant; ``sharded`` routes each of ``div["batch"]``
+    token groups into its own capacity (:func:`moe_apply_sharded`);
+    ``shard_map``/``shard_map_bf16`` run the per-rank expert-parallel body
+    under a plan (:func:`moe_apply_shard_map`) and the capacity dispatch
+    without one.
+
+    Routing is deterministic and needs no sort: a cumulative sum gives each
+    assignment its position in its expert, and positions past the capacity
+    land in a trash column. Every expert then runs at ``cap`` rows, empty or
+    not, through three grouped GEMMs (one selection and, on the card, one
+    kernel launch each)."""
+    if cfg.moe_impl == "sharded":
+        return moe_apply_sharded(p, x, cfg, div=div)
+    if cfg.moe_impl in ("shard_map", "shard_map_bf16"):
+        # quantized expert weights take the capacity dispatch under a plan too,
+        # as in repro (a rank-pinned layout cannot describe values + scales)
+        if current_plan() is not None and not is_quantized(p["w_in"]):
+            return moe_apply_shard_map(p, x, cfg, div=div)
+    elif cfg.moe_impl not in ("global", "hinted"):
+        raise ValueError(f"unknown moe_impl {cfg.moe_impl!r}")
+    hinted = cfg.moe_impl == "hinted"
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     t = b * s
     xf = x.reshape(t, d)
+    if hinted:
+        xf = constrain(xf, "batch", None)
 
     logits = gemm(
         xf.to(torch.float32), p["router"], divisors=(div.get("batch", 1), 1, 1),
@@ -416,9 +431,15 @@ def moe_apply(
     # capacity per expert; the min(t, 16) floor keeps tiny-T dispatch
     # (single-token decode) drop-free
     cap = max(int(cfg.capacity_factor * t * k / e), min(t, 16), 1)
-    e_flat = idx.T.reshape(t * k)  # (k*T,) rank-major
-    tok = torch.arange(t, device=x.device).repeat(k)
-    gate_flat = gates.T.reshape(t * k)
+    if hinted:
+        # token-major: the flattened (T*k,) axis keeps T's sharding
+        e_flat = constrain(idx.reshape(t * k), "batch")
+        tok = torch.arange(t, device=x.device).repeat_interleave(k)
+        gate_flat = gates.reshape(t * k)
+    else:
+        e_flat = idx.T.reshape(t * k)  # (k*T,) rank-major
+        tok = torch.arange(t, device=x.device).repeat(k)
+        gate_flat = gates.T.reshape(t * k)
     onehot = F.one_hot(e_flat, e)  # (kT, E)
     pos = (torch.cumsum(onehot, dim=0) * onehot - 1).amax(dim=-1)  # position in expert
     keep = pos < cap
@@ -428,8 +449,36 @@ def moe_apply(
     buf = torch.zeros((e, cap + 1, d), dtype=x.dtype, device=x.device)
     buf[e_flat, slot] = xf[tok]
     expert_in = buf[:, :cap]
+    if hinted:
+        expert_in = constrain(expert_in, "experts", None, None)
 
-    dg = div.get("model", 1)
+    out_e = _experts(p, expert_in, cfg, div)  # (E, cap, D)
+    if hinted:
+        out_e = constrain(out_e, "experts", None, None)
+
+    # combine: gather back per assignment, weight by the gate, sum the choices
+    gathered = out_e[e_flat, torch.clamp_max(slot, cap - 1)]  # (kT, D)
+    w = (gate_flat * keep).to(torch.float32)
+    if hinted:
+        gathered = constrain(gathered, "batch", None)
+        combined = (gathered.to(torch.float32) * w[:, None]).reshape(t, k, d).sum(dim=1)
+        frac = onehot.reshape(t, k, e).sum(dim=1)
+    else:
+        combined = (gathered.to(torch.float32) * w[:, None]).reshape(k, t, d).sum(dim=0)
+        frac = onehot.reshape(k, t, e).sum(dim=0)
+
+    # load-balance aux loss (Switch): E * sum_e f_e * p_e
+    frac = frac.to(torch.float32).mean(dim=0)
+    aux = cfg.router_aux_coef * e * torch.sum(frac * probs.mean(dim=0))
+    return combined.reshape(b, s, d).to(x.dtype), aux
+
+
+def _experts(p: Params, expert_in: torch.Tensor, cfg: ModelConfig, div: Dict[str, int],
+             g_divisor: Optional[int] = None) -> torch.Tensor:
+    """The expert MLP over ``expert_in`` (E, rows, D): three grouped GEMMs
+    (two with gelu), the activation in the epilogue and swiglu's gate
+    multiplied into the up-projection's."""
+    dg = div.get("model", 1) if g_divisor is None else g_divisor
     if cfg.mlp_act == "swiglu":
         gate = gemm_grouped(expert_in, p["w_gate"], g_divisor=dg, tag="moe.gate")
         h = gemm_grouped(
@@ -442,14 +491,107 @@ def moe_apply(
         )
     else:
         h = gemm_grouped(expert_in, p["w_in"], g_divisor=dg, tag="moe.in", epilogue="gelu")
-    out_e = gemm_grouped(h, p["w_out"], g_divisor=dg, tag="moe.out")  # (E, cap, D)
+    return gemm_grouped(h, p["w_out"], g_divisor=dg, tag="moe.out")
 
-    # combine: gather back per assignment, weight by the gate, sum the ranks
-    gathered = out_e[e_flat, torch.clamp_max(slot, cap - 1)]  # (kT, D)
-    w = (gate_flat * keep).to(torch.float32)
-    combined = (gathered.to(torch.float32) * w[:, None]).reshape(k, t, d).sum(dim=0)
 
-    # load-balance aux loss (Switch): E * sum_e f_e * p_e
-    frac = onehot.reshape(k, t, e).sum(dim=0).to(torch.float32).mean(dim=0)
+def moe_apply_sharded(
+    p: Params, x: torch.Tensor, cfg: ModelConfig, *, div: Dict[str, int]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_impl="sharded"``: shard-local capacity dispatch (``repro``'s
+    ``moe_apply_sharded``). The tokens split into ``div["batch"]`` groups
+    (one, when the count does not divide), each routed rank-major into its
+    own ``(E, cap)`` buffer at a per-group capacity, as each data shard
+    would route its own tokens; the groups then fold into M, so each expert
+    contracts ``(G * cap, D)`` in one grouped GEMM. The router is a plain
+    f32 einsum, as in ``repro``."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    t = b * s
+    groups = div.get("batch", 1)
+    if t % groups:
+        groups = 1
+    tl = t // groups
+    xg = constrain(x.reshape(groups, tl, d), "batch", None, None)
+
+    logits = torch.einsum("gtd,de->gte", xg.to(torch.float32), p["router"].to(torch.float32))
+    probs = torch.softmax(logits, dim=-1)  # (G, Tl, E)
+    gates, idx = torch.topk(probs, k, dim=-1)  # (G, Tl, k)
+    gates = gates / gates.sum(dim=-1, keepdim=True)
+
+    cap = max(int(cfg.capacity_factor * tl * k / e), min(tl, 16), 1)
+    # rank-major within each group (primary choices win capacity)
+    e_flat = idx.transpose(1, 2).reshape(groups, tl * k)  # (G, kTl)
+    onehot = F.one_hot(e_flat, e)  # (G, kTl, E)
+    pos = (torch.cumsum(onehot, dim=1) * onehot - 1).amax(dim=-1)  # (G, kTl)
+    keep = pos < cap
+    slot = pos.clamp_max(cap)
+
+    tok = torch.arange(tl, device=x.device).repeat(k)  # (kTl,)
+    gidx = torch.arange(groups, device=x.device)[:, None]
+    buf = torch.zeros((groups, e, cap + 1, d), dtype=x.dtype, device=x.device)
+    buf[gidx, e_flat, slot] = xg[:, tok]
+    expert_in = constrain(buf[:, :, :cap], "batch", "experts", None, None)
+
+    # fold the group dim into M: (E, G * cap, D), one grouped op per projection
+    e_in = expert_in.transpose(0, 1).reshape(e, groups * cap, d)
+    out = _experts(p, e_in, cfg, div)  # (E, G * cap, D)
+    out_e = out.reshape(e, groups, cap, d).transpose(0, 1)
+    out_e = constrain(out_e, "batch", "experts", None, None)
+
+    gathered = out_e[gidx, e_flat, torch.clamp_max(slot, cap - 1)]  # (G, kTl, D)
+    w = (gates.transpose(1, 2).reshape(groups, tl * k) * keep).to(torch.float32)
+    combined = (gathered.to(torch.float32) * w[..., None]).reshape(groups, k, tl, d).sum(dim=1)
+
+    frac = onehot.reshape(groups, k, tl, e).sum(dim=1).to(torch.float32).mean(dim=(0, 1))
+    aux = cfg.router_aux_coef * e * torch.sum(frac * probs.mean(dim=(0, 1)))
+    return combined.reshape(b, s, d).to(x.dtype), aux
+
+
+def moe_apply_shard_map(
+    p: Params, x: torch.Tensor, cfg: ModelConfig, *, div: Dict[str, int]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_impl="shard_map"`` under a plan: ``repro``'s per-rank
+    expert-parallel body, where each (data, model) rank routes its data
+    row's tokens token-major into buffers for the ``E / model`` experts it
+    owns, and the ranks' partial outputs are summed over ``model``. On a
+    one-rank mesh that body is the whole computation: one data row, every
+    expert local, no sum. Across ranks it needs the multi-rank slice's
+    process groups and raises."""
+    plan = current_plan()
+    ranks = math.prod(plan.mesh.shape.values())
+    if ranks > 1:
+        raise NotImplementedError(
+            f"moe_impl={cfg.moe_impl!r} over a {ranks}-rank mesh needs the "
+            "multi-rank slice (explicit expert-parallel collectives); one rank runs it"
+        )
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    t = b * s
+    xf = x.reshape(t, d)
+    logits = torch.matmul(xf.to(torch.float32), p["router"].to(torch.float32))
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = torch.topk(probs, k, dim=-1)
+    gates = gates / gates.sum(dim=-1, keepdim=True)
+
+    cap = max(int(cfg.capacity_factor * t * k / e), min(t, 16), 1)
+    e_flat = idx.reshape(t * k)  # token-major priority
+    onehot = F.one_hot(e_flat, e)
+    pos = (torch.cumsum(onehot, dim=0) * onehot - 1).amax(dim=-1)
+    keep = pos < cap
+    slot = pos.clamp_max(cap)
+    tok = torch.arange(t, device=x.device).repeat_interleave(k)
+    buf = torch.zeros((e, cap + 1, d), dtype=x.dtype, device=x.device)
+    buf[e_flat, slot] = xf[tok]
+
+    # the body's shapes are already shard-local: unit divisors, G = E
+    out_e = _experts(p, buf[:, :cap], cfg, {}, g_divisor=1)
+    gathered = out_e[e_flat, torch.clamp_max(slot, cap - 1)]
+    w = (gates.reshape(t * k) * keep).to(torch.float32)
+    combined = (gathered.to(torch.float32) * w[:, None]).reshape(t, k, d).sum(dim=1)
+    if cfg.moe_impl == "shard_map_bf16" and "model" in plan.mesh.axis_names:
+        # the bf16 combine: repro sums the ranks' partials in bf16
+        combined = combined.to(torch.bfloat16).to(torch.float32)
+
+    frac = onehot.reshape(t, k, e).sum(dim=1).to(torch.float32).mean(dim=0)
     aux = cfg.router_aux_coef * e * torch.sum(frac * probs.mean(dim=0))
     return combined.reshape(b, s, d).to(x.dtype), aux

@@ -48,7 +48,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.gemm import as_dtype, current_context, gemm, installed_context
 from repro_torch.core.quant import QuantizedTensor, quantize_lm_params
-from repro_torch.dist.sharding import ArraySpec, init_leaf
+from repro_torch.dist.sharding import ArraySpec, constrain, current_plan, init_leaf, use_plan
 from repro_torch.models import layers as L
 from repro_torch.models import ssd
 from repro_torch.models.config import ModelConfig
@@ -88,15 +88,17 @@ def remat_call(enabled: bool, fn, *args):
     """``fn(*args)``, under ``torch.utils.checkpoint`` when ``enabled`` (the
     block's activations are recomputed in the backward, as ``repro``'s
     ``jax.checkpoint`` of its scanned layer body). The recompute runs under
-    the caller's dispatch context (backend, selector, log), also where the
-    backward runs on autograd's device thread, so it dispatches exactly as
-    the forward did."""
+    the caller's dispatch context (backend, selector, log) and sharding
+    plan, also where the backward runs on autograd's device thread: both
+    are thread-local, so it re-installs them and dispatches exactly as the
+    forward did."""
     if not enabled:
         return fn(*args)
     ctx = current_context()
+    plan = current_plan()
 
     def run(*a):
-        with installed_context(ctx):
+        with installed_context(ctx), use_plan(plan):
             return fn(*a)
 
     return checkpoint(run, *args, use_reentrant=False)
@@ -288,7 +290,8 @@ class LM:
         if self.cfg.family == "vlm" and patch_embeds is not None:
             p = patch_embeds.to(dt)
             x = torch.cat([p, x[:, :x.shape[1] - p.shape[1]]], dim=1)
-        return x
+        # the residual stream: batch over the data-parallel axes
+        return constrain(x, "batch", "seq", None)
 
     def head_weight(self, params) -> torch.Tensor:
         """The ``(d_model, vocab)`` weight the head reads: ``lm_head``, or,
@@ -323,7 +326,7 @@ class LM:
         state = None if cache is None else {key: leaf[i] for key, leaf in cache["ssm"].items()}
         h = L.norm_apply(p["norm1"], x, cfg)
         out, new_state = ssd.ssd_apply(p["ssm"], h, cfg, div=div, state=state)
-        x = x + out
+        x = constrain(x + out, "batch", "seq", None)
         fresh = {"ssm": new_state}
         if state is not None:
             for key, leaf in new_state.items():
@@ -349,12 +352,13 @@ class LM:
             p["attn"], h, cfg, div=div, mask_kind=mask_kind, window=win, positions=positions,
             cache=cache, cur_pos=cur_pos,
         )
-        x = x + attn_out
+        x = constrain(x + attn_out, "batch", "seq", None)
         h = L.norm_apply(p["norm2"], x, cfg)
         if cfg.family == "moe":
             out, aux = L.moe_apply(p["moe"], h, cfg, div=div)
-            return x + out, kv, aux
-        return x + L.mlp_apply(p["mlp"], h, cfg, div=div), kv, 0.0
+        else:
+            out, aux = L.mlp_apply(p["mlp"], h, cfg, div=div), 0.0
+        return constrain(x + out, "batch", "seq", None), kv, aux
 
     def _layer_params(self, params, i):
         return _map(lambda a: a[i], params["layers"])

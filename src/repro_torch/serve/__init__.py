@@ -7,6 +7,7 @@ from repro_torch.serve.engine import (
     Request,
     ServeConfig,
     ServeEngine,
+    serve_gemm_div,
 )
 from repro_torch.serve.paged_kv import PagedKVCache, PageExhausted, PageTable
 from repro_torch.serve.scheduler import (
@@ -29,4 +30,5 @@ __all__ = [
     "Request",
     "ServeConfig",
     "ServeEngine",
+    "serve_gemm_div",
 ]

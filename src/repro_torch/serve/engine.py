@@ -31,9 +31,44 @@ import torch
 from repro_torch.core.adaptive import AdaptiveTuner
 from repro_torch.core.gemm import gemm_context
 from repro_torch.core.selector import KernelSelector, SelectorStats, default_selector
+from repro_torch.dist.sharding import current_plan
 from repro_torch.models.lm import resolve_device
 
 log = logging.getLogger("repro_torch.serve")
+
+
+def serve_gemm_div(model, batch: Optional[int] = None) -> Dict[str, int]:
+    """The GEMM divisor table of the serve path under the installed plan
+    (``{}`` without one): :meth:`ShardingPlan.gemm_div`, with its ``model``
+    entry demoted to 1 when any weight dim that rides ``model`` would run
+    replicated under the plan's own solver
+    (:meth:`~repro_torch.dist.sharding.ShardingPlan.demoted_dims`), and its
+    ``batch`` entry demoted to 1 when the decode width ``batch`` does not
+    divide. So dispatch fingerprints never claim a local shape the arrays
+    do not run at (``repro.serve.engine.serve_gemm_div``)."""
+    plan = current_plan()
+    if plan is None:
+        return {}
+    div = dict(plan.gemm_div())
+    tp = div.get("model", 1)
+    if tp > 1:
+        offenders = plan.demoted_dims(model.param_specs(), mesh_axis="model")
+        if offenders:
+            shown = ", ".join(f"dim {d} ({ax or '?'}) of {sh}" for sh, ax, _, d in offenders[:3])
+            log.warning(
+                "serve fingerprints demote model divisor %d -> 1: %d weight dim(s) fail the "
+                "plan's divisibility solver and run replicated (e.g. %s)",
+                tp, len(offenders), shown,
+            )
+            div["model"] = 1
+    db = div.get("batch", 1)
+    if batch is not None and db > 1 and batch % db:
+        log.warning(
+            "serve fingerprints demote batch divisor %d -> 1: decode width %d is not "
+            "divisible, so decode activations run replicated", db, batch,
+        )
+        div["batch"] = 1
+    return div
 
 
 @dataclass(frozen=True)
@@ -98,6 +133,7 @@ class EngineCore:
         max_seq: int,
         seed: int = 0,
         div=None,
+        batch_hint: Optional[int] = None,
         selector: Optional[KernelSelector] = None,
         backend: Optional[str] = None,
         device=None,
@@ -107,7 +143,10 @@ class EngineCore:
         self.model = model
         self.params = params
         self.device = resolve_device(device)
-        self.div = div or {}
+        # without an explicit div, the installed plan's per-shard divisors
+        # (demoted where the arrays would not split), fixed before the first
+        # dispatch so every fingerprint keys on the local MNK
+        self.div = div if div is not None else serve_gemm_div(model, batch_hint)
         # the tuner is bound to a selector: without an explicit one the
         # engine serves through the tuner's
         if adaptive is not None and selector is None:
@@ -264,6 +303,7 @@ class ServeEngine(EngineCore):
             max_seq=cfg.max_seq,
             seed=cfg.seed,
             div=div,
+            batch_hint=cfg.n_slots,
             selector=selector,
             backend=backend,
             device=device,

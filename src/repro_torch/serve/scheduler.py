@@ -113,6 +113,7 @@ class PagedServeEngine(EngineCore):
             max_seq=cfg.max_seq,
             seed=cfg.seed,
             div=div,
+            batch_hint=cfg.max_active,
             selector=selector,
             backend=backend,
             device=device,

@@ -41,15 +41,41 @@ log = get_logger("train")
 
 
 def train_gemm_div(model, batch: Optional[int] = None, plan=None) -> Dict[str, int]:
-    """The ambient GEMM divisor table of the train path: the per-shard
-    factors a sharding plan gives each projection's fingerprint. The port
-    runs on one device with no plan, so it returns ``{}``, as ``repro``'s
-    does without a plan (unsharded training). Sharding plans, and with them
-    the per-array demotion ``repro`` applies here, come with the
-    distribution slice (ROADMAP A9)."""
-    if plan is not None:
-        raise NotImplementedError("sharding plans come with the distribution slice (A9)")
-    return {}
+    """The GEMM divisor table of the train path (``repro``'s
+    ``train_gemm_div``): the plan's :meth:`ShardingPlan.gemm_div`, with its
+    ``model`` entry demoted to 1 when any weight dim that rides ``model``
+    would run replicated under the plan's own solver (``demoted_dims``),
+    and its ``batch`` entry demoted to 1 when the global ``batch`` does not
+    divide, so train fingerprints never claim splits the arrays do not
+    run at. ``plan`` defaults to the installed one
+    (:func:`~repro_torch.dist.sharding.current_plan`); ``{}`` without a plan
+    (unsharded training)."""
+    from repro_torch.dist.sharding import current_plan
+
+    if plan is None:
+        plan = current_plan()
+    if plan is None:
+        return {}
+    div = dict(plan.gemm_div())
+    tp = div.get("model", 1)
+    if tp > 1:
+        offenders = plan.demoted_dims(model.param_specs(), mesh_axis="model")
+        if offenders:
+            shown = ", ".join(f"dim {d} ({ax or '?'}) of {sh}" for sh, ax, _, d in offenders[:3])
+            log.warning(
+                "train fingerprints demote model divisor %d -> 1: %d weight dim(s) fail the "
+                "plan's divisibility solver and run replicated (e.g. %s)",
+                tp, len(offenders), shown,
+            )
+            div["model"] = 1
+    db = div.get("batch", 1)
+    if batch is not None and db > 1 and batch % db:
+        log.warning(
+            "train fingerprints demote batch divisor %d -> 1: global batch %d is not "
+            "divisible, so activations run replicated", db, batch,
+        )
+        div["batch"] = 1
+    return div
 
 
 @dataclass

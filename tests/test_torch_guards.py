@@ -46,7 +46,9 @@ def test_port_import_leaves_jax_out():
             "repro_torch.configs.zamba2_1_2b, repro_torch.configs.llava_next_34b, "
             "repro_torch.configs.whisper_large_v3, repro_torch.launch.train, "
             "repro_torch.train, repro_torch.optim, repro_torch.data, repro_torch.checkpoint, "
-            "repro_torch.dist.compression, repro_torch.utils.trees, repro_torch.utils.timing, sys; "
+            "repro_torch.dist.compression, repro_torch.utils.trees, repro_torch.utils.timing, "
+            "repro_torch.dist.sharding, repro_torch.dist.cost, repro_torch.dist.pipeline, "
+            "repro_torch.launch.mesh, repro_torch.launch.dryrun, sys; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]")
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,

@@ -248,9 +248,23 @@ def test_moe_apply_matches_repro(capacity_factor, backend):
 
 
 def test_moe_apply_refuses_the_mesh_variants():
-    cfg = dataclasses.replace(get_reduced("olmoe-1b-7b"), moe_impl="sharded")
-    with pytest.raises(NotImplementedError, match="global"):
-        layers.moe_apply({}, torch.zeros(1, 2, cfg.d_model), cfg, div={})
+    """``sharded`` and ``hinted`` run on one rank (``tests/test_torch_moe_variants.py``);
+    ``shard_map`` under a plan whose mesh spans more than one rank needs the
+    multi-rank slice and says so, and an unknown variant is refused."""
+    from types import SimpleNamespace
+
+    from repro_torch.dist.sharding import ShardingPlan, use_plan
+
+    _, cfg, p = _moe_pair(4.0)
+    x = torch.zeros(1, 2, cfg.d_model)
+    p = {k: torch.from_numpy(v) for k, v in p.items()}
+    mesh = SimpleNamespace(shape={"data": 2, "model": 4}, axis_names=("data", "model"))
+    for impl in ("shard_map", "shard_map_bf16"):
+        with use_plan(ShardingPlan(mesh)), pytest.raises(NotImplementedError,
+                                                         match="multi-rank slice"):
+            layers.moe_apply(p, x, dataclasses.replace(cfg, moe_impl=impl), div={})
+    with pytest.raises(ValueError, match="moe_impl"):
+        layers.moe_apply(p, x, dataclasses.replace(cfg, moe_impl="ring"), div={})
 
 
 PROMPTS = [np.array(p, np.int32) for p in ([5, 17, 3, 99, 42, 7], [200, 1, 64], list(range(30, 53)))]
