@@ -288,6 +288,27 @@ Phases (any failure raises and the script exits non-zero):
    phase has a planted fault (a divisor or a log entry off; each GEMM, the
    variants' grouped GEMMs and the router with their last K chunk dropped;
    a changed token) that must be caught, the numeric ones at 3x or more.
+10. Across ranks: two processes share the card over ``gloo`` (NCCL refuses
+   two ranks on one device; gloo stages CUDA tensors through host memory,
+   so nothing here measures NVLink), the kernels built here first and only
+   loaded by them. (a) The serve CLI under ``torch.distributed.run``,
+   granite-8b at full width and depth on (1, 2) (``--mesh-model 2``, 4
+   requests x 8 tokens): exit 0, 4/4, B1 and B2 launched on each rank, a
+   decode step's collectives equal to the dry run's for the same cell, the
+   decode and collective ms, the greedy tokens beside phase 9 (d)'s; then a
+   run on two ranks (``chip_smoke.py --multirank DIR``) gives the gathered
+   prefill and decode logits, held at ``LOGITS_TOL`` against the one-rank
+   ``torch`` backend on the same weights. (b) olmoe-1b-7b at full width and
+   depth on (1, 2), ``moe_impl="shard_map"``: B5 at G = 32 on each rank,
+   the logits against the one-rank body replaying the ranks' top-8 (5e-2),
+   the router GEMM at ``ROUTER_TOL``. (c) granite-8b at full width, 2
+   layers: ``Trainer.fit`` 2 steps on (2, 1) (FSDP and data parallel),
+   checkpoint, 2 on (1, 2); losses at ``TRAIN_LOSS_TOL`` and the first
+   step's gathered gradients at ``TRAIN_GRAD_TOL`` against the one-rank
+   ``torch`` backend. (d) ``device_bloom`` on 2**20 keys against phase 4's
+   sieve filters, bit for bit the CPU's, and its ms. Planted faults: rank
+   1's partial of one all-reduce zeroed, one extra all-reduce in the count,
+   a rank's loss share alone, the gradients one row off, a key bit flipped.
 
 Tolerances: a kernel output ``x`` agrees with its reference ``r`` when
 ``max|x - r| <= tol * max(1, max|r|)``: 1e-4 for f32 inputs (f32 sums in
@@ -326,7 +347,8 @@ the dry run's artifacts go to ``chiprun_out/phase9_dryrun.json``). Each
 kernel entry of the served runs also carries ``train_launches``: its
 launches in phase 8's ``Trainer.fit``, by trained model, and phase 9's
 ``shard_gemm_launches`` (the per-shard GEMMs) and ``moe_variant_launches``
-(olmoe on each MoE variant).
+(olmoe on each MoE variant), and phase 10's ``multirank_launches`` (each
+rank's counters, by run; phase 10's record is under ``multirank``).
 """
 
 from __future__ import annotations
@@ -503,6 +525,11 @@ def phase_device():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     log(smi)
+    CARD["compute_mode"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    log(f"compute mode {CARD['compute_mode']}")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     cuda_lib.library()
@@ -2695,6 +2722,9 @@ def phase_tune(failures):
         f"(limit {tol * scale:.4f}); phase {seconds:.1f}s")
     return dict(
         seconds=seconds, measurements=tuner.measurements, records=len(db.records),
+        # phase 10 (d) queries filters of this geometry holding these winners; both are
+        # taken out before the record
+        sieve=sieve, winners=db.winners(),
         served=served, extra_targets=len(extra), adaptations=adaptive.stats.adaptations,
         misses=adaptive.stats.misses, sieve_generation=selector.sieve_generation,
         fused_records=len(fused), bf16_records=n_bf16, winners_by_policy=by_policy,
@@ -4921,12 +4951,685 @@ def _leaves(tree):
         yield tree
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: across ranks
+# ---------------------------------------------------------------------------
+
+#: two ranks, processes that share the one card over gloo (NCCL refuses two
+#: ranks on one device): they prove the kernels at shard shapes with real
+#: exchanges between ranks, and nothing of NVLink
+MR_RANKS = 2
+#: phase 10 (c): granite-8b at full width cut to 2 layers, 2 rows of 1024
+#: tokens, 2 steps on (2, 1) then 2 on (1, 2) from the checkpoint
+MR_TRAIN_LAYERS, MR_TRAIN_ROWS, MR_TRAIN_SEQ, MR_TRAIN_STEPS = 2, 2, 1024, 2
+MR_GROUP_TIMEOUT_S = 600
+MR_CLI_TIMEOUT_S, MR_RANKS_TIMEOUT_S = 300, 600
+BLOOM_KEYS = 2**20
+#: copies of each winner's (M, N, K) among phase 10 (d)'s keys
+BLOOM_COPIES = 4
+#: the card's compute mode (phase 1): a second process opens a CUDA context
+#: only in the Default mode
+CARD = {}
+
+
+def _torchrun(args, timeout):
+    """``python -m torch.distributed.run --standalone --nproc-per-node 2``
+    with ``args``, in a process group of its own that is killed whole at the
+    timeout: (exit code or "timeout", seconds, stdout, stderr)."""
+    import signal
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+                                if p]))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           str(MR_RANKS), *args]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+        rc = proc.returncode
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        rc = "timeout"
+    return rc, time.perf_counter() - t0, out, err
+
+
+@contextmanager
+def planted_zero_all_reduce(rank, call):
+    """Rank 1 contributes zeros to the ``call``-th all-reduce of the block
+    (the exchange still happens, so the ranks stay in step): the rank's
+    partial sum never arrives."""
+    from repro_torch.dist import collectives
+
+    raw = collectives.raw_all_reduce
+    seen = [0]
+
+    def faulty(x, ax):
+        n = seen[0]
+        seen[0] += 1
+        if rank == 1 and n == call:
+            x = x.detach() * 0
+        return raw(x, ax)
+
+    collectives.raw_all_reduce = faulty
+    try:
+        yield
+    finally:
+        collectives.raw_all_reduce = raw
+
+
+def _mr_launches():
+    from repro_torch.kernels.common import LAUNCHES
+
+    return {name: c for name, c in LAUNCHES.items() if c}
+
+
+def _mr_tokens(vocab, device):
+    import torch
+
+    prompts = serve_prompts(vocab)
+    s = min(len(p) for p in prompts)
+    return torch.as_tensor(np.stack([p[:s] for p in prompts]), device=device)
+
+
+def mr_granite(rank):
+    """Phase 10 (a) on each rank: granite-8b at full width and depth on
+    (1, 2): a (4, S) prefill and one greedy decode step through the kernels,
+    the gathered logits; then the prefill again with rank 1's partial of
+    layer 0's attn.o all-reduce zeroed (the planted fault)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.gemm import gemm_context
+    from repro_torch.dist.sharding import ShardingPlan, use_plan
+    from repro_torch.kernels.common import reset_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.lm import LM
+
+    model = LM(get_config("granite-8b"))
+    plan = ShardingPlan(make_host_mesh(model=MR_RANKS))
+    tokens = _mr_tokens(model.cfg.vocab_size, "cuda")
+    s = tokens.shape[1]
+    pos = torch.full((tokens.shape[0],), s, device="cuda")
+    with use_plan(plan), torch.no_grad():
+        params = model.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
+        reset_launch_counts()
+        with gemm_context(backend="cuda") as ctx:
+            logits, cache = model.prefill(params, tokens, max_seq=s + 1)
+            nxt = logits[:, -1].argmax(-1)[:, None]
+            step, _ = model.decode_step(params, cache, nxt, pos)
+        torch.cuda.synchronize()
+        launches = _mr_launches()
+        with gemm_context(backend="cuda"):
+            split = mr_decode_split(rank, lambda: model.decode_step(params, cache, nxt, pos))
+        del cache
+        with planted_zero_all_reduce(rank, call=1), gemm_context(backend="cuda"):
+            bad, _ = model.prefill(params, tokens, max_seq=s + 1)
+    keys = sorted({f"{e.tag}:{e.local_mnk}" for e in ctx.log})
+    del params
+    return dict(prefill=logits.cpu(), decode=step.cpu(), next=nxt.cpu(), fault=bad.cpu(),
+                launches=launches, keys=keys, layers=model.cfg.n_layers, split=split)
+
+
+def mr_decode_split(rank, step, iters=5):
+    """Where a warm decode step's time goes on this rank across the ranks:
+    the wall ms a step (host clock ending in a synchronise), the ms a step
+    inside the collectives (each timed from a synchronised device, so the
+    exchange alone over ``gloo``), and, on rank 0 alone, the device busy ms
+    of one ``torch.profiler`` trace (its own process's kernels; the ranks
+    share the card). The other rank runs the same step untraced."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.dist.collectives import record
+
+    step()
+    torch.cuda.synchronize()
+    with record() as coll:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / iters * 1e3
+    busy = None
+    if rank == 0:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        busy = sum(device_ms_by_name(prof).values()) or None  # None: "not measured"
+    else:
+        step()
+        torch.cuda.synchronize()
+    coll_ms = coll.seconds / iters * 1e3
+    return dict(step_ms=wall_ms, collective_ms=coll_ms,
+                collectives_a_step=coll.total_count // iters, device_busy_ms=busy,
+                rest_ms=None if busy is None else wall_ms - coll_ms - busy)
+
+
+def mr_olmoe(rank):
+    """Phase 10 (b) on each rank: olmoe-1b-7b at full width and depth on
+    (1, 2) with ``moe_impl="shard_map"``: a (4, S) prefill through the
+    kernels (B5 at G = 32), each layer's top-8 choices and router check;
+    then the prefill with rank 1's partial of layer 0's MoE combine zeroed."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.gemm import gemm_context
+    from repro_torch.dist.sharding import ShardingPlan, use_plan
+    from repro_torch.kernels.common import reset_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.lm import LM
+
+    model = LM(dataclasses.replace(get_config("olmoe-1b-7b"), moe_impl="shard_map"))
+    plan = ShardingPlan(make_host_mesh(model=MR_RANKS))
+    tokens = _mr_tokens(model.cfg.vocab_size, "cuda")
+    with use_plan(plan), torch.no_grad():
+        params = model.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
+        reset_launch_counts()
+        with gemm_context(backend="cuda") as ctx, own_routing_log(check_router=True) as routes:
+            logits, _ = model.prefill(params, tokens)
+        torch.cuda.synchronize()
+        launches = _mr_launches()
+        # call 0 is the embedding's all-reduce, 1 layer 0's attn.o, 2 its MoE combine
+        with planted_zero_all_reduce(rank, call=2), own_routing_log() as fault_routes, \
+                gemm_context(backend="cuda"):
+            bad, _ = model.prefill(params, tokens)
+    groups = sorted({e.op.g_local for e in ctx.log if e.op.fused})
+    del params
+    return dict(logits=logits.cpu(), routes=[r.cpu() for r in routes],
+                router_err=routes.router_err, router_fault=routes.router_fault,
+                fault=bad.cpu(), fault_routes=[r.cpu() for r in fault_routes],
+                launches=launches, groups=groups)
+
+
+def _mr_train_parts():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.lm import LM
+    from repro_torch.optim import constant, make_optimizer
+
+    cfg = dataclasses.replace(get_config("granite-8b"), n_layers=MR_TRAIN_LAYERS)
+    return (LM(cfg), make_optimizer("adamw", constant(1e-4)),
+            SyntheticLMData(cfg, batch=MR_TRAIN_ROWS, seq_len=MR_TRAIN_SEQ, seed=1))
+
+
+def mr_train(rank, workdir):
+    """Phase 10 (c) on each rank: granite-8b at full width, 2 layers. Rank 0
+    first runs the one-rank reference on the ``torch`` backend (the first
+    step's gradients, ``Trainer.fit`` for 4 steps); then on (2, 1) and on
+    (1, 2) each rank takes the first step's gradients (summed, gathered
+    whole on every rank), and ``Trainer.fit`` runs 2 steps on (2, 1),
+    checkpoints, and resumes for 2 on (1, 2). Rank 0 holds the readings."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.gemm import gemm_context
+    from repro_torch.dist.collectives import sync_grads
+    from repro_torch.dist.sharding import ShardingPlan, gather_tree, local_rows, use_plan
+    from repro_torch.kernels.common import reset_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import Trainer, TrainerConfig, init_train_state
+    from repro_torch.train.trainer import take_grads, to_device_batch
+    from repro_torch.utils.trees import tree_items
+
+    def params_for(model):
+        params = model.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
+        for _, leaf in tree_items(params):
+            leaf.requires_grad_(True)
+        return params
+
+    out = {}
+    ref_grads = None
+    if rank == 0:
+        model, opt, data = _mr_train_parts()
+        with gemm_context(backend="torch"):
+            params = params_for(model)
+            loss, _ = model.loss_fn(params, to_device_batch(data.batch_at(0), "cuda"))
+            loss.backward()
+            ref_grads = dict(tree_items(take_grads(params)))
+            out["ref_first_loss"] = loss.item()
+            del params, loss
+            t = Trainer(model, opt, data, TrainerConfig(total_steps=2 * MR_TRAIN_STEPS,
+                                                        log_every=100))
+            t.fit(init_train_state(model, opt, params_for(model)))
+            out["ref_history"] = list(t.history)
+            del t
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    ckpt = os.path.join(workdir, "ckpt")
+    for mesh, total in (((2, 1), MR_TRAIN_STEPS), ((1, 2), 2 * MR_TRAIN_STEPS)):
+        name = f"{mesh[0]}x{mesh[1]}"
+        model, opt, data = _mr_train_parts()
+        plan = ShardingPlan(make_host_mesh(model=mesh[1]))
+        with use_plan(plan), gemm_context(backend="cuda"):
+            params = params_for(model)
+            batch = local_rows(to_device_batch(data.batch_at(0), "cuda"))
+            loss, _ = model.loss_fn(params, batch)
+            loss.backward()
+            grads = sync_grads(take_grads(params), model.param_specs(), plan)
+            full = dict(tree_items(gather_tree(grads, plan, model.param_specs())))
+            del grads, params
+            if ref_grads is not None:
+                out[f"grad_{name}"] = _grad_diff(full, ref_grads)
+                # the planted fault: every gathered leaf one row off
+                shifted = {k: torch.roll(v, 1, 0) for k, v in full.items()}
+                out[f"grad_fault_{name}"] = _grad_diff(shifted, ref_grads)[0]
+                # and the loss of this rank's rows alone (its share never summed)
+                out[f"loss_share_{name}"] = loss.item()
+            del full, loss
+            t = Trainer(model, opt, data, TrainerConfig(total_steps=total, log_every=100,
+                                                        ckpt_dir=ckpt, ckpt_every=100))
+            reset_launch_counts()
+            t.fit(init_train_state(model, opt, params_for(model)))
+            torch.cuda.synchronize()
+            out[f"launches_{name}"] = _mr_launches()
+            out[f"history_{name}"] = list(t.history)
+            del t
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return out
+
+
+def multirank_main(workdir) -> int:
+    """One rank of phase 10's rank program (started by ``torch.distributed.run``
+    from ``phase_multirank``): (a), (b) and (c) in turn on the ranks; each
+    rank writes what it saw to ``<workdir>/rank<r>.pt``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import cuda_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", timeout=datetime.timedelta(seconds=MR_GROUP_TIMEOUT_S))
+    rank = dist.get_rank()
+    torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank)) % torch.cuda.device_count())
+    cuda_lib.library(build=False)  # the parent built it: load, never build
+    out = {}
+    t0 = time.perf_counter()
+    out["granite"] = mr_granite(rank)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["olmoe"] = mr_olmoe(rank)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["train"] = mr_train(rank, workdir)
+    out["seconds"] = time.perf_counter() - t0
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _read(rel, limit, what, failures):
+    """Record a failure when ``rel`` exceeds ``limit`` (or is not finite)."""
+    if not rel <= limit:
+        failures.append(f"{what}: {rel:.4g} > {limit}")
+    return rel
+
+
+def _planted(reading, limit, what, failures):
+    if not reading >= 3 * limit:
+        failures.append(f"{what}: the planted fault reads {reading:.4g} < 3 x {limit}")
+    return reading
+
+
+def phase_multirank_cli(cli_tokens, failures):
+    """Phase 10 (a), first half: the serve CLI under ``torch.distributed.run``
+    on 2 ranks (``--mesh-model 2``), granite-8b at full width and depth, 4
+    requests x 8 tokens: exit 0, 4/4 requests, B1 and B2 launched on each
+    rank, a decode step's collectives equal to the dry run's for the same
+    cell (a planted extra all-reduce must read as a disagreement), the
+    greedy tokens beside phase 9 (d)'s one-rank run."""
+    import tempfile
+
+    from repro_torch.launch import dryrun
+
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        path = os.path.join(tmp, "summary.json")
+        rc, seconds, out, err = _torchrun(
+            ["-m", "repro_torch.launch.serve", "--arch", "granite-8b", "--preset", "full",
+             "--requests", "4", "--slots", str(N_SLOTS), "--max-seq", str(MAX_SEQ),
+             "--max-new-tokens", "8", "--mesh-model", str(MR_RANKS), "--summary-json", path],
+            MR_CLI_TIMEOUT_S)
+        summary = json.load(open(path)) if os.path.exists(path) else None
+    if rc != 0 or summary is None:
+        failures.append(f"phase 10 (a) serve CLI on {MR_RANKS} ranks: exit {rc}; stderr "
+                        f"{err[-3000:]}")
+        log(f"phase 10 (a) serve CLI: exit {rc}\n{err[-3000:]}")
+        return dict(rc=rc, seconds=seconds)
+    if summary["completed"] != 4:
+        failures.append(f"phase 10 (a) serve CLI: {summary['completed']}/4 requests")
+    for r, launches in enumerate(summary["launches_by_rank"]):
+        for kernel in ("dp_gemm_region", "streamk_phase1"):
+            if not launches.get(kernel):
+                failures.append(f"phase 10 (a) serve CLI: {kernel} never launched on rank {r}")
+    art = dryrun.lower_cell("granite-8b", "decode_32k", False, mesh_shape=(1, MR_RANKS),
+                            shape_overrides={"global_batch": N_SLOTS, "seq_len": MAX_SEQ})
+    coll = summary["collectives"]
+    same = coll["per_decode_step"] == art["collectives"] and not coll["uneven_ops"]
+    planted = json.loads(json.dumps(art["collectives"]))
+    planted["all-reduce"]["count"] += 1
+    fault_seen = coll["per_decode_step"] != planted
+    if not same:
+        failures.append(f"phase 10 (a): a decode step's collectives {coll['per_decode_step']} "
+                        f"(uneven {coll['uneven_ops']}) vs the dry run's {art['collectives']}")
+    if not fault_seen:
+        failures.append("phase 10 (a): the planted extra all-reduce went unseen")
+    tokens = summary["workers"][0]["out_tokens"]
+    agree = None if cli_tokens is None else sum(
+        a == b for ra, rb in zip(tokens, cli_tokens[0]) for a, b in zip(ra, rb))
+    log(f"phase 10 (a) serve CLI on {MR_RANKS} ranks: exit {rc}, {summary['completed']}/4, "
+        f"launches by rank {summary['launches_by_rank']}; a decode step's collectives "
+        f"{coll['per_decode_step']} == the dry run's: {same} (planted fault seen: "
+        f"{fault_seen}); decode {coll['decode_ms']:.1f} ms over {coll['decode_steps']} steps, "
+        f"{coll['collective_ms']:.1f} ms of it in collectives; greedy tokens equal to phase "
+        f"9 (d)'s one-rank run: {agree}/32 ({seconds:.1f}s)")
+    return dict(rc=rc, seconds=seconds, completed=summary["completed"],
+                launches_by_rank=summary["launches_by_rank"], collectives=coll,
+                dryrun_collectives=art["collectives"], same_collectives=same,
+                fault_seen=fault_seen, tokens=tokens, tokens_agree_with_phase9=agree,
+                mesh=summary["mesh"])
+
+
+def phase_multirank_ranks(failures):
+    """Phase 10 (a) second half, (b) and (c): the rank program
+    (``multirank_main``), then this process's one-rank references on the
+    same weights."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.gemm import gemm_context
+    from repro_torch.dist.sharding import ShardingPlan, use_plan
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.lm import LM
+
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".multirank_") as tmp:
+        rc, seconds, out, err = _torchrun([str(ROOT / "chip_smoke.py"), "--multirank", tmp],
+                                          MR_RANKS_TIMEOUT_S)
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) if os.path.exists(
+            os.path.join(tmp, f"rank{r}.pt")) else None for r in range(MR_RANKS)]
+    if rc != 0 or None in ranks:
+        failures.append(f"phase 10 rank program on {MR_RANKS} ranks: exit {rc}; stderr "
+                        f"{err[-3000:]}")
+        log(f"phase 10 rank program: exit {rc}\n{out[-2000:]}\n{err[-4000:]}")
+        return dict(rc=rc, seconds=seconds)
+    rec = dict(rc=rc, seconds=seconds, rank_seconds=[r["seconds"] for r in ranks])
+
+    # (a) granite-8b: the one-rank torch backend on the same weights and tokens
+    g = ranks[0]["granite"]
+    model = LM(get_config("granite-8b"))
+    tokens = _mr_tokens(model.cfg.vocab_size, "cuda")
+    s = tokens.shape[1]
+    with torch.no_grad(), gemm_context(backend="torch"):
+        params = model.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
+        want, cache = model.prefill(params, tokens, max_seq=s + 1)
+        want_step, _ = model.decode_step(params, cache, g["next"].cuda(),
+                                         torch.full((tokens.shape[0],), s, device="cuda"))
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    tol = LOGITS_TOL["granite-8b"]
+    readings = {}
+    for key, ref in (("prefill", want), ("decode", want_step)):
+        ref = ref.float().cpu()
+        scale = ref.abs().max().item()
+        readings[key] = _read((g[key].float() - ref).abs().max().item() / scale, tol,
+                              f"phase 10 (a) granite-8b {key} logits on (1, 2) vs one rank",
+                              failures)
+    ref = want.float().cpu()
+    fault = _planted((g["fault"].float() - ref).abs().max().item() / ref.abs().max().item(),
+                     tol, "phase 10 (a) rank 1's attn.o partial dropped", failures)
+    same_ranks = all(torch.equal(r["granite"]["prefill"], g["prefill"]) for r in ranks)
+    if not same_ranks:
+        failures.append("phase 10 (a): the ranks' gathered logits differ")
+    for r, out_r in enumerate(ranks):
+        for kernel in ("dp_gemm_region", "streamk_phase1"):
+            if not out_r["granite"]["launches"].get(kernel):
+                failures.append(f"phase 10 (a) rank program: {kernel} never launched on "
+                                f"rank {r}")
+    rec["granite"] = dict(layers=g["layers"], logits_rel=readings, fault_rel=fault, tol=tol,
+                          launches=[r["granite"]["launches"] for r in ranks], keys=g["keys"],
+                          decode_split=[r["granite"]["split"] for r in ranks])
+    log(f"phase 10 (a) granite-8b ({g['layers']} layers) on (1, 2): gathered logits vs the "
+        f"one-rank torch backend, max|diff| / max|logit|: prefill {readings['prefill']:.3e}, "
+        f"decode {readings['decode']:.3e} (limit {tol}); planted fault {fault:.3e}; launches "
+        f"{rec['granite']['launches']}; a warm decode step by rank (wall / collectives, the "
+        f"exchange alone / device busy / the rest, ms): {rec['granite']['decode_split']}")
+
+    # (b) olmoe-1b-7b on shard_map: the one-rank body replaying the ranks' routing
+    o = ranks[0]["olmoe"]
+    model = LM(dataclasses.replace(get_config("olmoe-1b-7b"), moe_impl="shard_map"))
+    tokens = _mr_tokens(model.cfg.vocab_size, "cuda")
+    with torch.no_grad(), gemm_context(backend="torch"), \
+            use_plan(ShardingPlan(make_host_mesh(1))):
+        params = model.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
+        with routing_replay([r.cuda() for r in o["routes"]]):
+            want, _ = model.prefill(params, tokens)
+        with routing_replay([r.cuda() for r in o["fault_routes"]]):
+            want_f, _ = model.prefill(params, tokens)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    tol = LOGITS_TOL["olmoe-1b-7b"]
+    want, want_f = want.float().cpu(), want_f.float().cpu()
+    rel = _read((o["logits"].float() - want).abs().max().item() / want.abs().max().item(), tol,
+                "phase 10 (b) olmoe-1b-7b logits on (1, 2), routing replayed", failures)
+    fault = _planted((o["fault"].float() - want_f).abs().max().item() / want_f.abs().max().item(),
+                     tol, "phase 10 (b) rank 1's MoE combine partial dropped", failures)
+    router = max(r["olmoe"]["router_err"] for r in ranks)
+    _read(router, ROUTER_TOL, "phase 10 (b) router logits vs torch.matmul", failures)
+    router_fault = _planted(min(r["olmoe"]["router_fault"] for r in ranks), ROUTER_TOL,
+                            "phase 10 (b) router with its last K chunk dropped", failures)
+    for r, out_r in enumerate(ranks):
+        b5 = sum(c for k, c in out_r["olmoe"]["launches"].items()
+                 if k.startswith("grouped_streamk"))
+        if out_r["olmoe"]["groups"] != [32] or not b5:
+            failures.append(f"phase 10 (b) rank {r}: grouped dispatches at G "
+                            f"{out_r['olmoe']['groups']}, {b5} B5 launches (want G = 32)")
+    rec["olmoe"] = dict(logits_rel=rel, fault_rel=fault, tol=tol, router_err=router,
+                        router_fault=router_fault, groups=o["groups"],
+                        launches=[r["olmoe"]["launches"] for r in ranks])
+    log(f"phase 10 (b) olmoe-1b-7b shard_map on (1, 2): logits vs the one-rank body replaying "
+        f"the ranks' top-8, max|diff| / max|logit| {rel:.3e} (limit {tol}); planted fault "
+        f"{fault:.3e}; router {router:.3e} (limit {ROUTER_TOL}, planted {router_fault:.3e}); B5 "
+        f"at G {o['groups']}, launches {rec['olmoe']['launches']}")
+
+    # (c) training: rank 0's readings against its one-rank reference
+    t = ranks[0]["train"]
+    ref = t["ref_history"]
+    k = MR_TRAIN_STEPS
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(t["history_2x1"] + t["history_1x2"],
+                                                        ref[:k] + ref[k:]))
+    _read(loss_rel, TRAIN_LOSS_TOL, "phase 10 (c) losses on (2, 1) -> (1, 2) vs one rank",
+          failures)
+    loss_fault = _planted(abs(t["loss_share_2x1"] - t["ref_first_loss"]) / abs(
+        t["ref_first_loss"]), TRAIN_LOSS_TOL, "phase 10 (c) one rank's loss share alone",
+        failures)
+    grads = {}
+    for name in ("2x1", "1x2"):
+        grads[name] = _read(t[f"grad_{name}"][0], TRAIN_GRAD_TOL,
+                            f"phase 10 (c) first-step gradients on {name} vs one rank", failures)
+        _planted(t[f"grad_fault_{name}"], TRAIN_GRAD_TOL,
+                 f"phase 10 (c) gradients one row off on {name}", failures)
+    for r, out_r in enumerate(ranks):
+        for name in ("2x1", "1x2"):
+            if not out_r["train"][f"launches_{name}"].get("dp_gemm_region") and not out_r[
+                    "train"][f"launches_{name}"].get("streamk_phase1"):
+                failures.append(f"phase 10 (c) rank {r}: no GEMM kernel launched on {name}")
+    rec["train"] = dict(history={"2x1": t["history_2x1"], "1x2": t["history_1x2"]},
+                        reference=ref, loss_rel=loss_rel, loss_fault=loss_fault,
+                        grads_rel=grads, grads_worst={n: t[f"grad_{n}"][1] for n in grads},
+                        grads_fault={n: t[f"grad_fault_{n}"] for n in grads},
+                        launches=[{n: r["train"][f"launches_{n}"] for n in grads}
+                                  for r in ranks])
+    log(f"phase 10 (c) granite-8b ({MR_TRAIN_LAYERS} layers, {MR_TRAIN_ROWS} x {MR_TRAIN_SEQ}) "
+        f"{k} steps on (2, 1), checkpoint, {k} on (1, 2): losses {t['history_2x1']} + "
+        f"{t['history_1x2']} vs one rank {ref}, max rel {loss_rel:.3e} (limit "
+        f"{TRAIN_LOSS_TOL}, planted {loss_fault:.3e}); first-step gradients rel L2 {grads} "
+        f"(limit {TRAIN_GRAD_TOL}, planted {rec['train']['grads_fault']})")
+    return rec
+
+
+@contextmanager
+def planted_probe_offset():
+    """Every probe of ``device_bloom``'s query one bit past its position (the
+    planted fault of phase 10 (d))."""
+    import torch
+
+    from repro_torch.core import device_bloom
+
+    probe = device_bloom._probe
+    device_bloom._probe = lambda h1, h2, i, n_bits: torch.remainder(
+        probe(h1, h2, i, n_bits) + 1, n_bits)
+    try:
+        yield
+    finally:
+        device_bloom._probe = probe
+
+
+def phase_bloom(sieve, winners, failures):
+    """Phase 10 (d): ``device_bloom`` on 2**20 keys against filters of phase
+    4's sieve geometry that hold phase 4's winners keyed on their bare
+    (M, N, K), the key ``BloomFilter.query_mnk`` and the batched query read
+    (phase 4's own sieve keys on the extended op key, which no bare-size
+    query finds). The keys: each winner's (M, N, K) ``BLOOM_COPIES`` times,
+    the rest random sizes, shuffled. On the card, bit for bit against the
+    same query on the CPU and, on 4096 random keys and every winner's,
+    against ``BloomFilter.query_mnk``; every winner present in its
+    policies' filters; its ms. Planted faults: every probe one bit off must
+    change the answer for most winners' keys; a key with one bit flipped
+    must move exactly its own hash."""
+    import torch
+
+    from repro_torch.core import device_bloom
+    from repro_torch.core.opensieve import OpenSieve
+
+    owners = {}
+    for key, pol in winners.items():
+        owners.setdefault(tuple(int(v) for v in key[:3]), set()).add(pol.name)
+    bare = OpenSieve(sieve.policies, capacity=sieve.capacity, fp_rate=sieve.fp_rate)
+    policies = {p.name: p for p in sieve.policies}
+    for mnk, names in owners.items():
+        for name in names:
+            bare.insert_winner(mnk, policies[name])
+    names = list(bare.filters)
+    filters = [bare.filters[name] for name in names]
+    sizes = sorted(owners)
+    rng = np.random.default_rng(10)
+    keys = rng.integers(1, 2**16, (BLOOM_KEYS, 3))
+    where = rng.choice(BLOOM_KEYS, len(sizes) * BLOOM_COPIES, replace=False)
+    keys[where] = np.repeat(np.array(sizes, dtype=np.int64), BLOOM_COPIES, axis=0)
+    keys = keys.T
+    dev = [torch.as_tensor(k, device="cuda") for k in keys]
+    got = device_bloom.query_filters(filters, *dev)
+    torch.cuda.synchronize()
+    found = got.cpu()
+    cpu = device_bloom.query_filters(filters, *(torch.as_tensor(k) for k in keys))
+    same = torch.equal(found, cpu)
+    sample = np.union1d(rng.choice(BLOOM_KEYS, 4096, replace=False), where)
+    py = torch.tensor([[f.query_mnk(*(int(keys[d, i]) for d in range(3))) for f in filters]
+                       for i in sample])
+    same_py = torch.equal(found[sample], py)
+    want = torch.tensor([[name in owners[size] for name in names]
+                         for size in sizes]).repeat_interleave(BLOOM_COPIES, dim=0)
+    missed = int((want & ~found[where]).sum())
+    present = found.float().mean().item()
+    ms, event_ms = time_ms(lambda: device_bloom.query_filters(filters, *dev), iters=10)
+    with planted_probe_offset():
+        bad = device_bloom.query_filters(filters, *dev).cpu()
+    turned = (bad[where] != found[where]).any(dim=-1).float().mean().item()
+    words = device_bloom.mnk_to_words(*dev)
+    h = device_bloom.murmur3_32_words(words, filters[0].seed)
+    flipped, j = words.clone(), BLOOM_KEYS // 3
+    flipped[j, 2] ^= 1 << 7
+    moved = (device_bloom.murmur3_32_words(flipped, filters[0].seed) != h).nonzero().flatten()
+    fault_seen = moved.tolist() == [j] and turned >= 0.5
+    if not (same and same_py):
+        failures.append(f"phase 10 (d) device_bloom: card vs CPU equal {same}, vs "
+                        f"BloomFilter.query_mnk equal {same_py}")
+    if missed or not present > 0:
+        failures.append(f"phase 10 (d) device_bloom: {missed} winners' answers absent from "
+                        f"their policies' filters, 'possibly present' share {present}")
+    if not fault_seen:
+        failures.append(f"phase 10 (d) device_bloom: probes one bit off changed "
+                        f"{turned:.4f} of the winners' answers (want >= 0.5); the flipped key "
+                        f"moved hashes {moved[:8]}")
+    log(f"phase 10 (d) device_bloom: {BLOOM_KEYS} keys ({len(sizes)} winners' sizes x "
+        f"{BLOOM_COPIES} among them) x {len(filters)} filters on the card: bit for bit the "
+        f"CPU's ({same}) and, on {len(sample)} keys, BloomFilter.query_mnk's ({same_py}); "
+        f"winners missed {missed}; {ms:.3f} ms (event {event_ms:.3f} ms); 'possibly present' "
+        f"share {present:.6f}; probes one bit off changed {turned:.4f} of the winners' "
+        f"answers; a flipped key bit moved only its hash: {moved.tolist() == [j]}")
+    return dict(keys=BLOOM_KEYS, filters=len(filters), winners=len(sizes),
+                copies=BLOOM_COPIES, equal_cpu=same, equal_python=same_py, missed=missed,
+                ms=ms, event_ms=event_ms, present_share=present, fault_turned=turned,
+                fault_seen=fault_seen)
+
+
+def multirank_launches(rec):
+    """Phase 10's launches by run, each a list of the ranks' counters."""
+    out = {}
+    if rec["cli"].get("launches_by_rank"):
+        out["serve_cli"] = rec["cli"]["launches_by_rank"]
+    for run in ("granite", "olmoe"):
+        if run in rec["ranks"]:
+            out[run] = rec["ranks"][run]["launches"]
+    if "train" in rec["ranks"]:
+        for name in ("2x1", "1x2"):
+            out[f"train_{name}"] = [r[name] for r in rec["ranks"]["train"]["launches"]]
+    return out
+
+
+def phase_multirank(cli_tokens, sieve, winners, failures):
+    """Phase 10: serve and train across ranks (two processes on the one card
+    over gloo) and the batched Bloom query."""
+    import torch
+
+    t0 = time.perf_counter()
+    if CARD.get("compute_mode") not in (None, "Default"):
+        failures.append(f"phase 10: compute mode {CARD['compute_mode']}: a second process "
+                        "cannot open a CUDA context")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli = phase_multirank_cli(cli_tokens, failures)
+    ranks = phase_multirank_ranks(failures)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bloom = phase_bloom(sieve, winners, failures) if sieve is not None else None
+    if sieve is None:
+        failures.append("phase 10 (d): phase 4 left no sieve")
+    seconds = time.perf_counter() - t0
+    log(f"phase 10 (across ranks, gloo through host memory, two processes on one card: "
+        f"nothing here measures NVLink): {seconds:.1f}s")
+    return dict(cli=cli, ranks=ranks, bloom=bloom, seconds=seconds,
+                compute_mode=CARD.get("compute_mode"))
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the H100", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--multirank"]:
+        return multirank_main(sys.argv[2])
     # phase 9 (a)'s traces need no card: they run beside the build
     dry = start_dryrun()
     try:
@@ -5061,6 +5764,11 @@ def run_phases(dry) -> int:
     torch.cuda.empty_cache()
     shard = phase_shard(dry, moe_variants, gen, failures)
     shard_launches = (shard["shard_gemms"] or {}).get("launches", {})
+    gc.collect()
+    torch.cuda.empty_cache()
+    multirank = phase_multirank((shard["mesh_model_cli"] or {}).get("tokens"),
+                                tune.pop("sieve", None), tune.pop("winners", None), failures)
+    mr_launches = multirank_launches(multirank)
 
     from repro_torch.kernels import cuda_lib
     from repro_torch.kernels.common import mainloop
@@ -5090,6 +5798,9 @@ def run_phases(dry) -> int:
             shard_gemm_launches=shard_launches.get(name, 0),
             moe_variant_launches={impl: moe_variants[impl]["launches"].get(name, 0)
                                   for impl, _ in MOE_VARIANTS},
+            # phase 10's: each rank's launches across ranks, by run
+            multirank_launches={run: [by.get(name, 0) for by in ranks]
+                                for run, ranks in mr_launches.items()},
             **extra,
         ))
     # B6 has no served caller: its launches are those of the baseline comparison, the
@@ -5149,7 +5860,7 @@ def run_phases(dry) -> int:
                   b5_table=b5_rows, b5_s8_table=b5_s8_rows, b12_table=b12_rows,
                   b12_s8_table=b12_s8_rows, f32_table=f32_rows,
                   kv_int8=kv_int8, tune=tune, paged=paged, archs=archs, families=families,
-                  train=train, shard=shard,
+                  train=train, shard=shard, multirank=multirank,
                   seconds=time.perf_counter() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -18,6 +18,12 @@
     one ``LATEST`` names.
   * **Preemption hook** — ``install_sigterm_handler`` flushes a final
     checkpoint on SIGTERM.
+  * **Across ranks** — under a ranked plan, with ``specs`` (the parameters'
+    ArraySpec tree, which the optimizer state mirrors), ``save`` gathers
+    every leaf whole onto rank 0, which alone writes, and ``restore`` reads
+    the full leaves on every rank and keeps each rank's shard under the
+    current plan. A checkpoint therefore does not depend on the mesh: a run
+    saved on one factorisation of the ranks resumes on another.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import gather_leaf, mirror_specs, ranked_plan, shard_leaf, spec_items
 from repro_torch.utils.logging import get_logger
 from repro_torch.utils.trees import tree_items
 
@@ -94,22 +101,43 @@ class CheckpointManager:
         return sorted(steps)
 
     # -- save ------------------------------------------------------------
-    def save(self, step: int, state, extra: Optional[Dict] = None, blocking: bool = True):
-        """Snapshot ``state`` (a tree of tensors) at ``step``."""
+    def save(self, step: int, state, extra: Optional[Dict] = None, blocking: bool = True,
+             specs=None):
+        """Snapshot ``state`` (a tree of tensors) at ``step``; across ranks
+        (``specs`` given) every rank calls it and rank 0 writes the whole
+        leaves."""
         if self._error:
             raise RuntimeError("async checkpoint writer failed") from self._error
         names = [name for name, _ in tree_items(state)]
         leaves = dict(tree_items(state))
-        # snapshot on the caller's thread: device -> host copies
-        host = {name: _to_host(leaves[name]) for name in names}
+        plan = ranked_plan() if specs is not None else None
+        writer = True
+        if plan is None:
+            # snapshot on the caller's thread: device -> host copies
+            host = {name: _to_host(leaves[name]) for name in names}
+            shapes = {name: list(leaves[name].shape) for name in names}
+        else:
+            import torch.distributed as dist
+
+            writer = dist.get_rank() == 0
+            flat = dict(spec_items(mirror_specs(state, specs)))
+            host, shapes = {}, {}
+            for name in names:
+                full = gather_leaf(leaves[name].detach(), plan, flat[name])
+                shapes[name] = list(full.shape)
+                if writer:
+                    host[name] = _to_host(full)
+                del full
         meta = {
             "step": step,
             "arrays": {
-                name: {"shape": list(leaves[name].shape), "dtype": _dtype_name(leaves[name])}
+                name: {"shape": shapes[name], "dtype": _dtype_name(leaves[name])}
                 for name in names
             },
             "extra": extra or {},
         }
+        if not writer:
+            return
         if blocking:
             self._write(step, host, meta)
         else:
@@ -134,13 +162,19 @@ class CheckpointManager:
             self._writer.start()
 
     def wait(self):
-        """Barrier for pending async saves."""
+        """Barrier for pending async saves (across ranks: for rank 0's, on
+        every rank)."""
         if self._writer and self._writer.is_alive():
             self._q.put(None)
             self._writer.join()
             self._writer = None
         if self._error:
             raise RuntimeError("async checkpoint writer failed") from self._error
+        plan = ranked_plan()
+        if plan is not None and not plan.mesh.virtual:
+            import torch.distributed as dist
+
+            dist.barrier()
 
     def _write(self, step: int, host: Dict[str, np.ndarray], meta: Dict):
         final = self._step_dir(step)
@@ -169,11 +203,15 @@ class CheckpointManager:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
     # -- restore ----------------------------------------------------------
-    def restore(self, target, step: Optional[int] = None):
+    def restore(self, target, step: Optional[int] = None, specs=None):
         """Restore into ``target`` (a tree of tensors): each leaf read by its
         path and copied IN PLACE into the target leaf (cast to its dtype, on
         its device), so a restore never holds two copies of the state on
-        the card. Returns (``target``, step)."""
+        the card. Across ranks (``specs`` given) each full leaf is cut to
+        this rank's shard under the current plan first. Returns
+        (``target``, step)."""
+        plan = ranked_plan() if specs is not None else None
+        flat = dict(spec_items(mirror_specs(target, specs))) if plan is not None else {}
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
@@ -187,6 +225,8 @@ class CheckpointManager:
             with torch.no_grad():
                 for name, tgt in tree_items(target):
                     src = _from_host(blob[name], dtypes[name])
+                    if plan is not None:
+                        src = shard_leaf(src, plan, flat[name], plan.mesh.coords)
                     if tuple(src.shape) != tuple(tgt.shape):
                         raise ValueError(f"{name}: checkpoint shape {tuple(src.shape)}, "
                                          f"target {tuple(tgt.shape)}")

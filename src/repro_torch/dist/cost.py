@@ -16,8 +16,9 @@ The port has no HLO, so nothing here parses text:
   under the plan's :meth:`~repro_torch.dist.sharding.ShardingPlan.spec_for`
   (:func:`tree_local_bytes`): parameters, the optimizer state mirroring
   them, caches and inputs.
-* **Collective bytes** need a step that runs across ranks; they come with
-  the multi-rank slice.
+* **Collective bytes** are recorded as one rank's step runs them, at
+  their local shapes (``repro_torch.dist.collectives``: ``record`` over a
+  virtual host mesh, ``launch/dryrun.py trace_local``).
 """
 
 from __future__ import annotations

@@ -23,9 +23,20 @@ tuple (``None``, an axis name, or a tuple of names: the entries of
 
 ``constrain``/``constrain_uneven`` are the activation-side hints. The plan
 is thread-local (:func:`use_plan`); without one they return their input
-untouched, and under one they check the hint against the array (its rank)
-and return the array as it is: on one rank every array is whole, and the
-multi-rank step that would lay activations out by them is a later slice.
+untouched, and under one they check the hint against the array and return
+the array as it is. On one rank every array is whole, so the check is the
+hint's own (its rank, its rules). Under a *ranked* plan (:func:`ranked_plan`:
+a :class:`~repro_torch.launch.mesh.HostMesh` of more than one rank) every
+array is already this rank's shard, laid out explicitly by the model code:
+batch rows over the data axes, weights by :meth:`ShardingPlan.spec_for`,
+activations otherwise whole. There the hint must describe that layout (it
+may shard only the batch dims, over the batch axes) and ``x`` must be the
+local shard it implies: a whole number of shards, with every sharded dim
+divisible by its axes. Nothing is resharded.
+
+:func:`shard_tree` and :func:`gather_tree` move a tree between its full
+form (``repro``'s parameters through ``params_from_jax``, a checkpoint)
+and one rank's local form.
 """
 
 from __future__ import annotations
@@ -233,11 +244,54 @@ def use_plan(plan: Optional[ShardingPlan]):
         _plan_state.plan = old
 
 
+def ranked_plan(plan: Optional[ShardingPlan] = None) -> Optional[ShardingPlan]:
+    """``plan`` (default: the installed one) when its mesh spans more than
+    one rank (real or virtual), else None: the layers then run on local
+    shards with unit GEMM divisors and explicit collectives."""
+    plan = current_plan() if plan is None else plan
+    if plan is not None and getattr(plan.mesh, "ranked", False):
+        return plan
+    return None
+
+
+def axes_of(entry: Entry) -> Tuple[str, ...]:
+    """The mesh axes of one partition entry, outermost first."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def batch_axes(plan: ShardingPlan) -> Tuple[str, ...]:
+    """The mesh axes (present, size > 1) the ``batch`` rule maps to: what
+    batch rows split over, and what replicated gradients are summed over."""
+    return plan._mesh_axes_for("batch")
+
+
 def _constrain(x: torch.Tensor, axes: Sequence[Optional[str]], uneven: bool) -> torch.Tensor:
     plan = current_plan()
-    if plan is not None:
-        # the hint's own check (rank, rules); one rank holds every array whole
-        plan.spec_for(ArraySpec(tuple(x.shape), "float32", tuple(axes)), uneven=uneven)
+    if plan is None:
+        return x
+    spec = ArraySpec(tuple(x.shape), "float32", tuple(axes))  # the hint's rank
+    if ranked_plan(plan) is None:
+        plan.spec_for(spec, uneven=uneven)  # its rules; one rank holds x whole
+        return x
+    entries = plan.spec_for(spec, uneven=True)
+    rows = set(batch_axes(plan))
+    full = list(x.shape)
+    for i, part in enumerate(entries):
+        mesh_axes = axes_of(part)
+        if not mesh_axes:
+            continue
+        if not set(mesh_axes) <= rows:
+            raise ValueError(
+                f"hint {tuple(axes)} shards dim {i} over {mesh_axes}, but the explicit "
+                f"layout keeps it whole on every rank (shape {tuple(x.shape)})")
+        full[i] *= math.prod(plan.mesh.shape[a] for a in mesh_axes)
+    # the shape x implies in full must shard back to x under the hint
+    local = plan.local_shape(ArraySpec(tuple(full), "float32", tuple(axes)))
+    if local != tuple(x.shape):
+        raise ValueError(f"{tuple(x.shape)} is not the local shard {local} that hint "
+                         f"{tuple(axes)} implies under mesh {plan.mesh.shape}")
     return x
 
 
@@ -284,3 +338,118 @@ def materialize_tree(tree, generator: torch.Generator, device):
     """Instantiate an ArraySpec tree leaf by leaf (:func:`init_leaf`), every
     draw from ``generator`` in the tree's order."""
     return _map_specs(lambda s: init_leaf(s, generator, device), tree)
+
+
+# -- local shards --------------------------------------------------------------
+
+
+def shard_slices(plan: ShardingPlan, spec: ArraySpec, coords: Mapping[str, int]):
+    """The slice of each dim of the full array ``spec`` that the rank at
+    ``coords`` holds (an entry of several axes indexes outermost first)."""
+    out = []
+    for dim, part in zip(spec.shape, plan.spec_for(spec)):
+        axes = axes_of(part)
+        if not axes:
+            out.append(slice(None))
+            continue
+        n = math.prod(plan.mesh.shape[a] for a in axes)
+        index = 0
+        for a in axes:
+            index = index * plan.mesh.shape[a] + coords[a]
+        size = dim // n
+        out.append(slice(index * size, (index + 1) * size))
+    return tuple(out)
+
+
+def shard_leaf(full: torch.Tensor, plan: ShardingPlan, spec: ArraySpec,
+               coords: Mapping[str, int]) -> torch.Tensor:
+    """This rank's shard of one full leaf (a contiguous copy)."""
+    if tuple(full.shape) != tuple(spec.shape):
+        raise ValueError(f"leaf {tuple(full.shape)} vs its spec {spec.shape}")
+    return full[shard_slices(plan, spec, coords)].contiguous()
+
+
+def mirror_specs(tree, specs):
+    """An ArraySpec tree for ``tree`` (tensors, full or local): a leaf whose
+    path ends in a path of ``specs`` (an optimizer moment ``opt/mu/<param>``
+    mirrors ``<param>``) takes that spec when the ranks agree; any other
+    leaf (a counter, the step) is replicated at its own shape."""
+    flat = dict(spec_items(specs))
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            return {k: walk(v, f"{path}{k}/") for k, v in t.items()}
+        parts = path[:-1].split("/")
+        for i in range(len(parts)):
+            spec = flat.get("/".join(parts[i:]))
+            if spec is not None and len(spec.shape) == t.dim():
+                return spec
+        return ArraySpec(tuple(t.shape), "float32", (None,) * t.dim())
+
+    return walk(tree, "")
+
+
+def shard_tree(full, plan: ShardingPlan, coords: Mapping[str, int], specs):
+    """The full tree ``full`` (nested dicts of tensors) as the rank at
+    ``coords`` holds it under ``plan``: each leaf sliced by
+    :meth:`ShardingPlan.spec_for` of its spec (``specs``: the tree's
+    ArraySpecs, or a parameter spec tree it mirrors, :func:`mirror_specs`)
+    down to :meth:`ShardingPlan.local_shape`."""
+    spec_tree = mirror_specs(full, specs)
+
+    def walk(t, s):
+        if isinstance(t, dict):
+            return {k: walk(v, s[k]) for k, v in t.items()}
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"shard_tree takes plain tensors, not {type(t).__name__}")
+        return shard_leaf(t, plan, s, coords)
+
+    return walk(full, spec_tree)
+
+
+def gather_leaf(local: torch.Tensor, plan: ShardingPlan, spec: ArraySpec) -> torch.Tensor:
+    """The full leaf from every rank's shard (a collective: every rank of
+    the mesh calls it, and every rank gets the whole leaf)."""
+    from repro_torch.dist.collectives import mesh_axis, raw_all_gather
+
+    out = local
+    for dim, part in enumerate(plan.spec_for(spec)):
+        for a in reversed(axes_of(part)):  # innermost axis first
+            ax = mesh_axis(a, plan.mesh)
+            if ax is not None:
+                out = raw_all_gather(out, ax, dim)
+    return out
+
+
+def gather_tree(local, plan: ShardingPlan, specs):
+    """The inverse of :func:`shard_tree`: every leaf whole (a collective)."""
+    spec_tree = mirror_specs(local, specs)
+
+    def walk(t, s):
+        if isinstance(t, dict):
+            return {k: walk(v, s[k]) for k, v in t.items()}
+        return gather_leaf(t, plan, s)
+
+    return walk(local, spec_tree)
+
+
+def local_specs(specs, plan: Optional[ShardingPlan] = None):
+    """``specs`` at the local shapes of a ranked plan (default: the
+    installed one); ``specs`` itself without one."""
+    plan = ranked_plan(plan)
+    if plan is None:
+        return specs
+    return _map_specs(lambda s: ArraySpec(plan.local_shape(s), s.dtype, s.axes, s.init), specs)
+
+
+def local_rows(batch: Mapping[str, torch.Tensor], plan: Optional[ShardingPlan] = None):
+    """A global batch (a dict of arrays whose axis 0 is the batch) cut to
+    this rank's rows under a ranked plan; the batch itself without one."""
+    plan = ranked_plan(plan)
+    if plan is None:
+        return dict(batch)
+    out = {}
+    for key, v in batch.items():
+        spec = ArraySpec(tuple(v.shape), "float32", ("batch",) + (None,) * (v.dim() - 1))
+        out[key] = v[shard_slices(plan, spec, plan.mesh.coords)]
+    return out

@@ -125,8 +125,10 @@ def _compile(sources, so: Path, log: Path) -> Dict[str, float]:
     return {src.name: done[i][2] for i, src in enumerate(sources)}
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if this tree has not built it."""
+def library(build: bool = True) -> ctypes.CDLL:
+    """The loaded kernel library, built first if this tree has not built it
+    (with ``build=False`` a missing build raises: ranks that share a tree
+    load what one process built, and never build it concurrently)."""
     global _lib
     if _lib is not None:
         return _lib
@@ -135,6 +137,9 @@ def library() -> ctypes.CDLL:
     log = so.with_suffix(".ptxas.txt")
     t0 = time.perf_counter()
     built = not so.exists()
+    if built and not build:
+        raise RuntimeError(f"the kernels are not built ({so.name} is missing): build them "
+                           "in one process first")
     source_seconds = _compile(sources, so, log) if built else {}
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():

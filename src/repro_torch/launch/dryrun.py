@@ -19,8 +19,27 @@ allocated. It records:
     early stop off), so every logged dispatch ran and both counts include
     the recompute of the layer's last GEMM, which an eager step skips.
 
-``repro`` also records XLA's memory and cost analyses of the compiled
-program and the collective bytes in its HLO; the port has neither, and
+  * the collectives one rank runs in the step, under ``repro``'s keys:
+    ``collectives`` (per op ``{"count", "bytes"}``, payload bytes of each
+    result at its local shape), ``collective_bytes`` (their sum) and, in
+    ``cost``, ``collective_bytes`` with ``repro.dist.hlo_cost``'s x2 for an
+    all-reduce and ``collective_counts``. They come from a trace of one
+    rank's step on its local shards under a virtual host mesh
+    (``launch/mesh.py virtual_mesh``): the port's explicit tensor-, FSDP-
+    and expert-parallel layout (``models/layers.py``), every collective
+    recorded at its local shapes without communicating
+    (``dist/collectives.py``). The layers are a Python loop, so every
+    layer's collectives are counted. An MoE cell counts them on
+    ``moe_impl="shard_map"`` (the expert-parallel dispatch across ranks);
+    the families that run on one rank only (SSM, hybrid, VLM,
+    encoder-decoder) and layouts the explicit path does not take (query
+    heads that do not divide the model axis) record ``None`` and why.
+
+``mesh_shape`` of a host mesh (any size but 256 and 512, e.g. (1, 2) or
+(2, 2)) traces only that local step: its dispatch log, FLOPs and argument
+bytes are one rank's, and its collectives are what the same cell runs
+on that many ``torch.distributed`` ranks. ``repro`` also records XLA's
+memory and cost analyses of the compiled program; the port has none, and
 leaves those keys out. Artifacts land in
 ``artifacts/dryrun_torch/<arch>__<shape>__<mesh>[__variant].json``.
 
@@ -95,8 +114,67 @@ def _applied_divisor(plan, aspec, dim_index=0) -> int:
     return d
 
 
-def mesh_name(multi_pod: bool) -> str:
+def mesh_name(multi_pod: bool, host_shape=None) -> str:
+    if host_shape is not None:
+        return "host_" + "x".join(str(int(d)) for d in host_shape)
     return "multi_pod" if multi_pod else "single_pod"
+
+
+def ranked_rules(rules: Dict[str, Any]) -> Dict[str, Any]:
+    """``rules`` as the explicit multi-rank layout runs them: the residual
+    stream and the caches' sequence stay whole on every rank, and kv heads
+    ride ``model`` where they divide it (the solver demotes them where they
+    do not)."""
+    return dict(rules, seq=None, kv_seq=None, kv_heads="model")
+
+
+def trace_local(model, cfg, shape, plan, *, selector, optimizer_name="adamw",
+                microbatches=1):
+    """One rank's step of the cell on its local shards (meta tensors) under
+    ``plan`` over a virtual host mesh: (dispatch context, ``StepFlops``,
+    ``CollectiveStats``, argument bytes)."""
+    import torch
+
+    from repro_torch.core.gemm import gemm_context
+    from repro_torch.data.pipeline import input_specs
+    from repro_torch.dist.collectives import record
+    from repro_torch.dist.cost import StepFlops, specs_like, tree_local_bytes
+    from repro_torch.dist.sharding import abstract_tree, local_rows, local_specs, use_plan
+    from repro_torch.optim import constant, make_optimizer
+    from repro_torch.train.trainer import init_train_state, make_train_step
+
+    specs = model.param_specs()
+    argument = 0
+    with gemm_context(selector=selector) as ctx, use_plan(plan), StepFlops() as flops, \
+            record() as coll:
+        params = abstract_tree(local_specs(specs))
+        ins = local_rows(input_specs(cfg, shape))
+        argument += sum(v.numel() * v.element_size() for v in ins.values())
+        argument += tree_local_bytes(plan, specs)
+        if shape.kind == "train":
+            optimizer = make_optimizer(optimizer_name, constant(1e-4))
+            step_fn = make_train_step(model, optimizer, div={}, microbatches=microbatches)
+            state = init_train_state(model, optimizer, params)
+            argument += tree_local_bytes(plan, specs_like(
+                state["opt"], {k: specs for k in state["opt"]}))
+            # as a rank runs it: a remat recompute stops where its last saved
+            # tensor is made, before the collectives that follow it
+            step_fn(state, ins)
+        else:
+            with torch.no_grad():
+                if shape.kind == "prefill":
+                    model.prefill(params, ins["tokens"], max_seq=shape.seq_len)
+                else:
+                    cache_specs = model.cache_specs(shape.global_batch, shape.seq_len)
+                    argument += tree_local_bytes(plan, cache_specs)
+                    model.decode_step(params, abstract_tree(local_specs(cache_specs)),
+                                      ins["tokens"], ins["cur_pos"])
+    return ctx, flops, coll, argument
+
+
+def collective_keys(coll) -> Dict[str, Any]:
+    """``repro``'s artifact keys of a ``CollectiveStats`` (module doc)."""
+    return {"collectives": coll.summary(), "collective_bytes": coll.total_bytes}
 
 
 def _dispatch_table(log) -> Dict[str, Dict[str, Any]]:
@@ -142,10 +220,14 @@ def lower_cell(
     config_overrides: Optional[Dict[str, Any]] = None,
     optimizer_name: str = "adamw",
     selector=None,
+    shape_overrides: Optional[Dict[str, Any]] = None,
 ) -> Dict[str, Any]:
     """Trace one cell on the meta device (module doc); returns its artifact.
     ``selector`` defaults to the H100 one (``default_selector("cuda")``:
-    the card's picks, no card needed)."""
+    the card's picks, no card needed); ``shape_overrides`` replaces fields
+    of the input shape (``global_batch``, ``seq_len``)."""
+    import math
+
     import torch
 
     from repro_torch.configs import get_config
@@ -163,17 +245,26 @@ def lower_cell(
     if config_overrides:
         cfg = dataclasses.replace(cfg, **config_overrides)
     shape = SHAPES_BY_NAME[shape_name]
+    host = mesh_shape is not None and math.prod(mesh_shape) not in (256, 512)
+    name = mesh_name(multi_pod, mesh_shape if host else None)
     if shape not in applicable_shapes(cfg):
         return {
             "arch": arch,
             "shape": shape_name,
-            "mesh": mesh_name(multi_pod),
+            "mesh": name,
             "variant": variant,
             "status": "skipped",
             "reason": "shape not applicable (long_500k needs sub-quadratic decode)",
         }
+    if shape_overrides:
+        shape = dataclasses.replace(shape, **shape_overrides)
+    if selector is None:
+        selector = default_selector("cuda")
 
     t0 = time.time()
+    if host:
+        return _lower_host_cell(arch, cfg, shape, variant, mesh_shape, extra_rules,
+                                microbatches, config_overrides, optimizer_name, selector, t0)
     mesh = make_production_mesh(multi_pod=multi_pod, shape=mesh_shape)
     rules = rules_for_cell(cfg, shape, mesh)
     if extra_rules:
@@ -192,8 +283,6 @@ def lower_cell(
     div["batch"] = _applied_divisor(plan, in_specs["tokens"], 0)
     div.setdefault("model", mesh.shape["model"])
 
-    if selector is None:
-        selector = default_selector("cuda")
     argument = tree_local_bytes(plan, specs) + tree_local_bytes(plan, in_specs)
     with gemm_context(selector=selector) as ctx, use_plan(plan), StepFlops() as flops:
         if shape.kind == "train":
@@ -223,22 +312,27 @@ def lower_cell(
                                       ins["cur_pos"], div=div)
     t_trace = time.time() - t0
 
+    coll_keys, coll_cost = _production_collectives(cfg, shape, mesh, rules, selector,
+                                                   optimizer_name, microbatches)
     return {
         "arch": arch,
         "shape": shape_name,
-        "mesh": mesh_name(multi_pod),
+        "mesh": name,
         "variant": variant,
         "status": "ok",
         "n_devices": mesh.size,
         "mesh_shape": {k: int(v) for k, v in mesh.shape.items()},
-        "timings_s": {"trace": round(t_trace, 3)},
+        "timings_s": {"trace": round(t_trace, 3),
+                      "collective_trace": round(time.time() - t0 - t_trace, 3)},
         "memory": {"argument_size": int(argument)},
         "cost": {
             "flops": float(flops.total),
             # the dispatch's share, and 2 * G * M * N * K over its log
             "gemm_flops": float(flops.dispatch),
             "gemm_flops_logged": float(dispatch_flops(ctx.log)),
+            **coll_cost,
         },
+        **coll_keys,
         "dispatch": _dispatch_table(ctx.log),
         "dispatches": len(ctx.log),
         "params": {
@@ -252,6 +346,82 @@ def lower_cell(
             "microbatches": microbatches,
             "overrides": config_overrides or {},
             "remat": cfg.remat,
+        },
+    }
+
+
+def _production_collectives(cfg, shape, mesh, rules, selector, optimizer_name, microbatches):
+    """(artifact keys, cost keys) of the collectives one rank of a
+    production cell runs (module doc): a local trace on a virtual mesh
+    of the same sizes under :func:`ranked_rules`."""
+    from repro_torch.dist.sharding import ShardingPlan
+    from repro_torch.launch.mesh import virtual_mesh
+    from repro_torch.models import build_model
+
+    if cfg.family not in ("dense", "moe"):
+        return {"collectives": None, "collective_bytes": None,
+                "collectives_note": f"not ported across ranks: the {cfg.family} family runs "
+                                    "on one rank"}, {}
+    note = {}
+    if cfg.family == "moe" and cfg.moe_impl not in ("shard_map", "shard_map_bf16"):
+        cfg = dataclasses.replace(cfg, moe_impl="shard_map")
+        note["collectives_moe_impl"] = "shard_map"
+    plan = ShardingPlan(virtual_mesh(mesh.sizes, mesh.axis_names), ranked_rules(rules))
+    try:
+        _, _, coll, _ = trace_local(build_model(cfg), cfg, shape, plan, selector=selector,
+                                    optimizer_name=optimizer_name, microbatches=microbatches)
+    except NotImplementedError as e:
+        return {"collectives": None, "collective_bytes": None,
+                "collectives_note": f"not ported across ranks: {e}"}, {}
+    return ({**collective_keys(coll), **note},
+            {"collective_bytes": coll.coll_bytes, "collective_counts": coll.counts()})
+
+
+def _lower_host_cell(arch, cfg, shape, variant, mesh_shape, extra_rules, microbatches,
+                     config_overrides, optimizer_name, selector, t0):
+    """A host-mesh cell (module doc): one rank's local step only."""
+    from repro_torch.dist.cost import dispatch_flops
+    from repro_torch.dist.sharding import ShardingPlan
+    from repro_torch.launch.mesh import virtual_mesh
+    from repro_torch.models import build_model
+
+    mesh = virtual_mesh(mesh_shape)
+    rules = ranked_rules(rules_for_cell(cfg, shape, mesh))
+    if extra_rules:
+        rules.update(extra_rules)
+    plan = ShardingPlan(mesh, rules)
+    ctx, flops, coll, argument = trace_local(build_model(cfg), cfg, shape, plan,
+                                             selector=selector, optimizer_name=optimizer_name,
+                                             microbatches=microbatches)
+    return {
+        "arch": arch,
+        "shape": shape.name,
+        "mesh": mesh_name(False, mesh_shape),
+        "variant": variant,
+        "status": "ok",
+        "n_devices": mesh.size,
+        "mesh_shape": {k: int(v) for k, v in mesh.shape.items()},
+        "timings_s": {"trace": round(time.time() - t0, 3)},
+        "memory": {"argument_size": int(argument)},
+        "cost": {
+            "flops": float(flops.total),
+            "gemm_flops": float(flops.dispatch),
+            "gemm_flops_logged": float(dispatch_flops(ctx.log)),
+            "collective_bytes": coll.coll_bytes,
+            "collective_counts": coll.counts(),
+        },
+        **collective_keys(coll),
+        "dispatch": _dispatch_table(ctx.log),
+        "dispatches": len(ctx.log),
+        "params": {"total": cfg.param_count(), "active": cfg.active_param_count()},
+        "config": {
+            "rules": {k: list(v) if isinstance(v, tuple) else v for k, v in rules.items()},
+            "div": {},
+            "mesh_shape_override": list(mesh_shape),
+            "microbatches": microbatches,
+            "overrides": config_overrides or {},
+            "remat": cfg.remat,
+            "shape": {"global_batch": shape.global_batch, "seq_len": shape.seq_len},
         },
     }
 

@@ -45,10 +45,18 @@ N`` folds the siblings' fresh commits into each worker's live selector
 every N engine steps (``core/gossip.py``).
 
 ``--mesh-model N`` installs a sharding plan over the host's ranks as
-(data, model = N) (``launch/mesh.py make_host_mesh``): the engines then
-take their GEMM divisors from it (``serve_gemm_div``), so every dispatch
-fingerprints the per-shard local MNK. One process is one rank, so only
-N = 1 runs here; N > 1 fails in ``make_host_mesh``'s check.
+(data, model = N) (``launch/mesh.py make_host_mesh``). One process (N = 1)
+runs every GEMM whole, with the plan's divisors in its fingerprints
+(``serve_gemm_div``). N > 1 serves across N ranks, one process each,
+started by ``torch.distributed.run`` (data = 1: the slots are not split
+over data ranks): the CLI joins the ``gloo`` group the launcher describes
+(ranks that share one card cannot use NCCL), every rank holds its shard of
+the weights (drawn from the same seed as one rank's) and of the caches,
+takes the same request stream and runs the tensor-parallel step on the
+hand-written kernels at its local shapes, exchanging what the layout needs
+(``dist/collectives.py``). Rank 0 writes ``--summary-json``, with the
+collectives of a decode step and their share of the decode time. The paged
+engine, quantized weights and several workers run on one rank only.
 
 Example::
 
@@ -66,6 +74,8 @@ Example::
         --paged --prefill-chunk 16 --replay poisson --requests 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b --preset full \\
         --requests 8 --workers 2 --journal artifacts/fleet.jsonl --adapt --gossip-every 2
+    PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 2 \\
+        -m repro_torch.launch.serve --arch granite-8b --preset full --mesh-model 2
 """
 
 from __future__ import annotations
@@ -426,10 +436,22 @@ def main(argv=None) -> int:
         cfg = dataclasses.replace(cfg, dtype=args.dtype)
     if cfg.family == "encdec":
         raise SystemExit("serve CLI drives decoder-only archs; see examples/ for enc-dec")
+    joined = join_ranks(args)
     device = resolve_device(args.device)
+    if device.type == "cuda" and joined:
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))
+                              % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    plan = None
+    if args.mesh_model:
+        mesh = make_host_mesh(model=args.mesh_model)
+        plan = ShardingPlan(mesh)
+        log.info("mesh plan installed: %s -> gemm divisors %s", mesh.shape, plan.gemm_div())
     model = build_model(cfg)
     t0 = time.perf_counter()
-    params = model.init_params(device, torch.Generator(device=device).manual_seed(args.seed))
+    with use_plan(plan):
+        params = model.init_params(device,
+                                   torch.Generator(device=device).manual_seed(args.seed))
     log.info("built %s (%s, %s) on %s in %.1fs", cfg.name, args.preset, cfg.dtype, device,
              time.perf_counter() - t0)
     if args.quantize != "none":
@@ -443,12 +465,6 @@ def main(argv=None) -> int:
                  ", dynamic int8 activations" if act_bits else "",
                  time.perf_counter() - t0, n_skipped)
 
-    plan = None
-    if args.mesh_model:
-        mesh = make_host_mesh(model=args.mesh_model)
-        plan = ShardingPlan(mesh)
-        log.info("mesh plan installed: %s -> gemm divisors %s", mesh.shape, plan.gemm_div())
-
     # a deterministic request stream, dealt round-robin across the workers;
     # prompt lengths respect the cache bound (submit() rejects len > max_seq)
     rng = np.random.default_rng(args.seed)
@@ -461,13 +477,23 @@ def main(argv=None) -> int:
     # all start from the artifacts of before the run, so worker 1 must not
     # warm-start from what worker 0 journals moments ago in this same run
     workers = [build_worker(args, device, w) for w in range(args.workers)]
+    engines = []
     with use_plan(plan):
-        done, runs = serve_workers(args, model, params, device, workers, prompts)
+        done, runs = serve_workers(args, model, params, device, workers, prompts, engines)
     summary = dict(arch=cfg.name, preset=args.preset, dtype=cfg.dtype, device=str(device),
                    requests=args.requests, completed=len(done),
                    tokens=sum(len(r.out_tokens) for r in done), workers=runs)
     if plan is not None:
         summary["mesh"] = dict(shape=plan.mesh.shape, gemm_div=plan.gemm_div())
+        if plan.mesh.ranked:
+            from repro_torch.kernels.common import LAUNCHES
+
+            summary["mesh"]["ranks"] = plan.mesh.size
+            summary["collectives"] = decode_collectives(engines[0])
+            # every rank's kernel launches over the run
+            every = [None] * plan.mesh.size
+            torch.distributed.all_gather_object(every, {n: c for n, c in LAUNCHES.items() if c})
+            summary["launches_by_rank"] = every
     log.info("served %d/%d requests, %d tokens across %d worker(s)", len(done), args.requests,
              summary["tokens"], args.workers)
     if args.workers > 1 and args.journal:
@@ -481,17 +507,58 @@ def main(argv=None) -> int:
         log.info("fleet journals federate to %d records (%d shards, %d conflicts); re-run "
                  "with --merge-journals to warm-start every worker from them",
                  merged.n_records(), rep.sources, rep.conflicts)
-    if args.summary_json:
+    if args.summary_json and (not joined or torch.distributed.get_rank() == 0):
         with open(args.summary_json, "w") as f:
             json.dump(summary, f, indent=1)
+    if joined:
+        torch.distributed.destroy_process_group()
     return 0 if len(done) == args.requests else 1
 
 
-def serve_workers(args, model, params, device, workers, prompts):
+def join_ranks(args) -> bool:
+    """Join the process group ``torch.distributed.run`` describes (its
+    environment: ``WORLD_SIZE`` > 1) over ``gloo``, for ``--mesh-model``;
+    refuse what runs on one rank only. Returns whether this process joined."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        return False
+    if not args.mesh_model:
+        raise SystemExit(f"{world} ranks need --mesh-model (the model axis they split)")
+    if world != args.mesh_model:
+        raise SystemExit(f"serving splits the model axis only: --mesh-model {args.mesh_model} "
+                         f"over {world} ranks would put {world // args.mesh_model} on data")
+    for flag, on in (("--paged", args.paged), ("--quantize", args.quantize != "none"),
+                     ("--workers", args.workers > 1)):
+        if on:
+            raise SystemExit(f"{flag} runs on one rank; across ranks the dense slot engine "
+                             "serves float weights")
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo")
+    logging.getLogger().handlers[0].setFormatter(
+        logging.Formatter(f"[rank {dist.get_rank()}] %(message)s"))
+    return True
+
+
+def decode_collectives(engine) -> dict:
+    """The collectives of one decode step (every step runs the same ones
+    at a fixed slot count), and the host ms the decode steps and the
+    collectives inside them took, summed over the run."""
+    steps = engine.timing["decode_steps"]
+    coll = engine.decode_collectives
+    per_step = {op: {"count": c // max(steps, 1), "bytes": b // max(steps, 1)}
+                for op, (c, b) in sorted(coll.per_op.items())}
+    uneven = [op for op, (c, _) in coll.per_op.items() if steps and c % steps]
+    return dict(decode_steps=steps, per_decode_step=per_step, uneven_ops=uneven,
+                total=coll.summary(), decode_ms=engine.timing["decode_s"] * 1e3,
+                collective_ms=coll.seconds * 1e3)
+
+
+def serve_workers(args, model, params, device, workers, prompts, engines=None):
     """Serve ``prompts`` (dealt round-robin) through one engine per worker,
     one worker after another; returns (finished requests, each worker's
-    summary). Engines are built here, so under an installed plan they take
-    its GEMM divisors."""
+    summary), and appends each engine to ``engines``. Engines are built
+    here, so under an installed plan they take its GEMM divisors."""
     done, runs = [], []
     for w, (selector, adaptive) in enumerate(workers):
         gossip = None
@@ -532,6 +599,8 @@ def serve_workers(args, model, params, device, workers, prompts):
                 served = engine.run()
         done.extend(served)
         runs.append(_worker_summary(w, engine, served, wprompts, gossip, args))
+        if engines is not None:
+            engines.append(engine)
     return done, runs
 
 

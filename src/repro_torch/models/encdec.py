@@ -26,7 +26,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.gemm import as_dtype, gemm
-from repro_torch.dist.sharding import ArraySpec, constrain, init_leaf
+from repro_torch.dist.sharding import ArraySpec, constrain, init_leaf, ranked_plan
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import (TiedHead, _map, _stack_specs, _zeros, grad_tracking,
@@ -100,6 +100,7 @@ class EncDec:
     def encode(self, params: Params, frames: torch.Tensor, *,
                div: Optional[Dict[str, int]] = None) -> torch.Tensor:
         """The encoder's output (B, F, D) over the frame embeddings (B, F, D)."""
+        self._one_rank()
         cfg = self.cfg
         div = div or {}
         dt = as_dtype(cfg.dtype)
@@ -171,7 +172,15 @@ class EncDec:
             fresh.append(entry)
         return x, (fresh if cache is None else None)
 
+    @staticmethod
+    def _one_rank():
+        """The encoder-decoder runs on one rank: across ranks it raises."""
+        if ranked_plan() is not None:
+            raise NotImplementedError("the encdec family across ranks is not ported; dense "
+                                      "and MoE LMs are")
+
     def _dec_embed(self, params, tokens, positions):
+        self._one_rank()
         dt = as_dtype(self.cfg.dtype)
         return params["embed"][tokens].to(dt) + sinusoid(positions, self.cfg.d_model).to(dt)
 

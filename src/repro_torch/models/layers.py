@@ -11,6 +11,19 @@ a local layer's ring of ``window`` slots (``attn_apply_ring``). Layouts are the 
 ``(K, N)`` for ``x @ w``, activations ``(B, S, H, dh)``, caches
 ``(B, S, KV, dh)`` (with ``kv_cache_dtype="int8"``: int8 values and f32
 per-(token, head) scales ``(B, S, KV)``).
+
+Across ranks (a ranked plan, :func:`~repro_torch.dist.sharding.ranked_plan`)
+every weight is this rank's shard as :meth:`ShardingPlan.spec_for` cuts it,
+and each GEMM runs at its local shape with unit divisors, so its
+``tag:local_mnk`` key is the one the one-rank plan's divisors give. Tensor
+parallelism rides ``model``: q/k/v, the MLP's gate and up projection and
+the experts are column-parallel (``heads``/``kv_heads``/``ffn``/``experts``),
+``attn.o`` and ``mlp.out`` row-parallel, followed by an all-reduce. FSDP
+rides ``data`` (``embed``): a weight's data-sharded dims are all-gathered
+just before its GEMM (the backward reduce-scatters its gradient). A kv
+head count that does not divide ``model`` leaves the kv columns whole on
+every rank (all-gathered, where the solver split them inside a head), and
+each rank attends with the kv heads its query heads read.
 """
 
 from __future__ import annotations
@@ -25,7 +38,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.gemm import as_dtype, gemm, gemm_grouped
 from repro_torch.core.op import Epilogue
 from repro_torch.core.quant import is_quantized, quantize_activations
-from repro_torch.dist.sharding import ArraySpec, constrain, current_plan
+from repro_torch.dist.collectives import all_gather, all_reduce, sum_grad
+from repro_torch.dist.sharding import ArraySpec, axes_of, constrain, current_plan, ranked_plan
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -225,13 +239,9 @@ def attn_apply_ring(
     K/V row is written IN PLACE at slot ``cur_pos % W`` (``repro`` returns
     an updated copy), then the token attends over the ring."""
     b = x.shape[0]
-    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    db, dtp = div.get("batch", 1), div.get("model", 1)
     w = cache["k"].shape[1]
 
-    q = gemm(x, p["wq"], divisors=(db, dtp, 1), tag="attn.q").reshape(b, 1, h, dh)
-    knew = gemm(x, p["wk"], divisors=(db, dtp, 1), tag="attn.k").reshape(b, 1, kv, dh)
-    vnew = gemm(x, p["wv"], divisors=(db, dtp, 1), tag="attn.v").reshape(b, 1, kv, dh)
+    q, knew, vnew, pick = _project_qkv(p, x, cfg, div)
     q = rope(q, cur_pos[:, None], cfg.rope_theta)
     knew = rope(knew, cur_pos[:, None], cfg.rope_theta)
 
@@ -239,9 +249,114 @@ def attn_apply_ring(
     slot = torch.remainder(cur_pos, w)
     cache["k"][bidx, slot] = knew[:, 0]
     cache["v"][bidx, slot] = vnew[:, 0]
-    out = decode_attention_ring(q, cache["k"], cache["v"], cur_pos, cfg.window)
-    y = gemm(out.reshape(b, 1, h * dh), p["wo"], divisors=(db, 1, dtp), tag="attn.o")
-    return y, cache
+    out = decode_attention_ring(q, pick(cache["k"]), pick(cache["v"]), cur_pos, cfg.window)
+    return _project_o(p, out.reshape(b, 1, -1), cfg, div), cache
+
+
+def gather_weight(w: torch.Tensor, parts) -> torch.Tensor:
+    """FSDP: ``w`` (this rank's shard, partition entries ``parts``) with
+    every dim that rides an axis other than ``model`` all-gathered (the
+    backward reduce-scatters the gradient)."""
+    for dim, part in enumerate(parts):
+        for axis in reversed(axes_of(part)):  # innermost axis first
+            if axis != "model":
+                w = all_gather(w, axis, dim)
+    return w
+
+
+def _on_model(parts, dim: int) -> bool:
+    return "model" in axes_of(parts[dim])
+
+
+def _ranked_weight(p: Params, key: str, spec: ArraySpec, plan):
+    """(the weight ``p[key]`` gathered over its FSDP axes, its entries)."""
+    parts = plan.spec_for(spec)
+    return gather_weight(p[key], parts), parts
+
+
+def _kv_pick(cfg: ModelConfig, plan, hl: int):
+    """Selects, from a tensor of all ``kv`` heads (..., KV, dh), the kv
+    heads this rank's ``hl`` query heads read: a slice when they map onto
+    a run of heads in equal groups, else one kv row per query head."""
+    j = plan.mesh.coords.get("model", 0)
+    g = cfg.n_heads // cfg.n_kv_heads
+    heads = [(j * hl + t) // g for t in range(hl)]
+    lo, n = heads[0], heads[-1] - heads[0] + 1
+    if hl % n == 0 and heads == [lo + t // (hl // n) for t in range(hl)]:
+        return lambda t: t[..., lo:lo + n, :]
+    index = torch.tensor(heads)
+    return lambda t: t.index_select(-2, index.to(t.device))
+
+
+def _identity(t):
+    return t
+
+
+def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig, div: Dict[str, int]):
+    """The q, k and v projections of ``x`` (B, S, D): (q (B, S, Hq, dh), k,
+    v (B, S, KVc, dh), pick). On one rank Hq = H and KVc = KV. Across ranks
+    Hq is this rank's query heads, KVc its kv heads where they divide the
+    model axis and else all of them, and ``pick`` selects from a (..., KVc,
+    dh) tensor (the fresh rows or the cache) the kv heads the local query
+    heads read (module doc)."""
+    b, s, _ = x.shape
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    plan = ranked_plan()
+    if plan is None:
+        db, dtp = div.get("batch", 1), div.get("model", 1)
+        q = gemm(x, p["wq"], divisors=(db, dtp, 1), tag="attn.q").reshape(b, s, h, dh)
+        k = gemm(x, p["wk"], divisors=(db, dtp, 1), tag="attn.k").reshape(b, s, kv, dh)
+        v = gemm(x, p["wv"], divisors=(db, dtp, 1), tag="attn.v").reshape(b, s, kv, dh)
+        return q, k, v, _identity
+    specs = attn_specs(cfg)
+    tp = plan.mesh.shape.get("model", 1)
+    wq, pq = _ranked_weight(p, "wq", specs["wq"], plan)
+    wk, pk = _ranked_weight(p, "wk", specs["wk"], plan)
+    wv, _ = _ranked_weight(p, "wv", specs["wv"], plan)
+    q_split, k_split = _on_model(pq, 1), _on_model(pk, 1)
+    if q_split and h % tp:
+        raise NotImplementedError(
+            f"{h} query heads over a model axis of {tp}: the plan splits inside a head")
+    hl = h // tp if q_split else h
+    aligned = k_split and kv % tp == 0
+    # the rank-partial consumers of a replicated input sum its gradient
+    xin = sum_grad(x, "model") if q_split else x
+    q = gemm(xin, wq, tag="attn.q").reshape(b, s, hl, dh)
+    kx = xin if k_split else x
+    k = gemm(kx, wk, tag="attn.k")
+    v = gemm(kx, wv, tag="attn.v")
+    if k_split and not aligned:
+        # the solver split the kv columns inside a head: every rank takes all
+        k, v = all_gather(k, "model", -1), all_gather(v, "model", -1)
+    elif q_split and not k_split:
+        # whole kv weights, of which each rank reads some heads
+        k, v = sum_grad(k, "model"), sum_grad(v, "model")
+    kvc = kv // tp if aligned else kv
+    k, v = k.reshape(b, s, kvc, dh), v.reshape(b, s, kvc, dh)
+    pick = _identity if aligned or not q_split else _kv_pick(cfg, plan, hl)
+    return q, k, v, pick
+
+
+def _project_q(p: Params, x: torch.Tensor, cfg: ModelConfig, div: Dict[str, int]):
+    if ranked_plan() is not None:
+        raise NotImplementedError("cross-attention across ranks (the encoder-decoder family) "
+                                  "runs on one rank")
+    b, s, _ = x.shape
+    db, dtp = div.get("batch", 1), div.get("model", 1)
+    return gemm(x, p["wq"], divisors=(db, dtp, 1), tag="attn.q").reshape(
+        b, s, cfg.n_heads, cfg.d_head)
+
+
+def _project_o(p: Params, out: torch.Tensor, cfg: ModelConfig, div: Dict[str, int]):
+    """The output projection of the attention ``out`` (B, S, Hq * dh);
+    across ranks row-parallel, summed over ``model``."""
+    plan = ranked_plan()
+    if plan is None:
+        db, dtp = div.get("batch", 1), div.get("model", 1)
+        return gemm(out, p["wo"], divisors=(db, 1, dtp), tag="attn.o")
+    wo, po = _ranked_weight(p, "wo", attn_specs(cfg)["wo"], plan)
+    y = gemm(out, wo, tag="attn.o")
+    return all_reduce(y, "model") if _on_model(po, 0) else y
 
 
 def attn_apply(
@@ -278,28 +393,24 @@ def attn_apply(
       cached, and the second return value is None.
     """
     b, s, _ = x.shape
-    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    db, dtp = div.get("batch", 1), div.get("model", 1)
-
-    q = gemm(x, p["wq"], divisors=(db, dtp, 1), tag="attn.q").reshape(b, s, h, dh)
     if positions is None:
         positions = torch.arange(s, device=x.device)
-    if use_rope:
-        q = rope(q, positions, cfg.rope_theta)
     if kv_override is not None:
         if cache is not None:
             raise ValueError("cross-attention reads kv_override and keeps no cache")
+        q = _project_q(p, x, cfg, div)
+        if use_rope:
+            q = rope(q, positions, cfg.rope_theta)
         k_full, v_full = kv_override
         out = chunked_attention(
             q, k_full, v_full, mask_kind="bidir", q_positions=torch.arange(s, device=x.device),
             k_positions=torch.arange(k_full.shape[1], device=x.device), chunk=cfg.attn_chunk,
             remat_step=cfg.attn_remat,
         )
-        y = gemm(out.reshape(b, s, h * dh), p["wo"], divisors=(db, 1, dtp), tag="attn.o")
-        return y, None
-    knew = gemm(x, p["wk"], divisors=(db, dtp, 1), tag="attn.k").reshape(b, s, kv, dh)
-    vnew = gemm(x, p["wv"], divisors=(db, dtp, 1), tag="attn.v").reshape(b, s, kv, dh)
+        return _project_o(p, out.reshape(b, s, -1), cfg, div), None
+    q, knew, vnew, pick = _project_qkv(p, x, cfg, div)
     if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
         knew = rope(knew, positions, cfg.rope_theta)
 
     if cache is not None:
@@ -322,18 +433,17 @@ def attn_apply(
             cache["k"][bidx, pos_block] = knew
             cache["v"][bidx, pos_block] = vnew
             k_full, v_full = cache["k"], cache["v"]
-        out = decode_attention(q, k_full, v_full, pos_block, window=window)
+        out = decode_attention(q, pick(k_full), pick(v_full), pos_block, window=window)
         new_cache = cache
     else:
         qpos = positions if positions.dim() == 1 else positions[0]
         out = chunked_attention(
-            q, knew, vnew, mask_kind=mask_kind, window=window,
+            q, pick(knew), pick(vnew), mask_kind=mask_kind, window=window,
             q_positions=qpos, k_positions=qpos, chunk=cfg.attn_chunk,
             remat_step=cfg.attn_remat,
         )
         new_cache = {"k": knew, "v": vnew}
-    y = gemm(out.reshape(b, s, h * dh), p["wo"], divisors=(db, 1, dtp), tag="attn.o")
-    return y, new_cache
+    return _project_o(p, out.reshape(b, s, -1), cfg, div), new_cache
 
 
 def mlp_specs(cfg: ModelConfig) -> Dict[str, ArraySpec]:
@@ -350,23 +460,38 @@ def mlp_specs(cfg: ModelConfig) -> Dict[str, ArraySpec]:
 
 def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, div: Dict[str, int]):
     """Activations ride the GEMM epilogue; swiglu fuses the gate multiply
-    into the up-projection's epilogue (``mul_silu`` on the gate operand)."""
-    db, dtp = div.get("batch", 1), div.get("model", 1)
+    into the up-projection's epilogue (``mul_silu`` on the gate operand).
+    Across ranks the up-projections are column-parallel over ``ffn`` and
+    ``mlp.out`` row-parallel, summed over ``model`` (module doc)."""
+    plan = ranked_plan()
+    split = False
+    if plan is None:
+        db, dtp = div.get("batch", 1), div.get("model", 1)
+        w, up, down = p, (db, dtp, 1), (db, 1, dtp)
+    else:
+        specs = mlp_specs(cfg)
+        w, parts = {}, {}
+        for key in specs:
+            w[key], parts[key] = _ranked_weight(p, key, specs[key], plan)
+        split = _on_model(parts["w_in"], 1)
+        x = sum_grad(x, "model") if split else x
+        up = down = (1, 1, 1)
     if cfg.mlp_act == "swiglu":
-        gate = gemm(x, p["w_gate"], divisors=(db, dtp, 1), tag="mlp.gate")
+        gate = gemm(x, w["w_gate"], divisors=up, tag="mlp.gate")
         h = gemm(
             x,
-            p["w_in"],
-            divisors=(db, dtp, 1),
+            w["w_in"],
+            divisors=up,
             tag="mlp.in",
             epilogue=Epilogue(binary="mul_silu"),
             operand=gate,
         )
     elif cfg.mlp_act == "squared_relu":
-        h = gemm(x, p["w_in"], divisors=(db, dtp, 1), tag="mlp.in", epilogue="square")
+        h = gemm(x, w["w_in"], divisors=up, tag="mlp.in", epilogue="square")
     else:
-        h = gemm(x, p["w_in"], divisors=(db, dtp, 1), tag="mlp.in", epilogue="gelu")
-    return gemm(h, p["w_out"], divisors=(db, 1, dtp), tag="mlp.out")
+        h = gemm(x, w["w_in"], divisors=up, tag="mlp.in", epilogue="gelu")
+    y = gemm(h, w["w_out"], divisors=down, tag="mlp.out")
+    return all_reduce(y, "model") if split else y
 
 
 def moe_specs(cfg: ModelConfig) -> Dict[str, ArraySpec]:
@@ -402,7 +527,16 @@ def moe_apply(
     assignment its position in its expert, and positions past the capacity
     land in a trash column. Every expert then runs at ``cap`` rows, empty or
     not, through three grouped GEMMs (one selection and, on the card, one
-    kernel launch each)."""
+    kernel launch each).
+
+    Across ranks only ``shard_map``/``shard_map_bf16`` run (the explicit
+    expert-parallel body); the others raise."""
+    if ranked_plan() is not None and (cfg.moe_impl not in ("shard_map", "shard_map_bf16")
+                                      or is_quantized(p["w_in"])):
+        raise NotImplementedError(
+            f"moe_impl={cfg.moe_impl!r} across ranks is not ported: the expert-parallel "
+            "dispatch across ranks is moe_impl='shard_map' (or 'shard_map_bf16') on float "
+            "expert weights")
     if cfg.moe_impl == "sharded":
         return moe_apply_sharded(p, x, cfg, div=div)
     if cfg.moe_impl in ("shard_map", "shard_map_bf16"):
@@ -551,24 +685,42 @@ def moe_apply_shard_map(
     p: Params, x: torch.Tensor, cfg: ModelConfig, *, div: Dict[str, int]
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``moe_impl="shard_map"`` under a plan: ``repro``'s per-rank
-    expert-parallel body, where each (data, model) rank routes its data
-    row's tokens token-major into buffers for the ``E / model`` experts it
-    owns, and the ranks' partial outputs are summed over ``model``. On a
-    one-rank mesh that body is the whole computation: one data row, every
-    expert local, no sum. Across ranks it needs the multi-rank slice's
-    process groups and raises."""
+    expert-parallel body. ``x`` is this rank's data row's tokens (replicated
+    over ``model``), the expert weights its ``E / model`` experts
+    (FSDP-gathered over ``data``). Routing is local and token-major at a
+    per-data-row capacity; assignments to other ranks' experts go to the
+    trash row; B5 runs at G = E / model with unit divisors; the combine is
+    summed over ``model`` (in bf16 for ``shard_map_bf16``). The dispatch
+    and the combine weights are the rank-partial consumers of the
+    replicated tokens and gates, so their gradients are summed over
+    ``model``; the router and the aux loss are replicated. On a one-rank
+    mesh this body is the whole computation (one data row, every expert
+    local, the sums the identity); a plan over a device-free mesh of more
+    than one rank has no ranks to run it and raises."""
     plan = current_plan()
     ranks = math.prod(plan.mesh.shape.values())
-    if ranks > 1:
+    if ranks > 1 and ranked_plan(plan) is None:
         raise NotImplementedError(
-            f"moe_impl={cfg.moe_impl!r} over a {ranks}-rank mesh needs the "
-            "multi-rank slice (explicit expert-parallel collectives); one rank runs it"
+            f"moe_impl={cfg.moe_impl!r} over a {ranks}-rank mesh runs on the multi-rank slice's "
+            "ranks (make_host_mesh under torch.distributed); a device-free mesh has none"
         )
+    specs = moe_specs(cfg)
+    w = {}
+    parts = {}
+    for key in specs:
+        w[key], parts[key] = _ranked_weight(p, key, specs[key], plan)
+    mp = plan.mesh.shape.get("model", 1)
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
+    split = _on_model(parts["w_in"], 0)
+    if mp > 1 and not split:
+        raise NotImplementedError(f"{e} experts do not split over a model axis of {mp}")
+    e_loc = e // mp
+    j = plan.mesh.coords.get("model", 0) if split else 0
+
     t = b * s
     xf = x.reshape(t, d)
-    logits = torch.matmul(xf.to(torch.float32), p["router"].to(torch.float32))
+    logits = torch.matmul(xf.to(torch.float32), w["router"].to(torch.float32))
     probs = torch.softmax(logits, dim=-1)
     gates, idx = torch.topk(probs, k, dim=-1)
     gates = gates / gates.sum(dim=-1, keepdim=True)
@@ -579,18 +731,26 @@ def moe_apply_shard_map(
     pos = (torch.cumsum(onehot, dim=0) * onehot - 1).amax(dim=-1)
     keep = pos < cap
     slot = pos.clamp_max(cap)
-    tok = torch.arange(t, device=x.device).repeat_interleave(k)
-    buf = torch.zeros((e, cap + 1, d), dtype=x.dtype, device=x.device)
-    buf[e_flat, slot] = xf[tok]
 
-    # the body's shapes are already shard-local: unit divisors, G = E
-    out_e = _experts(p, buf[:, :cap], cfg, {}, g_divisor=1)
-    gathered = out_e[e_flat, torch.clamp_max(slot, cap - 1)]
-    w = (gates.reshape(t * k) * keep).to(torch.float32)
-    combined = (gathered.to(torch.float32) * w[:, None]).reshape(t, k, d).sum(dim=1)
+    # dispatch only into this rank's experts: local ids [0, e_loc)
+    e_local = e_flat - j * e_loc
+    in_range = (e_local >= 0) & (e_local < e_loc)
+    e_clamped = e_local.clamp(0, e_loc - 1)
+    slot_masked = torch.where(in_range, slot, cap)  # other ranks' -> trash
+    tok = torch.arange(t, device=x.device).repeat_interleave(k)
+    buf = torch.zeros((e_loc, cap + 1, d), dtype=x.dtype, device=x.device)
+    buf = buf.index_put((e_clamped, slot_masked), sum_grad(xf, "model")[tok])
+
+    # the body's shapes are already shard-local: unit divisors, G = e_loc
+    out_e = _experts(w, buf[:, :cap], cfg, {}, g_divisor=1)  # (e_loc, cap, D)
+    gathered = out_e[e_clamped, torch.clamp_max(slot_masked, cap - 1)]
+    wts = (sum_grad(gates, "model").reshape(t * k) * keep * in_range).to(torch.float32)
+    combined = (gathered.to(torch.float32) * wts[:, None]).reshape(t, k, d).sum(dim=1)
     if cfg.moe_impl == "shard_map_bf16" and "model" in plan.mesh.axis_names:
         # the bf16 combine: repro sums the ranks' partials in bf16
-        combined = combined.to(torch.bfloat16).to(torch.float32)
+        combined = all_reduce(combined.to(torch.bfloat16), "model").to(torch.float32)
+    else:
+        combined = all_reduce(combined, "model")
 
     frac = onehot.reshape(t, k, e).sum(dim=1).to(torch.float32).mean(dim=0)
     aux = cfg.router_aux_coef * e * torch.sum(frac * probs.mean(dim=0))

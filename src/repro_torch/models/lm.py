@@ -31,6 +31,15 @@ A VLM's prompt may carry ``patch_embeds`` (B, P, D), the stubbed vision
 frontend's output: they take the first P positions, and the first S - P
 token embeddings follow them (``forward`` and ``prefill``).
 
+Across ranks (a ranked plan; the dense and MoE families) parameters and
+caches are this rank's shards (``init_params`` draws each full leaf as one
+rank would and keeps its shard), the layers run tensor- and
+FSDP-parallel (:mod:`repro_torch.models.layers`), the embedding is
+vocab-parallel (each rank looks up the rows of its vocabulary range, then
+an all-reduce over ``model``) and so is the head, whose logits are
+all-gathered over ``model`` for sampling and the loss. Batch rows split
+over the data axes; ``loss_fn`` then divides by the global token count.
+
 Training: ``loss_fn`` is ``repro``'s loss; under grad (a parameter that
 requires it) ``forward`` recomputes each layer in the backward when
 ``cfg.remat`` (:func:`remat_call`), and the tied head's copy is made anew
@@ -39,6 +48,7 @@ in each forward so its gradient reaches the embedding.
 
 from __future__ import annotations
 
+import math
 import weakref
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -48,7 +58,19 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.gemm import as_dtype, current_context, gemm, installed_context
 from repro_torch.core.quant import QuantizedTensor, quantize_lm_params
-from repro_torch.dist.sharding import ArraySpec, constrain, current_plan, init_leaf, use_plan
+from repro_torch.dist.collectives import all_gather, all_reduce, all_reduce_axes, sum_grad
+from repro_torch.dist.sharding import (
+    ArraySpec,
+    axes_of,
+    batch_axes,
+    constrain,
+    current_plan,
+    init_leaf,
+    local_specs,
+    ranked_plan,
+    shard_leaf,
+    use_plan,
+)
 from repro_torch.models import layers as L
 from repro_torch.models import ssd
 from repro_torch.models.config import ModelConfig
@@ -104,15 +126,17 @@ def remat_call(enabled: bool, fn, *args):
     return checkpoint(run, *args, use_reentrant=False)
 
 
-def token_loss(logits, labels, mask):
+def token_loss(logits, labels, mask, denom=None):
     """(the masked mean NLL, logz (B, S), the mask's sum clamped to 1) of f32
     ``logits`` (B, S, V) against ``labels`` (B, S), as ``repro``'s loss
-    functions compute them (logsumexp and the gold logit in f32)."""
+    functions compute them (logsumexp and the gold logit in f32).
+    ``denom``: the count to divide by in place of the mask's sum (across
+    ranks, the global one)."""
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     nll = (logz - gold) * mask
-    denom = torch.clamp_min(torch.sum(mask), 1.0)
+    denom = torch.clamp_min(torch.sum(mask) if denom is None else denom, 1.0)
     return torch.sum(nll) / denom, logz, denom
 
 
@@ -278,7 +302,21 @@ class LM:
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
-        return _map(lambda s: init_leaf(s, generator, dev), self.param_specs())
+        plan = ranked_plan()
+        if plan is None:
+            return _map(lambda s: init_leaf(s, generator, dev), self.param_specs())
+        self._check_ranked()
+        # the same draws as one rank, each full leaf cut to this rank's shard
+        # at once, so the ranks hold one model and the card one leaf at a time
+        return _map(lambda s: shard_leaf(init_leaf(s, generator, dev), plan, s,
+                                         plan.mesh.coords), self.param_specs())
+
+    def _check_ranked(self):
+        """Raise for what runs on one rank only (module doc)."""
+        if self.cfg.family not in ("dense", "moe"):
+            raise NotImplementedError(
+                f"the {self.cfg.family} family across ranks is not ported; dense and MoE "
+                "LMs are")
 
     # -- embedding / head -----------------------------------------------------
     def _embed(self, params, tokens, patch_embeds=None):
@@ -286,12 +324,33 @@ class LM:
         ``patch_embeds`` (B, P, D) take the first P positions and the first
         S - P token embeddings follow."""
         dt = as_dtype(self.cfg.dtype)
-        x = params["embed"][tokens].to(dt)
+        plan = ranked_plan()
+        if plan is not None:
+            x = self._embed_ranked(params, tokens, plan).to(dt)
+        else:
+            x = params["embed"][tokens].to(dt)
         if self.cfg.family == "vlm" and patch_embeds is not None:
             p = patch_embeds.to(dt)
             x = torch.cat([p, x[:, :x.shape[1] - p.shape[1]]], dim=1)
         # the residual stream: batch over the data-parallel axes
         return constrain(x, "batch", "seq", None)
+
+    def _embed_ranked(self, params, tokens, plan):
+        """Vocab-parallel lookup: the rows of this rank's vocabulary range
+        (the table gathered over its FSDP axes), zero elsewhere, summed over
+        ``model``."""
+        self._check_ranked()
+        spec = self.param_specs()["embed"]
+        parts = plan.spec_for(spec)
+        table = L.gather_weight(params["embed"], parts)
+        if "model" not in axes_of(parts[0]):
+            return table[tokens]
+        rows = table.shape[0]
+        lo = plan.mesh.coords["model"] * rows
+        local = tokens - lo
+        inside = (local >= 0) & (local < rows)
+        x = table[local.clamp(0, rows - 1)] * inside[..., None].to(table.dtype)
+        return all_reduce(x, "model")
 
     def head_weight(self, params) -> torch.Tensor:
         """The ``(d_model, vocab)`` weight the head reads: ``lm_head``, or,
@@ -302,6 +361,9 @@ class LM:
         return self._tied_head.weight(params["embed"], self.cfg.dtype)
 
     def _head(self, params, x, div):
+        plan = ranked_plan()
+        if plan is not None:
+            return self._head_ranked(params, x, plan)
         return gemm(
             x,
             self.head_weight(params),
@@ -309,6 +371,22 @@ class LM:
             tag="lm_head",
             out_dtype=self.cfg.dtype,
         )
+
+    def _head_ranked(self, params, x, plan):
+        """Vocab-parallel head: this rank's vocabulary columns (the weight
+        gathered over its FSDP axes), the logits all-gathered over
+        ``model``; the loss over them is replicated, so the gather's
+        backward keeps this rank's slice."""
+        specs = self.param_specs()
+        if self.cfg.tie_embeddings:
+            parts = tuple(reversed(plan.spec_for(specs["embed"])))
+        else:
+            parts = plan.spec_for(specs["lm_head"])
+        split = "model" in axes_of(parts[1])
+        w = L.gather_weight(self.head_weight(params), parts)
+        xin = sum_grad(x, "model") if split else x
+        logits = gemm(xin, w, tag="lm_head", out_dtype=self.cfg.dtype)
+        return all_gather(logits, "model", -1, grad="slice") if split else logits
 
     def _block(self, params, i, x, *, div, positions, window, cache=None, cur_pos=None):
         """Layer ``i`` of the stack; ``window`` is its (mask kind, window),
@@ -411,7 +489,16 @@ class LM:
             # no LM loss on image-patch positions
             mask = mask.clone()
             mask[:, : batch["patch_embeds"].shape[1]] = 0.0
-        nll, logz, denom = token_loss(logits, labels, mask)
+        rows = () if ranked_plan() is None else batch_axes(ranked_plan())
+        if rows:
+            # this rank's share of the global mean: its sums over the global
+            # count, so the shares' gradients add up to the mean's; the aux
+            # loss is the data rows' mean
+            total = all_reduce_axes(torch.sum(mask).detach(), rows)
+            nll, logz, denom = token_loss(logits, labels, mask, denom=total)
+            aux = aux / math.prod(ranked_plan().mesh.shape[a] for a in rows)
+        else:
+            nll, logz, denom = token_loss(logits, labels, mask)
         loss = nll + aux
         # z-loss for logit drift stability at scale
         zloss = 1e-4 * torch.sum(torch.square(logz) * mask) / denom
@@ -421,6 +508,9 @@ class LM:
             "zloss": zloss.detach(),
             "ntokens": torch.sum(mask).detach(),
         }
+        if rows:
+            for key in metrics:
+                metrics[key] = all_reduce_axes(metrics[key], rows)
         return loss + zloss, metrics
 
     # -- serving -----------------------------------------------------------------
@@ -496,7 +586,7 @@ class LM:
     def init_cache(self, batch: int, max_seq: int, device=None):
         """The zeroed decode cache of :meth:`cache_specs` on ``device`` (the
         card unless ``device='cpu'``)."""
-        return _zeros(self.cache_specs(batch, max_seq), resolve_device(device))
+        return _zeros(local_specs(self.cache_specs(batch, max_seq)), resolve_device(device))
 
     def windowed_cache_from_uniform(self, cache, prompt_len: int):
         """A uniform prefill cache ``{"attn": {"k", "v"}}`` (L, B, S, KV, dh)
@@ -568,7 +658,7 @@ class LM:
         b, s = tokens.shape
         x = self._embed(params, tokens, patch_embeds)
         positions = torch.arange(s, device=tokens.device)
-        cache = _zeros(self._uniform_cache_specs(b, max_seq or s), tokens.device)
+        cache = _zeros(local_specs(self._uniform_cache_specs(b, max_seq or s)), tokens.device)
         for i, window in enumerate(self._windows()):
             x, fresh, _ = self._block(params, i, x, div=div, positions=positions, window=window)
             for key, leaf in fresh.get("ssm", {}).items():

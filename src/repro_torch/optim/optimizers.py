@@ -15,6 +15,10 @@ parameter's dtype), one leaf at a time. The card then holds one copy of
 each tree, and the clipped f32 gradient of one leaf at a time rather than
 of all of them. ``update`` returns (params, state, metrics), the same
 objects it was given, so callers read it as they read ``repro``'s.
+``update(..., norm=)`` takes the global norm from the caller: across ranks
+the train step sums it over the shards
+(:func:`~repro_torch.dist.collectives.global_norm`), and AdamW and SGD then
+update each local shard as they would the whole leaf.
 """
 
 from __future__ import annotations
@@ -29,8 +33,9 @@ from repro_torch.utils.trees import tree_global_norm, tree_items, tree_map
 Schedule = Callable[[Any], torch.Tensor]
 
 
-def _clip_scale(grads, max_norm: float):
-    norm = tree_global_norm(grads)
+def _clip_scale(grads, max_norm: float, norm=None):
+    if norm is None:
+        norm = tree_global_norm(grads)
     return torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-9), 1.0), norm
 
 
@@ -87,8 +92,8 @@ class AdamW:
         }
 
     @torch.no_grad()
-    def update(self, grads, state, params):
-        scale, gnorm = _clip_scale(grads, self.max_grad_norm)
+    def update(self, grads, state, params, norm=None):
+        scale, gnorm = _clip_scale(grads, self.max_grad_norm, norm)
         count = _step_count(state)
         lr = self.schedule(count)
         cf = count.to(torch.float32)
@@ -123,8 +128,8 @@ class SGD:
         }
 
     @torch.no_grad()
-    def update(self, grads, state, params):
-        scale, gnorm = _clip_scale(grads, self.max_grad_norm)
+    def update(self, grads, state, params, norm=None):
+        scale, gnorm = _clip_scale(grads, self.max_grad_norm, norm)
         count = _step_count(state)
         lr = self.schedule(count)
         for _, g, (vel, master), p in _leaf_triples(
@@ -163,8 +168,8 @@ class Adafactor:
         }
 
     @torch.no_grad()
-    def update(self, grads, state, params):
-        scale, gnorm = _clip_scale(grads, self.max_grad_norm)
+    def update(self, grads, state, params, norm=None):
+        scale, gnorm = _clip_scale(grads, self.max_grad_norm, norm)
         count = _step_count(state)
         lr = self.schedule(count)
         decay = 1.0 - torch.pow(count.to(torch.float32), -0.8)

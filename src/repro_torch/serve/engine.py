@@ -15,6 +15,11 @@ Hopper tiles) unless the caller names others. An
 decode loop: every ``adapt_every`` engine steps it gets one round to tune
 the hottest untuned fingerprints the traffic produced, and ``run()`` drains
 what is left at its end.
+
+Under a ranked plan every rank runs an engine over its shards of the
+weights and caches: all ranks take the same request stream and sample the
+same tokens from the same gathered logits, so their slots stay in step.
+``decode_collectives`` counts what a rank exchanged in its decode steps.
 """
 
 from __future__ import annotations
@@ -31,7 +36,8 @@ import torch
 from repro_torch.core.adaptive import AdaptiveTuner
 from repro_torch.core.gemm import gemm_context
 from repro_torch.core.selector import KernelSelector, SelectorStats, default_selector
-from repro_torch.dist.sharding import current_plan
+from repro_torch.dist.collectives import CollectiveStats, record
+from repro_torch.dist.sharding import current_plan, ranked_plan
 from repro_torch.models.lm import resolve_device
 
 log = logging.getLogger("repro_torch.serve")
@@ -47,7 +53,8 @@ def serve_gemm_div(model, batch: Optional[int] = None) -> Dict[str, int]:
     divide. So dispatch fingerprints never claim a local shape the arrays
     do not run at (``repro.serve.engine.serve_gemm_div``)."""
     plan = current_plan()
-    if plan is None:
+    if plan is None or ranked_plan(plan) is not None:
+        # a ranked plan's tensors are already local: unit divisors
         return {}
     div = dict(plan.gemm_div())
     tp = div.get("model", 1)
@@ -167,6 +174,8 @@ class EngineCore:
         #: (synchronised with the device, so they are wall times of the work)
         self.timing = {"prefill_s": 0.0, "prefill_tokens": 0, "decode_s": 0.0,
                        "decode_steps": 0, "decode_tokens": 0}
+        #: the collectives this rank ran in decode steps (none on one rank)
+        self.decode_collectives = CollectiveStats()
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -377,7 +386,7 @@ class ServeEngine(EngineCore):
         tokens = np.zeros((self.cfg.n_slots, 1), np.int64)
         for i in active:
             tokens[i, 0] = self.slot_req[i].out_tokens[-1]
-        with self._dispatch_ctx():
+        with self._dispatch_ctx(), record() as coll:
             logits, self.cache = self.model.decode_step(
                 self.params,
                 self.cache,
@@ -385,6 +394,7 @@ class ServeEngine(EngineCore):
                 torch.as_tensor(self.pos, device=self.device),
                 div=self.div,
             )
+        self.decode_collectives.merge(coll)
         logits_np = logits[:, 0].float().cpu().numpy()
         self.timing["decode_s"] += self._timer() - t0
         self.timing["decode_steps"] += 1

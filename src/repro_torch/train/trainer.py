@@ -12,7 +12,14 @@ Beyond the train step itself:
     at every microbatch),
   * optional int8 gradient compression with error feedback
     (``dist/compression.py``),
-  * simulated failure injection for the fault-tolerance tests.
+  * simulated failure injection for the fault-tolerance tests,
+  * any (data, model) factorisation of the ranks under a ranked plan
+    (:func:`~repro_torch.dist.sharding.ranked_plan`): the batch rows split
+    over the data axes, each rank runs the tensor- and FSDP-parallel step on
+    its shards, the gradients of leaves not sharded over a data axis are
+    summed over it, the global norm is summed across ranks, and AdamW (or
+    SGD) updates the local shards. Checkpoints hold full leaves, so a run
+    resumes on another factorisation (``repro``'s elastic contract).
 
 The step is eager PyTorch: the loss and its gradients through autograd,
 every projection on the selected backend (on the card the hand-written
@@ -32,7 +39,10 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager, install_sigterm_handler
 from repro_torch.data import SyntheticLMData
+from repro_torch.dist.collectives import all_reduce_axes, global_norm, sync_grads
 from repro_torch.dist.compression import ErrorFeedback
+from repro_torch.dist.sharding import batch_axes, local_rows, ranked_plan
+from repro_torch.optim.optimizers import Adafactor
 from repro_torch.utils.logging import get_logger
 from repro_torch.utils.timing import EWMA, Timer
 from repro_torch.utils.trees import tree_items, tree_map
@@ -49,12 +59,13 @@ def train_gemm_div(model, batch: Optional[int] = None, plan=None) -> Dict[str, i
     divide, so train fingerprints never claim splits the arrays do not
     run at. ``plan`` defaults to the installed one
     (:func:`~repro_torch.dist.sharding.current_plan`); ``{}`` without a plan
-    (unsharded training)."""
-    from repro_torch.dist.sharding import current_plan
+    (unsharded training) and under a ranked one (local tensors)."""
+    from repro_torch.dist.sharding import current_plan, ranked_plan
 
     if plan is None:
         plan = current_plan()
-    if plan is None:
+    if plan is None or ranked_plan(plan) is not None:
+        # a ranked plan's tensors are already local: unit divisors
         return {}
     div = dict(plan.gemm_div())
     tp = div.get("model", 1)
@@ -141,7 +152,9 @@ def make_train_step(
     dict of tensors on the parameters' device. The state is updated in
     place and returned. With ``microbatches > 1`` the batch is split on
     axis 0 and the gradients are summed in f32 buffers, then divided (the
-    loss is the microbatches' mean, the metrics the last one's)."""
+    loss is the microbatches' mean, the metrics the last one's). Under a
+    ranked plan ``batch`` is this rank's rows (``local_rows``), and the
+    returned loss is the global one (module doc)."""
 
     def grads_of(params, batch):
         loss, metrics = model.loss_fn(params, batch, div=div)
@@ -167,9 +180,19 @@ def make_train_step(
         params = state["params"]
         _require_grads(params)
         loss, metrics, grads = compute_grads(params, batch)
+        plan = ranked_plan()
+        norm = None
+        if plan is not None:
+            if isinstance(optimizer, Adafactor):
+                raise NotImplementedError("Adafactor's factored moments across ranks are not "
+                                          "ported; AdamW and SGD update local shards")
+            specs = model.param_specs()
+            grads = sync_grads(grads, specs, plan)
+            norm = global_norm(grads, specs, plan)
+            loss = all_reduce_axes(loss, batch_axes(plan))
         if grad_compression:
             grads, state["ef"] = ErrorFeedback.apply(grads, state["ef"])
-        _, _, opt_metrics = optimizer.update(grads, state["opt"], params)
+        _, _, opt_metrics = optimizer.update(grads, state["opt"], params, norm=norm)
         state["step"] = state["step"] + 1
         return state, {**metrics, **opt_metrics, "loss": loss}
 
@@ -252,6 +275,7 @@ class Trainer:
             state,
             extra={"data": self.data.state_dict()},
             blocking=blocking,
+            specs=self.model.param_specs(),
         )
 
     def maybe_restore(self, state):
@@ -259,7 +283,7 @@ class Trainer:
         (``state``, 0) without one; the data stream resumes with it."""
         if not self.ckpt or self.ckpt.latest_step() is None:
             return state, 0
-        restored, step = self.ckpt.restore(state)
+        restored, step = self.ckpt.restore(state, specs=self.model.param_specs())
         _require_grads(restored["params"])
         extra = self.ckpt.read_extra(step)
         if "data" in extra:
@@ -278,7 +302,7 @@ class Trainer:
         device = params_device(state["params"])
         step = start
         while step < cfg.total_steps:
-            batch = to_device_batch(self.data.batch_at(step), device)
+            batch = local_rows(to_device_batch(self.data.batch_at(step), device))
             if self.failure_injector:
                 self.failure_injector(step)  # may raise to simulate a crash
             with Timer(device) as t:

@@ -48,7 +48,8 @@ def test_port_import_leaves_jax_out():
             "repro_torch.train, repro_torch.optim, repro_torch.data, repro_torch.checkpoint, "
             "repro_torch.dist.compression, repro_torch.utils.trees, repro_torch.utils.timing, "
             "repro_torch.dist.sharding, repro_torch.dist.cost, repro_torch.dist.pipeline, "
-            "repro_torch.launch.mesh, repro_torch.launch.dryrun, sys; "
+            "repro_torch.launch.mesh, repro_torch.launch.dryrun, "
+            "repro_torch.dist.collectives, repro_torch.core.device_bloom, sys; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]")
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
@@ -95,6 +96,24 @@ def test_entry_points_refuse_to_fall_back_to_cpu(no_cuda):
         pass
     with pytest.raises(RuntimeError, match="device='cpu'"):
         t_train.main(["--arch", "granite-8b", "--preset", "reduced", "--steps", "1"])
+
+
+def test_ranked_entry_points_refuse_to_fall_back_to_cpu(no_cuda):
+    """Across ranks too: the shards are drawn and the caches made on the
+    card unless the caller asks for the CPU."""
+    from repro_torch.dist.sharding import ShardingPlan, use_plan
+    from repro_torch.launch.mesh import virtual_mesh
+
+    model = LM(get_reduced("granite-8b"))
+    with use_plan(ShardingPlan(virtual_mesh((1, 2)))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            model.init_params()
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            model.init_cache(1, 8)
+        params = model.init_params(device="cpu")
+        assert tuple(params["layers"]["attn"]["wq"].shape[1:]) == (64, 32)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ServeEngine(model, params, ServeConfig(n_slots=1, max_seq=8))
 
 
 def test_kernel_build_needs_nvcc_and_never_runs_at_import(no_cuda, monkeypatch):
