@@ -301,14 +301,38 @@ Phases (any failure raises and the script exits non-zero):
    ``torch`` backend on the same weights. (b) olmoe-1b-7b at full width and
    depth on (1, 2), ``moe_impl="shard_map"``: B5 at G = 32 on each rank,
    the logits against the one-rank body replaying the ranks' top-8 (5e-2),
-   the router GEMM at ``ROUTER_TOL``. (c) granite-8b at full width, 2
-   layers: ``Trainer.fit`` 2 steps on (2, 1) (FSDP and data parallel),
-   checkpoint, 2 on (1, 2); losses at ``TRAIN_LOSS_TOL`` and the first
+   the router GEMM at ``ROUTER_TOL``. (c) granite-8b at full width, 1
+   layer: ``Trainer.fit`` 1 step on (2, 1) (FSDP and data parallel),
+   checkpoint, 1 on (1, 2); losses at ``TRAIN_LOSS_TOL`` and the first
    step's gathered gradients at ``TRAIN_GRAD_TOL`` against the one-rank
    ``torch`` backend. (d) ``device_bloom`` on 2**20 keys against phase 4's
    sieve filters, bit for bit the CPU's, and its ms. Planted faults: rank
    1's partial of one all-reduce zeroed, one extra all-reduce in the count,
    a rank's loss share alone, the gradients one row off, a key bit flipped.
+   W1: where the CLI's greedy tokens on two ranks and phase 9 (d)'s on one
+   first differ, the one-rank top-2 logit margin beside the two-rank
+   logits' reading on the same tokens (``w1_readings``).
+11. The serve CLI's configurations under a plan, on the same two ranks
+   (their parts at the end of phase 10's rank program, ``mr11_*``): (a)
+   granite-8b ``--quantize`` int8-dynamic and int4 on (1, 2) through the CLI
+   at full depth (exit 0, 4/4, B1 and B2 on the rung on each rank, a decode
+   step's collectives: the float dry run's, plus on int8-dynamic one MAX
+   all-reduce a row-parallel dispatch), and a driver at 8 layers: each
+   rank's codes and scales the one-rank quantization's shards (digests),
+   the gathered logits at ``QUANT_LOGITS_TOL`` against the one-rank
+   ``torch`` backend on the same quantized weights; (b) olmoe-1b-7b on its
+   default ``moe_impl="global"``, dense and int8, B5 at G = 32 a rank: the
+   dense logits replaying the ranks' top-8 (5e-2), int8's own routing on
+   the first prompt at its rung's limit, the router at ``ROUTER_TOL``, the
+   routing flips; (c) granite-8b at 4 layers on (2, 1), 2 of 4 slots a
+   rank: logits (3e-2), decode keys equal to the one-rank plan's at M = 2,
+   greedy tokens equal to a one-rank engine's, a decode step's collectives
+   equal to the dry run's; (d) granite-8b at 8 layers ``--paged`` on
+   (1, 2): tokens equal to a one-rank paged engine's, every decode step's
+   logits (3e-2) against a one-rank run fed the ranks' tokens, the gather's
+   device ms by rank. Planted faults: int8-dynamic's MAX all-reduce zeroed,
+   int4's amax over half of K (its codes must differ), rank 1's MoE combine
+   partials zeroed, a missing or extra collective in the counts.
 
 Tolerances: a kernel output ``x`` agrees with its reference ``r`` when
 ``max|x - r| <= tol * max(1, max|r|)``: 1e-4 for f32 inputs (f32 sums in
@@ -360,6 +384,7 @@ import os
 import subprocess
 import sys
 import time
+import traceback
 from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
@@ -4959,9 +4984,10 @@ def _leaves(tree):
 #: ranks on one device): they prove the kernels at shard shapes with real
 #: exchanges between ranks, and nothing of NVLink
 MR_RANKS = 2
-#: phase 10 (c): granite-8b at full width cut to 2 layers, 2 rows of 1024
-#: tokens, 2 steps on (2, 1) then 2 on (1, 2) from the checkpoint
-MR_TRAIN_LAYERS, MR_TRAIN_ROWS, MR_TRAIN_SEQ, MR_TRAIN_STEPS = 2, 2, 1024, 2
+#: phase 10 (c): granite-8b at full width cut to 1 layer, 2 rows of 1024
+#: tokens, 1 step on (2, 1) then 1 on (1, 2) from the checkpoint (cut from 2
+#: layers and 2 + 2 steps to make room for phase 11 in the time limit)
+MR_TRAIN_LAYERS, MR_TRAIN_ROWS, MR_TRAIN_SEQ, MR_TRAIN_STEPS = 1, 2, 1024, 1
 MR_GROUP_TIMEOUT_S = 600
 MR_CLI_TIMEOUT_S, MR_RANKS_TIMEOUT_S = 300, 600
 BLOOM_KEYS = 2**20
@@ -4976,42 +5002,53 @@ def _torchrun(args, timeout):
     """``python -m torch.distributed.run --standalone --nproc-per-node 2``
     with ``args``, in a process group of its own that is killed whole at the
     timeout: (exit code or "timeout", seconds, stdout, stderr)."""
+    return _torchrun_all([args], timeout)[0]
+
+
+def _torchrun_all(arg_lists, timeout):
+    """:func:`_torchrun` of each of ``arg_lists``, all started together
+    (each launcher picks its own free port) and waited for in turn, every
+    one under the same deadline."""
     import signal
 
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src")] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
                                 if p]))
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
-           str(MR_RANKS), *args]
     t0 = time.perf_counter()
-    proc = subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True, start_new_session=True)
-    try:
-        out, err = proc.communicate(timeout=timeout)
-        rc = proc.returncode
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        out, err = proc.communicate()
-        rc = "timeout"
-    return rc, time.perf_counter() - t0, out, err
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+         str(MR_RANKS), *args], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True) for args in arg_lists]
+    out = []
+    for proc in procs:
+        try:
+            stdout, stderr = proc.communicate(timeout=max(1.0, t0 + timeout - time.perf_counter()))
+            rc = proc.returncode
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            stdout, stderr = proc.communicate()
+            rc = "timeout"
+        out.append((rc, time.perf_counter() - t0, stdout, stderr))
+    return out
 
 
 @contextmanager
-def planted_zero_all_reduce(rank, call):
+def planted_zero_all_reduce(rank, call, every=0):
     """Rank 1 contributes zeros to the ``call``-th all-reduce of the block
     (the exchange still happens, so the ranks stay in step): the rank's
-    partial sum never arrives."""
+    partial sum never arrives. With ``every``, also to each ``every``-th
+    all-reduce after it (the same exchange in every later layer)."""
     from repro_torch.dist import collectives
 
     raw = collectives.raw_all_reduce
     seen = [0]
 
-    def faulty(x, ax):
+    def faulty(x, ax, op="sum"):
         n = seen[0]
         seen[0] += 1
-        if rank == 1 and n == call:
+        if rank == 1 and (n == call or (every and n > call and (n - call) % every == 0)):
             x = x.detach() * 0
-        return raw(x, ax)
+        return raw(x, ax, op=op)
 
     collectives.raw_all_reduce = faulty
     try:
@@ -5034,11 +5071,14 @@ def _mr_tokens(vocab, device):
     return torch.as_tensor(np.stack([p[:s] for p in prompts]), device=device)
 
 
-def mr_granite(rank):
+def mr_granite(rank, w1_prefix=None):
     """Phase 10 (a) on each rank: granite-8b at full width and depth on
     (1, 2): a (4, S) prefill and one greedy decode step through the kernels,
     the gathered logits; then the prefill again with rank 1's partial of
-    layer 0's attn.o all-reduce zeroed (the planted fault)."""
+    layer 0's attn.o all-reduce zeroed (the planted fault). With
+    ``w1_prefix`` (W1: a served request's tokens up to the first position
+    where the CLI on two ranks and on one rank chose differently), also that
+    prefix's last-position logits."""
     import torch
 
     from repro_torch.configs import get_config
@@ -5067,10 +5107,15 @@ def mr_granite(rank):
         del cache
         with planted_zero_all_reduce(rank, call=1), gemm_context(backend="cuda"):
             bad, _ = model.prefill(params, tokens, max_seq=s + 1)
+        w1 = None
+        if w1_prefix is not None:
+            with gemm_context(backend="cuda"):
+                w1, _ = model.prefill(params, w1_prefix.cuda()[None])
+            w1 = w1[0, -1].float().cpu()
     keys = sorted({f"{e.tag}:{e.local_mnk}" for e in ctx.log})
     del params
     return dict(prefill=logits.cpu(), decode=step.cpu(), next=nxt.cpu(), fault=bad.cpu(),
-                launches=launches, keys=keys, layers=model.cfg.n_layers, split=split)
+                launches=launches, keys=keys, layers=model.cfg.n_layers, split=split, w1=w1)
 
 
 def mr_decode_split(rank, step, iters=5):
@@ -5160,12 +5205,13 @@ def _mr_train_parts():
 
 
 def mr_train(rank, workdir):
-    """Phase 10 (c) on each rank: granite-8b at full width, 2 layers. Rank 0
-    first runs the one-rank reference on the ``torch`` backend (the first
-    step's gradients, ``Trainer.fit`` for 4 steps); then on (2, 1) and on
-    (1, 2) each rank takes the first step's gradients (summed, gathered
-    whole on every rank), and ``Trainer.fit`` runs 2 steps on (2, 1),
-    checkpoints, and resumes for 2 on (1, 2). Rank 0 holds the readings."""
+    """Phase 10 (c) on each rank: granite-8b at full width, ``MR_TRAIN_LAYERS``
+    layers. Rank 0 first runs the one-rank reference on the ``torch`` backend
+    (the first step's gradients, ``Trainer.fit`` for 2 x ``MR_TRAIN_STEPS``
+    steps); then on (2, 1) and on (1, 2) each rank takes the first step's
+    gradients (summed, gathered whole on every rank), and ``Trainer.fit``
+    runs ``MR_TRAIN_STEPS`` on (2, 1), checkpoints, and resumes for as many
+    on (1, 2). Rank 0 holds the readings."""
     import shutil
 
     import torch
@@ -5244,8 +5290,9 @@ def mr_train(rank, workdir):
 
 def multirank_main(workdir) -> int:
     """One rank of phase 10's rank program (started by ``torch.distributed.run``
-    from ``phase_multirank``): (a), (b) and (c) in turn on the ranks; each
-    rank writes what it saw to ``<workdir>/rank<r>.pt``."""
+    from ``phase_multirank``): (a), (b) and (c) in turn on the ranks, then
+    phase 11's rank parts; each rank writes what it saw to
+    ``<workdir>/rank<r>.pt``."""
     import datetime
 
     import torch
@@ -5260,7 +5307,8 @@ def multirank_main(workdir) -> int:
     cuda_lib.library(build=False)  # the parent built it: load, never build
     out = {}
     t0 = time.perf_counter()
-    out["granite"] = mr_granite(rank)
+    w1 = os.path.join(workdir, "w1.pt")
+    out["granite"] = mr_granite(rank, torch.load(w1) if os.path.exists(w1) else None)
     gc.collect()
     torch.cuda.empty_cache()
     out["olmoe"] = mr_olmoe(rank)
@@ -5268,6 +5316,14 @@ def multirank_main(workdir) -> int:
     torch.cuda.empty_cache()
     out["train"] = mr_train(rank, workdir)
     out["seconds"] = time.perf_counter() - t0
+    # phase 11's rank parts, in the same process group
+    t0 = time.perf_counter()
+    for name, part in (("quant", mr11_quant), ("olmoe", mr11_olmoe), ("data", mr11_data),
+                       ("paged", mr11_paged)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[f"serve11_{name}"] = part(rank)
+    out["serve11_seconds"] = time.perf_counter() - t0
     torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()
@@ -5342,13 +5398,15 @@ def phase_multirank_cli(cli_tokens, failures):
                 launches_by_rank=summary["launches_by_rank"], collectives=coll,
                 dryrun_collectives=art["collectives"], same_collectives=same,
                 fault_seen=fault_seen, tokens=tokens, tokens_agree_with_phase9=agree,
-                mesh=summary["mesh"])
+                mesh=summary["mesh"], prompts=summary["workers"][0]["prompts"])
 
 
-def phase_multirank_ranks(failures):
+def phase_multirank_ranks(failures, w1=None):
     """Phase 10 (a) second half, (b) and (c): the rank program
     (``multirank_main``), then this process's one-rank references on the
-    same weights."""
+    same weights; with ``w1`` (``w1_prefix``), W1's readings at the first
+    position where the CLI's greedy tokens on two ranks and on one differ.
+    Returns (the phase's record, each rank's output)."""
     import dataclasses
     import tempfile
 
@@ -5361,6 +5419,8 @@ def phase_multirank_ranks(failures):
     from repro_torch.models.lm import LM
 
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".multirank_") as tmp:
+        if w1 is not None:
+            torch.save(w1["prefix"], os.path.join(tmp, "w1.pt"))
         rc, seconds, out, err = _torchrun([str(ROOT / "chip_smoke.py"), "--multirank", tmp],
                                           MR_RANKS_TIMEOUT_S)
         ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) if os.path.exists(
@@ -5369,7 +5429,7 @@ def phase_multirank_ranks(failures):
         failures.append(f"phase 10 rank program on {MR_RANKS} ranks: exit {rc}; stderr "
                         f"{err[-3000:]}")
         log(f"phase 10 rank program: exit {rc}\n{out[-2000:]}\n{err[-4000:]}")
-        return dict(rc=rc, seconds=seconds)
+        return dict(rc=rc, seconds=seconds), None
     rec = dict(rc=rc, seconds=seconds, rank_seconds=[r["seconds"] for r in ranks])
 
     # (a) granite-8b: the one-rank torch backend on the same weights and tokens
@@ -5382,6 +5442,8 @@ def phase_multirank_ranks(failures):
         want, cache = model.prefill(params, tokens, max_seq=s + 1)
         want_step, _ = model.decode_step(params, cache, g["next"].cuda(),
                                          torch.full((tokens.shape[0],), s, device="cuda"))
+        if w1 is not None and g["w1"] is not None:
+            rec["w1"] = w1_readings(model, params, w1, [r["granite"]["w1"] for r in ranks])
     del params, cache
     gc.collect()
     torch.cuda.empty_cache()
@@ -5484,7 +5546,65 @@ def phase_multirank_ranks(failures):
         f"{t['history_1x2']} vs one rank {ref}, max rel {loss_rel:.3e} (limit "
         f"{TRAIN_LOSS_TOL}, planted {loss_fault:.3e}); first-step gradients rel L2 {grads} "
         f"(limit {TRAIN_GRAD_TOL}, planted {rec['train']['grads_fault']})")
-    return rec
+    return rec, ranks
+
+
+def w1_prefix(cli, cli_tokens):
+    """W1: the first (request, position) where the serve CLI's greedy tokens
+    on two ranks (phase 10 (a)) and on one (phase 9 (d)) differ, and the
+    request's tokens before it (its prompt and the tokens both chose); None
+    when they agree everywhere."""
+    import torch
+
+    if cli_tokens is None or "tokens" not in cli:
+        return None
+    for r, (two, one) in enumerate(zip(cli["tokens"], cli_tokens[0])):
+        for i, (a, b) in enumerate(zip(two, one)):
+            if a != b:
+                return dict(request=r, position=i, two_rank=a, one_rank=b,
+                            prefix=torch.as_tensor(cli["prompts"][r] + two[:i]))
+    return None
+
+
+def w1_readings(model, params, w1, two_rank_logits):
+    """W1's readings at its prefix (the caller's granite-8b weights at full
+    depth): the one-rank ``cuda`` logits' top-2 margin over max|logit|,
+    beside the two-rank ``cuda`` logits against them and against the
+    one-rank ``torch`` backend's. A margin within the two-rank reading makes
+    the differing token a near-tie flip."""
+    import torch
+
+    from repro_torch.core.gemm import gemm_context
+
+    pre = w1["prefix"].cuda()[None]
+    with gemm_context(backend="cuda"):
+        one, _ = model.prefill(params, pre)
+    with gemm_context(backend="torch"):
+        ref, _ = model.prefill(params, pre)
+    one, ref = one[0, -1].float().cpu(), ref[0, -1].float().cpu()
+    two = two_rank_logits[0]
+    scale = one.abs().max().item()
+    top = torch.topk(one, 2)
+    margin = (top.values[0] - top.values[1]).item() / scale
+    two_top = torch.topk(two, 2)
+    out = dict(request=w1["request"], position=w1["position"],
+               tokens={"two_rank": w1["two_rank"], "one_rank": w1["one_rank"]},
+               one_rank_top2=top.indices.tolist(), two_rank_top2=two_top.indices.tolist(),
+               margin=margin,
+               two_rank_margin=(two_top.values[0] - two_top.values[1]).item() / scale,
+               two_vs_one_cuda=(two - one).abs().max().item() / scale,
+               two_vs_one_torch=(two - ref).abs().max().item() / ref.abs().max().item(),
+               one_cuda_vs_torch=(one - ref).abs().max().item() / ref.abs().max().item(),
+               ranks_agree=all(torch.equal(t, two) for t in two_rank_logits))
+    out["near_tie"] = margin <= out["two_vs_one_cuda"]
+    log(f"W1: request {out['request']} position {out['position']}: two ranks chose "
+        f"{w1['two_rank']}, one rank {w1['one_rank']}; one-rank cuda top-2 {out['one_rank_top2']} "
+        f"margin {margin:.3e} x max|logit|, two-rank top-2 {out['two_rank_top2']} margin "
+        f"{out['two_rank_margin']:.3e}; two-rank cuda vs one-rank cuda "
+        f"{out['two_vs_one_cuda']:.3e}, "
+        f"vs one-rank torch {out['two_vs_one_torch']:.3e} (one-rank cuda vs torch "
+        f"{out['one_cuda_vs_torch']:.3e}); near-tie flip: {out['near_tie']}")
+    return out
 
 
 @contextmanager
@@ -5609,7 +5729,10 @@ def phase_multirank(cli_tokens, sieve, winners, failures):
     gc.collect()
     torch.cuda.empty_cache()
     cli = phase_multirank_cli(cli_tokens, failures)
-    ranks = phase_multirank_ranks(failures)
+    w1 = w1_prefix(cli, cli_tokens)
+    ranks, rank_outs = phase_multirank_ranks(failures, w1)
+    if w1 is not None and "w1" not in ranks:
+        failures.append("W1: the first differing position was not read")
     gc.collect()
     torch.cuda.empty_cache()
     bloom = phase_bloom(sieve, winners, failures) if sieve is not None else None
@@ -5619,7 +5742,782 @@ def phase_multirank(cli_tokens, sieve, winners, failures):
     log(f"phase 10 (across ranks, gloo through host memory, two processes on one card: "
         f"nothing here measures NVLink): {seconds:.1f}s")
     return dict(cli=cli, ranks=ranks, bloom=bloom, seconds=seconds,
-                compute_mode=CARD.get("compute_mode"))
+                compute_mode=CARD.get("compute_mode"), rank_outs=rank_outs)
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: serving across ranks as the serve CLI runs under a plan
+# ---------------------------------------------------------------------------
+
+#: phase 11's depth cuts, at full width: granite-8b at 8 of 36 layers for the
+#: drivers of (a) and (d), at 4 on (2, 1) in (c) (every decode step there
+#: all-gathers every FSDP weight over gloo through host memory); (a)'s serve
+#: CLI runs and olmoe-1b-7b in (b) at full depth
+MR11_LAYERS, MR11_DATA_LAYERS = 8, 4
+MR11_RUNGS = ("int8-dynamic", "int4")
+#: tokens a request in (c)'s and (d)'s engines and (a)'s CLI runs
+MR11_NEW = 4
+#: the paged pool's page size (phase 5's)
+MR11_PAGE = 16
+
+
+def _granite_at(layers):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+
+    return LM(dataclasses.replace(get_config("granite-8b"), n_layers=layers))
+
+
+@contextmanager
+def zeroed_max_all_reduce():
+    """The planted fault of a row-parallel int8-dynamic dispatch: every MAX
+    all-reduce's result zeroed, so each row's scale falls to its floor and
+    every code saturates. (Each rank's own half-row amax is no fault to
+    plant: the rank dequantizes its partial with its own scale, so the sum
+    differs from ``repro``'s codes by quantization noise only.)"""
+    from repro_torch.dist import collectives
+
+    raw = collectives.raw_all_reduce
+
+    def faulty(x, ax, op="sum"):
+        out = raw(x, ax, op=op)
+        return out * 0 if op == "max" else out
+
+    collectives.raw_all_reduce = faulty
+    try:
+        yield
+    finally:
+        collectives.raw_all_reduce = raw
+
+
+@contextmanager
+def local_weight_amax():
+    """The planted fault of quantizing shards: each column's scale over this
+    rank's part of K (the MAX all-reduce of the amaxes skipped)."""
+    from repro_torch.core import quant
+
+    real = quant._all_reduce_max
+    quant._all_reduce_max = lambda x, axes: x
+    try:
+        yield
+    finally:
+        quant._all_reduce_max = real
+
+
+def quant_digest(params):
+    """path -> sha256 of a quantized leaf's values and scales bytes."""
+    import hashlib
+
+    from repro_torch.core.quant import is_quantized
+
+    out = {}
+
+    def walk(t, prefix):
+        for key, leaf in t.items():
+            if isinstance(leaf, dict):
+                walk(leaf, f"{prefix}{key}/")
+            elif is_quantized(leaf):
+                h = hashlib.sha256(leaf.values.cpu().numpy().tobytes())
+                h.update(leaf.scales.cpu().numpy().tobytes())
+                out[prefix + key] = h.hexdigest()
+
+    walk(params, "")
+    return out
+
+
+@contextmanager
+def decode_logits_log(model):
+    """Record every ``model.decode_step``'s input tokens and logits (as the
+    caller's engine issues them) while the block runs."""
+    steps = []
+    real = model.decode_step
+
+    def recording(params, cache, tokens, cur_pos, *, div=None):
+        logits, cache = real(params, cache, tokens, cur_pos, div=div)
+        steps.append((tokens.cpu(), logits.float().cpu()))
+        return logits, cache
+
+    model.decode_step = recording
+    try:
+        yield steps
+    finally:
+        del model.decode_step
+
+
+@contextmanager
+def sampled_log(engine, forced=None):
+    """Record every token ``engine`` samples, in order; with ``forced`` (a
+    list), hand out those tokens in its place (teacher forcing: another run's
+    choices, so both runs take the same inputs)."""
+    seen = []
+    real = engine._sample
+    queue = iter(forced) if forced is not None else None
+
+    def sample(logits, temperature):
+        tok = real(logits, temperature) if queue is None else next(queue)
+        seen.append(tok)
+        return tok
+
+    engine._sample = sample
+    try:
+        yield seen
+    finally:
+        del engine._sample
+
+
+def _decode_keys(log_entries):
+    return sorted({f"{e.tag}:{e.local_mnk}" for e in log_entries})
+
+
+def mr11_quant(rank):
+    """Phase 11 (a) on each rank: granite-8b cut to ``MR11_LAYERS`` on (1, 2),
+    quantized on each of ``MR11_RUNGS`` (the shards quantized together: the
+    column amaxes all-reduced with MAX where K splits): the codes' digests,
+    a (4, S) prefill and a greedy decode step through the rung's kernels
+    (launches counted), the step's collectives and a warm step's split; the
+    planted fault: int8-dynamic's MAX all-reduce of the row amaxes zeroed,
+    int4's column scales over the rank's half of K."""
+    import torch
+
+    from repro_torch.core.gemm import gemm_context
+    from repro_torch.dist.collectives import record
+    from repro_torch.dist.sharding import ShardingPlan, use_plan
+    from repro_torch.kernels.common import reset_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh
+
+    model = _granite_at(MR11_LAYERS)
+    plan = ShardingPlan(make_host_mesh(model=MR_RANKS))
+    tokens = _mr_tokens(model.cfg.vocab_size, "cuda")
+    s = tokens.shape[1]
+    pos = torch.full((tokens.shape[0],), s, device="cuda")
+    out = {}
+    with use_plan(plan), torch.no_grad():
+        base = model.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
+        for rung in MR11_RUNGS:
+            bits, act_bits, _ = RUNGS[rung]
+            params, _, _ = model.quantize_weights(base, bits=bits, act_bits=act_bits)
+            digest = quant_digest(params)
+            reset_launch_counts()
+            with gemm_context(backend="cuda") as ctx:
+                logits, cache = model.prefill(params, tokens, max_seq=s + 1)
+                nxt = logits[:, -1].argmax(-1)[:, None]
+                n0 = len(ctx.log)
+                with record() as coll:
+                    step, _ = model.decode_step(params, cache, nxt, pos)
+                keys = _decode_keys(ctx.log[n0:])
+            torch.cuda.synchronize()
+            launches = _mr_launches()
+            with gemm_context(backend="cuda"):
+                split = mr_decode_split(rank, lambda: model.decode_step(params, cache, nxt, pos))
+            del cache
+            fault_digest = None
+            if act_bits:
+                with zeroed_max_all_reduce(), gemm_context(backend="cuda"):
+                    bad, _ = model.prefill(params, tokens, max_seq=s + 1)
+            else:
+                with local_weight_amax():
+                    bad_params, _, _ = model.quantize_weights(base, bits=bits, act_bits=act_bits)
+                fault_digest = quant_digest(bad_params)
+                with gemm_context(backend="cuda"):
+                    bad, _ = model.prefill(bad_params, tokens, max_seq=s + 1)
+                del bad_params
+            out[rung] = dict(prefill=logits.cpu(), decode=step.cpu(), next=nxt.cpu(),
+                             fault=bad.cpu(), digest=digest, fault_digest=fault_digest,
+                             launches=launches, record=coll.summary(), keys=keys, split=split)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
+def mr11_olmoe(rank):
+    """Phase 11 (b) on each rank: olmoe-1b-7b at full width and depth on
+    (1, 2) on its default ``moe_impl`` (``global``: every rank routes the
+    whole batch with the f32 router, dispatches to its 32 experts, B5 at
+    G = 32), dense and ``int8``: a (4, S) prefill's logits, each layer's
+    top-8 choices and router check, and the first served prompt's prefill
+    logits; the (4, S) prefill with rank 1's partial of every layer's MoE
+    combine zeroed; a warm decode step's split (dense)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.gemm import gemm_context
+    from repro_torch.dist.sharding import ShardingPlan, use_plan
+    from repro_torch.kernels.common import reset_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.lm import LM
+
+    model = LM(get_config("olmoe-1b-7b"))
+    plan = ShardingPlan(make_host_mesh(model=MR_RANKS))
+    tokens = _mr_tokens(model.cfg.vocab_size, "cuda")
+    first_prompt = torch.as_tensor(serve_prompts(model.cfg.vocab_size)[0], device="cuda")[None]
+    s = tokens.shape[1]
+    out = {"moe_impl": model.cfg.moe_impl}
+    with use_plan(plan), torch.no_grad():
+        base = model.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
+        for rung in ("dense", "int8"):
+            params = base if rung == "dense" else model.quantize_weights(base, bits=8)[0]
+            reset_launch_counts()
+            with gemm_context(backend="cuda") as ctx, \
+                    own_routing_log(check_router=True) as routes:
+                logits, cache = model.prefill(params, tokens, max_seq=s + 1)
+            torch.cuda.synchronize()
+            launches = _mr_launches()
+            # the first prompt alone: the input phase 3 holds a rung's limit on
+            with gemm_context(backend="cuda"):
+                first, _ = model.prefill(params, first_prompt)
+            # call 0 is the embedding's all-reduce, then each layer's attn.o and MoE
+            # combine: every layer's combine from 2 on
+            with planted_zero_all_reduce(rank, call=2, every=2), \
+                    own_routing_log() as fault_routes, gemm_context(backend="cuda"):
+                bad, _ = model.prefill(params, tokens)
+            split = None
+            if rung == "dense":
+                nxt = logits[:, -1].argmax(-1)[:, None]
+                pos = torch.full((tokens.shape[0],), s, device="cuda")
+                with gemm_context(backend="cuda"):
+                    split = mr_decode_split(rank, lambda: model.decode_step(params, cache, nxt,
+                                                                            pos))
+            del cache
+            out[rung] = dict(logits=logits.cpu(), first=first.cpu(),
+                             routes=[r.cpu() for r in routes],
+                             router_err=routes.router_err, router_fault=routes.router_fault,
+                             fault=bad.cpu(), fault_routes=[r.cpu() for r in fault_routes],
+                             launches=launches, split=split,
+                             groups=sorted({e.op.g_local for e in ctx.log if e.op.fused}))
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
+def mr11_data(rank):
+    """Phase 11 (c) on each rank: granite-8b cut to ``MR11_DATA_LAYERS`` on
+    (2, 1), dense: a (4, S) prefill and a decode step (2 rows a rank, the
+    weights all-gathered over data), the decode keys and a warm step's
+    split; then the slot engine at 4 slots (2 a rank) over the four prompts,
+    its tokens and a decode step's collectives."""
+    import torch
+
+    from repro_torch.core.gemm import gemm_context
+    from repro_torch.dist.sharding import ShardingPlan, use_plan
+    from repro_torch.kernels.common import reset_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import decode_collectives
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    model = _granite_at(MR11_DATA_LAYERS)
+    plan = ShardingPlan(make_host_mesh(model=1))
+    tokens = _mr_tokens(model.cfg.vocab_size, "cuda")
+    s = tokens.shape[1]
+    pos = torch.full((tokens.shape[0],), s, device="cuda")
+    with use_plan(plan), torch.no_grad():
+        params = model.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
+        reset_launch_counts()
+        with gemm_context(backend="cuda") as ctx:
+            logits, cache = model.prefill(params, tokens, max_seq=s + 1)
+            nxt = logits[:, -1].argmax(-1)[:, None]
+            n0 = len(ctx.log)
+            step, _ = model.decode_step(params, cache, nxt, pos)
+        keys = _decode_keys(ctx.log[n0:])
+        with gemm_context(backend="cuda"):
+            split = mr_decode_split(rank, lambda: model.decode_step(params, cache, nxt, pos),
+                                    iters=2)
+        cache_rows = int(cache["attn"]["k"].shape[1])
+        del cache
+        engine = ServeEngine(model, params, ServeConfig(n_slots=N_SLOTS, max_seq=MAX_SEQ,
+                                                        eos=-1), backend="cuda")
+        for p in serve_prompts(model.cfg.vocab_size):
+            engine.submit(p, max_new_tokens=MR11_NEW)
+        with sampled_log(engine) as sampled:
+            done = sorted(engine.run(), key=lambda r: r.uid)
+        torch.cuda.synchronize()
+        launches = _mr_launches()
+        own = engine.own_slots
+    return dict(prefill=logits.cpu(), decode=step.cpu(), next=nxt.cpu(), keys=keys, split=split,
+                cache_rows=cache_rows, tokens=[r.out_tokens for r in done], sampled=sampled,
+                own_slots=None if own is None else [own.start, own.stop],
+                collectives=decode_collectives(engine), launches=launches)
+
+
+def mr11_paged(rank):
+    """Phase 11 (d) on each rank: granite-8b cut to ``MR11_LAYERS`` on
+    (1, 2) through the paged engine (this rank's kv heads in the pool) over
+    the four prompts: its tokens, every decode step's logits, and the
+    device ms of the gather of a full 4 x ``MAX_SEQ`` view of the pool."""
+    import torch
+
+    from repro_torch.dist.sharding import ShardingPlan, use_plan
+    from repro_torch.kernels.common import reset_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve import PagedServeConfig, PagedServeEngine
+
+    model = _granite_at(MR11_LAYERS)
+    plan = ShardingPlan(make_host_mesh(model=MR_RANKS))
+    with use_plan(plan), torch.no_grad():
+        params = model.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
+        engine = PagedServeEngine(model, params, PagedServeConfig(
+            page_size=MR11_PAGE, max_pages=N_SLOTS * MAX_SEQ // MR11_PAGE, max_active=N_SLOTS,
+            max_seq=MAX_SEQ, eos=-1), backend="cuda")
+        for p in serve_prompts(model.cfg.vocab_size):
+            engine.submit(p, max_new_tokens=MR11_NEW)
+        reset_launch_counts()
+        with decode_logits_log(model) as steps, sampled_log(engine) as sampled:
+            done = sorted(engine.run(), key=lambda r: r.uid)
+        torch.cuda.synchronize()
+        launches = _mr_launches()
+        pool = engine.kv.pool
+        pages = torch.arange(N_SLOTS * MAX_SEQ // MR11_PAGE).reshape(N_SLOTS, -1)
+        # one rank at a time: the ranks share the card
+        for r in range(MR_RANKS):
+            torch.distributed.barrier()
+            if r == rank:
+                gather_ms, _ = time_ms(lambda: engine.kv.gather_view(pool, pages), iters=10)
+        view_bytes = sum(a.numel() * a.element_size() for a in pool["attn"].values()) * (
+            pages.numel() / pool["attn"]["k"].shape[1])
+    return dict(tokens=[r.out_tokens for r in done], steps=steps, sampled=sampled,
+                kv_heads=int(pool["attn"]["k"].shape[-2]), gather_ms=gather_ms,
+                gather_bytes=view_bytes, launches=launches, metrics=engine.metrics())
+
+
+def _rel(got, want):
+    want = want.float().cpu()
+    return (got.float().cpu() - want).abs().max().item() / want.abs().max().item()
+
+
+def _rung_launched(launches, rung):
+    return {k: launches.get(f"{k}[{rung}]", 0) for k in ("dp_gemm_region", "streamk_phase1")}
+
+
+def phase11_cli(failures):
+    """Phase 11 (a), the serve CLI: granite-8b at full width and depth on
+    (1, 2) with ``--quantize`` on each of ``MR11_RUNGS``, 4 requests: exit 0,
+    4/4, each rank's B1 and B2 launches on the rung, a decode step's
+    collectives: the float dry run's (1, 2) decode cell, plus, on
+    int8-dynamic, one MAX all-reduce of the slots' (4, 1) f32 row amax per
+    row-parallel dispatch (attn.o and mlp.out of every layer)."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    layers = get_config("granite-8b").n_layers
+    art = dryrun.lower_cell("granite-8b", "decode_32k", False, mesh_shape=(1, MR_RANKS),
+                            shape_overrides={"global_batch": N_SLOTS, "seq_len": MAX_SEQ})
+    out = {}
+    # the two rungs' CLIs at once: four processes on the card, each pair its own group
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        paths = {rung: os.path.join(tmp, f"{rung}.json") for rung in MR11_RUNGS}
+        runs = dict(zip(MR11_RUNGS, _torchrun_all([
+            ["-m", "repro_torch.launch.serve", "--arch", "granite-8b", "--preset", "full",
+             "--requests", "4", "--slots", str(N_SLOTS), "--max-seq", str(MAX_SEQ),
+             "--max-new-tokens", str(MR11_NEW), "--mesh-model", str(MR_RANKS), "--quantize",
+             rung, "--summary-json", paths[rung]] for rung in MR11_RUNGS], MR_CLI_TIMEOUT_S)))
+        summaries = {rung: json.load(open(p)) if os.path.exists(p) else None
+                     for rung, p in paths.items()}
+    for rung in MR11_RUNGS:
+        rc, seconds, _, err = runs[rung]
+        summary = summaries[rung]
+        what = f"phase 11 (a) serve CLI --quantize {rung} on (1, {MR_RANKS})"
+        if rc != 0 or summary is None:
+            failures.append(f"{what}: exit {rc}; stderr {err[-3000:]}")
+            log(f"{what}: exit {rc}\n{err[-3000:]}")
+            out[rung] = dict(rc=rc, seconds=seconds)
+            continue
+        if summary["completed"] != 4 or summary.get("quantize") != rung:
+            failures.append(f"{what}: {summary['completed']}/4 requests on rung "
+                            f"{summary.get('quantize')}")
+        launched = [_rung_launched(by, rung) for by in summary["launches_by_rank"]]
+        for r, by in enumerate(launched):
+            for kernel, n in by.items():
+                if not n:
+                    failures.append(f"{what}: {kernel}[{rung}] never launched on rank {r}")
+        want = json.loads(json.dumps(art["collectives"]))
+        if rung == "int8-dynamic":
+            want["all-reduce"]["count"] += 2 * layers
+            want["all-reduce"]["bytes"] += 2 * layers * N_SLOTS * 4
+        coll = summary["collectives"]
+        same = coll["per_decode_step"] == want and not coll["uneven_ops"]
+        planted = json.loads(json.dumps(want))
+        planted["all-reduce"]["count"] -= 1  # one row-parallel MAX all-reduce left out
+        if not same:
+            failures.append(f"{what}: a decode step's collectives {coll['per_decode_step']} "
+                            f"(uneven {coll['uneven_ops']}) vs {want}")
+        if coll["per_decode_step"] == planted:
+            failures.append(f"{what}: the planted missing all-reduce went unseen")
+        steps = max(coll["decode_steps"], 1)
+        log(f"{what}: exit {rc}, {summary['completed']}/4, mesh {summary['mesh']['shape']}; "
+            f"B1/B2 launches on the rung by rank {launched}; a decode step's collectives "
+            f"{coll['per_decode_step']} == the float dry run's + the rung's: {same}; decode "
+            f"{coll['decode_ms'] / steps:.2f} ms a step, {coll['collective_ms'] / steps:.2f} of "
+            f"it in collectives ({seconds:.1f}s)")
+        out[rung] = dict(rc=rc, seconds=seconds, completed=summary["completed"],
+                         launches_by_rank=summary["launches_by_rank"], collectives=coll,
+                         want_collectives=want, same_collectives=same,
+                         tokens=summary["workers"][0]["out_tokens"])
+    return out
+
+
+def phase11_quant(outs, failures):
+    """Phase 11 (a), the driver's readings against this process's one-rank
+    references on the same weights: each rank's codes and scales equal to
+    the one-rank quantization of the whole leaves cut to its shard (the
+    digests), the gathered logits against the ``torch`` backend on the same
+    quantized weights at ``QUANT_LOGITS_TOL``, the planted fault 3x or
+    caught (int4: the digests differ), B1 and B2 launched on the rung."""
+    import torch
+
+    from repro_torch.core.gemm import gemm_context
+    from repro_torch.dist.sharding import ShardingPlan, shard_tree
+    from repro_torch.launch.mesh import virtual_mesh
+
+    model = _granite_at(MR11_LAYERS)
+    tokens = _mr_tokens(model.cfg.vocab_size, "cuda")
+    s = tokens.shape[1]
+    pos = torch.full((tokens.shape[0],), s, device="cuda")
+    rec = {}
+    with torch.no_grad():
+        base = model.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
+        for rung in MR11_RUNGS:
+            bits, act_bits, _ = RUNGS[rung]
+            params, _, _ = model.quantize_weights(base, bits=bits, act_bits=act_bits)
+            want_digest = []
+            for r in range(MR_RANKS):
+                plan = ShardingPlan(virtual_mesh((1, MR_RANKS), coords={"data": 0, "model": r}))
+                want_digest.append(quant_digest(shard_tree(params, plan, plan.mesh.coords,
+                                                           model.param_specs())))
+            g = outs[0][rung]
+            with gemm_context(backend="torch"):
+                want, cache = model.prefill(params, tokens, max_seq=s + 1)
+                want_step, _ = model.decode_step(params, cache, g["next"].cuda(), pos)
+            del params, cache
+            tol = QUANT_LOGITS_TOL[("granite-8b", rung)]
+            what = f"phase 11 (a) granite-8b x {MR11_LAYERS} {rung} on (1, {MR_RANKS})"
+            digests = [o[rung]["digest"] == want_digest[r] for r, o in enumerate(outs)]
+            if not all(digests):
+                failures.append(f"{what}: a rank's codes or scales differ from the one-rank "
+                                f"quantization cut to its shard: {digests}")
+            readings = {key: _read(_rel(g[key], ref), tol, f"{what} {key} logits", failures)
+                        for key, ref in (("prefill", want), ("decode", want_step))}
+            fault = _rel(g["fault"], want)
+            caught = None
+            if g["fault_digest"] is not None:
+                caught = g["fault_digest"] != want_digest[0]
+            if not (fault >= 3 * tol or caught):
+                failures.append(f"{what}: the planted fault reads {fault:.4g} < 3 x {tol} and "
+                                "is not caught")
+            if not all(torch.equal(o[rung]["prefill"], g["prefill"]) for o in outs):
+                failures.append(f"{what}: the ranks' gathered logits differ")
+            launched = [_rung_launched(o[rung]["launches"], rung) for o in outs]
+            for r, by in enumerate(launched):
+                if not all(by.values()):
+                    failures.append(f"{what}: rank {r} launched {by}")
+            rec[rung] = dict(logits_rel=readings, tol=tol, fault_rel=fault, fault_caught=caught,
+                             digests_equal=digests, launches=[o[rung]["launches"] for o in outs],
+                             record=g["record"], keys=g["keys"],
+                             decode_split=[o[rung]["split"] for o in outs])
+            log(f"{what}: codes and scales equal to the one-rank quantization's shards: "
+                f"{digests}; gathered logits vs the one-rank torch backend on the same weights, "
+                f"max|diff| / max|logit|: prefill {readings['prefill']:.3e}, decode "
+                f"{readings['decode']:.3e} (limit {tol}); planted fault {fault:.3e} (codes "
+                f"differ: {caught}); launches by rank {rec[rung]['launches']}; a decode step's "
+                f"collectives {g['record']}; a warm step by rank {rec[rung]['decode_split']}")
+            gc.collect()
+            torch.cuda.empty_cache()
+    del base
+    return rec
+
+
+def phase11_olmoe(outs, failures):
+    """Phase 11 (b): olmoe-1b-7b's readings against this process's one-rank
+    ``torch`` backend on the same weights: dense with the ranks' top-8
+    choices replayed at ``LOGITS_TOL`` on the (4, S) batch, int8 on its own
+    routing at ``QUANT_LOGITS_TOL`` as phase 3 holds a rung (the first
+    served prompt's prefill; the batch's own-routing reading and the
+    replayed one reported), the router at ``ROUTER_TOL``, the routing flips,
+    the planted fault 3x, B5 at G = 32 on each rank."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.gemm import gemm_context
+    from repro_torch.models.lm import LM
+
+    model = LM(get_config("olmoe-1b-7b"))
+    tokens = _mr_tokens(model.cfg.vocab_size, "cuda")
+    first_prompt = torch.as_tensor(serve_prompts(model.cfg.vocab_size)[0], device="cuda")[None]
+    o = outs[0]
+    rec = {"moe_impl": o["moe_impl"]}
+    if o["moe_impl"] != "global":
+        failures.append(f"phase 11 (b): olmoe-1b-7b served on {o['moe_impl']}, not its default")
+    with torch.no_grad():
+        base = model.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
+        for rung in ("dense", "int8"):
+            params = base if rung == "dense" else model.quantize_weights(base, bits=8)[0]
+            g = o[rung]
+            with gemm_context(backend="torch"):
+                with routing_replay([r.cuda() for r in g["routes"]]):
+                    replayed, _ = model.prefill(params, tokens)
+                with routing_replay([r.cuda() for r in g["fault_routes"]]):
+                    replayed_f, _ = model.prefill(params, tokens)
+                with own_routing_log() as own_routes:
+                    own, _ = model.prefill(params, tokens)
+                first, _ = model.prefill(params, first_prompt)
+            del params
+            what = f"phase 11 (b) olmoe-1b-7b global {rung} on (1, {MR_RANKS})"
+            own_rel = _rel(g["logits"], own)
+            if rung == "dense":
+                tol = LOGITS_TOL["olmoe-1b-7b"]
+                rel = _read(_rel(g["logits"], replayed), tol, f"{what}, routing replayed",
+                            failures)
+                first_rel = _rel(g["first"], first)
+            else:
+                tol = QUANT_LOGITS_TOL[("olmoe-1b-7b", "int8")]
+                rel = _rel(g["logits"], replayed)
+                first_rel = _read(_rel(g["first"], first), tol,
+                                  f"{what}, the first prompt on its own routing", failures)
+            fault = _planted(_rel(g["fault"], replayed_f), tol,
+                             f"{what}: rank 1's MoE combine partials dropped", failures)
+            router = max(x[rung]["router_err"] for x in outs)
+            _read(router, ROUTER_TOL, f"{what}: router logits vs torch.matmul", failures)
+            router_fault = _planted(min(x[rung]["router_fault"] for x in outs), ROUTER_TOL,
+                                    f"{what}: router with its last K chunk dropped", failures)
+            flips = routing_flips([r.cpu() for r in g["routes"]],
+                                  [r.cpu() for r in own_routes])
+            suffix = "" if rung == "dense" else f"[{rung}]"
+            for r, x in enumerate(outs):
+                b5 = sum(c for k, c in x[rung]["launches"].items()
+                         if k.startswith("grouped_streamk") and k.endswith(suffix))
+                if x[rung]["groups"] != [32] or not b5:
+                    failures.append(f"{what} rank {r}: grouped dispatches at G "
+                                    f"{x[rung]['groups']}, {b5} B5 launches (want G = 32)")
+            rec[rung] = dict(replayed_rel=rel, own_rel=own_rel, first_own_rel=first_rel,
+                             tol=tol, fault_rel=fault,
+                             router_err=router, router_fault=router_fault, flips=flips,
+                             groups=g["groups"], launches=[x[rung]["launches"] for x in outs],
+                             decode_split=[x[rung]["split"] for x in outs])
+            log(f"{what}: logits vs the one-rank torch backend, max|diff| / max|logit|: the (4, "
+                f"{tokens.shape[1]}) batch with routing replayed {rel:.3e}, on its own routing "
+                f"{own_rel:.3e}; the first prompt ({first_prompt.shape[1]} tokens) on its own "
+                f"routing {first_rel:.3e} (limit {tol} on the "
+                f"{'replayed' if rung == 'dense' else 'first prompt'} reading); planted fault "
+                f"{fault:.3e}; router {router:.3e} (planted {router_fault:.3e}); routing flips "
+                f"against the one-rank routing {flips['assignments']} assignments, "
+                f"{flips['token_sets']} token sets; B5 at G {g['groups']}, launches "
+                f"{rec[rung]['launches']}")
+            gc.collect()
+            torch.cuda.empty_cache()
+    del base
+    return rec
+
+
+def first_flip_margin(model, params, prompts, got, want):
+    """Where two runs' greedy tokens first differ (request by request), the
+    one-rank ``cuda`` logits' top-2 margin over max|logit| at that position
+    (the caller's weights, no plan); None when they agree."""
+    import torch
+
+    from repro_torch.core.gemm import gemm_context
+
+    for r, (a, b) in enumerate(zip(got, want)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            if x != y:
+                pre = torch.as_tensor(np.concatenate([prompts[r], a[:i]]).astype(np.int64),
+                                      device="cuda")[None]
+                with gemm_context(backend="cuda"):
+                    logits, _ = model.prefill(params, pre)
+                top = torch.topk(logits[0, -1].float(), 2)
+                return dict(request=r, position=i, tokens=[x, y],
+                            top2=top.indices.tolist(),
+                            margin=(top.values[0] - top.values[1]).item()
+                            / logits[0, -1].float().abs().max().item())
+    return None
+
+
+def phase11_data(outs, failures):
+    """Phase 11 (c): granite-8b on (2, 1) against this process's one-rank
+    runs at the same depth: the prefill and decode logits against the
+    ``torch`` backend at ``LOGITS_TOL``, each rank's decode keys against the
+    one-rank plan's (``serve_gemm_div`` at 4 slots: M = 2), the engine's
+    greedy tokens against a one-rank engine's (the first differing position
+    read as W1's), a decode step's collectives against the dry run's (2, 1)
+    cell (a planted extra all-gather must read as a disagreement)."""
+    import torch
+
+    from repro_torch.core.gemm import gemm_context
+    from repro_torch.dist.sharding import ShardingPlan, use_plan
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.serve.engine import serve_gemm_div
+
+    model = _granite_at(MR11_DATA_LAYERS)
+    tokens = _mr_tokens(model.cfg.vocab_size, "cuda")
+    s = tokens.shape[1]
+    pos = torch.full((tokens.shape[0],), s, device="cuda")
+    g = outs[0]
+    what = f"phase 11 (c) granite-8b x {MR11_DATA_LAYERS} on (2, 1)"
+    with torch.no_grad():
+        params = model.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
+        with use_plan(ShardingPlan(MeshShape((MR_RANKS, 1), ("data", "model")))):
+            div = serve_gemm_div(model, N_SLOTS)
+            with gemm_context(backend="torch") as ctx:
+                want, cache = model.prefill(params, tokens, max_seq=s + 1, div=div)
+                n0 = len(ctx.log)
+                want_step, _ = model.decode_step(params, cache, g["next"].cuda(), pos, div=div)
+            plan_keys = _decode_keys(ctx.log[n0:])
+        del cache
+        engine = ServeEngine(model, params, ServeConfig(n_slots=N_SLOTS, max_seq=MAX_SEQ,
+                                                        eos=-1), backend="cuda")
+        prompts = serve_prompts(model.cfg.vocab_size)
+        for p in prompts:
+            engine.submit(p, max_new_tokens=MR11_NEW)
+        one = [r.out_tokens for r in sorted(engine.run(), key=lambda r: r.uid)]
+        flip = None if one == g["tokens"] else first_flip_margin(model, params, prompts,
+                                                                 g["tokens"], one)
+    del params, engine
+    tol = LOGITS_TOL["granite-8b"]
+    readings = {key: _read(_rel(g[key], ref), tol, f"{what} {key} logits", failures)
+                for key, ref in (("prefill", want), ("decode", want_step))}
+    if div != {"batch": MR_RANKS, "model": 1}:
+        failures.append(f"{what}: the one-rank plan's divisors {div}")
+    same_keys = [o["keys"] == plan_keys for o in outs]
+    if not all(same_keys):
+        failures.append(f"{what}: decode keys {[o['keys'] for o in outs]} vs the one-rank "
+                        f"plan's {plan_keys}")
+    if not all(k.split(":")[1].startswith(f"({N_SLOTS // MR_RANKS},") for k in plan_keys):
+        failures.append(f"{what}: decode keys not at M = {N_SLOTS // MR_RANKS}: {plan_keys}")
+    if flip is not None and not flip["margin"] <= readings["decode"]:
+        failures.append(f"{what}: greedy tokens differ from the one-rank engine's at a margin "
+                        f"{flip['margin']:.3e} above the logits' reading")
+    if [o["own_slots"] for o in outs] != [[r * 2, r * 2 + 2] for r in range(MR_RANKS)]:
+        failures.append(f"{what}: slots owned {[o['own_slots'] for o in outs]}")
+    art = dryrun.lower_cell("granite-8b", "decode_32k", False, mesh_shape=(MR_RANKS, 1),
+                            config_overrides={"n_layers": MR11_DATA_LAYERS},
+                            shape_overrides={"global_batch": N_SLOTS, "seq_len": MAX_SEQ})
+    coll = g["collectives"]
+    same = coll["per_decode_step"] == art["collectives"] and not coll["uneven_ops"]
+    planted = json.loads(json.dumps(art["collectives"]))
+    planted["all-gather"]["count"] += 1
+    if not same:
+        failures.append(f"{what}: a decode step's collectives {coll['per_decode_step']} vs the "
+                        f"dry run's {art['collectives']}")
+    if coll["per_decode_step"] == planted:
+        failures.append(f"{what}: the planted extra all-gather went unseen")
+    for r, o in enumerate(outs):
+        if not (o["launches"].get("dp_gemm_region") or o["launches"].get("streamk_phase1")):
+            failures.append(f"{what}: no GEMM kernel launched on rank {r}")
+    rec = dict(logits_rel=readings, tol=tol, keys=plan_keys, same_keys=same_keys,
+               tokens=g["tokens"], one_rank_tokens=one, tokens_equal=one == g["tokens"],
+               first_flip=flip, collectives=coll, dryrun_collectives=art["collectives"],
+               same_collectives=same, launches=[o["launches"] for o in outs],
+               decode_split=[o["split"] for o in outs], cache_rows=g["cache_rows"])
+    log(f"{what}: 2 slots a rank (cache rows {g['cache_rows']}); logits vs the one-rank torch "
+        f"backend: prefill {readings['prefill']:.3e}, decode {readings['decode']:.3e} (limit "
+        f"{tol}); decode keys equal to the one-rank plan's (M = {N_SLOTS // MR_RANKS}): "
+        f"{same_keys}; greedy tokens equal to a one-rank engine's: {rec['tokens_equal']} "
+        f"(first flip {flip}); a decode step's collectives {coll['per_decode_step']} == the dry "
+        f"run's: {same}; launches {rec['launches']}; a warm step by rank {rec['decode_split']}")
+    return rec
+
+
+def phase11_paged(outs, failures):
+    """Phase 11 (d): the paged engine on (1, 2) against this process's
+    one-rank paged engine at the same depth: the greedy tokens equal, every
+    decode step's logits at ``LOGITS_TOL`` against a one-rank run fed the
+    ranks' tokens, the gather's device ms per rank."""
+    import torch
+
+    from repro_torch.serve import PagedServeConfig, PagedServeEngine
+
+    model = _granite_at(MR11_LAYERS)
+    g = outs[0]
+    what = f"phase 11 (d) granite-8b x {MR11_LAYERS} --paged on (1, {MR_RANKS})"
+
+    def run(forced=None):
+        engine = PagedServeEngine(model, params, PagedServeConfig(
+            page_size=MR11_PAGE, max_pages=N_SLOTS * MAX_SEQ // MR11_PAGE, max_active=N_SLOTS,
+            max_seq=MAX_SEQ, eos=-1), backend="cuda")
+        for p in serve_prompts(model.cfg.vocab_size):
+            engine.submit(p, max_new_tokens=MR11_NEW)
+        with decode_logits_log(model) as steps, sampled_log(engine, forced):
+            done = sorted(engine.run(), key=lambda r: r.uid)
+        return [r.out_tokens for r in done], steps
+
+    with torch.no_grad():
+        params = model.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
+        one, _ = run()
+        _, forced_steps = run(g["sampled"])
+    del params
+    tol = LOGITS_TOL["granite-8b"]
+    same_inputs = len(forced_steps) == len(g["steps"]) and all(
+        torch.equal(a[0], b[0]) for a, b in zip(forced_steps, g["steps"]))
+    if not same_inputs:
+        failures.append(f"{what}: the one-rank run fed the ranks' tokens took other inputs")
+    rel = max((_rel(b[1], a[1]) for a, b in zip(forced_steps, g["steps"])), default=math.inf)
+    _read(rel, tol, f"{what}: decode logits vs the one-rank paged engine", failures)
+    if one != g["tokens"]:
+        failures.append(f"{what}: greedy tokens {g['tokens']} vs the one-rank paged run's {one}")
+    heads = [o["kv_heads"] for o in outs]
+    if heads != [model.cfg.n_kv_heads // MR_RANKS] * MR_RANKS:
+        failures.append(f"{what}: the pools hold {heads} kv heads")
+    rec = dict(logits_rel=rel, tol=tol, tokens_equal=one == g["tokens"], kv_heads=heads,
+               gather_ms=[o["gather_ms"] for o in outs], gather_bytes=g["gather_bytes"],
+               launches=[o["launches"] for o in outs], metrics=g["metrics"],
+               decode_steps=len(g["steps"]))
+    log(f"{what}: greedy tokens equal to the one-rank paged run: {rec['tokens_equal']}; "
+        f"{rec['decode_steps']} decode steps' logits vs the one-rank run on the ranks' tokens, "
+        f"max|diff| / max|logit| {rel:.3e} (limit {tol}); kv heads a rank {heads}; the gather "
+        f"of a 4 x {MAX_SEQ} view, {g['gather_bytes'] / 1e6:.1f} MB: "
+        f"{[round(m, 5) for m in rec['gather_ms']]} ms by rank")
+    return rec
+
+
+def phase_serve_ranks(rank_outs, failures):
+    """Phase 11: the serve CLI's configurations under a plan across two ranks
+    on the one card over gloo: (a) granite-8b quantized (int8-dynamic, int4)
+    on (1, 2), (b) olmoe-1b-7b on its default MoE dispatch, dense and int8,
+    (c) granite-8b on the data axis (2, 1), (d) granite-8b ``--paged`` on
+    (1, 2). The rank parts ran in phase 10's rank program (``rank_outs``);
+    this process runs (a)'s CLI and every one-rank reference."""
+    import torch
+
+    t0 = time.perf_counter()
+    rec = {"cli": phase11_cli(failures)}
+    if rank_outs is None:
+        failures.append("phase 11: the rank program gave no output")
+        return rec
+    for key, part in (("quant", phase11_quant), ("olmoe", phase11_olmoe), ("data", phase11_data),
+                      ("paged", phase11_paged)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        try:
+            rec[key] = part([r[f"serve11_{key}"] for r in rank_outs], failures)
+        except Exception as e:  # record it and go on: the run reports every breach
+            failures.append(f"phase 11 {key}: {type(e).__name__}: {e}")
+            log(f"phase 11 {key}: {traceback.format_exc()}")
+    rec["rank_seconds"] = [r["serve11_seconds"] for r in rank_outs]
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"phase 11 (serving across ranks under a plan, two processes on one card over gloo): "
+        f"{rec['seconds']:.1f}s here, {rec['rank_seconds']} s in the rank program")
+    return rec
+
+
+def serve11_launches(rec):
+    """Phase 11's launches by run, each a list of the ranks' counters."""
+    out = {}
+    for rung, run in (rec.get("cli") or {}).items():
+        if run.get("launches_by_rank"):
+            out[f"cli_{rung}"] = run["launches_by_rank"]
+    for key in ("quant", "olmoe"):
+        for rung, run in (rec.get(key) or {}).items():
+            if isinstance(run, dict) and "launches" in run:
+                out[f"{key}_{rung}"] = run["launches"]
+    for key in ("data", "paged"):
+        if rec.get(key):
+            out[key] = rec[key]["launches"]
+    return out
 
 
 def main() -> int:
@@ -5769,6 +6667,10 @@ def run_phases(dry) -> int:
     multirank = phase_multirank((shard["mesh_model_cli"] or {}).get("tokens"),
                                 tune.pop("sieve", None), tune.pop("winners", None), failures)
     mr_launches = multirank_launches(multirank)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve11 = phase_serve_ranks(multirank.pop("rank_outs"), failures)
+    s11_launches = serve11_launches(serve11)
 
     from repro_torch.kernels import cuda_lib
     from repro_torch.kernels.common import mainloop
@@ -5798,9 +6700,9 @@ def run_phases(dry) -> int:
             shard_gemm_launches=shard_launches.get(name, 0),
             moe_variant_launches={impl: moe_variants[impl]["launches"].get(name, 0)
                                   for impl, _ in MOE_VARIANTS},
-            # phase 10's: each rank's launches across ranks, by run
+            # phase 10's and 11's: each rank's launches across ranks, by run
             multirank_launches={run: [by.get(name, 0) for by in ranks]
-                                for run, ranks in mr_launches.items()},
+                                for run, ranks in {**mr_launches, **s11_launches}.items()},
             **extra,
         ))
     # B6 has no served caller: its launches are those of the baseline comparison, the
@@ -5842,6 +6744,9 @@ def run_phases(dry) -> int:
                 plain_event_ms=t["plain_event_ms"], library_event_ms=t["library_event_ms"],
                 launches_in=f"{arch} {rung}", launches_other_model=counts[other],
                 mainloop=mainloop(name, torch.int8 if RUNGS[rung][1] == 8 else torch.bfloat16),
+                # phase 11's: each rank's launches on the rung across ranks, by run
+                multirank_launches={run: [by.get(key, 0) for by in ranks]
+                                    for run, ranks in s11_launches.items()},
             ))
     log(f"(kernel, rung) pairs no served path ran (timed and swept, not in the kernels line): "
         f"{not_served}")
@@ -5860,7 +6765,7 @@ def run_phases(dry) -> int:
                   b5_table=b5_rows, b5_s8_table=b5_s8_rows, b12_table=b12_rows,
                   b12_s8_table=b12_s8_rows, f32_table=f32_rows,
                   kv_int8=kv_int8, tune=tune, paged=paged, archs=archs, families=families,
-                  train=train, shard=shard, multirank=multirank,
+                  train=train, shard=shard, multirank=multirank, serve_ranks=serve11,
                   seconds=time.perf_counter() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -431,6 +431,7 @@ def gemm(
     epilogue: Union[None, str, Epilogue] = None,
     bias: Optional[torch.Tensor] = None,
     operand: Optional[torch.Tensor] = None,
+    k_axis: Optional[str] = None,
 ) -> torch.Tensor:
     """``x @ w`` with Stream-K++ kernel selection.
 
@@ -440,7 +441,16 @@ def gemm(
     ``operand``: (..., N)). ``policy``/``cfg``/``g`` override selection.
     ``w`` may be a :class:`~repro_torch.core.quant.QuantizedTensor` (see the
     module docstring); the output dtype defaults to ``x``'s own, also when
-    the activations are quantized to int8 here."""
+    the activations are quantized to int8 here.
+
+    ``k_axis``: the mesh axis over which the ranks of a ranked plan split K
+    (a row-parallel GEMM); the result is then the sum over the axis. Each
+    rank's partial is made in f32 and the sum is cast once, as one rank's
+    accumulator is. An int8-dynamic weight's row scales are the whole
+    row's (the rows' amax all-reduced with MAX), and its partials are the
+    exact integer accumulators (unit scales; exact in f32 below 2**24),
+    summed before the scales are applied, so the result is one rank's.
+    The fingerprint keys on the local shape."""
     w, w_shape, scale, bits, w_name, act_quant = _unquantize(w)
     if len(w_shape) != 2 or x.shape[-1] != w_shape[0]:
         raise ValueError(f"gemm contraction mismatch: {tuple(x.shape)} @ {w_shape}")
@@ -454,8 +464,18 @@ def gemm(
     out_dtype = as_dtype(out_dtype) if out_dtype is not None else x.dtype
     scale_a = None
     if act_quant and x.is_floating_point():
-        x, scale_a = quantize_activations(x)
+        x, scale_a = quantize_activations(x, axis=k_axis)
         scale_a = scale_a.reshape(1, m)
+    final_scales = None
+    if k_axis is not None:
+        if epilogue.name != "none":
+            raise ValueError(f"a GEMM summed over {k_axis!r} takes no epilogue, not "
+                             f"{epilogue.name!r}")
+        final, out_dtype = out_dtype, torch.float32
+        if scale_a is not None:
+            # the exact accumulators: the scales apply after the sum
+            final_scales = (scale_a, scale)
+            scale_a, scale = torch.ones_like(scale_a), torch.ones_like(scale)
     op = GemmOp(
         m,
         n,
@@ -479,6 +499,15 @@ def gemm(
         scale_a=scale_a,
         b_bits=bits,
     )
+    if k_axis is not None:
+        from repro_torch.dist.collectives import all_reduce
+
+        out = all_reduce(out, k_axis)
+        if final_scales is not None:
+            # as the backends' epilogue: the row scales, then the column scales
+            sa, sb = final_scales
+            out = out * sa[:, :, None] * sb.reshape(1, 1, n)
+        out = out.to(final)
     return out.reshape(*lead, n)
 
 

@@ -30,6 +30,14 @@ values.shape[-1:]``). For ``bits=4`` the stored K axis is the packed
 
 Rounding is ``torch.round`` (half to even, as ``jnp.round``), so codes and
 scales are byte-identical to ``repro``'s for the same input.
+
+Across ranks (a ranked plan, ``repro_torch.dist.sharding``) a weight leaf
+is this rank's shard. Where the plan splits its K over mesh axes, each
+column's amax is all-reduced with MAX over those axes before the scale is
+taken, so every rank's codes and scales are ``repro``'s quantize-then-
+shard, bit for bit; an int4 shard of K must hold whole nibble pairs. A
+row-parallel int8-dynamic dispatch likewise takes each row's amax over
+the whole row (:func:`quantize_activations`' ``axis``).
 """
 
 from __future__ import annotations
@@ -198,9 +206,19 @@ def is_quantized(x: Any) -> bool:
     return isinstance(x, QuantizedTensor)
 
 
-def _quantize_matrix(w: torch.Tensor, qmax: float) -> Tuple[torch.Tensor, torch.Tensor]:
+def _all_reduce_max(x: torch.Tensor, axes) -> torch.Tensor:
+    if not axes:
+        return x
+    from repro_torch.dist.collectives import all_reduce_max
+
+    return all_reduce_max(x, axes)
+
+
+def _quantize_matrix(w: torch.Tensor, qmax: float, amax: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     wf = w.to(torch.float32)
-    amax = wf.abs().amax(dim=-2)
+    if amax is None:
+        amax = wf.abs().amax(dim=-2)
     scales = torch.clamp_min(amax, 1e-8) / qmax
     q = torch.clamp(torch.round(wf / scales[..., None, :]), -qmax, qmax).to(torch.int8)
     return q, scales
@@ -212,6 +230,7 @@ def quantize_weight(
     axis: int = -2,
     bits: int = 8,
     act_bits: Optional[int] = None,
+    k_axes: Tuple[str, ...] = (),
 ) -> QuantizedTensor:
     """Symmetric per-output-channel quantization of a (..., K, N) weight;
     ``axis`` is the contraction axis the scale reduces over. Round to
@@ -220,7 +239,11 @@ def quantize_weight(
 
     A stacked weight (ndim > 2) is quantized one leading slice at a time
     into preallocated outputs, so the f32 working copy is one matrix, not
-    the whole stack (a (36, 4096, 14336) bf16 leaf would need 8.5 GB)."""
+    the whole stack (a (36, 4096, 14336) bf16 leaf would need 8.5 GB).
+
+    ``k_axes``: the mesh axes over which the installed ranked plan splits
+    this shard's K. The columns' amaxes of every slice are then all-reduced
+    with MAX over them in one exchange before any slice is quantized."""
     if w.dim() < 2:
         raise ValueError(f"quantize_weight expects a matrix, got shape {tuple(w.shape)}")
     if axis % w.dim() != w.dim() - 2:
@@ -238,20 +261,31 @@ def quantize_weight(
     scales = torch.empty((*lead, n), dtype=torch.float32, device=w.device)
     flat_w = w.reshape(-1, k, n)
     flat_v, flat_s = values.view(-1, rows, n), scales.view(-1, n)
+    amax = None
+    if k_axes:
+        amax = torch.stack([flat_w[i].abs().amax(dim=-2).to(torch.float32)
+                            for i in range(flat_w.shape[0])])
+        amax = _all_reduce_max(amax, k_axes)
     for i in range(flat_w.shape[0]):
-        q, s = _quantize_matrix(flat_w[i], qmax)
+        q, s = _quantize_matrix(flat_w[i], qmax, None if amax is None else amax[i])
         flat_v[i] = pack_int4(q) if bits == 4 else q
         flat_s[i] = s
     return QuantizedTensor(values, scales, bits=bits, act_bits=act_bits,
                            k=k if bits == 4 else None)
 
 
-def quantize_activations(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_activations(x: torch.Tensor, axis: Optional[str] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dynamic symmetric per-row int8 activation quantization: ``x`` (..., K)
     float -> (int8 values of the same shape, f32 scales (...,)), the scale
-    ``amax / 127`` over the contraction axis of each row."""
+    ``amax / 127`` over the contraction axis of each row. ``axis``: the
+    mesh axis over which the ranks split K (a row-parallel dispatch); each
+    row's amax is then all-reduced with MAX over it, so the scale is the
+    whole row's."""
     xf = x.to(torch.float32)
     amax = xf.abs().amax(dim=-1)
+    if axis is not None:
+        amax = _all_reduce_max(amax, (axis,))
     scales = torch.clamp_min(amax, 1e-8) / _QMAX
     q = torch.clamp(torch.round(xf / scales[..., None]), -_QMAX, _QMAX).to(torch.int8)
     return q, scales
@@ -263,19 +297,40 @@ def quantize_lm_params(
     *,
     bits: int = 8,
     act_bits: Optional[int] = None,
+    specs: Optional[Dict[str, Any]] = None,
+    plan=None,
 ) -> Tuple[Dict[str, Any], int, int]:
     """Weight quantization at model load (the serve CLI's ``--quantize``):
     every float leaf of ndim >= 2 under a key in ``names`` becomes a
     :class:`QuantizedTensor`, leaf by leaf; everything else is untouched.
     Returns (new tree, leaves quantized, float leaves skipped under a
-    matching key). Dicts, lists and tuples are walked, as in ``repro``."""
+    matching key). Dicts, lists and tuples are walked, as in ``repro``.
+
+    Under a ranked ``plan`` the leaves are this rank's shards and ``specs``
+    is the tree's ArraySpec tree (the weights' full specs): each leaf's K
+    entry names the axes its amax is all-reduced over (module doc), and the
+    installed plan must be ``plan``, whose ranks all call this together."""
     n_quantized = 0
     n_skipped = 0
+    if plan is not None and specs is None:
+        raise ValueError("quantizing a ranked plan's shards needs the weights' specs")
 
-    def walk(node, named: bool = False):
+    def k_axes(spec) -> Tuple[str, ...]:
+        if plan is None or spec is None:
+            return ()
+        from repro_torch.dist.sharding import axes_of, check_quant_layout
+
+        parts = plan.spec_for(spec)
+        if bits == 4:
+            check_quant_layout(plan, spec, (spec.shape[-2] + 1) // 2)
+        return tuple(a for a in axes_of(parts[-2]) if plan.mesh.shape[a] > 1)
+
+    def walk(node, named: bool = False, spec=None):
         nonlocal n_quantized, n_skipped
         if isinstance(node, dict):
-            return {key: walk(sub, named=key in names) for key, sub in node.items()}
+            return {key: walk(sub, named=key in names,
+                              spec=None if spec is None else spec.get(key))
+                    for key, sub in node.items()}
         if isinstance(node, (list, tuple)):
             walked = [walk(item, named=named) for item in node]
             if isinstance(node, tuple) and hasattr(node, "_fields"):
@@ -284,11 +339,12 @@ def quantize_lm_params(
         if named and isinstance(node, torch.Tensor) and node.is_floating_point():
             if node.dim() >= 2:
                 n_quantized += 1
-                return quantize_weight(node, bits=bits, act_bits=act_bits)
+                return quantize_weight(node, bits=bits, act_bits=act_bits,
+                                       k_axes=k_axes(spec))
             n_skipped += 1
         return node
 
-    out = walk(params)
+    out = walk(params, spec=specs)
     if n_skipped:
         log.warning(
             "quantize_lm_params skipped %d float leaf/leaves under quantizable keys "

@@ -20,6 +20,11 @@ needs through the functions here:
   backward an all-gather.
 * :func:`all_to_all` — chunk ``split_dim`` over the axis and concatenate
   what arrives along ``concat_dim``; backward the reverse exchange.
+* :func:`all_reduce_max` — the elementwise maximum over axes (no
+  gradient): a quantization scale's amax over a contraction axis that the
+  ranks split, so every rank's scale is the whole axis's.
+* :func:`all_gather_rows` — the batch rows of every data rank, in rank
+  order (the decode logits, so every rank samples the same tokens).
 
 On an axis of size 1, or without a ranked plan, each is the identity and
 records nothing (XLA emits no collective there either).
@@ -27,8 +32,8 @@ records nothing (XLA emits no collective there either).
 **Accounting.** Every collective a rank runs, forward or backward, is
 added to each open :func:`record` as ``repro``'s HLO parse would count it:
 the op's HLO name and the payload bytes of its *result* (its local shape
-and dtype), with :attr:`CollectiveStats.coll_bytes` applying
-``repro.dist.hlo_cost``'s x2 for an all-reduce (a ring moves about twice
+and dtype; a maximum counts as an ``all-reduce``, as a sum does), with
+:attr:`CollectiveStats.coll_bytes` applying ``repro.dist.hlo_cost``'s x2 for an all-reduce (a ring moves about twice
 its buffer). ``seconds`` adds the host wall time spent inside the calls,
 each timed from a synchronised device: the exchange itself (over ``gloo``
 its copies through host memory included), not the queued work before it.
@@ -192,8 +197,9 @@ def _meta(shape, dtype):
     return torch.empty(tuple(shape), dtype=dtype, device="meta")
 
 
-def raw_all_reduce(x: torch.Tensor, ax: Axis) -> torch.Tensor:
-    """The sum of ``x`` over the axis (a new tensor; no autograd)."""
+def raw_all_reduce(x: torch.Tensor, ax: Axis, op: str = "sum") -> torch.Tensor:
+    """The sum (or, ``op="max"``, the elementwise maximum) of ``x`` over the
+    axis (a new tensor; no autograd)."""
     import torch.distributed as dist
 
     if ax.virtual:
@@ -201,7 +207,8 @@ def raw_all_reduce(x: torch.Tensor, ax: Axis) -> torch.Tensor:
         return _meta(x.shape, x.dtype)
     out = x.detach().contiguous().clone()
     with _Timed("all-reduce", out.shape, out.dtype, out.device):
-        dist.all_reduce(out, group=ax.group)
+        dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
+                        group=ax.group)
     return out
 
 
@@ -357,6 +364,26 @@ def all_to_all(x: torch.Tensor, axis: str, split_dim: int, concat_dim: int) -> t
     """The all-to-all exchange over ``axis`` (module doc)."""
     ax = mesh_axis(axis)
     return x if ax is None else _AllToAll.apply(x, ax, split_dim, concat_dim)
+
+
+def all_reduce_max(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over each of ``axes`` (no gradient):
+    ``x`` itself where none has ranks."""
+    for axis in axes:
+        ax = mesh_axis(axis)
+        if ax is not None:
+            x = raw_all_reduce(x, ax, op="max")
+    return x
+
+
+def all_gather_rows(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+    """Dim 0 of ``x``, this rank's batch rows, gathered over the batch axes
+    ``axes`` (outermost first) in rank order: the innermost axis first, as
+    :func:`~repro_torch.dist.sharding.rows_of` numbers the rows. The
+    backward keeps this rank's rows."""
+    for axis in reversed(tuple(axes)):
+        x = all_gather(x, axis, 0, grad="slice")
+    return x
 
 
 def all_reduce_axes(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:

@@ -36,7 +36,16 @@ divisible by its axes. Nothing is resharded.
 
 :func:`shard_tree` and :func:`gather_tree` move a tree between its full
 form (``repro``'s parameters through ``params_from_jax``, a checkpoint)
-and one rank's local form.
+and one rank's local form. A
+:class:`~repro_torch.core.quant.QuantizedTensor` leaf moves as its two
+parts (:func:`quant_part_specs`): the values by the weight's spec (for
+int4 on the packed K), the scales by it with the K entry dropped.
+
+Batch rows split over the batch axes (:func:`batch_axes`) where those
+divide the batch. A serving call whose batch they do not divide keeps its
+rows whole on every rank (``repro``'s demotion): it runs under
+:func:`whole_rows`, and :func:`row_axes` then names no axis, so the layers
+exchange nothing over the data axes for its rows.
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core.gemm import as_dtype
+from repro_torch.core.quant import QuantizedTensor, is_quantized
 
 #: logical axis -> mesh axis (or tuple of mesh axes, outermost first).
 #: ``batch`` spans the pure data-parallel axes; tensor-parallel dims ride
@@ -267,6 +277,40 @@ def batch_axes(plan: ShardingPlan) -> Tuple[str, ...]:
     return plan._mesh_axes_for("batch")
 
 
+@contextmanager
+def whole_rows():
+    """Within the block the calling thread's batch rows are whole on every
+    rank (module doc)."""
+    old = getattr(_plan_state, "whole_rows", False)
+    _plan_state.whole_rows = True
+    try:
+        yield
+    finally:
+        _plan_state.whole_rows = old
+
+
+def row_axes(plan: ShardingPlan) -> Tuple[str, ...]:
+    """The mesh axes the current call's batch rows are split over: the
+    batch axes, or none inside :func:`whole_rows`."""
+    return () if getattr(_plan_state, "whole_rows", False) else batch_axes(plan)
+
+
+def rows_of(plan: ShardingPlan, batch: int) -> Optional[slice]:
+    """The slice of a ``batch``-row batch that this rank holds when the
+    batch axes divide it (rank-major over the axes, outermost first), or
+    None when its rows stay whole on every rank (no batch axis, or one that
+    does not divide ``batch``)."""
+    axes = batch_axes(plan)
+    n = math.prod(plan.mesh.shape[a] for a in axes)
+    if n == 1 or batch % n:
+        return None
+    index = 0
+    for a in axes:
+        index = index * plan.mesh.shape[a] + plan.mesh.coords[a]
+    size = batch // n
+    return slice(index * size, (index + 1) * size)
+
+
 def _constrain(x: torch.Tensor, axes: Sequence[Optional[str]], uneven: bool) -> torch.Tensor:
     plan = current_plan()
     if plan is None:
@@ -361,9 +405,41 @@ def shard_slices(plan: ShardingPlan, spec: ArraySpec, coords: Mapping[str, int])
     return tuple(out)
 
 
-def shard_leaf(full: torch.Tensor, plan: ShardingPlan, spec: ArraySpec,
-               coords: Mapping[str, int]) -> torch.Tensor:
-    """This rank's shard of one full leaf (a contiguous copy)."""
+def quant_part_specs(spec: ArraySpec, values_k: int) -> Tuple[ArraySpec, ArraySpec]:
+    """The specs of a quantized weight's two parts, from the weight's own
+    ``spec`` (..., K, N): the values at ``values_k`` rows of K (the packed
+    ceil(K/2) for int4) on the same axes, the scales with the K entry
+    dropped."""
+    values = ArraySpec(spec.shape[:-2] + (values_k, spec.shape[-1]), "int8", spec.axes)
+    scales = ArraySpec(spec.shape[:-2] + spec.shape[-1:], "float32",
+                       spec.axes[:-2] + spec.axes[-1:])
+    return values, scales
+
+
+def check_quant_layout(plan: ShardingPlan, spec: ArraySpec, values_k: int) -> None:
+    """Raise unless the values of a quantized weight split as the weight
+    does: an int4 shard of K must hold whole nibble pairs (an even local
+    K), or the packed rows would not split with it."""
+    values, _ = quant_part_specs(spec, values_k)
+    if plan.spec_for(values) != plan.spec_for(spec):
+        raise ValueError(
+            f"an int4 weight {spec.shape} splits its K={spec.shape[-2]} into local shards of "
+            f"odd length under mesh {plan.mesh.shape}: a shard must hold whole nibble pairs")
+
+
+def shard_leaf(full, plan: ShardingPlan, spec: ArraySpec, coords: Mapping[str, int]):
+    """This rank's shard of one full leaf (a contiguous copy); a
+    :class:`~repro_torch.core.quant.QuantizedTensor` as its values and
+    scales (:func:`quant_part_specs`)."""
+    if is_quantized(full):
+        if tuple(full.shape) != tuple(spec.shape):
+            raise ValueError(f"leaf {tuple(full.shape)} vs its spec {spec.shape}")
+        check_quant_layout(plan, spec, full.values.shape[-2])
+        values, scales = quant_part_specs(spec, full.values.shape[-2])
+        local_k = plan.local_shape(spec)[-2]
+        return QuantizedTensor(shard_leaf(full.values, plan, values, coords),
+                               shard_leaf(full.scales, plan, scales, coords), bits=full.bits,
+                               act_bits=full.act_bits, k=local_k if full.bits == 4 else None)
     if tuple(full.shape) != tuple(spec.shape):
         raise ValueError(f"leaf {tuple(full.shape)} vs its spec {spec.shape}")
     return full[shard_slices(plan, spec, coords)].contiguous()
@@ -379,6 +455,8 @@ def mirror_specs(tree, specs):
     def walk(t, path):
         if isinstance(t, dict):
             return {k: walk(v, f"{path}{k}/") for k, v in t.items()}
+        if is_quantized(t):
+            return flat[path[:-1]]
         parts = path[:-1].split("/")
         for i in range(len(parts)):
             spec = flat.get("/".join(parts[i:]))
@@ -400,18 +478,25 @@ def shard_tree(full, plan: ShardingPlan, coords: Mapping[str, int], specs):
     def walk(t, s):
         if isinstance(t, dict):
             return {k: walk(v, s[k]) for k, v in t.items()}
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"shard_tree takes plain tensors, not {type(t).__name__}")
+        if not isinstance(t, (torch.Tensor, QuantizedTensor)):
+            raise TypeError(f"shard_tree takes tensors, not {type(t).__name__}")
         return shard_leaf(t, plan, s, coords)
 
     return walk(full, spec_tree)
 
 
-def gather_leaf(local: torch.Tensor, plan: ShardingPlan, spec: ArraySpec) -> torch.Tensor:
+def gather_leaf(local, plan: ShardingPlan, spec: ArraySpec):
     """The full leaf from every rank's shard (a collective: every rank of
     the mesh calls it, and every rank gets the whole leaf)."""
     from repro_torch.dist.collectives import mesh_axis, raw_all_gather
 
+    if is_quantized(local):
+        full_k = spec.shape[-2] if local.bits == 8 else (spec.shape[-2] + 1) // 2
+        values, scales = quant_part_specs(spec, full_k)
+        return QuantizedTensor(gather_leaf(local.values, plan, values),
+                               gather_leaf(local.scales, plan, scales), bits=local.bits,
+                               act_bits=local.act_bits,
+                               k=spec.shape[-2] if local.bits == 4 else None)
     out = local
     for dim, part in enumerate(plan.spec_for(spec)):
         for a in reversed(axes_of(part)):  # innermost axis first

@@ -29,8 +29,10 @@ allocated. It records:
     and expert-parallel layout (``models/layers.py``), every collective
     recorded at its local shapes without communicating
     (``dist/collectives.py``). The layers are a Python loop, so every
-    layer's collectives are counted. An MoE cell counts them on
-    ``moe_impl="shard_map"`` (the expert-parallel dispatch across ranks);
+    layer's collectives are counted, the serving steps' as the engine's
+    ranks run them: the logits gathered over the data axes where those
+    split the batch, an MoE layer's counts exchange over them (its own
+    ``moe_impl``, expert-parallel);
     the families that run on one rank only (SSM, hybrid, VLM,
     encoder-decoder) and layouts the explicit path does not take (query
     heads that do not divide the model axis) record ``None`` and why.
@@ -148,7 +150,9 @@ def trace_local(model, cfg, shape, plan, *, selector, optimizer_name="adamw",
     with gemm_context(selector=selector) as ctx, use_plan(plan), StepFlops() as flops, \
             record() as coll:
         params = abstract_tree(local_specs(specs))
-        ins = local_rows(input_specs(cfg, shape))
+        # the serving calls take the whole batch and run this rank's rows
+        full = input_specs(cfg, shape)
+        ins = local_rows(full)
         argument += sum(v.numel() * v.element_size() for v in ins.values())
         argument += tree_local_bytes(plan, specs)
         if shape.kind == "train":
@@ -163,12 +167,12 @@ def trace_local(model, cfg, shape, plan, *, selector, optimizer_name="adamw",
         else:
             with torch.no_grad():
                 if shape.kind == "prefill":
-                    model.prefill(params, ins["tokens"], max_seq=shape.seq_len)
+                    model.prefill(params, full["tokens"], max_seq=shape.seq_len)
                 else:
                     cache_specs = model.cache_specs(shape.global_batch, shape.seq_len)
                     argument += tree_local_bytes(plan, cache_specs)
                     model.decode_step(params, abstract_tree(local_specs(cache_specs)),
-                                      ins["tokens"], ins["cur_pos"])
+                                      full["tokens"], full["cur_pos"])
     return ctx, flops, coll, argument
 
 
@@ -362,10 +366,6 @@ def _production_collectives(cfg, shape, mesh, rules, selector, optimizer_name, m
         return {"collectives": None, "collective_bytes": None,
                 "collectives_note": f"not ported across ranks: the {cfg.family} family runs "
                                     "on one rank"}, {}
-    note = {}
-    if cfg.family == "moe" and cfg.moe_impl not in ("shard_map", "shard_map_bf16"):
-        cfg = dataclasses.replace(cfg, moe_impl="shard_map")
-        note["collectives_moe_impl"] = "shard_map"
     plan = ShardingPlan(virtual_mesh(mesh.sizes, mesh.axis_names), ranked_rules(rules))
     try:
         _, _, coll, _ = trace_local(build_model(cfg), cfg, shape, plan, selector=selector,
@@ -373,7 +373,7 @@ def _production_collectives(cfg, shape, mesh, rules, selector, optimizer_name, m
     except NotImplementedError as e:
         return {"collectives": None, "collective_bytes": None,
                 "collectives_note": f"not ported across ranks: {e}"}, {}
-    return ({**collective_keys(coll), **note},
+    return (collective_keys(coll),
             {"collective_bytes": coll.coll_bytes, "collective_counts": coll.counts()})
 
 

@@ -47,16 +47,19 @@ every N engine steps (``core/gossip.py``).
 ``--mesh-model N`` installs a sharding plan over the host's ranks as
 (data, model = N) (``launch/mesh.py make_host_mesh``). One process (N = 1)
 runs every GEMM whole, with the plan's divisors in its fingerprints
-(``serve_gemm_div``). N > 1 serves across N ranks, one process each,
-started by ``torch.distributed.run`` (data = 1: the slots are not split
-over data ranks): the CLI joins the ``gloo`` group the launcher describes
-(ranks that share one card cannot use NCCL), every rank holds its shard of
-the weights (drawn from the same seed as one rank's) and of the caches,
-takes the same request stream and runs the tensor-parallel step on the
+(``serve_gemm_div``). Across W ranks, one process each, started by
+``torch.distributed.run``, the mesh is (data = W / N, model = N): the CLI
+joins the ``gloo`` group the launcher describes (ranks that share one card
+cannot use NCCL), every rank holds its shard of the weights (drawn from the
+same seed as one rank's; ``--quantize`` then quantizes the shards as
+``repro`` quantizes the whole leaves) and of the caches, takes the same
+request stream and runs the tensor-, expert- and FSDP-parallel step on the
 hand-written kernels at its local shapes, exchanging what the layout needs
-(``dist/collectives.py``). Rank 0 writes ``--summary-json``, with the
-collectives of a decode step and their share of the decode time. The paged
-engine, quantized weights and several workers run on one rank only.
+(``dist/collectives.py``). Where data > 1 divides ``--slots`` each data
+rank decodes its own slots, and the logits are gathered. Rank 0 writes
+``--summary-json``, with the rung, the mesh, the collectives of a decode
+step and their share of the decode time. ``--paged`` runs across ranks on
+the model axis only (data = 1); several workers run on one rank only.
 
 Example::
 
@@ -76,6 +79,13 @@ Example::
         --requests 8 --workers 2 --journal artifacts/fleet.jsonl --adapt --gossip-every 2
     PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 2 \\
         -m repro_torch.launch.serve --arch granite-8b --preset full --mesh-model 2
+    PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 2 \\
+        -m repro_torch.launch.serve --arch granite-8b --preset full --mesh-model 2 \\
+        --quantize int8-dynamic
+    PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 2 \\
+        -m repro_torch.launch.serve --arch granite-8b --preset full --mesh-model 1
+    PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 2 \\
+        -m repro_torch.launch.serve --arch granite-8b --preset full --mesh-model 2 --paged
 """
 
 from __future__ import annotations
@@ -458,8 +468,9 @@ def main(argv=None) -> int:
         bits = 4 if args.quantize == "int4" else 8
         act_bits = 8 if args.quantize == "int8-dynamic" else None
         t0 = time.perf_counter()
-        params, n_quant, n_skipped = model.quantize_weights(params, bits=bits,
-                                                            act_bits=act_bits)
+        with use_plan(plan):  # across ranks, every rank quantizes its shards together
+            params, n_quant, n_skipped = model.quantize_weights(params, bits=bits,
+                                                                act_bits=act_bits)
         log.info("quantized %d weight leaves to int%d (per-output-channel scales%s) in "
                  "%.1fs; %d float leaves skipped", n_quant, bits,
                  ", dynamic int8 activations" if act_bits else "",
@@ -481,7 +492,7 @@ def main(argv=None) -> int:
     with use_plan(plan):
         done, runs = serve_workers(args, model, params, device, workers, prompts, engines)
     summary = dict(arch=cfg.name, preset=args.preset, dtype=cfg.dtype, device=str(device),
-                   requests=args.requests, completed=len(done),
+                   quantize=args.quantize, requests=args.requests, completed=len(done),
                    tokens=sum(len(r.out_tokens) for r in done), workers=runs)
     if plan is not None:
         summary["mesh"] = dict(shape=plan.mesh.shape, gemm_div=plan.gemm_div())
@@ -494,8 +505,9 @@ def main(argv=None) -> int:
             every = [None] * plan.mesh.size
             torch.distributed.all_gather_object(every, {n: c for n, c in LAUNCHES.items() if c})
             summary["launches_by_rank"] = every
-    log.info("served %d/%d requests, %d tokens across %d worker(s)", len(done), args.requests,
-             summary["tokens"], args.workers)
+    log.info("served %d/%d requests, %d tokens across %d worker(s) (rung %s, mesh %s)",
+             len(done), args.requests, summary["tokens"], args.workers, args.quantize,
+             None if plan is None else plan.mesh.shape)
     if args.workers > 1 and args.journal:
         # the federation summary: what the fleet learned in this run
         shard_paths = [shard_journal_path(args.journal, w, args.workers)
@@ -518,20 +530,21 @@ def main(argv=None) -> int:
 def join_ranks(args) -> bool:
     """Join the process group ``torch.distributed.run`` describes (its
     environment: ``WORLD_SIZE`` > 1) over ``gloo``, for ``--mesh-model``;
-    refuse what runs on one rank only. Returns whether this process joined."""
+    refuse what does not run across them (module doc). Returns whether this
+    process joined."""
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world == 1:
         return False
     if not args.mesh_model:
         raise SystemExit(f"{world} ranks need --mesh-model (the model axis they split)")
-    if world != args.mesh_model:
-        raise SystemExit(f"serving splits the model axis only: --mesh-model {args.mesh_model} "
-                         f"over {world} ranks would put {world // args.mesh_model} on data")
-    for flag, on in (("--paged", args.paged), ("--quantize", args.quantize != "none"),
-                     ("--workers", args.workers > 1)):
-        if on:
-            raise SystemExit(f"{flag} runs on one rank; across ranks the dense slot engine "
-                             "serves float weights")
+    if world % args.mesh_model:
+        raise SystemExit(f"{world} ranks do not split into (data, model = {args.mesh_model})")
+    if args.workers > 1:
+        raise SystemExit("--workers runs on one rank: across ranks one engine a rank serves")
+    if args.paged and world > args.mesh_model:
+        raise SystemExit(f"--paged across ranks splits the model axis only: --mesh-model "
+                         f"{args.mesh_model} over {world} ranks would put "
+                         f"{world // args.mesh_model} on data, which would split the page pool")
     import torch.distributed as dist
 
     dist.init_process_group("gloo")
@@ -616,7 +629,7 @@ def _worker_summary(w, engine, served, prompts, gossip, args) -> dict:
         tm["decode_tokens"] / max(tm["decode_s"], 1e-9),
     )
     out = dict(worker=w, completed=len(served), requests=len(prompts), backend=engine.backend,
-               timing=dict(tm),
+               timing=dict(tm), prompts=[p.tolist() for p in prompts],
                out_tokens=[list(r.out_tokens) for r in sorted(served, key=lambda r: r.uid)])
     if args.paged:
         m = engine.metrics()

@@ -18,12 +18,17 @@ and each GEMM runs at its local shape with unit divisors, so its
 ``tag:local_mnk`` key is the one the one-rank plan's divisors give. Tensor
 parallelism rides ``model``: q/k/v, the MLP's gate and up projection and
 the experts are column-parallel (``heads``/``kv_heads``/``ffn``/``experts``),
-``attn.o`` and ``mlp.out`` row-parallel, followed by an all-reduce. FSDP
+``attn.o`` and ``mlp.out`` row-parallel, their f32 partials summed by an
+all-reduce and cast once. FSDP
 rides ``data`` (``embed``): a weight's data-sharded dims are all-gathered
 just before its GEMM (the backward reduce-scatters its gradient). A kv
 head count that does not divide ``model`` leaves the kv columns whole on
 every rank (all-gathered, where the solver split them inside a head), and
-each rank attends with the kv heads its query heads read.
+each rank attends with the kv heads its query heads read. A quantized
+weight moves as its values and scales (gathered together); a row-parallel
+int8-dynamic dispatch takes each row's scale over the whole row (a MAX
+all-reduce over ``model``). The MoE runs expert-parallel on every
+``moe_impl`` (:func:`moe_apply`).
 """
 
 from __future__ import annotations
@@ -37,9 +42,23 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.gemm import as_dtype, gemm, gemm_grouped
 from repro_torch.core.op import Epilogue
-from repro_torch.core.quant import is_quantized, quantize_activations
-from repro_torch.dist.collectives import all_gather, all_reduce, sum_grad
-from repro_torch.dist.sharding import ArraySpec, axes_of, constrain, current_plan, ranked_plan
+from repro_torch.core.quant import QuantizedTensor, is_quantized, quantize_activations
+from repro_torch.dist.collectives import (
+    all_gather,
+    all_reduce,
+    mesh_axis,
+    raw_all_gather,
+    sum_grad,
+)
+from repro_torch.dist.sharding import (
+    ArraySpec,
+    axes_of,
+    batch_axes,
+    constrain,
+    current_plan,
+    ranked_plan,
+    row_axes,
+)
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -253,10 +272,16 @@ def attn_apply_ring(
     return _project_o(p, out.reshape(b, 1, -1), cfg, div), cache
 
 
-def gather_weight(w: torch.Tensor, parts) -> torch.Tensor:
+def gather_weight(w, parts):
     """FSDP: ``w`` (this rank's shard, partition entries ``parts``) with
     every dim that rides an axis other than ``model`` all-gathered (the
-    backward reduce-scatters the gradient)."""
+    backward reduce-scatters the gradient). A quantized weight gathers its
+    values by ``parts`` and its scales by ``parts`` without the K entry."""
+    if is_quantized(w):
+        values = gather_weight(w.values, parts)
+        scales = gather_weight(w.scales, parts[:-2] + parts[-1:])
+        k = w.k * values.shape[-2] // w.values.shape[-2] if w.bits == 4 else None
+        return QuantizedTensor(values, scales, bits=w.bits, act_bits=w.act_bits, k=k)
     for dim, part in enumerate(parts):
         for axis in reversed(axes_of(part)):  # innermost axis first
             if axis != "model":
@@ -355,8 +380,16 @@ def _project_o(p: Params, out: torch.Tensor, cfg: ModelConfig, div: Dict[str, in
         db, dtp = div.get("batch", 1), div.get("model", 1)
         return gemm(out, p["wo"], divisors=(db, 1, dtp), tag="attn.o")
     wo, po = _ranked_weight(p, "wo", attn_specs(cfg)["wo"], plan)
-    y = gemm(out, wo, tag="attn.o")
-    return all_reduce(y, "model") if _on_model(po, 0) else y
+    if not _on_model(po, 0):
+        return gemm(out, wo, tag="attn.o")
+    return _row_parallel(out, wo, "attn.o")
+
+
+def _row_parallel(x: torch.Tensor, w, tag: str) -> torch.Tensor:
+    """A row-parallel GEMM: K split over ``model``, the partials summed
+    before one cast (``gemm``'s ``k_axis``), as GSPMD all-reduces the dot's
+    f32 (or, with int8 activations, int32) result before the cast."""
+    return gemm(x, w, tag=tag, k_axis="model")
 
 
 def attn_apply(
@@ -490,8 +523,9 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, div: Dict[str, in
         h = gemm(x, w["w_in"], divisors=up, tag="mlp.in", epilogue="square")
     else:
         h = gemm(x, w["w_in"], divisors=up, tag="mlp.in", epilogue="gelu")
-    y = gemm(h, w["w_out"], divisors=down, tag="mlp.out")
-    return all_reduce(y, "model") if split else y
+    if split:
+        return _row_parallel(h, w["w_out"], "mlp.out")
+    return gemm(h, w["w_out"], divisors=down, tag="mlp.out")
 
 
 def moe_specs(cfg: ModelConfig) -> Dict[str, ArraySpec]:
@@ -521,7 +555,7 @@ def moe_apply(
     token groups into its own capacity (:func:`moe_apply_sharded`);
     ``shard_map``/``shard_map_bf16`` run the per-rank expert-parallel body
     under a plan (:func:`moe_apply_shard_map`) and the capacity dispatch
-    without one.
+    without one, or on quantized experts.
 
     Routing is deterministic and needs no sort: a cumulative sum gives each
     assignment its position in its expert, and positions past the capacity
@@ -529,33 +563,41 @@ def moe_apply(
     not, through three grouped GEMMs (one selection and, on the card, one
     kernel launch each).
 
-    Across ranks only ``shard_map``/``shard_map_bf16`` run (the explicit
-    expert-parallel body); the others raise."""
-    if ranked_plan() is not None and (cfg.moe_impl not in ("shard_map", "shard_map_bf16")
-                                      or is_quantized(p["w_in"])):
-        raise NotImplementedError(
-            f"moe_impl={cfg.moe_impl!r} across ranks is not ported: the expert-parallel "
-            "dispatch across ranks is moe_impl='shard_map' (or 'shard_map_bf16') on float "
-            "expert weights")
-    if cfg.moe_impl == "sharded":
-        return moe_apply_sharded(p, x, cfg, div=div)
-    if cfg.moe_impl in ("shard_map", "shard_map_bf16"):
+    Across ranks every variant runs expert-parallel: each rank routes its
+    rows with the f32 router, dispatches the assignments to its own
+    ``E / model`` experts (weights gathered over their FSDP axes; B5 at
+    G = E / model, unit divisors), and the combined output is summed over
+    ``model``. Where the rows split over the data axes (:func:`row_axes`),
+    ``global`` and ``hinted`` exchange each rank's per-(choice, expert)
+    counts over them, so every assignment takes the position the whole
+    batch's order gives it, at the capacity of the global token count;
+    ``sharded`` routes each data rank's rows as one group. The aux loss is
+    then the rank's rows' (``LM.loss_fn`` averages it over the data rows)."""
+    impl = cfg.moe_impl
+    if impl in ("shard_map", "shard_map_bf16"):
         # quantized expert weights take the capacity dispatch under a plan too,
         # as in repro (a rank-pinned layout cannot describe values + scales)
         if current_plan() is not None and not is_quantized(p["w_in"]):
             return moe_apply_shard_map(p, x, cfg, div=div)
-    elif cfg.moe_impl not in ("global", "hinted"):
+        impl = "global"
+    elif impl == "sharded":
+        return moe_apply_sharded(p, x, cfg, div=div)
+    elif impl not in ("global", "hinted"):
         raise ValueError(f"unknown moe_impl {cfg.moe_impl!r}")
-    hinted = cfg.moe_impl == "hinted"
+    hinted = impl == "hinted"
+    plan = ranked_plan()
+    w, e_loc, j, split, dg = _moe_weights(p, cfg, plan, div)
+    rows = () if plan is None else row_axes(plan)
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
-    t = b * s
-    xf = x.reshape(t, d)
+    tl = b * s  # this rank's tokens
+    t = tl * math.prod(plan.mesh.shape[a] for a in rows) if rows else tl
+    xf = x.reshape(tl, d)
     if hinted:
         xf = constrain(xf, "batch", None)
 
     logits = gemm(
-        xf.to(torch.float32), p["router"], divisors=(div.get("batch", 1), 1, 1),
+        xf.to(torch.float32), w["router"], divisors=(div.get("batch", 1), 1, 1),
         tag="moe.router",
     )
     probs = torch.softmax(logits, dim=-1)  # (T, E)
@@ -567,44 +609,116 @@ def moe_apply(
     cap = max(int(cfg.capacity_factor * t * k / e), min(t, 16), 1)
     if hinted:
         # token-major: the flattened (T*k,) axis keeps T's sharding
-        e_flat = constrain(idx.reshape(t * k), "batch")
-        tok = torch.arange(t, device=x.device).repeat_interleave(k)
-        gate_flat = gates.reshape(t * k)
+        e_flat = constrain(idx.reshape(tl * k), "batch")
+        tok = torch.arange(tl, device=x.device).repeat_interleave(k)
+        gate_flat = gates.reshape(tl * k)
     else:
-        e_flat = idx.T.reshape(t * k)  # (k*T,) rank-major
-        tok = torch.arange(t, device=x.device).repeat(k)
-        gate_flat = gates.T.reshape(t * k)
+        e_flat = idx.T.reshape(tl * k)  # (k*T,) rank-major
+        tok = torch.arange(tl, device=x.device).repeat(k)
+        gate_flat = gates.T.reshape(tl * k)
     onehot = F.one_hot(e_flat, e)  # (kT, E)
     pos = (torch.cumsum(onehot, dim=0) * onehot - 1).amax(dim=-1)  # position in expert
+    if rows:
+        pos = pos + _row_offsets(onehot, e_flat, hinted, k, tl, rows, plan)
     keep = pos < cap
     slot = pos.clamp_max(cap)  # cap = trash column
 
-    # dispatch: (E, cap + 1, D); the trash column absorbs dropped tokens
-    buf = torch.zeros((e, cap + 1, d), dtype=x.dtype, device=x.device)
-    buf[e_flat, slot] = xf[tok]
-    expert_in = buf[:, :cap]
-    if hinted:
-        expert_in = constrain(expert_in, "experts", None, None)
-
-    out_e = _experts(p, expert_in, cfg, div)  # (E, cap, D)
-    if hinted:
-        out_e = constrain(out_e, "experts", None, None)
-
-    # combine: gather back per assignment, weight by the gate, sum the choices
-    gathered = out_e[e_flat, torch.clamp_max(slot, cap - 1)]  # (kT, D)
-    w = (gate_flat * keep).to(torch.float32)
+    # dispatch into (E_local, cap + 1, D) (the trash column absorbs dropped
+    # tokens and, across ranks, other ranks' experts), the experts, and the
+    # gather back per assignment
+    src = sum_grad(xf, "model") if split else xf
+    gathered, mine = _expert_dispatch(w, src, tok, e_flat, slot, cap, e_loc, j, cfg, dg,
+                                      hint=hinted and plan is None)
+    # combine: weight each assignment by its gate, sum the choices
+    gate_flat = sum_grad(gate_flat, "model") if split else gate_flat
+    wts = (gate_flat * keep * mine).to(torch.float32)
     if hinted:
         gathered = constrain(gathered, "batch", None)
-        combined = (gathered.to(torch.float32) * w[:, None]).reshape(t, k, d).sum(dim=1)
-        frac = onehot.reshape(t, k, e).sum(dim=1)
+        combined = (gathered.to(torch.float32) * wts[:, None]).reshape(tl, k, d).sum(dim=1)
+        frac = onehot.reshape(tl, k, e).sum(dim=1)
     else:
-        combined = (gathered.to(torch.float32) * w[:, None]).reshape(k, t, d).sum(dim=0)
-        frac = onehot.reshape(k, t, e).sum(dim=0)
+        combined = (gathered.to(torch.float32) * wts[:, None]).reshape(k, tl, d).sum(dim=0)
+        frac = onehot.reshape(k, tl, e).sum(dim=0)
+    if split:
+        combined = all_reduce(combined, "model")
 
     # load-balance aux loss (Switch): E * sum_e f_e * p_e
     frac = frac.to(torch.float32).mean(dim=0)
     aux = cfg.router_aux_coef * e * torch.sum(frac * probs.mean(dim=0))
     return combined.reshape(b, s, d).to(x.dtype), aux
+
+
+def _moe_weights(p: Params, cfg: ModelConfig, plan, div: Dict[str, int]):
+    """(the expert weights a dispatch runs, E_local, this rank's first
+    expert / E_local, whether the experts split over ``model``, the grouped
+    ops' ``g_divisor``). Without a ranked plan: ``p`` itself, every expert,
+    ``div``'s model divisor. With one: the weights gathered over their FSDP
+    axes, this rank's ``E / model`` experts, unit divisors."""
+    if plan is None:
+        return p, cfg.n_experts, 0, False, div.get("model", 1)
+    specs = moe_specs(cfg)
+    w, parts = {}, {}
+    for key in specs:
+        w[key], parts[key] = _ranked_weight(p, key, specs[key], plan)
+    mp = plan.mesh.shape.get("model", 1)
+    split = _on_model(parts["w_in"], 0)
+    if mp > 1 and not split:
+        raise NotImplementedError(f"{cfg.n_experts} experts do not split over a model axis of "
+                                  f"{mp}")
+    e_loc = cfg.n_experts // mp if split else cfg.n_experts
+    j = plan.mesh.coords.get("model", 0) if split else 0
+    return w, e_loc, j, split, 1
+
+
+def _row_offsets(onehot, e_flat, hinted: bool, k: int, tl: int, rows, plan):
+    """What to add to each of this rank's assignments' local positions so
+    that they are the positions the whole batch's order gives: every rank's
+    per-(choice, expert) counts are all-gathered over the row axes ``rows``
+    (rank-major, as :func:`~repro_torch.dist.sharding.rows_of` numbers the
+    rows). Token-major (``hinted``): the earlier ranks' assignments to the
+    expert come first. Rank-major (``global``): every rank's earlier
+    choices, then the earlier ranks' same choice."""
+    e = onehot.shape[-1]
+    if hinted:
+        cnt = onehot.reshape(tl, k, e).sum(dim=0)
+    else:
+        cnt = onehot.reshape(k, tl, e).sum(dim=1)
+    every = cnt.to(torch.int32)[None]
+    for axis in reversed(rows):  # innermost axis first
+        every = raw_all_gather(every, mesh_axis(axis, plan.mesh), 0)
+    index = 0
+    for a in rows:
+        index = index * plan.mesh.shape[a] + plan.mesh.coords[a]
+    before = every[:index].sum(dim=0)  # (k, E): the earlier ranks' counts
+    if hinted:
+        return before.sum(dim=0)[e_flat]
+    others = every.sum(dim=0) - every[index]
+    off = torch.cumsum(others, dim=0) - others + before  # (k, E)
+    choice = torch.arange(k, device=e_flat.device).repeat_interleave(tl)
+    return off[choice, e_flat]
+
+
+def _expert_dispatch(w: Params, src: torch.Tensor, tok, e_flat, slot, rows: int, e_loc: int,
+                     j: int, cfg: ModelConfig, g_divisor: int, hint: bool = False):
+    """Dispatch the assignments (source row ``src[tok]``, expert ``e_flat``,
+    row ``slot`` of its ``rows``; ``rows`` is the trash row) to this rank's
+    experts ``j * e_loc .. (j + 1) * e_loc - 1`` (the others' go to the
+    trash row), run the expert MLP over ``(e_loc, rows, D)`` and gather each
+    assignment's output back. Returns (outputs (A, D), whether each
+    assignment's expert is this rank's)."""
+    e_local = e_flat - j * e_loc
+    mine = (e_local >= 0) & (e_local < e_loc)
+    e_clamped = e_local.clamp(0, e_loc - 1)
+    slot = torch.where(mine, slot, rows)
+    buf = torch.zeros((e_loc, rows + 1, src.shape[-1]), dtype=src.dtype, device=src.device)
+    buf = buf.index_put((e_clamped, slot), src[tok])
+    expert_in = buf[:, :rows]
+    if hint:
+        expert_in = constrain(expert_in, "experts", None, None)
+    out_e = _experts(w, expert_in, cfg, {}, g_divisor=g_divisor)  # (e_loc, rows, D)
+    if hint:
+        out_e = constrain(out_e, "experts", None, None)
+    return out_e[e_clamped, torch.clamp_max(slot, rows - 1)], mine
 
 
 def _experts(p: Params, expert_in: torch.Tensor, cfg: ModelConfig, div: Dict[str, int],
@@ -637,17 +751,26 @@ def moe_apply_sharded(
     own ``(E, cap)`` buffer at a per-group capacity, as each data shard
     would route its own tokens; the groups then fold into M, so each expert
     contracts ``(G * cap, D)`` in one grouped GEMM. The router is a plain
-    f32 einsum, as in ``repro``."""
+    f32 einsum, as in ``repro``. Across ranks (:func:`moe_apply`) the
+    groups are the data ranks': where the rows split over them, this rank's
+    rows are its one group; where they stay whole, every rank routes all
+    the data ranks' groups."""
+    plan = ranked_plan()
+    w, e_loc, j, split, dg = _moe_weights(p, cfg, plan, div)
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     t = b * s
-    groups = div.get("batch", 1)
+    if plan is None:
+        groups = div.get("batch", 1)
+    else:
+        groups = 1 if row_axes(plan) else math.prod(
+            plan.mesh.shape[a] for a in batch_axes(plan))
     if t % groups:
         groups = 1
     tl = t // groups
     xg = constrain(x.reshape(groups, tl, d), "batch", None, None)
 
-    logits = torch.einsum("gtd,de->gte", xg.to(torch.float32), p["router"].to(torch.float32))
+    logits = torch.einsum("gtd,de->gte", xg.to(torch.float32), w["router"].to(torch.float32))
     probs = torch.softmax(logits, dim=-1)  # (G, Tl, E)
     gates, idx = torch.topk(probs, k, dim=-1)  # (G, Tl, k)
     gates = gates / gates.sum(dim=-1, keepdim=True)
@@ -658,23 +781,23 @@ def moe_apply_sharded(
     onehot = F.one_hot(e_flat, e)  # (G, kTl, E)
     pos = (torch.cumsum(onehot, dim=1) * onehot - 1).amax(dim=-1)  # (G, kTl)
     keep = pos < cap
-    slot = pos.clamp_max(cap)
 
-    tok = torch.arange(tl, device=x.device).repeat(k)  # (kTl,)
+    # the groups fold into M: group g's row of expert e is g * cap + its
+    # position there, so each expert contracts (G * cap, D) in one grouped op
     gidx = torch.arange(groups, device=x.device)[:, None]
-    buf = torch.zeros((groups, e, cap + 1, d), dtype=x.dtype, device=x.device)
-    buf[gidx, e_flat, slot] = xg[:, tok]
-    expert_in = constrain(buf[:, :, :cap], "batch", "experts", None, None)
-
-    # fold the group dim into M: (E, G * cap, D), one grouped op per projection
-    e_in = expert_in.transpose(0, 1).reshape(e, groups * cap, d)
-    out = _experts(p, e_in, cfg, div)  # (E, G * cap, D)
-    out_e = out.reshape(e, groups, cap, d).transpose(0, 1)
-    out_e = constrain(out_e, "batch", "experts", None, None)
-
-    gathered = out_e[gidx, e_flat, torch.clamp_max(slot, cap - 1)]  # (G, kTl, D)
-    w = (gates.transpose(1, 2).reshape(groups, tl * k) * keep).to(torch.float32)
-    combined = (gathered.to(torch.float32) * w[..., None]).reshape(groups, k, tl, d).sum(dim=1)
+    slot = torch.where(keep, gidx * cap + pos, groups * cap)
+    tok = gidx * tl + torch.arange(tl, device=x.device).repeat(k)  # (G, kTl)
+    xf = xg.reshape(t, d)
+    src = sum_grad(xf, "model") if split else xf
+    gathered, mine = _expert_dispatch(w, src, tok.reshape(-1), e_flat.reshape(-1),
+                                      slot.reshape(-1), groups * cap, e_loc, j, cfg, dg)
+    gates = sum_grad(gates, "model") if split else gates
+    wts = (gates.transpose(1, 2).reshape(groups, tl * k) * keep
+           * mine.reshape(groups, tl * k)).to(torch.float32)
+    gathered = gathered.reshape(groups, tl * k, d)
+    combined = (gathered.to(torch.float32) * wts[..., None]).reshape(groups, k, tl, d).sum(dim=1)
+    if split:
+        combined = all_reduce(combined, "model")
 
     frac = onehot.reshape(groups, k, tl, e).sum(dim=1).to(torch.float32).mean(dim=(0, 1))
     aux = cfg.router_aux_coef * e * torch.sum(frac * probs.mean(dim=(0, 1)))
@@ -704,19 +827,9 @@ def moe_apply_shard_map(
             f"moe_impl={cfg.moe_impl!r} over a {ranks}-rank mesh runs on the multi-rank slice's "
             "ranks (make_host_mesh under torch.distributed); a device-free mesh has none"
         )
-    specs = moe_specs(cfg)
-    w = {}
-    parts = {}
-    for key in specs:
-        w[key], parts[key] = _ranked_weight(p, key, specs[key], plan)
-    mp = plan.mesh.shape.get("model", 1)
+    w, e_loc, j, _, _ = _moe_weights(p, cfg, plan, div)
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
-    split = _on_model(parts["w_in"], 0)
-    if mp > 1 and not split:
-        raise NotImplementedError(f"{e} experts do not split over a model axis of {mp}")
-    e_loc = e // mp
-    j = plan.mesh.coords.get("model", 0) if split else 0
 
     t = b * s
     xf = x.reshape(t, d)
@@ -732,19 +845,12 @@ def moe_apply_shard_map(
     keep = pos < cap
     slot = pos.clamp_max(cap)
 
-    # dispatch only into this rank's experts: local ids [0, e_loc)
-    e_local = e_flat - j * e_loc
-    in_range = (e_local >= 0) & (e_local < e_loc)
-    e_clamped = e_local.clamp(0, e_loc - 1)
-    slot_masked = torch.where(in_range, slot, cap)  # other ranks' -> trash
+    # dispatch only into this rank's experts; the body's shapes are already
+    # shard-local: unit divisors, G = e_loc
     tok = torch.arange(t, device=x.device).repeat_interleave(k)
-    buf = torch.zeros((e_loc, cap + 1, d), dtype=x.dtype, device=x.device)
-    buf = buf.index_put((e_clamped, slot_masked), sum_grad(xf, "model")[tok])
-
-    # the body's shapes are already shard-local: unit divisors, G = e_loc
-    out_e = _experts(w, buf[:, :cap], cfg, {}, g_divisor=1)  # (e_loc, cap, D)
-    gathered = out_e[e_clamped, torch.clamp_max(slot_masked, cap - 1)]
-    wts = (sum_grad(gates, "model").reshape(t * k) * keep * in_range).to(torch.float32)
+    gathered, mine = _expert_dispatch(w, sum_grad(xf, "model"), tok, e_flat, slot, cap, e_loc,
+                                      j, cfg, 1)
+    wts = (sum_grad(gates, "model").reshape(t * k) * keep * mine).to(torch.float32)
     combined = (gathered.to(torch.float32) * wts[:, None]).reshape(t, k, d).sum(dim=1)
     if cfg.moe_impl == "shard_map_bf16" and "model" in plan.mesh.axis_names:
         # the bf16 combine: repro sums the ranks' partials in bf16

@@ -39,6 +39,14 @@ vocab-parallel (each rank looks up the rows of its vocabulary range, then
 an all-reduce over ``model``) and so is the head, whose logits are
 all-gathered over ``model`` for sampling and the loss. Batch rows split
 over the data axes; ``loss_fn`` then divides by the global token count.
+``forward`` and ``loss_fn`` take this rank's rows; the serving calls
+(``prefill``, ``prefill_chunk``, ``decode_step``) take the whole batch
+and a cache of this rank's rows, run this rank's rows where the data axes
+divide the batch and gather the logits over them, so every rank samples
+the same tokens; where they do not, every rank runs every row (``repro``'s
+demotion, :func:`~repro_torch.dist.sharding.whole_rows`).
+``quantize_weights`` quantizes the shards as ``repro`` quantizes the whole
+leaves.
 
 Training: ``loss_fn`` is ``repro``'s loss; under grad (a parameter that
 requires it) ``forward`` recomputes each layer in the backward when
@@ -58,7 +66,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.gemm import as_dtype, current_context, gemm, installed_context
 from repro_torch.core.quant import QuantizedTensor, quantize_lm_params
-from repro_torch.dist.collectives import all_gather, all_reduce, all_reduce_axes, sum_grad
+from repro_torch.dist.collectives import (
+    all_gather,
+    all_gather_rows,
+    all_reduce,
+    all_reduce_axes,
+    sum_grad,
+)
 from repro_torch.dist.sharding import (
     ArraySpec,
     axes_of,
@@ -68,8 +82,11 @@ from repro_torch.dist.sharding import (
     init_leaf,
     local_specs,
     ranked_plan,
+    row_axes,
+    rows_of,
     shard_leaf,
     use_plan,
+    whole_rows,
 )
 from repro_torch.models import layers as L
 from repro_torch.models import ssd
@@ -237,9 +254,14 @@ class LM:
         precision. ``bits`` picks the rung (8, or 4 packed two nibbles per
         byte along K); ``act_bits=8`` also quantizes the activations per row
         at dispatch. Stacked leaves are quantized one layer at a time.
+        Under a ranked plan ``params`` are this rank's shards, and every
+        rank calls this together: a leaf whose K the plan splits takes each
+        column's amax over the whole K (module doc of ``core/quant.py``).
         Returns (quantized tree, leaves converted, float leaves skipped under
         quantizable keys)."""
-        return quantize_lm_params(params, bits=bits, act_bits=act_bits)
+        plan = ranked_plan()
+        return quantize_lm_params(params, bits=bits, act_bits=act_bits, plan=plan,
+                                  specs=None if plan is None else self.param_specs())
 
     @property
     def _has_ssm(self) -> bool:
@@ -652,13 +674,22 @@ class LM:
         build the uniform decode cache (also under ``window_cache``:
         ``windowed_cache_from_uniform`` makes the windowed one from it); an
         SSM layer hands its final state and conv tail over. Returns
-        (last-position logits (B, 1, V), cache)."""
-        cfg = self.cfg
+        (last-position logits (B, 1, V), cache). Across ranks: the cache of
+        this rank's rows, the logits of all (module doc)."""
         div = div or {}
+        if patch_embeds is None:
+            return self._by_rows(lambda t: self._prefill(params, t, max_seq, div, None), tokens)
+        return self._by_rows(lambda t, pe: self._prefill(params, t, max_seq, div, pe), tokens,
+                             patch_embeds)
+
+    def _prefill(self, params, tokens, max_seq, div, patch_embeds):
+        cfg = self.cfg
         b, s = tokens.shape
         x = self._embed(params, tokens, patch_embeds)
         positions = torch.arange(s, device=tokens.device)
-        cache = _zeros(local_specs(self._uniform_cache_specs(b, max_seq or s)), tokens.device)
+        # the cache of these rows: specs at the batch they are this rank's part of
+        cache = _zeros(local_specs(self._uniform_cache_specs(b * self._row_split(), max_seq or s)),
+                       tokens.device)
         for i, window in enumerate(self._windows()):
             x, fresh, _ = self._block(params, i, x, div=div, positions=positions, window=window)
             for key, leaf in fresh.get("ssm", {}).items():
@@ -694,19 +725,51 @@ class LM:
             raise ValueError("prefill_chunk requires the uniform decode cache; ring caches "
                              "drop positions later chunks must attend over")
         div = div or {}
-        x = self._cached_layers(params, cache, tokens, cur_pos, div)
-        return self._head(params, x[:, -1:], div), cache
+
+        def chunk(t, p):
+            x = self._cached_layers(params, cache, t, p, div)
+            return self._head(params, x[:, -1:], div), cache
+
+        return self._by_rows(chunk, tokens, cur_pos)
 
     def decode_step(self, params: Params, cache, tokens: torch.Tensor, cur_pos: torch.Tensor,
                     *, div: Optional[Dict[str, int]] = None):
         """One decode step: ``tokens`` (B, 1) at ``cur_pos`` (B,). The cache
         is updated in place and returned (a windowed cache through
-        :meth:`decode_step_windowed`). Returns (logits (B, 1, V), cache)."""
+        :meth:`decode_step_windowed`). Returns (logits (B, 1, V), cache).
+        Across ranks: ``cache`` of this rank's rows, the logits of all
+        (module doc)."""
         div = div or {}
-        if self._ring_cache:
-            return self.decode_step_windowed(params, cache, tokens, cur_pos, div=div)
-        x = self._cached_layers(params, cache, tokens, cur_pos, div)
-        return self._head(params, x, div), cache
+
+        def step(t, p):
+            if self._ring_cache:
+                return self.decode_step_windowed(params, cache, t, p, div=div)
+            return self._head(params, self._cached_layers(params, cache, t, p, div), div), cache
+
+        return self._by_rows(step, tokens, cur_pos)
+
+    def _row_split(self) -> int:
+        """How many ranks the current call's rows split over (1 without a
+        ranked plan, or under ``whole_rows``)."""
+        plan = ranked_plan()
+        return 1 if plan is None else math.prod(plan.mesh.shape[a] for a in row_axes(plan))
+
+    def _by_rows(self, run, tokens, *cols):
+        """``run(tokens, *cols)`` -> (logits, cache) on the rows this rank
+        serves (module doc): under a ranked plan whose batch axes divide the
+        batch, this rank's rows of ``tokens`` and of each per-row ``cols``,
+        then the logits gathered over the batch axes; where they do not
+        divide it, every row under ``whole_rows``."""
+        plan = ranked_plan()
+        axes = () if plan is None else batch_axes(plan)
+        if not axes:
+            return run(tokens, *cols)
+        rows = rows_of(plan, tokens.shape[0])
+        if rows is None:
+            with whole_rows():
+                return run(tokens, *cols)
+        logits, cache = run(tokens[rows], *(c[rows] for c in cols))
+        return all_gather_rows(logits, axes), cache
 
     def _cached_layers(self, params, cache, tokens, cur_pos, div):
         """The layer stack over ``tokens`` (B, S) at ``cur_pos .. cur_pos +

@@ -19,7 +19,12 @@ what is left at its end.
 Under a ranked plan every rank runs an engine over its shards of the
 weights and caches: all ranks take the same request stream and sample the
 same tokens from the same gathered logits, so their slots stay in step.
-``decode_collectives`` counts what a rank exchanged in its decode steps.
+Where the data axes divide the slots, each rank's cache holds its own
+slots' rows (``rows_of``): every rank prefills a request, and only the
+slot's owner writes its cache rows; a decode step runs each rank's slots
+and gathers their logits. Where they do not divide, every rank holds and
+runs every slot. ``decode_collectives`` counts what a rank exchanged in
+its decode steps.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from repro_torch.core.adaptive import AdaptiveTuner
 from repro_torch.core.gemm import gemm_context
 from repro_torch.core.selector import KernelSelector, SelectorStats, default_selector
 from repro_torch.dist.collectives import CollectiveStats, record
-from repro_torch.dist.sharding import current_plan, ranked_plan
+from repro_torch.dist.sharding import batch_axes, current_plan, ranked_plan, rows_of
 from repro_torch.models.lm import resolve_device
 
 log = logging.getLogger("repro_torch.serve")
@@ -53,8 +58,14 @@ def serve_gemm_div(model, batch: Optional[int] = None) -> Dict[str, int]:
     divide. So dispatch fingerprints never claim a local shape the arrays
     do not run at (``repro.serve.engine.serve_gemm_div``)."""
     plan = current_plan()
-    if plan is None or ranked_plan(plan) is not None:
-        # a ranked plan's tensors are already local: unit divisors
+    if plan is None:
+        return {}
+    if ranked_plan(plan) is not None:
+        # a ranked plan's tensors are already local: unit divisors; a decode
+        # width the data axes do not divide runs whole on every rank
+        if batch is not None and batch_axes(plan) and rows_of(plan, batch) is None:
+            log.warning("decode width %d does not split over the data axes %s: every rank "
+                        "runs every row", batch, batch_axes(plan))
         return {}
     div = dict(plan.gemm_div())
     tp = div.get("model", 1)
@@ -320,6 +331,9 @@ class ServeEngine(EngineCore):
             adapt_every=adapt_every,
         )
         self.cfg = cfg
+        plan = ranked_plan()
+        #: the slots whose cache rows this rank holds (module doc); None: all
+        self.own_slots = None if plan is None else rows_of(plan, cfg.n_slots)
         self.cache = model.init_cache(cfg.n_slots, cfg.max_seq, device=self.device)
         self.pos = np.zeros((cfg.n_slots,), np.int64)  # next write position
         self.slot_req: List[Optional[Request]] = [None] * cfg.n_slots
@@ -363,7 +377,11 @@ class ServeEngine(EngineCore):
             logits, cache1 = self.model.prefill(
                 self.params, tokens, max_seq=self.cfg.max_seq, div=self.div
             )
-        _place(self.cache, cache1, slot)
+        own = self.own_slots
+        if own is None:
+            _place(self.cache, cache1, slot)
+        elif own.start <= slot < own.stop:
+            _place(self.cache, cache1, slot - own.start)
         self.pos[slot] = len(req.prompt)
         self.slot_req[slot] = req
         tok = self._sample(logits[0, -1].float().cpu().numpy(), req.temperature)

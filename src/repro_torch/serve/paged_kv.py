@@ -30,6 +30,11 @@ rows point at it, so every gather and scatter is one indexed copy. Several
 padded rows write the same scratch row, and an indexed write with duplicate
 indices picks an arbitrary writer on the card; that is harmless because no
 real row ever maps to the scratch page, which the engine asserts.
+
+Across ranks the pool holds this rank's kv heads (the model axis splits
+them as it splits the dense cache's). A plan with data axes is refused:
+the pool's batch axis is its pages, so splitting it over them would split
+the pool, not the sequences.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import batch_axes, ranked_plan
 from repro_torch.models.lm import resolve_device
 
 
@@ -112,6 +118,12 @@ class PagedKVCache:
         self.n_pages = int(n_pages)
         self.scratch = self.n_pages  # reserved page id for padded rows
         paged_cache_specs(model, page_size)
+        plan = ranked_plan()
+        if plan is not None and batch_axes(plan):
+            raise NotImplementedError(
+                f"the paged engine across ranks splits the model axis only, not the data axes "
+                f"{batch_axes(plan)} of mesh {plan.mesh.shape}: the pool's batch axis is its "
+                "pages, so a data split would split the pool")
         self.device = resolve_device(device)
         # (L, n_pages + 1, page_size, ...): the cache layout at batch n_pages + 1
         self.pool = model.init_cache(self.n_pages + 1, self.page_size, device=self.device)

@@ -116,6 +116,35 @@ def test_ranked_entry_points_refuse_to_fall_back_to_cpu(no_cuda):
             ServeEngine(model, params, ServeConfig(n_slots=1, max_seq=8))
 
 
+def test_quantized_and_data_axis_entry_points_refuse_to_fall_back_to_cpu(no_cuda):
+    """On a data axis, with quantized weights and on the paged engine too:
+    nothing lands on the CPU unless the caller asks for it."""
+    from repro_torch.dist.sharding import ShardingPlan, use_plan
+    from repro_torch.launch import serve as t_serve
+    from repro_torch.launch.mesh import virtual_mesh
+    from repro_torch.serve import PagedServeConfig, PagedServeEngine
+
+    model = LM(get_reduced("granite-8b"))
+    with use_plan(ShardingPlan(virtual_mesh((2, 1)))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            model.init_params()
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            model.init_cache(4, 8)
+        assert tuple(model.init_cache(4, 8, device="cpu")["attn"]["k"].shape[1:3]) == (2, 8)
+    with use_plan(ShardingPlan(virtual_mesh((1, 2)))):
+        shards = model.init_params(device="cpu")
+    for bits, act_bits in ((8, None), (8, 8), (4, None)):
+        params = model.quantize_weights(shards, bits=bits, act_bits=act_bits)[0]
+        with use_plan(ShardingPlan(virtual_mesh((1, 2)))):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                ServeEngine(model, params, ServeConfig(n_slots=2, max_seq=8))
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                PagedServeEngine(model, params, PagedServeConfig(page_size=4, max_pages=4))
+    for rung in ("int8", "int8-dynamic", "int4"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            t_serve.main(["--arch", "granite-8b", "--quantize", rung])
+
+
 def test_kernel_build_needs_nvcc_and_never_runs_at_import(no_cuda, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     monkeypatch.setenv("PATH", "/nonexistent")
