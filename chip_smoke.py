@@ -184,9 +184,9 @@ Phases (any failure raises and the script exits non-zero):
    seeded prompts x 8 tokens, seeded random weights, the selector's
    cost-model path), one model on the card at a time, each freed before
    the next: nemotron-4-15b at full width (32 layers, squared-ReLU MLP on
-   the ``square`` epilogue), gemma3-27b at full width (62 layers, 5:1
-   local:global windows of 1024, the tied head, d_head 168), and
-   mistral-large-123b and qwen3-moe-235b-a22b at full width cut to 2
+   the ``square`` epilogue), gemma3-27b at full width cut to 30 of its 62
+   layers (5:1 local:global windows of 1024, the tied head, d_head 168),
+   and mistral-large-123b and qwen3-moe-235b-a22b at full width cut to 2
    layers (``ARCH_CELLS``: 245 and 463 GB of weights do not fit one card).
    Each: the instantiated parameter count equal to ``cfg.param_count()``,
    the launch checks of phase 3, greedy tokens in range, the first
@@ -206,8 +206,9 @@ Phases (any failure raises and the script exits non-zero):
    ``LOGITS_TOL`` a step, and the planted fault of every layer made global.
 7. The other families (``phase_families``), dense bf16 on the ``cuda``
    backend, seeded random weights, the selector's cost-model path, each at
-   full width and full depth, one model on the card at a time
-   (``FAMILY_CELLS``; llava-next-34b, 68.78 GB of weights, last): mamba2-1.3b
+   full width and full depth but llava-next-34b, cut to 10 of its 60 layers
+   (``FAMILY_CELLS``), one model on the card at a time (llava-next-34b
+   last): mamba2-1.3b
    (the SSD block, its tied head N = 50280), zamba2-1.2b (Mamba2 layers and
    the shared attention and MLP block at every 6th layer) and
    llava-next-34b through ``serve_run`` as in phase 6, with the planted
@@ -228,7 +229,7 @@ Phases (any failure raises and the script exits non-zero):
    against the ``torch`` backend fed the same tokens, and the planted fault
    of the patches dropped.
 8. Training (``phase_train``), one model on the card at a time: granite-8b
-   and olmoe-1b-7b at full width, their depth cut to 8 of 36 and 4 of 16
+   and olmoe-1b-7b at full width, their depth cut to 4 of 36 and 2 of 16
    layers (``TRAIN_CELLS``; their params, gradients and AdamW state, 16
    bytes a parameter, do not fit one card at full depth), dense bf16,
    seeded weights, the selector's cost-model path, ``SyntheticLMData(seed
@@ -253,8 +254,8 @@ Phases (any failure raises and the script exits non-zero):
    f32 router's pick calls for), its losses finite and falling; one more step split by CUDA events
    (forward, backward, optimizer) and traced (the GEMM kernels' device ms,
    the library GEMMs', the rest), 6NT over the step time at 989 TFLOP/s,
-   the peak memory; then ``STREAM_STEPS`` of the stream uninterrupted, and
-   the same run checkpointed every 2 steps (``CheckpointManager`` in a
+   the peak memory; then ``STREAM_STEPS`` of the stream uninterrupted, and the same run
+   checkpointed every 2 steps (``CheckpointManager`` in a
    temporary directory of the checkout) with a failure injected after step
    2, and a fresh ``Trainer`` resuming from that checkpoint: the restored
    state bit for bit the saved one, its steps 3 and 4 within
@@ -293,8 +294,8 @@ Phases (any failure raises and the script exits non-zero):
    so nothing here measures NVLink), the kernels built here first and only
    loaded by them. (a) The serve CLI under ``torch.distributed.run``,
    granite-8b at full width and depth on (1, 2) (``--mesh-model 2``, 4
-   requests x 8 tokens): exit 0, 4/4, B1 and B2 launched on each rank, a
-   decode step's collectives equal to the dry run's for the same cell, the
+   requests x 8 tokens; run beside phase 12 (a)'s CLI, ``rank_clis``): exit
+   0, 4/4, B1 and B2 launched on each rank, a decode step's collectives equal to the dry run's for the same cell, the
    decode and collective ms, the greedy tokens beside phase 9 (d)'s; then a
    run on two ranks (``chip_smoke.py --multirank DIR``) gives the gathered
    prefill and decode logits, held at ``LOGITS_TOL`` against the one-rank
@@ -303,7 +304,10 @@ Phases (any failure raises and the script exits non-zero):
    the logits against the one-rank body replaying the ranks' top-8 (5e-2),
    the router GEMM at ``ROUTER_TOL``. (c) granite-8b at full width, 1
    layer: ``Trainer.fit`` 1 step on (2, 1) (FSDP and data parallel),
-   checkpoint, 1 on (1, 2); losses at ``TRAIN_LOSS_TOL`` and the first
+   checkpoint, 1 on (1, 2), on two ranks of their own started before phase 6
+   (``chip_smoke.py --background-ranks DIR``, ``start_background_ranks``,
+   then phase 11's and 12's rank parts), which run beside phases 6-9;
+   losses at ``TRAIN_LOSS_TOL`` and the first
    step's gathered gradients at ``TRAIN_GRAD_TOL`` against the one-rank
    ``torch`` backend. (d) ``device_bloom`` on 2**20 keys against phase 4's
    sieve filters, bit for bit the CPU's, and its ms. Planted faults: rank
@@ -313,26 +317,43 @@ Phases (any failure raises and the script exits non-zero):
    first differ, the one-rank top-2 logit margin beside the two-rank
    logits' reading on the same tokens (``w1_readings``).
 11. The serve CLI's configurations under a plan, on the same two ranks
-   (their parts at the end of phase 10's rank program, ``mr11_*``): (a)
+   (their parts, ``mr11_*``, in the ranks started before phase 6): (a)
    granite-8b ``--quantize`` int8-dynamic and int4 on (1, 2) through the CLI
    at full depth (exit 0, 4/4, B1 and B2 on the rung on each rank, a decode
    step's collectives: the float dry run's, plus on int8-dynamic one MAX
-   all-reduce a row-parallel dispatch), and a driver at 8 layers: each
+   all-reduce a row-parallel dispatch), and a driver at 4 layers: each
    rank's codes and scales the one-rank quantization's shards (digests),
    the gathered logits at ``QUANT_LOGITS_TOL`` against the one-rank
    ``torch`` backend on the same quantized weights; (b) olmoe-1b-7b on its
    default ``moe_impl="global"``, dense and int8, B5 at G = 32 a rank: the
    dense logits replaying the ranks' top-8 (5e-2), int8's own routing on
    the first prompt at its rung's limit, the router at ``ROUTER_TOL``, the
-   routing flips; (c) granite-8b at 4 layers on (2, 1), 2 of 4 slots a
+   routing flips; (c) granite-8b at 2 layers on (2, 1), 2 of 4 slots a
    rank: logits (3e-2), decode keys equal to the one-rank plan's at M = 2,
    greedy tokens equal to a one-rank engine's, a decode step's collectives
-   equal to the dry run's; (d) granite-8b at 8 layers ``--paged`` on
+   equal to the dry run's; (d) granite-8b at 4 layers ``--paged`` on
    (1, 2): tokens equal to a one-rank paged engine's, every decode step's
    logits (3e-2) against a one-rank run fed the ranks' tokens, the gather's
    device ms by rank. Planted faults: int8-dynamic's MAX all-reduce zeroed,
    int4's amax over half of K (its codes must differ), rank 1's MoE combine
    partials zeroed, a missing or extra collective in the counts.
+12. The SSM, hybrid, VLM and encoder-decoder families across the same two
+   ranks (their parts, ``mr12_*``, in the ranks started before phase 6),
+   at full width: (a) mamba2-1.3b through the serve CLI on (1, 2) at full
+   depth (exit 0, 4/4, B1 or B2 on each rank, a decode step's collectives
+   equal to the dry run's) beside the one-rank CLI's greedy tokens; (b)
+   mamba2-1.3b and zamba2-1.2b at full depth, llava-next-34b cut to 8 of 60
+   layers with two image requests (576 patches each), whisper-large-v3 at
+   full depth with two 1500-frame requests: a prefill and a decode step on
+   (1, 2) against this process's one-rank ``cuda`` run on the same weights
+   at ``LOGITS_TOL`` (the SSM and the hybrid layer by layer, each layer fed
+   the ranks' input, the decode step also from the ranks' prefill cache,
+   its shards joined; their end-to-end readings reported), each rank's B1
+   and B2 launches, a decode step's collectives equal to the dry run's op
+   by op, a warm step's split. Planted faults: rank 1's conv shard shifted
+   by one channel (the SSM and the hybrid, in the prefill and, apart, in
+   the decode step), rank 1's partial of an all-reduce zeroed (llava,
+   whisper), an extra collective in the counts.
 
 Tolerances: a kernel output ``x`` agrees with its reference ``r`` when
 ``max|x - r| <= tol * max(1, max|r|)``: 1e-4 for f32 inputs (f32 sums in
@@ -372,7 +393,8 @@ kernel entry of the served runs also carries ``train_launches``: its
 launches in phase 8's ``Trainer.fit``, by trained model, and phase 9's
 ``shard_gemm_launches`` (the per-shard GEMMs) and ``moe_variant_launches``
 (olmoe on each MoE variant), and phase 10's ``multirank_launches`` (each
-rank's counters, by run; phase 10's record is under ``multirank``).
+rank's counters, by run; phase 10's record is under ``multirank``, phase
+11's under ``serve_ranks``, phase 12's under ``families_ranks``).
 """
 
 from __future__ import annotations
@@ -2436,7 +2458,7 @@ def layer_trace(enabled=True, replay=None):
         LM._block = block
 
 
-def layer_replayed_diff(prefill, trace, got):
+def layer_replayed_diff(prefill, trace, got, backend="torch"):
     """The reading an SSM or hybrid stack holds its limit on: ``prefill``
     runs on the ``torch`` backend with each layer fed the input it had in
     ``trace``, the run that gave the logits ``got``. Returns each layer's
@@ -2445,10 +2467,12 @@ def layer_replayed_diff(prefill, trace, got):
     the layers after it give it. Such a stack amplifies a layer's rounding
     about 5-7 times more than a dense stack of its depth (PERF.md §7), so
     the reading with each backend on its own input measures the stack and
-    not the kernels; a fault in any layer still reads in full."""
+    not the kernels; a fault in any layer still reads in full. ``backend``:
+    the replay's (phase 12 replays the one-rank ``cuda`` run against the
+    ranks')."""
     from repro_torch.core.gemm import gemm_context
 
-    with layer_trace(replay=trace) as mine, gemm_context(backend="torch"):
+    with layer_trace(replay=trace) as mine, gemm_context(backend=backend):
         want = prefill().float()
     rel = [((a[1].float() - b[1].float()).abs().max() / b[1].float().abs().max()).item()
            for a, b in zip(trace, mine)]
@@ -3148,7 +3172,9 @@ def phase_paged(granite, failures):
 
 #: phase 6's cells: (arch, layers). The two that fit the card serve every layer; mistral
 #: (245 GB of bf16 weights) and qwen3-moe (463 GB) keep their full widths and two layers
-ARCH_CELLS = (("nemotron-4-15b", None), ("gemma3-27b", None), ("mistral-large-123b", 2),
+#: (arch, layers; None: full depth): gemma3-27b cut from 62 to 30 layers (five of its
+#: local:global groups) in PR 32 to make room for phase 12 in the time limit
+ARCH_CELLS = (("nemotron-4-15b", None), ("gemma3-27b", 30), ("mistral-large-123b", 2),
               ("qwen3-moe-235b-a22b", 2))
 #: gemma3's long request: a prompt past its 1024-row window, and the cache length it serves
 #: in; the ring path decodes ``LONG_NEW`` tokens
@@ -3156,10 +3182,10 @@ LONG_PROMPT, LONG_MAX_SEQ, LONG_NEW = 1100, 1152, 8
 
 
 def phase_archs(failures):
-    """Phase 6: serve nemotron-4-15b and gemma3-27b at full width, then
-    mistral-large-123b and qwen3-moe-235b-a22b at full width cut to
-    ``ARCH_CELLS``' layers, one model on the card at a time (see the module
-    docstring). Returns each model's record by arch."""
+    """Phase 6: serve nemotron-4-15b, gemma3-27b, mistral-large-123b and
+    qwen3-moe-235b-a22b at full width, the last three cut to ``ARCH_CELLS``'
+    layers, one model on the card at a time (see the module docstring).
+    Returns each model's record by arch."""
     import dataclasses
 
     import torch
@@ -3362,9 +3388,11 @@ def long_request_check(model, params, failures):
 # Phase 7: the SSM, hybrid, encoder-decoder and VLM families at full width
 # ---------------------------------------------------------------------------
 
-#: phase 7's cells, each at full width and full depth, one model on the card at a time;
-#: llava-next-34b (68.78 GB of bf16 weights) last, when every other model has been freed
-FAMILY_CELLS = ("mamba2-1.3b", "zamba2-1.2b", "whisper-large-v3", "llava-next-34b")
+#: phase 7's cells at full width, one model on the card at a time: (arch, layers; None:
+#: full depth). llava-next-34b last, when every other model has been freed, cut to 10 of
+#: its 60 layers (cut in PR 32 to make room for phase 12 in the time limit)
+FAMILY_CELLS = (("mamba2-1.3b", None), ("zamba2-1.2b", None), ("whisper-large-v3", None),
+                ("llava-next-34b", 10))
 #: mamba2's slot reuse: this many requests through ``N_SLOTS`` slots
 REUSE_REQUESTS = 8
 #: llava's image request: its cache length and decode steps
@@ -3375,8 +3403,11 @@ WHISPER_REQUESTS, WHISPER_PROMPT, WHISPER_STEPS = 4, 8, 8
 
 def phase_families(failures):
     """Phase 7: serve mamba2-1.3b, zamba2-1.2b, whisper-large-v3 and
-    llava-next-34b at full width and full depth, one model on the card at a
-    time (see the module docstring). Returns each model's record by arch."""
+    llava-next-34b at full width, at the depth of ``FAMILY_CELLS``, one
+    model on the card at a time (see the module docstring). Returns each
+    model's record by arch."""
+    import dataclasses
+
     import torch
 
     from repro_torch.configs import get_config
@@ -3384,9 +3415,11 @@ def phase_families(failures):
 
     t_phase = time.perf_counter()
     out = {}
-    for arch in FAMILY_CELLS:
+    for arch, layers in FAMILY_CELLS:
         t0 = time.perf_counter()
         cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
         torch.cuda.reset_peak_memory_stats()
         model = build_model(cfg)
         params = model.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
@@ -3677,7 +3710,8 @@ def whisper_run(model, params, failures):
 # ---------------------------------------------------------------------------
 
 #: the trained cells: (arch, layers kept of the full depth), full width
-TRAIN_CELLS = (("granite-8b", 8), ("olmoe-1b-7b", 4))
+#: (arch, layers): cut from 8 and 4 in PR 32 to make room for phase 12 in the time limit
+TRAIN_CELLS = (("granite-8b", 4), ("olmoe-1b-7b", 2))
 TRAIN_SEQ = 4096  # repro's train_4k sequence, one row (its global batch 256 cut to 1)
 TRAIN_STEPS = 6  # Trainer.fit on one repeated batch
 STREAM_STEPS = 4  # Trainer.fit on the stream, checkpointed every 2 steps
@@ -4989,7 +5023,7 @@ MR_RANKS = 2
 #: layers and 2 + 2 steps to make room for phase 11 in the time limit)
 MR_TRAIN_LAYERS, MR_TRAIN_ROWS, MR_TRAIN_SEQ, MR_TRAIN_STEPS = 1, 2, 1024, 1
 MR_GROUP_TIMEOUT_S = 600
-MR_CLI_TIMEOUT_S, MR_RANKS_TIMEOUT_S = 300, 600
+MR_CLI_TIMEOUT_S, MR_RANKS_TIMEOUT_S = 300, 900
 BLOOM_KEYS = 2**20
 #: copies of each winner's (M, N, K) among phase 10 (d)'s keys
 BLOOM_COPIES = 4
@@ -5005,31 +5039,81 @@ def _torchrun(args, timeout):
     return _torchrun_all([args], timeout)[0]
 
 
-def _torchrun_all(arg_lists, timeout):
-    """:func:`_torchrun` of each of ``arg_lists``, all started together
-    (each launcher picks its own free port) and waited for in turn, every
-    one under the same deadline."""
-    import signal
-
+def _torchrun_start(args, stdout=subprocess.PIPE, stderr=subprocess.PIPE):
+    """Start ``python -m torch.distributed.run --standalone --nproc-per-node 2``
+    with ``args`` in a process group of its own (the launcher picks its own
+    free port)."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src")] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
                                 if p]))
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen(
+    return subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
-         str(MR_RANKS), *args], env=env, cwd=ROOT, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True, start_new_session=True) for args in arg_lists]
+         str(MR_RANKS), *args], env=env, cwd=ROOT, stdout=stdout, stderr=stderr, text=True,
+        start_new_session=True)
+
+
+def _torchrun_wait(proc, deadline):
+    """Wait for a :func:`_torchrun_start` launcher until ``deadline``
+    (``time.perf_counter``), its whole process group killed past it: (exit
+    code or "timeout", stdout, stderr)."""
+    import signal
+
+    try:
+        stdout, stderr = proc.communicate(timeout=max(1.0, deadline - time.perf_counter()))
+        rc = proc.returncode
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        stdout, stderr = proc.communicate()
+        rc = "timeout"
+    return rc, stdout, stderr
+
+
+def _torchrun_all(arg_lists, timeout):
+    """:func:`_torchrun` of each of ``arg_lists``, all started together and
+    waited for in turn, every one under the same deadline."""
+    t0 = time.perf_counter()
+    procs = [_torchrun_start(args) for args in arg_lists]
     out = []
     for proc in procs:
-        try:
-            stdout, stderr = proc.communicate(timeout=max(1.0, t0 + timeout - time.perf_counter()))
-            rc = proc.returncode
-        except subprocess.TimeoutExpired:
-            os.killpg(proc.pid, signal.SIGKILL)
-            stdout, stderr = proc.communicate()
-            rc = "timeout"
+        rc, stdout, stderr = _torchrun_wait(proc, t0 + timeout)
         out.append((rc, time.perf_counter() - t0, stdout, stderr))
     return out
+
+
+def start_background_ranks():
+    """The rank parts that need nothing from this process (``chip_smoke.py
+    --background-ranks DIR``, ``background_ranks_main``: phase 10 (c), then phase 11's
+    and phase 12's), started on two ranks of their own before phase 6: they run beside
+    phases 6-9, which leave most of the card and the host's cores free (phase 10 (c) is
+    mostly checkpoint I/O and gloo traffic through host memory; at most about 22 GB on the
+    card, beside phase 6's 44). Its output goes to a file
+    in its directory (a pipe nobody reads would stall it). Returns the job: its launcher,
+    its directory, its start."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(dir=ROOT, prefix=".multirank_bg_")
+    with open(os.path.join(tmp, "log.txt"), "w") as f:
+        proc = _torchrun_start([str(ROOT / "chip_smoke.py"), "--background-ranks", tmp],
+                               stdout=f, stderr=subprocess.STDOUT)
+    return dict(proc=proc, dir=tmp, t0=time.perf_counter())
+
+
+def finish_background_ranks(job):
+    """Wait for :func:`start_background_ranks`' job (``MR_RANKS_TIMEOUT_S`` from its
+    start) and remove its directory: (exit code or "timeout", seconds, each rank's output
+    or None, the end of its log)."""
+    import shutil
+
+    import torch
+
+    rc, _, _ = _torchrun_wait(job["proc"], job["t0"] + MR_RANKS_TIMEOUT_S)
+    seconds = time.perf_counter() - job["t0"]
+    paths = [os.path.join(job["dir"], f"bg{r}.pt") for r in range(MR_RANKS)]
+    outs = [torch.load(p) if os.path.exists(p) else None for p in paths]
+    with open(os.path.join(job["dir"], "log.txt")) as f:
+        tail = f.read()[-4000:]
+    shutil.rmtree(job["dir"], ignore_errors=True)
+    return rc, seconds, outs, tail
 
 
 @contextmanager
@@ -5288,11 +5372,9 @@ def mr_train(rank, workdir):
     return out
 
 
-def multirank_main(workdir) -> int:
-    """One rank of phase 10's rank program (started by ``torch.distributed.run``
-    from ``phase_multirank``): (a), (b) and (c) in turn on the ranks, then
-    phase 11's rank parts; each rank writes what it saw to
-    ``<workdir>/rank<r>.pt``."""
+def _rank_setup():
+    """A rank's start (under ``torch.distributed.run``): its gloo group, its device, the
+    kernels the parent built loaded (never built). Returns the rank."""
     import datetime
 
     import torch
@@ -5304,27 +5386,65 @@ def multirank_main(workdir) -> int:
     dist.init_process_group("gloo", timeout=datetime.timedelta(seconds=MR_GROUP_TIMEOUT_S))
     rank = dist.get_rank()
     torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank)) % torch.cuda.device_count())
-    cuda_lib.library(build=False)  # the parent built it: load, never build
+    cuda_lib.library(build=False)
+    return rank
+
+
+def multirank_main(workdir) -> int:
+    """One rank of phase 10's rank program (started by ``torch.distributed.run``
+    from ``phase_multirank``): (a) and (b) in turn on the ranks; each rank writes
+    what it saw to ``<workdir>/rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    rank = _rank_setup()
     out = {}
     t0 = time.perf_counter()
     w1 = os.path.join(workdir, "w1.pt")
     out["granite"] = mr_granite(rank, torch.load(w1) if os.path.exists(w1) else None)
     gc.collect()
     torch.cuda.empty_cache()
+    t1 = time.perf_counter()
     out["olmoe"] = mr_olmoe(rank)
-    gc.collect()
-    torch.cuda.empty_cache()
-    out["train"] = mr_train(rank, workdir)
     out["seconds"] = time.perf_counter() - t0
-    # phase 11's rank parts, in the same process group
+    out["part_seconds"] = dict(granite=t1 - t0, olmoe=time.perf_counter() - t1)
+    log(f"phase 10 rank {rank}: {out['part_seconds']}")
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def background_ranks_main(workdir) -> int:
+    """One rank of the rank parts started ahead (:func:`start_background_ranks`):
+    phase 10 (c), then phase 11's and phase 12's rank parts, in one process group; each
+    rank writes what it saw to ``<workdir>/bg<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    rank = _rank_setup()
+    t0 = time.perf_counter()
+    out = {"train": mr_train(rank, workdir)}
+    out["part_seconds"] = dict(train=time.perf_counter() - t0)
+    log(f"phase 10 (c) rank {rank}: {out['part_seconds']['train']:.1f}s")
+    # phase 11's rank parts
     t0 = time.perf_counter()
     for name, part in (("quant", mr11_quant), ("olmoe", mr11_olmoe), ("data", mr11_data),
                        ("paged", mr11_paged)):
         gc.collect()
         torch.cuda.empty_cache()
+        t1 = time.perf_counter()
         out[f"serve11_{name}"] = part(rank)
+        out["part_seconds"][f"serve11_{name}"] = time.perf_counter() - t1
     out["serve11_seconds"] = time.perf_counter() - t0
-    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    # phase 12's rank parts, in the same process group
+    t0 = time.perf_counter()
+    for arch, layers in MR12_CELLS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[f"fam12_{arch}"] = mr12_family(rank, arch, layers)
+    out["fam12_seconds"] = time.perf_counter() - t0
+    torch.save(out, os.path.join(workdir, f"bg{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()
     return 0
@@ -5343,25 +5463,16 @@ def _planted(reading, limit, what, failures):
     return reading
 
 
-def phase_multirank_cli(cli_tokens, failures):
+def phase_multirank_cli(run, cli_tokens, failures):
     """Phase 10 (a), first half: the serve CLI under ``torch.distributed.run``
-    on 2 ranks (``--mesh-model 2``), granite-8b at full width and depth, 4
-    requests x 8 tokens: exit 0, 4/4 requests, B1 and B2 launched on each
-    rank, a decode step's collectives equal to the dry run's for the same
-    cell (a planted extra all-reduce must read as a disagreement), the
-    greedy tokens beside phase 9 (d)'s one-rank run."""
-    import tempfile
-
+    on 2 ranks (``--mesh-model 2``; run by ``rank_clis``), granite-8b at full
+    width and depth, 4 requests x 8 tokens: exit 0, 4/4 requests, B1 and B2
+    launched on each rank, a decode step's collectives equal to the dry run's
+    for the same cell (a planted extra all-reduce must read as a
+    disagreement), the greedy tokens beside phase 9 (d)'s one-rank run."""
     from repro_torch.launch import dryrun
 
-    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
-        path = os.path.join(tmp, "summary.json")
-        rc, seconds, out, err = _torchrun(
-            ["-m", "repro_torch.launch.serve", "--arch", "granite-8b", "--preset", "full",
-             "--requests", "4", "--slots", str(N_SLOTS), "--max-seq", str(MAX_SEQ),
-             "--max-new-tokens", "8", "--mesh-model", str(MR_RANKS), "--summary-json", path],
-            MR_CLI_TIMEOUT_S)
-        summary = json.load(open(path)) if os.path.exists(path) else None
+    rc, seconds, err, summary = run
     if rc != 0 or summary is None:
         failures.append(f"phase 10 (a) serve CLI on {MR_RANKS} ranks: exit {rc}; stderr "
                         f"{err[-3000:]}")
@@ -5401,12 +5512,13 @@ def phase_multirank_cli(cli_tokens, failures):
                 mesh=summary["mesh"], prompts=summary["workers"][0]["prompts"])
 
 
-def phase_multirank_ranks(failures, w1=None):
+def phase_multirank_ranks(failures, bg_job, w1=None):
     """Phase 10 (a) second half, (b) and (c): the rank program
-    (``multirank_main``), then this process's one-rank references on the
-    same weights; with ``w1`` (``w1_prefix``), W1's readings at the first
+    (``multirank_main``) and ``bg_job``'s outputs ((c), phases 11's and 12's
+    rank parts), then this process's one-rank references on the same
+    weights; with ``w1`` (``w1_prefix``), W1's readings at the first
     position where the CLI's greedy tokens on two ranks and on one differ.
-    Returns (the phase's record, each rank's output)."""
+    Returns (the phase's record, each rank's output of both programs)."""
     import dataclasses
     import tempfile
 
@@ -5425,12 +5537,20 @@ def phase_multirank_ranks(failures, w1=None):
                                           MR_RANKS_TIMEOUT_S)
         ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) if os.path.exists(
             os.path.join(tmp, f"rank{r}.pt")) else None for r in range(MR_RANKS)]
+    bg_rc, bg_seconds, bgs, bg_log = finish_background_ranks(bg_job)
+    if bg_rc != 0 or None in bgs:
+        failures.append(f"phases 10 (c), 11 and 12 on {MR_RANKS} ranks: exit {bg_rc}; log "
+                        f"{bg_log[-3000:]}")
+        log(f"phases 10 (c), 11 and 12 on the ranks: exit {bg_rc}\n{bg_log}")
     if rc != 0 or None in ranks:
         failures.append(f"phase 10 rank program on {MR_RANKS} ranks: exit {rc}; stderr "
                         f"{err[-3000:]}")
         log(f"phase 10 rank program: exit {rc}\n{out[-2000:]}\n{err[-4000:]}")
         return dict(rc=rc, seconds=seconds), None
-    rec = dict(rc=rc, seconds=seconds, rank_seconds=[r["seconds"] for r in ranks])
+    rec = dict(rc=rc, seconds=seconds, rank_seconds=[r["seconds"] for r in ranks],
+               part_seconds=[r["part_seconds"] for r in ranks], background_rc=bg_rc,
+               background_seconds=bg_seconds,
+               background_part_seconds=[None if b is None else b["part_seconds"] for b in bgs])
 
     # (a) granite-8b: the one-rank torch backend on the same weights and tokens
     g = ranks[0]["granite"]
@@ -5514,6 +5634,10 @@ def phase_multirank_ranks(failures, w1=None):
         f"at G {o['groups']}, launches {rec['olmoe']['launches']}")
 
     # (c) training: rank 0's readings against its one-rank reference
+    if None in bgs:
+        return rec, None
+    for r, b in zip(ranks, bgs):  # phases 11's and 12's rank parts join (a)'s and (b)'s
+        r.update({key: v for key, v in b.items() if key != "part_seconds"})
     t = ranks[0]["train"]
     ref = t["ref_history"]
     k = MR_TRAIN_STEPS
@@ -5717,9 +5841,10 @@ def multirank_launches(rec):
     return out
 
 
-def phase_multirank(cli_tokens, sieve, winners, failures):
+def phase_multirank(cli_run, cli_tokens, sieve, winners, bg_job, failures):
     """Phase 10: serve and train across ranks (two processes on the one card
-    over gloo) and the batched Bloom query."""
+    over gloo; (c) and phases 11's and 12's rank parts ran in ``bg_job``,
+    :func:`start_background_ranks`') and the batched Bloom query."""
     import torch
 
     t0 = time.perf_counter()
@@ -5728,9 +5853,9 @@ def phase_multirank(cli_tokens, sieve, winners, failures):
                         "cannot open a CUDA context")
     gc.collect()
     torch.cuda.empty_cache()
-    cli = phase_multirank_cli(cli_tokens, failures)
+    cli = phase_multirank_cli(cli_run, cli_tokens, failures)
     w1 = w1_prefix(cli, cli_tokens)
-    ranks, rank_outs = phase_multirank_ranks(failures, w1)
+    ranks, rank_outs = phase_multirank_ranks(failures, bg_job, w1)
     if w1 is not None and "w1" not in ranks:
         failures.append("W1: the first differing position was not read")
     gc.collect()
@@ -5749,11 +5874,12 @@ def phase_multirank(cli_tokens, sieve, winners, failures):
 # Phase 11: serving across ranks as the serve CLI runs under a plan
 # ---------------------------------------------------------------------------
 
-#: phase 11's depth cuts, at full width: granite-8b at 8 of 36 layers for the
-#: drivers of (a) and (d), at 4 on (2, 1) in (c) (every decode step there
-#: all-gathers every FSDP weight over gloo through host memory); (a)'s serve
-#: CLI runs and olmoe-1b-7b in (b) at full depth
-MR11_LAYERS, MR11_DATA_LAYERS = 8, 4
+#: phase 11's depth cuts, at full width: granite-8b at 4 of 36 layers for the
+#: drivers of (a) and (d), at 2 on (2, 1) in (c) (every decode step there
+#: all-gathers every FSDP weight over gloo through host memory); both cut in
+#: PR 32 (from 8 and 4) to make room for phase 12 in the time limit; (a)'s
+#: serve CLI runs and olmoe-1b-7b in (b) at full depth
+MR11_LAYERS, MR11_DATA_LAYERS = 4, 2
 MR11_RUNGS = ("int8-dynamic", "int4")
 #: tokens a request in (c)'s and (d)'s engines and (a)'s CLI runs
 MR11_NEW = 4
@@ -6091,15 +6217,39 @@ def _rung_launched(launches, rung):
     return {k: launches.get(f"{k}[{rung}]", 0) for k in ("dp_gemm_region", "streamk_phase1")}
 
 
-def phase11_cli(failures):
-    """Phase 11 (a), the serve CLI: granite-8b at full width and depth on
+def rank_clis(keys):
+    """The serve CLIs ``keys`` names under ``torch.distributed.run``, started together (two
+    processes on the card each, each pair its own group), each on (1, 2) at full width and
+    depth, 4 requests: ``"granite-8b"`` dense, 8 tokens a request (phase 10 (a)); each of
+    ``MR11_RUNGS``, granite-8b with ``--quantize`` on it (phase 11 (a)); ``"mamba2-1.3b"``
+    (phase 12 (a)); ``MR11_NEW`` tokens a request for these. Returns each run's (exit code
+    or "timeout", seconds, stderr, summary or None) by key."""
+    import tempfile
+
+    base = ["-m", "repro_torch.launch.serve", "--preset", "full", "--requests", "4",
+            "--slots", str(N_SLOTS), "--max-seq", str(MAX_SEQ), "--mesh-model", str(MR_RANKS)]
+    new = ["--max-new-tokens", str(MR11_NEW)]
+    args = {"granite-8b": ["--arch", "granite-8b", "--max-new-tokens", "8"]}
+    args.update({rung: ["--arch", "granite-8b", "--quantize", rung] + new
+                 for rung in MR11_RUNGS})
+    args["mamba2-1.3b"] = ["--arch", "mamba2-1.3b"] + new
+    args = {key: args[key] for key in keys}
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        paths = {key: os.path.join(tmp, f"{key}.json") for key in args}
+        runs = _torchrun_all([base + a + ["--summary-json", paths[key]]
+                              for key, a in args.items()], MR_CLI_TIMEOUT_S)
+        return {key: (rc, seconds, err, json.load(open(paths[key]))
+                      if os.path.exists(paths[key]) else None)
+                for key, (rc, seconds, _, err) in zip(args, runs)}
+
+
+def phase11_cli(runs, failures):
+    """Phase 11 (a), the serve CLI (``rank_clis``): granite-8b at full width and depth on
     (1, 2) with ``--quantize`` on each of ``MR11_RUNGS``, 4 requests: exit 0,
     4/4, each rank's B1 and B2 launches on the rung, a decode step's
     collectives: the float dry run's (1, 2) decode cell, plus, on
     int8-dynamic, one MAX all-reduce of the slots' (4, 1) f32 row amax per
     row-parallel dispatch (attn.o and mlp.out of every layer)."""
-    import tempfile
-
     from repro_torch.configs import get_config
     from repro_torch.launch import dryrun
 
@@ -6107,19 +6257,8 @@ def phase11_cli(failures):
     art = dryrun.lower_cell("granite-8b", "decode_32k", False, mesh_shape=(1, MR_RANKS),
                             shape_overrides={"global_batch": N_SLOTS, "seq_len": MAX_SEQ})
     out = {}
-    # the two rungs' CLIs at once: four processes on the card, each pair its own group
-    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
-        paths = {rung: os.path.join(tmp, f"{rung}.json") for rung in MR11_RUNGS}
-        runs = dict(zip(MR11_RUNGS, _torchrun_all([
-            ["-m", "repro_torch.launch.serve", "--arch", "granite-8b", "--preset", "full",
-             "--requests", "4", "--slots", str(N_SLOTS), "--max-seq", str(MAX_SEQ),
-             "--max-new-tokens", str(MR11_NEW), "--mesh-model", str(MR_RANKS), "--quantize",
-             rung, "--summary-json", paths[rung]] for rung in MR11_RUNGS], MR_CLI_TIMEOUT_S)))
-        summaries = {rung: json.load(open(p)) if os.path.exists(p) else None
-                     for rung, p in paths.items()}
     for rung in MR11_RUNGS:
-        rc, seconds, _, err = runs[rung]
-        summary = summaries[rung]
+        rc, seconds, err, summary = runs[rung]
         what = f"phase 11 (a) serve CLI --quantize {rung} on (1, {MR_RANKS})"
         if rc != 0 or summary is None:
             failures.append(f"{what}: exit {rc}; stderr {err[-3000:]}")
@@ -6408,7 +6547,8 @@ def phase11_data(outs, failures):
     for r, o in enumerate(outs):
         if not (o["launches"].get("dp_gemm_region") or o["launches"].get("streamk_phase1")):
             failures.append(f"{what}: no GEMM kernel launched on rank {r}")
-    rec = dict(logits_rel=readings, tol=tol, keys=plan_keys, same_keys=same_keys,
+    rec = dict(layers=MR11_DATA_LAYERS, logits_rel=readings, tol=tol, keys=plan_keys,
+               same_keys=same_keys,
                tokens=g["tokens"], one_rank_tokens=one, tokens_equal=one == g["tokens"],
                first_flip=flip, collectives=coll, dryrun_collectives=art["collectives"],
                same_collectives=same, launches=[o["launches"] for o in outs],
@@ -6474,17 +6614,17 @@ def phase11_paged(outs, failures):
     return rec
 
 
-def phase_serve_ranks(rank_outs, failures):
+def phase_serve_ranks(rank_outs, clis, failures):
     """Phase 11: the serve CLI's configurations under a plan across two ranks
     on the one card over gloo: (a) granite-8b quantized (int8-dynamic, int4)
     on (1, 2), (b) olmoe-1b-7b on its default MoE dispatch, dense and int8,
     (c) granite-8b on the data axis (2, 1), (d) granite-8b ``--paged`` on
-    (1, 2). The rank parts ran in phase 10's rank program (``rank_outs``);
+    (1, 2). The rank parts ran in the ranks started before phase 6 (``rank_outs``);
     this process runs (a)'s CLI and every one-rank reference."""
     import torch
 
     t0 = time.perf_counter()
-    rec = {"cli": phase11_cli(failures)}
+    rec = {"cli": phase11_cli(clis, failures)}
     if rank_outs is None:
         failures.append("phase 11: the rank program gave no output")
         return rec
@@ -6520,6 +6660,398 @@ def serve11_launches(rec):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the SSM, hybrid, VLM and encoder-decoder families across ranks
+# ---------------------------------------------------------------------------
+
+#: phase 12's cells at full width: (arch, layers; None: full depth). llava-next-34b is cut
+#: to 8 of 60 layers: two ranks and the one-rank reference share the card
+MR12_CELLS = (("mamba2-1.3b", None), ("zamba2-1.2b", None), ("llava-next-34b", 8),
+              ("whisper-large-v3", None))
+#: the rows of llava's image requests and whisper's audio requests, llava's text tokens
+#: after its patches, whisper's decoder prompt
+MR12_ROWS, MR12_TEXT, MR12_PROMPT = 2, 32, 8
+
+
+def _mr12_model(arch, layers):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch)
+    return build_model(dataclasses.replace(cfg, n_layers=layers) if layers else cfg)
+
+
+def mr12_inputs(cfg):
+    """(tokens, the family's extra input or None, the prompt's length) on the card, seeded:
+    the four served prompts cut to the shortest (the SSM and the hybrid); ``MR12_ROWS``
+    image requests, ``n_patches`` patch embeddings at the token embeddings' scale before
+    ``MR12_TEXT`` text tokens (the VLM; ``image_request_check``'s layout); ``MR12_ROWS``
+    audio requests of ``enc_frames`` standard-normal frames and an ``MR12_PROMPT``-token
+    decoder prompt (the encoder-decoder)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rng = np.random.default_rng(12)
+    if cfg.family == "vlm":
+        p = cfg.n_patches
+        text = rng.integers(1, cfg.vocab_size, (MR12_ROWS, MR12_TEXT))
+        tokens = torch.as_tensor(np.concatenate([text, np.zeros((MR12_ROWS, p), text.dtype)],
+                                                axis=1), device="cuda")
+        patches = (torch.randn(MR12_ROWS, p, cfg.d_model, generator=gen, device="cuda")
+                   / math.sqrt(cfg.vocab_size)).to(torch.bfloat16)
+        return tokens, patches, tokens.shape[1]
+    if cfg.family == "encdec":
+        frames = torch.randn(MR12_ROWS, cfg.enc_frames, cfg.d_model, generator=gen,
+                             device="cuda").to(torch.bfloat16)
+        tokens = torch.as_tensor(rng.integers(1, cfg.vocab_size, (MR12_ROWS, MR12_PROMPT)),
+                                 device="cuda")
+        return tokens, frames, MR12_PROMPT
+    tokens = _mr_tokens(cfg.vocab_size, "cuda")
+    return tokens, None, tokens.shape[1]
+
+
+def mr12_prefill(model, params, tokens, extra, max_seq):
+    """The family's prefill: the VLM's with its patches, the encoder-decoder's of its
+    frames."""
+    if model.cfg.family == "encdec":
+        return model.prefill(params, extra, tokens, max_seq=max_seq)
+    kw = {"patch_embeds": extra} if model.cfg.family == "vlm" else {}
+    return model.prefill(params, tokens, max_seq=max_seq, **kw)
+
+
+@contextmanager
+def shifted_conv_shard(rank):
+    """The planted fault of a Mamba2 block across ranks: rank 1 convolves the channels one
+    to the left of its shard (its conv weights on its neighbour's last channel and all
+    but its own last), in every layer."""
+    import dataclasses
+
+    from repro_torch.models import ssd
+
+    real = ssd.ranked_layout
+
+    def shifted(cfg, plan):
+        lay = real(cfg, plan)
+        if rank == 1:
+            lay = dataclasses.replace(lay, chans=(lay.chans[0] - 1, lay.chans[1]))
+        return lay
+
+    ssd.ranked_layout = shifted
+    try:
+        yield
+    finally:
+        ssd.ranked_layout = real
+
+
+def _cpu_trace(trace):
+    return [(x.cpu(), y.cpu()) for x, y in trace]
+
+
+def _cache_shards(model, plan, cache, rows, max_seq):
+    """This rank's decode cache on the host: each leaf by its path, beside the dim its
+    spec splits over ``model`` (None: whole on every rank)."""
+    from repro_torch.dist.sharding import axes_of, spec_items
+    from repro_torch.utils.trees import tree_items
+
+    specs = dict(spec_items(model.cache_specs(rows, max_seq)))
+    out = {}
+    for name, leaf in tree_items(cache):
+        parts = plan.spec_for(specs[name])
+        dim = next((d for d, part in enumerate(parts) if "model" in axes_of(part)), None)
+        out[name] = (leaf.to(device="cpu", copy=True), dim)
+    return out
+
+
+def _joined_cache(shards):
+    """A decode cache on the card from ranks' :func:`_cache_shards`, in rank order: each
+    split leaf their shards concatenated, each whole leaf the first's (of one rank's
+    shards: that rank's own cache; of every rank's: the one-rank cache)."""
+    import torch
+
+    tree = {}
+    for name, (leaf, dim) in shards[0].items():
+        full = leaf if dim is None else torch.cat([r[name][0] for r in shards], dim)
+        *path, key = name.split("/")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[key] = full.to(device="cuda", copy=True)  # each call a fresh cache
+    return tree
+
+
+def mr12_family(rank, arch, layers):
+    """Phase 12 (b) on each rank: ``arch`` at full width (cut to ``layers``) on (1, 2): a
+    prefill (the VLM's image requests, the encoder-decoder's frames) and a greedy decode
+    step through the kernels, the gathered logits, each layer's input and output and the
+    prefill's cache shards (the SSM and the hybrid), the launches and the decode step's
+    collectives, a warm step's split; then the prefill again under the planted fault:
+    rank 1's conv shard shifted by one channel (the SSM and the hybrid; also the decode
+    step alone, from the sound prefill's cache), else rank 1's partial of the second
+    all-reduce zeroed."""
+    import torch
+
+    from repro_torch.core.gemm import gemm_context
+    from repro_torch.dist.collectives import record
+    from repro_torch.dist.sharding import ShardingPlan, use_plan
+    from repro_torch.kernels.common import reset_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t0 = time.perf_counter()
+    model = _mr12_model(arch, layers)
+    ssm = model.cfg.family in ("ssm", "hybrid")
+    tokens, extra, s = mr12_inputs(model.cfg)
+    pos = torch.full((tokens.shape[0],), s, device="cuda")
+    plan = ShardingPlan(make_host_mesh(model=MR_RANKS))
+    with use_plan(plan), torch.no_grad():
+        params = model.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
+        reset_launch_counts()
+        with layer_trace(ssm) as trace, gemm_context(backend="cuda"):
+            logits, cache = mr12_prefill(model, params, tokens, extra, s + 1)
+        nxt = logits[:, -1].argmax(-1)[:, None]
+        # the decode steps write the cache in place: the faulty one starts from this copy
+        shards = _cache_shards(model, plan, cache, tokens.shape[0], s + 1) if ssm else None
+        with record() as coll, layer_trace(ssm) as step_trace, gemm_context(backend="cuda"):
+            step, _ = model.decode_step(params, cache, nxt, pos)
+        torch.cuda.synchronize()
+        launches = _mr_launches()
+        with gemm_context(backend="cuda"):
+            split = mr_decode_split(rank, lambda: model.decode_step(params, cache, nxt, pos),
+                                    iters=2)
+        del cache
+        fault = shifted_conv_shard(rank) if ssm else planted_zero_all_reduce(rank, call=1)
+        with fault, layer_trace(ssm) as bad_trace, gemm_context(backend="cuda"):
+            bad, _ = mr12_prefill(model, params, tokens, extra, s + 1)
+        bad_step = bad_step_trace = None
+        if ssm:
+            cache = _joined_cache([shards])
+            with shifted_conv_shard(rank), layer_trace() as bad_step_trace, \
+                    gemm_context(backend="cuda"):
+                bad_step, _ = model.decode_step(params, cache, nxt, pos)
+            del cache
+        torch.cuda.synchronize()
+    del params
+    keep = rank == 0  # the gathered logits and the residual stream are whole on every rank
+    seconds = time.perf_counter() - t0
+    log(f"phase 12 (b) {arch} on rank {rank}: {seconds:.1f}s")
+    return dict(prefill=logits.cpu(), decode=step.cpu(), next=nxt.cpu(), fault=bad.cpu(),
+                launches=launches, collectives=coll.summary(), split=split, seconds=seconds,
+                trace=_cpu_trace(trace) if keep else None,
+                fault_trace=_cpu_trace(bad_trace) if keep else None, cache=shards,
+                step_trace=_cpu_trace(step_trace) if keep else None,
+                fault_step=None if bad_step is None else bad_step.cpu(),
+                fault_step_trace=_cpu_trace(bad_step_trace) if keep and ssm else None)
+
+
+def phase12_cli(run, failures):
+    """Phase 12 (a): the serve CLI under ``torch.distributed.run`` on 2 ranks
+    (``--mesh-model 2``; run by ``rank_clis`` beside phase 10 (a)'s), mamba2-1.3b at full width
+    and depth, 4 requests: exit 0, 4/4, B1 or B2 launched on each rank, a decode step's
+    collectives equal to the dry run's (1, 2) decode cell (a planted extra all-gather must
+    read as a disagreement), the greedy tokens beside the one-rank CLI's in this process."""
+    import tempfile
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import serve as t_serve
+
+    arch = "mamba2-1.3b"
+    what = f"phase 12 (a) serve CLI {arch} on (1, {MR_RANKS})"
+    base = ["--arch", arch, "--preset", "full", "--requests", "4", "--slots", str(N_SLOTS),
+            "--max-seq", str(MAX_SEQ), "--max-new-tokens", str(MR11_NEW)]
+    rc, seconds, err, summary = run
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        one = os.path.join(tmp, "one.json")
+        t0 = time.perf_counter()
+        one_rc = t_serve.main(base + ["--summary-json", one])
+        single = json.load(open(one)) if os.path.exists(one) else None
+        one_s = time.perf_counter() - t0
+    if rc != 0 or summary is None:
+        failures.append(f"{what}: exit {rc}; stderr {err[-3000:]}")
+        log(f"{what}: exit {rc}\n{err[-3000:]}")
+        return dict(rc=rc, seconds=seconds)
+    if summary["completed"] != 4:
+        failures.append(f"{what}: {summary['completed']}/4 requests")
+    for r, by in enumerate(summary["launches_by_rank"]):
+        if not (by.get("dp_gemm_region") or by.get("streamk_phase1")):
+            failures.append(f"{what}: neither B1 nor B2 launched on rank {r}: {by}")
+    art = dryrun.lower_cell(arch, "decode_32k", False, mesh_shape=(1, MR_RANKS),
+                            shape_overrides={"global_batch": N_SLOTS, "seq_len": MAX_SEQ})
+    coll = summary["collectives"]
+    same = coll["per_decode_step"] == art["collectives"] and not coll["uneven_ops"]
+    planted = json.loads(json.dumps(art["collectives"]))
+    planted["all-gather"]["count"] += 1
+    if not same:
+        failures.append(f"{what}: a decode step's collectives {coll['per_decode_step']} "
+                        f"(uneven {coll['uneven_ops']}) vs the dry run's {art['collectives']}")
+    if coll["per_decode_step"] == planted:
+        failures.append(f"{what}: the planted extra all-gather went unseen")
+    if one_rc != 0 or single is None:
+        failures.append(f"{what}: the one-rank CLI exited {one_rc}")
+    tokens = summary["workers"][0]["out_tokens"]
+    ref = None if single is None else single["workers"][0]["out_tokens"]
+    agree = None if ref is None else sum(a == b for ra, rb in zip(tokens, ref)
+                                         for a, b in zip(ra, rb))
+    steps = max(coll["decode_steps"], 1)
+    log(f"{what}: exit {rc}, {summary['completed']}/4, launches by rank "
+        f"{summary['launches_by_rank']}; a decode step's collectives {coll['per_decode_step']} "
+        f"== the dry run's: {same}; decode {coll['decode_ms'] / steps:.2f} ms a step, "
+        f"{coll['collective_ms'] / steps:.2f} of it in collectives; greedy tokens equal to the "
+        f"one-rank CLI's: {agree}/{4 * MR11_NEW} ({seconds:.1f}s; one rank {one_s:.1f}s)")
+    return dict(rc=rc, seconds=seconds, completed=summary["completed"],
+                launches_by_rank=summary["launches_by_rank"], collectives=coll,
+                dryrun_collectives=art["collectives"], same_collectives=same, tokens=tokens,
+                one_rank_tokens=ref, tokens_agree=agree, one_rank_seconds=one_s)
+
+
+def _on_card(trace):
+    return [(x.cuda(), y.cuda()) for x, y in trace]
+
+
+def phase12_family(arch, layers, outs, failures):
+    """Phase 12 (b) for one family: the ranks' outputs against this process's one-rank
+    ``cuda`` run on the same weights and inputs, at ``LOGITS_TOL``: the prefill and the
+    decode step fed the ranks' token (the SSM and the hybrid layer by layer, each layer of
+    the one-rank run fed the ranks' input to it, ``layer_replayed_diff``, the decode step
+    from the ranks' prefill cache with their shards joined, since the state carries the
+    prefill's spread; the end-to-end readings reported); the planted faults read the same
+    way, at least 3 times the limit (the SSM and the hybrid: the prefill's and, apart, the
+    decode step's); a decode step's collectives equal to the dry run's (1, 2) cell op by
+    op; B1 or B2 launched on each rank."""
+    import torch
+
+    from repro_torch.core.gemm import gemm_context
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    model = _mr12_model(arch, layers)
+    cfg = model.cfg
+    ssm = cfg.family in ("ssm", "hybrid")
+    tokens, extra, s = mr12_inputs(cfg)
+    pos = torch.full((tokens.shape[0],), s, device="cuda")
+    g = outs[0]
+    tol = LOGITS_TOL[arch]
+    what = f"phase 12 (b) {arch}" + (f" x {layers}" if layers else "") + f" on (1, {MR_RANKS})"
+    with torch.no_grad():
+        params = model.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
+
+        def prefill():
+            return mr12_prefill(model, params, tokens, extra, s + 1)[0]
+
+        with gemm_context(backend="cuda"):
+            want, cache = mr12_prefill(model, params, tokens, extra, s + 1)
+            want_step, _ = model.decode_step(params, cache, g["next"].cuda(), pos)
+        del cache
+        e2e = _rel(g["prefill"], want)
+        decode = _rel(g["decode"], want_step)
+        layer_rel = fault_layers = step_rel = step_fault = e2e_decode = fault_step = None
+        if ssm:
+            shards = [o["cache"] for o in outs]
+
+            def step():  # from the ranks' prefill cache, joined: the step writes it in place
+                return model.decode_step(params, _joined_cache(shards), g["next"].cuda(),
+                                         pos)[0]
+
+            layer_rel = layer_replayed_diff(prefill, _on_card(g["trace"]), g["prefill"].cuda(),
+                                            backend="cuda")
+            held = _read(max(layer_rel), tol, f"{what} prefill logits, each layer fed the "
+                         "ranks' input", failures)
+            step_rel = layer_replayed_diff(step, _on_card(g["step_trace"]), g["decode"].cuda(),
+                                           backend="cuda")
+            e2e_decode, decode = decode, _read(max(step_rel), tol, f"{what} decode logits, each "
+                                               "layer fed the ranks' input and cache", failures)
+            fault_layers = layer_replayed_diff(prefill, _on_card(g["fault_trace"]),
+                                               g["fault"].cuda(), backend="cuda")
+            fault = _planted(max(fault_layers), tol, f"{what} (rank 1's conv shard shifted by "
+                             "one channel)", failures)
+            step_fault = layer_replayed_diff(step, _on_card(g["fault_step_trace"]),
+                                             g["fault_step"].cuda(), backend="cuda")
+            fault_step = _planted(max(step_fault), tol, f"{what} decode step (rank 1's conv "
+                                  "shard shifted by one channel)", failures)
+        else:
+            held = _read(e2e, tol, f"{what} prefill logits", failures)
+            _read(decode, tol, f"{what} decode logits", failures)
+            fault = _planted(_rel(g["fault"], want), tol, f"{what} (rank 1's partial of the "
+                             "second all-reduce zeroed)", failures)
+    del params
+    art = dryrun.lower_cell(arch, "decode_32k", False, mesh_shape=(1, MR_RANKS),
+                            config_overrides={"n_layers": layers} if layers else None,
+                            shape_overrides={"global_batch": tokens.shape[0], "seq_len": s + 1})
+    same = [o["collectives"] == art["collectives"] for o in outs]
+    planted = json.loads(json.dumps(art["collectives"]))
+    planted["all-reduce"]["count"] += 1
+    if not all(same):
+        failures.append(f"{what}: a decode step's collectives {[o['collectives'] for o in outs]} "
+                        f"vs the dry run's {art['collectives']}")
+    if any(o["collectives"] == planted for o in outs):
+        failures.append(f"{what}: the planted extra all-reduce went unseen")
+    launches = [{k: o["launches"].get(k, 0) for k in ("dp_gemm_region", "streamk_phase1")}
+                for o in outs]
+    for r, by in enumerate(launches):
+        if not any(by.values()):
+            failures.append(f"{what}: neither B1 nor B2 launched on rank {r}")
+    rec = dict(layers=cfg.n_layers, rows=int(tokens.shape[0]), prompt=s, tol=tol,
+               prefill_rel=held, prefill_e2e_rel=e2e, decode_rel=decode,
+               decode_e2e_rel=e2e_decode, layer_replayed=layer_rel,
+               decode_layer_replayed=step_rel, fault_rel=fault, fault_layers=fault_layers,
+               decode_fault_rel=fault_step, decode_fault_layers=step_fault,
+               collectives=g["collectives"], dryrun_collectives=art["collectives"],
+               same_collectives=same, launches=launches, all_launches=[o["launches"] for o in outs],
+               decode_split=[o["split"] for o in outs], seconds=time.perf_counter() - t0)
+    log(f"{what}: prefill logits vs one rank {held:.3e}"
+        + (f" (each layer fed the ranks' input; end to end {e2e:.3e})" if ssm else "")
+        + f", decode {decode:.3e}"
+        + (f" (each layer fed the ranks' input and cache; end to end {e2e_decode:.3e})"
+           if ssm else "")
+        + f" (limit {tol}); fault {fault:.3e}"
+        + (f", in the decode step {fault_step:.3e}" if ssm else "")
+        + "; a decode step's collectives "
+        f"{g['collectives']} == the dry run's: {same}; B1/B2 launches by rank {launches}; a "
+        f"warm step by rank {rec['decode_split']} ({rec['seconds']:.1f}s)")
+    return rec
+
+
+def phase_families_ranks(rank_outs, cli, failures):
+    """Phase 12: the SSM, hybrid, VLM and encoder-decoder families across two ranks on the
+    one card over gloo: (a) mamba2-1.3b through the serve CLI, (b) each of ``MR12_CELLS``
+    through the model's prefill and decode step. The rank parts ran in the ranks started
+    before phase 6 (``rank_outs``); this process runs (a)'s CLIs and every one-rank
+    reference."""
+    import torch
+
+    t0 = time.perf_counter()
+    rec = {"cli": phase12_cli(cli, failures)}
+    if rank_outs is None:
+        failures.append("phase 12: the rank program gave no output")
+        return rec
+    for arch, layers in MR12_CELLS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        try:
+            rec[arch] = phase12_family(arch, layers, [r[f"fam12_{arch}"] for r in rank_outs],
+                                       failures)
+        except Exception as e:  # record it and go on: the run reports every breach
+            failures.append(f"phase 12 {arch}: {type(e).__name__}: {e}")
+            log(f"phase 12 {arch}: {traceback.format_exc()}")
+    rec["rank_seconds"] = [r["fam12_seconds"] for r in rank_outs]
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"phase 12 (the SSM, hybrid, VLM and encoder-decoder families across ranks, two "
+        f"processes on one card over gloo): {rec['seconds']:.1f}s here, {rec['rank_seconds']} s "
+        f"in the rank program")
+    return rec
+
+
+def families12_launches(rec):
+    """Phase 12's launches by run, each a list of the ranks' counters."""
+    out = {}
+    if (rec.get("cli") or {}).get("launches_by_rank"):
+        out["cli_mamba2-1.3b"] = rec["cli"]["launches_by_rank"]
+    for arch, _ in MR12_CELLS:
+        if isinstance(rec.get(arch), dict):
+            out[arch] = rec[arch]["all_launches"]
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6528,17 +7060,28 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--multirank"]:
         return multirank_main(sys.argv[2])
-    # phase 9 (a)'s traces need no card: they run beside the build
-    dry = start_dryrun()
+    if sys.argv[1:2] == ["--background-ranks"]:
+        return background_ranks_main(sys.argv[2])
+    import shutil
+    import signal
+
+    dry = []  # phase 9 (a)'s child process and its artifacts' path, once started
+    jobs = []  # the background rank parts' job, once started
     try:
-        return run_phases(dry)
+        return run_phases(dry, jobs)
     finally:
-        if dry[0].poll() is None:
+        if dry and dry[0].poll() is None:
             dry[0].kill()
-        dry[0].wait()
+        if dry:
+            dry[0].wait()
+        for job in jobs:
+            if job["proc"].poll() is None:
+                os.killpg(job["proc"].pid, signal.SIGKILL)
+                job["proc"].wait()
+            shutil.rmtree(job["dir"], ignore_errors=True)
 
 
-def run_phases(dry) -> int:
+def run_phases(dry, jobs) -> int:
     import torch
 
     from repro_torch.configs import get_config
@@ -6546,7 +7089,19 @@ def run_phases(dry) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # the f32 references stay f32
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    phase_s = {}  # each phase's seconds, in the order they ran
+    last = [t_start]
+
+    def mark(name):
+        now = time.perf_counter()
+        phase_s[name] = round(now - last[0], 1)
+        last[0] = now
+
     smi, build_s = phase_device()
+    mark("1 device and build")
+    # phase 9 (a)'s traces need no card: they run beside phases 2-8, after the build (whose
+    # nvcc processes take every core)
+    dry.extend(start_dryrun())
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
@@ -6557,7 +7112,7 @@ def run_phases(dry) -> int:
     slice_err, picks = slice_shapes(gen, "granite-8b", GRANITE_NK)
     olmoe_err, olmoe_picks = slice_shapes(gen, "olmoe-1b-7b", OLMOE_NK)
     slice_err, picks = max(slice_err, olmoe_err), picks + olmoe_picks
-    for arch in [a for a, _ in ARCH_CELLS] + list(FAMILY_CELLS):
+    for arch in [a for a, _ in ARCH_CELLS + FAMILY_CELLS]:
         # phase 6's and 7's models at the decode batch and M = 64 (whisper also at its
         # 1500 frames, the M of a request's cross K/V projections)
         ms = (N_SLOTS, 64, 1500) if arch == "whisper-large-v3" else (N_SLOTS, 64)
@@ -6566,7 +7121,7 @@ def run_phases(dry) -> int:
         gc.collect()
         torch.cuda.empty_cache()
     log(f"slice shapes: {len(picks)} shapes (granite-8b, olmoe-1b-7b, phase 6's "
-        f"{[a for a, _ in ARCH_CELLS]} and phase 7's {list(FAMILY_CELLS)}) x (pick, dp, all_sk) "
+        f"{[a for a, _ in ARCH_CELLS]} and phase 7's {[a for a, _ in FAMILY_CELLS]}) x (pick, dp, all_sk) "
         f"agree with gemm_ref, max err "
         f"{slice_err:.3e}; B2+B3 bitwise deterministic ({time.perf_counter() - t0:.1f}s)")
     t0 = time.perf_counter()
@@ -6619,6 +7174,7 @@ def run_phases(dry) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("2 kernels")
     failures = []
     t0 = time.perf_counter()
     paged = {}  # phase 5 (a) runs on phase 3's granite-8b weights, before they are freed
@@ -6628,11 +7184,13 @@ def run_phases(dry) -> int:
 
     serve = {"granite-8b": phase_serve("granite-8b", failures, then=paged_granite)}
     log(f"granite-8b served dense and on {list(RUNGS)} ({time.perf_counter() - t0:.1f}s)")
+    mark("3 granite-8b and 5 (a)")
     gc.collect()  # granite's weights go before the next model's arrive
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     kv_int8 = phase_kv_int8()
     log(f"int8 KV cache phase ({time.perf_counter() - t0:.1f}s)")
+    mark("3 int8 KV cache")
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -6643,34 +7201,59 @@ def run_phases(dry) -> int:
 
     serve["olmoe-1b-7b"] = phase_serve("olmoe-1b-7b", failures, then=olmoe_variants)
     log(f"olmoe-1b-7b served dense and on {list(RUNGS)} ({time.perf_counter() - t0:.1f}s)")
+    mark("3 olmoe-1b-7b and 9 (c)")
     gc.collect()
     torch.cuda.empty_cache()
     tune = phase_tune(failures)
+    mark("4 tune")
     gc.collect()
     torch.cuda.empty_cache()
     paged = phase_paged(paged["granite"], failures)
+    mark("5 paged")
     gc.collect()
     torch.cuda.empty_cache()
+    jobs.append(start_background_ranks())  # phases 10 (c), 11 and 12 on the ranks
     archs = phase_archs(failures)
+    mark("6 archs")
     gc.collect()
     torch.cuda.empty_cache()
     families = phase_families(failures)
+    mark("7 families")
     gc.collect()
     torch.cuda.empty_cache()
     train = phase_train(failures)
+    mark("8 train")
     gc.collect()
     torch.cuda.empty_cache()
     shard = phase_shard(dry, moe_variants, gen, failures)
+    mark("9 shard")
     shard_launches = (shard["shard_gemms"] or {}).get("launches", {})
     gc.collect()
     torch.cuda.empty_cache()
-    multirank = phase_multirank((shard["mesh_model_cli"] or {}).get("tokens"),
-                                tune.pop("sieve", None), tune.pop("winners", None), failures)
+    # phase 10 (a)'s and 12 (a)'s serve CLIs at once (granite-8b's, 16 GB, beside mamba2-1.3b's:
+    # with phase 11 (a)'s two quantized granite-8b runs besides, eight ranks ran out of the
+    # card's 80 GB); phase 11 (a)'s two, at once, after the rank program
+    clis = rank_clis(("granite-8b", "mamba2-1.3b"))
+    multirank = phase_multirank(clis["granite-8b"],
+                                (shard["mesh_model_cli"] or {}).get("tokens"),
+                                tune.pop("sieve", None), tune.pop("winners", None), jobs[0],
+                                failures)
     mr_launches = multirank_launches(multirank)
+    mark("10 ranks (with 12 (a)'s CLI)")
     gc.collect()
     torch.cuda.empty_cache()
-    serve11 = phase_serve_ranks(multirank.pop("rank_outs"), failures)
+    rank_outs = multirank.pop("rank_outs")
+    clis.update(rank_clis(MR11_RUNGS))
+    serve11 = phase_serve_ranks(rank_outs, clis, failures)
     s11_launches = serve11_launches(serve11)
+    mark("11 serve ranks")
+    gc.collect()
+    torch.cuda.empty_cache()
+    families12 = phase_families_ranks(rank_outs, clis["mamba2-1.3b"], failures)
+    del rank_outs
+    mark("12 families ranks")
+    s11_launches.update({f"fam12_{run}": ranks
+                         for run, ranks in families12_launches(families12).items()})
 
     from repro_torch.kernels import cuda_lib
     from repro_torch.kernels.common import mainloop
@@ -6766,10 +7349,18 @@ def run_phases(dry) -> int:
                   b12_s8_table=b12_s8_rows, f32_table=f32_rows,
                   kv_int8=kv_int8, tune=tune, paged=paged, archs=archs, families=families,
                   train=train, shard=shard, multirank=multirank, serve_ranks=serve11,
+                  families_ranks=families12, phase_seconds=phase_s,
+                  # every depth cut at full width, by phase (the layers each cut path ran)
+                  depth_cuts={"3 int8 KV cache": KV_INT8_LAYERS, "5 (b)": PAGED_OLMOE_LAYERS,
+                              "6": dict(ARCH_CELLS), "7": dict(FAMILY_CELLS), "8": dict(TRAIN_CELLS),
+                              "8 stream": RESUME_LAYERS,
+                              "10 (c)": MR_TRAIN_LAYERS, "11": MR11_LAYERS,
+                              "11 (c)": MR11_DATA_LAYERS, "12": dict(MR12_CELLS)},
                   seconds=time.perf_counter() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    log(f"seconds by phase: {phase_s}")
     log(f"total {record['seconds']:.1f}s")
     if failures:
         for f in failures:

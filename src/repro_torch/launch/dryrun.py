@@ -32,10 +32,10 @@ allocated. It records:
     layer's collectives are counted, the serving steps' as the engine's
     ranks run them: the logits gathered over the data axes where those
     split the batch, an MoE layer's counts exchange over them (its own
-    ``moe_impl``, expert-parallel);
-    the families that run on one rank only (SSM, hybrid, VLM,
-    encoder-decoder) and layouts the explicit path does not take (query
-    heads that do not divide the model axis) record ``None`` and why.
+    ``moe_impl``, expert-parallel), a Mamba2 block's projection and conv
+    outputs gather over ``model`` (``models/ssd.py``), a VLM's prefill
+    takes its patch embeddings and an encoder-decoder's its frames. A
+    layout the explicit path does not take records ``None`` and why.
 
 ``mesh_shape`` of a host mesh (any size but 256 and 512, e.g. (1, 2) or
 (2, 2)) traces only that local step: its dispatch log, FLOPs and argument
@@ -166,8 +166,11 @@ def trace_local(model, cfg, shape, plan, *, selector, optimizer_name="adamw",
             step_fn(state, ins)
         else:
             with torch.no_grad():
-                if shape.kind == "prefill":
-                    model.prefill(params, full["tokens"], max_seq=shape.seq_len)
+                if shape.kind == "prefill" and cfg.family == "encdec":
+                    model.prefill(params, full["frames"], full["tokens"], max_seq=shape.seq_len)
+                elif shape.kind == "prefill":
+                    kw = {"patch_embeds": full["patch_embeds"]} if "patch_embeds" in full else {}
+                    model.prefill(params, full["tokens"], max_seq=shape.seq_len, **kw)
                 else:
                     cache_specs = model.cache_specs(shape.global_batch, shape.seq_len)
                     argument += tree_local_bytes(plan, cache_specs)
@@ -362,10 +365,6 @@ def _production_collectives(cfg, shape, mesh, rules, selector, optimizer_name, m
     from repro_torch.launch.mesh import virtual_mesh
     from repro_torch.models import build_model
 
-    if cfg.family not in ("dense", "moe"):
-        return {"collectives": None, "collective_bytes": None,
-                "collectives_note": f"not ported across ranks: the {cfg.family} family runs "
-                                    "on one rank"}, {}
     plan = ShardingPlan(virtual_mesh(mesh.sizes, mesh.axis_names), ranked_rules(rules))
     try:
         _, _, coll, _ = trace_local(build_model(cfg), cfg, shape, plan, selector=selector,

@@ -16,6 +16,17 @@ cross-attention K/V (L, B, enc_frames, KV, dh), computed once from the
 encoder's output at prefill and carried through decode unchanged.
 ``loss_fn`` is ``repro``'s; under grad the encoder and decoder layers are
 recomputed in the backward when ``cfg.remat``.
+
+Across ranks (a ranked plan) it runs as the LM does (``models/lm.py``):
+parameters and caches are this rank's shards, the attention and MLP
+projections tensor-parallel over ``model`` and FSDP over ``data``
+(``models/layers.py``), the decoder's embedding and tied head
+vocab-parallel, and batch rows split over the data axes (``prefill`` and
+``decode_step`` take the whole batch, run this rank's rows and gather the
+logits). The cross K/V are computed from the encoder's output for this
+rank's kv heads (:func:`~repro_torch.models.layers.project_kv`) and cached
+as them, as ``repro``'s cross-cache spec places them, and cross-attention
+is column-parallel on its queries with a row-parallel ``attn.o``.
 """
 
 from __future__ import annotations
@@ -26,11 +37,12 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.gemm import as_dtype, gemm
-from repro_torch.dist.sharding import ArraySpec, constrain, init_leaf, ranked_plan
+from repro_torch.dist.sharding import ArraySpec, constrain, local_specs, ranked_plan
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import (TiedHead, _map, _stack_specs, _zeros, grad_tracking,
-                                   remat_call, resolve_device, token_loss)
+from repro_torch.models.lm import (TiedHead, _map, _stack_specs, _zeros, by_rows, grad_tracking,
+                                   init_ranked, ranked_loss_terms, remat_call, resolve_device,
+                                   row_split, sum_metrics, vocab_head, vocab_lookup)
 
 Params = Dict[str, Any]
 
@@ -85,11 +97,11 @@ class EncDec:
     def init_params(self, device=None, generator: Optional[torch.Generator] = None) -> Params:
         """Random weights drawn from ``generator`` (seed 0 when None) on
         ``device`` (the card unless ``device='cpu'``), leaf by leaf in the
-        order of the spec tree."""
+        order of the spec tree; across ranks this rank's shards of them."""
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
-        return _map(lambda s: init_leaf(s, generator, dev), self.param_specs())
+        return init_ranked(self.param_specs(), generator, dev)
 
     def head_weight(self, params) -> torch.Tensor:
         """The tied head's ``(d_model, vocab)`` weight, made once per
@@ -100,7 +112,6 @@ class EncDec:
     def encode(self, params: Params, frames: torch.Tensor, *,
                div: Optional[Dict[str, int]] = None) -> torch.Tensor:
         """The encoder's output (B, F, D) over the frame embeddings (B, F, D)."""
-        self._one_rank()
         cfg = self.cfg
         div = div or {}
         dt = as_dtype(cfg.dtype)
@@ -121,16 +132,6 @@ class EncDec:
         return L.norm_apply(params["enc_final_norm"], x, cfg)
 
     # -- decoder ---------------------------------------------------------------
-    def _cross_kv(self, p, enc_out, div) -> Tuple[torch.Tensor, torch.Tensor]:
-        """A decoder layer's cross-attention K/V (B, F, KV, dh) of the
-        encoder's output."""
-        cfg = self.cfg
-        b, f = enc_out.shape[:2]
-        db, dtp = div.get("batch", 1), div.get("model", 1)
-        return tuple(gemm(enc_out, p["cross_attn"][f"w{key}"], divisors=(db, dtp, 1),
-                          tag=f"xattn.{key}").reshape(b, f, cfg.n_kv_heads, cfg.d_head)
-                     for key in "kv")
-
     def _dec_stack(self, params, x, enc_out, *, div, positions, cache=None, cur_pos=None):
         """The decoder layers over ``x`` (B, S, D). Without ``cache``: the
         cross K/V from ``enc_out``; returns (x, each layer's fresh
@@ -150,7 +151,7 @@ class EncDec:
             h = L.norm_apply(p["norm2"], x, cfg)
             entry = None
             if cache is None:
-                ck, cv = self._cross_kv(p, enc_out, div)
+                ck, cv = L.project_kv(p["cross_attn"], enc_out, cfg, div)
                 entry = {"attn": kv, "cross": {"k": ck, "v": cv}}
             else:
                 ck, cv = cache["cross"]["k"][i], cache["cross"]["v"][i]
@@ -172,20 +173,21 @@ class EncDec:
             fresh.append(entry)
         return x, (fresh if cache is None else None)
 
-    @staticmethod
-    def _one_rank():
-        """The encoder-decoder runs on one rank: across ranks it raises."""
-        if ranked_plan() is not None:
-            raise NotImplementedError("the encdec family across ranks is not ported; dense "
-                                      "and MoE LMs are")
-
     def _dec_embed(self, params, tokens, positions):
-        self._one_rank()
         dt = as_dtype(self.cfg.dtype)
-        return params["embed"][tokens].to(dt) + sinusoid(positions, self.cfg.d_model).to(dt)
+        plan = ranked_plan()
+        if plan is None:
+            x = params["embed"][tokens]
+        else:
+            x = vocab_lookup(params["embed"], tokens, plan, self.param_specs()["embed"])
+        return x.to(dt) + sinusoid(positions, self.cfg.d_model).to(dt)
 
     def _head(self, params, x, div):
         cfg = self.cfg
+        plan = ranked_plan()
+        if plan is not None:
+            parts = tuple(reversed(plan.spec_for(self.param_specs()["embed"])))
+            return vocab_head(x, self.head_weight(params), parts, cfg.dtype)
         return gemm(x, self.head_weight(params),
                     divisors=(div.get("batch", 1), div.get("model", 1), 1), tag="lm_head",
                     out_dtype=cfg.dtype)
@@ -217,8 +219,9 @@ class EncDec:
         mask = batch.get("loss_mask")
         if mask is None:
             mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
-        loss, _, _ = token_loss(logits, labels, mask)
-        return loss, {"nll": loss.detach(), "ntokens": torch.sum(mask).detach()}
+        # across ranks this rank's share of the global mean (LM.loss_fn)
+        loss = ranked_loss_terms(logits, labels, mask)[0]
+        return loss, sum_metrics({"nll": loss.detach(), "ntokens": torch.sum(mask).detach()})
 
     # -- serving -----------------------------------------------------------------
     def cache_specs(self, batch: int, max_seq: int) -> Params:
@@ -237,16 +240,22 @@ class EncDec:
 
     def init_cache(self, batch: int, max_seq: int, device=None):
         """The zeroed decode cache on ``device`` (the card unless
-        ``device='cpu'``)."""
-        return _zeros(self.cache_specs(batch, max_seq), resolve_device(device))
+        ``device='cpu'``); across ranks this rank's shards of it."""
+        return _zeros(local_specs(self.cache_specs(batch, max_seq)), resolve_device(device))
 
     def prefill(self, params: Params, frames: torch.Tensor, dec_tokens: torch.Tensor, *,
                 max_seq: Optional[int] = None, div: Optional[Dict[str, int]] = None):
         """Encode ``frames`` (B, F, D), run the decoder prompt ``dec_tokens``
         (B, S), and build the decode cache (the prompt's self-attention rows,
-        the cross K/V). Returns (last-position logits (B, 1, V), cache)."""
-        cfg = self.cfg
+        the cross K/V). Returns (last-position logits (B, 1, V), cache).
+        Across ranks: the cache of this rank's rows, the logits of all
+        (module doc)."""
         div = div or {}
+        return by_rows(lambda t, f: self._prefill(params, f, t, max_seq, div), dec_tokens,
+                       frames)
+
+    def _prefill(self, params, frames, dec_tokens, max_seq, div):
+        cfg = self.cfg
         b, s = dec_tokens.shape
         enc_out = self.encode(params, frames, div=div)
         positions = torch.arange(s, device=dec_tokens.device)
@@ -254,7 +263,9 @@ class EncDec:
         x, fresh = self._dec_stack(params, x, enc_out, div=div, positions=positions)
         x = L.norm_apply(params["final_norm"], x, cfg)
         logits = self._head(params, x[:, -1:], div)
-        cache = _zeros(self.cache_specs(b, max_seq or s), dec_tokens.device)
+        # the cache of these rows: specs at the batch they are this rank's part of
+        cache = _zeros(local_specs(self.cache_specs(b * row_split(), max_seq or s)),
+                       dec_tokens.device)
         for i, entry in enumerate(fresh):
             for key in "kv":
                 cache["attn"][key][i, :, :s] = entry["attn"][key]
@@ -265,11 +276,16 @@ class EncDec:
                     *, div: Optional[Dict[str, int]] = None):
         """One decode step: ``tokens`` (B, 1) at ``cur_pos`` (B,). The
         self-attention cache is updated in place; the cross K/V are read as
-        they are. Returns (logits (B, 1, V), cache)."""
+        they are. Returns (logits (B, 1, V), cache). Across ranks: ``cache``
+        of this rank's rows, the logits of all (module doc)."""
         div = div or {}
-        positions = cur_pos[:, None]
-        x = self._dec_embed(params, tokens, positions)
-        x, _ = self._dec_stack(params, x, None, div=div, positions=positions, cache=cache,
-                               cur_pos=cur_pos)
-        x = L.norm_apply(params["final_norm"], x, self.cfg)
-        return self._head(params, x, div), cache
+
+        def step(t, pos):
+            positions = pos[:, None]
+            x = self._dec_embed(params, t, positions)
+            x, _ = self._dec_stack(params, x, None, div=div, positions=positions, cache=cache,
+                                   cur_pos=pos)
+            x = L.norm_apply(params["final_norm"], x, self.cfg)
+            return self._head(params, x, div), cache
+
+        return by_rows(step, tokens, cur_pos)

@@ -24,7 +24,12 @@ rides ``data`` (``embed``): a weight's data-sharded dims are all-gathered
 just before its GEMM (the backward reduce-scatters its gradient). A kv
 head count that does not divide ``model`` leaves the kv columns whole on
 every rank (all-gathered, where the solver split them inside a head), and
-each rank attends with the kv heads its query heads read. A quantized
+each rank attends with the kv heads its query heads read; a query head
+count that does not divide it gathers the query columns the same way, every
+rank attends with every head, and ``attn.o`` takes each rank's rows of the
+heads' output. Cross-attention (the encoder-decoder) is column-parallel on
+its queries and reads the cross K/V of this rank's kv heads
+(:func:`project_kv`). A quantized
 weight moves as its values and scales (gathered together); a row-parallel
 int8-dynamic dispatch takes each row's scale over the whole row (a MAX
 all-reduce over ``model``). The MoE runs expert-parallel on every
@@ -299,10 +304,14 @@ def _ranked_weight(p: Params, key: str, spec: ArraySpec, plan):
     return gather_weight(p[key], parts), parts
 
 
-def _kv_pick(cfg: ModelConfig, plan, hl: int):
-    """Selects, from a tensor of all ``kv`` heads (..., KV, dh), the kv
-    heads this rank's ``hl`` query heads read: a slice when they map onto
-    a run of heads in equal groups, else one kv row per query head."""
+def _kv_pick(cfg: ModelConfig, plan, hl: int, aligned: bool):
+    """Selects, from a tensor of this rank's kv heads (..., KVc, dh), the kv
+    heads its ``hl`` query heads read: all of them where the kv heads split
+    with the query heads (``aligned``) or every query head is local; else,
+    from all ``kv`` heads, a slice when the local query heads map onto a
+    run of kv heads in equal groups, or one kv row per query head."""
+    if aligned or hl == cfg.n_heads:
+        return _identity
     j = plan.mesh.coords.get("model", 0)
     g = cfg.n_heads // cfg.n_kv_heads
     heads = [(j * hl + t) // g for t in range(hl)]
@@ -317,13 +326,59 @@ def _identity(t):
     return t
 
 
+def kv_aligned(cfg: ModelConfig, plan) -> bool:
+    """Whether the kv heads split over ``model`` with their columns, each
+    rank holding ``n_kv_heads / model`` whole heads (else every rank holds
+    all of them)."""
+    tp = plan.mesh.shape.get("model", 1)
+    parts = plan.spec_for(attn_specs(cfg)["wk"])
+    return _on_model(parts, 1) and cfg.n_kv_heads % tp == 0
+
+
+def _ranked_q(p: Params, x: torch.Tensor, cfg: ModelConfig, plan) -> torch.Tensor:
+    """The query projection across ranks, q (B, S, Hq, dh): column-parallel
+    on this rank's heads; where the plan splits the columns inside a head
+    (query heads that do not divide the model axis), every rank gathers all
+    of them and attends with every head. ``x`` is the caller's: where the
+    columns split it must already carry :func:`sum_grad`."""
+    b, s, _ = x.shape
+    wq, pq = _ranked_weight(p, "wq", attn_specs(cfg)["wq"], plan)
+    q = gemm(x, wq, tag="attn.q")
+    if _on_model(pq, 1) and cfg.n_heads % plan.mesh.shape["model"]:
+        q = all_gather(q, "model", -1)
+    return q.reshape(b, s, -1, cfg.d_head)
+
+
+def _ranked_kv(p: Params, x: torch.Tensor, cfg: ModelConfig, plan, q_split: bool,
+               prefix: str = "attn"):
+    """The k and v projections of ``x`` across ranks, (k, v (B, S, KVc,
+    dh)): this rank's kv heads where they split with their columns
+    (:func:`kv_aligned`), else all of them. ``prefix`` names the tags
+    (``attn`` or the cross-attention's ``xattn``)."""
+    b, s, _ = x.shape
+    specs = attn_specs(cfg)
+    wk, pk = _ranked_weight(p, "wk", specs["wk"], plan)
+    wv, _ = _ranked_weight(p, "wv", specs["wv"], plan)
+    k_split = _on_model(pk, 1)
+    k = gemm(x, wk, tag=f"{prefix}.k")
+    v = gemm(x, wv, tag=f"{prefix}.v")
+    if k_split and not kv_aligned(cfg, plan):
+        # the solver split the kv columns inside a head: every rank takes all
+        k, v = all_gather(k, "model", -1), all_gather(v, "model", -1)
+    elif q_split and not k_split:
+        # whole kv weights, of which each rank reads some heads
+        k, v = sum_grad(k, "model"), sum_grad(v, "model")
+    return k.reshape(b, s, -1, cfg.d_head), v.reshape(b, s, -1, cfg.d_head)
+
+
 def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig, div: Dict[str, int]):
     """The q, k and v projections of ``x`` (B, S, D): (q (B, S, Hq, dh), k,
     v (B, S, KVc, dh), pick). On one rank Hq = H and KVc = KV. Across ranks
-    Hq is this rank's query heads, KVc its kv heads where they divide the
-    model axis and else all of them, and ``pick`` selects from a (..., KVc,
-    dh) tensor (the fresh rows or the cache) the kv heads the local query
-    heads read (module doc)."""
+    Hq is this rank's query heads (all of them where the heads do not
+    divide the model axis), KVc its kv heads where they divide it and else
+    all of them, and ``pick`` selects from a (..., KVc, dh) tensor (the
+    fresh rows or the cache) the kv heads the local query heads read
+    (module doc)."""
     b, s, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     plan = ranked_plan()
@@ -333,48 +388,50 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig, div: Dict[str, in
         k = gemm(x, p["wk"], divisors=(db, dtp, 1), tag="attn.k").reshape(b, s, kv, dh)
         v = gemm(x, p["wv"], divisors=(db, dtp, 1), tag="attn.v").reshape(b, s, kv, dh)
         return q, k, v, _identity
-    specs = attn_specs(cfg)
-    tp = plan.mesh.shape.get("model", 1)
-    wq, pq = _ranked_weight(p, "wq", specs["wq"], plan)
-    wk, pk = _ranked_weight(p, "wk", specs["wk"], plan)
-    wv, _ = _ranked_weight(p, "wv", specs["wv"], plan)
-    q_split, k_split = _on_model(pq, 1), _on_model(pk, 1)
-    if q_split and h % tp:
-        raise NotImplementedError(
-            f"{h} query heads over a model axis of {tp}: the plan splits inside a head")
-    hl = h // tp if q_split else h
-    aligned = k_split and kv % tp == 0
+    q_split = _on_model(plan.spec_for(attn_specs(cfg)["wq"]), 1)
     # the rank-partial consumers of a replicated input sum its gradient
     xin = sum_grad(x, "model") if q_split else x
-    q = gemm(xin, wq, tag="attn.q").reshape(b, s, hl, dh)
-    kx = xin if k_split else x
-    k = gemm(kx, wk, tag="attn.k")
-    v = gemm(kx, wv, tag="attn.v")
-    if k_split and not aligned:
-        # the solver split the kv columns inside a head: every rank takes all
-        k, v = all_gather(k, "model", -1), all_gather(v, "model", -1)
-    elif q_split and not k_split:
-        # whole kv weights, of which each rank reads some heads
-        k, v = sum_grad(k, "model"), sum_grad(v, "model")
-    kvc = kv // tp if aligned else kv
-    k, v = k.reshape(b, s, kvc, dh), v.reshape(b, s, kvc, dh)
-    pick = _identity if aligned or not q_split else _kv_pick(cfg, plan, hl)
-    return q, k, v, pick
+    q = _ranked_q(p, xin, cfg, plan)
+    # kv columns split only where the query columns do (kv * dh divides h * dh)
+    k, v = _ranked_kv(p, xin, cfg, plan, q_split)
+    return q, k, v, _kv_pick(cfg, plan, q.shape[2], kv_aligned(cfg, plan))
+
+
+def project_kv(p: Params, x: torch.Tensor, cfg: ModelConfig, div: Dict[str, int],
+               prefix: str = "xattn") -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k and v projections alone, (k, v (B, S, KVc, dh)): the
+    cross-attention's K/V of the encoder's output. On one rank every kv
+    head; across ranks this rank's kv heads where they divide the model
+    axis, else all of them (the cross cache's layout)."""
+    b, s, _ = x.shape
+    plan = ranked_plan()
+    if plan is None:
+        db, dtp = div.get("batch", 1), div.get("model", 1)
+        return tuple(gemm(x, p[f"w{key}"], divisors=(db, dtp, 1), tag=f"{prefix}.{key}")
+                     .reshape(b, s, cfg.n_kv_heads, cfg.d_head) for key in "kv")
+    k_split = _on_model(plan.spec_for(attn_specs(cfg)["wk"]), 1)
+    q_split = _on_model(plan.spec_for(attn_specs(cfg)["wq"]), 1)
+    return _ranked_kv(p, sum_grad(x, "model") if k_split else x, cfg, plan, q_split, prefix)
 
 
 def _project_q(p: Params, x: torch.Tensor, cfg: ModelConfig, div: Dict[str, int]):
-    if ranked_plan() is not None:
-        raise NotImplementedError("cross-attention across ranks (the encoder-decoder family) "
-                                  "runs on one rank")
+    """The cross-attention's query projection (B, S, Hq, dh): this rank's
+    heads across ranks (:func:`_ranked_q`)."""
     b, s, _ = x.shape
-    db, dtp = div.get("batch", 1), div.get("model", 1)
-    return gemm(x, p["wq"], divisors=(db, dtp, 1), tag="attn.q").reshape(
-        b, s, cfg.n_heads, cfg.d_head)
+    plan = ranked_plan()
+    if plan is None:
+        db, dtp = div.get("batch", 1), div.get("model", 1)
+        return gemm(x, p["wq"], divisors=(db, dtp, 1), tag="attn.q").reshape(
+            b, s, cfg.n_heads, cfg.d_head)
+    split = _on_model(plan.spec_for(attn_specs(cfg)["wq"]), 1)
+    return _ranked_q(p, sum_grad(x, "model") if split else x, cfg, plan)
 
 
 def _project_o(p: Params, out: torch.Tensor, cfg: ModelConfig, div: Dict[str, int]):
     """The output projection of the attention ``out`` (B, S, Hq * dh);
-    across ranks row-parallel, summed over ``model``."""
+    across ranks row-parallel, summed over ``model``. Where every rank
+    attended with every head (:func:`_ranked_q`), it takes the columns of
+    ``out`` that its rows of ``wo`` read."""
     plan = ranked_plan()
     if plan is None:
         db, dtp = div.get("batch", 1), div.get("model", 1)
@@ -382,6 +439,9 @@ def _project_o(p: Params, out: torch.Tensor, cfg: ModelConfig, div: Dict[str, in
     wo, po = _ranked_weight(p, "wo", attn_specs(cfg)["wo"], plan)
     if not _on_model(po, 0):
         return gemm(out, wo, tag="attn.o")
+    rows = wo.shape[0]
+    if out.shape[-1] != rows:
+        out = out.narrow(-1, plan.mesh.coords["model"] * rows, rows)
     return _row_parallel(out, wo, "attn.o")
 
 
@@ -435,6 +495,10 @@ def attn_apply(
         if use_rope:
             q = rope(q, positions, cfg.rope_theta)
         k_full, v_full = kv_override
+        plan = ranked_plan()
+        if plan is not None:  # this rank's kv heads (project_kv), or all of them
+            pick = _kv_pick(cfg, plan, q.shape[2], kv_aligned(cfg, plan))
+            k_full, v_full = pick(k_full), pick(v_full)
         out = chunked_attention(
             q, k_full, v_full, mask_kind="bidir", q_positions=torch.arange(s, device=x.device),
             k_positions=torch.arange(k_full.shape[1], device=x.device), chunk=cfg.attn_chunk,

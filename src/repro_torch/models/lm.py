@@ -31,10 +31,13 @@ A VLM's prompt may carry ``patch_embeds`` (B, P, D), the stubbed vision
 frontend's output: they take the first P positions, and the first S - P
 token embeddings follow them (``forward`` and ``prefill``).
 
-Across ranks (a ranked plan; the dense and MoE families) parameters and
-caches are this rank's shards (``init_params`` draws each full leaf as one
-rank would and keeps its shard), the layers run tensor- and
-FSDP-parallel (:mod:`repro_torch.models.layers`), the embedding is
+Across ranks (a ranked plan; every family) parameters and caches are this
+rank's shards (``init_params`` draws each full leaf as one rank would and
+keeps its shard), the layers run tensor- and FSDP-parallel
+(:mod:`repro_torch.models.layers`; a Mamba2 block head-parallel,
+:mod:`repro_torch.models.ssd`, its ``ssm`` cache on this rank's heads and
+conv channels), a VLM's patch embeddings are replicated over ``model``
+and split over the data axes with their rows, the embedding is
 vocab-parallel (each rank looks up the rows of its vocabulary range, then
 an all-reduce over ``model``) and so is the head, whose logits are
 all-gathered over ``model`` for sampling and the loss. Batch rows split
@@ -226,6 +229,94 @@ class TiedHead:
         return self._entry[2]
 
 
+def init_ranked(specs, generator: torch.Generator, device):
+    """Random weights of a spec tree on ``device``, leaf by leaf in the
+    tree's order; under a ranked plan the same draws as one rank, each full
+    leaf cut to this rank's shard at once (so the ranks hold one model and
+    the card one leaf at a time)."""
+    plan = ranked_plan()
+    if plan is None:
+        return _map(lambda s: init_leaf(s, generator, device), specs)
+    return _map(lambda s: shard_leaf(init_leaf(s, generator, device), plan, s,
+                                     plan.mesh.coords), specs)
+
+
+def vocab_lookup(table, tokens, plan, spec: ArraySpec) -> torch.Tensor:
+    """Vocab-parallel lookup of ``tokens`` in ``table``, this rank's shard
+    of an embedding of spec ``spec``: the rows of this rank's vocabulary
+    range (the table gathered over its FSDP axes), zero elsewhere, summed
+    over ``model``."""
+    parts = plan.spec_for(spec)
+    table = L.gather_weight(table, parts)
+    if "model" not in axes_of(parts[0]):
+        return table[tokens]
+    rows = table.shape[0]
+    lo = plan.mesh.coords["model"] * rows
+    local = tokens - lo
+    inside = (local >= 0) & (local < rows)
+    x = table[local.clamp(0, rows - 1)] * inside[..., None].to(table.dtype)
+    return all_reduce(x, "model")
+
+
+def vocab_head(x, w, parts, dtype) -> torch.Tensor:
+    """Vocab-parallel head: ``x`` against ``w``, this rank's vocabulary
+    columns of the head weight (partition entries ``parts``; gathered over
+    its FSDP axes), the logits all-gathered over ``model``; the loss over
+    them is replicated, so the gather's backward keeps this rank's slice."""
+    split = "model" in axes_of(parts[1])
+    w = L.gather_weight(w, parts)
+    xin = sum_grad(x, "model") if split else x
+    logits = gemm(xin, w, tag="lm_head", out_dtype=dtype)
+    return all_gather(logits, "model", -1, grad="slice") if split else logits
+
+
+def row_split() -> int:
+    """How many ranks the current call's rows split over (1 without a
+    ranked plan, or under ``whole_rows``)."""
+    plan = ranked_plan()
+    return 1 if plan is None else math.prod(plan.mesh.shape[a] for a in row_axes(plan))
+
+
+def by_rows(run, tokens, *cols):
+    """``run(tokens, *cols)`` -> (logits, cache) on the rows this rank
+    serves (module doc): under a ranked plan whose batch axes divide the
+    batch, this rank's rows of ``tokens`` and of each per-row ``cols``,
+    then the logits gathered over the batch axes; where they do not divide
+    it, every row under ``whole_rows``."""
+    plan = ranked_plan()
+    axes = () if plan is None else batch_axes(plan)
+    if not axes:
+        return run(tokens, *cols)
+    rows = rows_of(plan, tokens.shape[0])
+    if rows is None:
+        with whole_rows():
+            return run(tokens, *cols)
+    logits, cache = run(tokens[rows], *(c[rows] for c in cols))
+    return all_gather_rows(logits, axes), cache
+
+
+def ranked_loss_terms(logits, labels, mask):
+    """(nll, logz, denom, the data rows' count, or 1 without them) of a
+    batch's share: across ranks whose rows split over the data axes, this
+    rank's sums over the global token count, so the shares' gradients add
+    up to the mean's (:func:`token_loss`)."""
+    plan = ranked_plan()
+    rows = () if plan is None else batch_axes(plan)
+    if not rows:
+        return (*token_loss(logits, labels, mask), 1)
+    total = all_reduce_axes(torch.sum(mask).detach(), rows)
+    return (*token_loss(logits, labels, mask, denom=total),
+            math.prod(plan.mesh.shape[a] for a in rows))
+
+
+def sum_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A batch's metrics summed over the data axes its rows split over
+    (each rank's shares of the global figures), or as they are."""
+    plan = ranked_plan()
+    rows = () if plan is None else batch_axes(plan)
+    return {key: all_reduce_axes(v, rows) for key, v in metrics.items()}
+
+
 class LM:
     """The LM: embed (a VLM's patch embeddings first) -> L x (norm, GQA
     attention, norm, MLP or MoE; or norm, Mamba2 block, and at the hybrid's
@@ -324,21 +415,7 @@ class LM:
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
-        plan = ranked_plan()
-        if plan is None:
-            return _map(lambda s: init_leaf(s, generator, dev), self.param_specs())
-        self._check_ranked()
-        # the same draws as one rank, each full leaf cut to this rank's shard
-        # at once, so the ranks hold one model and the card one leaf at a time
-        return _map(lambda s: shard_leaf(init_leaf(s, generator, dev), plan, s,
-                                         plan.mesh.coords), self.param_specs())
-
-    def _check_ranked(self):
-        """Raise for what runs on one rank only (module doc)."""
-        if self.cfg.family not in ("dense", "moe"):
-            raise NotImplementedError(
-                f"the {self.cfg.family} family across ranks is not ported; dense and MoE "
-                "LMs are")
+        return init_ranked(self.param_specs(), generator, dev)
 
     # -- embedding / head -----------------------------------------------------
     def _embed(self, params, tokens, patch_embeds=None):
@@ -348,7 +425,8 @@ class LM:
         dt = as_dtype(self.cfg.dtype)
         plan = ranked_plan()
         if plan is not None:
-            x = self._embed_ranked(params, tokens, plan).to(dt)
+            x = vocab_lookup(params["embed"], tokens, plan,
+                             self.param_specs()["embed"]).to(dt)
         else:
             x = params["embed"][tokens].to(dt)
         if self.cfg.family == "vlm" and patch_embeds is not None:
@@ -356,23 +434,6 @@ class LM:
             x = torch.cat([p, x[:, :x.shape[1] - p.shape[1]]], dim=1)
         # the residual stream: batch over the data-parallel axes
         return constrain(x, "batch", "seq", None)
-
-    def _embed_ranked(self, params, tokens, plan):
-        """Vocab-parallel lookup: the rows of this rank's vocabulary range
-        (the table gathered over its FSDP axes), zero elsewhere, summed over
-        ``model``."""
-        self._check_ranked()
-        spec = self.param_specs()["embed"]
-        parts = plan.spec_for(spec)
-        table = L.gather_weight(params["embed"], parts)
-        if "model" not in axes_of(parts[0]):
-            return table[tokens]
-        rows = table.shape[0]
-        lo = plan.mesh.coords["model"] * rows
-        local = tokens - lo
-        inside = (local >= 0) & (local < rows)
-        x = table[local.clamp(0, rows - 1)] * inside[..., None].to(table.dtype)
-        return all_reduce(x, "model")
 
     def head_weight(self, params) -> torch.Tensor:
         """The ``(d_model, vocab)`` weight the head reads: ``lm_head``, or,
@@ -385,7 +446,12 @@ class LM:
     def _head(self, params, x, div):
         plan = ranked_plan()
         if plan is not None:
-            return self._head_ranked(params, x, plan)
+            specs = self.param_specs()
+            if self.cfg.tie_embeddings:
+                parts = tuple(reversed(plan.spec_for(specs["embed"])))
+            else:
+                parts = plan.spec_for(specs["lm_head"])
+            return vocab_head(x, self.head_weight(params), parts, self.cfg.dtype)
         return gemm(
             x,
             self.head_weight(params),
@@ -393,22 +459,6 @@ class LM:
             tag="lm_head",
             out_dtype=self.cfg.dtype,
         )
-
-    def _head_ranked(self, params, x, plan):
-        """Vocab-parallel head: this rank's vocabulary columns (the weight
-        gathered over its FSDP axes), the logits all-gathered over
-        ``model``; the loss over them is replicated, so the gather's
-        backward keeps this rank's slice."""
-        specs = self.param_specs()
-        if self.cfg.tie_embeddings:
-            parts = tuple(reversed(plan.spec_for(specs["embed"])))
-        else:
-            parts = plan.spec_for(specs["lm_head"])
-        split = "model" in axes_of(parts[1])
-        w = L.gather_weight(self.head_weight(params), parts)
-        xin = sum_grad(x, "model") if split else x
-        logits = gemm(xin, w, tag="lm_head", out_dtype=self.cfg.dtype)
-        return all_gather(logits, "model", -1, grad="slice") if split else logits
 
     def _block(self, params, i, x, *, div, positions, window, cache=None, cur_pos=None):
         """Layer ``i`` of the stack; ``window`` is its (mask kind, window),
@@ -511,16 +561,10 @@ class LM:
             # no LM loss on image-patch positions
             mask = mask.clone()
             mask[:, : batch["patch_embeds"].shape[1]] = 0.0
-        rows = () if ranked_plan() is None else batch_axes(ranked_plan())
-        if rows:
-            # this rank's share of the global mean: its sums over the global
-            # count, so the shares' gradients add up to the mean's; the aux
-            # loss is the data rows' mean
-            total = all_reduce_axes(torch.sum(mask).detach(), rows)
-            nll, logz, denom = token_loss(logits, labels, mask, denom=total)
-            aux = aux / math.prod(ranked_plan().mesh.shape[a] for a in rows)
-        else:
-            nll, logz, denom = token_loss(logits, labels, mask)
+        # across ranks this rank's share of the global mean; the aux loss is
+        # the data rows' mean
+        nll, logz, denom, n_rows = ranked_loss_terms(logits, labels, mask)
+        aux = aux / n_rows
         loss = nll + aux
         # z-loss for logit drift stability at scale
         zloss = 1e-4 * torch.sum(torch.square(logz) * mask) / denom
@@ -530,10 +574,7 @@ class LM:
             "zloss": zloss.detach(),
             "ntokens": torch.sum(mask).detach(),
         }
-        if rows:
-            for key in metrics:
-                metrics[key] = all_reduce_axes(metrics[key], rows)
-        return loss + zloss, metrics
+        return loss + zloss, sum_metrics(metrics)
 
     # -- serving -----------------------------------------------------------------
     def cache_specs(self, batch: int, max_seq: int) -> Params:
@@ -571,14 +612,7 @@ class LM:
                                                      init="zeros")
             out["attn"] = attn
         if self._has_ssm:
-            nh, dh, ds = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-            conv_dim = cfg.d_inner + 2 * ds
-            out["ssm"] = {
-                "h": ArraySpec((n, batch, nh, dh, ds), "float32",
-                               ("stack", "batch", "ssm_inner", None, None), init="zeros"),
-                "conv": ArraySpec((n, batch, cfg.ssm_conv_width - 1, conv_dim), cfg.dtype,
-                                  ("stack", "batch", None, "ssm_inner"), init="zeros"),
-            }
+            out["ssm"] = ssd.ssd_cache_specs(cfg, n, batch)
         return out
 
     def _layer_split(self) -> Tuple[List[int], List[int]]:
@@ -678,8 +712,8 @@ class LM:
         this rank's rows, the logits of all (module doc)."""
         div = div or {}
         if patch_embeds is None:
-            return self._by_rows(lambda t: self._prefill(params, t, max_seq, div, None), tokens)
-        return self._by_rows(lambda t, pe: self._prefill(params, t, max_seq, div, pe), tokens,
+            return by_rows(lambda t: self._prefill(params, t, max_seq, div, None), tokens)
+        return by_rows(lambda t, pe: self._prefill(params, t, max_seq, div, pe), tokens,
                              patch_embeds)
 
     def _prefill(self, params, tokens, max_seq, div, patch_embeds):
@@ -688,7 +722,7 @@ class LM:
         x = self._embed(params, tokens, patch_embeds)
         positions = torch.arange(s, device=tokens.device)
         # the cache of these rows: specs at the batch they are this rank's part of
-        cache = _zeros(local_specs(self._uniform_cache_specs(b * self._row_split(), max_seq or s)),
+        cache = _zeros(local_specs(self._uniform_cache_specs(b * row_split(), max_seq or s)),
                        tokens.device)
         for i, window in enumerate(self._windows()):
             x, fresh, _ = self._block(params, i, x, div=div, positions=positions, window=window)
@@ -730,7 +764,7 @@ class LM:
             x = self._cached_layers(params, cache, t, p, div)
             return self._head(params, x[:, -1:], div), cache
 
-        return self._by_rows(chunk, tokens, cur_pos)
+        return by_rows(chunk, tokens, cur_pos)
 
     def decode_step(self, params: Params, cache, tokens: torch.Tensor, cur_pos: torch.Tensor,
                     *, div: Optional[Dict[str, int]] = None):
@@ -746,30 +780,7 @@ class LM:
                 return self.decode_step_windowed(params, cache, t, p, div=div)
             return self._head(params, self._cached_layers(params, cache, t, p, div), div), cache
 
-        return self._by_rows(step, tokens, cur_pos)
-
-    def _row_split(self) -> int:
-        """How many ranks the current call's rows split over (1 without a
-        ranked plan, or under ``whole_rows``)."""
-        plan = ranked_plan()
-        return 1 if plan is None else math.prod(plan.mesh.shape[a] for a in row_axes(plan))
-
-    def _by_rows(self, run, tokens, *cols):
-        """``run(tokens, *cols)`` -> (logits, cache) on the rows this rank
-        serves (module doc): under a ranked plan whose batch axes divide the
-        batch, this rank's rows of ``tokens`` and of each per-row ``cols``,
-        then the logits gathered over the batch axes; where they do not
-        divide it, every row under ``whole_rows``."""
-        plan = ranked_plan()
-        axes = () if plan is None else batch_axes(plan)
-        if not axes:
-            return run(tokens, *cols)
-        rows = rows_of(plan, tokens.shape[0])
-        if rows is None:
-            with whole_rows():
-                return run(tokens, *cols)
-        logits, cache = run(tokens[rows], *(c[rows] for c in cols))
-        return all_gather_rows(logits, axes), cache
+        return by_rows(step, tokens, cur_pos)
 
     def _cached_layers(self, params, cache, tokens, cur_pos, div):
         """The layer stack over ``tokens`` (B, S) at ``cur_pos .. cur_pos +

@@ -21,11 +21,17 @@ from repro_torch.models.lm import LM, resolve_device
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 
 ROOT = Path(__file__).resolve().parent.parent
+#: the modules the multi-rank tests' ranks import (``torch.multiprocessing``
+#: imports them in every rank, which must stay free of jax)
+RANK_MODULES = ("test_torch_multirank_ranks", "test_torch_multirank_serve_ranks",
+                "test_torch_multirank_families_ranks")
 #: the port, the chip smoke run, the kernel A/B timer, the logits and SASS
-#: probes and the card-only tests (they run where jax is not installed)
+#: probes, the card-only tests (they run where jax is not installed) and the
+#: rank modules
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "kernel_ab.py", ROOT / "logits_probe.py",
-    ROOT / "sass_ab.py", ROOT / "tests" / "test_torch_cuda.py"]
+    ROOT / "sass_ab.py", ROOT / "tests" / "test_torch_cuda.py"] + [
+    ROOT / "tests" / f"{name}.py" for name in RANK_MODULES]
 FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_torch)|from\s+(jax|repro)(\.|\s)(?!_torch))")
 
 
@@ -50,6 +56,18 @@ def test_port_import_leaves_jax_out():
             "repro_torch.dist.sharding, repro_torch.dist.cost, repro_torch.dist.pipeline, "
             "repro_torch.launch.mesh, repro_torch.launch.dryrun, "
             "repro_torch.dist.collectives, repro_torch.core.device_bloom, sys; "
+            "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert not [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]")
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_rank_modules_leave_jax_out():
+    """What a multi-rank test's ranks import, in a subprocess as a rank
+    imports it."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT / "tests")]))
+    code = (f"import sys, {', '.join(RANK_MODULES)}; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]")
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,

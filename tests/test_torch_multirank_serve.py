@@ -374,7 +374,7 @@ def test_paged_engine_on_the_model_axis_matches_repros(two):
         assert out["paged"]["kv_heads"] == cfg.n_kv_heads // 2  # this rank's kv heads
 
 
-# -- what stays refused ------------------------------------------------------------------
+# -- what stays refused, and what builds ------------------------------------------------------------------
 
 
 def test_what_stays_refused_across_ranks_says_so(monkeypatch):
@@ -382,9 +382,16 @@ def test_what_stays_refused_across_ranks_says_so(monkeypatch):
         with pytest.raises(NotImplementedError, match="splits the model axis only"):
             PagedKVCache(build_model(mr.f32_reduced("granite-8b")), page_size=8, n_pages=4,
                          device="cpu")
+        # the SSM, hybrid and VLM families build across ranks: this rank's shards
         for arch in ("mamba2-1.3b", "zamba2-1.2b", "llava-next-34b"):
-            with pytest.raises(NotImplementedError, match="family across ranks"):
-                build_model(mr.f32_reduced(arch)).init_params("cpu")
+            model = build_model(mr.f32_reduced(arch))
+            params = model.init_params("cpu")
+            plan = sharding.current_plan()
+            for path, spec in sharding.spec_items(model.param_specs()):
+                leaf = params
+                for key in path.split("/"):
+                    leaf = leaf[key]
+                assert tuple(leaf.shape) == plan.local_shape(spec), (arch, path)
     monkeypatch.setenv("WORLD_SIZE", "2")
     base = ["--arch", "granite-8b", "--device", "cpu"]
     for argv, match in ((["--mesh-model", "2", "--workers", "2"], "--workers runs on one rank"),
