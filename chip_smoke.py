@@ -304,9 +304,9 @@ Phases (any failure raises and the script exits non-zero):
    the logits against the one-rank body replaying the ranks' top-8 (5e-2),
    the router GEMM at ``ROUTER_TOL``. (c) granite-8b at full width, 1
    layer: ``Trainer.fit`` 1 step on (2, 1) (FSDP and data parallel),
-   checkpoint, 1 on (1, 2), on two ranks of their own started before phase 6
+   checkpoint, 1 on (1, 2), on two ranks of their own started before phase 5
    (``chip_smoke.py --background-ranks DIR``, ``start_background_ranks``,
-   then phase 11's and 12's rank parts), which run beside phases 6-9;
+   then phase 11's, 12's and 13's rank parts), which run beside phases 5-9;
    losses at ``TRAIN_LOSS_TOL`` and the first
    step's gathered gradients at ``TRAIN_GRAD_TOL`` against the one-rank
    ``torch`` backend. (d) ``device_bloom`` on 2**20 keys against phase 4's
@@ -317,7 +317,7 @@ Phases (any failure raises and the script exits non-zero):
    first differ, the one-rank top-2 logit margin beside the two-rank
    logits' reading on the same tokens (``w1_readings``).
 11. The serve CLI's configurations under a plan, on the same two ranks
-   (their parts, ``mr11_*``, in the ranks started before phase 6): (a)
+   (their parts, ``mr11_*``, in the ranks started before phase 5): (a)
    granite-8b ``--quantize`` int8-dynamic and int4 on (1, 2) through the CLI
    at full depth (exit 0, 4/4, B1 and B2 on the rung on each rank, a decode
    step's collectives: the float dry run's, plus on int8-dynamic one MAX
@@ -338,7 +338,7 @@ Phases (any failure raises and the script exits non-zero):
    int4's amax over half of K (its codes must differ), rank 1's MoE combine
    partials zeroed, a missing or extra collective in the counts.
 12. The SSM, hybrid, VLM and encoder-decoder families across the same two
-   ranks (their parts, ``mr12_*``, in the ranks started before phase 6),
+   ranks (their parts, ``mr12_*``, in the ranks started before phase 5),
    at full width: (a) mamba2-1.3b through the serve CLI on (1, 2) at full
    depth (exit 0, 4/4, B1 or B2 on each rank, a decode step's collectives
    equal to the dry run's) beside the one-rank CLI's greedy tokens; (b)
@@ -354,6 +354,31 @@ Phases (any failure raises and the script exits non-zero):
    by one channel (the SSM and the hybrid, in the prefill and, apart, in
    the decode step), rank 1's partial of an all-reduce zeroed (llava,
    whisper), an extra collective in the counts.
+13. ``repro``'s production sharding rules across the same two ranks (their
+   parts, ``mr13_*``, in the ranks started before phase 5, after phase
+   12's; the one-rank ``cuda`` references there too, on rank 0 or, for
+   training, on each rank in turn), at full width: (a) granite-8b cut to 4
+   layers, decoding under the rule ``rules_for_cell`` gives the production
+   mesh where its 8 kv heads do not divide ``model`` (``kv_heads`` whole,
+   ``kv_seq`` over pod, data and model: each rank holds half of a 2048-
+   position cache): four requests of 900-2000 tokens prefilled one by one
+   into 4 slots, 2 decode steps, prefill and decode logits at
+   ``LOGITS_TOL``; (b) zamba2-1.2b cut to 12 layers, one row under
+   ``long_500k``'s rule on (2, 1) (``kv_seq`` on data), its cache cut to
+   6144 positions and a 4096-token prompt: the prefill and a decode step
+   layer by layer (``layer_replayed_diff``, the step from the ranks'
+   prefill cache made whole), end to end reported; (c) granite-8b cut to 2
+   layers trained under ``train_4k``'s rule (``seq`` on model,
+   sequence-parallel) on (1, 2), 2 x 2048 tokens: the loss at
+   ``TRAIN_LOSS_TOL``, the gradients at ``TRAIN_GRAD_TOL`` (each rank's
+   shards against the reference's slices), two AdamW steps' losses; two
+   Adafactor steps on (1, 2) and on (2, 1): losses, masters and factored
+   moments. For each: each rank's B1/B2 launches, a step's collectives
+   equal to the dry run's record of the same cell under the same rules op
+   by op (traced in phase 9 (a)'s child, ``chiprun_out/phase13_dryrun.json``),
+   a warm step's split. Planted faults: rank 1's partial softmax dropped
+   from the combine ((a), (b)), rank 1's reduce-scatters keeping the
+   neighbour's slice ((c)), an extra all-reduce in the counts.
 
 Tolerances: a kernel output ``x`` agrees with its reference ``r`` when
 ``max|x - r| <= tol * max(1, max|r|)``: 1e-4 for f32 inputs (f32 sums in
@@ -394,7 +419,8 @@ launches in phase 8's ``Trainer.fit``, by trained model, and phase 9's
 ``shard_gemm_launches`` (the per-shard GEMMs) and ``moe_variant_launches``
 (olmoe on each MoE variant), and phase 10's ``multirank_launches`` (each
 rank's counters, by run; phase 10's record is under ``multirank``, phase
-11's under ``serve_ranks``, phase 12's under ``families_ranks``).
+11's under ``serve_ranks``, phase 12's under ``families_ranks``, phase 13's
+under ``production_rules``).
 """
 
 from __future__ import annotations
@@ -4312,6 +4338,8 @@ def dryrun_worker(path):
               f"({art['seconds']:.1f}s)", flush=True)
         out.append(art)
     Path(path).write_text(json.dumps(out))
+    # phase 13's cells, each under the rules its rank parts run
+    phase13_dryrun(Path(path).with_name("phase13_dryrun.json"))
 
 
 def start_dryrun():
@@ -4320,8 +4348,9 @@ def start_dryrun():
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     path = out_dir / "phase9_dryrun.json"
-    if path.exists():
-        path.unlink()
+    for stale in (path, path.with_name("phase13_dryrun.json")):
+        if stale.exists():
+            stale.unlink()
     code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
             f"chip_smoke.dryrun_worker({str(path)!r})")
     logf = open(out_dir / "phase9_dryrun.log", "w")
@@ -5082,9 +5111,9 @@ def _torchrun_all(arg_lists, timeout):
 
 def start_background_ranks():
     """The rank parts that need nothing from this process (``chip_smoke.py
-    --background-ranks DIR``, ``background_ranks_main``: phase 10 (c), then phase 11's
-    and phase 12's), started on two ranks of their own before phase 6: they run beside
-    phases 6-9, which leave most of the card and the host's cores free (phase 10 (c) is
+    --background-ranks DIR``, ``background_ranks_main``: phase 10 (c), then phase 11's,
+    12's and 13's), started on two ranks of their own before phase 5: they run beside
+    phases 5-9, which leave most of the card and the host's cores free (phase 10 (c) is
     mostly checkpoint I/O and gloo traffic through host memory; at most about 22 GB on the
     card, beside phase 6's 44). Its output goes to a file
     in its directory (a pipe nobody reads would stall it). Returns the job: its launcher,
@@ -5417,8 +5446,9 @@ def multirank_main(workdir) -> int:
 
 def background_ranks_main(workdir) -> int:
     """One rank of the rank parts started ahead (:func:`start_background_ranks`):
-    phase 10 (c), then phase 11's and phase 12's rank parts, in one process group; each
-    rank writes what it saw to ``<workdir>/bg<r>.pt``."""
+    phase 10 (c), then phase 11's, 12's and 13's rank parts, in one process group; each
+    rank writes what it saw to ``<workdir>/bg<r>.pt`` (once before phase 13's parts, so
+    the earlier phases keep theirs whatever befalls those)."""
     import torch
     import torch.distributed as dist
 
@@ -5444,6 +5474,17 @@ def background_ranks_main(workdir) -> int:
         torch.cuda.empty_cache()
         out[f"fam12_{arch}"] = mr12_family(rank, arch, layers)
     out["fam12_seconds"] = time.perf_counter() - t0
+    # what the earlier phases need is kept before phase 13's parts run
+    torch.save(out, os.path.join(workdir, f"bg{rank}.pt"))
+    t0 = time.perf_counter()
+    for name, part in (("mr13_decode", mr13_decode), ("mr13_long", mr13_long),
+                       ("mr13_train", mr13_train)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        out[name] = part(rank)
+        out["part_seconds"][name] = time.perf_counter() - t1
+    out["prod13_seconds"] = time.perf_counter() - t0
     torch.save(out, os.path.join(workdir, f"bg{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()
@@ -6619,7 +6660,7 @@ def phase_serve_ranks(rank_outs, clis, failures):
     on the one card over gloo: (a) granite-8b quantized (int8-dynamic, int4)
     on (1, 2), (b) olmoe-1b-7b on its default MoE dispatch, dense and int8,
     (c) granite-8b on the data axis (2, 1), (d) granite-8b ``--paged`` on
-    (1, 2). The rank parts ran in the ranks started before phase 6 (``rank_outs``);
+    (1, 2). The rank parts ran in the ranks started before phase 5 (``rank_outs``);
     this process runs (a)'s CLI and every one-rank reference."""
     import torch
 
@@ -7015,7 +7056,7 @@ def phase_families_ranks(rank_outs, cli, failures):
     """Phase 12: the SSM, hybrid, VLM and encoder-decoder families across two ranks on the
     one card over gloo: (a) mamba2-1.3b through the serve CLI, (b) each of ``MR12_CELLS``
     through the model's prefill and decode step. The rank parts ran in the ranks started
-    before phase 6 (``rank_outs``); this process runs (a)'s CLIs and every one-rank
+    before phase 5 (``rank_outs``); this process runs (a)'s CLIs and every one-rank
     reference."""
     import torch
 
@@ -7050,6 +7091,635 @@ def families12_launches(rec):
         if isinstance(rec.get(arch), dict):
             out[arch] = rec[arch]["all_launches"]
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: repro's production sharding rules across ranks
+# ---------------------------------------------------------------------------
+
+#: (a) granite-8b decode on (1, 2) under the decode rule repro's ``rules_for_cell``
+#: gives the production mesh, where its 8 kv heads do not divide model (16): the cache's
+#: positions over (pod, data, model), the kv heads whole (installed as its dry run's
+#: ``--rules``). Full width, depth cut to ``MR13_LAYERS`` of 36; 4 slots, one request of
+#: each of ``MR13_PROMPTS`` tokens prefilled into a cache of ``MR13_SEQ`` positions (each
+#: rank holds half: rows on both), ``MR13_STEPS`` greedy decode steps
+MR13_RULES = {"kv_heads": None, "kv_seq": ("pod", "data", "model")}
+MR13_LAYERS, MR13_SEQ, MR13_STEPS = 4, 2048, 2
+MR13_PROMPTS = (900, 1300, 1700, 2000)
+#: (b) zamba2-1.2b, one row, under long_500k's rule on (2, 1) (kv_seq on data, the batch
+#: demoted): full width, depth cut to ``MR13_ZAMBA_LAYERS`` of 38 (its shared attention at
+#: two of them), the 524288-position cache cut to ``MR13_LONG_SEQ``, a prompt of
+#: ``MR13_LONG_PROMPT`` tokens (the rank holding positions 2176 on holds its last 1920 and
+#: the decoded token's row)
+MR13_ZAMBA_LAYERS, MR13_LONG_SEQ, MR13_LONG_PROMPT = 12, 4352, 4096
+#: (c) granite-8b trained under train_4k's rule (seq on model) on (1, 2), then Adafactor on
+#: (1, 2) and on (2, 1) (FSDP over data): full width, depth cut to ``MR13_TRAIN_LAYERS``,
+#: 2 x 2048 tokens (phase 8's 4096, in two rows so that (2, 1) splits them)
+MR13_TRAIN_LAYERS, MR13_TRAIN_ROWS, MR13_TRAIN_SEQ = 2, 2, 2048
+#: the optimizers' schedule in (c), the dry run's
+MR13_LR = 1e-4
+
+
+def _clone_tree(tree):
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+@contextmanager
+def dropped_partial(rank):
+    """The planted fault of a decode step under ``kv_seq``: rank 1's partial softmax
+    (its denominators and outputs) never reaches the combine (the exchange still
+    happens, so the ranks stay in step)."""
+    from repro_torch.models import layers
+
+    real = layers.combine_partials
+
+    def dropped(m, l, acc, axes):
+        if rank == 1:
+            l, acc = l * 0, acc * 0
+        return real(m, l, acc, axes)
+
+    layers.combine_partials = dropped
+    try:
+        yield
+    finally:
+        layers.combine_partials = real
+
+
+@contextmanager
+def wrong_slice_scatter(rank):
+    """The planted fault of a sequence-parallel step: rank 1's reduce-scatters keep the
+    neighbouring rank's slice of the sum in place of its own."""
+    import dataclasses
+
+    from repro_torch.dist import collectives
+
+    raw = collectives.raw_reduce_scatter
+
+    def faulty(x, ax, dim):
+        if rank == 1:
+            ax = dataclasses.replace(ax, index=(ax.index + 1) % ax.size)
+        return raw(x, ax, dim)
+
+    collectives.raw_reduce_scatter = faulty
+    try:
+        yield
+    finally:
+        collectives.raw_reduce_scatter = raw
+
+
+def mr13_prompts(vocab):
+    """The seeded requests of (a), one of each of ``MR13_PROMPTS`` tokens."""
+    rng = np.random.default_rng(13)
+    return [rng.integers(1, vocab, n) for n in MR13_PROMPTS]
+
+
+def mr13_serve(model, params, prompts, feed=None):
+    """(a)'s serving path: each request prefilled alone into a cache laid out for the 4
+    slots (``cache_batch``, as the slot engine does) and copied into its slot, then
+    ``MR13_STEPS`` decode steps of the 4 slots at their own positions. ``feed``: the
+    tokens to decode (another run's greedy ones), else this run's greedy tokens. Returns
+    each request's last prefill logits, each step's logits, the tokens fed, the cache
+    after the prefills (a copy) and the first step's positions."""
+    import torch
+
+    from repro_torch.serve.engine import _place
+
+    n = len(prompts)
+    cache = model.init_cache(n, MR13_SEQ, device="cuda")
+    last = []
+    for slot, p in enumerate(prompts):
+        logits, one = model.prefill(params, torch.as_tensor(p, device="cuda")[None],
+                                    max_seq=MR13_SEQ, cache_batch=n)
+        _place(cache, one, slot)
+        last.append(logits[0, -1])
+    prefill = torch.stack(last)
+    pos = torch.as_tensor([len(p) for p in prompts], device="cuda")
+    saved = _clone_tree(cache)
+    nxt = prefill.argmax(-1)[:, None] if feed is None else feed[0].cuda()
+    fed, steps = [nxt.cpu()], []
+    for i in range(MR13_STEPS):
+        logits, cache = model.decode_step(params, cache, nxt, pos + i)
+        steps.append(logits[:, 0].cpu())
+        if i + 1 < MR13_STEPS:
+            nxt = logits[:, 0].argmax(-1)[:, None] if feed is None else feed[i + 1].cuda()
+            fed.append(nxt.cpu())
+    del cache
+    return dict(prefill=prefill.cpu(), steps=steps, fed=fed, saved=saved, pos=pos)
+
+
+def mr13_decode(rank):
+    """Phase 13 (a) on each rank (module constants): the serving path through the kernels,
+    the gathered logits, each rank's cache shapes and launches, a decode step's
+    collectives, a warm step's split; the first decode step again with rank 1's partial
+    dropped from the combine. Rank 0 then runs the one-rank ``cuda`` reference on the same
+    weights, fed the ranks' tokens, and reads both."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.gemm import gemm_context
+    from repro_torch.dist.collectives import record
+    from repro_torch.dist.sharding import ShardingPlan, use_plan
+    from repro_torch.kernels.common import reset_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t0 = time.perf_counter()
+    model = _granite_at(MR13_LAYERS)
+    prompts = mr13_prompts(model.cfg.vocab_size)
+    plan = ShardingPlan(make_host_mesh(model=MR_RANKS), dict(MR13_RULES))
+    with use_plan(plan), torch.no_grad():
+        params = model.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
+        reset_launch_counts()
+        with gemm_context(backend="cuda"):
+            run = mr13_serve(model, params, prompts)
+        torch.cuda.synchronize()
+        launches = _mr_launches()
+        first, pos = run["fed"][0].cuda(), run["pos"]
+        cache = _clone_tree(run["saved"])
+        with record() as coll, gemm_context(backend="cuda"):
+            model.decode_step(params, cache, first, pos)
+        with gemm_context(backend="cuda"):
+            split = mr_decode_split(rank, lambda: model.decode_step(params, cache, first, pos),
+                                    iters=2)
+        with dropped_partial(rank), gemm_context(backend="cuda"):
+            bad, _ = model.decode_step(params, _clone_tree(run["saved"]), first, pos)
+        shapes = {k: tuple(v.shape) for k, v in cache["attn"].items()}
+        del params, cache
+    out = dict(launches=launches, collectives=coll.summary(), split=split, cache_shapes=shapes)
+    if rank == 0:
+        with torch.no_grad(), gemm_context(backend="cuda"):
+            params = model.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
+            ref = mr13_serve(model, params, prompts, feed=run["fed"])
+            del params
+        out.update(prefill_rel=_rel(run["prefill"], ref["prefill"]),
+                   decode_rel=max(_rel(a, b) for a, b in zip(run["steps"], ref["steps"])),
+                   fault_rel=_rel(bad, ref["steps"][0][:, None]))
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 13 (a) on rank {rank}: {out['seconds']:.1f}s")
+    return out
+
+
+@contextmanager
+def attn_trace():
+    """Record, while the block runs, each cached attention call's input and output
+    (``layers.attn_apply`` with a cache: a decode step's attention layers), in call
+    order."""
+    from repro_torch.models import layers
+
+    real = layers.attn_apply
+    trace = []
+
+    def recording(p, x, cfg, **kw):
+        out = real(p, x, cfg, **kw)
+        if kw.get("cache") is not None:
+            trace.append((x, out[0]))
+        return out
+
+    layers.attn_apply = recording
+    try:
+        yield trace
+    finally:
+        layers.attn_apply = real
+
+
+def attn_replayed_diff(model, params, trace, cache, pos):
+    """Each traced decode attention call of a hybrid (``attn_trace``) against the one-rank
+    attention fed the same input and the same layer of ``cache`` (a whole cache before
+    the step; copied, the call writes it): max|diff| over max|output|, call by call. The
+    shared block's attention runs at the marked layers, in order."""
+    import torch
+
+    from repro_torch.core.gemm import gemm_context
+    from repro_torch.models import layers
+
+    marked = [i for i, on in enumerate(model.layer_flags()["use_attn"]) if on]
+    out = []
+    with torch.no_grad(), gemm_context(backend="cuda"):
+        for i, (x, got) in zip(marked, trace):
+            layer = {k: v[i].clone() for k, v in cache["attn"].items()}
+            want, _ = layers.attn_apply(params["shared_attn"]["attn"], x, model.cfg, div={},
+                                        positions=pos[:, None], cache=layer, cur_pos=pos)
+            out.append(((got.float() - want.float()).abs().max()
+                        / want.float().abs().max()).item())
+    return out
+
+
+def _whole_cache(cache, plan):
+    """A decode cache split over ``kv_seq`` made whole on every rank (a collective): the
+    attention leaves' positions all-gathered, the rest (whole already) as they are."""
+    from repro_torch.dist.collectives import mesh_axis, raw_all_gather
+    from repro_torch.dist.sharding import kv_seq_split
+
+    split = kv_seq_split(plan, cache["attn"]["k"].shape[1])
+    out = _clone_tree(cache)
+    if split is not None:
+        for key, leaf in cache["attn"].items():
+            for a in reversed(split.axes):  # innermost axis first
+                leaf = raw_all_gather(leaf, mesh_axis(a, plan.mesh), 2)
+            out["attn"][key] = leaf
+    return out
+
+
+def mr13_long(rank):
+    """Phase 13 (b) on each rank: zamba2-1.2b under long_500k's rule on (2, 1), one row:
+    the prefill and a decode step through the kernels with each layer's input and output,
+    the launches, the decode step's collectives and a warm step's split; the decode step
+    again with rank 1's partial dropped from the combine. Rank 0 then holds them layer by
+    layer against the one-rank ``cuda`` run on the same weights (``layer_replayed_diff``:
+    the decode steps from the ranks' prefill cache made whole) and end to end."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.gemm import gemm_context
+    from repro_torch.dist.collectives import record
+    from repro_torch.dist.sharding import ShardingPlan, use_plan
+    from repro_torch.kernels.common import reset_launch_counts
+    from repro_torch.launch.dryrun import rules_for_cell
+    from repro_torch.launch.mesh import MeshShape, make_host_mesh
+    from repro_torch.models import SHAPES_BY_NAME
+
+    t0 = time.perf_counter()
+    model = _mr12_model("zamba2-1.2b", MR13_ZAMBA_LAYERS)
+    rules = rules_for_cell(model.cfg, SHAPES_BY_NAME["long_500k"],
+                           MeshShape((MR_RANKS, 1), ("data", "model")))
+    plan = ShardingPlan(make_host_mesh(model=1), rules)
+    rng = np.random.default_rng(13)
+    tokens = torch.as_tensor(rng.integers(1, model.cfg.vocab_size, (1, MR13_LONG_PROMPT)),
+                             device="cuda")
+    pos = torch.full((1,), MR13_LONG_PROMPT, device="cuda")
+    with use_plan(plan), torch.no_grad():
+        params = model.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
+        reset_launch_counts()
+        with layer_trace() as trace, gemm_context(backend="cuda"):
+            logits, cache = model.prefill(params, tokens, max_seq=MR13_LONG_SEQ)
+        nxt = logits[:, -1].argmax(-1)[:, None]
+        saved = _clone_tree(cache)
+        with record() as coll, layer_trace() as step_trace, attn_trace() as step_attn, \
+                gemm_context(backend="cuda"):
+            step, _ = model.decode_step(params, cache, nxt, pos)
+        torch.cuda.synchronize()
+        launches = _mr_launches()
+        with gemm_context(backend="cuda"):
+            split = mr_decode_split(rank, lambda: model.decode_step(params, cache, nxt, pos),
+                                    iters=2)
+        with dropped_partial(rank), layer_trace() as bad_trace, attn_trace() as bad_attn, \
+                gemm_context(backend="cuda"):
+            bad, _ = model.decode_step(params, _clone_tree(saved), nxt, pos)
+        shapes = {k: tuple(v.shape) for k, v in saved["attn"].items()}
+        whole = _whole_cache(saved, plan)
+        del params, cache, saved
+    out = dict(launches=launches, collectives=coll.summary(), split=split, cache_shapes=shapes,
+               rules={k: list(v) if isinstance(v, tuple) else v for k, v in rules.items()})
+    if rank == 0:
+        with torch.no_grad():
+            params = model.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
+
+            def prefill():
+                return model.prefill(params, tokens, max_seq=MR13_LONG_SEQ)[0]
+
+            def decode():  # from the ranks' prefill cache, whole: the step writes it in place
+                return model.decode_step(params, _clone_tree(whole), nxt, pos)[0]
+
+            out["prefill_layers"] = layer_replayed_diff(prefill, trace, logits, backend="cuda")
+            out["decode_layers"] = layer_replayed_diff(decode, step_trace, step, backend="cuda")
+            out["fault_layers"] = layer_replayed_diff(decode, bad_trace, bad, backend="cuda")
+            # the attention calls on their own: the combine's share of the stream is small
+            # beside the residual over thousands of positions, so there a fault reads in full
+            out["decode_attn"] = attn_replayed_diff(model, params, step_attn, whole, pos)
+            out["fault_attn"] = attn_replayed_diff(model, params, bad_attn, whole, pos)
+            with gemm_context(backend="cuda"):
+                out["prefill_e2e"] = _rel(logits, prefill())
+                out["decode_e2e"] = _rel(step, decode())
+            del params
+    del trace, step_trace, bad_trace, step_attn, bad_attn, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 13 (b) on rank {rank}: {out['seconds']:.1f}s")
+    return out
+
+
+def _shard_diff(local, want, plan, specs):
+    """The relative L2 distance, over the whole tree and across the ranks, of this rank's
+    shards ``local`` ({path: tensor}) from ``want``, the same slices of the reference's
+    tensors (``specs``: {path: ArraySpec}); each leaf counted once whatever the ranks that
+    hold it (a collective: every rank calls it)."""
+    import torch
+
+    from repro_torch.dist.collectives import mesh_axis, raw_all_reduce
+    from repro_torch.dist.sharding import axes_of
+
+    sizes = {a: int(n) for a, n in plan.mesh.shape.items() if int(n) > 1}
+    acc = torch.zeros(2, dtype=torch.float64, device="cuda")
+    for name, got in local.items():
+        held = {a for part in plan.spec_for(specs[name]) for a in axes_of(part)}
+        copies = math.prod(n for a, n in sizes.items() if a not in held)
+        ref = want[name].double()
+        acc[0] += (got.double() - ref).square().sum() / copies
+        acc[1] += ref.square().sum() / copies
+    for a in sizes:
+        acc = raw_all_reduce(acc, mesh_axis(a, plan.mesh))
+    return math.sqrt(acc[0].item() / max(acc[1].item(), 1e-300))
+
+
+def _opt_leaves(state, specs):
+    """{path: (tensor, spec)} of an Adafactor state's masters and moments
+    (``master/<param>``, ``v/<param>/vr``, ...), each beside its spec (``specs``: the
+    parameters' {path: ArraySpec})."""
+    from repro_torch.dist.sharding import moment_spec
+    from repro_torch.utils.trees import tree_items
+
+    out = {}
+    for group in ("master", "v"):
+        for name, t in tree_items(state[group]):
+            parent, _, key = name.rpartition("/")
+            spec = specs[name] if group == "master" else moment_spec(specs[parent], key)
+            out[f"{group}/{name}"] = (t, spec)
+    return out
+
+
+def mr13_train(rank):
+    """Phase 13 (c) on each rank: granite-8b under train_4k's rule. The ranks first run,
+    one after the other, the one-rank ``cuda`` reference on the same weights and batch
+    (the first step's loss and gradients, two AdamW steps, two Adafactor steps with their
+    masters and moments), each keeping its slices of it. Then on (1, 2),
+    sequence-parallel: the loss and the gradients, synchronised as the train step does,
+    read against the reference's slices; the same with rank 1's reduce-scatters keeping
+    the neighbour's slice (the planted fault); two AdamW train steps (the first's
+    collectives), then a warm step's split. Then two Adafactor steps on (1, 2) and on
+    (2, 1) (FSDP over data): the losses, and each rank's masters and factored moments
+    against the reference's slices."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.gemm import gemm_context
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.dist.collectives import record, sync_grads
+    from repro_torch.dist.sharding import (ShardingPlan, local_rows, shard_leaf, spec_items,
+                                           use_plan)
+    from repro_torch.kernels.common import reset_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.lm import LM
+    from repro_torch.optim import constant, make_optimizer
+    from repro_torch.train import init_train_state
+    from repro_torch.train.trainer import make_train_step, take_grads, to_device_batch
+    from repro_torch.utils.trees import tree_items
+
+    t0 = time.perf_counter()
+    model = LM(dataclasses.replace(get_config("granite-8b"), n_layers=MR13_TRAIN_LAYERS))
+    specs = dict(spec_items(model.param_specs()))
+    data = SyntheticLMData(model.cfg, batch=MR13_TRAIN_ROWS, seq_len=MR13_TRAIN_SEQ, seed=1)
+    batch0 = to_device_batch(data.batch_at(0), "cuda")
+    # every rank makes every group, in the same order
+    plans = {"1x2": ShardingPlan(make_host_mesh(model=MR_RANKS), {"seq": "model"}),
+             "2x1": ShardingPlan(make_host_mesh(model=1), {"seq": "model"})}
+
+    def params_for():
+        params = model.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
+        for _, leaf in tree_items(params):
+            leaf.requires_grad_(True)
+        return params
+
+    def steps(name, n, batch):
+        """(the losses, the state, the first step's collectives, the step function) of
+        ``n`` train steps on ``batch`` with optimizer ``name``."""
+        opt = make_optimizer(name, constant(MR13_LR))
+        state = init_train_state(model, opt, params_for())
+        step = make_train_step(model, opt)
+        losses, coll = [], None
+        for i in range(n):
+            with record() if i == 0 else nullcontext() as rec:
+                state, metrics = step(state, batch)
+            if i == 0:
+                coll = rec.summary()
+            losses.append(float(metrics["loss"]))
+        return losses, state, coll, step
+
+    def slices(tree, plan, spec_of):
+        return {k: shard_leaf(t, plan, spec_of[k], plan.mesh.coords) for k, t in tree.items()}
+
+    ref = {}
+    for r in range(MR_RANKS):  # one rank at a time: an AdamW state of the whole model each
+        if rank == r:
+            with gemm_context(backend="cuda"):
+                params = params_for()
+                loss, _ = model.loss_fn(params, batch0)
+                loss.backward()
+                ref["loss"] = loss.item()
+                ref["grads"] = slices(dict(tree_items(take_grads(params))), plans["1x2"], specs)
+                del params, loss
+                ref["adamw"] = steps("adamw", 2, batch0)[0]
+                ref["adafactor"], state, _, _ = steps("adafactor", 2, batch0)
+                leaves = _opt_leaves(state["opt"], specs)
+                spec_of = {k: s for k, (_, s) in leaves.items()}
+                full = {k: t for k, (t, _) in leaves.items()}
+                ref["opt"] = {name: slices(full, plan, spec_of) for name, plan in plans.items()}
+                del state, leaves, full
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+
+    out = {}
+    sp = plans["1x2"]
+    with use_plan(sp), gemm_context(backend="cuda"):
+        batch = local_rows(batch0)
+        if not model.sequence_parallel(batch["tokens"].shape):
+            raise RuntimeError(f"phase 13 (c): {tuple(batch['tokens'].shape)} is not split "
+                               "along its positions under seq = 'model'")
+        reads = {}
+        for fault in (False, True):
+            params = params_for()
+            reset_launch_counts()
+            with wrong_slice_scatter(rank) if fault else nullcontext():
+                loss, _ = model.loss_fn(params, batch)
+                loss.backward()
+                grads = sync_grads(take_grads(params), model.param_specs(), sp,
+                                   model.seq_parallel_leaves(batch))
+            torch.cuda.synchronize()
+            if not fault:
+                out["launches"] = _mr_launches()
+            reads[fault] = (abs(loss.item() - ref["loss"]) / abs(ref["loss"]),
+                            _shard_diff(dict(tree_items(grads)), ref["grads"], sp, specs))
+            del params, grads, loss
+        (out["loss_rel"], out["grad_rel"]), (out["fault_loss_rel"], out["fault_rel"]) = (
+            reads[False], reads[True])
+        losses, state, out["collectives"], step = steps("adamw", 2, batch)
+        out["adamw_loss_rel"] = max(abs(a - b) / abs(b) for a, b in zip(losses, ref["adamw"]))
+        out["split"] = mr_decode_split(rank, lambda: step(state, batch), iters=1)
+        del state, step
+    for name, plan in plans.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        with use_plan(plan), gemm_context(backend="cuda"):
+            losses, state, _, _ = steps("adafactor", 2, local_rows(batch0))
+            mine = _opt_leaves(state["opt"], specs)
+            read = {}
+            for group in ("v/", "master/"):
+                part = {k: v for k, v in mine.items() if k.startswith(group)}
+                read[group] = _shard_diff({k: t for k, (t, _) in part.items()},
+                                          ref["opt"][name], plan,
+                                          {k: s for k, (_, s) in part.items()})
+            out[f"adafactor_{name}"] = dict(
+                loss_rel=max(abs(a - b) / abs(b) for a, b in zip(losses, ref["adafactor"])),
+                moments_rel=read["v/"], masters_rel=read["master/"])
+            del state, mine
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 13 (c) on rank {rank}: {out['seconds']:.1f}s")
+    return out
+
+
+def phase13_cells():
+    """The dry run's cells of phase 13, each as its parts run it: (name, arch, shape,
+    mesh, rules, config overrides, shape overrides)."""
+    return (("decode", "granite-8b", "decode_32k", (1, MR_RANKS), dict(MR13_RULES),
+             {"n_layers": MR13_LAYERS}, {"global_batch": len(MR13_PROMPTS),
+                                         "seq_len": MR13_SEQ}),
+            ("long", "zamba2-1.2b", "long_500k", (MR_RANKS, 1), None,
+             {"n_layers": MR13_ZAMBA_LAYERS}, {"global_batch": 1, "seq_len": MR13_LONG_SEQ}),
+            ("train", "granite-8b", "train_4k", (1, MR_RANKS), None,
+             {"n_layers": MR13_TRAIN_LAYERS}, {"global_batch": MR13_TRAIN_ROWS,
+                                                "seq_len": MR13_TRAIN_SEQ}))
+
+
+def phase13_dryrun(path):
+    """The dry run's record of each of ``phase13_cells()`` (run in phase 9 (a)'s child
+    process, no card), to ``path``."""
+    from repro_torch.launch.dryrun import lower_cell
+
+    out = {}
+    for name, arch, shape, mesh, rules, over, shape_over in phase13_cells():
+        try:
+            art = lower_cell(arch, shape, False, extra_rules=rules, mesh_shape=mesh,
+                             config_overrides=over, shape_overrides=shape_over)
+        except Exception as e:  # reported in phase 13: the ranks' record has no match
+            art = dict(collectives=None, config={"rules": None},
+                       status=f"error: {type(e).__name__}: {e}"[:2000])
+        out[name] = dict(collectives=art["collectives"], rules=art["config"]["rules"],
+                         status=art["status"])
+    Path(path).write_text(json.dumps(out))
+
+
+def phase_production_rules(rank_outs, dry, failures):
+    """Phase 13: repro's production rules across two ranks on the one card over gloo (the
+    rank parts ran in the background rank program; ``dry``: phase 9 (a)'s child and its
+    artifacts' path, whose phase 13 cells sit beside them). (a) granite-8b decode under
+    kv_seq over model, (b) zamba2-1.2b under long_500k's kv_seq over data, (c) granite-8b
+    trained sequence-parallel, then Adafactor: each reading at its limit, each planted
+    fault at least 3 times it, each step's collectives equal to the dry run's op by op,
+    B1 or B2 launched on each rank."""
+    t0 = time.perf_counter()
+    rec = {}
+    if rank_outs is None:
+        failures.append("phase 13: the rank program gave no output")
+        return rec
+    path = Path(str(dry[1])).with_name("phase13_dryrun.json") if dry else None
+    arts = json.loads(path.read_text()) if path is not None and path.exists() else None
+    if arts is None:
+        failures.append("phase 13: the dry run's cells were not traced")
+        arts = {}
+    tol = LOGITS_TOL["granite-8b"]
+    for part, key in (("decode", "mr13_decode"), ("long", "mr13_long"), ("train", "mr13_train")):
+        outs = [r.get(key) for r in rank_outs]
+        if None in outs:
+            failures.append(f"phase 13 {part}: a rank gave no output")
+            continue
+        g = outs[0]
+        what = {"decode": f"phase 13 (a) granite-8b x {MR13_LAYERS} decode, kv_seq over "
+                          f"(pod, data, model) on (1, {MR_RANKS})",
+                "long": f"phase 13 (b) zamba2-1.2b x {MR13_ZAMBA_LAYERS}, long_500k's rule on "
+                        f"({MR_RANKS}, 1)",
+                "train": f"phase 13 (c) granite-8b x {MR13_TRAIN_LAYERS} trained, seq on model "
+                         f"(1, {MR_RANKS})"}[part]
+        r = dict(seconds=[o["seconds"] for o in outs], split=[o["split"] for o in outs],
+                 launches=[o["launches"] for o in outs], collectives=g["collectives"])
+        if part == "decode":
+            r["prefill_rel"] = _read(g["prefill_rel"], tol, f"{what} prefill logits", failures)
+            r["decode_rel"] = _read(g["decode_rel"], tol, f"{what} decode logits", failures)
+            r["fault_rel"] = _planted(g["fault_rel"], tol, f"{what} (rank 1's partial dropped "
+                                      "from the combine)", failures)
+            r["cache_shapes"] = [o["cache_shapes"] for o in outs]
+        elif part == "long":
+            r["prefill_layers"], r["decode_layers"] = g["prefill_layers"], g["decode_layers"]
+            r["fault_layers"] = g["fault_layers"]
+            r["prefill_rel"] = _read(max(g["prefill_layers"]), tol, f"{what} prefill logits, "
+                                     "each layer fed the ranks' input", failures)
+            r["decode_rel"] = _read(max(g["decode_layers"]), tol, f"{what} decode logits, each "
+                                    "layer fed the ranks' input and cache", failures)
+            r["decode_attn"], r["fault_attn"] = g["decode_attn"], g["fault_attn"]
+            r["attn_rel"] = _read(max(g["decode_attn"]), tol, f"{what} decode step's attention "
+                                  "calls, each fed the ranks' input and the cache", failures)
+            r["fault_rel"] = _planted(max(g["fault_attn"]), tol, f"{what} decode step's attention "
+                                      "(rank 1's partial dropped from the combine)", failures)
+            r["fault_layers_rel"] = max(g["fault_layers"])
+            r["prefill_e2e_rel"], r["decode_e2e_rel"] = g["prefill_e2e"], g["decode_e2e"]
+            r["cache_shapes"], r["rules"] = [o["cache_shapes"] for o in outs], g["rules"]
+        else:
+            r["loss_rel"] = _read(g["loss_rel"], TRAIN_LOSS_TOL, f"{what} loss", failures)
+            r["grad_rel"] = _read(g["grad_rel"], TRAIN_GRAD_TOL, f"{what} gradients",
+                                  failures)
+            r["fault_rel"] = _planted(g["fault_rel"], TRAIN_GRAD_TOL, f"{what} gradients (rank "
+                                      "1's reduce-scatters keep the neighbour's slice)",
+                                      failures)
+            r["fault_loss_rel"] = g["fault_loss_rel"]
+            r["adamw_loss_rel"] = _read(g["adamw_loss_rel"], TRAIN_LOSS_TOL,
+                                        f"{what} AdamW losses", failures)
+            for mesh in ("1x2", "2x1"):
+                a = g[f"adafactor_{mesh}"]
+                r[f"adafactor_{mesh}"] = a
+                _read(a["loss_rel"], TRAIN_LOSS_TOL, f"{what}: Adafactor on {mesh} losses",
+                      failures)
+                _read(a["moments_rel"], TRAIN_GRAD_TOL, f"{what}: Adafactor on {mesh} "
+                      "factored moments", failures)
+                _read(a["masters_rel"], TRAIN_GRAD_TOL, f"{what}: Adafactor on {mesh} masters",
+                      failures)
+        art = arts.get(part)
+        want = None if art is None else art["collectives"]
+        same = [o["collectives"] == want for o in outs]
+        r["dryrun_collectives"], r["same_collectives"] = want, same
+        if not all(same):
+            failures.append(f"{what}: a step's collectives {[o['collectives'] for o in outs]} vs "
+                            f"the dry run's {want}")
+        planted = json.loads(json.dumps(want or {}))
+        if planted.get("all-reduce"):
+            planted["all-reduce"]["count"] += 1
+        if any(o["collectives"] == planted for o in outs):
+            failures.append(f"{what}: the planted extra all-reduce went unseen")
+        by_rank = [{k: o["launches"].get(k, 0) for k in ("dp_gemm_region", "streamk_phase1")}
+                   for o in outs]
+        for rk, by in enumerate(by_rank):
+            if not any(by.values()):
+                failures.append(f"{what}: neither B1 nor B2 launched on rank {rk}")
+        rec[part] = r
+        lists = ("launches", "split", "dryrun_collectives", "prefill_layers", "decode_layers",
+                 "fault_layers", "decode_attn", "fault_attn")
+        shown = {k: v for k, v in r.items() if k not in lists}
+        log(f"{what}: {json.dumps(shown)}; B1/B2 launches by rank {by_rank}; a warm step by "
+            f"rank {r['split']}")
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"phase 13 (repro's production rules across ranks, two processes on one card over "
+        f"gloo): {rec['seconds']:.1f}s here")
+    return rec
+
+
+def production13_launches(rec):
+    """Phase 13's launches by part, each a list of the ranks' counters."""
+    return {f"prod13_{part}": rec[part]["launches"] for part in ("decode", "long", "train")
+            if isinstance(rec.get(part), dict)}
 
 
 def main() -> int:
@@ -7208,11 +7878,12 @@ def run_phases(dry, jobs) -> int:
     mark("4 tune")
     gc.collect()
     torch.cuda.empty_cache()
+    # phases 10 (c), 11, 12 and 13 on the ranks, from here on beside phases 5-9
+    jobs.append(start_background_ranks())
     paged = phase_paged(paged["granite"], failures)
     mark("5 paged")
     gc.collect()
     torch.cuda.empty_cache()
-    jobs.append(start_background_ranks())  # phases 10 (c), 11 and 12 on the ranks
     archs = phase_archs(failures)
     mark("6 archs")
     gc.collect()
@@ -7250,10 +7921,13 @@ def run_phases(dry, jobs) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     families12 = phase_families_ranks(rank_outs, clis["mamba2-1.3b"], failures)
-    del rank_outs
     mark("12 families ranks")
     s11_launches.update({f"fam12_{run}": ranks
                          for run, ranks in families12_launches(families12).items()})
+    production13 = phase_production_rules(rank_outs, dry, failures)
+    del rank_outs
+    mark("13 production rules")
+    s11_launches.update(production13_launches(production13))
 
     from repro_torch.kernels import cuda_lib
     from repro_torch.kernels.common import mainloop
@@ -7349,13 +8023,16 @@ def run_phases(dry, jobs) -> int:
                   b12_s8_table=b12_s8_rows, f32_table=f32_rows,
                   kv_int8=kv_int8, tune=tune, paged=paged, archs=archs, families=families,
                   train=train, shard=shard, multirank=multirank, serve_ranks=serve11,
-                  families_ranks=families12, phase_seconds=phase_s,
+                  families_ranks=families12, production_rules=production13,
+                  phase_seconds=phase_s,
                   # every depth cut at full width, by phase (the layers each cut path ran)
                   depth_cuts={"3 int8 KV cache": KV_INT8_LAYERS, "5 (b)": PAGED_OLMOE_LAYERS,
                               "6": dict(ARCH_CELLS), "7": dict(FAMILY_CELLS), "8": dict(TRAIN_CELLS),
                               "8 stream": RESUME_LAYERS,
                               "10 (c)": MR_TRAIN_LAYERS, "11": MR11_LAYERS,
-                              "11 (c)": MR11_DATA_LAYERS, "12": dict(MR12_CELLS)},
+                              "11 (c)": MR11_DATA_LAYERS, "12": dict(MR12_CELLS),
+                              "13 (a)": MR13_LAYERS, "13 (b)": MR13_ZAMBA_LAYERS,
+                              "13 (b) cache": MR13_LONG_SEQ, "13 (c)": MR13_TRAIN_LAYERS},
                   seconds=time.perf_counter() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

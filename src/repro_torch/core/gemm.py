@@ -432,6 +432,7 @@ def gemm(
     bias: Optional[torch.Tensor] = None,
     operand: Optional[torch.Tensor] = None,
     k_axis: Optional[str] = None,
+    k_scatter: Optional[int] = None,
 ) -> torch.Tensor:
     """``x @ w`` with Stream-K++ kernel selection.
 
@@ -450,7 +451,10 @@ def gemm(
     row's (the rows' amax all-reduced with MAX), and its partials are the
     exact integer accumulators (unit scales; exact in f32 below 2**24),
     summed before the scales are applied, so the result is one rank's.
-    The fingerprint keys on the local shape."""
+    The fingerprint keys on the local shape. ``k_scatter``: a dim of ``x``'s
+    leading dims along which the sum is reduce-scattered over ``k_axis`` in
+    place of all-reduced (sequence parallelism: each rank keeps its range
+    of the tokens), the f32 partials still summed before the one cast."""
     w, w_shape, scale, bits, w_name, act_quant = _unquantize(w)
     if len(w_shape) != 2 or x.shape[-1] != w_shape[0]:
         raise ValueError(f"gemm contraction mismatch: {tuple(x.shape)} @ {w_shape}")
@@ -500,14 +504,21 @@ def gemm(
         b_bits=bits,
     )
     if k_axis is not None:
-        from repro_torch.dist.collectives import all_reduce
+        from repro_torch.dist.collectives import all_reduce, reduce_scatter, split
 
-        out = all_reduce(out, k_axis)
+        out = out.reshape(*lead, n)
+        if k_scatter is None:
+            out = all_reduce(out, k_axis)
+        else:
+            out = reduce_scatter(out, k_axis, k_scatter)
         if final_scales is not None:
             # as the backends' epilogue: the row scales, then the column scales
             sa, sb = final_scales
-            out = out * sa[:, :, None] * sb.reshape(1, 1, n)
-        out = out.to(final)
+            sa = sa.reshape(*lead, 1)
+            if k_scatter is not None:
+                sa = split(sa, k_axis, k_scatter)
+            out = out * sa * sb.reshape(n)
+        return out.to(final)
     return out.reshape(*lead, n)
 
 

@@ -18,6 +18,9 @@ needs through the functions here:
   (the consumer is replicated, as the loss over gathered logits is).
 * :func:`reduce_scatter` — the sum, of which each rank keeps its slice;
   backward an all-gather.
+* :func:`split` — this rank's slice of a replicated tensor (no
+  exchange); backward an all-gather of the slices' gradients, so the
+  replicated producer sees the whole gradient.
 * :func:`all_to_all` — chunk ``split_dim`` over the axis and concatenate
   what arrives along ``concat_dim``; backward the reverse exchange.
 * :func:`all_reduce_max` — the elementwise maximum over axes (no
@@ -319,6 +322,18 @@ class _ReduceScatter(torch.autograd.Function):
         return raw_all_gather(g, ctx.ax, ctx.dim), None, None
 
 
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim = ax, dim % x.dim()
+        chunk = x.shape[ctx.dim] // ax.size
+        return x.narrow(ctx.dim, ax.index * chunk, chunk).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return raw_all_gather(g, ctx.ax, ctx.dim), None, None
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ax, split_dim, concat_dim):
@@ -360,6 +375,17 @@ def reduce_scatter(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
     return x if ax is None else _ReduceScatter.apply(x, ax, dim)
 
 
+def split(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    """This rank's slice along ``dim`` of ``x``, replicated over ``axis``
+    (module doc)."""
+    ax = mesh_axis(axis)
+    if ax is None:
+        return x
+    if x.shape[dim] % ax.size:
+        raise ValueError(f"split of dim {dim} ({x.shape[dim]}) over {ax.size} ranks")
+    return _Split.apply(x, ax, dim)
+
+
 def all_to_all(x: torch.Tensor, axis: str, split_dim: int, concat_dim: int) -> torch.Tensor:
     """The all-to-all exchange over ``axis`` (module doc)."""
     ax = mesh_axis(axis)
@@ -399,23 +425,29 @@ def _flat_specs(specs) -> Dict[str, object]:
     return dict(spec_items(specs))
 
 
-def sync_grads(grads, specs, plan):
+def sync_grads(grads, specs, plan, seq_leaves=()):
     """Sum each gradient leaf over the batch axes it is not sharded on:
     every data row's rank computed it from its own rows. A leaf sharded
     over a batch axis (FSDP over ``data``) was already summed there by the
-    reduce-scatter of its all-gather's backward. ``specs``: the parameters'
-    ArraySpec tree. Returns ``grads`` with its leaves replaced."""
+    reduce-scatter of its all-gather's backward. ``seq_leaves``: the
+    leaves a sequence-parallel step applied to each rank's range of
+    positions (the norms), whose gradients cover only those positions and
+    are summed over ``model`` too. ``specs``: the parameters' ArraySpec
+    tree. Returns ``grads`` with its leaves replaced."""
     from repro_torch.dist.sharding import axes_of, batch_axes
     from repro_torch.utils.trees import tree_items
 
     flat = _flat_specs(specs)
     rows = batch_axes(plan)
+    seq_leaves = set(seq_leaves)
     out = {}
     for name, g in tree_items(grads):
         held = {a for part in plan.spec_for(flat[name]) for a in axes_of(part)}
-        for axis in rows:
-            if axis not in held:
-                g = raw_all_reduce(g, mesh_axis(axis, plan.mesh))
+        over = rows + ("model",) if name in seq_leaves else rows
+        for axis in over:
+            ax = mesh_axis(axis, plan.mesh)
+            if axis not in held and ax is not None:
+                g = raw_all_reduce(g, ax)
         out[name] = g
     return _unflatten(grads, out)
 

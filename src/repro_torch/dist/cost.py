@@ -31,7 +31,8 @@ import torch
 
 from repro_torch.core import gemm as gemm_mod
 from repro_torch.core.gemm import dtype_name
-from repro_torch.dist.sharding import ArraySpec, ShardingPlan, spec_items, spec_dtype
+from repro_torch.dist.sharding import (MOMENT_KEYS, ArraySpec, ShardingPlan, moment_spec,
+                                       spec_dtype, spec_items)
 
 
 def local_bytes(plan: ShardingPlan, spec: ArraySpec) -> int:
@@ -49,14 +50,19 @@ def specs_like(tensors, mirror=None):
     """ArraySpec tree of a tree of tensors (meta or real): each leaf's shape
     and dtype, with the logical axes of the leaf at the same path of
     ``mirror`` (an ArraySpec tree: the parameters an optimizer state mirrors)
-    where its shape matches, else replicated (a factored moment, a counter)."""
+    where its shape matches, an Adafactor moment's those of its parameter
+    without the reduced dim (``moment_spec``), else replicated (a counter)."""
     want = dict(spec_items(mirror)) if mirror is not None else {}
 
     def walk(tree, prefix):
         if isinstance(tree, dict):
             return {k: walk(v, f"{prefix}{k}/") for k, v in tree.items()}
         shape = tuple(tree.shape)
-        ref = want.get(prefix[:-1])
+        path = prefix[:-1]
+        ref = want.get(path)
+        parent, _, key = path.rpartition("/")
+        if (ref is None or ref.shape != shape) and key in MOMENT_KEYS and parent in want:
+            ref = moment_spec(want[parent], key)
         axes = ref.axes if ref is not None and ref.shape == shape else (None,) * len(shape)
         return ArraySpec(shape, dtype_name(tree.dtype), axes)
 

@@ -29,9 +29,13 @@ hint's own (its rank, its rules). Under a *ranked* plan (:func:`ranked_plan`:
 a :class:`~repro_torch.launch.mesh.HostMesh` of more than one rank) every
 array is already this rank's shard, laid out explicitly by the model code:
 batch rows over the data axes, weights by :meth:`ShardingPlan.spec_for`,
-activations otherwise whole. There the hint must describe that layout (it
-may shard only the batch dims, over the batch axes) and ``x`` must be the
-local shard it implies: a whole number of shards, with every sharded dim
+a training step's residual stream over ``model`` along its sequence where
+the ``seq`` rule puts it there (:func:`residual_split`), a decode cache's
+positions over the ``kv_seq`` axes (:func:`kv_seq_split`), activations
+otherwise whole. There the hint must describe that layout (it may shard
+the batch dims over the batch axes and the sequence dims, ``seq`` and
+``kv_seq``, over any axes, and nothing else) and ``x`` must be the local
+shard it implies: a whole number of shards, with every sharded dim
 divisible by its axes. Nothing is resharded.
 
 :func:`shard_tree` and :func:`gather_tree` move a tree between its full
@@ -46,6 +50,11 @@ divide the batch. A serving call whose batch they do not divide keeps its
 rows whole on every rank (``repro``'s demotion): it runs under
 :func:`whole_rows`, and :func:`row_axes` then names no axis, so the layers
 exchange nothing over the data axes for its rows.
+
+Sequence parallelism: a training step whose plan puts ``seq`` on
+``model`` (``repro``'s ``train_4k`` rule) runs its layer stack under
+:func:`seq_sharded`, and each rank holds its contiguous range of the
+residual stream's positions between the blocks (``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -295,19 +304,118 @@ def row_axes(plan: ShardingPlan) -> Tuple[str, ...]:
     return () if getattr(_plan_state, "whole_rows", False) else batch_axes(plan)
 
 
+def _index_along(plan: ShardingPlan, axes: Sequence[str]) -> int:
+    """This rank's index along ``axes`` taken together, rank-major
+    (outermost first, as :func:`shard_slices` numbers the shards)."""
+    index = 0
+    for a in axes:
+        index = index * plan.mesh.shape[a] + plan.mesh.coords[a]
+    return index
+
+
+def rows_split(plan: ShardingPlan, batch: int) -> bool:
+    """Whether a ``batch``-row array's batch dim takes the batch axes (they
+    divide it), as :meth:`ShardingPlan.spec_for` decides."""
+    axes = batch_axes(plan)
+    return bool(axes) and batch % math.prod(plan.mesh.shape[a] for a in axes) == 0
+
+
+def residual_split(plan: Optional[ShardingPlan], batch: int, seq: int) -> bool:
+    """Whether ``plan`` (ranked) splits a ``(batch, seq, D)`` residual
+    stream along its sequence over ``model`` (the ``seq`` rule, where the
+    axis divides ``seq``): a training step then runs sequence-parallel.
+    Only ``model`` may carry ``seq``; any other axis raises."""
+    plan = ranked_plan(plan)
+    if plan is None:
+        return False
+    parts = plan.spec_for(ArraySpec((batch, seq, 1), "float32", ("batch", "seq", None)))
+    axes = axes_of(parts[1])
+    if axes and axes != ("model",):
+        raise NotImplementedError(f"the residual stream's sequence splits over {axes}: the "
+                                  "explicit layout runs sequence parallelism over 'model' only")
+    return bool(axes)
+
+
+@contextmanager
+def seq_sharded(on: bool = True):
+    """Within the block the calling thread's residual stream is this rank's
+    range of positions along ``model`` (sequence parallelism; module doc)."""
+    old = getattr(_plan_state, "seq_sharded", False)
+    _plan_state.seq_sharded = bool(on)
+    try:
+        yield
+    finally:
+        _plan_state.seq_sharded = old
+
+
+def seq_split() -> bool:
+    """Whether the calling thread runs inside :func:`seq_sharded`."""
+    return getattr(_plan_state, "seq_sharded", False)
+
+
+@dataclass(frozen=True)
+class KVSeqSplit:
+    """How a decode cache's positions split across ranks: the mesh ``axes``
+    (outermost first), their product ``n`` and this rank's ``index`` along
+    them; a rank holds positions ``[index * S, (index + 1) * S)`` of a cache
+    whose local length is ``S``."""
+
+    axes: Tuple[str, ...]
+    n: int
+    index: int
+
+    def offset(self, local_len: int) -> int:
+        return self.index * local_len
+
+
+def kv_seq_split(plan: Optional[ShardingPlan], batch: int) -> Optional[KVSeqSplit]:
+    """The split of a ``batch``-row decode cache's ``kv_seq`` dim under
+    ``plan`` (ranked): the axes the ``kv_seq`` rule names (present, size
+    > 1) that the batch dim before it did not take (:func:`rows_split`),
+    or None where there are none. :func:`check_kv_seq` holds a cache's
+    length to dividing them, so a local cache of length ``S`` stands for
+    ``S * n`` positions."""
+    plan = ranked_plan(plan)
+    if plan is None:
+        return None
+    used = set(batch_axes(plan)) if rows_split(plan, batch) else set()
+    axes = tuple(a for a in plan._mesh_axes_for("kv_seq") if a not in used)
+    if not axes:
+        return None
+    return KVSeqSplit(axes, math.prod(plan.mesh.shape[a] for a in axes), _index_along(plan, axes))
+
+
+def check_kv_seq(plan: Optional[ShardingPlan], specs) -> None:
+    """Raise where a spec of a cache tree puts ``kv_seq`` on axes that do
+    not divide its length: the layers read a local cache's positions as
+    this rank's range (:func:`kv_seq_split`), which a cache kept whole
+    would break."""
+    plan = ranked_plan(plan)
+    if plan is None:
+        return
+    for path, spec in spec_items(specs):
+        if "kv_seq" not in spec.axes:
+            continue
+        dim = spec.axes.index("kv_seq")
+        parts = plan.spec_for(spec)
+        used = {a for p in parts[:dim] for a in axes_of(p)}
+        want = tuple(a for a in plan._mesh_axes_for("kv_seq") if a not in used)
+        if want and axes_of(parts[dim]) != want:
+            raise ValueError(
+                f"cache leaf {path} {spec.shape}: {spec.shape[dim]} positions do not split "
+                f"over the kv_seq axes {want} of mesh {plan.mesh.shape}")
+
+
 def rows_of(plan: ShardingPlan, batch: int) -> Optional[slice]:
     """The slice of a ``batch``-row batch that this rank holds when the
     batch axes divide it (rank-major over the axes, outermost first), or
     None when its rows stay whole on every rank (no batch axis, or one that
     does not divide ``batch``)."""
-    axes = batch_axes(plan)
-    n = math.prod(plan.mesh.shape[a] for a in axes)
-    if n == 1 or batch % n:
+    if not rows_split(plan, batch):
         return None
-    index = 0
-    for a in axes:
-        index = index * plan.mesh.shape[a] + plan.mesh.coords[a]
-    size = batch // n
+    axes = batch_axes(plan)
+    size = batch // math.prod(plan.mesh.shape[a] for a in axes)
+    index = _index_along(plan, axes)
     return slice(index * size, (index + 1) * size)
 
 
@@ -326,7 +434,7 @@ def _constrain(x: torch.Tensor, axes: Sequence[Optional[str]], uneven: bool) -> 
         mesh_axes = axes_of(part)
         if not mesh_axes:
             continue
-        if not set(mesh_axes) <= rows:
+        if axes[i] not in ("seq", "kv_seq") and not set(mesh_axes) <= rows:
             raise ValueError(
                 f"hint {tuple(axes)} shards dim {i} over {mesh_axes}, but the explicit "
                 f"layout keeps it whole on every rank (shape {tuple(x.shape)})")
@@ -445,11 +553,31 @@ def shard_leaf(full, plan: ShardingPlan, spec: ArraySpec, coords: Mapping[str, i
     return full[shard_slices(plan, spec, coords)].contiguous()
 
 
+#: Adafactor's moments of a parameter ``<param>``: ``<param>/vr`` (the
+#: mean over its last dim), ``<param>/vc`` (over dim -2), ``<param>/v``
+#: (a vector's, unfactored)
+MOMENT_KEYS = ("vr", "vc", "v")
+
+
+def moment_spec(spec: ArraySpec, key: str) -> ArraySpec:
+    """The spec of Adafactor's moment ``key`` (:data:`MOMENT_KEYS`) of a
+    parameter of spec ``spec``: the parameter's without the dim it reduces."""
+    if key == "vr":
+        keep = list(range(len(spec.shape) - 1))
+    elif key == "vc":
+        keep = list(range(len(spec.shape) - 2)) + [len(spec.shape) - 1]
+    else:
+        keep = list(range(len(spec.shape)))
+    return ArraySpec(tuple(spec.shape[i] for i in keep), "float32",
+                     tuple(spec.axes[i] for i in keep), "zeros")
+
+
 def mirror_specs(tree, specs):
     """An ArraySpec tree for ``tree`` (tensors, full or local): a leaf whose
     path ends in a path of ``specs`` (an optimizer moment ``opt/mu/<param>``
-    mirrors ``<param>``) takes that spec when the ranks agree; any other
-    leaf (a counter, the step) is replicated at its own shape."""
+    mirrors ``<param>``) takes that spec when the ranks agree, an Adafactor
+    moment ``<param>/vr``, ``/vc`` or ``/v`` its :func:`moment_spec`; any
+    other leaf (a counter, the step) is replicated at its own shape."""
     flat = dict(spec_items(specs))
 
     def walk(t, path):
@@ -462,6 +590,11 @@ def mirror_specs(tree, specs):
             spec = flat.get("/".join(parts[i:]))
             if spec is not None and len(spec.shape) == t.dim():
                 return spec
+        if parts[-1] in MOMENT_KEYS:
+            for i in range(len(parts) - 1):
+                spec = flat.get("/".join(parts[i:-1]))
+                if spec is not None and len(spec.shape) - (parts[-1] != "v") == t.dim():
+                    return moment_spec(spec, parts[-1])
         return ArraySpec(tuple(t.shape), "float32", (None,) * t.dim())
 
     return walk(tree, "")

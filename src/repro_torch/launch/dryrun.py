@@ -24,23 +24,35 @@ allocated. It records:
     result at its local shape), ``collective_bytes`` (their sum) and, in
     ``cost``, ``collective_bytes`` with ``repro.dist.hlo_cost``'s x2 for an
     all-reduce and ``collective_counts``. They come from a trace of one
-    rank's step on its local shards under a virtual host mesh
-    (``launch/mesh.py virtual_mesh``): the port's explicit tensor-, FSDP-
-    and expert-parallel layout (``models/layers.py``), every collective
+    rank's step on its local shards under a virtual host mesh of the same
+    sizes (``launch/mesh.py virtual_mesh``) and the same rules, the cell's
+    ``rules_for_cell`` plus ``--rules``, as ``repro`` lowers it: every
+    collective the ranks' explicit layout (``models/layers.py``) runs,
     recorded at its local shapes without communicating
-    (``dist/collectives.py``). The layers are a Python loop, so every
-    layer's collectives are counted, the serving steps' as the engine's
-    ranks run them: the logits gathered over the data axes where those
-    split the batch, an MoE layer's counts exchange over them (its own
-    ``moe_impl``, expert-parallel), a Mamba2 block's projection and conv
-    outputs gather over ``model`` (``models/ssd.py``), a VLM's prefill
-    takes its patch embeddings and an encoder-decoder's its frames. A
-    layout the explicit path does not take records ``None`` and why.
+    (``dist/collectives.py``). A train cell runs sequence-parallel
+    (``seq`` on ``model``): the residual stream's gathers before each
+    block's column-parallel projections and the reduce-scatters of its
+    row-parallel outputs, the norms' gradients summed over ``model``, and
+    the optimizer's own reductions (Adafactor's factored moments). A decode
+    cell's cache splits its positions over its ``kv_seq`` axes (over
+    ``model`` too, with the kv heads whole, where those do not divide it):
+    a layer's query all-gather over ``model`` where that carries the
+    positions, and the partial softmaxes' max and sum all-reduces. The
+    layers are a Python loop, so every layer's collectives are counted, the
+    serving steps' as the engine's ranks run them: the logits gathered over
+    the data axes where those split the batch, an MoE layer's counts
+    exchange over them (its own ``moe_impl``, expert-parallel), a Mamba2
+    block's projection and conv outputs gather over ``model``
+    (``models/ssd.py``), a VLM's prefill takes its patch embeddings and an
+    encoder-decoder's its frames. A layout the ranks do not run records
+    ``None`` and why.
 
 ``mesh_shape`` of a host mesh (any size but 256 and 512, e.g. (1, 2) or
-(2, 2)) traces only that local step: its dispatch log, FLOPs and argument
-bytes are one rank's, and its collectives are what the same cell runs
-on that many ``torch.distributed`` ranks. ``repro`` also records XLA's
+(2, 2)) traces only that local step, under the same rules: its dispatch
+log, FLOPs and argument bytes are one rank's, and its collectives are what
+the same cell runs on that many ``torch.distributed`` ranks under those
+rules (``extra_rules`` of the ranks' own plan, e.g. ``DEFAULT_RULES``,
+traces what ranks without the cell's rules run). ``repro`` also records XLA's
 memory and cost analyses of the compiled program; the port has none, and
 leaves those keys out. Artifacts land in
 ``artifacts/dryrun_torch/<arch>__<shape>__<mesh>[__variant].json``.
@@ -120,14 +132,6 @@ def mesh_name(multi_pod: bool, host_shape=None) -> str:
     if host_shape is not None:
         return "host_" + "x".join(str(int(d)) for d in host_shape)
     return "multi_pod" if multi_pod else "single_pod"
-
-
-def ranked_rules(rules: Dict[str, Any]) -> Dict[str, Any]:
-    """``rules`` as the explicit multi-rank layout runs them: the residual
-    stream and the caches' sequence stay whole on every rank, and kv heads
-    ride ``model`` where they divide it (the solver demotes them where they
-    do not)."""
-    return dict(rules, seq=None, kv_seq=None, kv_heads="model")
 
 
 def trace_local(model, cfg, shape, plan, *, selector, optimizer_name="adamw",
@@ -360,12 +364,12 @@ def lower_cell(
 def _production_collectives(cfg, shape, mesh, rules, selector, optimizer_name, microbatches):
     """(artifact keys, cost keys) of the collectives one rank of a
     production cell runs (module doc): a local trace on a virtual mesh
-    of the same sizes under :func:`ranked_rules`."""
+    of the same sizes under the cell's ``rules``."""
     from repro_torch.dist.sharding import ShardingPlan
     from repro_torch.launch.mesh import virtual_mesh
     from repro_torch.models import build_model
 
-    plan = ShardingPlan(virtual_mesh(mesh.sizes, mesh.axis_names), ranked_rules(rules))
+    plan = ShardingPlan(virtual_mesh(mesh.sizes, mesh.axis_names), rules)
     try:
         _, _, coll, _ = trace_local(build_model(cfg), cfg, shape, plan, selector=selector,
                                     optimizer_name=optimizer_name, microbatches=microbatches)
@@ -385,7 +389,7 @@ def _lower_host_cell(arch, cfg, shape, variant, mesh_shape, extra_rules, microba
     from repro_torch.models import build_model
 
     mesh = virtual_mesh(mesh_shape)
-    rules = ranked_rules(rules_for_cell(cfg, shape, mesh))
+    rules = rules_for_cell(cfg, shape, mesh)
     if extra_rules:
         rules.update(extra_rules)
     plan = ShardingPlan(mesh, rules)

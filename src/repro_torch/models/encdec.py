@@ -27,22 +27,35 @@ logits). The cross K/V are computed from the encoder's output for this
 rank's kv heads (:func:`~repro_torch.models.layers.project_kv`) and cached
 as them, as ``repro``'s cross-cache spec places them, and cross-attention
 is column-parallel on its queries with a row-parallel ``attn.o``.
+
+Under a plan that puts ``seq`` on ``model`` ``forward`` runs each stack
+sequence-parallel where ``model`` divides its length (the frames, the
+decoder's tokens): the encoder's output is gathered along the frames
+before the cross K/V, the decoder's stream before the head
+(``models/lm.py``). Under ``kv_seq`` the self-attention cache holds this
+rank's range of the positions and the cross cache its range of the frames
+where the axes divide them (``repro``'s cross-cache spec); the ranks'
+partial softmaxes combine (``models/layers.py``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.core.gemm import as_dtype, gemm
-from repro_torch.dist.sharding import ArraySpec, constrain, local_specs, ranked_plan
+from repro_torch.dist.collectives import all_gather, split
+from repro_torch.dist.sharding import (ArraySpec, check_kv_seq, constrain, kv_seq_split,
+                                       local_specs, ranked_plan, residual_split, seq_sharded,
+                                       seq_split)
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import (TiedHead, _map, _stack_specs, _zeros, by_rows, grad_tracking,
-                                   init_ranked, ranked_loss_terms, remat_call, resolve_device,
-                                   row_split, sum_metrics, vocab_head, vocab_lookup)
+                                   init_ranked, kv_range, norm_leaves, ranked_loss_terms,
+                                   remat_call, resolve_device, row_split, sum_metrics,
+                                   vocab_head, vocab_lookup)
 
 Params = Dict[str, Any]
 
@@ -109,14 +122,30 @@ class EncDec:
         return self._tied_head.weight(params["embed"], self.cfg.dtype)
 
     # -- encoder ----------------------------------------------------------------
+    def _seq(self, batch: int, length: int, seq: bool) -> bool:
+        """Whether a stack over ``length`` positions of this rank's
+        ``batch`` rows runs sequence-parallel (``seq``: the caller's
+        forward asks for it)."""
+        return seq and residual_split(ranked_plan(), batch * row_split(), length)
+
     def encode(self, params: Params, frames: torch.Tensor, *,
-               div: Optional[Dict[str, int]] = None) -> torch.Tensor:
-        """The encoder's output (B, F, D) over the frame embeddings (B, F, D)."""
+               div: Optional[Dict[str, int]] = None, seq: bool = False) -> torch.Tensor:
+        """The encoder's output (B, F, D) over the frame embeddings (B, F, D).
+        ``seq``: sequence-parallel where the plan splits the frames (module
+        doc); the output is whole on every rank either way."""
         cfg = self.cfg
         div = div or {}
         dt = as_dtype(cfg.dtype)
         f = frames.shape[1]
         x = frames.to(dt) + sinusoid(torch.arange(f, device=frames.device), cfg.d_model).to(dt)
+        seq = self._seq(frames.shape[0], f, seq)
+        with seq_sharded(seq):
+            x = self._encoder(params, split(x, "model", 1) if seq else x, div)
+        # the cross K/V's consumers sum its gradient where they are partial
+        return all_gather(x, "model", 1, grad="slice") if seq else x
+
+    def _encoder(self, params, x, div):
+        cfg = self.cfg
 
         def layer(x, i):
             p = _map(lambda a: a[i], params["enc_layers"])
@@ -149,14 +178,15 @@ class EncDec:
                                  use_rope=False, cache=layer, cur_pos=cur_pos)
             x = constrain(x + a, "batch", "seq", None)
             h = L.norm_apply(p["norm2"], x, cfg)
-            entry = None
+            entry = cross_split = None
             if cache is None:
                 ck, cv = L.project_kv(p["cross_attn"], enc_out, cfg, div)
                 entry = {"attn": kv, "cross": {"k": ck, "v": cv}}
             else:
                 ck, cv = cache["cross"]["k"][i], cache["cross"]["v"][i]
+                cross_split = self._cross_split(x.shape[0] * row_split())
             a, _ = L.attn_apply(p["cross_attn"], h, cfg, div=div, use_rope=False,
-                                kv_override=(ck, cv))
+                                kv_override=(ck, cv), kv_split=cross_split)
             x = constrain(x + a, "batch", "seq", None)
             h = L.norm_apply(p["norm3"], x, cfg)
             x = constrain(x + L.mlp_apply(p["mlp"], h, cfg, div=div), "batch", "seq", None)
@@ -174,13 +204,18 @@ class EncDec:
         return x, (fresh if cache is None else None)
 
     def _dec_embed(self, params, tokens, positions):
+        """The decoder's input (B, S, D); under sequence parallelism this
+        rank's range of the positions."""
         dt = as_dtype(self.cfg.dtype)
         plan = ranked_plan()
+        seq = seq_split()
         if plan is None:
             x = params["embed"][tokens]
         else:
-            x = vocab_lookup(params["embed"], tokens, plan, self.param_specs()["embed"])
-        return x.to(dt) + sinusoid(positions, self.cfg.d_model).to(dt)
+            x = vocab_lookup(params["embed"], tokens, plan, self.param_specs()["embed"],
+                             scatter=seq)
+        pos = sinusoid(positions, self.cfg.d_model).to(dt)
+        return x.to(dt) + (split(pos, "model", pos.dim() - 2) if seq else pos)
 
     def _head(self, params, x, div):
         cfg = self.cfg
@@ -198,13 +233,27 @@ class EncDec:
         """Teacher-forced logits (B, S, V) of ``dec_tokens`` (B, S) over the
         frame embeddings ``frames`` (B, F, D), and a zero aux loss."""
         div = div or {}
-        enc_out = self.encode(params, frames, div=div)
+        enc_out = self.encode(params, frames, div=div, seq=True)
         positions = torch.arange(dec_tokens.shape[1], device=dec_tokens.device)
-        x = self._dec_embed(params, dec_tokens, positions)
-        x, _ = self._dec_stack(params, x, enc_out, div=div, positions=positions)
-        x = L.norm_apply(params["final_norm"], x, self.cfg)
-        return self._head(params, x, div), torch.zeros((), dtype=torch.float32,
-                                                       device=dec_tokens.device)
+        with seq_sharded(self._seq(*dec_tokens.shape, True)):
+            x = self._dec_embed(params, dec_tokens, positions)
+            x, _ = self._dec_stack(params, x, enc_out, div=div, positions=positions)
+            x = L.norm_apply(params["final_norm"], x, self.cfg)
+            logits = self._head(params, x, div)
+        return logits, torch.zeros((), dtype=torch.float32, device=dec_tokens.device)
+
+    def seq_parallel_leaves(self, batch) -> List[str]:
+        """The parameter leaves a train step over ``batch`` applies to each
+        rank's range of positions (the norms of each stack that runs
+        sequence-parallel), whose gradients the step sums over ``model``."""
+        specs = self.param_specs()
+        b = batch["tokens"].shape[0]
+        out = []
+        if self._seq(b, batch["frames"].shape[1], True):
+            out += norm_leaves(specs, "enc_")
+        if self._seq(*batch["tokens"].shape, True):
+            out += [n for n in norm_leaves(specs) if not n.startswith("enc_")]
+        return out
 
     def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor], *,
                 div: Optional[Dict[str, int]] = None):
@@ -241,7 +290,16 @@ class EncDec:
     def init_cache(self, batch: int, max_seq: int, device=None):
         """The zeroed decode cache on ``device`` (the card unless
         ``device='cpu'``); across ranks this rank's shards of it."""
-        return _zeros(local_specs(self.cache_specs(batch, max_seq)), resolve_device(device))
+        specs = self.cache_specs(batch, max_seq)
+        check_kv_seq(ranked_plan(), {"attn": specs["attn"]})
+        return _zeros(local_specs(specs), resolve_device(device))
+
+    def _cross_split(self, batch: int):
+        """The ``kv_seq`` split of the cross cache of ``batch`` rows: the
+        self cache's, where its axes divide the frames (else the frames are
+        whole on every rank, as ``repro``'s spec demotes them)."""
+        split_ = kv_seq_split(ranked_plan(), batch)
+        return None if split_ is None or self.cfg.enc_frames % split_.n else split_
 
     def prefill(self, params: Params, frames: torch.Tensor, dec_tokens: torch.Tensor, *,
                 max_seq: Optional[int] = None, div: Optional[Dict[str, int]] = None):
@@ -264,12 +322,17 @@ class EncDec:
         x = L.norm_apply(params["final_norm"], x, cfg)
         logits = self._head(params, x[:, -1:], div)
         # the cache of these rows: specs at the batch they are this rank's part of
-        cache = _zeros(local_specs(self.cache_specs(b * row_split(), max_seq or s)),
-                       dec_tokens.device)
+        batch = b * row_split()
+        specs = self.cache_specs(batch, max_seq or s)
+        check_kv_seq(ranked_plan(), {"attn": specs["attn"]})
+        local = local_specs(specs)
+        cache = _zeros(local, dec_tokens.device)
+        lo, n = kv_range(kv_seq_split(ranked_plan(), batch), local["attn"]["k"], s)
+        flo, fn = kv_range(self._cross_split(batch), local["cross"]["k"], self.cfg.enc_frames)
         for i, entry in enumerate(fresh):
             for key in "kv":
-                cache["attn"][key][i, :, :s] = entry["attn"][key]
-                cache["cross"][key][i] = entry["cross"][key]
+                cache["attn"][key][i, :, :n] = entry["attn"][key][:, lo:lo + n]
+                cache["cross"][key][i] = entry["cross"][key][:, flo:flo + fn]
         return logits, cache
 
     def decode_step(self, params: Params, cache, tokens: torch.Tensor, cur_pos: torch.Tensor,

@@ -23,8 +23,10 @@ all-reduce and cast once. FSDP
 rides ``data`` (``embed``): a weight's data-sharded dims are all-gathered
 just before its GEMM (the backward reduce-scatters its gradient). A kv
 head count that does not divide ``model`` leaves the kv columns whole on
-every rank (all-gathered, where the solver split them inside a head), and
-each rank attends with the kv heads its query heads read; a query head
+every rank (all-gathered, where the solver split them inside a head; a
+whole kv weight whose heads the ranks read in part has its gradient summed
+over ``model``), and each rank attends with the kv heads its query heads
+read; a query head
 count that does not divide it gathers the query columns the same way, every
 rank attends with every head, and ``attn.o`` takes each rank's rows of the
 heads' output. Cross-attention (the encoder-decoder) is column-parallel on
@@ -34,6 +36,27 @@ weight moves as its values and scales (gathered together); a row-parallel
 int8-dynamic dispatch takes each row's scale over the whole row (a MAX
 all-reduce over ``model``). The MoE runs expert-parallel on every
 ``moe_impl`` (:func:`moe_apply`).
+
+Sequence parallelism (a training step under ``seq = "model"``, inside
+:func:`~repro_torch.dist.sharding.seq_sharded`): between the blocks each
+rank holds its range of the residual stream's positions, and the norms run
+on it. A block's input is all-gathered along the sequence before its
+column-parallel projections (:func:`seq_in`; the backward reduce-scatters
+the gradient where the consumers are rank-partial, as ``sum_grad`` sums it
+without the split), and each row-parallel output is reduce-scattered along
+the sequence (the f32 partials, then the one cast) where it is all-reduced
+without it; an output every rank computes whole keeps its range
+(:func:`seq_out`).
+
+Decode under ``kv_seq`` (:func:`~repro_torch.dist.sharding.kv_seq_split`):
+each rank holds its contiguous range of the cache's positions, for every kv
+head where the rules keep them whole. The new row is written by the rank
+that owns its position alone, each rank attends over its own positions, and
+the partial softmaxes combine across the ``kv_seq`` axes in f32: a max
+all-reduce, then one sum all-reduce of the rescaled denominators and
+outputs (:func:`combine_partials`). Where ``kv_seq`` rides ``model`` and
+the query heads split over it, the ranks all-gather ``q`` first, attend
+with every head, and each keeps its heads' output for ``attn.o``.
 """
 
 from __future__ import annotations
@@ -51,18 +74,25 @@ from repro_torch.core.quant import QuantizedTensor, is_quantized, quantize_activ
 from repro_torch.dist.collectives import (
     all_gather,
     all_reduce,
+    all_reduce_axes,
+    all_reduce_max,
     mesh_axis,
     raw_all_gather,
+    reduce_scatter,
+    split,
     sum_grad,
 )
 from repro_torch.dist.sharding import (
     ArraySpec,
+    KVSeqSplit,
     axes_of,
     batch_axes,
     constrain,
     current_plan,
+    kv_seq_split,
     ranked_plan,
     row_axes,
+    seq_split,
 )
 from repro_torch.models.config import ModelConfig
 
@@ -225,6 +255,31 @@ def decode_attention(
     return out.reshape(b, sq, h, dh).to(q.dtype)
 
 
+def softmax_partials(qg, k, v, valid, scale):
+    """One rank's share of a softmax attention over its keys ``k``/``v``
+    (B, S, KV, dh) under ``valid`` (B, Sq, S), in f32: (the max score m,
+    the sum l of exp(score - m), the sum acc of exp(score - m) v). A query
+    row with no valid key here gets the finite ``_NEG`` as its max, which
+    the combine weighs by exp(_NEG - max) = 0."""
+    s = torch.einsum("bqkgd,bskd->bqkgs", qg, k.to(torch.float32)) * scale
+    s = torch.where(valid[:, :, None, None, :], s, _NEG)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    return m, p.sum(dim=-1), torch.einsum("bqkgs,bskd->bqkgd", p, v.to(torch.float32))
+
+
+def combine_partials(m, l, acc, axes) -> torch.Tensor:
+    """The attention output from every rank's :func:`softmax_partials` over
+    the mesh ``axes`` (the ``kv_seq`` axes), in f32: the max all-reduced,
+    then the denominators and outputs rescaled to it and summed in one
+    all-reduce."""
+    top = all_reduce_max(m, axes)
+    corr = torch.exp(m - top)
+    packed = torch.cat([(l * corr)[..., None], acc * corr[..., None]], dim=-1)
+    packed = all_reduce_axes(packed, axes)
+    return packed[..., 1:] / packed[..., :1]
+
+
 def decode_attention_ring(
     q: torch.Tensor,  # (B, 1, H, dh)
     k_ring: torch.Tensor,  # (B, W, KV, dh): slot j holds the most recent
@@ -360,14 +415,15 @@ def _ranked_kv(p: Params, x: torch.Tensor, cfg: ModelConfig, plan, q_split: bool
     wk, pk = _ranked_weight(p, "wk", specs["wk"], plan)
     wv, _ = _ranked_weight(p, "wv", specs["wv"], plan)
     k_split = _on_model(pk, 1)
+    if q_split and not k_split:
+        # whole kv weights, of which each rank reads some heads: the
+        # weights' gradients are summed (the input's is, by the caller)
+        wk, wv = sum_grad(wk, "model"), sum_grad(wv, "model")
     k = gemm(x, wk, tag=f"{prefix}.k")
     v = gemm(x, wv, tag=f"{prefix}.v")
     if k_split and not kv_aligned(cfg, plan):
         # the solver split the kv columns inside a head: every rank takes all
         k, v = all_gather(k, "model", -1), all_gather(v, "model", -1)
-    elif q_split and not k_split:
-        # whole kv weights, of which each rank reads some heads
-        k, v = sum_grad(k, "model"), sum_grad(v, "model")
     return k.reshape(b, s, -1, cfg.d_head), v.reshape(b, s, -1, cfg.d_head)
 
 
@@ -390,7 +446,7 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig, div: Dict[str, in
         return q, k, v, _identity
     q_split = _on_model(plan.spec_for(attn_specs(cfg)["wq"]), 1)
     # the rank-partial consumers of a replicated input sum its gradient
-    xin = sum_grad(x, "model") if q_split else x
+    xin = seq_in(x, q_split)
     q = _ranked_q(p, xin, cfg, plan)
     # kv columns split only where the query columns do (kv * dh divides h * dh)
     k, v = _ranked_kv(p, xin, cfg, plan, q_split)
@@ -411,7 +467,11 @@ def project_kv(p: Params, x: torch.Tensor, cfg: ModelConfig, div: Dict[str, int]
                      .reshape(b, s, cfg.n_kv_heads, cfg.d_head) for key in "kv")
     k_split = _on_model(plan.spec_for(attn_specs(cfg)["wk"]), 1)
     q_split = _on_model(plan.spec_for(attn_specs(cfg)["wq"]), 1)
-    return _ranked_kv(p, sum_grad(x, "model") if k_split else x, cfg, plan, q_split, prefix)
+    # the encoder's output is whole on every rank (also in a
+    # sequence-parallel step); its consumers here are rank-partial where
+    # the kv columns split or the ranks read some heads of whole ones
+    xin = sum_grad(x, "model") if k_split or q_split else x
+    return _ranked_kv(p, xin, cfg, plan, q_split, prefix)
 
 
 def _project_q(p: Params, x: torch.Tensor, cfg: ModelConfig, div: Dict[str, int]):
@@ -424,7 +484,7 @@ def _project_q(p: Params, x: torch.Tensor, cfg: ModelConfig, div: Dict[str, int]
         return gemm(x, p["wq"], divisors=(db, dtp, 1), tag="attn.q").reshape(
             b, s, cfg.n_heads, cfg.d_head)
     split = _on_model(plan.spec_for(attn_specs(cfg)["wq"]), 1)
-    return _ranked_q(p, sum_grad(x, "model") if split else x, cfg, plan)
+    return _ranked_q(p, seq_in(x, split), cfg, plan)
 
 
 def _project_o(p: Params, out: torch.Tensor, cfg: ModelConfig, div: Dict[str, int]):
@@ -438,7 +498,7 @@ def _project_o(p: Params, out: torch.Tensor, cfg: ModelConfig, div: Dict[str, in
         return gemm(out, p["wo"], divisors=(db, 1, dtp), tag="attn.o")
     wo, po = _ranked_weight(p, "wo", attn_specs(cfg)["wo"], plan)
     if not _on_model(po, 0):
-        return gemm(out, wo, tag="attn.o")
+        return seq_out(gemm(out, wo, tag="attn.o"))
     rows = wo.shape[0]
     if out.shape[-1] != rows:
         out = out.narrow(-1, plan.mesh.coords["model"] * rows, rows)
@@ -446,10 +506,39 @@ def _project_o(p: Params, out: torch.Tensor, cfg: ModelConfig, div: Dict[str, in
 
 
 def _row_parallel(x: torch.Tensor, w, tag: str) -> torch.Tensor:
-    """A row-parallel GEMM: K split over ``model``, the partials summed
-    before one cast (``gemm``'s ``k_axis``), as GSPMD all-reduces the dot's
-    f32 (or, with int8 activations, int32) result before the cast."""
-    return gemm(x, w, tag=tag, k_axis="model")
+    """A row-parallel GEMM of ``x`` (B, S, K/model): K split over
+    ``model``, the partials summed before one cast (``gemm``'s ``k_axis``),
+    as GSPMD all-reduces the dot's f32 (or, with int8 activations, int32)
+    result before the cast; under sequence parallelism reduce-scattered
+    along the sequence instead (module doc)."""
+    return gemm(x, w, tag=tag, k_axis="model", k_scatter=1 if seq_split() else None)
+
+
+def seq_in(x: torch.Tensor, partial: bool) -> torch.Tensor:
+    """The input (B, S, D) of a block's projections across ranks. Under
+    sequence parallelism ``x`` is this rank's range of positions, and the
+    result all of them, gathered over ``model``: the backward reduce-scatters
+    the gradient where the consumers are rank-partial (``partial``), else
+    keeps this rank's slice of it (every rank's is whole). Without it ``x``
+    itself, its gradient summed over ``model`` where the consumers are
+    rank-partial (:func:`~repro_torch.dist.collectives.sum_grad`)."""
+    if seq_split():
+        return all_gather(x, "model", 1, grad="reduce_scatter" if partial else "slice")
+    return sum_grad(x, "model") if partial else x
+
+
+def seq_out(y: torch.Tensor) -> torch.Tensor:
+    """A block's output (B, S, D) that every rank computed whole: under
+    sequence parallelism this rank's range of positions (the backward
+    gathers the ranks' gradients), else ``y``."""
+    return split(y, "model", 1) if seq_split() else y
+
+
+def sum_model(y: torch.Tensor) -> torch.Tensor:
+    """The sum over ``model`` of a rank-partial block output (B, S, D):
+    reduce-scattered along the sequence under sequence parallelism, else
+    all-reduced."""
+    return reduce_scatter(y, "model", 1) if seq_split() else all_reduce(y, "model")
 
 
 def attn_apply(
@@ -465,6 +554,7 @@ def attn_apply(
     cur_pos: Optional[torch.Tensor] = None,  # (B,) decode position
     kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # cross-attention k, v
     use_rope: bool = True,
+    kv_split: Optional[KVSeqSplit] = None,  # the split of kv_override's positions
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """GQA attention (RoPE on q and k unless ``use_rope=False``).
 
@@ -483,19 +573,30 @@ def attn_apply(
     * cross-attention (``kv_override``, the encoder's (k, v), each
       (B, Sk, KV, dh)): only the query projection runs, and every query row
       attends over all of ``k``/``v`` (the ``bidir`` mask); nothing is
-      cached, and the second return value is None.
+      cached, and the second return value is None. With ``kv_split`` the
+      (k, v) are this rank's range of the frames, and the ranks' partial
+      softmaxes combine.
+
+    Across ranks a cache whose positions split over the ``kv_seq`` axes
+    (:func:`~repro_torch.dist.sharding.kv_seq_split`) is this rank's range
+    of them (module doc).
     """
-    b, s, _ = x.shape
-    if positions is None:
-        positions = torch.arange(s, device=x.device)
+    b = x.shape[0]
     if kv_override is not None:
         if cache is not None:
             raise ValueError("cross-attention reads kv_override and keeps no cache")
         q = _project_q(p, x, cfg, div)
+        s = q.shape[1]  # the whole sequence (a sequence-parallel x is a range of it)
+        if positions is None:
+            positions = torch.arange(s, device=x.device)
         if use_rope:
             q = rope(q, positions, cfg.rope_theta)
         k_full, v_full = kv_override
         plan = ranked_plan()
+        if kv_split is not None:
+            valid = torch.ones((b, s, k_full.shape[1]), dtype=torch.bool, device=x.device)
+            out = _split_attention(q, k_full, v_full, valid, kv_split, cfg, plan)
+            return _project_o(p, out.reshape(b, s, -1), cfg, div), None
         if plan is not None:  # this rank's kv heads (project_kv), or all of them
             pick = _kv_pick(cfg, plan, q.shape[2], kv_aligned(cfg, plan))
             k_full, v_full = pick(k_full), pick(v_full)
@@ -506,6 +607,9 @@ def attn_apply(
         )
         return _project_o(p, out.reshape(b, s, -1), cfg, div), None
     q, knew, vnew, pick = _project_qkv(p, x, cfg, div)
+    s = q.shape[1]  # the whole sequence (a sequence-parallel x is a range of it)
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
         knew = rope(knew, positions, cfg.rope_theta)
@@ -519,18 +623,38 @@ def attn_apply(
         # one decode_attention mask covers
         bidx = torch.arange(b, device=x.device)[:, None]
         pos_block = cur_pos[:, None] + torch.arange(s, device=x.device)[None, :]  # (B, S)
+        plan = ranked_plan()
+        split_ = None if plan is None else kv_seq_split(
+            plan, b * math.prod(plan.mesh.shape[a] for a in row_axes(plan)))
+        if split_ is not None and knew.shape[2] != cache["k"].shape[2]:
+            raise ValueError(
+                f"the cache holds {cache['k'].shape[2]} kv heads a rank and the projection "
+                f"{knew.shape[2]}: a plan whose kv_seq rides 'model' keeps the kv heads whole "
+                "(kv_heads=None)")
+        local_len = cache["k"].shape[1]
+        local = pos_block - (0 if split_ is None else split_.offset(local_len))
+        # each row is written by the rank that holds its position
+        inside = None if split_ is None else (local >= 0) & (local < local_len)
         if cfg.kv_cache_dtype == "int8":
             for key, new in (("k", knew), ("v", vnew)):
-                cache[key][bidx, pos_block], cache[f"{key}_scale"][bidx, pos_block] = (
-                    kv_quantize(new))
+                values, scales = kv_quantize(new)
+                _write_rows(cache[key], bidx, local, inside, values)
+                _write_rows(cache[f"{key}_scale"], bidx, local, inside, scales)
             dt = as_dtype(cfg.dtype)
             k_full = kv_dequantize(cache["k"], cache["k_scale"], dt)
             v_full = kv_dequantize(cache["v"], cache["v_scale"], dt)
         else:
-            cache["k"][bidx, pos_block] = knew
-            cache["v"][bidx, pos_block] = vnew
+            _write_rows(cache["k"], bidx, local, inside, knew)
+            _write_rows(cache["v"], bidx, local, inside, vnew)
             k_full, v_full = cache["k"], cache["v"]
-        out = decode_attention(q, pick(k_full), pick(v_full), pos_block, window=window)
+        if split_ is None:
+            out = decode_attention(q, pick(k_full), pick(v_full), pos_block, window=window)
+        else:
+            kpos = torch.arange(local_len, device=x.device) + split_.offset(local_len)
+            valid = kpos[None, None, :] <= pos_block[:, :, None]
+            if window:
+                valid = valid & (pos_block[:, :, None] - kpos[None, None, :] < window)
+            out = _split_attention(q, k_full, v_full, valid, split_, cfg, plan, pick)
         new_cache = cache
     else:
         qpos = positions if positions.dim() == 1 else positions[0]
@@ -541,6 +665,44 @@ def attn_apply(
         )
         new_cache = {"k": knew, "v": vnew}
     return _project_o(p, out.reshape(b, s, -1), cfg, div), new_cache
+
+
+def _write_rows(leaf: torch.Tensor, bidx, local, inside, new: torch.Tensor) -> None:
+    """Write ``new`` (B, S, ...) into the cache leaf (B, S_local, ...) in
+    place at rows ``local`` (B, S) of its batch rows ``bidx``: all of them,
+    or, with ``inside`` (B, S), those this rank holds (a one-token step
+    without a data-dependent shape, so a meta trace runs it too)."""
+    if inside is None:
+        leaf[bidx, local] = new
+    elif local.shape[1] == 1:
+        at = local.clamp(0, leaf.shape[1] - 1)
+        mask = inside.reshape(inside.shape + (1,) * (new.dim() - 2))
+        leaf[bidx, at] = torch.where(mask, new.to(leaf.dtype), leaf[bidx, at])
+    else:
+        rows, cols = torch.nonzero(inside, as_tuple=True)
+        leaf[rows, local[rows, cols]] = new[rows, cols].to(leaf.dtype)
+
+
+def _split_attention(q, k, v, valid, split_: KVSeqSplit, cfg: ModelConfig, plan,
+                     pick=_identity) -> torch.Tensor:
+    """``q`` (B, Sq, Hq, dh) against this rank's range of the keys ``k``/``v``
+    (B, S_local, KVc, dh) under ``valid`` (B, Sq, S_local), combined across
+    the ``kv_seq`` axes (module doc); returns (B, Sq, Hq, dh). Where those
+    ride ``model`` and the query heads split over it, ``q`` is all-gathered
+    over ``model`` first and this rank's heads are kept of the output."""
+    b, sq, hq, dh = q.shape
+    gather = "model" in split_.axes and hq < cfg.n_heads
+    if gather:
+        q = all_gather(q, "model", 2)
+        pick = _kv_pick(cfg, plan, cfg.n_heads, kv_aligned(cfg, plan))
+    k, v = pick(k), pick(v)
+    h, kvh = q.shape[2], k.shape[2]
+    qg = q.reshape(b, sq, kvh, h // kvh, dh).to(torch.float32)
+    parts = softmax_partials(qg, k, v, valid, 1.0 / math.sqrt(dh))
+    out = combine_partials(*parts, split_.axes).reshape(b, sq, h, dh).to(q.dtype)
+    if gather:
+        out = out.narrow(2, plan.mesh.coords["model"] * hq, hq)
+    return out
 
 
 def mlp_specs(cfg: ModelConfig) -> Dict[str, ArraySpec]:
@@ -571,7 +733,7 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, div: Dict[str, in
         for key in specs:
             w[key], parts[key] = _ranked_weight(p, key, specs[key], plan)
         split = _on_model(parts["w_in"], 1)
-        x = sum_grad(x, "model") if split else x
+        x = seq_in(x, split)
         up = down = (1, 1, 1)
     if cfg.mlp_act == "swiglu":
         gate = gemm(x, w["w_gate"], divisors=up, tag="mlp.gate")
@@ -589,7 +751,8 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, div: Dict[str, in
         h = gemm(x, w["w_in"], divisors=up, tag="mlp.in", epilogue="gelu")
     if split:
         return _row_parallel(h, w["w_out"], "mlp.out")
-    return gemm(h, w["w_out"], divisors=down, tag="mlp.out")
+    out = gemm(h, w["w_out"], divisors=down, tag="mlp.out")
+    return out if plan is None else seq_out(out)
 
 
 def moe_specs(cfg: ModelConfig) -> Dict[str, ArraySpec]:
@@ -635,8 +798,9 @@ def moe_apply(
     ``global`` and ``hinted`` exchange each rank's per-(choice, expert)
     counts over them, so every assignment takes the position the whole
     batch's order gives it, at the capacity of the global token count;
-    ``sharded`` routes each data rank's rows as one group. The aux loss is
-    then the rank's rows' (``LM.loss_fn`` averages it over the data rows)."""
+    ``sharded`` routes each data rank's rows as one group. Where the step
+    differentiates, the aux loss's means are the whole batch's, as one
+    device takes them (:func:`_batch_means`)."""
     impl = cfg.moe_impl
     if impl in ("shard_map", "shard_map_bf16"):
         # quantized expert weights take the capacity dispatch under a plan too,
@@ -652,6 +816,8 @@ def moe_apply(
     plan = ranked_plan()
     w, e_loc, j, split, dg = _moe_weights(p, cfg, plan, div)
     rows = () if plan is None else row_axes(plan)
+    if plan is not None:
+        x = seq_in(x, False)  # every rank routes every token (the sums below)
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     tl = b * s  # this rank's tokens
@@ -703,13 +869,34 @@ def moe_apply(
     else:
         combined = (gathered.to(torch.float32) * wts[:, None]).reshape(k, tl, d).sum(dim=0)
         frac = onehot.reshape(k, tl, e).sum(dim=0)
+    combined = combined.reshape(b, s, d)
     if split:
-        combined = all_reduce(combined, "model")
+        combined = sum_model(combined)
 
     # load-balance aux loss (Switch): E * sum_e f_e * p_e
-    frac = frac.to(torch.float32).mean(dim=0)
-    aux = cfg.router_aux_coef * e * torch.sum(frac * probs.mean(dim=0))
-    return combined.reshape(b, s, d).to(x.dtype), aux
+    frac, mean_p = _batch_means(frac.to(torch.float32).mean(dim=0), probs.mean(dim=0), rows)
+    aux = cfg.router_aux_coef * e * torch.sum(frac * mean_p)
+    return combined.to(x.dtype), aux
+
+
+def _batch_means(frac, mean_p, rows):
+    """The aux loss's routed fractions and mean probabilities over the whole
+    batch where the rows split over the data axes ``rows`` and the step
+    differentiates (every rank holds equally many rows, so the mean of the
+    ranks' means), as one device takes them; as they are otherwise (a
+    serving step reads no aux loss). Each data rank's loss holds a share of
+    the batch's aux loss (``LM.loss_fn``), so the backward sums the ranks'
+    gradients of the means before it reaches each rank's probabilities."""
+    if not rows or not torch.is_grad_enabled():
+        return frac, mean_p
+    n = math.prod(mesh_axis(a).size for a in rows)
+    out = []
+    for t in (frac, mean_p):
+        t = all_reduce_axes(t, rows) / n
+        for axis in rows:
+            t = sum_grad(t, axis)
+        out.append(t)
+    return tuple(out)
 
 
 def _moe_weights(p: Params, cfg: ModelConfig, plan, div: Dict[str, int]):
@@ -821,6 +1008,8 @@ def moe_apply_sharded(
     the data ranks' groups."""
     plan = ranked_plan()
     w, e_loc, j, split, dg = _moe_weights(p, cfg, plan, div)
+    if plan is not None:
+        x = seq_in(x, False)
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     t = b * s
@@ -860,12 +1049,15 @@ def moe_apply_sharded(
            * mine.reshape(groups, tl * k)).to(torch.float32)
     gathered = gathered.reshape(groups, tl * k, d)
     combined = (gathered.to(torch.float32) * wts[..., None]).reshape(groups, k, tl, d).sum(dim=1)
+    combined = combined.reshape(b, s, d)
     if split:
-        combined = all_reduce(combined, "model")
+        combined = sum_model(combined)
 
     frac = onehot.reshape(groups, k, tl, e).sum(dim=1).to(torch.float32).mean(dim=(0, 1))
-    aux = cfg.router_aux_coef * e * torch.sum(frac * probs.mean(dim=(0, 1)))
-    return combined.reshape(b, s, d).to(x.dtype), aux
+    frac, mean_p = _batch_means(frac, probs.mean(dim=(0, 1)),
+                                () if plan is None else row_axes(plan))
+    aux = cfg.router_aux_coef * e * torch.sum(frac * mean_p)
+    return combined.to(x.dtype), aux
 
 
 def moe_apply_shard_map(
@@ -892,6 +1084,8 @@ def moe_apply_shard_map(
             "ranks (make_host_mesh under torch.distributed); a device-free mesh has none"
         )
     w, e_loc, j, _, _ = _moe_weights(p, cfg, plan, div)
+    if ranked_plan(plan) is not None:
+        x = seq_in(x, False)
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
 
@@ -916,12 +1110,13 @@ def moe_apply_shard_map(
                                       j, cfg, 1)
     wts = (sum_grad(gates, "model").reshape(t * k) * keep * mine).to(torch.float32)
     combined = (gathered.to(torch.float32) * wts[:, None]).reshape(t, k, d).sum(dim=1)
+    combined = combined.reshape(b, s, d)
     if cfg.moe_impl == "shard_map_bf16" and "model" in plan.mesh.axis_names:
         # the bf16 combine: repro sums the ranks' partials in bf16
-        combined = all_reduce(combined.to(torch.bfloat16), "model").to(torch.float32)
+        combined = sum_model(combined.to(torch.bfloat16)).to(torch.float32)
     else:
-        combined = all_reduce(combined, "model")
+        combined = sum_model(combined)
 
     frac = onehot.reshape(t, k, e).sum(dim=1).to(torch.float32).mean(dim=0)
     aux = cfg.router_aux_coef * e * torch.sum(frac * probs.mean(dim=0))
-    return combined.reshape(b, s, d).to(x.dtype), aux
+    return combined.to(x.dtype), aux

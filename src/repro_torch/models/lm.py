@@ -42,6 +42,16 @@ vocab-parallel (each rank looks up the rows of its vocabulary range, then
 an all-reduce over ``model``) and so is the head, whose logits are
 all-gathered over ``model`` for sampling and the loss. Batch rows split
 over the data axes; ``loss_fn`` then divides by the global token count.
+Under a plan that puts ``seq`` on ``model`` (``repro``'s ``train_4k``
+rule) ``forward`` runs sequence-parallel (:func:`~repro_torch.dist.sharding.residual_split`):
+the embedding's sum is reduce-scattered along the sequence, the layer stack
+runs on each rank's range of positions (``models/layers.py``), and the
+head gathers them back; the norms' gradients then cover each rank's
+positions and the train step sums them over ``model``
+(:meth:`LM.seq_parallel_leaves`). A decode cache whose positions split
+over the ``kv_seq`` axes (:func:`~repro_torch.dist.sharding.kv_seq_split`)
+holds this rank's range of them; ``prefill`` keeps the prompt's rows
+there, and a decode step writes and attends over them.
 ``forward`` and ``loss_fn`` take this rank's rows; the serving calls
 (``prefill``, ``prefill_chunk``, ``decode_step``) take the whole batch
 and a cache of this rank's rows, run this rank's rows where the data axes
@@ -74,20 +84,27 @@ from repro_torch.dist.collectives import (
     all_gather_rows,
     all_reduce,
     all_reduce_axes,
-    sum_grad,
+    reduce_scatter,
+    split,
 )
 from repro_torch.dist.sharding import (
     ArraySpec,
     axes_of,
     batch_axes,
+    check_kv_seq,
     constrain,
     current_plan,
     init_leaf,
+    kv_seq_split,
     local_specs,
     ranked_plan,
+    residual_split,
     row_axes,
     rows_of,
+    seq_sharded,
+    seq_split,
     shard_leaf,
+    spec_items,
     use_plan,
     whole_rows,
 )
@@ -130,17 +147,18 @@ def remat_call(enabled: bool, fn, *args):
     """``fn(*args)``, under ``torch.utils.checkpoint`` when ``enabled`` (the
     block's activations are recomputed in the backward, as ``repro``'s
     ``jax.checkpoint`` of its scanned layer body). The recompute runs under
-    the caller's dispatch context (backend, selector, log) and sharding
-    plan, also where the backward runs on autograd's device thread: both
-    are thread-local, so it re-installs them and dispatches exactly as the
-    forward did."""
+    the caller's dispatch context (backend, selector, log), sharding plan
+    and sequence split, also where the backward runs on autograd's device
+    thread: all are thread-local, so it re-installs them and dispatches
+    exactly as the forward did."""
     if not enabled:
         return fn(*args)
     ctx = current_context()
     plan = current_plan()
+    seq = seq_split()
 
     def run(*a):
-        with installed_context(ctx), use_plan(plan):
+        with installed_context(ctx), use_plan(plan), seq_sharded(seq):
             return fn(*a)
 
     return checkpoint(run, *args, use_reentrant=False)
@@ -241,33 +259,61 @@ def init_ranked(specs, generator: torch.Generator, device):
                                      plan.mesh.coords), specs)
 
 
-def vocab_lookup(table, tokens, plan, spec: ArraySpec) -> torch.Tensor:
-    """Vocab-parallel lookup of ``tokens`` in ``table``, this rank's shard
-    of an embedding of spec ``spec``: the rows of this rank's vocabulary
-    range (the table gathered over its FSDP axes), zero elsewhere, summed
-    over ``model``."""
+def vocab_lookup(table, tokens, plan, spec: ArraySpec, scatter: bool = False) -> torch.Tensor:
+    """Vocab-parallel lookup of ``tokens`` (B, S) in ``table``, this rank's
+    shard of an embedding of spec ``spec``: the rows of this rank's
+    vocabulary range (the table gathered over its FSDP axes), zero
+    elsewhere, summed over ``model``. ``scatter``: the sum reduce-scattered
+    along the sequence (sequence parallelism: this rank's range of the
+    positions; a table whole on every rank keeps the range)."""
     parts = plan.spec_for(spec)
     table = L.gather_weight(table, parts)
     if "model" not in axes_of(parts[0]):
-        return table[tokens]
+        x = table[tokens]
+        return split(x, "model", 1) if scatter else x
     rows = table.shape[0]
     lo = plan.mesh.coords["model"] * rows
     local = tokens - lo
     inside = (local >= 0) & (local < rows)
     x = table[local.clamp(0, rows - 1)] * inside[..., None].to(table.dtype)
-    return all_reduce(x, "model")
+    return reduce_scatter(x, "model", 1) if scatter else all_reduce(x, "model")
 
 
 def vocab_head(x, w, parts, dtype) -> torch.Tensor:
     """Vocab-parallel head: ``x`` against ``w``, this rank's vocabulary
     columns of the head weight (partition entries ``parts``; gathered over
     its FSDP axes), the logits all-gathered over ``model``; the loss over
-    them is replicated, so the gather's backward keeps this rank's slice."""
-    split = "model" in axes_of(parts[1])
+    them is replicated, so the gather's backward keeps this rank's slice.
+    Under sequence parallelism ``x`` is this rank's range of positions,
+    gathered first (``layers.seq_in``)."""
+    split_ = "model" in axes_of(parts[1])
     w = L.gather_weight(w, parts)
-    xin = sum_grad(x, "model") if split else x
+    xin = L.seq_in(x, split_)
     logits = gemm(xin, w, tag="lm_head", out_dtype=dtype)
-    return all_gather(logits, "model", -1, grad="slice") if split else logits
+    return all_gather(logits, "model", -1, grad="slice") if split_ else logits
+
+
+def norm_leaves(specs, prefix: str = "") -> List[str]:
+    """The paths of the norm leaves (``norm1``, ``final_norm``, ...) of a
+    parameter spec tree whose path starts with ``prefix``."""
+    out = []
+    for path, _ in spec_items(specs):
+        parts = path.split("/")
+        if path.startswith(prefix) and any(p.startswith("norm") or p.endswith("_norm")
+                                           for p in parts[:-1]):
+            out.append(path)
+    return out
+
+
+def kv_range(split_, spec, prompt_len: int) -> Tuple[int, int]:
+    """(the first position, the count) of a ``prompt_len``-token prompt's
+    rows that this rank's cache keeps: its range under the ``kv_seq`` split
+    ``split_`` of a cache of local spec ``spec`` (its positions on dim 2),
+    or all of them."""
+    if split_ is None or spec is None:
+        return 0, prompt_len
+    lo = split_.offset(spec.shape[2])
+    return lo, max(0, min(prompt_len - lo, spec.shape[2]))
 
 
 def row_split() -> int:
@@ -418,20 +464,24 @@ class LM:
         return init_ranked(self.param_specs(), generator, dev)
 
     # -- embedding / head -----------------------------------------------------
-    def _embed(self, params, tokens, patch_embeds=None):
+    def _embed(self, params, tokens, patch_embeds=None, seq: bool = False):
         """Token embeddings (B, S, D) in the model dtype; a VLM's
         ``patch_embeds`` (B, P, D) take the first P positions and the first
-        S - P token embeddings follow."""
+        S - P token embeddings follow. ``seq``: this rank's range of the
+        positions (sequence parallelism, module doc)."""
         dt = as_dtype(self.cfg.dtype)
         plan = ranked_plan()
+        patches = self.cfg.family == "vlm" and patch_embeds is not None
         if plan is not None:
-            x = vocab_lookup(params["embed"], tokens, plan,
-                             self.param_specs()["embed"]).to(dt)
+            x = vocab_lookup(params["embed"], tokens, plan, self.param_specs()["embed"],
+                             scatter=seq and not patches).to(dt)
         else:
             x = params["embed"][tokens].to(dt)
-        if self.cfg.family == "vlm" and patch_embeds is not None:
+        if patches:
             p = patch_embeds.to(dt)
             x = torch.cat([p, x[:, :x.shape[1] - p.shape[1]]], dim=1)
+            if seq:
+                x = split(x, "model", 1)
         # the residual stream: batch over the data-parallel axes
         return constrain(x, "batch", "seq", None)
 
@@ -522,7 +572,8 @@ class LM:
         for the other families)."""
         cfg = self.cfg
         div = div or {}
-        x = self._embed(params, tokens, patch_embeds)
+        seq = self.sequence_parallel(tokens.shape)
+        x = self._embed(params, tokens, patch_embeds, seq=seq)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         remat = cfg.remat and grad_tracking(params)
@@ -531,11 +582,26 @@ class LM:
             x, _, aux_i = self._block(params, i, x, div=div, positions=positions, window=window)
             return x, aux_i
 
-        for i, window in enumerate(self._windows()):
-            x, aux_i = remat_call(remat, block, x, i, window)
-            aux = aux + aux_i
-        x = L.norm_apply(params["final_norm"], x, cfg)
-        return self._head(params, x, div), aux
+        with seq_sharded(seq):
+            for i, window in enumerate(self._windows()):
+                x, aux_i = remat_call(remat, block, x, i, window)
+                aux = aux + aux_i
+            x = L.norm_apply(params["final_norm"], x, cfg)
+            return self._head(params, x, div), aux
+
+    def sequence_parallel(self, shape) -> bool:
+        """Whether ``forward`` over this rank's rows of ``shape`` (B, S)
+        runs sequence-parallel under the installed plan (module doc)."""
+        return residual_split(ranked_plan(), shape[0] * row_split(), shape[1])
+
+    def seq_parallel_leaves(self, batch) -> List[str]:
+        """The parameter leaves a train step over ``batch`` (this rank's
+        rows) applies to each rank's range of positions, whose gradients the
+        step sums over ``model``: the norms under sequence parallelism, else
+        none."""
+        if not self.sequence_parallel(batch["tokens"].shape):
+            return []
+        return norm_leaves(self.param_specs())
 
     def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor], *,
                 div: Optional[Dict[str, int]] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -561,8 +627,8 @@ class LM:
             # no LM loss on image-patch positions
             mask = mask.clone()
             mask[:, : batch["patch_embeds"].shape[1]] = 0.0
-        # across ranks this rank's share of the global mean; the aux loss is
-        # the data rows' mean
+        # across ranks this rank's share of the global mean, and of the aux
+        # loss (the batch's, or under shard_map the mean of the data rows')
         nll, logz, denom, n_rows = ranked_loss_terms(logits, labels, mask)
         aux = aux / n_rows
         loss = nll + aux
@@ -641,8 +707,11 @@ class LM:
 
     def init_cache(self, batch: int, max_seq: int, device=None):
         """The zeroed decode cache of :meth:`cache_specs` on ``device`` (the
-        card unless ``device='cpu'``)."""
-        return _zeros(local_specs(self.cache_specs(batch, max_seq)), resolve_device(device))
+        card unless ``device='cpu'``); across ranks this rank's shards of
+        it (a ``max_seq`` the ``kv_seq`` axes do not divide raises)."""
+        specs = self.cache_specs(batch, max_seq)
+        check_kv_seq(ranked_plan(), specs)
+        return _zeros(local_specs(specs), resolve_device(device))
 
     def windowed_cache_from_uniform(self, cache, prompt_len: int):
         """A uniform prefill cache ``{"attn": {"k", "v"}}`` (L, B, S, KV, dh)
@@ -652,6 +721,9 @@ class LM:
         reached are zero), global layers keep their full stripes. Prefill
         on the uniform cache, then windowed decode, is the serving handoff.
         The result is new tensors; ``cache`` is left as it was."""
+        if kv_seq_split(ranked_plan(), cache["attn"]["k"].shape[1] * row_split()) is not None:
+            raise NotImplementedError("the ring handoff reads the last window of positions, "
+                                      "which a kv_seq split spreads over ranks")
         w = self.cfg.window
         local_idx, global_idx = self._layer_split()
         full_k = cache["attn"]["k"]
@@ -703,27 +775,40 @@ class LM:
 
     def prefill(self, params: Params, tokens: torch.Tensor, *, max_seq: Optional[int] = None,
                 div: Optional[Dict[str, int]] = None,
-                patch_embeds: Optional[torch.Tensor] = None):
+                patch_embeds: Optional[torch.Tensor] = None,
+                cache_batch: Optional[int] = None):
         """Run the prompt ``tokens`` (B, S) (a VLM's ``patch_embeds`` first),
         build the uniform decode cache (also under ``window_cache``:
         ``windowed_cache_from_uniform`` makes the windowed one from it); an
         SSM layer hands its final state and conv tail over. Returns
         (last-position logits (B, 1, V), cache). Across ranks: the cache of
-        this rank's rows, the logits of all (module doc)."""
+        this rank's rows, the logits of all (module doc); its positions are
+        this rank's range where the ``kv_seq`` axes split a cache of
+        ``cache_batch`` rows (default B: a slot engine passes its slots, so
+        the prompt's cache splits as the engine's does)."""
         div = div or {}
         if patch_embeds is None:
-            return by_rows(lambda t: self._prefill(params, t, max_seq, div, None), tokens)
-        return by_rows(lambda t, pe: self._prefill(params, t, max_seq, div, pe), tokens,
-                             patch_embeds)
+            return by_rows(lambda t: self._prefill(params, t, max_seq, div, None, cache_batch),
+                           tokens)
+        return by_rows(lambda t, pe: self._prefill(params, t, max_seq, div, pe, cache_batch),
+                       tokens, patch_embeds)
 
-    def _prefill(self, params, tokens, max_seq, div, patch_embeds):
+    def _prefill(self, params, tokens, max_seq, div, patch_embeds, cache_batch=None):
         cfg = self.cfg
         b, s = tokens.shape
         x = self._embed(params, tokens, patch_embeds)
         positions = torch.arange(s, device=tokens.device)
-        # the cache of these rows: specs at the batch they are this rank's part of
-        cache = _zeros(local_specs(self._uniform_cache_specs(b * row_split(), max_seq or s)),
-                       tokens.device)
+        # the cache of these rows: specs at the batch they are this rank's
+        # part of (or the batch whose layout they take), cut to b rows
+        batch = cache_batch or b * row_split()
+        specs = self._uniform_cache_specs(batch, max_seq or s)
+        plan = ranked_plan()
+        check_kv_seq(plan, specs)
+        local = _map(lambda sp: ArraySpec(sp.shape[:1] + (b,) + sp.shape[2:], sp.dtype, sp.axes,
+                                          sp.init), local_specs(specs))
+        cache = _zeros(local, tokens.device)
+        # this rank's range of the positions (all of them without a kv_seq split)
+        lo, n = kv_range(kv_seq_split(plan, batch), local.get("attn", {}).get("k"), s)
         for i, window in enumerate(self._windows()):
             x, fresh, _ = self._block(params, i, x, div=div, positions=positions, window=window)
             for key, leaf in fresh.get("ssm", {}).items():
@@ -732,11 +817,12 @@ class LM:
             if kv is None:
                 continue
             for key in "kv":
+                rows = kv[key][:, lo:lo + n]
                 if cfg.kv_cache_dtype == "int8":
-                    cache["attn"][key][i, :, :s], cache["attn"][f"{key}_scale"][i, :, :s] = (
-                        L.kv_quantize(kv[key]))
+                    cache["attn"][key][i, :, :n], cache["attn"][f"{key}_scale"][i, :, :n] = (
+                        L.kv_quantize(rows))
                 else:
-                    cache["attn"][key][i, :, :s] = kv[key]
+                    cache["attn"][key][i, :, :n] = rows
         x = L.norm_apply(params["final_norm"], x, cfg)
         return self._head(params, x[:, -1:], div), cache
 

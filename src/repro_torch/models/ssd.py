@@ -33,7 +33,12 @@ with all of ``B`` and ``C`` (one group) and its heads' ``z``, ``dt``,
 ``ssm.out``'s f32 partials over ``model`` (row-parallel). A dimension the
 plan keeps whole (it does not divide the axis) is whole on every rank,
 which then runs that part for every head or channel: :func:`ranked_layout`
-reads each cut from ``plan.spec_for``.
+reads each cut from ``plan.spec_for``. Where ``ssm.out``'s rows split,
+each rank's gradient of what it holds whole (the per-head vectors
+``a_log``, ``d_skip``, ``dt_bias``, and a whole conv or ``w_in``) covers
+its own rows, and is summed over ``model``. In a sequence-parallel step the
+block's input is gathered along the sequence before ``ssm.in`` and
+``ssm.out`` is reduce-scattered along it (``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -48,7 +53,7 @@ from repro_torch.core.gemm import as_dtype, gemm
 from repro_torch.dist.collectives import all_gather, sum_grad
 from repro_torch.dist.sharding import ArraySpec, axes_of, ranked_plan
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import _row_parallel, gather_weight
+from repro_torch.models.layers import _row_parallel, gather_weight, seq_in, seq_out
 
 Params = Dict[str, torch.Tensor]
 
@@ -222,7 +227,14 @@ def ssd_apply(
     # rows split (the gradient is summed back), whole on every rank else
     grad = "reduce_scatter" if lay.split_out else "slice"
     w_in = gather_weight(p["w_in"], plan.spec_for(specs["w_in"]))
-    zxbcdt = gemm(sum_grad(x, "model") if lay.split_in else x, w_in, tag="ssm.in")
+    if lay.split_out:
+        # the gradient from ssm.out's rows covers this rank's rows: what every
+        # rank holds whole has its gradient summed over model
+        whole = ("a_log", "d_skip", "dt_bias") + (() if lay.split_conv else ("conv_w", "conv_b"))
+        p = dict(p, **{key: sum_grad(p[key], "model") for key in whole})
+        if not lay.split_in:
+            w_in = sum_grad(w_in, "model")
+    zxbcdt = gemm(seq_in(x, lay.split_in or lay.split_out), w_in, tag="ssm.in")
     if lay.split_in:
         zxbcdt = all_gather(zxbcdt, "model", -1, grad=grad)
     h0, nhl = lay.heads
@@ -238,7 +250,7 @@ def ssd_apply(
     y = y * F.silu(z.to(torch.float32)).to(x.dtype)
     w_out = gather_weight(p["w_out"], plan.spec_for(specs["w_out"]))
     if not lay.split_out:
-        return gemm(y, w_out, tag="ssm.out"), new_state
+        return seq_out(gemm(y, w_out, tag="ssm.out")), new_state
     if nhl * dh != lay.rows[1]:  # every head here: the columns this rank's rows read
         y = y.narrow(-1, lay.rows[0], lay.rows[1])
     return _row_parallel(y, w_out, "ssm.out"), new_state

@@ -18,16 +18,24 @@ objects it was given, so callers read it as they read ``repro``'s.
 ``update(..., norm=)`` takes the global norm from the caller: across ranks
 the train step sums it over the shards
 (:func:`~repro_torch.dist.collectives.global_norm`), and AdamW and SGD then
-update each local shard as they would the whole leaf.
+update each local shard as they would the whole leaf. Adafactor's
+moments are means over dims a mesh axis may split, and its update's RMS a
+mean over the whole leaf: across ranks (``update(..., plan=, specs=)``)
+each is a local sum, all-reduced over the axes that split the reduced dims
+and divided by the whole leaf's size, every leaf's sums of one stage in one
+all-reduce per set of axes.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict
 
 import torch
 
+from repro_torch.dist.collectives import mesh_axis, raw_all_reduce
+from repro_torch.dist.sharding import axes_of, spec_items
 from repro_torch.utils.trees import tree_global_norm, tree_items, tree_map
 
 Schedule = Callable[[Any], torch.Tensor]
@@ -168,11 +176,16 @@ class Adafactor:
         }
 
     @torch.no_grad()
-    def update(self, grads, state, params, norm=None):
+    def update(self, grads, state, params, norm=None, plan=None, specs=None):
+        """One step; ``plan``/``specs`` (a ranked plan, the parameters'
+        ArraySpec tree): ``params`` are this rank's shards (module doc)."""
         scale, gnorm = _clip_scale(grads, self.max_grad_norm, norm)
         count = _step_count(state)
         lr = self.schedule(count)
         decay = 1.0 - torch.pow(count.to(torch.float32), -0.8)
+        if plan is not None:
+            self._ranked_update(grads, state, params, scale, lr, decay, plan, specs)
+            return params, state, {"grad_norm": gnorm, "lr": lr}
         g_items = dict(tree_items(grads))
         m_items = dict(tree_items(state["master"]))
         v_tree = state["v"]
@@ -197,6 +210,93 @@ class Adafactor:
             master.copy_(master - lr * u)
             p.copy_(master)
         return params, state, {"grad_norm": gnorm, "lr": lr}
+
+    def _ranked_update(self, grads, state, params, scale, lr, decay, plan, specs):
+        """The update of local shards (module doc), in four stages over all
+        leaves: the moments' sums, ``vr``'s mean for the denominator, the
+        update's sum of squares, then the update itself (``u`` made anew,
+        so one leaf's f32 update is held at a time)."""
+        flat = dict(spec_items(specs))
+        g_items = dict(tree_items(grads))
+        m_items = dict(tree_items(state["master"]))
+        leaves = []
+        for name, p in tree_items(params):
+            v = state["v"]
+            for key in name.split("/"):
+                v = v[key]
+            spec = flat[name]
+            dims = [tuple(a for a in axes_of(part) if mesh_axis(a, plan.mesh) is not None)
+                    for part in plan.spec_for(spec)]
+            leaves.append((name, p, m_items[name], v, spec, dims))
+
+        def grad(name):
+            return g_items[name].to(torch.float32) * scale
+
+        # the moments: vr the mean over the last dim, vc over dim -2
+        sums = []
+        for name, _, _, v, spec, dims in leaves:
+            g2 = torch.square(grad(name)) + self.eps
+            if g2.dim() >= 2:
+                sums += [(g2.sum(dim=-1), dims[-1]), (g2.sum(dim=-2), dims[-2])]
+        sums = iter(_sum_over(plan, sums))
+        for _, _, _, v, spec, dims in leaves:
+            if len(spec.shape) >= 2:
+                v["vr"].copy_(decay * v["vr"] + (1 - decay) * next(sums) / spec.shape[-1])
+                v["vc"].copy_(decay * v["vc"] + (1 - decay) * next(sums) / spec.shape[-2])
+        # the denominators: vr's mean over its last dim (the leaf's dim -2)
+        denoms = iter(_sum_over(plan, [(v["vr"].sum(dim=-1, keepdim=True), dims[-2])
+                                       for _, _, _, v, spec, dims in leaves
+                                       if len(spec.shape) >= 2]))
+
+        def update_of(name, v, spec, denom):
+            g = grad(name)
+            if g.dim() >= 2:
+                vhat = v["vr"][..., None] * v["vc"][..., None, :] / denom[..., None]
+            else:
+                v["v"].copy_(decay * v["v"] + (1 - decay) * (torch.square(g) + self.eps))
+                vhat = v["v"]
+            return g / torch.sqrt(vhat + self.eps)
+
+        denom_of = {}
+        squares = []
+        for name, _, _, v, spec, dims in leaves:
+            if len(spec.shape) >= 2:
+                denom_of[name] = torch.clamp_min(next(denoms) / spec.shape[-2], self.eps)
+            u = update_of(name, v, spec, denom_of.get(name))
+            squares.append((torch.sum(torch.square(u)).reshape(1),
+                            tuple(a for d in dims for a in d)))
+        squares = _sum_over(plan, squares)
+        for (name, p, master, v, spec, _), sq in zip(leaves, squares):
+            if len(spec.shape) < 2:  # its moment was updated above
+                g = grad(name)
+                u = g / torch.sqrt(v["v"] + self.eps)
+            else:
+                u = update_of(name, v, spec, denom_of[name])
+            rms = torch.sqrt(sq[0] / math.prod(spec.shape) + self.eps)
+            u = u / torch.clamp_min(rms / self.clip_threshold, 1.0)
+            master.copy_(master - lr * u)
+            p.copy_(master)
+
+
+def _sum_over(plan, parts):
+    """Each (tensor, mesh axes) of ``parts`` summed over its axes, the
+    tensors that share a set of axes flattened into one all-reduce per
+    axis; returns the sums in order."""
+    out = [t for t, _ in parts]
+    groups: Dict[tuple, list] = {}
+    for i, (_, axes) in enumerate(parts):
+        if axes:
+            groups.setdefault(axes, []).append(i)
+    for axes, idx in groups.items():
+        flat = torch.cat([parts[i][0].reshape(-1) for i in idx])
+        for a in axes:
+            flat = raw_all_reduce(flat, mesh_axis(a, plan.mesh))
+        start = 0
+        for i in idx:
+            n = parts[i][0].numel()
+            out[i] = flat[start:start + n].reshape(parts[i][0].shape)
+            start += n
+    return out
 
 
 def make_optimizer(name: str, schedule: Schedule, **kw):

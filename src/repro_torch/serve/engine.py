@@ -370,12 +370,15 @@ class ServeEngine(EngineCore):
         """Prefill one request, then copy every leaf of its cache into the
         shared pool at the slot index (K/V rows and their scales, an SSM
         layer's state and conv tail: a reused slot keeps nothing of the
-        request before)."""
+        request before). Under a ``kv_seq`` split each rank copies its range
+        of the positions, the range its slots hold."""
         t0 = self._timer()
         tokens = torch.as_tensor(req.prompt, dtype=torch.long, device=self.device)[None, :]
         with self._dispatch_ctx():
+            # the prompt's cache splits its positions as the slots' does
             logits, cache1 = self.model.prefill(
-                self.params, tokens, max_seq=self.cfg.max_seq, div=self.div
+                self.params, tokens, max_seq=self.cfg.max_seq, div=self.div,
+                cache_batch=self.cfg.n_slots,
             )
         own = self.own_slots
         if own is None:

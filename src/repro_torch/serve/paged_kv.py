@@ -124,6 +124,11 @@ class PagedKVCache:
                 f"the paged engine across ranks splits the model axis only, not the data axes "
                 f"{batch_axes(plan)} of mesh {plan.mesh.shape}: the pool's batch axis is its "
                 "pages, so a data split would split the pool")
+        if plan is not None and plan._mesh_axes_for("kv_seq"):
+            raise NotImplementedError(
+                f"the paged engine keeps each page's positions whole, but the plan's kv_seq "
+                f"rule {plan.rules['kv_seq']!r} splits them over "
+                f"{plan._mesh_axes_for('kv_seq')} of mesh {plan.mesh.shape}")
         self.device = resolve_device(device)
         # (L, n_pages + 1, page_size, ...): the cache layout at batch n_pages + 1
         self.pool = model.init_cache(self.n_pages + 1, self.page_size, device=self.device)

@@ -17,9 +17,11 @@ Beyond the train step itself:
     (:func:`~repro_torch.dist.sharding.ranked_plan`): the batch rows split
     over the data axes, each rank runs the tensor- and FSDP-parallel step on
     its shards, the gradients of leaves not sharded over a data axis are
-    summed over it, the global norm is summed across ranks, and AdamW (or
-    SGD) updates the local shards. Checkpoints hold full leaves, so a run
-    resumes on another factorisation (``repro``'s elastic contract).
+    summed over it (and, in a sequence-parallel step, the norms' over
+    ``model``), the global norm is summed across ranks, and the optimizer
+    updates the local shards (Adafactor reducing its factored moments
+    across them). Checkpoints hold full leaves, so a run resumes on another
+    factorisation (``repro``'s elastic contract).
 
 The step is eager PyTorch: the loss and its gradients through autograd,
 every projection on the selected backend (on the card the hand-written
@@ -182,17 +184,17 @@ def make_train_step(
         loss, metrics, grads = compute_grads(params, batch)
         plan = ranked_plan()
         norm = None
+        ranked = {}
         if plan is not None:
-            if isinstance(optimizer, Adafactor):
-                raise NotImplementedError("Adafactor's factored moments across ranks are not "
-                                          "ported; AdamW and SGD update local shards")
             specs = model.param_specs()
-            grads = sync_grads(grads, specs, plan)
+            grads = sync_grads(grads, specs, plan, model.seq_parallel_leaves(batch))
             norm = global_norm(grads, specs, plan)
             loss = all_reduce_axes(loss, batch_axes(plan))
+            if isinstance(optimizer, Adafactor):
+                ranked = {"plan": plan, "specs": specs}
         if grad_compression:
             grads, state["ef"] = ErrorFeedback.apply(grads, state["ef"])
-        _, _, opt_metrics = optimizer.update(grads, state["opt"], params, norm=norm)
+        _, _, opt_metrics = optimizer.update(grads, state["opt"], params, norm=norm, **ranked)
         state["step"] = state["step"] + 1
         return state, {**metrics, **opt_metrics, "loss": loss}
 

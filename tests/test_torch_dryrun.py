@@ -163,6 +163,54 @@ def test_flops_and_argument_bytes_by_hand():
     assert art["dispatches"] == n_l * 7 + 1
 
 
+def test_decode_cell_records_the_kv_seq_combine_by_hand():
+    """granite-8b x 2 layers, ``decode_32k`` on (data 16, model 16): the
+    rules split the cache's positions over ``model`` (8 kv heads do not
+    divide it), so each attention layer all-gathers its query over
+    ``model`` and combines the ranks' partial softmaxes: a max all-reduce
+    of (rows, 1, kv, group) and one sum all-reduce of the rescaled
+    denominators and outputs (rows, 1, kv, group, 1 + d_head), in f32."""
+    art = dryrun.lower_cell("granite-8b", "decode_32k", False, config_overrides={"n_layers": 2})
+    assert art["config"]["rules"]["kv_seq"] == ["pod", "data", "model"]
+    assert art["config"]["rules"]["kv_heads"] is None
+    rows, d, kv, group, dh, n_l = 128 // 16, 4096, 8, 4, 128, 2
+    f32, bf16 = 4, 2
+    combine = rows * kv * group * f32 + rows * kv * group * (1 + dh) * f32
+    row_parallel = 2 * rows * d * f32  # attn.o and mlp.out, their f32 partials
+    embed = rows * d * bf16
+    assert art["collectives"]["all-reduce"] == {
+        "count": n_l * 4 + 1, "bytes": n_l * (combine + row_parallel) + embed}
+    # the queries' all-gather a layer (2 heads a rank, 32 gathered)
+    assert art["collectives"]["all-gather"]["bytes"] >= n_l * rows * 32 * dh * bf16
+
+
+@pytest.mark.parametrize("optimizer", ["adamw", "adafactor"])
+def test_train_cell_records_sequence_parallel_collectives(optimizer):
+    """granite-8b x 2 layers, ``train_4k`` on (data 16, model 16), ``seq``
+    on ``model``: the residual stream's gathers and reduce-scatters, and no
+    all-reduce as large as one residual (the norms' gradients, Adafactor's
+    factored moments and scalars are all that is all-reduced)."""
+    art = dryrun.lower_cell("granite-8b", "train_4k", False, config_overrides={"n_layers": 2},
+                            optimizer_name=optimizer)
+    assert art["status"] == "ok" and art["config"]["rules"] == {"seq": "model"}
+    coll = art["collectives"]
+    assert coll is not None and "collectives_note" not in art
+    residual = 256 // 16 * 4096 // 16 * 4096 * 2  # one rank's (rows, positions, D) in bf16
+    # forward a layer: the gathers before attn.q/k/v and mlp.gate/in, the
+    # scatters of attn.o and mlp.out (and their remat recompute); backward
+    # the transposes; the embedding's scatter, the head's gather
+    assert coll["reduce-scatter"]["count"] >= 4 * 2 + 1
+    assert coll["reduce-scatter"]["bytes"] >= (4 * 2 + 1) * residual
+    assert coll["all-gather"]["count"] >= 4 * 2 + 1
+    assert 0 < coll["all-reduce"]["bytes"] < residual
+    if optimizer == "adafactor":
+        adamw = dryrun.lower_cell("granite-8b", "train_4k", False,
+                                  config_overrides={"n_layers": 2})
+        # the factored moments' and the RMS's sums across the shards
+        assert coll["all-reduce"]["count"] > adamw["collectives"]["all-reduce"]["count"]
+        assert art["memory"]["argument_size"] < adamw["memory"]["argument_size"]
+
+
 def test_dryrun_cli_writes_its_artifact(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",

@@ -24,7 +24,7 @@ ROOT = Path(__file__).resolve().parent.parent
 #: the modules the multi-rank tests' ranks import (``torch.multiprocessing``
 #: imports them in every rank, which must stay free of jax)
 RANK_MODULES = ("test_torch_multirank_ranks", "test_torch_multirank_serve_ranks",
-                "test_torch_multirank_families_ranks")
+                "test_torch_multirank_families_ranks", "test_torch_multirank_seq_ranks")
 #: the port, the chip smoke run, the kernel A/B timer, the logits and SASS
 #: probes, the card-only tests (they run where jax is not installed) and the
 #: rank modules

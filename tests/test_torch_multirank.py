@@ -180,8 +180,10 @@ def _one_rank_plan_keys(n):
 
 
 def _dry(shape, mesh, batch, seq, arch="granite-8b"):
-    """The dry run of the reduced f32 config's cell on a host mesh."""
+    """The dry run of the reduced f32 config's cell on a host mesh, under
+    the rules the ranks run (the default ones)."""
     return dryrun.lower_cell(arch, shape, False, mesh_shape=mesh,
+                             extra_rules=dict(sharding.DEFAULT_RULES),
                              config_overrides=dataclasses.asdict(ranks.f32_reduced(arch)),
                              shape_overrides={"global_batch": batch, "seq_len": seq})
 
@@ -341,7 +343,10 @@ def test_reduce_scatter_and_all_to_all_over_gloo(four):
 
 def test_production_cells_carry_collectives():
     art = dryrun.lower_cell("granite-8b", "decode_32k", False, config_overrides={"n_layers": 2})
-    assert art["collectives"]["all-reduce"]["count"] == 2 * 2 + 1
+    # a layer: attn.o's and mlp.out's sums and, the cache's positions split
+    # over model (8 kv heads do not divide 16), the partial softmaxes' max
+    # and sum; then the embedding's sum
+    assert art["collectives"]["all-reduce"]["count"] == 2 * 4 + 1
     assert art["collective_bytes"] == sum(v["bytes"] for v in art["collectives"].values())
     assert art["cost"]["collective_counts"] == {op: v["count"]
                                                 for op, v in art["collectives"].items()}
@@ -366,9 +371,14 @@ def test_ranked_constrain_checks_the_local_shape():
         assert sharding.constrain(x, "batch", "seq", None) is x
         with pytest.raises(ValueError, match="keeps it whole"):
             sharding.constrain(x, "batch", None, "heads")
+    # sequence parallelism: the residual stream's range of positions a rank
+    # holds over model is its local shard; any other dim on model still raises
     with sharding.use_plan(sharding.ShardingPlan(virtual_mesh((2, 2)), {"seq": "model"})):
+        local = torch.zeros(3, 4, 16, device="meta")
+        assert sharding.constrain(local, "batch", "seq", None) is local
+        assert sharding.residual_split(None, 6, 8)
         with pytest.raises(ValueError, match="keeps it whole"):
-            sharding.constrain(x, "batch", "seq", None)
+            sharding.constrain(local, "batch", None, "heads")
 
 
 def test_virtual_collectives_record_local_shapes_and_grads():

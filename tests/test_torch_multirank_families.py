@@ -257,8 +257,11 @@ def test_uneven_heads_split_inside_a_head_on_one_by_four(four, case):
 
 
 def _dry(arch, shape):
+    """The dry run of the same cell under the rules the ranks run (the
+    default ones)."""
     return dryrun.lower_cell(
         ranks.arch_of(arch), "decode_32k", False, mesh_shape=shape,
+        extra_rules=dict(sharding.DEFAULT_RULES),
         config_overrides=dataclasses.asdict(ranks.config_of(arch)),
         shape_overrides={"global_batch": len(ranks.RECORD_POS), "seq_len": ranks.RECORD_SEQ})
 

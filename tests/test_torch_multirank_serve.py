@@ -313,8 +313,11 @@ def _one_rank_plan_keys(shape):
 
 
 def _dry(shape, arch="granite-8b"):
+    """The dry run of the same cell under the rules the ranks run (the
+    default ones)."""
     return dryrun.lower_cell(
         arch, "decode_32k", False, mesh_shape=shape,
+        extra_rules=dict(sharding.DEFAULT_RULES),
         config_overrides=dataclasses.asdict(mr.f32_reduced(arch)),
         shape_overrides={"global_batch": len(ranks.RECORD_POS), "seq_len": ranks.RECORD_SEQ})
 
