@@ -379,6 +379,31 @@ Phases (any failure raises and the script exits non-zero):
    a warm step's split. Planted faults: rank 1's partial softmax dropped
    from the combine ((a), (b)), rank 1's reduce-scatters keeping the
    neighbour's slice ((c)), an extra all-reduce in the counts.
+14. The compiled decode step (``serve/graphs.py``): on the card each
+   engine of one rank captures its warm decode step as a CUDA graph per
+   shape key and replays it, so every one-rank serve run of phases 3-9
+   replays; its launch checks count each eager dispatch once and each
+   captured step's launches once a replay (``b5_called_for``). Its parts run
+   where their weights are loaded: (a) in phase 3, granite-8b and
+   olmoe-1b-7b dense and on each of ``RUNGS``, each served run against the
+   same 4 requests x 8 tokens served again under ``disable_graphs()``
+   (``graph_vs_eager``): greedy tokens equal, each decode step's logits at
+   the run's ``LOGITS_TOL`` / ``QUANT_LOGITS_TOL`` (0 expected: the same
+   kernels on the same inputs), the mode, captures and replays, a warm
+   replayed step's split beside the eager one's (``decode_breakdown``), the
+   capture seconds and the graph pool's bytes; (b) in phase 5, the paged
+   engine (granite-8b whole-prompt and chunked, olmoe x 2): the same
+   against eager, one capture per padded table width; (c) in phases 6 and
+   7, every ``serve_run`` (nemotron, gemma3, mistral x 2, qwen3 x 2, mamba2,
+   zamba2, llava; whisper's ``EncDec`` loop is no engine and stays eager);
+   (d) in phase 4, granite-8b with an ``AdaptiveTuner`` as phase 4's on the
+   analytical model (so its eager twin commits the same records at the same
+   steps): a capture after a hot swap, tokens equal eager; (e) in phase 3,
+   two planted faults on granite-8b's dense engine, a replay that skips
+   refreshing the token buffer and a captured step whose cache writes go
+   to a copy, each of which must change the tokens or read 3x the limit;
+   (f) phases 10-13 record each engine's and plan's mode across ranks, which
+   must read "eager". The record is under ``compiled``.
 
 Tolerances: a kernel output ``x`` agrees with its reference ``r`` when
 ``max|x - r| <= tol * max(1, max|r|)``: 1e-4 for f32 inputs (f32 sums in
@@ -2251,8 +2276,14 @@ def serve_run(arch, model, params, rung, failures, dense_logits=None, b1_fault=F
     label = arch if rung is None else f"{arch} [{rung}]"
     weight_bytes = _gemm_weight_bytes(model, params)
     n_slots, max_seq = N_SLOTS, MAX_SEQ
-    engine = ServeEngine(model, params, ServeConfig(n_slots=n_slots, max_seq=max_seq, eos=-1),
-                         backend="cuda")
+    tol = LOGITS_TOL[arch] if rung is None else QUANT_LOGITS_TOL[arch, rung]
+
+    def make_engine():
+        return ServeEngine(model, params, ServeConfig(n_slots=n_slots, max_seq=max_seq, eos=-1),
+                           backend="cuda")
+
+    engine = make_engine()
+    _tap_logits(engine)  # phase 14: each decode step's logits, beside the eager run's
     prompts = serve_prompts(cfg.vocab_size)
     for p in prompts:
         engine.submit(p, max_new_tokens=8)
@@ -2283,10 +2314,13 @@ def serve_run(arch, model, params, rung, failures, dense_logits=None, b1_fault=F
                        if RUNG_OF.get(e.op.in_dtype) != rung and e.tag != "moe.router"}
         if unquantized:
             raise AssertionError(f"{label}: {sorted(unquantized)} did not run on the rung")
-    grouped = sum(1 for e in engine.selection_log if e.op.fused)
+    # each grouped dispatch that ran eagerly is one B5 launch, and each captured decode
+    # step's B5 launches count once per replay (phase 14's replay accounting)
+    grouped = b5_called_for(engine, label)
     b5 = sum(n for name, n in launches.items() if name.startswith("grouped_streamk"))
     if b5 != grouped:
-        raise AssertionError(f"{label}: {b5} B5 launches for {grouped} grouped dispatches")
+        raise AssertionError(f"{label}: {b5} B5 launches for {grouped} grouped dispatches "
+                             f"(the eager ones once, each captured step's once a replay)")
     # launches of one prefill and one decode step (outside the counted run)
     with count_launches() as pre:
         engine.prefill_logits(prompts[0])
@@ -2296,9 +2330,15 @@ def serve_run(arch, model, params, rung, failures, dense_logits=None, b1_fault=F
     with count_launches() as dec, gemm_context(selector=engine.selector, backend="cuda") as dctx:
         model.decode_step(params, scratch_cache, toks, cur)
     b5_per_step = sum(1 for n in dec if n.startswith("grouped_streamk"))
-    if cfg.family == "moe" and b5_per_step != 3 * cfg.n_layers:
-        raise AssertionError(f"{label}: {b5_per_step} B5 launches in a decode step, expected "
-                             f"{3 * cfg.n_layers}")
+    b5_captured = sorted({sum(1 for n in c.launches if n.startswith("grouped_streamk"))
+                          for c in engine.decode.captured})
+    if cfg.family == "moe" and (b5_per_step != 3 * cfg.n_layers
+                                or b5_captured != [3 * cfg.n_layers]):
+        raise AssertionError(f"{label}: {b5_per_step} B5 launches in an eager decode step, "
+                             f"{b5_captured} in each captured one, expected {3 * cfg.n_layers}")
+    # phase 14 (a) and (c): the served run against the same requests decoded eagerly
+    compiled = graph_vs_eager(label, engine, {r.uid: r.out_tokens for r in done}, make_engine,
+                              prompts, tol, failures, breakdown=True)
 
     # a warm decode step, broken down; the same step with the torch backend
     # (library matmuls) is the yardstick for the time outside the GEMMs
@@ -2323,7 +2363,6 @@ def serve_run(arch, model, params, rung, failures, dense_logits=None, b1_fault=F
 
     # the first request's prefill logits against the torch backend; for a
     # MoE model, count the routing choices the two backends made differently
-    tol = LOGITS_TOL[arch] if rung is None else QUANT_LOGITS_TOL[arch, rung]
     # the dense MoE run holds its limit on the routing-replayed reading, with
     # the router GEMM checked on its own (see ROUTER_TOL); an SSM or hybrid
     # stack on the layer-replayed reading (see ``layer_replayed_diff``)
@@ -2423,7 +2462,8 @@ def serve_run(arch, model, params, rung, failures, dense_logits=None, b1_fault=F
         router_max_rel_err=routes_cuda.router_err if hold_replayed else None,
         selector=dict(lookups=st.lookups, cache_hits=st.cache_hits, fallbacks=st.fallbacks),
         tokens={r.uid: r.out_tokens for r in done}, picks=picks,
-        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9, compiled=compiled,
+        launches_per_captured_step=[len(c.launches) for c in engine.decode.captured],
     )
     log(f"{label} served 4/4: prefill {serve['prefill_tok_s']:.1f} tok/s, decode "
         f"{serve['decode_tok_s']:.1f} tok/s, decode step {step_ms:.2f} ms "
@@ -2661,6 +2701,7 @@ def phase_tune(failures):
     done = eng.run()
     served["granite-8b"] = dict(requests=len(done), seconds=time.perf_counter() - t0,
                                 records=len(cold.records), measurements=tuner.measurements)
+    compiled = adapt_graph_check(granite, granite_params, failures)  # phase 14 (d)
     olmoe = LM(dataclasses.replace(get_config("olmoe-1b-7b"), n_layers=TUNE_OLMOE_LAYERS))
     olmoe_params = olmoe.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
     t0 = time.perf_counter()
@@ -2811,7 +2852,7 @@ def phase_tune(failures):
         warm_sources=sources, warm_launches=launches, warm_logits_max_abs_diff=diff,
         warm_logits_max_abs=scale, logits_tol=tol,
         decode_gemm_ms={name: bd["gemm_kernels_ms"] for name, bd in steps.items()},
-        decode_breakdown=steps,
+        decode_breakdown=steps, compiled=compiled,
     )
 
 
@@ -2842,20 +2883,24 @@ def _paged_engine(model, params, chunk):
     return eng
 
 
-def paged_run(label, model, params, chunk, dense_tokens=None):
+def paged_run(label, model, params, chunk, failures, dense_tokens=None):
     """Serve the four prompts through a paged engine (``chunk`` 0: whole-
     prompt prefill), launch counters zeroed just before and read just after:
     every kernel the selections call for must have launched, and each fused
-    grouped dispatch must be exactly one B5 launch. Returns the run's
-    record (timing, pool and admission counters, tokens against
-    ``dense_tokens`` by request)."""
+    grouped dispatch that ran eagerly must be exactly one B5 launch, each
+    captured step's B5 launches one a replay. Phase 14 (b): one capture per
+    padded table width, and the tokens and logits of the same run decoded
+    eagerly. Returns the run's record (timing, pool and admission counters,
+    tokens against ``dense_tokens`` by request)."""
     import torch
 
     from repro_torch.kernels.common import LAUNCHES, reset_launch_counts
 
     cfg = model.cfg
     eng = _paged_engine(model, params, chunk)
-    for p in serve_prompts(cfg.vocab_size):
+    _tap_logits(eng)
+    prompts = serve_prompts(cfg.vocab_size)
+    for p in prompts:
         eng.submit(p, max_new_tokens=8)
     reset_launch_counts()
     done = sorted(eng.run(), key=lambda r: r.uid)
@@ -2869,11 +2914,19 @@ def paged_run(label, model, params, chunk, dense_tokens=None):
     missing = [name for name in needed if launches.get(name, 0) <= 0]
     if missing or not needed:
         raise AssertionError(f"{label}: {missing} selected but never launched")
-    grouped = sum(1 for e in eng.selection_log if e.op.fused)
+    grouped = b5_called_for(eng, label)
     b5 = sum(n for name, n in launches.items() if name.startswith("grouped_streamk"))
     if b5 != grouped:
-        raise AssertionError(f"{label}: {b5} B5 launches for {grouped} grouped dispatches")
+        raise AssertionError(f"{label}: {b5} B5 launches for {grouped} grouped dispatches "
+                             f"(the eager ones once, each captured step's once a replay)")
     tokens = {r.uid: r.out_tokens for r in done}
+    widths = [c.key[0] for c in eng.decode.captured]
+    most = math.ceil(math.log2(MAX_SEQ / PAGE_SIZE)) + 1
+    if len(set(widths)) != len(widths) or len(widths) > most or any(w & (w - 1) for w in widths):
+        failures.append(f"{label}: captures at padded table widths {widths} (at most {most} "
+                        f"powers of two, one capture each)")
+    compiled = graph_vs_eager(label, eng, tokens, lambda: _paged_engine(model, params, chunk),
+                              prompts, LOGITS_TOL[cfg.name], failures)
     agree = None
     if dense_tokens is not None:
         agree = sum(a == b for uid, toks in tokens.items()
@@ -2888,7 +2941,7 @@ def paged_run(label, model, params, chunk, dense_tokens=None):
         f"greedy tokens equal to the dense run's: {agree}/32")
     return dict(chunk=chunk, launches=launches, needed=sorted(needed), grouped=grouped,
                 timing=dict(tm), decode_step_ms=step_ms, metrics=m, tokens=tokens,
-                tokens_equal_dense=agree)
+                tokens_equal_dense=agree, compiled=compiled)
 
 
 def paged_decode_check(model, params, failures):
@@ -3065,9 +3118,9 @@ def phase_paged_granite(model, params, runs, failures):
     t0 = time.perf_counter()
     dense = runs["dense"]
     dense_tokens = {int(uid): toks for uid, toks in dense["tokens"].items()}
-    out = dict(whole=paged_run("granite-8b paged", model, params, 0, dense_tokens),
+    out = dict(whole=paged_run("granite-8b paged", model, params, 0, failures, dense_tokens),
                chunked=paged_run(f"granite-8b paged, chunks of {PREFILL_CHUNK}", model, params,
-                                 PREFILL_CHUNK, dense_tokens))
+                                 PREFILL_CHUNK, failures, dense_tokens))
     for name in ("dp_gemm_region", "streamk_phase1"):  # B1 and B2 on the cuda backend
         for run in ("whole", "chunked"):
             if out[run]["launches"].get(name, 0) <= 0:
@@ -3097,7 +3150,7 @@ def phase_paged_olmoe(failures):
     model = LM(dataclasses.replace(get_config("olmoe-1b-7b"), n_layers=PAGED_OLMOE_LAYERS))
     params = model.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
     out = dict(run=paged_run(f"olmoe-1b-7b x {PAGED_OLMOE_LAYERS} layers paged, chunks of "
-                             f"{PREFILL_CHUNK}", model, params, PREFILL_CHUNK))
+                             f"{PREFILL_CHUNK}", model, params, PREFILL_CHUNK, failures))
     if out["run"]["grouped"] <= 0:
         raise AssertionError("olmoe-1b-7b paged: no fused grouped dispatch")
     out["chunk"] = chunked_prefill_check(model, params, failures,
@@ -4667,10 +4720,11 @@ def moe_variant_run(impl, div, model, params, failures):
     for name in needed:
         if not launches.get(name):
             failures.append(f"{label}: {name} was selected but never launched")
-    grouped = sum(1 for e in engine.selection_log if e.op.fused)
+    grouped = b5_called_for(engine, label)  # through the replay accounting (phase 14)
     b5 = sum(c for name, c in launches.items() if name.startswith("grouped_streamk"))
     if b5 != grouped or not grouped:
-        failures.append(f"{label}: {b5} B5 launches for {grouped} grouped dispatches")
+        failures.append(f"{label}: {b5} B5 launches for {grouped} grouped dispatches (the "
+                        f"eager ones once, each captured step's once a replay)")
     expert_m = sorted({e.local_mnk[0] for e in engine.selection_log if e.op.fused})
 
     s = min(len(p) for p in prompts)
@@ -5201,6 +5255,8 @@ def mr_granite(rank, w1_prefix=None):
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.lm import LM
 
+    from repro_torch.serve.graphs import step_mode
+
     model = LM(get_config("granite-8b"))
     plan = ShardingPlan(make_host_mesh(model=MR_RANKS))
     tokens = _mr_tokens(model.cfg.vocab_size, "cuda")
@@ -5225,10 +5281,12 @@ def mr_granite(rank, w1_prefix=None):
             with gemm_context(backend="cuda"):
                 w1, _ = model.prefill(params, w1_prefix.cuda()[None])
             w1 = w1[0, -1].float().cpu()
+        mode = step_mode("cuda")  # phase 14 (f): under the plan
     keys = sorted({f"{e.tag}:{e.local_mnk}" for e in ctx.log})
     del params
     return dict(prefill=logits.cpu(), decode=step.cpu(), next=nxt.cpu(), fault=bad.cpu(),
-                launches=launches, keys=keys, layers=model.cfg.n_layers, split=split, w1=w1)
+                launches=launches, keys=keys, layers=model.cfg.n_layers, split=split, w1=w1,
+                step_mode=mode)
 
 
 def mr_decode_split(rank, step, iters=5):
@@ -5591,7 +5649,8 @@ def phase_multirank_ranks(failures, bg_job, w1=None):
     rec = dict(rc=rc, seconds=seconds, rank_seconds=[r["seconds"] for r in ranks],
                part_seconds=[r["part_seconds"] for r in ranks], background_rc=bg_rc,
                background_seconds=bg_seconds,
-               background_part_seconds=[None if b is None else b["part_seconds"] for b in bgs])
+               background_part_seconds=[None if b is None else b["part_seconds"] for b in bgs],
+               step_modes=[r["granite"]["step_mode"] for r in ranks])
 
     # (a) granite-8b: the one-rank torch backend on the same weights and tokens
     g = ranks[0]["granite"]
@@ -6203,10 +6262,11 @@ def mr11_data(rank):
         torch.cuda.synchronize()
         launches = _mr_launches()
         own = engine.own_slots
+        mode = engine.step_mode  # phase 14 (f): under the plan
     return dict(prefill=logits.cpu(), decode=step.cpu(), next=nxt.cpu(), keys=keys, split=split,
                 cache_rows=cache_rows, tokens=[r.out_tokens for r in done], sampled=sampled,
                 own_slots=None if own is None else [own.start, own.stop],
-                collectives=decode_collectives(engine), launches=launches)
+                collectives=decode_collectives(engine), launches=launches, step_mode=mode)
 
 
 def mr11_paged(rank):
@@ -6244,7 +6304,8 @@ def mr11_paged(rank):
                 gather_ms, _ = time_ms(lambda: engine.kv.gather_view(pool, pages), iters=10)
         view_bytes = sum(a.numel() * a.element_size() for a in pool["attn"].values()) * (
             pages.numel() / pool["attn"]["k"].shape[1])
-    return dict(tokens=[r.out_tokens for r in done], steps=steps, sampled=sampled,
+        mode = engine.step_mode  # phase 14 (f): under the plan
+    return dict(step_mode=mode, tokens=[r.out_tokens for r in done], steps=steps, sampled=sampled,
                 kv_heads=int(pool["attn"]["k"].shape[-2]), gather_ms=gather_ms,
                 gather_bytes=view_bytes, launches=launches, metrics=engine.metrics())
 
@@ -6610,7 +6671,7 @@ def phase11_paged(outs, failures):
     ranks' tokens, the gather's device ms per rank."""
     import torch
 
-    from repro_torch.serve import PagedServeConfig, PagedServeEngine
+    from repro_torch.serve import PagedServeConfig, PagedServeEngine, disable_graphs
 
     model = _granite_at(MR11_LAYERS)
     g = outs[0]
@@ -6622,7 +6683,9 @@ def phase11_paged(outs, failures):
             max_seq=MAX_SEQ, eos=-1), backend="cuda")
         for p in serve_prompts(model.cfg.vocab_size):
             engine.submit(p, max_new_tokens=MR11_NEW)
-        with decode_logits_log(model) as steps, sampled_log(engine, forced):
+        # eager, as the ranks' engines run: the tap reads every step's logits on the host,
+        # which a captured step cannot
+        with disable_graphs(), decode_logits_log(model) as steps, sampled_log(engine, forced):
             done = sorted(engine.run(), key=lambda r: r.uid)
         return [r.out_tokens for r in done], steps
 
@@ -6838,6 +6901,7 @@ def mr12_family(rank, arch, layers):
     from repro_torch.dist.sharding import ShardingPlan, use_plan
     from repro_torch.kernels.common import reset_launch_counts
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve.graphs import step_mode
 
     t0 = time.perf_counter()
     model = _mr12_model(arch, layers)
@@ -6872,13 +6936,14 @@ def mr12_family(rank, arch, layers):
                 bad_step, _ = model.decode_step(params, cache, nxt, pos)
             del cache
         torch.cuda.synchronize()
+        mode = step_mode("cuda")  # phase 14 (f): under the plan
     del params
     keep = rank == 0  # the gathered logits and the residual stream are whole on every rank
     seconds = time.perf_counter() - t0
     log(f"phase 12 (b) {arch} on rank {rank}: {seconds:.1f}s")
     return dict(prefill=logits.cpu(), decode=step.cpu(), next=nxt.cpu(), fault=bad.cpu(),
                 launches=launches, collectives=coll.summary(), split=split, seconds=seconds,
-                trace=_cpu_trace(trace) if keep else None,
+                step_mode=mode, trace=_cpu_trace(trace) if keep else None,
                 fault_trace=_cpu_trace(bad_trace) if keep else None, cache=shards,
                 step_trace=_cpu_trace(step_trace) if keep else None,
                 fault_step=None if bad_step is None else bad_step.cpu(),
@@ -7225,6 +7290,7 @@ def mr13_decode(rank):
     from repro_torch.dist.sharding import ShardingPlan, use_plan
     from repro_torch.kernels.common import reset_launch_counts
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve.graphs import step_mode
 
     t0 = time.perf_counter()
     model = _granite_at(MR13_LAYERS)
@@ -7247,8 +7313,10 @@ def mr13_decode(rank):
         with dropped_partial(rank), gemm_context(backend="cuda"):
             bad, _ = model.decode_step(params, _clone_tree(run["saved"]), first, pos)
         shapes = {k: tuple(v.shape) for k, v in cache["attn"].items()}
+        mode = step_mode("cuda")  # phase 14 (f): under the plan
         del params, cache
-    out = dict(launches=launches, collectives=coll.summary(), split=split, cache_shapes=shapes)
+    out = dict(launches=launches, collectives=coll.summary(), split=split, cache_shapes=shapes,
+               step_mode=mode)
     if rank == 0:
         with torch.no_grad(), gemm_context(backend="cuda"):
             params = model.init_params("cuda", torch.Generator(device="cuda").manual_seed(0))
@@ -7722,6 +7790,292 @@ def production13_launches(rec):
             if isinstance(rec.get(part), dict)}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the compiled decode step
+# ---------------------------------------------------------------------------
+
+
+def _tap_logits(engine):
+    """Keep each decode step's logits (f32, on the host) as ``engine``'s
+    compiled step returns them, replays and warm-ups alike; returns the list
+    they go to. The step's own path is left as it is (a subclass's call runs
+    it first)."""
+    from repro_torch.serve.graphs import DecodeStep
+
+    class Tapped(DecodeStep):
+        def __call__(self, key, **inputs):
+            out = super().__call__(key, **inputs)
+            self.logits.append(out.float().cpu())
+            return out
+
+    engine.decode.__class__ = Tapped
+    engine.decode.logits = []
+    return engine.decode.logits
+
+
+def b5_called_for(engine, label):
+    """The B5 launches a served run's grouped dispatches call for, through
+    the replay accounting: each grouped dispatch that ran eagerly (a
+    prefill, a decode step's warm-up) once, each captured step's B5
+    launches once per replay. Raises where a capture lists other B5
+    launches than its grouped dispatches."""
+    step = engine.decode
+    at_capture = {id(e) for c in step.captured for e in c.selections}
+    total = sum(1 for e in engine.selection_log if e.op.fused and id(e) not in at_capture)
+    for c in step.captured:
+        b5 = sum(1 for name in c.launches if name.startswith("grouped_streamk"))
+        grouped = sum(1 for e in c.selections if e.op.fused)
+        if b5 != grouped:
+            raise AssertionError(f"{label}: a captured decode step lists {b5} B5 launches for "
+                                 f"{grouped} grouped dispatches")
+        total += b5 * c.replays
+    return total
+
+
+def graph_vs_eager(label, engine, tokens, make_engine, prompts, tol, failures, new=8,
+                   breakdown=False):
+    """Phase 14: ``engine``'s served run (on the card, by graph replay; its
+    logits tapped by ``_tap_logits`` before it ran, ``tokens`` its greedy
+    tokens by request) against the same requests through ``make_engine()``
+    under ``disable_graphs()``: the mode must have been "graph" there and
+    "eager" here, the tokens equal, and each decode step's logits within
+    ``tol`` x max|logit| (the same kernels on the same inputs: 0 expected).
+    With ``breakdown``, a warm replayed step's split (``decode_breakdown``
+    of the compiled step's call: inputs copied in, the graph replayed).
+    Returns the record."""
+    import torch
+
+    from repro_torch.serve.graphs import DecodeStep, disable_graphs
+
+    t0 = time.perf_counter()
+    step = engine.decode
+    # the mode, captures and replays, each capture's seconds (warm-up included) and pool
+    rec = dict(step_mode=step.mode, captures=len(step.captured), replays=step.replays,
+               keys=[list(c.key) for c in step.captured],
+               capture_s=[c.seconds for c in step.captured],
+               pool_bytes=[c.pool_bytes for c in step.captured])
+    with disable_graphs():
+        eager = make_engine()
+        eager_mode = eager.step_mode
+        logits = _tap_logits(eager)
+        for p in prompts:
+            eager.submit(p, max_new_tokens=new)
+        done = eager.run()
+    torch.cuda.synchronize()
+    want = {r.uid: r.out_tokens for r in done}
+    diffs = [(g - e).abs().max().item() for g, e in zip(step.logits, logits)]
+    scale = max((e.abs().max().item() for e in logits), default=0.0)
+    worst = max(diffs, default=math.inf)
+    if rec["step_mode"] != "graph" or not rec["captures"] or not rec["replays"]:
+        failures.append(f"{label}: the served run was not replayed: {rec}")
+    if eager_mode != "eager" or eager.decode.captured:
+        failures.append(f"{label}: disable_graphs() left the step in mode {eager_mode}")
+    if tokens != want:
+        failures.append(f"{label}: graph-replayed greedy tokens {tokens} vs eager {want}")
+    if len(diffs) != len(logits) or len(diffs) != len(step.logits) or not worst <= tol * scale:
+        failures.append(f"{label}: graph vs eager decode logits max|diff| {worst:.4g} over "
+                        f"{len(diffs)} steps (eager {len(logits)}) > {tol} * {scale:.4f}")
+    tm_g, tm_e = engine.timing, eager.timing
+    rec.update(eager_step_mode=eager_mode, tokens_equal=tokens == want, step_diffs=diffs,
+               max_abs_diff=worst, max_abs_logit=scale, tol=tol,
+               decode_step_ms=tm_g["decode_s"] / max(tm_g["decode_steps"], 1) * 1e3,
+               eager_decode_step_ms=tm_e["decode_s"] / max(tm_e["decode_steps"], 1) * 1e3)
+    del eager, logits
+    if breakdown:
+        live = step.captured[-1]
+        bufs = next(iter(step.buffers.values()))
+        inputs = {name: b.cpu().numpy() for name, b in bufs.items()}
+        rec["breakdown"] = decode_breakdown(
+            lambda: DecodeStep.__call__(step, live.key[0], **inputs))
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"{label}: graph vs eager: tokens equal {rec['tokens_equal']}, decode logits max|diff| "
+        f"{worst:.4g} over {len(diffs)} steps (limit {tol * scale:.4f}); {rec['captures']} "
+        f"capture(s) ({', '.join(f'{s:.2f}' for s in rec['capture_s'])} s; pool "
+        f"{[round(b / 2**20, 1) for b in rec['pool_bytes']]} MiB), {rec['replays']} replays; "
+        f"wall ms a decode step {rec['decode_step_ms']:.2f} graph, "
+        f"{rec['eager_decode_step_ms']:.2f} eager")
+    return rec
+
+
+def graph_faults(model, params, failures):
+    """Phase 14 (e) on phase 3's granite-8b bf16 weights: two planted faults
+    of the compiled step, each against the eager run of the same requests,
+    each of which must change the greedy tokens or read at least 3 times
+    ``LOGITS_TOL``: a replay that skips refreshing the token buffer, and a
+    captured step whose cache writes go to a copy (made inside the capture,
+    so every replay copies the cache and writes its row into the copy)."""
+    import torch
+
+    from repro_torch.kernels import common
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.serve.graphs import DecodeStep, disable_graphs
+
+    prompts = serve_prompts(model.cfg.vocab_size)
+    tol = LOGITS_TOL["granite-8b"]
+
+    def serve(plant=None):
+        eng = ServeEngine(model, params, ServeConfig(n_slots=N_SLOTS, max_seq=MAX_SEQ, eos=-1),
+                          backend="cuda")
+        logits = _tap_logits(eng)
+        if plant is not None:
+            plant(eng)
+        for p in prompts:
+            eng.submit(p, max_new_tokens=8)
+        done = eng.run()
+        torch.cuda.synchronize()
+        return {r.uid: r.out_tokens for r in done}, logits, eng
+
+    def stale_tokens(eng):
+        step = eng.decode
+
+        def copy_in(name, buf, a):
+            if not (name == "tokens" and step.captured):
+                DecodeStep.copy_in(step, name, buf, a)
+
+        step.copy_in = copy_in
+
+    def cache_copy(eng):
+        step = eng.decode
+        real = step.fn
+
+        def fn(bufs):
+            if common._capture is None:
+                return real(bufs)
+            cache = eng.cache
+            eng.cache = _clone_tree(cache)
+            try:
+                return real(bufs)
+            finally:
+                eng.cache = cache
+
+        step.fn = fn
+
+    with disable_graphs():
+        want, want_logits, _ = serve()
+    scale = max(e.abs().max().item() for e in want_logits)
+    out = {}
+    for name, plant in (("stale_tokens", stale_tokens), ("cache_copy", cache_copy)):
+        got, logits, eng = serve(plant)
+        diff = max(((g - e).abs().max().item() for g, e in zip(logits, want_logits)),
+                   default=0.0)
+        caught = got != want or diff >= 3 * tol * scale
+        out[name] = dict(tokens_changed=got != want, max_abs_diff=diff, limit=tol * scale,
+                         caught=caught, replays=eng.decode.replays)
+        del eng
+        log(f"phase 14 (e) planted fault {name}: tokens changed {got != want}, decode logits "
+            f"max|diff| {diff:.4f} (3x the limit {3 * tol * scale:.4f})")
+        if not caught:
+            failures.append(f"phase 14 (e): the planted fault {name} went unseen (tokens equal, "
+                            f"max|diff| {diff:.4f} < 3 * {tol} * {scale:.4f})")
+    return out
+
+
+#: phase 14 (d): tokens a request, so that the last steps replay once the rounds have tuned
+#: every fingerprint (one round a step, 4 fingerprints a round)
+ADAPT_NEW = 16
+
+
+def adapt_graph_check(model, params, failures):
+    """Phase 14 (d) on phase 4's granite-8b weights: an engine with an
+    ``AdaptiveTuner`` as phase 4's (``hot_threshold=1``, a round every
+    engine step, the top-5 budget), tuning from an empty database, against
+    its eager twin. The tuner is the analytical model (on the H100's nominal
+    machine), so both runs commit the same records at the same steps: the
+    graph engine must capture anew after a hot swap, and its tokens and
+    logits must be the twin's."""
+    from repro_torch.core import costmodel
+    from repro_torch.core.adaptive import AdaptiveConfig, AdaptiveTuner
+    from repro_torch.core.policies import HOPPER_TILE_CONFIGS
+    from repro_torch.core.selector import KernelSelector, SelectorState
+    from repro_torch.core.tuner import Tuner, TuningDatabase
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    def make():
+        db = TuningDatabase()
+        sel = KernelSelector(mach=costmodel.H100, tile_configs=HOPPER_TILE_CONFIGS,
+                             state=SelectorState(db=db, sieve=db.build_sieve()))
+        tuner = Tuner(policies=sel.policies, tile_configs=sel.tile_configs, mach=costmodel.H100,
+                      grid_sizes=sel.grid_sizes, top_k=TUNE_TOP_K)
+        ad = AdaptiveTuner(sel, tuner=tuner,
+                           config=AdaptiveConfig(hot_threshold=1, top_k=TUNE_TOP_K))
+        return ServeEngine(model, params, ServeConfig(n_slots=N_SLOTS, max_seq=MAX_SEQ, eos=-1),
+                           backend="cuda", selector=sel, adaptive=ad, adapt_every=1)
+
+    prompts = serve_prompts(model.cfg.vocab_size)
+    eng = make()
+    _tap_logits(eng)
+    for p in prompts:
+        eng.submit(p, max_new_tokens=ADAPT_NEW)
+    tokens = {r.uid: r.out_tokens for r in eng.run()}
+    rec = graph_vs_eager("phase 14 (d) granite-8b adapting online", eng, tokens, make, prompts,
+                         LOGITS_TOL["granite-8b"], failures, new=ADAPT_NEW)
+    swaps = sorted({key[1] for key in rec["keys"]})
+    rec.update(adaptations=eng.adaptive.stats.adaptations, swaps=eng.selector.swaps,
+               capture_swaps=swaps)
+    if not eng.adaptive.stats.adaptations or len(swaps) < 2:
+        failures.append(f"phase 14 (d): {eng.adaptive.stats.adaptations} adaptations, captures "
+                        f"under swap counts {swaps}: no capture followed a hot swap")
+    log(f"phase 14 (d): {rec['adaptations']} adaptations, {rec['swaps']} hot swaps, captures "
+        f"under swap counts {swaps}")
+    return rec
+
+
+def eager_across_ranks(what, records, failures):
+    """Phase 14 (f): every ``step_mode`` in ``records`` (rank parts'
+    outputs, the serve CLI's worker summaries, nested anywhere) must read
+    "eager": across ranks the decode step is not captured. Returns the
+    modes."""
+    modes = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            for key, val in node.items():
+                if key == "step_mode":
+                    modes.append(val)
+                else:
+                    walk(val)
+        elif isinstance(node, (list, tuple)):
+            for val in node:
+                walk(val)
+
+    walk(records)
+    if not modes or set(modes) != {"eager"}:
+        failures.append(f"{what}: the decode step's modes across ranks are {modes}, not eager")
+    return modes
+
+
+def phase_compiled(serve, paged, tune, archs, families, ranked, failures):
+    """Phase 14's record, gathered from the runs of phases 3-13 that hold
+    its parts (see the module docstring): (a) granite-8b and olmoe-1b-7b
+    dense and on every rung, (b) the paged engine, (c) phases 6's and 7's
+    engines, (d) the adapting engine, (e) the planted faults, (f) the modes
+    across ranks; the seconds it added."""
+    rec = dict(a={f"{arch} {rung}": run["compiled"] for arch, runs in serve.items()
+                  for rung, run in runs.items()},
+               b={**{run: paged["granite"][run]["compiled"] for run in ("whole", "chunked")},
+                  "olmoe": paged["olmoe"]["run"]["compiled"]},
+               c={arch: run["compiled"] for arch, run in {**archs, **families}.items()
+                  if "compiled" in run},
+               d=tune["compiled"], e=serve["granite-8b"]["dense"]["faults14"], f=ranked)
+    parts = [*rec["a"].values(), *rec["b"].values(), *rec["c"].values(), rec["d"]]
+    rec["tokens_equal"] = all(p["tokens_equal"] for p in parts)
+    rec["max_abs_diff"] = max(p["max_abs_diff"] for p in parts)
+    rec["seconds"] = sum(p["seconds"] for p in parts)
+    for label, r in rec["a"].items():
+        bd, eager = r["breakdown"], serve[label.split()[0]][label.split()[1]]["decode_breakdown"]
+        log(f"phase 14 (a) {label} warm decode step: replayed {bd['step_ms']:.2f} ms wall, "
+            f"device busy {bd['device_busy_ms']} ms (GEMM kernels {bd['gemm_kernels_ms']}), "
+            f"idle share {bd['idle_share']}; eager {eager['cuda']['step_ms']:.2f} ms wall, "
+            f"device busy {eager['cuda']['device_busy_ms']}, idle share "
+            f"{eager['cuda']['idle_share']}; capture {r['capture_s']} s, pool "
+            f"{r['pool_bytes']} bytes")
+    log(f"phase 14 (the compiled decode step): {len(parts)} runs against eager, tokens equal "
+        f"{rec['tokens_equal']}, logits max|diff| {rec['max_abs_diff']:.4g}; planted faults "
+        f"{ {k: v['caught'] for k, v in rec['e'].items()} }; modes across ranks "
+        f"{sorted(set(sum(ranked.values(), [])))}; {rec['seconds']:.1f}s of the run")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -7850,6 +8204,7 @@ def run_phases(dry, jobs) -> int:
     paged = {}  # phase 5 (a) runs on phase 3's granite-8b weights, before they are freed
 
     def paged_granite(model, params, runs):
+        runs["dense"]["faults14"] = graph_faults(model, params, failures)  # phase 14 (e)
         paged["granite"] = phase_paged_granite(model, params, runs, failures)
 
     serve = {"granite-8b": phase_serve("granite-8b", failures, then=paged_granite)}
@@ -7925,8 +8280,24 @@ def run_phases(dry, jobs) -> int:
     s11_launches.update({f"fam12_{run}": ranks
                          for run, ranks in families12_launches(families12).items()})
     production13 = phase_production_rules(rank_outs, dry, failures)
-    del rank_outs
     mark("13 production rules")
+    # phase 14 (f): across ranks every engine and plan decodes eagerly
+    bg = [o or {} for o in rank_outs]
+    ranked = {
+        "10": eager_across_ranks("phase 10", [clis["granite-8b"][3], [
+            {"step_mode": m} for m in (multirank.get("ranks") or {}).get("step_modes", [])]],
+                                 failures),
+        "11": eager_across_ranks("phase 11", [[clis[r][3] for r in MR11_RUNGS],
+                                              [o.get("serve11_data") for o in bg],
+                                              [o.get("serve11_paged") for o in bg]], failures),
+        "12": eager_across_ranks("phase 12", [clis["mamba2-1.3b"][3],
+                                              [o.get(f"fam12_{a}") for o in bg
+                                               for a, _ in MR12_CELLS]], failures),
+        "13": eager_across_ranks("phase 13", [o.get("mr13_decode") for o in bg], failures),
+    }
+    del rank_outs, bg
+    compiled = phase_compiled(serve, paged, tune, archs, families, ranked, failures)
+    mark("14 compiled (its runs inside phases 3-7)")
     s11_launches.update(production13_launches(production13))
 
     from repro_torch.kernels import cuda_lib
@@ -8023,7 +8394,7 @@ def run_phases(dry, jobs) -> int:
                   b12_s8_table=b12_s8_rows, f32_table=f32_rows,
                   kv_int8=kv_int8, tune=tune, paged=paged, archs=archs, families=families,
                   train=train, shard=shard, multirank=multirank, serve_ranks=serve11,
-                  families_ranks=families12, production_rules=production13,
+                  families_ranks=families12, production_rules=production13, compiled=compiled,
                   phase_seconds=phase_s,
                   # every depth cut at full width, by phase (the layers each cut path ran)
                   depth_cuts={"3 int8 KV cache": KV_INT8_LAYERS, "5 (b)": PAGED_OLMOE_LAYERS,

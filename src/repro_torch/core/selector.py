@@ -199,6 +199,10 @@ class KernelSelector:
         )
         self.stats = SelectorStats()
         self._cache: Dict[OpKey, Selection] = {}
+        #: hot swaps so far: a decode step captured under an earlier count
+        #: may replay picks this selector no longer makes, so the engines
+        #: key their captured steps on it (``serve/graphs.py``)
+        self.swaps = 0
 
     # -- state ---------------------------------------------------------------
     @property
@@ -251,8 +255,9 @@ class KernelSelector:
         sieve/fallback pick. Installing a different calibration drops the
         memo wholesale regardless of ``keys``: the (frozen, hashable)
         machines inside it key every scoring cache, and new constants
-        re-score EVERY non-tuned pick. Returns the number of cache entries
-        invalidated."""
+        re-score EVERY non-tuned pick. Every call counts in ``swaps``.
+        Returns the number of cache entries invalidated."""
+        self.swaps += 1
         if state is not None:
             if state.calibration is not self._state.calibration:
                 keys = None

@@ -12,6 +12,7 @@ as the serve CLI names it (:data:`RUNGS`).
 from __future__ import annotations
 
 from contextlib import contextmanager
+from dataclasses import dataclass, field
 from typing import Dict, Iterator, List, Optional
 
 import torch
@@ -66,15 +67,22 @@ ARRIVAL_COUNTERS: Dict[torch.device, torch.Tensor] = {}
 def arrival_counters(n: int, device) -> torch.Tensor:
     """At least ``n`` int32 arrival counters on ``device``, all 0 between
     launches; grown (a new zeroed tensor) when ``n`` passes what it holds,
-    so a call costs no memset launch."""
+    so a call costs no memset launch. A captured step holds the tensor it
+    was captured with (:func:`hold`), so growing never frees counters a
+    graph still writes; inside a capture they must not grow (the capture's
+    zero fill would run only at replay): the step's eager warm-up sizes
+    them first."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:  # one key per card
         device = torch.device("cuda", torch.cuda.current_device())
     cnt = ARRIVAL_COUNTERS.get(device)
     if cnt is None or cnt.numel() < n:
+        if _capture is not None:
+            raise RuntimeError(f"arrival counters grew to {n} inside a captured step; run the "
+                               "step eagerly once before capturing it")
         cnt = torch.zeros(max(n, 264), dtype=torch.int32, device=device)
         ARRIVAL_COUNTERS[device] = cnt
-    return cnt
+    return hold(cnt)
 
 
 def launch_name(kernel: str, rung: Optional[str] = None) -> str:
@@ -101,13 +109,66 @@ LAUNCHES: Dict[str, int] = {
 _launch_log: Optional[List[str]] = None
 
 
-def record_launch(name: str, rung: Optional[str] = None) -> None:
-    """Count one CUDA launch of kernel ``name`` on ``rung`` (called by the
-    wrappers right where they launch, never on the plain path)."""
-    key = launch_name(name, rung)
+@dataclass
+class Capture:
+    """What a step captured into a CUDA graph launches and reads: the launch
+    names, in order (each counts once per replay, :func:`replay_launches`),
+    and the device tensors the wrappers made outside the capture that the
+    graph reads or writes (B5's row-block tables, the arrival counters),
+    held for the graph's life so no cache eviction or growth frees them."""
+
+    launches: List[str] = field(default_factory=list)
+    held: List[torch.Tensor] = field(default_factory=list)
+
+
+#: the capture in progress (None outside one)
+_capture: Optional[Capture] = None
+
+
+@contextmanager
+def capturing() -> Iterator[Capture]:
+    """Within the scope the wrappers' launches are recorded into a graph, not
+    run: :func:`record_launch` lists them on the yielded :class:`Capture`
+    instead of counting them."""
+    global _capture
+    if _capture is not None:
+        raise RuntimeError("captures do not nest")
+    _capture = cap = Capture()
+    try:
+        yield cap
+    finally:
+        _capture = None
+
+
+def hold(t: torch.Tensor) -> torch.Tensor:
+    """``t``, kept alive with the graph being captured, if any."""
+    if _capture is not None:
+        _capture.held.append(t)
+    return t
+
+
+def _count(key: str) -> None:
     LAUNCHES[key] += 1
     if _launch_log is not None:
         _launch_log.append(key)
+
+
+def record_launch(name: str, rung: Optional[str] = None) -> None:
+    """Count one CUDA launch of kernel ``name`` on ``rung`` (called by the
+    wrappers right where they launch, never on the plain path); inside a
+    capture, list it on the capture, to count at each replay."""
+    key = launch_name(name, rung)
+    if _capture is not None:
+        _capture.launches.append(key)
+    else:
+        _count(key)
+
+
+def replay_launches(launches: List[str]) -> None:
+    """Count one replay of a captured step's ``launches``, as its eager run
+    would have counted them."""
+    for key in launches:
+        _count(key)
 
 
 def reset_launch_counts() -> None:

@@ -78,6 +78,7 @@ from repro_torch.kernels.common import (
     check_cuda_operands,
     epilogue_args,
     f32_vector,
+    hold,
     kstep_dot,
     record_launch,
     rows_aligned,
@@ -104,7 +105,9 @@ def row_block_table(sizes: Tuple[int, ...], bm: int) -> np.ndarray:
 def _table(sizes, bm: int, device) -> torch.Tensor:
     """The row-block table's device copy, kept per (sizes, bm, device): a
     decode step dispatches the same few grouped shapes every layer, and a
-    copy per call would be a host-to-device transfer per call."""
+    copy per call would be a host-to-device transfer per call. A captured
+    step holds the tables it reads (``hold``), so an eviction frees none of
+    them while the graph lives."""
     return torch.from_numpy(row_block_table(sizes, bm)).to(device)
 
 
@@ -208,7 +211,8 @@ def gemm_grouped_streamk(
     status = lib.sk_grouped_gemm(
         DTYPE_CODES[a.dtype], b_code(b, b_bits), DTYPE_CODES[out_dtype],
         sub_block_rows(cfg.bm, m), int(sk_form),
-        a.data_ptr(), b.data_ptr(), c.data_ptr(), _table(sizes, cfg.bm, a.device).data_ptr(),
+        a.data_ptr(), b.data_ptr(), c.data_ptr(),
+        hold(_table(sizes, cfg.bm, a.device)).data_ptr(),
         None if ws is None else ws.data_ptr(),
         None if counters is None else counters.data_ptr(),
         m, n, k, cfg.bm, cfg.bn, cfg.bk, nt, n_tiles, ipt, ipw, grid, rows_aligned(a, b),

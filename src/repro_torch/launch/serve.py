@@ -61,6 +61,12 @@ rank decodes its own slots, and the logits are gathered. Rank 0 writes
 step and their share of the decode time. ``--paged`` runs across ranks on
 the model axis only (data = 1); several workers run on one rank only.
 
+Each engine decodes through the compiled step (``serve/graphs.py``): on
+the card, one rank, each warm decode step is a CUDA graph's replay, as
+``repro`` jits its step; on the CPU and across ranks it runs eagerly. The
+log and each worker's summary give the step mode, its captures and its
+replays; no flag picks the mode, as ``repro``'s CLI has none.
+
 Example::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \\
@@ -628,9 +634,13 @@ def _worker_summary(w, engine, served, prompts, gossip, args) -> dict:
         tm["decode_tokens"], tm["decode_steps"], tm["decode_s"],
         tm["decode_tokens"] / max(tm["decode_s"], 1e-9),
     )
+    step = engine.decode
+    log.info("worker %d decode step mode %s: %d capture(s), %d replay(s)", w, step.mode,
+             len(step.captured), step.replays)
     out = dict(worker=w, completed=len(served), requests=len(prompts), backend=engine.backend,
                timing=dict(tm), prompts=[p.tolist() for p in prompts],
-               out_tokens=[list(r.out_tokens) for r in sorted(served, key=lambda r: r.uid)])
+               out_tokens=[list(r.out_tokens) for r in sorted(served, key=lambda r: r.uid)],
+               step_mode=step.mode, captures=len(step.captured), replays=step.replays)
     if args.paged:
         m = engine.metrics()
         out["pool"] = m

@@ -1,5 +1,6 @@
 """Serving: the slot engine, and the paged engine with admission control
-and chunked prefill."""
+and chunked prefill, each decoding through the compiled step of
+:mod:`repro_torch.serve.graphs`."""
 
 from repro_torch.serve.engine import (
     DispatchStats,
@@ -9,6 +10,7 @@ from repro_torch.serve.engine import (
     ServeEngine,
     serve_gemm_div,
 )
+from repro_torch.serve.graphs import DecodeStep, disable_graphs, step_mode
 from repro_torch.serve.paged_kv import PagedKVCache, PageExhausted, PageTable
 from repro_torch.serve.scheduler import (
     AdmissionError,
@@ -19,6 +21,7 @@ from repro_torch.serve.scheduler import (
 
 __all__ = [
     "AdmissionError",
+    "DecodeStep",
     "DispatchStats",
     "EngineCore",
     "PagedKVCache",
@@ -30,5 +33,7 @@ __all__ = [
     "Request",
     "ServeConfig",
     "ServeEngine",
+    "disable_graphs",
     "serve_gemm_div",
+    "step_mode",
 ]

@@ -8,6 +8,13 @@ M = n_slots — the skinny-M regime where the Stream-K++ policies matter most.
 Sampling (greedy or temperature) runs on the host in numpy, as in ``repro``,
 so both packages draw the same tokens from the same logits and seed.
 
+On the card each warm decode step is a CUDA graph's replay, captured once
+per shape key (:mod:`repro_torch.serve.graphs`, the counterpart of
+``repro``'s jitted step with the cache donated); on the CPU, under
+``disable_graphs()`` and under a ranked plan it runs eagerly
+(``step_mode``). Prefill stays eager, as in ``repro``, and writes its rows
+into the same cache tensors the graph replays against.
+
 On the card the engine serves through the ``cuda`` backend (the
 hand-written kernels) and the device's default selector (nominal H100,
 Hopper tiles) unless the caller names others. An
@@ -44,6 +51,7 @@ from repro_torch.core.selector import KernelSelector, SelectorStats, default_sel
 from repro_torch.dist.collectives import CollectiveStats, record
 from repro_torch.dist.sharding import batch_axes, current_plan, ranked_plan, rows_of
 from repro_torch.models.lm import resolve_device
+from repro_torch.serve.graphs import DecodeStep
 
 log = logging.getLogger("repro_torch.serve")
 
@@ -181,12 +189,21 @@ class EngineCore:
         self._uid = 0
         self.unfinished: List[Request] = []
         self.exhausted: bool = False
+        #: the decode step (:class:`~repro_torch.serve.graphs.DecodeStep`), set by
+        #: the subclass
+        self.decode: Optional[DecodeStep] = None
         #: host seconds spent in prefill / decode, and tokens each produced
         #: (synchronised with the device, so they are wall times of the work)
         self.timing = {"prefill_s": 0.0, "prefill_tokens": 0, "decode_s": 0.0,
                        "decode_steps": 0, "decode_tokens": 0}
         #: the collectives this rank ran in decode steps (none on one rank)
         self.decode_collectives = CollectiveStats()
+
+    @property
+    def step_mode(self) -> str:
+        """How the decode step runs now: ``"graph"`` (captured per key and
+        replayed) or ``"eager"`` (:mod:`repro_torch.serve.graphs`)."""
+        return self.decode.mode
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -334,9 +351,18 @@ class ServeEngine(EngineCore):
         plan = ranked_plan()
         #: the slots whose cache rows this rank holds (module doc); None: all
         self.own_slots = None if plan is None else rows_of(plan, cfg.n_slots)
+        # the decode step writes it in place and it is never rebound: a
+        # captured step replays against these tensors
         self.cache = model.init_cache(cfg.n_slots, cfg.max_seq, device=self.device)
         self.pos = np.zeros((cfg.n_slots,), np.int64)  # next write position
         self.slot_req: List[Optional[Request]] = [None] * cfg.n_slots
+        #: the decode step, compiled per (slots, max_seq) where the mode is "graph"
+        self.decode = DecodeStep(self, self._decode_step)
+
+    def _decode_step(self, bufs) -> torch.Tensor:
+        logits, _ = self.model.decode_step(self.params, self.cache, bufs["tokens"], bufs["pos"],
+                                           div=self.div)
+        return logits
 
     def submit(self, prompt, max_new_tokens: int = 32, temperature: float = 0.0) -> int:
         """Queue a request; returns its uid."""
@@ -407,14 +433,9 @@ class ServeEngine(EngineCore):
         tokens = np.zeros((self.cfg.n_slots, 1), np.int64)
         for i in active:
             tokens[i, 0] = self.slot_req[i].out_tokens[-1]
-        with self._dispatch_ctx(), record() as coll:
-            logits, self.cache = self.model.decode_step(
-                self.params,
-                self.cache,
-                torch.as_tensor(tokens, device=self.device),
-                torch.as_tensor(self.pos, device=self.device),
-                div=self.div,
-            )
+        with record() as coll:
+            logits = self.decode((self.cfg.n_slots, self.cfg.max_seq), tokens=tokens,
+                                 pos=self.pos)
         self.decode_collectives.merge(coll)
         logits_np = logits[:, 0].float().cpu().numpy()
         self.timing["decode_s"] += self._timer() - t0

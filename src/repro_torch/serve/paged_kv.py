@@ -192,7 +192,9 @@ class PagedKVCache:
     # -- tensor adapters ---------------------------------------------------
     # Leaf layout: pool (L, NP, PS, *r), dense cache/view (L, B, S, *r); *r is
     # (KV, dh) for K/V and (KV,) for the int8 cache's scales. Index arguments
-    # are numpy arrays, lists or tensors.
+    # are numpy arrays, lists or tensors; an int64 tensor on the pool's
+    # device is read as it is, with no copy, so a captured decode step reads
+    # its static index buffers.
 
     def gather_view(self, pool, pages_2d):
         """Dense position-contiguous view (a copy) of a batch of page

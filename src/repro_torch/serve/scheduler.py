@@ -28,7 +28,11 @@ retired early with ``truncated=True``.
 
 On the card every prefill, chunk and decode step runs its GEMMs on the
 ``cuda`` backend (the hand-written kernels) unless the caller names another;
-gathers and scatters are indexed copies on the pool's device.
+gathers and scatters are indexed copies on the pool's device. A decode step
+splits into a host part (page ids, offsets, the scratch check) and a device
+part on tensors alone (gather, ``decode_step``, scatter), which on the card
+is a CUDA graph's replay per padded table width
+(:mod:`repro_torch.serve.graphs`); chunked prefill stays eager.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ import torch
 from repro_torch.core.adaptive import AdaptiveTuner
 from repro_torch.core.selector import KernelSelector
 from repro_torch.serve.engine import EngineCore, Request
+from repro_torch.serve.graphs import DecodeStep
 from repro_torch.serve.paged_kv import PagedKVCache, PageTable
 
 log = logging.getLogger("repro_torch.serve.paged")
@@ -132,6 +137,9 @@ class PagedServeEngine(EngineCore):
         self.truncated = 0  # anti-deadlock early retirements
         self.stall_events = 0  # decode ticks skipped for want of a page
         self.peak_resident = 0
+        #: the decode step, compiled per padded table width where the mode is
+        #: "graph" (``kv.pool`` is written in place and never rebound)
+        self.decode = DecodeStep(self, self._paged_step)
 
     # -- paged steps ---------------------------------------------------------
     def _tensor(self, a, dtype=torch.long) -> torch.Tensor:
@@ -139,20 +147,28 @@ class PagedServeEngine(EngineCore):
 
     def _paged_decode(self, pages_2d: np.ndarray, tokens: np.ndarray, pos: np.ndarray,
                       n_real: int):
-        """gather the view -> the unchanged ``model.decode_step`` (which
-        writes the new row into the view) -> scatter the one new row per
-        sequence back into its page."""
+        """The host part of a paged decode step: each row's page and offset
+        on the host, the scratch check, then the device step
+        (:meth:`_paged_step`) through the compiled step, keyed on the padded
+        table width (at most log2(max_seq / page_size) + 1 widths)."""
         ps = self.kv.page_size
         pg = pages_2d[np.arange(len(pos)), pos // ps]
         # padded rows all write the scratch row, in any order on the card, so
         # no real row may alias it
         if (pg[:n_real] == self.kv.scratch).any():
             raise RuntimeError(f"a real decode row maps to the scratch page: {pg[:n_real]}")
-        pos_t = self._tensor(pos)
-        view = self.kv.gather_view(self.kv.pool, pages_2d)
-        logits, view = self.model.decode_step(self.params, view, self._tensor(tokens), pos_t,
+        return self.decode(pages_2d.shape[1], tokens=tokens, pos=pos, pages=pages_2d, page=pg,
+                           offset=pos % ps)
+
+    def _paged_step(self, bufs) -> torch.Tensor:
+        """The device part, on tensors only: gather the view -> the
+        unchanged ``model.decode_step`` (which writes the new row into the
+        view) -> scatter the one new row per sequence back into its page."""
+        view = self.kv.gather_view(self.kv.pool, bufs["pages"])
+        logits, view = self.model.decode_step(self.params, view, bufs["tokens"], bufs["pos"],
                                               div=self.div)
-        self.kv.scatter_rows(self.kv.pool, pg, pos % ps, self.kv.rows_at(view, pos_t))
+        self.kv.scatter_rows(self.kv.pool, bufs["page"], bufs["offset"],
+                             self.kv.rows_at(view, bufs["pos"]))
         return logits
 
     def _paged_chunk(self, pages_2d: np.ndarray, chunk: np.ndarray, start: int):
@@ -311,9 +327,7 @@ class PagedServeEngine(EngineCore):
             tables.append(r.table)
         # pad the batch to the fixed decode width with scratch-page rows
         tables.extend(PageTable() for _ in range(b - len(runnable)))
-        with self._dispatch_ctx():
-            logits = self._paged_decode(self.kv.padded_tables(tables), tokens, pos,
-                                        len(runnable))
+        logits = self._paged_decode(self.kv.padded_tables(tables), tokens, pos, len(runnable))
         logits_np = logits[:, 0].float().cpu().numpy()
         self.timing["decode_s"] += self._timer() - t0
         self.timing["decode_steps"] += 1

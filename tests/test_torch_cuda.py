@@ -1563,3 +1563,47 @@ def test_cuda_gemm_grad_matches_autograd_through_the_torch_backend(cuda_device, 
         assert got[key] is not None and got[key].dtype == ref.dtype, key
         scale = max(1.0, ref.float().abs().max().item())
         assert (got[key].float() - ref.float()).abs().max().item() <= tol * scale, key
+
+
+# ---------------------------------------------------------------------------
+# The compiled decode step: graph replay against eager
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["slot", "paged"])
+def test_cuda_engines_replay_the_eager_decode(cuda_device, paged):
+    """The slot and paged engines on the card decode by CUDA graph replay
+    (``step_mode`` "graph", one capture per key) and give the greedy tokens
+    and the kernels' launch counts of the same engines under
+    ``disable_graphs()``: the captured launches count once a replay."""
+    from repro_torch.serve import PagedServeConfig, PagedServeEngine, disable_graphs
+
+    model, params = _reduced_f32(cuda_device)
+    prompts = [np.array(p, np.int32) for p in ([5, 17, 3, 99, 42, 7, 8, 9, 10], [200, 1],
+                                               [9] * 14)]
+
+    def serve():
+        if paged:
+            eng = PagedServeEngine(model, params, PagedServeConfig(
+                page_size=4, max_pages=24, max_active=3, max_seq=40, eos=-1), backend="cuda",
+                device=cuda_device)
+        else:
+            eng = ServeEngine(model, params, ServeConfig(n_slots=3, max_seq=40, eos=-1),
+                              backend="cuda", device=cuda_device)
+        mode = eng.step_mode
+        for p in prompts:
+            eng.submit(p, max_new_tokens=10)
+        common.reset_launch_counts()
+        done = {r.uid: r.out_tokens for r in eng.run()}
+        torch.cuda.synchronize()
+        return eng, mode, done, dict(common.LAUNCHES)
+
+    eng, mode, tokens, launches = serve()
+    with disable_graphs():
+        eager, eager_mode, want, eager_launches = serve()
+    assert (mode, eager_mode) == ("graph", "eager")
+    step = eng.decode
+    assert step.captured and step.replays > 0 and not eager.decode.captured
+    assert len({c.key for c in step.captured}) == len(step.captured)
+    assert tokens == want
+    assert launches == eager_launches
